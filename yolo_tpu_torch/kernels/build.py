@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use, into ``build/kernels/<hash>/`` at the root
 of the checkout (listed in ``.gitignore``), keyed by a hash of the
-sources and flags, so a fresh checkout builds everything it runs.
+sources (``*.cu`` and the shared ``*.cuh``) and flags, so a fresh
+checkout builds everything it runs.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -24,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
+# seconds each source took to compile in this process's build, by file name
+compile_seconds: dict = {}
 
 
 def sources():
@@ -43,7 +47,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -66,8 +70,10 @@ def build() -> Path:
 
         def compile_one(pair):
             src, obj = pair
+            t0 = time.perf_counter()
             subprocess.run([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                            check=True, capture_output=True, text=True)
+            compile_seconds[src.name] = round(time.perf_counter() - t0, 1)
 
         try:
             with ThreadPoolExecutor(max_workers=len(objs)) as pool:
@@ -88,9 +94,13 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.yolo_int8_conv3x3_requant.argtypes = [vp, vp, vp, vp] + [i] * 11 \
-            + [vp]
-        lib.yolo_int8_conv3x3_requant.restype = i
+        for fn, argtypes in (
+                ("yolo_int8_conv3x3_requant", [vp] * 4 + [i] * 11 + [vp]),
+                ("yolo_int8_conv_requant", [vp] * 6 + [i] * 15 + [vp]),
+                ("yolo_int8_res_block", [vp] * 6 + [i] * 17 + [vp]),
+                ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp])):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]
         lib.yolo_int8_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -125,13 +125,15 @@ def _leaky_int_slope(v: torch.Tensor, slope: float,
 
 
 def _requant(acc: torch.Tensor, bias_rt: torch.Tensor, *, acc_shift: int,
-             out_shift: int, leaky: bool, rounding: str) -> torch.Tensor:
+             out_shift: int, leaky, rounding: str) -> torch.Tensor:
     """The requant chain on an int32 accumulator whose bias is already at
-    the retune scale -> int8."""
+    the retune scale -> int8. ``leaky``: False, True (0.125) or a float
+    slope."""
     acc = _shift(acc, acc_shift, rounding) + bias_rt
     acc = torch.clamp(acc, INT16_MIN, INT16_MAX)
     if leaky:
-        acc = _leaky_int(acc, rounding)
+        acc = _leaky_int_slope(acc, 0.125 if leaky is True else float(leaky),
+                               rounding)
     out = _shift(acc, out_shift, rounding)
     return torch.clamp(out, INT8_MIN, INT8_MAX).to(torch.int8)
 
@@ -245,6 +247,57 @@ def int8_conv_pool_s2d_core(x2: torch.Tensor, w_q, b_q, *, c_in: int,
     return int8_conv3x3_pool_s2d(
         x2, w_q, b_q, c_in=c_in, sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
         retune=retune, leaky=_leaky_flag(leaky), rounding=rounding)
+
+
+# ---------------------------------------------------------------------------
+# Generic integer ops (the building blocks of the yolo_v3 engine).
+# ---------------------------------------------------------------------------
+
+
+def int_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
+                     padding: int = 0, stride: int = 1, leaky=True,
+                     rounding: str = "nearest", residual=None,
+                     sa_res: int = None) -> torch.Tensor:
+    """Integer conv + fixed-point requant, generalized (the JAX package's
+    ``int_conv_requant``): ``x`` is int8 at 2^sa_in or a list of (int8,
+    sa) concat parts, ``leaky`` False | True (0.125) | a float slope, and
+    ``residual`` an optional (r_q, sa_r) skip tensor added with
+    ``int_add_requant`` to scale 2^sa_res. The conv runs in
+    ``int8_conv_requant`` (a CUDA kernel on a CUDA tensor)."""
+    from yolo_tpu_torch.kernels.int8_conv import int8_conv_requant
+
+    out = int8_conv_requant(x, w_q, b_q, sw=sw, sb=sb, sa_in=sa_in,
+                            sa_out=sa_out, retune=retune, padding=padding,
+                            stride=stride, leaky=leaky, rounding=rounding)
+    if residual is not None:
+        r_q, sa_r = residual
+        out = int_add_requant(out, sa_out, r_q, sa_r, sa_res, rounding)
+    return out
+
+
+def int_add_requant(a: torch.Tensor, sa_a: int, b: torch.Tensor, sa_b: int,
+                    sa_out: int, rounding: str = "nearest") -> torch.Tensor:
+    """Residual add of two int8 tensors with different scales: both shift
+    (exactly, left) to the finer common scale, sum in int32, requantize to
+    2^sa_out with int8 saturation."""
+    s = max(sa_a, sa_b)
+    va = torch.bitwise_left_shift(a.to(torch.int32), s - sa_a)
+    vb = torch.bitwise_left_shift(b.to(torch.int32), s - sa_b)
+    out = _shift(va + vb, s - sa_out, rounding)
+    return torch.clamp(out, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def int_upsample2x_ac(x_q: torch.Tensor,
+                      rounding: str = "nearest") -> torch.Tensor:
+    """2x bilinear (align_corners=True) upsample of an int8 tensor, in
+    float32, rounded back to the SAME scale exponent (``floor`` or
+    ``nearest``: half to even, as jnp.round; 2n - 1 is odd, so no value is
+    ever a tie)."""
+    from yolo_tpu_torch.ops import blocks
+
+    up = blocks.upsample2x_align_corners(x_q.to(torch.float32))
+    r = torch.round(up) if rounding == "nearest" else torch.floor(up)
+    return torch.clamp(r, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
 def int8_forward(m: Int8Model, x_q: torch.Tensor,

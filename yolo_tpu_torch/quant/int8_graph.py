@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 
 from yolo_tpu_torch.config import DetectorConfig
-from yolo_tpu_torch.detector import decode_all_boxes
-from yolo_tpu_torch.ops import blocks, decode, nms
+from yolo_tpu_torch.detector import predict
+from yolo_tpu_torch.ops import nms
 from yolo_tpu_torch.quant import fixed_point as fp
 
 
@@ -27,16 +27,7 @@ def int8_predict(m: fp.Int8Model, images: torch.Tensor, cfg: DetectorConfig,
             x_q = fp.s2d_input(x_q)
     head = fp.int8_forward(m, x_q.contiguous(), rounding,
                            input_s2d=input_s2d)
-    flat = blocks.flatten_grid(head)
-    conf, cls, txt = decode.split_predictions(
-        flat, cfg.anchors_per_scale, cfg.num_classes)
-    h, w = cfg.input_size
-    boxes = decode_all_boxes([txt], cfg)
-    boxes = torch.stack([boxes[..., 0] / w, boxes[..., 1] / h,
-                         boxes[..., 2] / w, boxes[..., 3] / h], dim=-1)
-    boxes = torch.clamp(boxes, 0.0, 1.0)
-    probs = torch.softmax(cls, dim=-1) * torch.sigmoid(conf)
-    return boxes, probs
+    return predict([head], cfg)
 
 
 def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
