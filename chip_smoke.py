@@ -29,11 +29,16 @@ raises and the script exits nonzero:
    cuDNN's fp16 conv (a speed yardstick only);
 2b. the yolo_v3 kernels against their plain versions (torch.equal):
    ``int8_res_block`` (K4) at the five darknet53 stage shapes, batch 4,
-   slopes 0.1 and 0.125, both roundings, without the residual and with an
-   accumulator shift of 33; ``int8_conv_requant`` at every distinct conv
-   shape of the v3 program (the C_in = 3 entry conv, the stride-2 convs,
-   the two-part concat convs, the heads), both roundings; ``int8_gemm``
-   (K5) at four GEMM shapes, one not a multiple of its tile;
+   slopes 0.1 and 0.125, both roundings, without the residual, with an
+   accumulator shift of 33 and with a negative output shift (the kernel's
+   general shift form), from HWIO weights (packed per call) and from
+   the pre-packed K-major form; K4 also at three shapes whose tiles leave
+   edge tiles (100², 50², 27²); ``int8_conv_requant`` at every distinct
+   conv shape of the v3 program (the C_in = 3 entry conv, the stride-2
+   convs, the two-part concat convs, the heads), both roundings;
+   ``int8_gemm`` (K5) at six GEMM shapes, M, N and K not multiples of its
+   128 x 256 x 128 tile, three with K % 16 != 0 (padded on K), each with b
+   as [K, N] and K-major;
 3b. the yolo_v3 golden fixture (``yolo_tpu_torch/data/
    yolo_v3_int8_416_golden.npz``: tables and checksum; the weights are
    rebuilt from its seed): heads of 2 images bit-exact with the JAX
@@ -41,10 +46,20 @@ raises and the script exits nonzero:
    (atol = rtol = 1e-5);
 4b. yolo_v3 serving: batch 128 through ``make_int8_yolo_v3_detect_fn``,
    timed as phase 4, with the launch counts checked (per forward: K4 23,
-   ``int8_conv_requant`` 29); then each distinct shape checked and timed
-   (kernel, plain version, bound, and a library yardstick the port never
-   calls: cuDNN fp16 convs for K4 and the 3x3 convs, ``torch._int_mm``
-   for the 1x1 convs and K5).
+   ``int8_conv_requant`` 29) and K4's weights packed once, when the detect
+   fn took the model, never in the loop; then each distinct shape checked
+   and timed (kernel, plain version, bound, and a library yardstick the
+   port never calls: cuDNN fp16 convs for K4 and the 3x3 convs,
+   ``torch._int_mm`` for the 1x1 convs and K5), with K4's layout at each
+   stage as its CUDA source picks it (tile, the share of its 64-row wgmma
+   steps that carry pixels, blocks per SM, ring stages) and, at 13², its
+   time at batch 128, at one block per SM and at two (what the 4 SMs that
+   batch 128 leaves idle could give); K5 is timed with b K-major, the
+   layout ``torch._int_mm`` reads, so both read the same bytes.
+
+K4 (``csrc/int8_res_block.cu``) and K5 (``csrc/int8_gemm.cu``) run on
+wgmma fed by a TMA ring (``csrc/int8_wgmma.cuh``); K1-K3 and the general
+conv keep the mma.sync main loop of ``csrc/int8_common.cuh``.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -87,7 +102,9 @@ REPLACES = {
     "int8_gemm": "scripts/bench_int8_ceiling.py:68",
 }
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
-               (333, 72, 98)]
+               (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
+# K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
+RES_EDGE_SHAPES = [(2, 100, 128, 64), (2, 50, 256, 128), (2, 27, 512, 256)]
 GEMM_PROBE = (8192, 8192, 8192)  # the TPU probe's headline shape
 # The card the port targets, H100 SXM (torch names it "NVIDIA H100 80GB
 # HBM3"), and its data-sheet peaks: dense int8 ops/s, HBM bytes/s.
@@ -476,9 +493,11 @@ def res_case(gen, b, h, c, cmid):
 
 
 def res_kw(c, cmid, case):
-    """(p1, p2) shift tables of a residual block's two convs."""
+    """(p1, p2) shift tables of a residual block's two convs; case
+    "out_shift<0" gives conv2 a negative output shift."""
     p1 = v3_tables(c, case)
-    return p1, dict(v3_tables(9 * cmid), sa_in=p1["sa_out"], sa_out=5)
+    return p1, dict(v3_tables(9 * cmid), sa_in=p1["sa_out"],
+                    sa_out=12 if case == "out_shift<0" else 5)
 
 
 def conv_case(gen, b, key):
@@ -520,25 +539,37 @@ def phase_v3_kernels(max_err):
     gen = torch.Generator(device="cuda").manual_seed(3)
     res, convs = v3_shapes()
     n = 0
-    for (h, c, cmid) in res:
-        args = res_case(gen, V3_BATCH_CHECK, h, c, cmid)
-        for i, (leaky, rounding, case, sa_res) in enumerate((
-                (0.1, "nearest", "plain", 3), (0.1, "floor", "plain", 3),
-                (True, "nearest", "plain", 3), (0.1, "nearest", "plain", None),
-                (0.1, "nearest", "acc_shift>=32", 3))):
+    shapes = [(V3_BATCH_CHECK, h, c, cmid) for h, c, cmid in res]
+    for bsz, h, c, cmid in shapes + RES_EDGE_SHAPES:
+        args = res_case(gen, bsz, h, c, cmid)
+        packed = K.pack_res_block_weights(args[1], args[3])
+        for i, (leaky, rounding, case, sa_res, form) in enumerate((
+                (0.1, "nearest", "plain", 3, "hwio"),
+                (0.1, "nearest", "plain", 3, "packed"),
+                (0.1, "floor", "plain", 3, "packed"),
+                (True, "nearest", "plain", 3, "hwio"),
+                (0.1, "nearest", "plain", None, "packed"),
+                (0.1, "nearest", "acc_shift>=32", 3, "hwio"),
+                (0.1, "floor", "out_shift<0", 3, "packed"))):
             p1, p2 = res_kw(c, cmid, case)
             kw = dict(sa_res=sa_res, leaky=leaky, rounding=rounding)
-            got = K.int8_res_block(*args[:3], p1, *args[3:], p2, **kw)
+            if form == "packed":
+                got = K.int8_res_block(args[0], None, args[2], p1, None,
+                                       args[4], p2, packed=packed, **kw)
+            else:
+                got = K.int8_res_block(*args[:3], p1, *args[3:], p2, **kw)
             torch.cuda.synchronize()
             want = K.int8_res_block_plain(*args[:3], p1, *args[3:], p2,
                                           **kw)
             check_equal("int8_res_block", got, want, max_err,
-                        f"{h}x{h} C{c} {leaky} {rounding} {case} {sa_res}")
+                        f"{h}x{h} C{c} {leaky} {rounding} {case} {sa_res} "
+                        f"{form}")
             if i == 0:
                 std = float(got.float().std())
             n += 1
         emit("v3_kernels_vs_plain", kernel="int8_res_block",
-             shape=[V3_BATCH_CHECK, h, h, c, cmid], equal=True,
+             shape=[bsz, h, h, c, cmid],
+             tile=list(K.res_block_layout(h, h, c, cmid)[:2]), equal=True,
              out_std=round(std, 3))
     for key in convs:
         xs, w, bias = conv_case(gen, V3_BATCH_CHECK, key)
@@ -563,13 +594,15 @@ def phase_v3_kernels(max_err):
     for m, k, nn in GEMM_SHAPES:
         a = ri(gen, (m, k), -128, 128, torch.int8)
         b = ri(gen, (k, nn), -128, 128, torch.int8)
-        got = G.int8_gemm(a, b)
-        torch.cuda.synchronize()
-        check_equal("int8_gemm", got, G.int8_gemm_plain(a, b), max_err,
-                    f"M, K, N = {m}, {k}, {nn}")
-        n += 1
+        want = G.int8_gemm_plain(a, b)
+        for layout, bb in (("kn", b), ("k_major", b.t().contiguous().t())):
+            got = G.int8_gemm(a, bb)
+            torch.cuda.synchronize()
+            check_equal("int8_gemm", got, want, max_err,
+                        f"M, K, N = {m}, {k}, {nn}, b {layout}")
+            n += 1
         emit("v3_kernels_vs_plain", kernel="int8_gemm", shape=[m, k, nn],
-             equal=True)
+             layouts=["kn", "k_major"], equal=True)
     emit("v3_kernels_vs_plain_done", cases=n, max_abs_err=max_err)
 
 
@@ -626,17 +659,26 @@ def phase_v3_serving(m, cfg, card):
                         device="cuda")
     x_q = fp.quantize_input(images, m.sa_in).contiguous()
     del images
+    K.reset_res_block_pack_count()
     detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    packs_at_setup = K.res_block_pack_count()
+    if packs_at_setup != 23:
+        raise AssertionError(f"the detect fn packed {packs_at_setup} "
+                             f"residual blocks, want 23")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    K.reset_res_block_pack_count()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x_q)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    if K.res_block_pack_count():
+        raise AssertionError(f"serving packed K4 weights "
+                             f"{K.res_block_pack_count()} times")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_res_block": 23 * SERVE_ITERS,
                  "int8_conv_requant": 29 * SERVE_ITERS})
@@ -652,7 +694,8 @@ def phase_v3_serving(m, cfg, card):
     emit("v3_serving", batch=V3_BATCH_SERVE, iters=SERVE_ITERS,
          images_per_sec=V3_BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
-         launches=counts, card=card)
+         launches=counts, res_block_packs_at_setup=packs_at_setup,
+         res_block_packs_in_loop=0, card=card)
     return counts
 
 
@@ -673,6 +716,25 @@ def int_mm_ms(m, k, n):
     a = torch.ones((m, k), dtype=torch.int8, device="cuda")
     b = torch.ones((n, k), dtype=torch.int8, device="cuda").t()
     return time_ms(lambda: torch._int_mm(a, b), 10)
+
+
+def res_block_fill(args, p1, p2, kw):
+    """K4 at 13^2 C 1024 runs one block per image and one per SM (y1 takes
+    119 KB), so batch 128 leaves 4 of the H100's 132 SMs idle. Time it at
+    batch 128, at one block per SM and at two: what filling the idle SMs
+    could gain is at most the time of the step from 128 to 132 blocks."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = args[0]
+    times = {}
+    for bsz in (x.shape[0], sms, 2 * sms):
+        xb = x[torch.arange(bsz, device=x.device) % x.shape[0]].contiguous()
+        times[bsz] = time_ms(lambda: K.int8_res_block(
+            xb, *args[1:3], p1, *args[3:], p2, **kw), 10)
+    emit("v3_res_block_fill", shape=list(x.shape[1:]), sms=sms,
+         blocks_per_image=1, ms_by_batch=times,
+         ms_per_image_by_batch={b: t / b for b, t in times.items()})
 
 
 def phase_v3_times(card_name, max_err):
@@ -700,9 +762,18 @@ def phase_v3_times(card_name, max_err):
                  t_bytes)
 
     for (h, c, cmid), count in res.items():
+        lay = K.res_block_layout(h, h, c, cmid)
+        share1, share3 = K.res_block_row_shares(lay.tile_h, lay.tile_w,
+                                                lay.halo_rows_per_box)
+        emit("v3_res_block_tile", shape=[h, h, c, cmid],
+             rows_used_1x1=share1, rows_used_3x3=share3, **lay._asdict())
+        if min(share1, share3) < 0.85:
+            raise AssertionError(f"K4 at {h}x{h} uses {share1:.3f} / "
+                                 f"{share3:.3f} of its rows")
         args = res_case(gen, b, h, c, cmid)
+        packed = K.pack_res_block_weights(args[1], args[3])
         p1, p2 = res_kw(c, cmid, "plain")
-        kw = dict(sa_res=3, leaky=0.1)
+        kw = dict(sa_res=3, leaky=0.1, packed=packed)
         check_equal("int8_res_block",
                     K.int8_res_block(*args[:3], p1, *args[3:], p2, **kw),
                     K.int8_res_block_plain(*args[:3], p1, *args[3:], p2,
@@ -712,11 +783,14 @@ def phase_v3_times(card_name, max_err):
                                               **kw), 10)
         plain_ms = time_ms(lambda: K.int8_res_block_plain(
             *args[:3], p1, *args[3:], p2, **kw), 2, warmup=1)
+        del packed
         lib_ms = (fp16_conv_ms(b, h, c, cmid, 1, 1, 0)
                   + fp16_conv_ms(b, h, cmid, c, 3, 1, 1))
         record("int8_res_block", count, [b, h, h, c, cmid], ms, plain_ms,
                lib_ms, 2 * b * h * h * 10 * c * cmid,
                2 * b * h * h * c + 10 * c * cmid + 4 * (c + cmid))
+        if h == 13:
+            res_block_fill(args, p1, p2, kw)
         del args
         torch.cuda.empty_cache()
     for key, count in convs.items():
@@ -746,13 +820,14 @@ def phase_v3_times(card_name, max_err):
         torch.cuda.empty_cache()
     m, k, n = GEMM_PROBE
     a = ri(gen, (m, k), -128, 128, torch.int8)
-    bb = ri(gen, (k, n), -128, 128, torch.int8)
+    # b K-major (column-major [K, N]): the layout both the kernel and
+    # torch._int_mm read, so neither copies
+    bb = ri(gen, (n, k), -128, 128, torch.int8).t()
     check_equal("int8_gemm", G.int8_gemm(a, bb), G.int8_gemm_plain(a, bb),
                 max_err, f"M, K, N = {m}, {k}, {n}")
     ms = time_ms(lambda: G.int8_gemm(a, bb), 10)
     plain_ms = time_ms(lambda: G.int8_gemm_plain(a, bb), 2, warmup=1)
-    bt = bb.t().contiguous().t()  # _int_mm takes b column-major
-    lib_ms = time_ms(lambda: torch._int_mm(a, bt), 10)
+    lib_ms = time_ms(lambda: torch._int_mm(a, bb), 10)
     record("int8_gemm", 1, [m, k, n], ms, plain_ms, lib_ms, 2 * m * k * n,
            m * k + k * n + 4 * m * n)
     return per_kernel
@@ -801,9 +876,9 @@ def main() -> int:
                              f"{SIZE}x{SIZE}; library_ms is torch._int_mm "
                              f"for the 1x1 convs it takes, cuDNN fp16 "
                              f"conv2d for the rest (3x3, C_out 21)",
-        "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, off the "
-                     "serving paths (0 launches there); library_ms is "
-                     "torch._int_mm",
+        "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
+                     "K-major, off the serving paths (0 launches there); "
+                     "library_ms is torch._int_mm on the same operands",
     }
     kernels = []
     for k in KERNEL_NAMES:

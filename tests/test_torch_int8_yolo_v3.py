@@ -255,6 +255,38 @@ def test_launches_counted_only_on_the_card(models):
     assert 75 - 2 * len(blocks) == 29
 
 
+def test_detect_fn_packs_res_blocks_once(models):
+    """The detect fn packs the 23 blocks' weights for the fused kernel
+    once, when it takes the model, and only for the card (chip_smoke.py
+    checks the 23 there): the CPU route reads the HWIO weights, so on the
+    CPU it packs nothing, and a forward never packs."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    _, tm, x_q = models
+    cfg = t_get_config("yolo_v3", "mask", input_size=(SIZE, SIZE), top_k=10)
+    K.reset_res_block_pack_count()
+    detect = tv3.make_int8_yolo_v3_detect_fn(tm, cfg, device="cpu")
+    assert K.res_block_pack_count() == 0
+    detect(x_q[:1])
+    assert K.res_block_pack_count() == 0
+
+
+def test_pack_res_blocks_packs_every_block(models):
+    """``pack_res_blocks`` packs each of the 23 blocks' (1x1, 3x3) weight
+    pairs, keyed by the index of its 1x1 conv."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    _, tm, _ = models
+    m = tm.to("cpu")
+    K.reset_res_block_pack_count()
+    m.pack_res_blocks()
+    assert K.res_block_pack_count() == 23 == len(m.res_packed)
+    for i, packed in m.res_packed.items():
+        assert m.w_q[i].shape[:2] == (1, 1) and m.w_q[i + 1].shape[:2] == (3, 3)
+        w1, w2 = K.unpack_res_block_weights(packed)
+        assert torch.equal(w1, m.w_q[i][0, 0]) and torch.equal(w2, m.w_q[i + 1])
+
+
 def test_unported_options_raise(models):
     _, tm, x_q = models
     cfg = t_get_config("yolo_v3", "mask", input_size=(SIZE, SIZE))

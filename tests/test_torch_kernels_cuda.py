@@ -125,12 +125,27 @@ P1 = dict(sw=8, sb=7, sa_in=4, sa_out=3, retune=11)
 P2 = dict(sw=7, sb=8, sa_in=3, sa_out=4, retune=10)
 
 RES_CASES = [
-    # (B, H, W, C, C_mid): edge tiles, both phase-1 tile widths, and the
-    # 13 x 13 C 1024 stage whose y1 takes 115 KB of shared memory
+    # (B, H, W, C, C_mid): small images (one tile), all three kernel forms
+    # (BN1, BN2) = (32, 64), (64, 128), (128, 128), and the 13 x 13 C 1024
+    # stage whose y1 takes 119 KB of shared memory
     (2, 5, 7, 64, 32),
     (1, 18, 17, 64, 32),
     (2, 6, 6, 128, 64),
     (1, 13, 13, 1024, 512),
+]
+
+STAGE_CASES = [
+    # (B, H, W, C, C_mid): the five darknet53 stages at 416^2 (their
+    # tiles divide the image), then 104^2, 52^2 and 26^2-like stages
+    # whose tiles leave edge tiles
+    (1, 208, 208, 64, 32),
+    (1, 104, 104, 128, 64),
+    (1, 52, 52, 256, 128),
+    (1, 26, 26, 512, 256),
+    (2, 13, 13, 1024, 512),
+    (1, 100, 98, 128, 64),
+    (1, 50, 55, 256, 128),
+    (1, 27, 25, 512, 256),
 ]
 
 
@@ -163,6 +178,28 @@ def test_cuda_res_block_equals_plain(cuda, rounding, leaky, sa_res, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("case", STAGE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_res_block_stages_equal_plain(cuda, form, case):
+    x, w1, b1, w2, b2 = _res_args(case, seed=1)
+    kw = dict(sa_res=3, leaky=0.1)
+    want = K.int8_res_block(x, w1, b1, P1, w2, b2, P2, **kw)
+    x, w1, b1, w2, b2 = (t.to(cuda) for t in (x, w1, b1, w2, b2))
+    if form == "packed":
+        packed = K.pack_res_block_weights(w1, w2)
+        K.reset_res_block_pack_count()
+        got = K.int8_res_block(x, None, b1, P1, None, b2, P2, packed=packed,
+                               **kw)
+    else:
+        K.reset_res_block_pack_count()
+        got = K.int8_res_block(x, w1, b1, P1, w2, b2, P2, **kw)
+    torch.cuda.synchronize()
+    assert K.res_block_pack_count() == (form == "hwio")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_cuda_res_block_acc_shift_ge_32(cuda):
     x, w1, b1, w2, b2 = _res_args(RES_CASES[0])
     for p1, p2 in ((dict(P1, sw=40), P2), (P1, dict(P2, sw=40))):
@@ -172,6 +209,22 @@ def test_cuda_res_block_acc_shift_ge_32(cuda):
                                *(t.to(cuda) for t in (w2, b2)), p2,
                                sa_res=3, leaky=0.1)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("p1,p2", [
+    (P1, dict(P2, sa_out=14)),          # conv2's output shift < 0
+    (dict(P1, sa_out=-30, sw=8), dict(P2, sa_in=-30)),  # conv1's >= 32
+    (P1, dict(P2, sw=40))], ids=["out2_lt_0", "out1_ge_32", "acc2_ge_32"])
+def test_cuda_res_block_general_shifts(cuda, rounding, p1, p2):
+    """Shifts outside [0, 31] take the kernel's general shift form."""
+    x, w1, b1, w2, b2 = _res_args((2, 9, 7, 128, 64), seed=3)
+    kw = dict(sa_res=3, leaky=0.1, rounding=rounding)
+    want = K.int8_res_block(x, w1, b1, p1, w2, b2, p2, **kw)
+    got = K.int8_res_block(*(t.to(cuda) for t in (x, w1, b1)), p1,
+                           *(t.to(cuda) for t in (w2, b2)), p2, **kw)
+    assert torch.equal(got.cpu(), want)
 
 
 CONV_CASES = [
@@ -229,19 +282,38 @@ def test_cuda_conv_requant_equals_plain(cuda, rounding, shifts, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "k_major"])
 @pytest.mark.parametrize("m,k,n", [(128, 64, 64), (1000, 200, 100),
                                    (333, 72, 98), (7, 9, 33),
-                                   (256, 4096, 256)])
-def test_cuda_gemm_equals_plain(cuda, m, k, n):
+                                   (256, 4096, 256), (130, 136, 257),
+                                   (129, 1000, 300)])
+def test_cuda_gemm_equals_plain(cuda, m, k, n, layout):
+    """M, N, K off the 128 x 256 x 128 tile, K % 16 != 0 among them (the
+    wrapper pads K), b as [K, N] (copied K-major) and K-major (as is)."""
     rng = np.random.default_rng(2)
     a = torch.tensor(rng.integers(-128, 128, (m, k)).astype(np.int8))
     b = torch.tensor(rng.integers(-128, 128, (k, n)).astype(np.int8))
     want = G.int8_gemm(a, b)
+    bd = b.to(cuda)
+    if layout == "k_major":
+        bd = bd.t().contiguous().t()
     K.reset_launch_counts()
-    got = G.int8_gemm(a.to(cuda), b.to(cuda))
+    got = G.int8_gemm(a.to(cuda), bd)
     torch.cuda.synchronize()
     assert K.launch_counts()["int8_gemm"] == 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_more_than_65535_row_tiles(cuda):
+    """M past 65,535 tiles of 128 rows (the cap of a grid's y dimension)."""
+    m, k, n = 65535 * 128 + 3, 16, 9
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    assert torch.equal(G.int8_gemm(a, b), G.int8_gemm_plain(a, b))
 
 
 @pytest.mark.cuda
@@ -287,6 +359,64 @@ def test_cuda_v3_kernels_reject_misaligned_input(cuda):
     a = torch.zeros((64, 64), dtype=torch.int8)
     with pytest.raises(ValueError, match="aligned"):
         G.int8_gemm(misaligned(a), a.to(cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_res_block_rejects_too_wide_mid_channels(cuda):
+    """A y1 tile that cannot fit in shared memory, even at 1 x 1 pixels,
+    raises before launch."""
+    c, cmid = 32768, 16384
+    x = torch.zeros((1, 4, 4, c), dtype=torch.int8, device=cuda)
+    one = torch.zeros(1, dtype=torch.int8, device=cuda)
+    packed = (one.expand(cmid, c), one.expand(c, 9 * cmid))
+    b1 = torch.zeros(cmid, dtype=torch.int32, device=cuda)
+    b2 = torch.zeros(c, dtype=torch.int32, device=cuda)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="too wide"):
+        K.int8_res_block(x, None, b1, P1, None, b2, P2, packed=packed)
+    assert K.launch_counts()["int8_res_block"] == 0
+
+
+# (tile_h, tile_w, halo rows per 1x1 TMA box) K4 takes at the five
+# darknet53 stages, by (H, W, C, C_mid) (test_torch_wgmma_layouts.py checks
+# that they keep >= 85% of the 64-row wgmma steps on pixels)
+STAGE_TILES = {
+    (208, 208, 64, 32): (26, 26, 4),
+    (104, 104, 128, 64): (26, 26, 4),
+    (52, 52, 256, 128): (26, 26, 4),
+    (26, 26, 512, 256): (26, 13, 8),
+    (13, 13, 1024, 512): (13, 13, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", sorted(STAGE_TILES),
+                         ids=lambda s: "-".join(map(str, s)))
+def test_cuda_res_block_layout_at_stages(cuda, stage):
+    lay = K.res_block_layout(*stage)
+    assert (lay.tile_h, lay.tile_w, lay.halo_rows_per_box) == \
+        STAGE_TILES[stage]
+    assert lay.ring_stages >= 3 and lay.smem_bytes <= 232448
+    # the byte-bound 208^2 C 64 stage runs two blocks per SM
+    assert lay.blocks_per_sm == (2 if stage[0] == 208 else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_res_block_tile_shrinks_to_fit(cuda):
+    """Past the stages' widths the tile narrows, then shortens, until y1
+    fits, and the kernel still equals its plain version there."""
+    lay = K.res_block_layout(40, 40, 2048, 1024)
+    assert (lay.tile_h, lay.tile_w) == (26, 2)
+    lay = K.res_block_layout(26, 26, 4096, 4096)
+    assert (lay.tile_h, lay.tile_w) == (7, 1)
+    # a 9 x 3 tile (edge tiles one pixel wide), weights of 37.7 MB
+    assert K.res_block_layout(9, 10, 2048, 2048)[:2] == (9, 3)
+    x, w1, b1, w2, b2 = _res_args((1, 9, 10, 2048, 2048), seed=4)
+    kw = dict(sa_res=3, leaky=0.1)
+    want = K.int8_res_block(x, w1, b1, P1, w2, b2, P2, **kw)
+    got = K.int8_res_block(*(t.to(cuda) for t in (x, w1, b1)), P1,
+                           *(t.to(cuda) for t in (w2, b2)), P2, **kw)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

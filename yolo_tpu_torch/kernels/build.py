@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use, into ``build/kernels/<hash>/`` at the root
 of the checkout (listed in ``.gitignore``), keyed by a hash of the
 sources (``*.cu`` and the shared ``*.cuh``) and flags, so a fresh
-checkout builds everything it runs.
+checkout builds everything it runs. Nothing is linked beyond what nvcc
+links by default: the TMA descriptors of ``int8_wgmma.cuh`` are encoded
+with ``cuTensorMapEncodeTiled``, looked up at run time in ``libcuda``.
 """
 
 from __future__ import annotations
@@ -97,8 +99,9 @@ def load() -> ctypes.CDLL:
         for fn, argtypes in (
                 ("yolo_int8_conv3x3_requant", [vp] * 4 + [i] * 11 + [vp]),
                 ("yolo_int8_conv_requant", [vp] * 6 + [i] * 15 + [vp]),
-                ("yolo_int8_res_block", [vp] * 6 + [i] * 17 + [vp]),
-                ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp])):
+                ("yolo_int8_res_block", [vp] * 6 + [i] * 15 + [vp]),
+                ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp]),
+                ("yolo_int8_res_block_info", [i] * 4 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

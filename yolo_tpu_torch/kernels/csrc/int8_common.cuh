@@ -1,7 +1,8 @@
-// Shared pieces of the port's int8 tensor-core kernels (int8_conv.cu,
-// int8_res_block.cu, int8_gemm.cu): the fixed-point epilogue of
-// yolo_tpu/quant/fixed_point.py and a two-stage shared-memory GEMM main
-// loop on mma.sync m16n8k32 (s8 x s8 -> s32).
+// Shared pieces of the port's mma.sync int8 conv kernels (int8_conv.cuh,
+// built by int8_conv.cu and int8_conv_general.cu): the fixed-point
+// epilogue of yolo_tpu/quant/fixed_point.py and a two-stage shared-memory
+// GEMM main loop on mma.sync m16n8k32 (s8 x s8 -> s32). The Hopper main
+// loop of K4 and K5 (wgmma fed by a TMA ring) is int8_wgmma.cuh.
 //
 // Tiles: a block of 256 threads computes a BM = 128 row x BN column tile
 // of C = A * B, A [rows, K] gathered by the caller, B [K, N] row-major

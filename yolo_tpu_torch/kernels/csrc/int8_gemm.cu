@@ -1,6 +1,8 @@
-// Bare int8 GEMM, for Hopper (sm_90a): int8 A [M, K] x int8 B [K, N] ->
-// int32 C [M, N], both row-major. Plain C interface, loaded with ctypes by
-// yolo_tpu_torch/kernels/int8_gemm.py.
+// Bare int8 GEMM, for Hopper (sm_90a): int8 A [M, K] x int8 B -> int32
+// C [M, N], with B given K-major as Bt [N, K] (both operands K-major:
+// wgmma takes no transposed 8-bit operand). Plain C interface, loaded
+// with ctypes by yolo_tpu_torch/kernels/int8_gemm.py, which pads K to a
+// multiple of 16 (TMA's row stride) with zeros.
 //
 // Replaces the Pallas TPU kernel K5, pallas_gemm.kernel of
 // scripts/bench_int8_ceiling.py: the int8 ceiling probe, a tiled matmul
@@ -10,107 +12,148 @@
 //
 // What bounds it on an H100: 2*M*N*K operations against M*K + K*N + 4*M*N
 // bytes; at the probe's 8192^3 that is ~1.1 TOP over ~0.4 GB, bound by
-// operations (1,979 dense int8 TOPS; 3.35 TB/s). The tile main loop is the
-// one the conv kernels use (int8_common.cuh: 128 x 64 tiles on mma.sync
-// m16n8k32, two shared-memory stages, A rows read with 16-byte loads when
-// K % 16 == 0), so the probe measures the ceiling of that design, the
-// yardstick for the conv kernels; wgmma + TMA is the step beyond it.
+// operations (1,979 dense int8 TOPS; 3.35 TB/s). The design is the
+// Hopper one (int8_wgmma.cuh): a 128 x 256 output tile per block, K in
+// 128-byte steps through a 4-stage shared-memory ring that TMA fills
+// (48 KB a stage, 128-byte swizzle, the M / N / K edges zero-filled out of
+// bounds), one producer warpgroup (one thread starts the loads; its
+// registers handed to the consumers with setmaxnreg) and two consumer
+// warpgroups, each running wgmma m64n256k32 from shared-memory
+// descriptors on its 64 rows, one K step behind the last retired.
 
-#include "int8_common.cuh"
+#include <climits>
+
+#include "int8_wgmma.cuh"
 
 namespace {
 
-constexpr int GBN = 64;
+constexpr int GM = 128, GN = 256;       // output tile
+constexpr int GSTAGES = 4;              // ring depth
+constexpr int A_BYTES = GM * SW;        // 16 KB
+constexpr int B_BYTES = GN * SW;        // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int GTHREADS = 384;           // 2 consumer + 1 producer warpgroup
+constexpr int GEMM_SMEM = GSTAGES * STAGE_BYTES + 2 * GSTAGES * 8 + 1024;
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-               int* __restrict__ C, int M, int N, int K) {
-  using T = Tile<GBN>;
-  __shared__ __align__(16) unsigned smem[2 * T::STAGE];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int lr = tid >> 1, lh = tid & 1;
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * GBN;
-  const long long r = row0 + lr;
-  const bool row_ok = r < M;
-  const int8_t* arow = A + r * K;
+__global__ void __launch_bounds__(GTHREADS, 1)
+gemm_s8_wgmma(const __grid_constant__ CUtensorMap tm_a,
+              const __grid_constant__ CUtensorMap tm_b, int* __restrict__ C,
+              int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  // the swizzled tiles need 1024-byte alignment
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + GSTAGES * STAGE_BYTES);
+  const Ring ring{bars, bars + GSTAGES, GSTAGES};
+  const int tid = threadIdx.x, wg = tid / 128;
+  // a 1-D grid over the output tiles, N tiles fastest (grid.y would cap
+  // the M tiles at 65,535)
+  const int ntn = (N + GN - 1) / GN;
+  const int m0 = (int)(blockIdx.x / ntn) * GM;
+  const int n0 = (int)(blockIdx.x % ntn) * GN;
+  const int nk = (K + SW - 1) / SW;
 
-  auto load_a = [&](int kt, unsigned (&areg)[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) areg[i] = 0;
-    if (!row_ok) return;
-    if (VEC) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k0 = kt + 32 * q + 16 * lh;
-        if (k0 < K) {
-          const uint4 v = *reinterpret_cast<const uint4*>(arow + k0);
-          areg[4 * q + 0] = v.x;
-          areg[4 * q + 1] = v.y;
-          areg[4 * q + 2] = v.z;
-          areg[4 * q + 3] = v.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int k = kt + 32 * (e >> 4) + 16 * lh + (e & 15);
-        if (k < K)
-          areg[e >> 2] |= ((unsigned)(uint8_t)arow[k]) << (8 * (e & 3));
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      tma_prefetch_map(&tm_a);
+      tma_prefetch_map(&tm_b);
+      for (int i = 0; i < nk; ++i) {
+        ring.producer_acquire(i, STAGE_BYTES);
+        unsigned char* st = smem + ring.stage(i) * STAGE_BYTES;
+        uint64_t* full = &ring.full[ring.stage(i)];
+        tma_load_2d(st, &tm_a, full, i * SW, m0);
+        tma_load_2d(st + A_BYTES, &tm_b, full, i * SW, n0);
       }
     }
-  };
+  } else {
+    // ---- consumers: warpgroup wg owns rows m0 + 64 wg .. + 64
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // zeroed here, so ptxas serializes the wgmmas it sees defined by other
+    // instructions (advisory C7515); on an H100 that measured faster than
+    // starting each tile with scale-d = 0
+    int acc[128];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0;
+    for (int i = 0; i < nk; ++i) {
+      ring.consumer_wait(i);
+      const unsigned char* st = smem + ring.stage(i) * STAGE_BYTES;
+      const uint64_t da = desc_sw128(st + wg * 64 * SW);
+      const uint64_t db = desc_sw128(st + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < SW / 32; ++k)
+        mma_ss_n256(acc, da + 2 * k, db + 2 * k, 1);
+      wgmma_commit();
+      // keep this step's wgmmas in flight; the previous step's are retired
+      wgmma_wait<1>();
+      if (i > 0) ring.consumer_release(i - 1);
+    }
+    wgmma_wait<0>();
 
-  const int wm0 = (warp / T::WARPS_N) * T::WM;
-  const int wn0 = (warp % T::WARPS_N) * T::WN;
-  Acc<GBN> acc;
-  zero_acc<GBN>(acc);
-  BTile<GBN> bt{B, K, N, n0, (N & 3) == 0};
-  gemm_mainloop<GBN>(acc, smem, K, load_a, bt, wm0, wn0);
-
-  // fragment: acc[.][.][0..1] at row gid, columns 2*tig and 2*tig + 1;
-  // acc[.][.][2..3] at row gid + 8
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int gid = lane >> 2, tig = lane & 3;
+    const bool pairs = (N & 1) == 0;
 #pragma unroll
-  for (int mf = 0; mf < T::MF; ++mf)
+    for (int j = 0; j < GN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * tig;
 #pragma unroll
-    for (int nf = 0; nf < T::NF; ++nf)
-#pragma unroll
-      for (int hrow = 0; hrow < 2; ++hrow) {
-        const long long row = row0 + wm0 + 16 * mf + gid + 8 * hrow;
-        const int col = n0 + wn0 + 8 * nf + 2 * tig;
-        if (row >= M) continue;
-        int* dst = C + row * N + col;
-        const int* c = &acc[mf][nf][2 * hrow];
-        if ((N & 1) == 0 && col + 1 < N) {
-          *reinterpret_cast<int2*>(dst) = make_int2(c[0], c[1]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wg * 64 + warp * 16 + gid + 8 * h;
+        if (row >= M || col >= N) continue;
+        int* dst = C + (long long)row * N + col;
+        const int v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
         } else {
-          if (col < N) dst[0] = c[0];
-          if (col + 1 < N) dst[1] = c[1];
+          dst[0] = v0;
+          if (col + 1 < N) dst[1] = v1;
         }
       }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// A: int8 [M, K] row-major (16-byte aligned when K % 16 == 0), B: int8
-// [K, N] row-major (4-byte aligned), C: int32 [M, N] (8-byte aligned).
-// Returns cudaGetLastError() after the launch.
-int yolo_int8_gemm(const void* A, const void* B, void* C, int M, int N,
+// A: int8 [M, K] row-major, Bt: int8 [N, K] row-major (B's K-major form),
+// both 16-byte aligned with K % 16 == 0; C: int32 [M, N] (8-byte aligned);
+// M and N at most 2^31 - 256. Returns the first CUDA error of setting up
+// or launching the kernel.
+int yolo_int8_gemm(const void* A, const void* Bt, void* C, int M, int N,
                    int K, void* stream) {
-  if (M < 0 || N < 0 || K < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + GBN - 1) / GBN));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(A);
-  const int8_t* b = static_cast<const int8_t*>(B);
-  int* c = static_cast<int*>(C);
-  if (K % 16 == 0)
-    gemm_s8_kernel<true><<<grid, THREADS, 0, st>>>(a, b, c, M, N, K);
-  else
-    gemm_s8_kernel<false><<<grid, THREADS, 0, st>>>(a, b, c, M, N, K);
+  const long long tiles =
+      (M + GM - 1LL) / GM * ((N + GN - 1LL) / GN);
+  if (M < 1 || N < 1 || M > INT_MAX - GN || N > INT_MAX - GN || K < 16 ||
+      K % 16 || tiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b;
+  const cuuint32_t box_a[2] = {SW, GM}, box_b[2] = {SW, GN};
+  const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t dims_b[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)K};
+  int rc = make_map(&tm_a, A, 2, dims_a, stride, box_a);
+  if (rc == 0) rc = make_map(&tm_b, Bt, 2, dims_b, stride, box_b);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_s8_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  gemm_s8_wgmma<<<(unsigned)tiles, GTHREADS, GEMM_SMEM,
+                  static_cast<cudaStream_t>(stream)>>>(tm_a, tm_b,
+                                                       static_cast<int*>(C),
+                                                       M, N, K);
   return (int)cudaGetLastError();
 }
 

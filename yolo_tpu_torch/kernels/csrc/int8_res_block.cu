@@ -2,7 +2,9 @@
 // -> 1x1 conv + requant (C -> Cmid) -> 3x3 conv (stride 1, pad 1) + requant
 // (Cmid -> C) -> [residual add with the input + requant] -> int8
 // [B, H, W, C], in one kernel. Plain C interface, loaded with ctypes by
-// yolo_tpu_torch/kernels/int8_conv.py (int8_res_block).
+// yolo_tpu_torch/kernels/int8_conv.py (int8_res_block), which packs the
+// weights K-major once per model (pack_res_block_weights): w1 as
+// [Cmid, C], w2 as [C, 9 * Cmid] in (dy, dx, c) order (OHWI).
 //
 // Replaces the Pallas TPU kernel K4 _res_block_kernel / int8_res_block of
 // yolo_tpu/kernels/int8_conv.py, and computes what the JAX package's chain
@@ -13,55 +15,175 @@
 // What bounds it on an H100: a block at 416^2 is ~1.77 GOP per image
 // (2 * H * W * 10 * C * Cmid) against 2 * H * W * C int8 bytes in and out,
 // ~200-900 ops per byte, so it is bound by operations (1,979 dense int8
-// TOPS) at every darknet53 stage - if the mid activation y1 stays on chip.
-// The design keeps it there: each block owns a spatial tile of one image
-// (up to 16 x 16 output pixels) and
-//   1. computes y1 for the tile plus a one-pixel halo (the 1x1 conv of the
-//      halo pixels, recomputed by the neighbouring tiles) into shared
-//      memory, zero outside the image (the 3x3 pads y1 with zeros, not
-//      with requant(bias)), as the Pallas kernel masks it;
-//   2. runs the 3x3 as an implicit GEMM whose A tile is gathered from
-//      that shared-memory y1 (depth 9 * Cmid in (dy, dx, c) order = the
-//      HWIO weights), looping over C in 64-column tiles inside the block
-//      so y1 is computed once;
-//   3. applies the requant in registers, stages the int8 tile in shared
-//      memory, and adds the residual while storing 16 bytes at a time.
-// Only x is read and only the block output written in device memory. Both
-// GEMMs are 128-row tiles on mma.sync m16n8k32 with two shared-memory
-// stages (int8_common.cuh); wgmma and TMA are the next step. Shared memory
-// holds y1 ((T+2)^2 * Cmid bytes, 115 KB for the whole 13 x 13 image at
-// Cmid 512) plus the two stages (30 KB).
+// TOPS) at every darknet53 stage but the first (208^2, C 64, bound by
+// bytes) - if the mid activation y1 stays on chip. Each block owns a TH x
+// TW output tile of one image (chosen per stage by plan() so that the
+// 64-row wgmma steps carry pixels in >= 85% of their rows) and
+//   1. computes y1 for the tile plus a one-pixel halo into shared memory:
+//      a GEMM [halo pixels, C] x [C, Cmid] on wgmma (SS), whose A is a 4-D
+//      TMA box of R1 halo rows x (TW + 2) pixels x 128 channels starting at
+//      (ty0 - 1, tx0 - 1) (TMA zero-fills outside the image and past C);
+//      y1 is zero outside the image (the 3x3 pads y1 with zeros, not with
+//      requant(bias)). y1 rows are Cmid + 16 bytes apart, so the 8 rows of
+//      an ldmatrix fall in 8 different 16-byte bank groups;
+//   2. runs the 3x3 as an implicit GEMM [tile pixels, 9 * Cmid] x
+//      [9 * Cmid, C] on wgmma (RS): each consumer warpgroup loads its A
+//      fragments straight from y1 with ldmatrix (one 16-byte row address
+//      per lane: the implicit-GEMM gather), taps outside and channels
+//      inside, so the tap offsets are additions;
+//   3. requantizes in registers (every shift one branch-free form set up
+//      on the host), stages 64 x 64 bytes per warpgroup in shared memory
+//      and stores 16 bytes at a time, adding the residual.
+// The weights of both GEMMs stream through a shared-memory ring of 3-8
+// stages that TMA fills (128-byte swizzle, full / empty mbarriers; one
+// producer warp, or warpgroup whose registers go to the consumers). Three
+// consumer warpgroups of 64 rows share each w2 tile (two, and two blocks
+// per SM, in the narrow form of the 208^2 stage).
+// Only x is read and only the block output written in device memory.
 //
-// The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including the
-// s >= 32 branch that the Pallas kernel's _shift_round_nearest lacks.
+// The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
+// s >= 32, which the Pallas kernel's _shift_round_nearest does not guard.
 
-#include "int8_common.cuh"
+#include <algorithm>
+
+#include "int8_wgmma.cuh"
 
 namespace {
 
-constexpr int BN2 = 64;  // 3x3 output columns per tile
+constexpr int MAX_STAGES = 8;
+constexpr int STG_BYTES = 64 * 64;  // a warpgroup's staging tile
 
-struct ResArgs {
-  const int8_t* x;        // [B, H, W, C]
-  const int8_t* w1;       // [C, Cmid]
-  const int* b1;          // [Cmid], at conv1's retune scale
-  const int8_t* w2;       // HWIO [3, 3, Cmid, C]
-  const int* b2;          // [C], at conv2's retune scale
-  int8_t* out;            // [B, H, W, C]
-  int B, H, W, C, Cmid;
-  int TH, TW;             // output tile (the edge tiles may be smaller)
-  int acc1, acc2;         // accumulator shifts to the retune scales
-  Requant rq1, rq2;
-  int res;                // 1: residual add
-  int sh_a, sh_b, sh_out;  // residual: align conv2 out, align x, requant
+// v * 2^-s as fixed_point._shift computes it (round half away or floor,
+// s >= 32, s < 0 as an exact left shift), in one branch-free form set up
+// on the host: ((v << l) + a + (v < 0 ? n : 0)) >> r, masked by m (the
+// value of int8_common.cuh's shift_i32, without its branches on s and the
+// rounding). With every shift of a launch in [0, 31] (l = 0, m = -1) the
+// kernel's SHORT form drops the left shift and the mask: 4 instructions
+// instead of 6. On an H100 the general form alone made the 208^2 stage
+// ~15% and v3 serving ~2% slower (PERF.md, section 6).
+struct Shift {
+  int l, a, n, r, m;
+  template <bool SHORT>
+  __device__ __forceinline__ int apply(int v) const {
+    const unsigned t = (unsigned)(n & (v >> 31));
+    if constexpr (SHORT) return (int)((unsigned)v + (unsigned)a + t) >> r;
+    return ((int)(((unsigned)v << l) + (unsigned)a + t) >> r) & m;
+  }
 };
 
-template <int BN1>
-__global__ void __launch_bounds__(THREADS) res_block_kernel(ResArgs a) {
+Shift make_shift(int s, bool nearest) {
+  if (s == 0) return Shift{0, 0, 0, 0, -1};
+  if (s < 0) return -s >= 32 ? Shift{0, 0, 0, 0, 0} : Shift{-s, 0, 0, 0, -1};
+  if (s >= 32) return nearest ? Shift{0, 0, 0, 0, 0} : Shift{0, 0, 0, 31, -1};
+  return nearest ? Shift{0, 1 << (s - 1), -1, s, -1} : Shift{0, 0, 0, s, -1};
+}
+
+bool short_shift(int s) { return s >= 0 && s < 32; }
+
+// The requant chain of fixed_point._requant from the raw accumulator:
+// shift to the retune scale, add the bias (int32 adds wrap), clamp to
+// int16, LeakyReLU as the Q16 rational (negatives -> shift(v * slope, 16);
+// slope 65536 is the identity), shift to the output scale, clamp to int8
+// (int8_common.cuh's Requant, with the shifts above).
+struct Epi {
+  Shift acc, out;
+  int slope, rnd;  // rnd: 32767 (nearest, v < 0) or 0 (floor)
+  template <bool SHORT>
+  __device__ __forceinline__ int8_t apply(int v, int bias) const {
+    v = (int)((unsigned)acc.apply<SHORT>(v) + (unsigned)bias);
+    v = min(max(v, -32768), 32767);
+    const int t = (v * slope + rnd) >> 16;
+    v = out.apply<SHORT>(v < 0 ? t : v);
+    return (int8_t)min(max(v, -128), 127);
+  }
+};
+
+template <int BN1, int BN2>
+struct ResCfg {
+  // consumer warpgroups, each owning 64 rows of a 3x3 M step: three for
+  // the wide forms (a w2 tile feeds 192 rows), two for the narrow form so
+  // two blocks fit on an SM at the byte-bound 208^2 stage
+  static constexpr int NWG = BN2 == 64 ? 2 : 3;
+  static constexpr int CONSUMERS = 128 * NWG;
+  // + the producer: a whole warpgroup that hands its registers to the
+  // consumers (setmaxnreg) in the wide forms, one warp in the narrow form
+  static constexpr int THREADS = NWG == 3 ? 512 : CONSUMERS + 32;
+  static constexpr int MIN_BLOCKS = BN2 == 64 ? 2 : 1;
+  // a ring slot: phase 1 = x box (<= 128 rows) | w1 tile (BN1 rows);
+  // phase 2 = two w2 tiles (BN2 rows each), one 256-deep K step
+  static constexpr int B1_OFF = 128 * SW;
+  static constexpr int SLOT = B1_OFF + BN1 * SW > 2 * BN2 * SW
+                                  ? B1_OFF + BN1 * SW
+                                  : 2 * BN2 * SW;
+};
+
+struct ResArgs {
+  const int8_t* x;  // [B, H, W, C], for the residual
+  const int* b1;    // [Cmid], at conv1's retune scale
+  const int* b2;    // [C], at conv2's retune scale
+  int8_t* out;      // [B, H, W, C]
+  int B, H, W, C, Cmid;
+  int TH, TW;    // output tile (the edge tiles may be smaller)
+  int R1;        // halo rows per phase-1 TMA box, R1 * (TW + 2) <= 128
+  int stages;    // ring depth, 3..MAX_STAGES
+  Epi e1, e2;    // the two convs' requant chains
+  int res;       // 1: residual add
+  int sh_a, sh_b;  // residual: align conv2 out, align x
+  Shift res_out;   // residual: the sum to 2^sa_res
+};
+
+__host__ __device__ inline int y1_stride(int cmid) { return cmid + 16; }
+
+__host__ __device__ inline int y1_bytes(const ResArgs& a) {
+  return ((a.TH + 2) * (a.TW + 2) * y1_stride(a.Cmid) + 127) & ~127;
+}
+
+// staging byte of (row, column) of a 64 x 64 tile: 16-byte chunks XOR-ed
+// with (row / 2) % 4, so the 2-byte stores of a warp hit 16 banks
+__device__ __forceinline__ int stg_at(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
+                                       uint64_t db) {
+  if constexpr (N == 32) mma_ss_n32(d, da, db, 1);
+  if constexpr (N == 64) mma_ss_n64(d, da, db, 1);
+  if constexpr (N == 128) mma_ss_n128(d, da, db, 1);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(int (&d)[N / 2],
+                                       const unsigned (&a)[4], uint64_t db) {
+  if constexpr (N == 64) mma_rs_n64(d, a, db, 1);
+  if constexpr (N == 128) mma_rs_n128(d, a, db, 1);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
+  return (uint16_t)((uint8_t)lo | ((uint16_t)(uint8_t)hi << 8));
+}
+
+template <int BN1, int BN2, bool SHORT>
+__global__ void __launch_bounds__(ResCfg<BN1, BN2>::THREADS,
+                                  ResCfg<BN1, BN2>::MIN_BLOCKS)
+res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                const __grid_constant__ CUtensorMap tm_w1,
+                const __grid_constant__ CUtensorMap tm_w2, ResArgs a) {
+  using Cfg = ResCfg<BN1, BN2>;
+  constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   extern __shared__ __align__(16) unsigned char dsmem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int lr = tid >> 1, lh = tid & 1;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
+  const int HW = a.TW + 2, HH = a.TH + 2, S1 = y1_stride(a.Cmid);
+  int8_t* y1 = reinterpret_cast<int8_t*>(smem + a.stages * Cfg::SLOT);
+  int8_t* stg_all = y1 + y1_bytes(a);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + NWG * STG_BYTES);
+  const Ring ring{bars, bars + a.stages, a.stages};
+  const int tid = threadIdx.x;
 
   // ---- this block's tile
   const int ntx = (a.W + a.TW - 1) / a.TW, nty = (a.H + a.TH - 1) / a.TH;
@@ -69,205 +191,407 @@ __global__ void __launch_bounds__(THREADS) res_block_kernel(ResArgs a) {
   const int t = blockIdx.x - b * ntx * nty;
   const int ty0 = (t / ntx) * a.TH, tx0 = (t % ntx) * a.TW;
   const int th = min(a.TH, a.H - ty0), tw = min(a.TW, a.W - tx0);
-  const int hw = tw + 2;                       // halo tile width
-  const int P1 = (th + 2) * hw, P2 = th * tw;  // halo / output pixels
 
-  // y1 [P1][Cmid] int8, then the two GEMM stages (int32 words)
-  int8_t* y1 = reinterpret_cast<int8_t*>(dsmem);
-  const int y1_bytes = ((a.TH + 2) * (a.TW + 2) * a.Cmid + 15) & ~15;
-  unsigned* smem = reinterpret_cast<unsigned*>(dsmem + y1_bytes);
-  const long long img = (long long)b * a.H * a.W;  // first pixel of image b
+  // ---- the producer's and the consumers' common walk over the ring
+  const int nc1 = (HH + a.R1 - 1) / a.R1;  // phase-1 boxes (M chunks)
+  const int nn1 = a.Cmid / BN1, nk1 = (a.C + SW - 1) / SW;
+  const int K2 = 9 * a.Cmid, nk2 = (K2 + 2 * SW - 1) / (2 * SW);
+  const int nn2 = a.C / BN2, nc2 = (a.TH * a.TW + 64 * NWG - 1) / (64 * NWG);
 
-  // ---- 1. y1 = requant(x[halo] * w1), zero outside the image
-  {
-    using T = Tile<BN1>;
-    const int wm0 = (warp / T::WARPS_N) * T::WM;
-    const int wn0 = (warp % T::WARPS_N) * T::WN;
-    for (int m0 = 0; m0 < P1; m0 += BM) {
-      // this thread's A row: halo pixel m0 + lr
-      const int p = m0 + lr;
-      const int hy = p / hw, hx = p - (p / hw) * hw;
-      const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
-      const bool ok = p < P1 && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
-      const int8_t* xrow = a.x + (img + (long long)iy * a.W + ix) * a.C;
-      auto load_a = [&](int kt, unsigned (&areg)[8]) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int k0 = kt + 32 * q + 16 * lh;
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (ok && k0 < a.C) v = *reinterpret_cast<const uint4*>(xrow + k0);
-          areg[4 * q + 0] = v.x;
-          areg[4 * q + 1] = v.y;
-          areg[4 * q + 2] = v.z;
-          areg[4 * q + 3] = v.w;
-        }
-      };
-      for (int n0 = 0; n0 < a.Cmid; n0 += BN1) {
-        Acc<BN1> acc;
-        zero_acc<BN1>(acc);
-        BTile<BN1> bt{a.w1, a.C, a.Cmid, n0, true};
-        gemm_mainloop<BN1>(acc, smem, a.C, load_a, bt, wm0, wn0);
-        const bool nr = a.rq1.nearest != 0;
-#pragma unroll
-        for (int mf = 0; mf < T::MF; ++mf)
-#pragma unroll
-          for (int nf = 0; nf < T::NF; ++nf)
-#pragma unroll
-            for (int hrow = 0; hrow < 2; ++hrow) {
-              const int pr = m0 + wm0 + 16 * mf + gid + 8 * hrow;
-              if (pr >= P1) continue;
-              const int ry = pr / hw, rx = pr - (pr / hw) * hw;
-              const int gy = ty0 - 1 + ry, gx = tx0 - 1 + rx;
-              const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int co = n0 + wn0 + 8 * nf + 2 * tig + e;
-                const int v = shift_i32(acc[mf][nf][2 * hrow + e], a.acc1, nr);
-                y1[pr * a.Cmid + co] = in ? a.rq1(add_wrap(v, a.b1[co]))
-                                          : (int8_t)0;
-              }
-            }
-      }
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], CONSUMERS / 32);
     }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  // ---- 2. the 3x3 over y1, 3. requant + residual
-  {
-    using T = Tile<BN2>;
-    const int wm0 = (warp / T::WARPS_N) * T::WM;
-    const int wn0 = (warp % T::WARPS_N) * T::WN;
-    const int K = 9 * a.Cmid;
-    const bool nr = a.rq2.nearest != 0;
-    int8_t* stage = reinterpret_cast<int8_t*>(smem);
-    for (int m0 = 0; m0 < P2; m0 += BM) {
-      const int p = m0 + lr;
-      const bool ok = p < P2;
-      const int py = p / tw, px = p - (p / tw) * tw;
-      // y1 byte offset of tap (0, 0) of this row's output pixel
-      const int base = (py * hw + px) * a.Cmid;
-      auto load_a = [&](int kt, unsigned (&areg)[8]) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int k0 = kt + 32 * q + 16 * lh;
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (ok && k0 < K) {
-            const int tap = k0 / a.Cmid, c = k0 - tap * a.Cmid;
-            const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-            v = *reinterpret_cast<const uint4*>(
-                y1 + base + (dy * hw + dx) * a.Cmid + c);
+  if (tid >= CONSUMERS) {
+    if constexpr (NWG == 3)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CONSUMERS) {
+      tma_prefetch_map(&tm_x);
+      tma_prefetch_map(&tm_w1);
+      tma_prefetch_map(&tm_w2);
+      int i = 0;
+      const unsigned x_bytes = a.R1 * HW * SW;
+      for (int c = 0; c < nc1; ++c)
+        for (int n = 0; n < nn1; ++n)
+          for (int k = 0; k < nk1; ++k, ++i) {
+            ring.producer_acquire(i, x_bytes + BN1 * SW);
+            unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
+            uint64_t* full = &ring.full[ring.stage(i)];
+            tma_load_4d(st, &tm_x, full, k * SW, tx0 - 1, ty0 - 1 + c * a.R1,
+                        b);
+            tma_load_2d(st + Cfg::B1_OFF, &tm_w1, full, k * SW, n * BN1);
           }
-          areg[4 * q + 0] = v.x;
-          areg[4 * q + 1] = v.y;
-          areg[4 * q + 2] = v.z;
-          areg[4 * q + 3] = v.w;
+      for (int c = 0; c < nc2; ++c)
+        for (int n = 0; n < nn2; ++n)
+          for (int k = 0; k < nk2; ++k, ++i) {
+            const bool two = k * 2 * SW + SW < K2;
+            ring.producer_acquire(i, (two ? 2 : 1) * BN2 * SW);
+            unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
+            uint64_t* full = &ring.full[ring.stage(i)];
+            tma_load_2d(st, &tm_w2, full, k * 2 * SW, n * BN2);
+            if (two)
+              tma_load_2d(st + BN2 * SW, &tm_w2, full, k * 2 * SW + SW,
+                          n * BN2);
+          }
+    }
+    return;
+  }
+
+  // 3 x 128 x 152 + 128 x 40 of the SM's 65,536 registers
+  if constexpr (NWG == 3)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3, ltid = tid & 127;
+  const long long img = (long long)b * a.H * a.W;  // first pixel of image b
+  int i = 0;
+
+  // ---- 1. y1 = requant(x[halo] * w1), zero outside the image
+  for (int c = 0; c < nc1; ++c) {
+    // halo pixels of this box that belong to the tile's halo
+    const int valid = min(a.R1, HH - c * a.R1) * HW;
+    const bool active = wg * 64 < valid;
+    // this thread's two accumulator rows: halo pixel, inside the image
+    int p[2];
+    bool in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + warp * 16 + gid + 8 * h;
+      p[h] = r < valid ? c * a.R1 * HW + r : -1;
+      const int hy = p[h] / HW, hx = p[h] - hy * HW;
+      const int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
+      in[h] = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+    }
+    for (int n = 0; n < nn1; ++n) {
+      int acc[BN1 / 2];
+#pragma unroll
+      for (int e = 0; e < BN1 / 2; ++e) acc[e] = 0;
+      for (int k = 0; k < nk1; ++k, ++i) {
+        ring.consumer_wait(i);
+        if (active) {
+          const unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
+          const uint64_t da = desc_sw128(st + wg * 64 * SW);
+          const uint64_t db = desc_sw128(st + Cfg::B1_OFF);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < SW / 32; ++kk)
+            mma_ss<BN1>(acc, da + 2 * kk, db + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<0>();
         }
-      };
-      for (int n0 = 0; n0 < a.C; n0 += BN2) {
-        Acc<BN2> acc;
-        zero_acc<BN2>(acc);
-        BTile<BN2> bt{a.w2, K, a.C, n0, true};
-        gemm_mainloop<BN2>(acc, smem, K, load_a, bt, wm0, wn0);
+        ring.consumer_release(i);
+      }
+      if (!active) continue;
 #pragma unroll
-        for (int mf = 0; mf < T::MF; ++mf)
+      for (int h = 0; h < 2; ++h) {
+        if (p[h] < 0) continue;
+        int8_t* dst = y1 + p[h] * S1 + n * BN1 + 2 * tig;
 #pragma unroll
-          for (int nf = 0; nf < T::NF; ++nf)
+        for (int j = 0; j < BN1 / 8; ++j) {
+          const int co = n * BN1 + 8 * j + 2 * tig;
+          const int2 bias = *reinterpret_cast<const int2*>(a.b1 + co);
+          const int8_t v0 = a.e1.apply<SHORT>(acc[4 * j + 2 * h], bias.x);
+          const int8_t v1 = a.e1.apply<SHORT>(acc[4 * j + 2 * h + 1], bias.y);
+          *reinterpret_cast<uint16_t*>(dst + 8 * j) =
+              in[h] ? pack2(v0, v1) : (uint16_t)0;
+        }
+      }
+    }
+  }
+  named_sync(1, CONSUMERS);  // y1 complete
+
+  // ---- 2. the 3x3 over y1, 3. requant + residual
+  const int P2 = a.TH * a.TW;     // rows of the nominal tile
+  const int P2_live = th * a.TW;  // rows from here on lie below the image
+  int8_t* stg = stg_all + wg * STG_BYTES;
+  for (int c = 0; c < nc2; ++c) {
+    const int p0 = (c * NWG + wg) * 64;
+    const bool active = p0 < P2_live;
+    // this lane's ldmatrix row: output pixel r of the tile
+    int r = p0 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    if (r >= P2) r = 0;
+    const int py = r / a.TW, px = r - py * a.TW;
+    const int8_t* arow = y1 + (py * HW + px) * S1 + 16 * (lane >> 4);
+    // the two 16-byte chunks this thread copies out: output byte offset of
+    // their pixel, or -1 outside the image
+    long long obase[2];
 #pragma unroll
-            for (int hrow = 0; hrow < 2; ++hrow) {
-              const int rl = wm0 + 16 * mf + gid + 8 * hrow;
+    for (int q = 0; q < 2; ++q) {
+      const int po = p0 + ((ltid + 128 * q) >> 2);
+      const int oy = po / a.TW, ox = po - oy * a.TW;
+      obase[q] = oy < th && ox < tw
+                     ? (img + (long long)(ty0 + oy) * a.W + tx0 + ox) * a.C
+                     : -1;
+    }
+    for (int n = 0; n < nn2; ++n) {
+      int acc[BN2 / 2];
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int cl = wn0 + 8 * nf + 2 * tig + e;
-                const int v = shift_i32(acc[mf][nf][2 * hrow + e], a.acc2, nr);
-                stage[rl * BN2 + cl] = a.rq2(add_wrap(v, a.b2[n0 + cl]));
+      for (int e = 0; e < BN2 / 2; ++e) acc[e] = 0;
+      // (tap, channel) of the next 32-deep K step: y1 offset tap_off +
+      // ch, tap_off = (dy * HW + dx) * S1
+      int tap_off = 0, ch = 0, dx = 0;
+      for (int k = 0; k < nk2; ++k, ++i) {
+        ring.consumer_wait(i);
+        if (active) {
+          const unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
+          const uint64_t db = desc_sw128(st);
+          // the step's two 128-deep halves (one w2 tile each), four
+          // 32-deep A fragments in registers at a time
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if (half == 1) wgmma_wait<0>();  // the first half's A retired
+            unsigned af[SW / 32][4];
+#pragma unroll
+            for (int j = 0; j < SW / 32; ++j) {
+              if (k * 2 * SW + half * SW + 32 * j < K2) {
+                ldmatrix_x4(af[j], arow + tap_off + ch);
+                ch += 32;
+                if (ch == a.Cmid) {
+                  ch = 0;
+                  if (++dx == 3) {
+                    dx = 0;
+                    tap_off += (HW - 2) * S1;
+                  } else {
+                    tap_off += S1;
+                  }
+                }
               }
             }
-        __syncthreads();
-        // store 16 bytes at a time, with the residual add on the way
-        for (int i = tid; i < BM * (BN2 / 16); i += THREADS) {
-          const int rl = i / (BN2 / 16), ch = i - rl * (BN2 / 16);
-          const int po = m0 + rl;
-          if (po >= P2) continue;
-          const int oy = po / tw, ox = po - (po / tw) * tw;
-          const long long off =
-              (img + (long long)(ty0 + oy) * a.W + tx0 + ox) * a.C + n0 +
-              16 * ch;
-          uint4 o = *reinterpret_cast<const uint4*>(stage + rl * BN2 + 16 * ch);
-          if (a.res) {
-            const uint4 xv = *reinterpret_cast<const uint4*>(a.x + off);
-            int8_t* ob = reinterpret_cast<int8_t*>(&o);
-            const int8_t* xb = reinterpret_cast<const int8_t*>(&xv);
+            wgmma_fence();
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const int va = (int)((unsigned)(int)ob[j] << a.sh_a);
-              const int vb = (int)((unsigned)(int)xb[j] << a.sh_b);
-              const int s = shift_i32(add_wrap(va, vb), a.sh_out, nr);
-              ob[j] = (int8_t)min(max(s, -128), 127);
+            for (int j = 0; j < SW / 32; ++j)
+              if (k * 2 * SW + half * SW + 32 * j < K2)
+                mma_rs<BN2>(acc, af[j],
+                            db + ((half * BN2 * SW + j * 32) >> 4));
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+        }
+        ring.consumer_release(i);
+      }
+      if (!active) continue;
+      // 64 columns at a time through the warpgroup's staging tile
+#pragma unroll
+      for (int pass = 0; pass < BN2 / 64; ++pass) {
+        const int col0 = n * BN2 + pass * 64;
+        // the residual's x, loaded while the requant below runs
+        uint4 xv[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (a.res && obase[q] >= 0)
+            xv[q] = *reinterpret_cast<const uint4*>(a.x + obase[q] + col0 +
+                                                    16 * (ltid & 3));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cl = 8 * j + 2 * tig;
+          const int2 bias = *reinterpret_cast<const int2*>(a.b2 + col0 + cl);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+            *reinterpret_cast<uint16_t*>(
+                stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                pack2(a.e2.apply<SHORT>(v[0], bias.x),
+                      a.e2.apply<SHORT>(v[1], bias.y));
+          }
+        }
+        named_sync(2 + wg, 128);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (obase[q] < 0) continue;
+          const int rl = (ltid + 128 * q) >> 2, c16 = ltid & 3;
+          uint4 o = *reinterpret_cast<const uint4*>(stg + stg_at(rl, 16 * c16));
+          if (a.res) {
+            int8_t* ob = reinterpret_cast<int8_t*>(&o);
+            const int8_t* xb = reinterpret_cast<const int8_t*>(&xv[q]);
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const unsigned va = (unsigned)(int)ob[e] << a.sh_a;
+              const unsigned vb = (unsigned)(int)xb[e] << a.sh_b;
+              const int s = a.res_out.apply<SHORT>((int)(va + vb));
+              ob[e] = (int8_t)min(max(s, -128), 127);
             }
           }
-          *reinterpret_cast<uint4*>(a.out + off) = o;
+          *reinterpret_cast<uint4*>(a.out + obase[q] + col0 + 16 * c16) = o;
         }
-        __syncthreads();
+        named_sync(2 + wg, 128);
       }
     }
   }
 }
 
-int res_block_smem(int th, int tw, int cmid) {
-  const int y1 = ((th + 2) * (tw + 2) * cmid + 15) & ~15;
-  return y1 + 2 * Tile<BN2>::STAGE * 4;
+// the largest dynamic shared memory of a block (H100: 227 KB)
+constexpr int MAX_SMEM = 232448;
+
+// dynamic shared memory of a form with `stages` ring slots
+int res_block_smem(const ResArgs& a, int slot, int nwg, int stages) {
+  return 1024 + stages * slot + y1_bytes(a) + nwg * STG_BYTES +
+         2 * MAX_STAGES * 8;
 }
 
-template <int BN1>
-int launch_res_block(const ResArgs& a, int smem_bytes, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      res_block_kernel<BN1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = ((a.H + a.TH - 1) / a.TH) * ((a.W + a.TW - 1) / a.TW);
-  res_block_kernel<BN1>
-      <<<(unsigned)(a.B * ntiles), THREADS, smem_bytes, st>>>(a);
+// The (BN1, BN2) form for Cmid, C: the widest of the three built.
+int pick_form(int C, int Cmid) {
+  if (Cmid % 128 == 0 && C % 128 == 0) return 2;
+  if (Cmid % 64 == 0 && C % 128 == 0) return 1;
   return 0;
+}
+
+// an output tile and its halo rows per phase-1 box, R1 * (tw + 2) <= 128
+void set_tile(ResArgs& a, int th, int tw) {
+  a.TH = th;
+  a.TW = tw;
+  a.R1 = std::min(128 / (tw + 2), th + 2);
+}
+
+// The form's layout for an H x W stage, set in `a`: the output tile, up to
+// 26 x 26 pixels, its width and then its height halved until y1 fits
+// beside a 3-stage ring (at the darknet53 stages: 26 x 26 from 208^2 to
+// 52^2, 26 x 13 at 26^2, 13 x 13 at 13^2, each keeping >= 85% of its
+// 64-row wgmma steps on pixels); then the deepest ring that fits (in half
+// an SM's 228 KB, 1 KB of it reserved per block, for the two-block form).
+// Returns the dynamic shared memory bytes, or 0 where no tile fits.
+template <int BN1, int BN2>
+int plan(ResArgs& a) {
+  using Cfg = ResCfg<BN1, BN2>;
+  const auto smem = [&](int stages) {
+    return res_block_smem(a, Cfg::SLOT, Cfg::NWG, stages);
+  };
+  set_tile(a, std::min(26, a.H), std::min(26, a.W));
+  while (smem(3) > MAX_SMEM && a.TW > 1) set_tile(a, a.TH, (a.TW + 1) / 2);
+  while (smem(3) > MAX_SMEM && a.TH > 1) set_tile(a, (a.TH + 1) / 2, a.TW);
+  if (smem(3) > MAX_SMEM) return 0;
+  const int budget = Cfg::MIN_BLOCKS == 2 ? 233472 / 2 - 1024 : MAX_SMEM;
+  a.stages = 3;
+  while (a.stages < MAX_STAGES && smem(a.stages + 1) <= budget) ++a.stages;
+  return smem(a.stages);
+}
+
+// Launches the form, or with `info` reports its layout there instead.
+template <int BN1, int BN2, bool SHORT>
+int launch_form(ResArgs a, const void* w1p, const void* w2p, int* info,
+                cudaStream_t st) {
+  using Cfg = ResCfg<BN1, BN2>;
+  const int smem = plan<BN1, BN2>(a);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      res_block_wgmma<BN1, BN2, SHORT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (info != nullptr) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, res_block_wgmma<BN1, BN2, SHORT>, Cfg::THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int vals[9] = {a.TH, a.TW,     a.R1,     smem,    blocks,
+                         BN1,  BN2,      Cfg::NWG, a.stages};
+    for (int k = 0; k < 9; ++k) info[k] = vals[k];
+    return 0;
+  }
+  CUtensorMap tm_x, tm_w1, tm_w2;
+  const cuuint64_t C = a.C, Cm = a.Cmid;
+  const cuuint64_t dims_x[4] = {C, (cuuint64_t)a.W, (cuuint64_t)a.H,
+                                (cuuint64_t)a.B};
+  const cuuint64_t str_x[3] = {C, C * a.W, C * a.W * a.H};
+  const cuuint32_t box_x[4] = {SW, (cuuint32_t)(a.TW + 2), (cuuint32_t)a.R1,
+                               1};
+  const cuuint64_t dims_1[2] = {C, Cm}, str_1[1] = {C};
+  const cuuint32_t box_1[2] = {SW, BN1};
+  const cuuint64_t dims_2[2] = {9 * Cm, C}, str_2[1] = {9 * Cm};
+  const cuuint32_t box_2[2] = {SW, BN2};
+  int rc = make_map(&tm_x, a.x, 4, dims_x, str_x, box_x);
+  if (rc == 0) rc = make_map(&tm_w1, w1p, 2, dims_1, str_1, box_1);
+  if (rc == 0) rc = make_map(&tm_w2, w2p, 2, dims_2, str_2, box_2);
+  if (rc != 0) return rc;
+  const long long ntiles = (long long)((a.H + a.TH - 1) / a.TH) *
+                           ((a.W + a.TW - 1) / a.TW);
+  res_block_wgmma<BN1, BN2, SHORT>
+      <<<(unsigned)(a.B * ntiles), Cfg::THREADS, smem, st>>>(tm_x, tm_w1,
+                                                             tm_w2, a);
+  return (int)cudaGetLastError();
+}
+
+template <bool SHORT>
+int dispatch(const ResArgs& a, const void* w1p, const void* w2p, int* info,
+             cudaStream_t st) {
+  switch (pick_form(a.C, a.Cmid)) {
+    case 2:
+      return launch_form<128, 128, SHORT>(a, w1p, w2p, info, st);
+    case 1:
+      return launch_form<64, 128, SHORT>(a, w1p, w2p, info, st);
+    default:
+      return launch_form<32, 64, SHORT>(a, w1p, w2p, info, st);
+  }
+}
+
+bool bad_shape(int H, int W, int C, int Cmid) {
+  return H < 1 || W < 1 || C < 64 || C % 64 || Cmid < 32 || Cmid % 32;
+}
+
+ResArgs base_args(int H, int W, int C, int Cmid) {
+  ResArgs a{};
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.Cmid = Cmid;
+  return a;
+}
+
+Epi make_epi(int acc_shift, int out_shift, int slope_num, bool nearest) {
+  return Epi{make_shift(acc_shift, nearest), make_shift(out_shift, nearest),
+             slope_num, nearest ? 32767 : 0};
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: int8 NHWC [B, H, W, C], 16-byte aligned, C % 64 == 0; w1: int8
-// [C, Cmid] (Cmid % 32 == 0), w2: int8 HWIO [3, 3, Cmid, C], both 4-byte
-// aligned; b1_rt / b2_rt: int32 at the two retune scales; out: int8
-// [B, H, W, C], 16-byte aligned. tile_h x tile_w output pixels per block,
-// whose y1 takes (tile_h + 2) * (tile_w + 2) * Cmid bytes of shared memory
-// beside the two 15 KB GEMM stages (at most 227 KB in all).
+// x: int8 NHWC [B, H, W, C], C % 64 == 0; w1p: int8 [Cmid, C] (Cmid % 32
+// == 0), w2p: int8 [C, 9 * Cmid] in (dy, dx, c) order; b1_rt / b2_rt:
+// int32 at the two retune scales; out: int8 [B, H, W, C]; x, w1p, w2p and
+// out 16-byte aligned. The kernel picks its output tile (plan; reported by
+// yolo_int8_res_block_info) and fails where no tile fits.
 // slope_num: the LeakyReLU slope of both convs * 65536 (8192: 0.125;
 // 65536: none).
 // res: add the residual: out = clamp(shift((o << sh_a) + (x << sh_b),
-// sh_out)). Returns the launch's error code (cudaGetLastError()).
-int yolo_int8_res_block(const void* x, const void* w1, const void* b1_rt,
-                        const void* w2, const void* b2_rt, void* out, int B,
-                        int H, int W, int C, int Cmid, int tile_h, int tile_w,
-                        int acc1, int out1, int acc2, int out2,
-                        int slope_num, int nearest, int res, int sh_a,
-                        int sh_b, int sh_out, void* stream) {
-  if (C % 64 || Cmid % 32 || tile_h < 1 || tile_w < 1)
-    return (int)cudaErrorInvalidValue;
-  ResArgs a{static_cast<const int8_t*>(x),
-            static_cast<const int8_t*>(w1),
-            static_cast<const int*>(b1_rt),
-            static_cast<const int8_t*>(w2),
-            static_cast<const int*>(b2_rt),
-            static_cast<int8_t*>(out),
-            B, H, W, C, Cmid, tile_h, tile_w, acc1, acc2,
-            Requant{out1, slope_num, nearest},
-            Requant{out2, slope_num, nearest},
-            res, sh_a, sh_b, sh_out};
-  const int smem = res_block_smem(tile_h, tile_w, Cmid);
+// sh_out)). Returns the first CUDA error of setting up or launching.
+int yolo_int8_res_block(const void* x, const void* w1p, const void* b1_rt,
+                        const void* w2p, const void* b2_rt, void* out, int B,
+                        int H, int W, int C, int Cmid, int acc1, int out1,
+                        int acc2, int out2, int slope_num, int nearest,
+                        int res, int sh_a, int sh_b, int sh_out,
+                        void* stream) {
+  if (bad_shape(H, W, C, Cmid) || B < 1) return (int)cudaErrorInvalidValue;
+  ResArgs a = base_args(H, W, C, Cmid);
+  a.x = static_cast<const int8_t*>(x);
+  a.b1 = static_cast<const int*>(b1_rt);
+  a.b2 = static_cast<const int*>(b2_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.B = B;
+  a.e1 = make_epi(acc1, out1, slope_num, nearest != 0);
+  a.e2 = make_epi(acc2, out2, slope_num, nearest != 0);
+  a.res = res;
+  a.sh_a = sh_a;
+  a.sh_b = sh_b;
+  a.res_out = make_shift(sh_out, nearest != 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = Cmid % 64 ? launch_res_block<32>(a, smem, st)
-                           : launch_res_block<64>(a, smem, st);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  if (short_shift(acc1) && short_shift(out1) && short_shift(acc2) &&
+      short_shift(out2) && short_shift(sh_out))
+    return dispatch<true>(a, w1p, w2p, nullptr, st);
+  return dispatch<false>(a, w1p, w2p, nullptr, st);
+}
+
+// The kernel's layout at an H x W x C stage with Cmid mid channels:
+// info[0..8] = tile height, tile width, halo rows per phase-1 box (R1),
+// dynamic shared memory bytes, resident blocks per SM, BN1, BN2, consumer
+// warpgroups, ring stages. Returns 0, or an error code where the shape is
+// not taken or no tile fits in shared memory.
+int yolo_int8_res_block_info(int H, int W, int C, int Cmid, int* info) {
+  if (bad_shape(H, W, C, Cmid)) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(base_args(H, W, C, Cmid), nullptr, nullptr, info,
+                        nullptr);
 }
 
 }  // extern "C"

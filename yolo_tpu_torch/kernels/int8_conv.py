@@ -14,10 +14,12 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
   (k 1 or 3, stride, padding, a two-part concat input, a leaky slope).
 
 K1-K3 and ``int8_conv_requant`` launch the tensor-core implicit GEMM of
-``csrc/int8_conv.cuh`` (built by ``csrc/int8_conv.cu`` and
+``csrc/int8_conv.cuh`` (mma.sync; built by ``csrc/int8_conv.cu`` and
 ``csrc/int8_conv_general.cu``), K4 the fused block of
-``csrc/int8_res_block.cu`` (each file's header note says what bounds
-them). A wrapper given a CUDA tensor launches the kernel, adds one to its
+``csrc/int8_res_block.cu`` (wgmma fed by a TMA ring, ``csrc/
+int8_wgmma.cuh``; it reads its weights K-major, packed once per model by
+``pack_res_block_weights``). Each file's header note says what bounds
+them. A wrapper given a CUDA tensor launches the kernel, adds one to its
 count in ``launch_counts()`` once the launch has succeeded, and raises if
 it fails or if the kernel does not take its arguments; given a CPU tensor
 it runs the plain version, which is exact integer arithmetic: float64
@@ -26,6 +28,10 @@ int32 requant chain of ``fixed_point``.
 """
 
 from __future__ import annotations
+
+import collections
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -419,11 +425,52 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     return _launch_conv_requant(parts, w_q, b_q, **kw)
 
 
+def pack_res_block_weights(w1_q: torch.Tensor, w2_q: torch.Tensor):
+    """K4's weights in the K-major form its kernel reads, made once per
+    model: w1 [C, Cmid] (or [1, 1, C, Cmid]) -> [Cmid, C]; w2 HWIO
+    [3, 3, Cmid, C] -> [C, 9 * Cmid] in (dy, dx, c) order (OHWI).
+    Returns (w1p, w2p), contiguous, on the weights' device."""
+    c, cmid = w1_q.shape[-2], w1_q.shape[-1]
+    if tuple(w2_q.shape) != (3, 3, cmid, c):
+        raise ValueError(f"w2_q must be [3, 3, {cmid}, {c}], got "
+                         f"{list(w2_q.shape)}")
+    _PACKS["res_block"] += 1
+    w1p = w1_q.reshape(c, cmid).t().contiguous()
+    w2p = w2_q.permute(3, 0, 1, 2).reshape(c, 9 * cmid).contiguous()
+    return w1p, w2p
+
+
+def unpack_res_block_weights(packed):
+    """The inverse of ``pack_res_block_weights``: (w1 [C, Cmid], w2 HWIO
+    [3, 3, Cmid, C]) views of the packed pair."""
+    w1p, w2p = packed
+    c, cmid = w1p.shape[1], w1p.shape[0]
+    return w1p.t(), w2p.reshape(c, 3, 3, cmid).permute(1, 2, 3, 0)
+
+
+# packings made since the last reset (serving packs once per model)
+_PACKS = {"res_block": 0}
+
+
+def res_block_pack_count() -> int:
+    """Calls of ``pack_res_block_weights`` since the last reset."""
+    return _PACKS["res_block"]
+
+
+def reset_res_block_pack_count() -> None:
+    _PACKS["res_block"] = 0
+
+
 def int8_res_block_plain(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *,
-                         sa_res=None, leaky=True, rounding="nearest"):
+                         sa_res=None, leaky=True, rounding="nearest",
+                         packed=None):
     """The chain K4 fuses: 1x1 conv + requant, 3x3 conv (pad 1) + requant,
     and with ``sa_res`` the residual add with ``x_q``, requantized to
-    2^sa_res (``fixed_point.int_add_requant``)."""
+    2^sa_res (``fixed_point.int_add_requant``). The HWIO weights are used
+    where given, else those of ``packed`` (from
+    ``pack_res_block_weights``)."""
+    if w1_q is None or w2_q is None:
+        w1_q, w2_q = unpack_res_block_weights(packed)
     w1 = w1_q.reshape(1, 1, *w1_q.shape[-2:])
     y1 = int8_conv_requant_plain(x_q, w1, b1_q, padding=0, leaky=leaky,
                                  rounding=rounding, **p1)
@@ -435,22 +482,46 @@ def int8_res_block_plain(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *,
     return out
 
 
-# the largest dynamic shared memory a block may take (H100: 227 KB)
-_MAX_SMEM = 232448
+_CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+# K4's launch layout at a stage, as yolo_int8_res_block_info reports it
+ResBlockLayout = collections.namedtuple("ResBlockLayout", (
+    "tile_h", "tile_w", "halo_rows_per_box", "smem_bytes", "blocks_per_sm",
+    "bn1", "bn2", "consumer_warpgroups", "ring_stages"))
 
 
-def _res_block_tile(h, w, cmid):
-    """Output tile (th, tw) of the K4 kernel: up to 16 x 16 pixels, whose
-    y1 with its halo and the two 15 KB GEMM stages fit in shared memory
-    (C_mid <= 512 at every size)."""
-    th, tw = min(16, h), min(16, w)
-    if (th + 2) * (tw + 2) * cmid + 16 + 2 * (128 + 64) * 20 * 4 > _MAX_SMEM:
+@functools.lru_cache(maxsize=None)
+def res_block_layout(h, w, c, cmid) -> ResBlockLayout:
+    """The K4 kernel's launch layout at an H x W x C stage with C_mid mid
+    channels, as its CUDA source picks it (``plan`` in
+    ``csrc/int8_res_block.cu``). Needs the built kernels. Raises ValueError
+    where no tile fits in shared memory."""
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(ResBlockLayout._fields))()
+    rc = lib.yolo_int8_res_block_info(h, w, c, cmid, info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"C_mid = {cmid} is too wide for the residual block "
                          f"kernel's shared memory")
-    return th, tw
+    if rc:
+        raise RuntimeError(f"yolo_int8_res_block_info failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return ResBlockLayout(*info)
 
 
-def _launch_res_block(x_q, w1, b1_q, p1, w2_q, b2_q, p2, *, sa_res, leaky,
+def res_block_row_shares(th, tw, r1):
+    """Share of the 64-row wgmma steps run that carry pixels, in the 1x1
+    GEMM (halo pixels, ``r1`` halo rows per TMA box) and the 3x3 GEMM (tile
+    pixels; a warpgroup whose 64 rows lie past the tile runs none), for a
+    full th x tw tile: (share_1x1, share_3x3)."""
+    hh, hw = th + 2, tw + 2
+    rows1 = sum(-(-min(r1, hh - c) * hw // 64) * 64
+                for c in range(0, hh, r1))
+    p2 = th * tw
+    return hh * hw / rows1, p2 / (-(-p2 // 64) * 64)
+
+
+def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
                       rounding) -> torch.Tensor:
     _check_rounding(rounding)
     num = _slope_num(leaky)
@@ -461,18 +532,22 @@ def _launch_res_block(x_q, w1, b1_q, p1, w2_q, b2_q, p2, *, sa_res, leaky,
     if x_q.dtype != torch.int8 or x_q.ndim != 4 or not x_q.is_contiguous():
         raise ValueError("x_q must be a contiguous int8 [B, H, W, C] tensor")
     bsz, h, w, c = x_q.shape
-    cmid = w1.shape[-1]
+    w1p, w2p = packed
+    cmid = w1p.shape[0]
     if c % 64 or cmid % 32:
         raise ValueError(f"the residual block kernel needs C % 64 == 0 and "
                          f"C_mid % 32 == 0, got C {c}, C_mid {cmid}")
-    _check_operand("w1_q", w1, dev, torch.int8, (c, cmid))
-    _check_operand("w2_q", w2_q, dev, torch.int8, (3, 3, cmid, c))
+    if h and w:
+        res_block_layout(h, w, c, cmid)  # raises where no tile fits
+    _check_operand("packed w1", w1p, dev, torch.int8, (cmid, c))
+    _check_operand("packed w2", w2p, dev, torch.int8, (c, 9 * cmid))
     _check_operand("b1_q", b1_q, dev, b1_q.dtype, (cmid,))
     _check_operand("b2_q", b2_q, dev, b2_q.dtype, (c,))
-    w1, w2 = w1.contiguous(), w2_q.contiguous()
+    if not (w1p.is_contiguous() and w2p.is_contiguous()):
+        raise ValueError("the packed weights must be contiguous")
     _aligned("x_q", x_q, 16)
-    _aligned("w1_q", w1, 4)
-    _aligned("w2_q", w2, 4)
+    _aligned("packed w1", w1p, 16)
+    _aligned("packed w2", w2p, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     sh = (0, 0, 0)
@@ -488,10 +563,9 @@ def _launch_res_block(x_q, w1, b1_q, p1, w2_q, b2_q, p2, *, sa_res, leaky,
     _aligned("the output allocation", out, 16)
     b1_rt = _bias_at_retune(b1_q, p1["sb"], p1["retune"], rounding)
     b2_rt = _bias_at_retune(b2_q, p2["sb"], p2["retune"], rounding)
-    th, tw = _res_block_tile(h, w, cmid)
     launch("int8_res_block", "yolo_int8_res_block", dev,
-           x_q.data_ptr(), w1.data_ptr(), b1_rt.data_ptr(), w2.data_ptr(),
-           b2_rt.data_ptr(), out.data_ptr(), bsz, h, w, c, cmid, th, tw,
+           x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(), w2p.data_ptr(),
+           b2_rt.data_ptr(), out.data_ptr(), bsz, h, w, c, cmid,
            p1["sa_in"] + p1["sw"] - p1["retune"], p1["retune"] - p1["sa_out"],
            p2["sa_in"] + p2["sw"] - p2["retune"], p2["retune"] - p2["sa_out"],
            num, int(rounding == "nearest"), int(sa_res is not None),
@@ -500,17 +574,23 @@ def _launch_res_block(x_q, w1, b1_q, p1, w2_q, b2_q, p2, *, sa_res, leaky,
 
 
 def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
-                   leaky=True, rounding="nearest"):
+                   leaky=True, rounding="nearest", packed=None):
     """Fused darknet residual block: int8 [B,H,W,C] -> 1x1 conv + requant
     (C -> Cmid) -> 3x3 conv (s1, p1) + requant (Cmid -> C) -> [residual
     add + requant to 2^sa_res] -> int8 [B,H,W,C], the mid activation kept
     on chip. ``p1``/``p2`` carry sw, sb, sa_in, sa_out, retune; ``w1_q`` is
     [C, Cmid] or [1, 1, C, Cmid]; ``leaky`` is False, True (0.125) or a
-    float slope (the darknet53 backbone's 0.1), for both convs."""
+    float slope (the darknet53 backbone's 0.1), for both convs.
+
+    ``packed``: the weights from ``pack_res_block_weights`` (then ``w1_q``
+    and ``w2_q`` may be None). The kernel reads that form; given only the
+    HWIO weights, the wrapper packs them for this call."""
     if p2["sa_in"] != p1["sa_out"]:
         raise ValueError("conv2's sa_in must be conv1's sa_out")
-    w1 = w1_q.reshape(w1_q.shape[-2], w1_q.shape[-1])
     kw = dict(sa_res=sa_res, leaky=leaky, rounding=rounding)
     if route(x_q) == "plain":
-        return int8_res_block_plain(x_q, w1, b1_q, p1, w2_q, b2_q, p2, **kw)
-    return _launch_res_block(x_q, w1, b1_q, p1, w2_q, b2_q, p2, **kw)
+        return int8_res_block_plain(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2,
+                                    packed=packed, **kw)
+    if packed is None:
+        packed = pack_res_block_weights(w1_q, w2_q)
+    return _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, **kw)

@@ -3,10 +3,14 @@
 JAX package's int8 ceiling probe, K5).
 
 ``int8_gemm(a, b)``: int8 [M, K] x int8 [K, N] -> int32 [M, N]. On a CUDA
-tensor it launches ``csrc/int8_gemm.cu`` (the conv kernels' tile main
-loop, so the probe measures their ceiling) and counts the launch in
+tensor it launches ``csrc/int8_gemm.cu`` (wgmma fed by a TMA ring, the
+main loop of ``csrc/int8_wgmma.cuh``) and counts the launch in
 ``launch_counts()``; on a CPU tensor it runs the plain version, an exact
-int64 matmul. ``torch._int_mm`` is the library yardstick beside it in
+int64 matmul. The kernel takes both operands K-major: a ``b`` whose
+``b.t()`` is contiguous (the column-major layout ``torch._int_mm`` takes)
+goes in as it is, any other ``b`` as a K-major copy; where K % 16 != 0
+both are zero-padded on K (TMA's rows are 16-byte multiples; the zeros add
+nothing). ``torch._int_mm`` is the library yardstick beside it in
 ``chip_smoke.py``; the port never calls it.
 """
 
@@ -29,6 +33,20 @@ def int8_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.int32)
 
 
+def pad_k(t: torch.Tensor, multiple: int = 16) -> torch.Tensor:
+    """``t`` [R, K] zero-padded on K to a multiple of ``multiple`` (``t``
+    itself where K already is one)."""
+    extra = -t.shape[-1] % multiple
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
+def k_major(b: torch.Tensor) -> torch.Tensor:
+    """B [K, N] as the contiguous [N, K] the kernel reads: ``b.t()`` itself
+    when it is contiguous, else a copy."""
+    bt = b.t()
+    return bt if bt.is_contiguous() else bt.contiguous()
+
+
 def _launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise ValueError("int8_gemm takes int8 operands")
@@ -37,21 +55,20 @@ def _launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{list(a.shape)} x {list(b.shape)}")
     if b.device != a.device:
         raise ValueError("int8_gemm operands must share a device")
-    a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
-    if k == 0 or max(m, n, k) >= 2 ** 31 or m * k >= 2 ** 62:
+    if k == 0 or max(m, n, k) > 2 ** 31 - 256:
         raise ValueError(f"int8_gemm cannot take M, N, K = {m}, {n}, {k}")
-    if (k % 16 == 0 and a.data_ptr() % 16) or b.data_ptr() % 4:
-        raise ValueError("a must be 16-byte aligned (K % 16 == 0) and b "
-                         "4-byte aligned")
+    a, bt = pad_k(a.contiguous()), pad_k(k_major(b))
+    if a.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("a and b must be 16-byte aligned (TMA)")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
     if out.data_ptr() % 8:
         raise ValueError("the output allocation is not 8-byte aligned")
     launch("int8_gemm", "yolo_int8_gemm", a.device, a.data_ptr(),
-           b.data_ptr(), out.data_ptr(), m, n, k)
+           bt.data_ptr(), out.data_ptr(), m, n, a.shape[1])
     return out
 
 

@@ -124,6 +124,9 @@ class Int8YoloV3:
     tap_sa: List[int]
     retune: List[int]
     program: List[Tuple] = field(repr=False, default=None)
+    # {index of a block's 1x1 conv: its (w1, w2) packed K-major for the
+    # residual-block kernel}, made once by ``pack_res_blocks``
+    res_packed: Dict[int, Tuple] = field(repr=False, default=None)
 
     def __post_init__(self):
         if self.program is None:
@@ -136,6 +139,21 @@ class Int8YoloV3:
             b_q=[b.to(device) for b in self.b_q], sw=list(self.sw),
             sb=list(self.sb), sa_in=self.sa_in, tap_sa=list(self.tap_sa),
             retune=list(self.retune), program=self.program)
+
+    def pack_res_blocks(self) -> None:
+        """Pack the weights of every residual block once
+        (``pack_res_block_weights``), so the forward never packs."""
+        from yolo_tpu_torch.kernels.int8_conv import pack_res_block_weights
+
+        self.res_packed = {}
+        conv_i = 0
+        for i, op in enumerate(self.program):
+            if op[0] == "push":
+                _check_res_block(self, i, conv_i)
+                self.res_packed[conv_i] = pack_res_block_weights(
+                    self.w_q[conv_i], self.w_q[conv_i + 1])
+            elif op[0] == "conv":
+                conv_i += 1
 
 
 def _check_unported(s2d=False, limit=None, input_s2d=False, mesh=None):
@@ -190,7 +208,8 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
             out = int8_res_block(x, m.w_q[conv_i], m.b_q[conv_i], p1,
                                  m.w_q[conv_i + 1], m.b_q[conv_i + 1], p2,
                                  sa_res=sa_res, leaky=prog[i + 1][4],
-                                 rounding=rounding)
+                                 rounding=rounding,
+                                 packed=(m.res_packed or {}).get(conv_i))
             stream = (out, sa_res)
             tap_i += 3
             conv_i += 2
@@ -232,12 +251,16 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
     float32 (quantized on the device) or int8 at scale 2^sa_in ->
     (boxes, scores, classes, valid).
 
-    The model's tensors move to ``device`` once, here; the images are
+    The model's tensors move to ``device`` once, here, and on a CUDA
+    device the residual blocks' weights are packed there once for the
+    fused kernel (the CPU route reads the HWIO weights); the images are
     moved there per call if they are elsewhere. Raises if ``device`` is
     CUDA and there is none; never falls back to the CPU."""
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
+    if dev.type == "cuda":
+        m_dev.pack_res_blocks()
 
     def detect(images):
         images = torch.as_tensor(images).to(dev)
