@@ -17,16 +17,22 @@ raises and the script exits nonzero:
 2. every kernel against its plain PyTorch version (torch.equal) at the
    ten slim layer shapes, batch 8, with asymmetric weights, nonzero
    biases, both roundings, an accumulator shift >= 32 and a negative
-   output shift; plus K2 with assembly='stride2' and K3 with pool=False
-   (phase 4 checks them again at the serving batch);
+   output shift; plus K2 with assembly='stride2', K3 with pool=False and
+   K1 at C_in 16 (its mma.sync route) (phase 4 checks them again at the
+   serving batch);
 3. the golden fixture (``yolo_tpu_torch/data/slim_int8_416_golden.npz``,
    made by the JAX package): the int8 head bit-exact, classes and valid
    exact, boxes and scores allclose (atol = rtol = 1e-5);
 4. serving: batch 256 through ``make_int8_detect_fn``, timed, with the
    launch counts of each kernel checked (per forward: K2 once, K3 3
-   times, K1 6 times); then each layer's kernel checked against its
-   plain version (torch.equal) and both timed at batch 256, beside
-   cuDNN's fp16 conv (a speed yardstick only);
+   times, K1 6 times, all 6 on the wgmma conv3x3) and K1's weights packed
+   6 times when the detect fn took the model, never in the loop; then
+   each layer's kernel checked against its plain version (torch.equal)
+   and both timed at batch 256, beside cuDNN's fp16 conv (a speed
+   yardstick only), K1's layers also beside the mma.sync conv kernel
+   they ran on before (same call) and with the wgmma kernel's layout
+   (tile, ring stages, blocks per SM, share of its 64-row wgmma steps on
+   pixels);
 2b. the yolo_v3 kernels against their plain versions (torch.equal):
    ``int8_res_block`` (K4) at the five darknet53 stage shapes, batch 4,
    slopes 0.1 and 0.125, both roundings, without the residual, with an
@@ -35,7 +41,9 @@ raises and the script exits nonzero:
    the pre-packed K-major form; K4 also at three shapes whose tiles leave
    edge tiles (100², 50², 27²); ``int8_conv_requant`` at every distinct
    conv shape of the v3 program (the C_in = 3 entry conv, the stride-2
-   convs, the two-part concat convs, the heads), both roundings;
+   convs, the two-part concat convs, the heads), both roundings; the
+   wgmma conv3x3 through both wrappers at three shapes whose tiles leave
+   edge tiles (27², 50², 100²), from HWIO and from packed weights;
    ``int8_gemm`` (K5) at six GEMM shapes, M, N and K not multiples of its
    128 x 256 x 128 tile, three with K % 16 != 0 (padded on K), each with b
    as [K, N] and K-major;
@@ -46,20 +54,27 @@ raises and the script exits nonzero:
    (atol = rtol = 1e-5);
 4b. yolo_v3 serving: batch 128 through ``make_int8_yolo_v3_detect_fn``,
    timed as phase 4, with the launch counts checked (per forward: K4 23,
-   ``int8_conv_requant`` 29) and K4's weights packed once, when the detect
-   fn took the model, never in the loop; then each distinct shape checked
+   ``int8_conv_requant`` 29: the nine head 3x3s on the wgmma conv3x3, 20
+   on the mma.sync conv) and the weights of K4 and of the nine 3x3s packed
+   once, when the detect fn took the model, never in the loop; then each
+   distinct shape checked
    and timed (kernel, plain version, bound, and a library yardstick the
    port never calls: cuDNN fp16 convs for K4 and the 3x3 convs,
    ``torch._int_mm`` for the 1x1 convs and K5), with K4's layout at each
-   stage as its CUDA source picks it (tile, the share of its 64-row wgmma
-   steps that carry pixels, blocks per SM, ring stages) and, at 13², its
+   stage and the wgmma conv3x3's at each head 3x3 as their CUDA sources
+   pick them (tile, the share of the 64-row wgmma steps that carry
+   pixels, blocks per SM, ring stages), the head 3x3s also beside the
+   mma.sync conv kernel (same call), and, at 13², K4's
    time at batch 128, at one block per SM and at two (what the 4 SMs that
    batch 128 leaves idle could give); K5 is timed with b K-major, the
    layout ``torch._int_mm`` reads, so both read the same bytes.
 
-K4 (``csrc/int8_res_block.cu``) and K5 (``csrc/int8_gemm.cu``) run on
-wgmma fed by a TMA ring (``csrc/int8_wgmma.cuh``); K1-K3 and the general
-conv keep the mma.sync main loop of ``csrc/int8_common.cuh``.
+K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
+stride-1 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the
+serving path and the v3 head's nine 3x3s) run on wgmma fed by a TMA ring
+(``csrc/int8_wgmma.cuh``); K2, K3 and the rest of the general conv keep
+the mma.sync main loop of ``csrc/int8_common.cuh``. The ``kernels`` line
+has one entry per kernel and route: ``int8_conv_requant`` twice.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -83,24 +98,37 @@ BATCH_CHECK, BATCH_SERVE, SIZE = 8, 256, 416
 V3_BATCH_CHECK, V3_BATCH_SERVE, V3_PRED_OUT = 4, 128, 21
 SERVE_WARMUP, SERVE_ITERS = 3, 10
 CSRC = "yolo_tpu_torch/kernels/csrc/"
-SOURCES = {
-    "int8_conv3x3_requant": CSRC + "int8_conv.cu",
-    "int8_conv3x3_pool_requant": CSRC + "int8_conv.cu",
-    "int8_conv3x3_im2col": CSRC + "int8_conv.cu",
-    "int8_res_block": CSRC + "int8_res_block.cu",
-    "int8_conv_requant": CSRC + "int8_conv_general.cu",
-    "int8_gemm": CSRC + "int8_gemm.cu",
+WGMMA3 = "yolo_int8_conv3x3_wgmma"  # the wgmma conv3x3's C entry
+# The kernels line, one entry per kernel and route: name -> (wrapper, the
+# C entry it launches there, source, the TPU kernel (Pallas body) it
+# replaces; int8_conv_requant replaces XLA's integer conv in
+# int_conv_requant, no Pallas kernel)
+LINES = {
+    "int8_conv3x3_requant": (
+        "int8_conv3x3_requant", WGMMA3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:100"),
+    "int8_conv3x3_pool_requant": (
+        "int8_conv3x3_pool_requant", "yolo_int8_conv3x3_requant",
+        CSRC + "int8_conv.cu", "yolo_tpu/kernels/int8_conv.py:306"),
+    "int8_conv3x3_im2col": (
+        "int8_conv3x3_im2col", "yolo_int8_conv3x3_requant",
+        CSRC + "int8_conv.cu", "yolo_tpu/kernels/int8_conv.py:145"),
+    "int8_res_block": (
+        "int8_res_block", "yolo_int8_res_block", CSRC + "int8_res_block.cu",
+        "yolo_tpu/kernels/int8_conv.py:567"),
+    "int8_conv_requant.conv3x3_wgmma": (
+        "int8_conv_requant", WGMMA3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.mma_sync": (
+        "int8_conv_requant", "yolo_int8_conv_requant",
+        CSRC + "int8_conv_general.cu", "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_gemm": (
+        "int8_gemm", "yolo_int8_gemm", CSRC + "int8_gemm.cu",
+        "scripts/bench_int8_ceiling.py:68"),
 }
-# TPU kernel (Pallas body) each wrapper replaces; int8_conv_requant
-# replaces XLA's integer conv in int_conv_requant (no Pallas kernel)
-REPLACES = {
-    "int8_conv3x3_requant": "yolo_tpu/kernels/int8_conv.py:100",
-    "int8_conv3x3_pool_requant": "yolo_tpu/kernels/int8_conv.py:306",
-    "int8_conv3x3_im2col": "yolo_tpu/kernels/int8_conv.py:145",
-    "int8_res_block": "yolo_tpu/kernels/int8_conv.py:567",
-    "int8_conv_requant": "yolo_tpu/quant/fixed_point.py:725",
-    "int8_gemm": "scripts/bench_int8_ceiling.py:68",
-}
+# the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
+CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
+                       (2, 100, 32, 64)]
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
@@ -203,7 +231,7 @@ def shifts(c_in: int, case: str):
     return kw
 
 
-def call(form, x, w, bias, c_in, kw):
+def call(form, x, w, bias, c_in, kw, packed=None):
     from yolo_tpu_torch.kernels import int8_conv as K
 
     if form == "s2d":
@@ -216,7 +244,7 @@ def call(form, x, w, bias, c_in, kw):
     if form in ("im2col_pool", "im2col"):
         return K.int8_conv3x3_im2col(x, w, bias, pool=form == "im2col_pool",
                                      **kw)
-    return K.int8_conv3x3_requant(x, w, bias, **kw)
+    return K.int8_conv3x3_requant(x, w, bias, packed=packed, **kw)
 
 
 def plain(form, x, w, bias, c_in, kw):
@@ -234,12 +262,18 @@ def plain(form, x, w, bias, c_in, kw):
     return K.int8_conv3x3_requant_plain(x, w, bias, **kw)
 
 
-FORM_KERNEL = {"s2d": "int8_conv3x3_pool_requant",
-               "stride2": "int8_conv3x3_pool_requant",
-               "s2d_assembly": "int8_conv3x3_pool_requant",
-               "im2col_pool": "int8_conv3x3_im2col",
-               "im2col": "int8_conv3x3_im2col",
-               "requant": "int8_conv3x3_requant"}
+def ran_line() -> str:
+    """The kernels-line name of the one launch since the counts were last
+    reset (``wrapper (C entry)`` for a route off the serving paths)."""
+    from yolo_tpu_torch.kernels import launch_counts_by_entry
+
+    (wrapper, entries), = launch_counts_by_entry().items()
+    (entry, n), = entries.items()
+    assert n == 1, entries
+    for name, (w, e, _, _) in LINES.items():
+        if (w, e) == (wrapper, entry):
+            return name
+    return f"{wrapper} ({entry})"
 
 
 def main_form(name, pool):
@@ -250,12 +284,15 @@ def main_form(name, pool):
 
 def phase_kernels(max_err):
     """Every kernel == its plain version on the card (phase 2)."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
     gen = torch.Generator().manual_seed(0)
     cases = [(name, h, ci, co, pool, main_form(name, pool))
              for name, h, ci, co, pool, _ in slim_layers()]
     cases += [("conv1", SIZE, 3, 16, True, "stride2"),
               ("conv1", SIZE, 3, 16, True, "s2d_assembly"),
-              ("conv2", SIZE // 2, 16, 32, False, "im2col")]
+              ("conv2", SIZE // 2, 16, 32, False, "im2col"),
+              ("conv2", SIZE // 2, 16, 32, False, "requant")]
     n = 0
     for name, h, c_in, c_out, pool, form in cases:
         x, w, bias = make_case(gen, BATCH_CHECK, h, c_in, c_out,
@@ -266,20 +303,16 @@ def phase_kernels(max_err):
                     continue
                 kw = dict(shifts(c_in, case), leaky=name != "pred",
                           rounding=rounding)
+                K.reset_launch_counts()
                 got = call(form, x, w, bias, c_in, kw)
                 torch.cuda.synchronize()
-                want = plain(form, x, w, bias, c_in, kw)
-                err = int((got.int() - want.int()).abs().max())
-                k = FORM_KERNEL[form]
-                max_err[k] = max(max_err[k], err)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{k} ({form}) differs from its plain version at "
-                        f"{name} {rounding} {case}: max |diff| {err}")
+                k = ran_line()
+                check_equal(k, got, plain(form, x, w, bias, c_in, kw),
+                            max_err, f"{name} ({form}) {rounding} {case}")
                 n += 1
         emit("kernels_vs_plain", layer=name, form=form, kernel=k,
              shape=[BATCH_CHECK, h, h, c_in, c_out], equal=True,
-             out_std=round(float(want.float().std()), 3))
+             out_std=round(float(got.float().std()), 3))
     emit("kernels_vs_plain_done", cases=n, max_abs_err=max_err)
 
 
@@ -332,11 +365,17 @@ def phase_serving(m, cfg, card):
                         device="cuda")
     x2 = fp.s2d_input(fp.quantize_input(images, m.sa["in"])).contiguous()
     del images
+    K.reset_conv3x3_pack_count()
     detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
+    packs_at_setup = K.conv3x3_pack_count()
+    if packs_at_setup != 6:
+        raise AssertionError(f"the detect fn packed {packs_at_setup} K1 "
+                             f"layers, want 6")
     for _ in range(SERVE_WARMUP):
         detect(x2)
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x2)
@@ -349,44 +388,68 @@ def phase_serving(m, cfg, card):
                  "int8_conv3x3_requant": 6 * SERVE_ITERS})
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
+    entries = K.launch_counts_by_entry()
+    if entries["int8_conv3x3_requant"] != {WGMMA3: 6 * SERVE_ITERS}:
+        raise AssertionError(f"K1 launched {entries['int8_conv3x3_requant']}"
+                             f", want all {6 * SERVE_ITERS} on {WGMMA3}")
+    if K.conv3x3_pack_count():
+        raise AssertionError(f"serving packed K1 weights "
+                             f"{K.conv3x3_pack_count()} times")
     boxes, scores, classes, valid = out
     if (tuple(boxes.shape) != (BATCH_SERVE, cfg.top_k, 4)
             or not torch.isfinite(boxes).all()
             or not torch.isfinite(scores).all()):
         raise AssertionError("serving output has the wrong shape or is "
                              "not finite")
-    head_ms = time_ms(lambda: fp.int8_forward(m, x2, input_s2d=True), 5)
+    m_packed = m.to("cuda")
+    m_packed.pack_conv3x3()  # the weights the detect fn serves
+    head_ms = time_ms(lambda: fp.int8_forward(m_packed, x2, input_s2d=True),
+                      5)
     emit("serving", batch=BATCH_SERVE, iters=SERVE_ITERS,
          images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
-         launches=counts, card=card)
-    return counts
+         launches=counts, launches_by_entry=entries,
+         conv3x3_packs_at_setup=packs_at_setup, conv3x3_packs_in_loop=0,
+         card=card)
+    return entries
 
 
 def phase_layer_times(card_name, max_err):
     """Each main-path layer at batch 256: kernel == plain version, then
     kernel, plain version and cuDNN fp16 conv timed, and the bound
     (phase 4, timing)."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
     peak_ops, peak_bw = peaks(card_name)
     torch.backends.cudnn.benchmark = True
     gen = torch.Generator().manual_seed(2)
     per_kernel = {}
-    for name, h, c_in, c_out, pool, kernel in slim_layers():
+    for name, h, c_in, c_out, pool, _ in slim_layers():
         form = main_form(name, pool)
         x, w, bias = make_case(gen, BATCH_SERVE, h, c_in, c_out,
                                s2d=form == "s2d")
         kw = dict(shifts(c_in, "plain"), leaky=name != "pred",
                   rounding="nearest")
-        got = call(form, x, w, bias, c_in, kw)
+        # K1 reads its weights packed, as serving does
+        packed = K.pack_conv3x3_weights(w) if form == "requant" else None
+        K.reset_launch_counts()
+        got = call(form, x, w, bias, c_in, kw, packed)
+        line = ran_line()
         want = plain(form, x, w, bias, c_in, kw)
-        err = int((got.int() - want.int()).abs().max())
-        max_err[kernel] = max(max_err[kernel], err)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"{kernel} ({form}) differs from its plain version at {name}, "
-                f"batch {BATCH_SERVE}: max |diff| {err}")
+        check_equal(line, got, want, max_err,
+                    f"{name} ({form}), batch {BATCH_SERVE}")
+        extra = {}
+        if line == "int8_conv3x3_requant":
+            # the mma.sync conv kernel K1 ran on before, at the same shape
+            mma = lambda: K._launch(  # noqa: E731
+                "int8_conv3x3_requant", x, w, bias, h=h, w=h, c_in=c_in,
+                pool=False, s2d=False, **kw)
+            check_equal(f"{line} (mma.sync)", mma(), want, max_err,
+                        f"{name}, batch {BATCH_SERVE}")
+            extra = layout_fields(K.conv3x3_wgmma_layout(h, h, c_in, c_out))
+            extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
-        ms = time_ms(lambda: call(form, x, w, bias, c_in, kw), 10)
+        ms = time_ms(lambda: call(form, x, w, bias, c_in, kw, packed), 10)
         plain_ms = time_ms(lambda: plain(form, x, w, bias, c_in, kw), 2,
                            warmup=1)
         xh = torch.randn((BATCH_SERVE, c_in, h, h), device="cuda",
@@ -403,25 +466,28 @@ def phase_layer_times(card_name, max_err):
         nbytes = (x.numel() + w.numel() + 4 * c_out
                   + BATCH_SERVE * ho * ho * c_out)
         t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
-        emit("layer_time", layer=name, kernel=kernel, batch=BATCH_SERVE,
+        emit("layer_time", layer=name, kernel=line, batch=BATCH_SERVE,
              equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=max(t_ops, t_bytes),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
-             tops=ops / ms / 1e9)
-        add_time(per_kernel, kernel, 1, ms, plain_ms, lib_ms, t_ops,
-                 t_bytes)
-        del x, w, bias
+             tops=ops / ms / 1e9, **extra)
+        add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops,
+                 t_bytes, extra.get("mma_sync_ms"))
+        del x, w, bias, packed
         torch.cuda.empty_cache()
     return per_kernel
 
 
 def add_time(per_kernel, kernel, count, ms, plain_ms, lib_ms, t_ops,
-             t_bytes):
+             t_bytes, mma_sync_ms=None):
     """Add one shape's times, ``count`` launches of it per forward, to its
-    kernel's per-forward sums; the bound is the sum of each shape's own."""
+    kernel's per-forward sums; the bound is the sum of each shape's own.
+    ``mma_sync_ms``: a wgmma conv3x3 shape's time on the mma.sync conv."""
     agg = per_kernel.setdefault(kernel, dict(
         ms=0.0, plain_ms=0.0, library_ms=0.0, t_ops=0.0, t_bytes=0.0,
         bound_ms=0.0))
+    if mma_sync_ms is not None:
+        agg["mma_sync_ms"] = agg.get("mma_sync_ms", 0.0) + count * mma_sync_ms
     agg["ms"] += count * ms
     agg["plain_ms"] += count * plain_ms
     agg["library_ms"] += count * lib_ms
@@ -523,9 +589,17 @@ def conv_input(xs, kw, split_scales=True):
     return [(xs[0], sa), (xs[1], sa + 2 if split_scales else sa)]
 
 
+def layout_fields(lay):
+    """The wgmma conv3x3's layout at a shape, for a JSON line."""
+    return dict(tile=[lay.tile_h, lay.tile_w], ring_stages=lay.ring_stages,
+                blocks_per_sm=lay.blocks_per_sm, bn=lay.bn,
+                consumer_warpgroups=lay.consumer_warpgroups,
+                rows_used=lay.tile_pixels / lay.mma_rows)
+
+
 def check_equal(kernel, got, want, max_err, what):
     err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
-    max_err[kernel] = max(max_err[kernel], err)
+    max_err[kernel] = max(max_err.get(kernel, 0), err)
     if not torch.equal(got, want):
         raise AssertionError(f"{kernel} differs from its plain version at "
                              f"{what}: max |diff| {err}")
@@ -580,17 +654,46 @@ def phase_v3_kernels(max_err):
         for rounding, case, split in cases:
             kw = conv_kw(key, case, rounding)
             x = conv_input(xs, kw, split)
+            K.reset_launch_counts()
             got = K.int8_conv_requant(x, w, bias, **kw)
             torch.cuda.synchronize()
+            line = ran_line()
             want = K.int8_conv_requant_plain(x, w, bias, **kw)
-            check_equal("int8_conv_requant", got, want, max_err,
+            check_equal(line, got, want, max_err,
                         f"{key} {rounding} {case} split={split}")
             if case == "plain" and rounding == "nearest" and split:
                 std = float(got.float().std())
             n += 1
-        emit("v3_kernels_vs_plain", kernel="int8_conv_requant",
+        emit("v3_kernels_vs_plain", kernel=line,
              shape=[V3_BATCH_CHECK, *key[:5], key[5]], leaky=key[6],
              equal=True, out_std=round(std, 3))
+    for bsz, h, c_in, c_out in CONV3X3_EDGE_SHAPES:
+        x = ri(gen, (bsz, h, h, c_in), -128, 128, torch.int8)
+        w = ri(gen, (3, 3, c_in, c_out), -90, 120, torch.int8)
+        bias = ri(gen, (c_out,), -100, 100, torch.int32)
+        packed = K.pack_conv3x3_weights(w)
+        for wrapper, rounding, case, form in (
+                ("int8_conv3x3_requant", "nearest", "plain", "hwio"),
+                ("int8_conv3x3_requant", "floor", "out_shift<0", "packed"),
+                ("int8_conv_requant", "nearest", "acc_shift>=32", "packed"),
+                ("int8_conv_requant", "floor", "plain", "hwio")):
+            kw = dict(shifts(c_in, case), leaky=True, rounding=rounding)
+            if wrapper == "int8_conv_requant":
+                kw.update(padding=1, stride=1)
+            fn = getattr(K, wrapper)
+            K.reset_launch_counts()
+            got = (fn(x, None, bias, packed=packed, **kw) if form == "packed"
+                   else fn(x, w, bias, **kw))
+            torch.cuda.synchronize()
+            want = getattr(K, wrapper + "_plain")(x, w, bias, **kw)
+            check_equal(ran_line(), got, want, max_err,
+                        f"{wrapper} {h}x{h} {c_in}->{c_out} {rounding} "
+                        f"{case} {form}")
+            n += 1
+        emit("v3_kernels_vs_plain", kernel="conv3x3_wgmma edge tiles",
+             shape=[bsz, h, h, c_in, c_out],
+             tile=list(K.conv3x3_wgmma_layout(h, h, c_in, c_out)[:2]),
+             equal=True)
     for m, k, nn in GEMM_SHAPES:
         a = ri(gen, (m, k), -128, 128, torch.int8)
         b = ri(gen, (k, nn), -128, 128, torch.int8)
@@ -660,43 +763,60 @@ def phase_v3_serving(m, cfg, card):
     x_q = fp.quantize_input(images, m.sa_in).contiguous()
     del images
     K.reset_res_block_pack_count()
+    K.reset_conv3x3_pack_count()
     detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
     packs_at_setup = K.res_block_pack_count()
-    if packs_at_setup != 23:
+    conv_packs_at_setup = K.conv3x3_pack_count()
+    if packs_at_setup != 23 or conv_packs_at_setup != 9:
         raise AssertionError(f"the detect fn packed {packs_at_setup} "
-                             f"residual blocks, want 23")
+                             f"residual blocks and {conv_packs_at_setup} "
+                             f"3x3 convs, want 23 and 9")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     K.reset_res_block_pack_count()
+    K.reset_conv3x3_pack_count()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x_q)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
-    if K.res_block_pack_count():
+    if K.res_block_pack_count() or K.conv3x3_pack_count():
         raise AssertionError(f"serving packed K4 weights "
-                             f"{K.res_block_pack_count()} times")
+                             f"{K.res_block_pack_count()} times, 3x3 conv "
+                             f"weights {K.conv3x3_pack_count()} times")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_res_block": 23 * SERVE_ITERS,
                  "int8_conv_requant": 29 * SERVE_ITERS})
     if counts != want:
         raise AssertionError(f"v3 launch counts {counts}, want {want}")
+    entries = K.launch_counts_by_entry()
+    want_routes = {WGMMA3: 9 * SERVE_ITERS,
+                   "yolo_int8_conv_requant": 20 * SERVE_ITERS}
+    if entries["int8_conv_requant"] != want_routes:
+        raise AssertionError(f"int8_conv_requant launched "
+                             f"{entries['int8_conv_requant']}, want "
+                             f"{want_routes}")
     boxes, scores, classes, valid = out
     if (tuple(boxes.shape) != (V3_BATCH_SERVE, cfg.top_k, 4)
             or not torch.isfinite(boxes).all()
             or not torch.isfinite(scores).all()):
         raise AssertionError("v3 serving output has the wrong shape or is "
                              "not finite")
-    head_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(m, x_q), 5)
+    m_packed = m.to("cuda")  # the weights the detect fn serves
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    head_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(m_packed, x_q), 5)
     emit("v3_serving", batch=V3_BATCH_SERVE, iters=SERVE_ITERS,
          images_per_sec=V3_BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
-         launches=counts, res_block_packs_at_setup=packs_at_setup,
-         res_block_packs_in_loop=0, card=card)
-    return counts
+         launches=counts, launches_by_entry=entries,
+         res_block_packs_at_setup=packs_at_setup,
+         conv3x3_packs_at_setup=conv_packs_at_setup, packs_in_loop=0,
+         card=card)
+    return entries
 
 
 def fp16_conv_ms(b, h, c_in, c_out, k, stride, pad):
@@ -751,15 +871,16 @@ def phase_v3_times(card_name, max_err):
     res, convs = v3_shapes()
     per_kernel = {}
 
-    def record(kernel, count, what, ms, plain_ms, lib_ms, ops, nbytes):
+    def record(kernel, count, what, ms, plain_ms, lib_ms, ops, nbytes,
+               **extra):
         t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
         emit("v3_shape_time", kernel=kernel, shape=what, per_forward=count,
              equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=max(t_ops, t_bytes),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
-             tops=ops / ms / 1e9)
+             tops=ops / ms / 1e9, **extra)
         add_time(per_kernel, kernel, count, ms, plain_ms, lib_ms, t_ops,
-                 t_bytes)
+                 t_bytes, extra.get("mma_sync_ms"))
 
     for (h, c, cmid), count in res.items():
         lay = K.res_block_layout(h, h, c, cmid)
@@ -798,10 +919,28 @@ def phase_v3_times(card_name, max_err):
         xs, w, bias = conv_case(gen, b, key)
         kw = conv_kw(key)
         x = conv_input(xs, kw)
-        check_equal("int8_conv_requant", K.int8_conv_requant(x, w, bias, **kw),
-                    K.int8_conv_requant_plain(x, w, bias, **kw), max_err,
-                    f"{key}, batch {b}")
-        ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, **kw), 10)
+        extra, packed = {}, None
+        if K.conv3x3_wgmma_route(k, stride, pad, len(cins), cins[0],
+                                 kw["sw"]):
+            packed = K.pack_conv3x3_weights(w)  # as serving reads it
+        K.reset_launch_counts()
+        got = K.int8_conv_requant(x, w, bias, packed=packed, **kw)
+        line = ran_line()
+        want = K.int8_conv_requant_plain(x, w, bias, **kw)
+        check_equal(line, got, want, max_err, f"{key}, batch {b}")
+        if packed is not None:
+            # the mma.sync conv kernel these 3x3s ran on before
+            mma = lambda: K._launch_conv_requant(  # noqa: E731
+                [(x, kw["sa_in"])], w, bias,
+                **{a: v for a, v in kw.items() if a != "sa_in"})
+            check_equal(f"{line} (mma.sync)", mma(), want, max_err,
+                        f"{key}, batch {b}")
+            extra = layout_fields(K.conv3x3_wgmma_layout(h, h, cins[0],
+                                                         cout))
+            extra["mma_sync_ms"] = time_ms(mma, 10)
+        del got, want
+        ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
+                                                 **kw), 10)
         plain_ms = time_ms(lambda: K.int8_conv_requant_plain(x, w, bias,
                                                              **kw),
                            2, warmup=1)
@@ -811,12 +950,11 @@ def phase_v3_times(card_name, max_err):
             lib_ms = int_mm_ms(b * h * h, sum(cins), cout)
         if lib_ms is None:
             lib_ms = fp16_conv_ms(b, h, sum(cins), cout, k, stride, pad)
-        record("int8_conv_requant", count,
-               [b, h, h, list(cins), cout, k, stride, pad], ms, plain_ms,
-               lib_ms, 2 * b * ho * ho * k * k * sum(cins) * cout,
+        record(line, count, [b, h, h, list(cins), cout, k, stride, pad], ms,
+               plain_ms, lib_ms, 2 * b * ho * ho * k * k * sum(cins) * cout,
                b * h * h * sum(cins) + w.numel() + 4 * cout
-               + b * ho * ho * cout)
-        del xs, x, w, bias
+               + b * ho * ho * cout, **extra)
+        del xs, x, w, bias, packed
         torch.cuda.empty_cache()
     m, k, n = GEMM_PROBE
     a = ri(gen, (m, k), -128, 128, torch.int8)
@@ -838,7 +976,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
         return 1
-    from yolo_tpu_torch.kernels import KERNEL_NAMES, build
+    from yolo_tpu_torch.kernels import build
 
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -853,7 +991,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, library=str(lib),
          compile_seconds=build.compile_seconds)
 
-    max_err = {k: 0 for k in KERNEL_NAMES}
+    max_err = dict.fromkeys(LINES, 0)
     phase_kernels(max_err)
     phase_v3_kernels(max_err)
     m, cfg = phase_golden()
@@ -871,29 +1009,46 @@ def main() -> int:
                           f"their blocks, batch {V3_BATCH_SERVE}, "
                           f"{SIZE}x{SIZE}; library_ms is cuDNN fp16 "
                           f"conv2d 1x1 + 3x3",
-        "int8_conv_requant": f"per yolo_v3 forward: its distinct shapes "
-                             f"times their convs, batch {V3_BATCH_SERVE}, "
-                             f"{SIZE}x{SIZE}; library_ms is torch._int_mm "
-                             f"for the 1x1 convs it takes, cuDNN fp16 "
-                             f"conv2d for the rest (3x3, C_out 21)",
+        "int8_conv3x3_requant": f"per slim_yolo_v2 forward: summed over "
+                                f"its 6 K1 layers, batch {BATCH_SERVE}, "
+                                f"{SIZE}x{SIZE}; library_ms is cuDNN fp16 "
+                                f"conv2d; mma_sync_ms the mma.sync conv "
+                                f"kernel on the same layers",
+        "int8_conv_requant.conv3x3_wgmma": f"per yolo_v3 forward: the "
+                                           f"head's 9 stride-1 3x3s (3 "
+                                           f"shapes), batch "
+                                           f"{V3_BATCH_SERVE}, "
+                                           f"{SIZE}x{SIZE}; library_ms is "
+                                           f"cuDNN fp16 conv2d; "
+                                           f"mma_sync_ms the mma.sync conv "
+                                           f"kernel on the same convs",
+        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 20 "
+                                      f"convs by distinct shape, batch "
+                                      f"{V3_BATCH_SERVE}, {SIZE}x{SIZE}; "
+                                      f"library_ms is torch._int_mm for "
+                                      f"the 1x1 convs it takes, cuDNN fp16 "
+                                      f"conv2d for the rest",
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",
     }
     kernels = []
-    for k in KERNEL_NAMES:
+    for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
-        ran = launches[k] + launches_v3[k]
+        ran = sum(served.get(wrapper, {}).get(entry, 0)
+                  for served in (launches, launches_v3))
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": ran,
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": ran,
             "launches_per_forward": ran // SERVE_ITERS,
             "max_abs_err": max_err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("operations" if t["t_ops"] >= t["t_bytes"]
                          else "bytes"),
             "library_ms": t["library_ms"],
-            "shapes": shapes.get(k, shapes["slim"]),
+            **({"mma_sync_ms": t["mma_sync_ms"]} if "mma_sync_ms" in t
+               else {}),
+            "entry": entry, "shapes": shapes.get(k, shapes["slim"]),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

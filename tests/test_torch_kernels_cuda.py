@@ -425,3 +425,147 @@ def test_cuda_res_block_rejects_narrow_channels(cuda):
     with pytest.raises(ValueError, match="C % 64"):
         K.int8_res_block(x[..., :48].contiguous(), w1[..., :48, :], b1, P1,
                          w2[..., :48], b2[:48], P2)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma conv3x3 (stride 1, pad 1, C_in % 32 == 0): K1 and the general
+# conv's 3x3s (conv3x3_wgmma_route).
+# ---------------------------------------------------------------------------
+
+WGMMA_ENTRY = "yolo_int8_conv3x3_wgmma"
+# (B, H, W, C_in, C_out): the eight shapes the serving paths route there
+# (slim's conv3_1, conv4_1, conv5, conv6 = conv7, pred; the yolo_v3 head's
+# three), then shapes whose tiles leave edge tiles, and other widths
+WGMMA_SHAPES = [
+    (2, 104, 104, 32, 64),
+    (2, 52, 52, 64, 128),
+    (2, 26, 26, 128, 256),
+    (2, 26, 26, 256, 256),
+    (2, 26, 26, 256, 35),
+    (2, 52, 52, 128, 256),
+    (2, 26, 26, 256, 512),
+    (2, 13, 13, 512, 1024),
+    (1, 27, 27, 256, 256),
+    (1, 50, 50, 128, 256),
+    (1, 100, 100, 32, 64),
+    (2, 27, 25, 512, 35),
+    (2, 9, 7, 96, 200),
+    (2, 5, 6, 32, 1),
+]
+
+
+def _conv3x3_args(case, seed=0):
+    b, h, w, c_in, c_out = case
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(a) for a in (
+        rng.integers(-128, 128, (b, h, w, c_in)).astype(np.int8),
+        rng.integers(-30, 40, (3, 3, c_in, c_out)).astype(np.int8),
+        rng.integers(-100, 100, (c_out,)).astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["int8_conv3x3_requant",
+                                     "int8_conv_requant"])
+@pytest.mark.parametrize("case", WGMMA_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_wgmma_equals_plain(cuda, wrapper, case):
+    x, wq, b = _conv3x3_args(case)
+    kw = dict(SHIFTS, leaky=case[-1] != 35)
+    fn = getattr(K, wrapper)
+    if wrapper == "int8_conv_requant":
+        kw.update(padding=1, stride=1, leaky=0.125 if kw["leaky"] else 0.1)
+    want = fn(x, wq, b, **kw)
+    packed = K.pack_conv3x3_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
+    got = fn(x.to(cuda), None, b.to(cuda), packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {wrapper: {WGMMA_ENTRY: 1}}
+    assert K.conv3x3_pack_count() == 0
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", [dict(SHIFTS, sw=40),
+                                    dict(SHIFTS, sa_out=14),
+                                    dict(SHIFTS, sa_out=-22)],
+                         ids=["acc_shift_33", "out_shift_lt_0",
+                              "out_shift_ge_32"])
+@pytest.mark.parametrize("case", [(2, 13, 11, 32, 128), (2, 9, 7, 64, 35)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_wgmma_general_shifts(cuda, rounding, shifts, case):
+    """Shifts outside [0, 31] take the kernel's general shift form; HWIO
+    weights are packed for the call."""
+    x, wq, b = _conv3x3_args(case, seed=5)
+    kw = dict(shifts, rounding=rounding)
+    want = K.int8_conv3x3_requant(x, wq, b, **kw)
+    K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
+    got = K.int8_conv3x3_requant(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_requant": {WGMMA_ENTRY: 1}}
+    assert K.conv3x3_pack_count() == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_narrow_channels_take_mma_sync(cuda):
+    """C_in % 32 != 0 (here 16 and 48) stays on the mma.sync kernel."""
+    for c_in, c_out in ((16, 32), (48, 64)):
+        x, wq, b = _conv3x3_args((2, 7, 9, c_in, c_out), seed=6)
+        assert not K.conv3x3_wgmma_route(3, 1, 1, 1, c_in, SHIFTS["sw"])
+        want = K.int8_conv3x3_requant(x, wq, b, **SHIFTS)
+        K.reset_launch_counts()
+        got = K.int8_conv3x3_requant(*(t.to(cuda) for t in (x, wq, b)),
+                                     **SHIFTS)
+        got2 = K.int8_conv_requant(*(t.to(cuda) for t in (x, wq, b)),
+                                   padding=1, **SHIFTS)
+        torch.cuda.synchronize()
+        assert K.launch_counts_by_entry() == {
+            "int8_conv3x3_requant": {"yolo_int8_conv3x3_requant": 1},
+            "int8_conv_requant": {"yolo_int8_conv_requant": 1}}
+        assert torch.equal(got.cpu(), want) and torch.equal(got2.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_wgmma_rejects_misaligned_input(cuda):
+    x, wq, b = _conv3x3_args((1, 4, 4, 32, 64))
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv3x3_requant(xm, wq.to(cuda), b.to(cuda), **SHIFTS)
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv_requant(xm, wq.to(cuda), b.to(cuda), padding=1,
+                            **SHIFTS)
+    assert K.launch_counts_by_entry() == {}
+
+
+# (tile_h, tile_w, ring stages, blocks per SM, BN) the kernel takes at the
+# eight routed shapes, by (H, W, C_in, C_out)
+WGMMA_TILES = {
+    (104, 104, 32, 64): (26, 26, 4, 2, 64),
+    (52, 52, 64, 128): (26, 26, 4, 1, 128),
+    (26, 26, 128, 256): (26, 26, 3, 1, 128),
+    (26, 26, 256, 256): (26, 13, 3, 1, 128),
+    (26, 26, 256, 35): (26, 13, 3, 1, 64),
+    (52, 52, 128, 256): (26, 26, 3, 1, 128),
+    (26, 26, 256, 512): (26, 13, 3, 1, 128),
+    (13, 13, 512, 1024): (13, 13, 3, 1, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(WGMMA_TILES),
+                         ids=lambda s: "-".join(map(str, s)))
+def test_cuda_conv3x3_wgmma_layout_at_routed_shapes(cuda, shape):
+    lay = K.conv3x3_wgmma_layout(*shape)
+    assert (lay.tile_h, lay.tile_w, lay.ring_stages, lay.blocks_per_sm,
+            lay.bn) == WGMMA_TILES[shape]
+    assert lay.consumer_warpgroups == (3 if lay.bn == 128 else 2)
+    assert lay.smem_bytes <= 232448
+    assert lay.tile_pixels == lay.tile_h * lay.tile_w
+    assert lay.tile_pixels / lay.mma_rows >= 0.85

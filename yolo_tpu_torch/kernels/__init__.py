@@ -14,8 +14,10 @@ import torch
 KERNEL_NAMES = ("int8_conv3x3_requant", "int8_conv3x3_pool_requant",
                 "int8_conv3x3_im2col", "int8_res_block", "int8_conv_requant",
                 "int8_gemm")
-# kernel launches since the last reset, by wrapper name
+# kernel launches since the last reset, by wrapper name, and by wrapper
+# name and the C entry it launched
 _LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+_ENTRIES: dict = {}
 
 
 def launch_counts() -> dict:
@@ -23,9 +25,21 @@ def launch_counts() -> dict:
     return dict(_LAUNCHES)
 
 
+def launch_counts_by_entry() -> dict:
+    """{kernel name: {C entry launched: launches since the last reset}},
+    e.g. how many of ``int8_conv_requant``'s launches ran the wgmma
+    conv3x3 (``yolo_int8_conv3x3_wgmma``) and how many the mma.sync conv
+    (``yolo_int8_conv_requant``); names without a launch are left out."""
+    out: dict = {}
+    for (name, fn), n in _ENTRIES.items():
+        out.setdefault(name, {})[fn] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     for name in KERNEL_NAMES:
         _LAUNCHES[name] = 0
+    _ENTRIES.clear()
 
 
 def route(x: torch.Tensor) -> str:
@@ -51,3 +65,4 @@ def launch(name: str, fn: str, dev: torch.device, *args) -> None:
         msg = lib.yolo_int8_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
     _LAUNCHES[name] += 1
+    _ENTRIES[(name, fn)] = _ENTRIES.get((name, fn), 0) + 1

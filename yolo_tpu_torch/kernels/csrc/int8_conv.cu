@@ -4,7 +4,9 @@
 // yolo_tpu_torch/kernels/int8_conv.py.
 //
 // Replaces three Pallas TPU kernels of yolo_tpu/kernels/int8_conv.py:
-//   K1 _conv_kernel        -> int8_conv3x3_requant       (conv kernel)
+//   K1 _conv_kernel        -> int8_conv3x3_requant       (conv kernel, for
+//                             C_in % 32 != 0; every other K1 conv runs on
+//                             the wgmma kernel of int8_conv3x3_wgmma.cu)
 //   K2 _pool_matmul_kernel -> int8_conv3x3_pool_requant  (pool_s2d kernel;
 //                             conv kernel with POOL for assembly='stride2')
 //   K3 _im2col_kernel      -> int8_conv3x3_im2col        (conv kernel, POOL)

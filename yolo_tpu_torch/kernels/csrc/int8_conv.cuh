@@ -4,7 +4,10 @@
 // optional 2x2/2 max pool, and the fixed-point requant epilogue.
 // Instantiated by int8_conv.cu (K1-K3: k = 3, stride 1, pad 1, one input)
 // and int8_conv_general.cu (int8_conv_requant), two sources so that nvcc
-// builds them in parallel.
+// builds them in parallel. The stride-1 3x3s of one input with C_in % 32
+// == 0 (every K1 layer of slim_yolo_v2, the yolo_v3 head's nine 3x3s) run
+// instead on the wgmma kernel of int8_conv3x3_wgmma.cu; this kernel keeps
+// K2, K3, K1 at other C_in, and the other general convs.
 //
 // GEMM view: rows = output pixels (with POOL the four conv pixels of each
 // pooled pixel are four consecutive rows), columns = C_out, depth =
@@ -28,8 +31,8 @@
 // pool max and the requant chain stay in registers; the int8 tile is
 // staged in shared memory and written with 16-byte stores. Only int8
 // crosses device memory, and pooled layers never write their pre-pool
-// activation. wgmma with TMA-fed multi-stage tiles is the next step toward
-// the tensor-core bound.
+// activation. int8_conv3x3_wgmma.cu shows the step toward the tensor-core
+// bound: wgmma with TMA-fed multi-stage weight tiles.
 //
 // The requant epilogue mirrors yolo_tpu/quant/fixed_point.py::_shift
 // exactly, including shifts >= 32 (nearest -> 0, floor -> v >> 31) and

@@ -9,7 +9,9 @@
 // which has no library counterpart on the card (F.conv2d refuses int8 and
 // int32 CUDA tensors). What bounds it, and what the design does about
 // that: int8_conv.cuh. Tiles are 32 or 64 columns wide; 1x1 convs and
-// two-part inputs take the 16-byte gather only (C_in % 16 == 0).
+// two-part inputs take the 16-byte gather only (C_in % 16 == 0). The
+// stride-1 3x3s of one input with C_in % 32 == 0 (the yolo_v3 head's nine)
+// go to the wgmma kernel of int8_conv3x3_wgmma.cu instead.
 
 #include "int8_conv.cuh"
 

@@ -44,59 +44,9 @@
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32, which the Pallas kernel's _shift_round_nearest does not guard.
 
-#include <algorithm>
-
-#include "int8_wgmma.cuh"
+#include "int8_wgmma_conv.cuh"
 
 namespace {
-
-constexpr int MAX_STAGES = 8;
-constexpr int STG_BYTES = 64 * 64;  // a warpgroup's staging tile
-
-// v * 2^-s as fixed_point._shift computes it (round half away or floor,
-// s >= 32, s < 0 as an exact left shift), in one branch-free form set up
-// on the host: ((v << l) + a + (v < 0 ? n : 0)) >> r, masked by m (the
-// value of int8_common.cuh's shift_i32, without its branches on s and the
-// rounding). With every shift of a launch in [0, 31] (l = 0, m = -1) the
-// kernel's SHORT form drops the left shift and the mask: 4 instructions
-// instead of 6. On an H100 the general form alone made the 208^2 stage
-// ~15% and v3 serving ~2% slower (PERF.md, section 6).
-struct Shift {
-  int l, a, n, r, m;
-  template <bool SHORT>
-  __device__ __forceinline__ int apply(int v) const {
-    const unsigned t = (unsigned)(n & (v >> 31));
-    if constexpr (SHORT) return (int)((unsigned)v + (unsigned)a + t) >> r;
-    return ((int)(((unsigned)v << l) + (unsigned)a + t) >> r) & m;
-  }
-};
-
-Shift make_shift(int s, bool nearest) {
-  if (s == 0) return Shift{0, 0, 0, 0, -1};
-  if (s < 0) return -s >= 32 ? Shift{0, 0, 0, 0, 0} : Shift{-s, 0, 0, 0, -1};
-  if (s >= 32) return nearest ? Shift{0, 0, 0, 0, 0} : Shift{0, 0, 0, 31, -1};
-  return nearest ? Shift{0, 1 << (s - 1), -1, s, -1} : Shift{0, 0, 0, s, -1};
-}
-
-bool short_shift(int s) { return s >= 0 && s < 32; }
-
-// The requant chain of fixed_point._requant from the raw accumulator:
-// shift to the retune scale, add the bias (int32 adds wrap), clamp to
-// int16, LeakyReLU as the Q16 rational (negatives -> shift(v * slope, 16);
-// slope 65536 is the identity), shift to the output scale, clamp to int8
-// (int8_common.cuh's Requant, with the shifts above).
-struct Epi {
-  Shift acc, out;
-  int slope, rnd;  // rnd: 32767 (nearest, v < 0) or 0 (floor)
-  template <bool SHORT>
-  __device__ __forceinline__ int8_t apply(int v, int bias) const {
-    v = (int)((unsigned)acc.apply<SHORT>(v) + (unsigned)bias);
-    v = min(max(v, -32768), 32767);
-    const int t = (v * slope + rnd) >> 16;
-    v = out.apply<SHORT>(v < 0 ? t : v);
-    return (int8_t)min(max(v, -128), 127);
-  }
-};
 
 template <int BN1, int BN2>
 struct ResCfg {
@@ -132,39 +82,12 @@ struct ResArgs {
   Shift res_out;   // residual: the sum to 2^sa_res
 };
 
-__host__ __device__ inline int y1_stride(int cmid) { return cmid + 16; }
-
-__host__ __device__ inline int y1_bytes(const ResArgs& a) {
-  return ((a.TH + 2) * (a.TW + 2) * y1_stride(a.Cmid) + 127) & ~127;
-}
-
-// staging byte of (row, column) of a 64 x 64 tile: 16-byte chunks XOR-ed
-// with (row / 2) % 4, so the 2-byte stores of a warp hit 16 banks
-__device__ __forceinline__ int stg_at(int row, int col) {
-  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
-}
-
 template <int N>
 __device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
   if constexpr (N == 32) mma_ss_n32(d, da, db, 1);
   if constexpr (N == 64) mma_ss_n64(d, da, db, 1);
   if constexpr (N == 128) mma_ss_n128(d, da, db, 1);
-}
-
-template <int N>
-__device__ __forceinline__ void mma_rs(int (&d)[N / 2],
-                                       const unsigned (&a)[4], uint64_t db) {
-  if constexpr (N == 64) mma_rs_n64(d, a, db, 1);
-  if constexpr (N == 128) mma_rs_n128(d, a, db, 1);
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
-  return (uint16_t)((uint8_t)lo | ((uint16_t)(uint8_t)hi << 8));
 }
 
 template <int BN1, int BN2, bool SHORT>
@@ -180,7 +103,7 @@ res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
   const int HW = a.TW + 2, HH = a.TH + 2, S1 = y1_stride(a.Cmid);
   int8_t* y1 = reinterpret_cast<int8_t*>(smem + a.stages * Cfg::SLOT);
-  int8_t* stg_all = y1 + y1_bytes(a);
+  int8_t* stg_all = y1 + halo_bytes(a.TH, a.TW, a.Cmid);
   uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + NWG * STG_BYTES);
   const Ring ring{bars, bars + a.stages, a.stages};
   const int tid = threadIdx.x;
@@ -423,15 +346,6 @@ res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// the largest dynamic shared memory of a block (H100: 227 KB)
-constexpr int MAX_SMEM = 232448;
-
-// dynamic shared memory of a form with `stages` ring slots
-int res_block_smem(const ResArgs& a, int slot, int nwg, int stages) {
-  return 1024 + stages * slot + y1_bytes(a) + nwg * STG_BYTES +
-         2 * MAX_STAGES * 8;
-}
-
 // The (BN1, BN2) form for Cmid, C: the widest of the three built.
 int pick_form(int C, int Cmid) {
   if (Cmid % 128 == 0 && C % 128 == 0) return 2;
@@ -446,27 +360,20 @@ void set_tile(ResArgs& a, int th, int tw) {
   a.R1 = std::min(128 / (tw + 2), th + 2);
 }
 
-// The form's layout for an H x W stage, set in `a`: the output tile, up to
-// 26 x 26 pixels, its width and then its height halved until y1 fits
-// beside a 3-stage ring (at the darknet53 stages: 26 x 26 from 208^2 to
-// 52^2, 26 x 13 at 26^2, 13 x 13 at 13^2, each keeping >= 85% of its
-// 64-row wgmma steps on pixels); then the deepest ring that fits (in half
-// an SM's 228 KB, 1 KB of it reserved per block, for the two-block form).
-// Returns the dynamic shared memory bytes, or 0 where no tile fits.
+// The form's layout for an H x W stage, set in `a`: the output tile and
+// ring of plan_tile (int8_wgmma_conv.cuh) for y1's Cmid channels, the ring
+// in half an SM's shared memory for the two-block form. Returns the
+// dynamic shared memory bytes, or 0 where no tile fits.
 template <int BN1, int BN2>
 int plan(ResArgs& a) {
   using Cfg = ResCfg<BN1, BN2>;
-  const auto smem = [&](int stages) {
-    return res_block_smem(a, Cfg::SLOT, Cfg::NWG, stages);
-  };
-  set_tile(a, std::min(26, a.H), std::min(26, a.W));
-  while (smem(3) > MAX_SMEM && a.TW > 1) set_tile(a, a.TH, (a.TW + 1) / 2);
-  while (smem(3) > MAX_SMEM && a.TH > 1) set_tile(a, (a.TH + 1) / 2, a.TW);
-  if (smem(3) > MAX_SMEM) return 0;
-  const int budget = Cfg::MIN_BLOCKS == 2 ? 233472 / 2 - 1024 : MAX_SMEM;
-  a.stages = 3;
-  while (a.stages < MAX_STAGES && smem(a.stages + 1) <= budget) ++a.stages;
-  return smem(a.stages);
+  const TilePlan p =
+      plan_tile(a.H, a.W, a.Cmid, Cfg::SLOT, Cfg::NWG,
+                Cfg::MIN_BLOCKS == 2 ? HALF_SM_SMEM : MAX_SMEM);
+  if (p.smem == 0) return 0;
+  set_tile(a, p.th, p.tw);
+  a.stages = p.stages;
+  return p.smem;
 }
 
 // Launches the form, or with `info` reports its layout there instead.
@@ -537,11 +444,6 @@ ResArgs base_args(int H, int W, int C, int Cmid) {
   a.C = C;
   a.Cmid = Cmid;
   return a;
-}
-
-Epi make_epi(int acc_shift, int out_shift, int slope_num, bool nearest) {
-  return Epi{make_shift(acc_shift, nearest), make_shift(out_shift, nearest),
-             slope_num, nearest ? 32767 : 0};
 }
 
 }  // namespace

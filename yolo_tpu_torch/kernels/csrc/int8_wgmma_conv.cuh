@@ -1,0 +1,141 @@
+// Pieces shared by the port's wgmma convolution kernels, the fused
+// residual block (int8_res_block.cu, K4) and the stride-1 3x3 conv
+// (int8_conv3x3_wgmma.cu): the requant epilogue with its shifts set up on
+// the host, the 64 x 64 staging tile of a consumer warpgroup, the RS
+// wgmma of a 3x3 phase, and the planner of a block's output tile and ring.
+//
+// Both kernels keep a TH x TW output tile plus a one-pixel halo of their
+// 3x3's input in shared memory (K4: y1; the conv: x), rows y1_stride(C)
+// = C + 16 bytes apart so that the 8 rows of an ldmatrix fall in 8
+// different 16-byte bank groups, beside a ring of weight stages that TMA
+// fills (int8_wgmma.cuh) and one staging tile per consumer warpgroup.
+
+#pragma once
+
+#include <algorithm>
+
+#include "int8_wgmma.cuh"
+
+namespace {
+
+constexpr int MAX_STAGES = 8;
+constexpr int STG_BYTES = 64 * 64;  // a warpgroup's staging tile
+// the largest dynamic shared memory of a block (H100: 227 KB)
+constexpr int MAX_SMEM = 232448;
+// a block's share when two run on an SM: half the SM's 228 KB, 1 KB of
+// it reserved per block
+constexpr int HALF_SM_SMEM = 233472 / 2 - 1024;
+
+// v * 2^-s as fixed_point._shift computes it (round half away or floor,
+// s >= 32, s < 0 as an exact left shift), in one branch-free form set up
+// on the host: ((v << l) + a + (v < 0 ? n : 0)) >> r, masked by m (the
+// value of int8_common.cuh's shift_i32, without its branches on s and the
+// rounding). With every shift of a launch in [0, 31] (l = 0, m = -1) the
+// kernel's SHORT form drops the left shift and the mask: 4 instructions
+// instead of 6. On an H100 the general form alone made the 208^2 stage
+// ~15% and v3 serving ~2% slower (PERF.md, section 6).
+struct Shift {
+  int l, a, n, r, m;
+  template <bool SHORT>
+  __device__ __forceinline__ int apply(int v) const {
+    const unsigned t = (unsigned)(n & (v >> 31));
+    if constexpr (SHORT) return (int)((unsigned)v + (unsigned)a + t) >> r;
+    return ((int)(((unsigned)v << l) + (unsigned)a + t) >> r) & m;
+  }
+};
+
+Shift make_shift(int s, bool nearest) {
+  if (s == 0) return Shift{0, 0, 0, 0, -1};
+  if (s < 0) return -s >= 32 ? Shift{0, 0, 0, 0, 0} : Shift{-s, 0, 0, 0, -1};
+  if (s >= 32) return nearest ? Shift{0, 0, 0, 0, 0} : Shift{0, 0, 0, 31, -1};
+  return nearest ? Shift{0, 1 << (s - 1), -1, s, -1} : Shift{0, 0, 0, s, -1};
+}
+
+bool short_shift(int s) { return s >= 0 && s < 32; }
+
+// The requant chain of fixed_point._requant from the raw accumulator:
+// shift to the retune scale, add the bias (int32 adds wrap), clamp to
+// int16, LeakyReLU as the Q16 rational (negatives -> shift(v * slope, 16);
+// slope 65536 is the identity), shift to the output scale, clamp to int8
+// (int8_common.cuh's Requant, with the shifts above).
+struct Epi {
+  Shift acc, out;
+  int slope, rnd;  // rnd: 32767 (nearest, v < 0) or 0 (floor)
+  template <bool SHORT>
+  __device__ __forceinline__ int8_t apply(int v, int bias) const {
+    v = (int)((unsigned)acc.apply<SHORT>(v) + (unsigned)bias);
+    v = min(max(v, -32768), 32767);
+    const int t = (v * slope + rnd) >> 16;
+    v = out.apply<SHORT>(v < 0 ? t : v);
+    return (int8_t)min(max(v, -128), 127);
+  }
+};
+
+Epi make_epi(int acc_shift, int out_shift, int slope_num, bool nearest) {
+  return Epi{make_shift(acc_shift, nearest), make_shift(out_shift, nearest),
+             slope_num, nearest ? 32767 : 0};
+}
+
+__host__ __device__ inline int y1_stride(int cmid) { return cmid + 16; }
+
+// bytes of a th x tw tile's halo tile of C channels, 128-byte aligned
+__host__ __device__ inline int halo_bytes(int th, int tw, int c) {
+  return ((th + 2) * (tw + 2) * y1_stride(c) + 127) & ~127;
+}
+
+// staging byte of (row, column) of a 64 x 64 tile: 16-byte chunks XOR-ed
+// with (row / 2) % 4, so the 2-byte stores of a warp hit 16 banks
+__device__ __forceinline__ int stg_at(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(int (&d)[N / 2],
+                                       const unsigned (&a)[4], uint64_t db) {
+  if constexpr (N == 64) mma_rs_n64(d, a, db, 1);
+  if constexpr (N == 128) mma_rs_n128(d, a, db, 1);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint16_t pack2(int8_t lo, int8_t hi) {
+  return (uint16_t)((uint8_t)lo | ((uint16_t)(uint8_t)hi << 8));
+}
+
+// dynamic shared memory of a block: 1 KB of alignment slack, `stages`
+// ring slots of `slot` bytes, the halo tile, `nwg` staging tiles and the
+// ring's mbarriers
+inline int block_smem(int tile_bytes, int slot, int nwg, int stages) {
+  return 1024 + stages * slot + tile_bytes + nwg * STG_BYTES +
+         2 * MAX_STAGES * 8;
+}
+
+struct TilePlan {
+  int th, tw, stages, smem;  // smem 0: no tile fits
+};
+
+// A block's output tile and ring for an H x W image whose halo tile holds
+// C channels (halo_bytes): the tile up to 26 x 26 pixels, its width and
+// then its height halved until the halo tile fits beside a 3-stage ring of
+// `slot`-byte stages in MAX_SMEM (at the darknet53 stages: 26 x 26 from
+// 208^2 to 52^2, 26 x 13 at 26^2 C 256, 13 x 13 at 13^2 C 512, each
+// keeping >= 85% of its 64-row wgmma steps on pixels); then the deepest
+// ring that fits in `budget` bytes.
+inline TilePlan plan_tile(int H, int W, int C, int slot, int nwg,
+                          int budget) {
+  const auto smem = [&](int th, int tw, int stages) {
+    return block_smem(halo_bytes(th, tw, C), slot, nwg, stages);
+  };
+  TilePlan p{std::min(26, H), std::min(26, W), 3, 0};
+  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.tw > 1) p.tw = (p.tw + 1) / 2;
+  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.th > 1) p.th = (p.th + 1) / 2;
+  if (smem(p.th, p.tw, 3) > MAX_SMEM) return p;
+  while (p.stages < MAX_STAGES && smem(p.th, p.tw, p.stages + 1) <= budget)
+    ++p.stages;
+  p.smem = smem(p.th, p.tw, p.stages);
+  return p;
+}
+
+}  // namespace

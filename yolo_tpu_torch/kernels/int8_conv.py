@@ -13,15 +13,21 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
   counterpart of XLA's integer conv in ``fixed_point.int_conv_requant``
   (k 1 or 3, stride, padding, a two-part concat input, a leaky slope).
 
-K1-K3 and ``int8_conv_requant`` launch the tensor-core implicit GEMM of
-``csrc/int8_conv.cuh`` (mma.sync; built by ``csrc/int8_conv.cu`` and
-``csrc/int8_conv_general.cu``), K4 the fused block of
-``csrc/int8_res_block.cu`` (wgmma fed by a TMA ring, ``csrc/
-int8_wgmma.cuh``; it reads its weights K-major, packed once per model by
-``pack_res_block_weights``). Each file's header note says what bounds
+Every stride-1 3x3 conv of one input part with C_in % 32 == 0 and a
+scalar sw (``conv3x3_wgmma_route``: all of K1's main-path layers and the
+yolo_v3 head's nine 3x3s) launches the wgmma conv of
+``csrc/int8_conv3x3_wgmma.cu``, which reads its weights K-major, packed
+once per model by ``pack_conv3x3_weights``. The other K1 shapes, K2, K3
+and the other ``int8_conv_requant`` shapes launch the tensor-core implicit
+GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by ``csrc/int8_conv.cu``
+and ``csrc/int8_conv_general.cu``), K4 the fused block of
+``csrc/int8_res_block.cu``. Both wgmma kernels are fed by a TMA ring
+(``csrc/int8_wgmma.cuh``) and share their epilogue and tile planner
+(``csrc/int8_wgmma_conv.cuh``). Each file's header note says what bounds
 them. A wrapper given a CUDA tensor launches the kernel, adds one to its
-count in ``launch_counts()`` once the launch has succeeded, and raises if
-it fails or if the kernel does not take its arguments; given a CPU tensor
+count in ``launch_counts()`` (and in ``launch_counts_by_entry()``, under
+the C entry launched) once the launch has succeeded, and raises if it
+fails or if the kernel does not take its arguments; given a CPU tensor
 it runs the plain version, which is exact integer arithmetic: float64
 per-tap matmuls (exact while |acc| < 2^53; yolo_v3 reaches 1.5e8) and the
 int32 requant chain of ``fixed_point``.
@@ -37,7 +43,8 @@ import numpy as np
 import torch
 
 from yolo_tpu_torch.kernels import (  # noqa: F401  (re-exported)
-    KERNEL_NAMES, launch, launch_counts, reset_launch_counts, route)
+    KERNEL_NAMES, launch, launch_counts, launch_counts_by_entry,
+    reset_launch_counts, route)
 from yolo_tpu_torch.quant import fixed_point as fp
 
 
@@ -179,6 +186,12 @@ def _slope_num(leaky) -> int:
     return int(round(slope * 65536)) if slope else 65536
 
 
+def _check_leaky_flag(leaky):
+    """K1-K3 take the 0.125 shift or no activation."""
+    if leaky is not True and leaky is not False:
+        raise ValueError(f"leaky must be True or False, got {leaky!r}")
+
+
 def _check_operand(name, t, dev, dtype, shape):
     if t.dtype != dtype or t.device != dev or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {dtype} {list(shape)} on {dev}, got "
@@ -196,8 +209,7 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
     stream, counting the launch under ``kernel``; returns the int8 output.
     Raises on anything the kernel does not take and on a failed launch."""
     _check_rounding(rounding)
-    if leaky is not True and leaky is not False:
-        raise ValueError(f"leaky must be True or False, got {leaky!r}")
+    _check_leaky_flag(leaky)
     _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
                          retune=retune)
     dev = x.device
@@ -235,16 +247,26 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
 
 
 def int8_conv3x3_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
-                         leaky=True, rounding="nearest"):
+                         leaky=True, rounding="nearest", packed=None):
     """Fused int8 conv3x3(stride 1, pad 1) + requant: int8 [B,H,W,C_in]
-    at scale 2^sa_in -> int8 [B,H,W,C_out] at scale 2^sa_out."""
+    at scale 2^sa_in -> int8 [B,H,W,C_out] at scale 2^sa_out.
+
+    ``packed``: the weights from ``pack_conv3x3_weights`` (then ``w_q``
+    may be None). On a CUDA tensor with C_in % 32 == 0 the wgmma kernel
+    reads that form; given only the HWIO weights it packs them for this
+    call. The CPU route reads the HWIO weights where given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     if route(x_q) == "plain":
-        return int8_conv3x3_requant_plain(x_q, w_q, b_q, **kw)
+        return int8_conv3x3_requant_plain(x_q, _hwio(w_q, packed), b_q,
+                                          **kw)
     b, h, w, c_in = x_q.shape
-    return _launch("int8_conv3x3_requant", x_q, w_q, b_q, h=h, w=w,
-                   c_in=c_in, pool=False, s2d=False, **kw)
+    if conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw):
+        _check_leaky_flag(leaky)
+        return _launch_conv3x3_wgmma("int8_conv3x3_requant", x_q, w_q, b_q,
+                                     packed, **kw)
+    return _launch("int8_conv3x3_requant", x_q, _hwio(w_q, packed), b_q,
+                   h=h, w=w, c_in=c_in, pool=False, s2d=False, **kw)
 
 
 def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
@@ -408,21 +430,162 @@ def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
 
 
 def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
-                      padding=0, stride=1, leaky=True, rounding="nearest"):
+                      padding=0, stride=1, leaky=True, rounding="nearest",
+                      packed=None):
     """Integer conv (k 1 or 3 HWIO weights, any stride and padding) +
     fixed-point requant: int8 NHWC at scale 2^sa_in -> int8 at 2^sa_out.
 
     ``x`` is an int8 tensor, or a list of (int8 tensor, sa) parts whose
     channel concat is the conv input (``sa_in`` is then unused); ``leaky``
-    is False, True (0.125) or a float slope (Q16 rational). The kernel
-    takes one or two parts and a scalar ``sw``; the plain version also a
-    per-channel one."""
+    is False, True (0.125) or a float slope (Q16 rational). The kernels
+    take one or two parts and a scalar ``sw``; the plain version also a
+    per-channel one. ``packed``: a 3x3's weights from
+    ``pack_conv3x3_weights`` (then ``w_q`` may be None), which the wgmma
+    kernel reads on the shapes of ``conv3x3_wgmma_route``."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
     if route(parts[0][0]) == "plain":
-        return int8_conv_requant_plain(parts, w_q, b_q, sa_in=None, **kw)
-    return _launch_conv_requant(parts, w_q, b_q, **kw)
+        return int8_conv_requant_plain(parts, _hwio(w_q, packed), b_q,
+                                       sa_in=None, **kw)
+    k = 3 if w_q is None else w_q.shape[0]
+    if conv3x3_wgmma_route(k, stride, padding, len(parts),
+                           parts[0][0].shape[-1], sw):
+        (x0, sa0), = parts
+        return _launch_conv3x3_wgmma(
+            "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
+            sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
+            rounding=rounding)
+    return _launch_conv_requant(parts, _hwio(w_q, packed), b_q, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The wgmma conv3x3 (stride 1, pad 1): K1 and the general conv's 3x3s.
+# ---------------------------------------------------------------------------
+
+
+def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
+    """True where a conv on a CUDA tensor runs on the wgmma conv3x3 kernel
+    (``csrc/int8_conv3x3_wgmma.cu``): a 3x3, stride 1, pad 1, one input
+    part of C_in % 32 == 0 channels, a scalar ``sw``. ``int8_conv3x3_
+    requant`` and ``int8_conv_requant`` send such convs there and every
+    other to the mma.sync conv kernel."""
+    return (k == 3 and stride == 1 and padding == 1 and nparts == 1
+            and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
+
+
+def _pack3x3(w_q: torch.Tensor) -> torch.Tensor:
+    if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3):
+        raise ValueError(f"3x3 weights must be HWIO [3, 3, C_in, C_out], "
+                         f"got {list(w_q.shape)}")
+    c_in, c_out = w_q.shape[2], w_q.shape[3]
+    return w_q.permute(3, 0, 1, 2).reshape(c_out, 9 * c_in).contiguous()
+
+
+def pack_conv3x3_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv's HWIO weights [3, 3, C_in, C_out] in the K-major form
+    the wgmma kernels read, made once per model: [C_out, 9 * C_in] in
+    (dy, dx, c) order (OHWI), contiguous, on the weights' device."""
+    _PACKS["conv3x3"] += 1
+    return _pack3x3(w_q)
+
+
+def unpack_conv3x3_weights(wp: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_conv3x3_weights``: an HWIO [3, 3, C_in,
+    C_out] view of the packed weights."""
+    c_out, k9 = wp.shape
+    return wp.reshape(c_out, 3, 3, k9 // 9).permute(1, 2, 3, 0)
+
+
+def _hwio(w_q, packed):
+    """The HWIO weights where given, else those of ``packed``."""
+    return w_q if w_q is not None else unpack_conv3x3_weights(packed)
+
+
+def conv3x3_pack_count() -> int:
+    """Calls of ``pack_conv3x3_weights`` since the last reset."""
+    return _PACKS["conv3x3"]
+
+
+def reset_conv3x3_pack_count() -> None:
+    _PACKS["conv3x3"] = 0
+
+
+# the wgmma conv3x3 kernel's launch layout, as
+# yolo_int8_conv3x3_wgmma_info reports it
+Conv3x3Layout = collections.namedtuple("Conv3x3Layout", (
+    "tile_h", "tile_w", "smem_bytes", "blocks_per_sm", "bn",
+    "consumer_warpgroups", "ring_stages", "tile_pixels", "mma_rows"))
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
+    """The wgmma conv3x3 kernel's launch layout for an H x W x C_in ->
+    C_out conv, as its CUDA source picks it (``plan`` in
+    ``csrc/int8_conv3x3_wgmma.cu``): tile, shared memory, blocks per SM,
+    weight-tile columns, consumer warpgroups, ring stages, and a full
+    tile's pixels beside the rows its 64-row wgmma steps run. Needs the
+    built kernels. Raises ValueError where the kernel takes no such conv
+    (C_in % 32 != 0, or no tile fits in shared memory)."""
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(Conv3x3Layout._fields))()
+    rc = lib.yolo_int8_conv3x3_wgmma_info(h, w, c_in, c_out, info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"the conv3x3 wgmma kernel takes no {h}x{w} conv "
+                         f"of C_in {c_in} -> C_out {c_out}: C_in must be a "
+                         f"multiple of 32 and a tile must fit in shared "
+                         f"memory")
+    if rc:
+        raise RuntimeError(f"yolo_int8_conv3x3_wgmma_info failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return Conv3x3Layout(*info)
+
+
+def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
+                          sa_out, retune, leaky, rounding) -> torch.Tensor:
+    """Check the operands and launch the wgmma conv3x3 kernel on the
+    current stream, counting the launch under ``name``; packs ``w_q`` for
+    this call where ``packed`` is None. Raises on anything the kernel does
+    not take and on a failed launch."""
+    _check_rounding(rounding)
+    num = _slope_num(leaky)
+    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
+                         retune=retune)
+    dev = x.device
+    if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
+    bsz, h, w, c_in = x.shape
+    if c_in % 32:
+        raise ValueError(f"the conv3x3 wgmma kernel needs C_in % 32 == 0, "
+                         f"got {c_in}")
+    if packed is None:
+        packed = pack_conv3x3_weights(w_q)
+    c_out = packed.shape[0]
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (c_out, 9 * c_in))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    _aligned("x", x, 16)
+    _aligned("packed weights", packed, 16)
+    if bsz * h * w >= 2 ** 31:
+        raise ValueError("B * H * W must stay below 2^31; split the batch")
+    out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    conv3x3_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
+    _aligned("the output allocation", out, 16)
+    # the kernel reads bias pairs of whole 64- or 128-column tiles
+    bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
+                          device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    launch(name, "yolo_int8_conv3x3_wgmma", dev,
+           x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
+           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
+           retune - sa_out, num, int(rounding == "nearest"))
+    return out
 
 
 def pack_res_block_weights(w1_q: torch.Tensor, w2_q: torch.Tensor):
@@ -435,21 +598,18 @@ def pack_res_block_weights(w1_q: torch.Tensor, w2_q: torch.Tensor):
         raise ValueError(f"w2_q must be [3, 3, {cmid}, {c}], got "
                          f"{list(w2_q.shape)}")
     _PACKS["res_block"] += 1
-    w1p = w1_q.reshape(c, cmid).t().contiguous()
-    w2p = w2_q.permute(3, 0, 1, 2).reshape(c, 9 * cmid).contiguous()
-    return w1p, w2p
+    return w1_q.reshape(c, cmid).t().contiguous(), _pack3x3(w2_q)
 
 
 def unpack_res_block_weights(packed):
     """The inverse of ``pack_res_block_weights``: (w1 [C, Cmid], w2 HWIO
     [3, 3, Cmid, C]) views of the packed pair."""
     w1p, w2p = packed
-    c, cmid = w1p.shape[1], w1p.shape[0]
-    return w1p.t(), w2p.reshape(c, 3, 3, cmid).permute(1, 2, 3, 0)
+    return w1p.t(), unpack_conv3x3_weights(w2p)
 
 
 # packings made since the last reset (serving packs once per model)
-_PACKS = {"res_block": 0}
+_PACKS = {"res_block": 0, "conv3x3": 0}
 
 
 def res_block_pack_count() -> int:

@@ -21,7 +21,7 @@ a CPU tensor the same wrappers run their exact plain versions.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,9 @@ from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES, TRACKER_NAMES
 
 INT16_MIN, INT16_MAX = -(2 ** 15), 2 ** 15 - 1
 INT8_MIN, INT8_MAX = -128, 127
+# the layers with a 2x2 max pool; int8_forward runs every other layer in
+# int8_conv3x3_requant (K1)
+POOLED = frozenset(name for name, _, _, pool in CONV_LAYERS if pool)
 
 
 @dataclass
@@ -43,6 +46,9 @@ class Int8Model:
     sb: Dict[str, int]
     sa: Dict[str, int]              # tracker name -> exponent (11 entries)
     retune: Dict[str, int]
+    # {layer name: its weights packed K-major for the wgmma conv3x3
+    # kernel}, made once by ``pack_conv3x3``
+    packed: Optional[Dict[str, torch.Tensor]] = None
 
     def to(self, device) -> "Int8Model":
         """The same model with its tensors on ``device``."""
@@ -50,7 +56,22 @@ class Int8Model:
             w_q={k: v.to(device) for k, v in self.w_q.items()},
             b_q={k: v.to(device) for k, v in self.b_q.items()},
             sw=dict(self.sw), sb=dict(self.sb), sa=dict(self.sa),
-            retune=dict(self.retune))
+            retune=dict(self.retune),
+            packed=None if self.packed is None else
+            {k: v.to(device) for k, v in self.packed.items()})
+
+    def pack_conv3x3(self) -> None:
+        """Pack once the weights of every layer that ``int8_forward`` runs
+        on the wgmma conv3x3 kernel (``int8_conv3x3_requant`` layers that
+        ``conv3x3_wgmma_route`` takes), so the forward never packs."""
+        from yolo_tpu_torch.kernels.int8_conv import (
+            conv3x3_wgmma_route, pack_conv3x3_weights)
+
+        self.packed = {
+            name: pack_conv3x3_weights(self.w_q[name])
+            for name in QUANT_LAYER_NAMES
+            if name not in POOLED and conv3x3_wgmma_route(
+                3, 1, 1, 1, self.w_q[name].shape[2], self.sw[name])}
 
 
 def resolve_device(device) -> torch.device:
@@ -257,18 +278,20 @@ def int8_conv_pool_s2d_core(x2: torch.Tensor, w_q, b_q, *, c_in: int,
 def int_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                      padding: int = 0, stride: int = 1, leaky=True,
                      rounding: str = "nearest", residual=None,
-                     sa_res: int = None) -> torch.Tensor:
+                     sa_res: int = None, packed=None) -> torch.Tensor:
     """Integer conv + fixed-point requant, generalized (the JAX package's
     ``int_conv_requant``): ``x`` is int8 at 2^sa_in or a list of (int8,
     sa) concat parts, ``leaky`` False | True (0.125) | a float slope, and
     ``residual`` an optional (r_q, sa_r) skip tensor added with
     ``int_add_requant`` to scale 2^sa_res. The conv runs in
-    ``int8_conv_requant`` (a CUDA kernel on a CUDA tensor)."""
+    ``int8_conv_requant`` (a CUDA kernel on a CUDA tensor; ``packed``: a
+    3x3's weights from ``pack_conv3x3_weights``, for its wgmma route)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_conv_requant
 
     out = int8_conv_requant(x, w_q, b_q, sw=sw, sb=sb, sa_in=sa_in,
                             sa_out=sa_out, retune=retune, padding=padding,
-                            stride=stride, leaky=leaky, rounding=rounding)
+                            stride=stride, leaky=leaky, rounding=rounding,
+                            packed=packed)
     if residual is not None:
         r_q, sa_r = residual
         out = int_add_requant(out, sa_out, r_q, sa_r, sa_res, rounding)
@@ -308,7 +331,8 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
 
     Layer routing: conv1 on s2d input runs the s2d conv+pool form
     (int8_conv3x3_pool_s2d); every other pool layer runs
-    int8_conv3x3_im2col(pool=True); the rest int8_conv3x3_requant.
+    int8_conv3x3_im2col(pool=True); the rest int8_conv3x3_requant, with
+    the weights of ``m.packed`` where ``pack_conv3x3`` made them.
     """
     from yolo_tpu_torch.kernels import int8_conv as K
 
@@ -318,7 +342,6 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
             "kernels yet (their epilogue takes one sw per layer)")
     out = x_q
     names = list(TRACKER_NAMES)
-    pools = {name: pool for name, _, _, pool in CONV_LAYERS}
     for i, name in enumerate(QUANT_LAYER_NAMES):
         kw = dict(sw=int(m.sw[name]), sb=int(m.sb[name]),
                   sa_in=int(m.sa[names[i]]), sa_out=int(m.sa[names[i + 1]]),
@@ -327,11 +350,12 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
         if input_s2d and i == 0:
             out = int8_conv_pool_s2d_core(out, m.w_q[name], m.b_q[name],
                                           c_in=3, **kw)
-        elif pools.get(name):
+        elif name in POOLED:
             out = K.int8_conv3x3_im2col(out, m.w_q[name], m.b_q[name],
                                         pool=True, **kw)
         else:
             out = K.int8_conv3x3_requant(out, m.w_q[name], m.b_q[name],
+                                         packed=(m.packed or {}).get(name),
                                          **kw)
     # dequantize the head to float for decode
     return out.to(torch.float32) * (2.0 ** -m.sa["pred"])

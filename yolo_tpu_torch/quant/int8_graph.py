@@ -37,11 +37,15 @@ def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
     images [B, H, W, 3] float32 or int8 (or, with ``input_s2d``, int8
     [B, H/2+3, W/2+3, 12]) -> (boxes, scores, classes, valid).
 
-    The model's tensors move to ``device`` once, here; the images are
-    moved there per call if they are elsewhere. Raises if ``device`` is
-    CUDA and there is none."""
+    The model's tensors move to ``device`` once, here, and on a CUDA
+    device the weights of the layers that run the wgmma conv3x3 kernel
+    are packed there once (the CPU route reads the HWIO weights); the
+    images are moved there per call if they are elsewhere. Raises if
+    ``device`` is CUDA and there is none."""
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
+    if dev.type == "cuda":
+        m_dev.pack_conv3x3()
 
     def detect(images):
         images = torch.as_tensor(images).to(dev)

@@ -5,9 +5,10 @@ its forward on the plain integer walk and the end-to-end detect fn.
 The forward walks the same program as the JAX package. Every ``push,
 conv 1x1, conv 3x3, res`` group (the 23 darknet53 residual blocks) runs as
 one fused residual-block kernel (``int8_res_block``, K4), every other conv
-in the general int8 conv kernel (``int8_conv_requant``: the stride-2 and
-entry convs, the head's conv sets, the two-part concat convs), and each
-``up`` in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
+through ``int8_conv_requant``: the head's nine stride-1 3x3s on the wgmma
+conv3x3 kernel, the rest (the stride-2 and entry convs, the 1x1s, the
+two-part concat convs, the preds) on the mma.sync conv kernel; each
+``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
 their exact plain versions.
 
 Not ported here: the s2d execution forms (``s2d``, ``input_s2d``), the
@@ -127,6 +128,9 @@ class Int8YoloV3:
     # {index of a block's 1x1 conv: its (w1, w2) packed K-major for the
     # residual-block kernel}, made once by ``pack_res_blocks``
     res_packed: Dict[int, Tuple] = field(repr=False, default=None)
+    # {index of a conv that runs on the wgmma conv3x3 kernel: its weights
+    # packed K-major}, made once by ``pack_conv3x3s``
+    conv_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
 
     def __post_init__(self):
         if self.program is None:
@@ -154,6 +158,30 @@ class Int8YoloV3:
                     self.w_q[conv_i], self.w_q[conv_i + 1])
             elif op[0] == "conv":
                 conv_i += 1
+
+    def pack_conv3x3s(self) -> None:
+        """Pack once the weights of every conv outside the residual blocks
+        that ``conv3x3_wgmma_route`` takes (the head's stride-1 3x3s), so
+        the forward never packs."""
+        from yolo_tpu_torch.kernels.int8_conv import (
+            conv3x3_wgmma_route, pack_conv3x3_weights)
+
+        self.conv_packed = {}
+        conv_i = i = 0
+        nparts = 1  # a conv right after a concat reads two parts
+        while i < len(self.program):
+            op = self.program[i]
+            if op[0] == "push":  # a residual block: K4's two convs
+                conv_i, i = conv_i + 2, i + 4
+                continue
+            if op[0] == "conv":
+                w = self.w_q[conv_i]
+                if conv3x3_wgmma_route(w.shape[0], op[2], op[3], nparts,
+                                       w.shape[2], self.sw[conv_i]):
+                    self.conv_packed[conv_i] = pack_conv3x3_weights(w)
+                conv_i += 1
+            nparts = 2 if op[0] == "concat" else 1
+            i += 1
 
 
 def _check_unported(s2d=False, limit=None, input_s2d=False, mesh=None):
@@ -223,7 +251,8 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                 x, m.w_q[conv_i], m.b_q[conv_i], sw=m.sw[conv_i],
                 sb=m.sb[conv_i], sa_in=sa, sa_out=sa_out,
                 retune=m.retune[conv_i], padding=padding, stride=stride,
-                leaky=leaky, rounding=rounding)
+                leaky=leaky, rounding=rounding,
+                packed=(m.conv_packed or {}).get(conv_i))
             stream = (out, sa_out)
             tap_i += 1
             conv_i += 1
@@ -252,15 +281,17 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
     (boxes, scores, classes, valid).
 
     The model's tensors move to ``device`` once, here, and on a CUDA
-    device the residual blocks' weights are packed there once for the
-    fused kernel (the CPU route reads the HWIO weights); the images are
-    moved there per call if they are elsewhere. Raises if ``device`` is
-    CUDA and there is none; never falls back to the CPU."""
+    device the weights of the residual blocks and of the convs that run
+    the wgmma conv3x3 kernel are packed there once (the CPU route reads
+    the HWIO weights); the images are moved there per call if they are
+    elsewhere. Raises if ``device`` is CUDA and there is none; never falls
+    back to the CPU."""
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
     if dev.type == "cuda":
         m_dev.pack_res_blocks()
+        m_dev.pack_conv3x3s()
 
     def detect(images):
         images = torch.as_tensor(images).to(dev)
