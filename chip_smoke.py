@@ -18,21 +18,23 @@ raises and the script exits nonzero:
    ten slim layer shapes, batch 8, with asymmetric weights, nonzero
    biases, both roundings, an accumulator shift >= 32 and a negative
    output shift; plus K2 with assembly='stride2', K3 with pool=False and
-   K1 at C_in 16 (its mma.sync route) (phase 4 checks them again at the
-   serving batch);
+   K1 at C_in 16 (their mma.sync routes), and K3 (the wgmma conv3x3's
+   pooled form) at conv2's, conv3_2's and conv4_2's widths on images
+   whose even tiles leave edge tiles, from HWIO and from packed weights
+   (phase 4 checks them again at the serving batch);
 3. the golden fixture (``yolo_tpu_torch/data/slim_int8_416_golden.npz``,
    made by the JAX package): the int8 head bit-exact, classes and valid
    exact, boxes and scores allclose (atol = rtol = 1e-5);
 4. serving: batch 256 through ``make_int8_detect_fn``, timed, with the
    launch counts of each kernel checked (per forward: K2 once, K3 3
-   times, K1 6 times, all 6 on the wgmma conv3x3) and K1's weights packed
-   6 times when the detect fn took the model, never in the loop; then
-   each layer's kernel checked against its plain version (torch.equal)
-   and both timed at batch 256, beside cuDNN's fp16 conv (a speed
-   yardstick only), K1's layers also beside the mma.sync conv kernel
-   they ran on before (same call) and with the wgmma kernel's layout
-   (tile, ring stages, blocks per SM, share of its 64-row wgmma steps on
-   pixels);
+   times, all 3 on the wgmma conv3x3's pooled form, K1 6 times, all 6 on
+   the wgmma conv3x3) and the weights of those 9 layers packed when the
+   detect fn took the model, never in the loop; then each layer's kernel
+   checked against its plain version (torch.equal) and both timed at
+   batch 256, beside cuDNN's fp16 conv (a speed yardstick only), K1's and
+   K3's layers also beside the mma.sync conv kernel they ran on before
+   (same call) and with the wgmma kernel's layout (tile, ring stages,
+   blocks per SM, share of its 64-row wgmma steps on pixels);
 2b. the yolo_v3 kernels against their plain versions (torch.equal):
    ``int8_res_block`` (K4) at the five darknet53 stage shapes, batch 4,
    slopes 0.1 and 0.125, both roundings, without the residual, with an
@@ -71,10 +73,11 @@ raises and the script exits nonzero:
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 stride-1 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the
-serving path and the v3 head's nine 3x3s) run on wgmma fed by a TMA ring
-(``csrc/int8_wgmma.cuh``); K2, K3 and the rest of the general conv keep
-the mma.sync main loop of ``csrc/int8_common.cuh``. The ``kernels`` line
-has one entry per kernel and route: ``int8_conv_requant`` twice.
+serving path and the v3 head's nine 3x3s; its pooled form: all of K3 on
+the serving path) run on wgmma fed by a TMA ring (``csrc/int8_wgmma.cuh``);
+K2 and the rest of the general conv keep the mma.sync main loop of
+``csrc/int8_common.cuh``. The ``kernels`` line has one entry per kernel
+and route: ``int8_conv_requant`` twice.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -99,6 +102,7 @@ V3_BATCH_CHECK, V3_BATCH_SERVE, V3_PRED_OUT = 4, 128, 21
 SERVE_WARMUP, SERVE_ITERS = 3, 10
 CSRC = "yolo_tpu_torch/kernels/csrc/"
 WGMMA3 = "yolo_int8_conv3x3_wgmma"  # the wgmma conv3x3's C entry
+POOL3 = "yolo_int8_conv3x3_pool_wgmma"  # and its pooled form's
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -111,8 +115,8 @@ LINES = {
         "int8_conv3x3_pool_requant", "yolo_int8_conv3x3_requant",
         CSRC + "int8_conv.cu", "yolo_tpu/kernels/int8_conv.py:306"),
     "int8_conv3x3_im2col": (
-        "int8_conv3x3_im2col", "yolo_int8_conv3x3_requant",
-        CSRC + "int8_conv.cu", "yolo_tpu/kernels/int8_conv.py:145"),
+        "int8_conv3x3_im2col", POOL3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
     "int8_res_block": (
         "int8_res_block", "yolo_int8_res_block", CSRC + "int8_res_block.cu",
         "yolo_tpu/kernels/int8_conv.py:567"),
@@ -129,6 +133,9 @@ LINES = {
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
+# its pooled form (K3) at conv2's, conv3_2's and conv4_2's widths, whose
+# even tiles leave edge tiles
+POOL_EDGE_SHAPES = [(2, 100, 16, 32), (2, 30, 64, 64), (2, 54, 128, 128)]
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
@@ -243,7 +250,7 @@ def call(form, x, w, bias, c_in, kw, packed=None):
         return K.int8_conv3x3_pool_requant(x, w, bias, assembly="s2d", **kw)
     if form in ("im2col_pool", "im2col"):
         return K.int8_conv3x3_im2col(x, w, bias, pool=form == "im2col_pool",
-                                     **kw)
+                                     packed=packed, **kw)
     return K.int8_conv3x3_requant(x, w, bias, packed=packed, **kw)
 
 
@@ -313,6 +320,27 @@ def phase_kernels(max_err):
         emit("kernels_vs_plain", layer=name, form=form, kernel=k,
              shape=[BATCH_CHECK, h, h, c_in, c_out], equal=True,
              out_std=round(float(got.float().std()), 3))
+    for bsz, h, c_in, c_out in POOL_EDGE_SHAPES:
+        x, w, bias = make_case(gen, bsz, h, c_in, c_out, s2d=False)
+        packed = K.pack_conv3x3_weights(w)
+        for rounding, case, form in (("nearest", "plain", "hwio"),
+                                     ("floor", "out_shift<0", "packed"),
+                                     ("nearest", "acc_shift>=32", "packed"),
+                                     ("floor", "plain", "hwio")):
+            kw = dict(shifts(c_in, case), leaky=True, rounding=rounding)
+            K.reset_launch_counts()
+            got = call("im2col_pool", x, w, bias, c_in, kw,
+                       packed if form == "packed" else None)
+            torch.cuda.synchronize()
+            check_equal(ran_line(), got,
+                        plain("im2col_pool", x, w, bias, c_in, kw), max_err,
+                        f"K3 {h}x{h} {c_in}->{c_out} {rounding} {case} "
+                        f"{form}")
+            n += 1
+        emit("kernels_vs_plain", kernel="conv3x3 pooled wgmma edge tiles",
+             shape=[bsz, h, h, c_in, c_out],
+             tile=list(K.conv3x3_pool_wgmma_layout(h, h, c_in, c_out)[:2]),
+             equal=True)
     emit("kernels_vs_plain_done", cases=n, max_abs_err=max_err)
 
 
@@ -368,9 +396,9 @@ def phase_serving(m, cfg, card):
     K.reset_conv3x3_pack_count()
     detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
     packs_at_setup = K.conv3x3_pack_count()
-    if packs_at_setup != 6:
+    if packs_at_setup != 9:
         raise AssertionError(f"the detect fn packed {packs_at_setup} K1 "
-                             f"layers, want 6")
+                             f"and K3 layers, want 9")
     for _ in range(SERVE_WARMUP):
         detect(x2)
     torch.cuda.synchronize()
@@ -392,8 +420,11 @@ def phase_serving(m, cfg, card):
     if entries["int8_conv3x3_requant"] != {WGMMA3: 6 * SERVE_ITERS}:
         raise AssertionError(f"K1 launched {entries['int8_conv3x3_requant']}"
                              f", want all {6 * SERVE_ITERS} on {WGMMA3}")
+    if entries["int8_conv3x3_im2col"] != {POOL3: 3 * SERVE_ITERS}:
+        raise AssertionError(f"K3 launched {entries['int8_conv3x3_im2col']}"
+                             f", want all {3 * SERVE_ITERS} on {POOL3}")
     if K.conv3x3_pack_count():
-        raise AssertionError(f"serving packed K1 weights "
+        raise AssertionError(f"serving packed K1 / K3 weights "
                              f"{K.conv3x3_pack_count()} times")
     boxes, scores, classes, valid = out
     if (tuple(boxes.shape) != (BATCH_SERVE, cfg.top_k, 4)
@@ -430,8 +461,9 @@ def phase_layer_times(card_name, max_err):
                                s2d=form == "s2d")
         kw = dict(shifts(c_in, "plain"), leaky=name != "pred",
                   rounding="nearest")
-        # K1 reads its weights packed, as serving does
-        packed = K.pack_conv3x3_weights(w) if form == "requant" else None
+        # K1 and K3 read their weights packed, as serving does
+        packed = (K.pack_conv3x3_weights(w)
+                  if form in ("requant", "im2col_pool") else None)
         K.reset_launch_counts()
         got = call(form, x, w, bias, c_in, kw, packed)
         line = ran_line()
@@ -439,14 +471,17 @@ def phase_layer_times(card_name, max_err):
         check_equal(line, got, want, max_err,
                     f"{name} ({form}), batch {BATCH_SERVE}")
         extra = {}
-        if line == "int8_conv3x3_requant":
-            # the mma.sync conv kernel K1 ran on before, at the same shape
+        if line in ("int8_conv3x3_requant", "int8_conv3x3_im2col"):
+            # the mma.sync conv kernel K1 and K3 ran on before, at the
+            # same shape
             mma = lambda: K._launch(  # noqa: E731
-                "int8_conv3x3_requant", x, w, bias, h=h, w=h, c_in=c_in,
-                pool=False, s2d=False, **kw)
+                line, x, w, bias, h=h, w=h, c_in=c_in, pool=pool,
+                s2d=False, **kw)
             check_equal(f"{line} (mma.sync)", mma(), want, max_err,
                         f"{name}, batch {BATCH_SERVE}")
-            extra = layout_fields(K.conv3x3_wgmma_layout(h, h, c_in, c_out))
+            layout = (K.conv3x3_pool_wgmma_layout if pool
+                      else K.conv3x3_wgmma_layout)
+            extra = layout_fields(layout(h, h, c_in, c_out))
             extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
         ms = time_ms(lambda: call(form, x, w, bias, c_in, kw, packed), 10)
@@ -1014,6 +1049,12 @@ def main() -> int:
                                 f"{SIZE}x{SIZE}; library_ms is cuDNN fp16 "
                                 f"conv2d; mma_sync_ms the mma.sync conv "
                                 f"kernel on the same layers",
+        "int8_conv3x3_im2col": f"per slim_yolo_v2 forward: summed over its "
+                               f"3 K3 layers (conv2, conv3_2, conv4_2), "
+                               f"batch {BATCH_SERVE}, {SIZE}x{SIZE}; "
+                               f"library_ms is cuDNN fp16 conv2d (without "
+                               f"the pool); mma_sync_ms the mma.sync conv "
+                               f"kernel on the same layers",
         "int8_conv_requant.conv3x3_wgmma": f"per yolo_v3 forward: the "
                                            f"head's 9 stride-1 3x3s (3 "
                                            f"shapes), batch "

@@ -211,12 +211,15 @@ def _slim():
 
 
 def test_slim_pack_conv3x3_packs_the_six_k1_layers():
+    """... and the three K3 layers of the kernel's pooled form: 9 in all
+    (test_torch_conv3x3_pool_wgmma.py holds the K3 ones)."""
     m = _slim()
     K.reset_conv3x3_pack_count()
     m.pack_conv3x3()
-    assert K.conv3x3_pack_count() == 6
+    assert K.conv3x3_pack_count() == 9
     assert sorted(m.packed) == sorted(
-        ["conv3_1", "conv4_1", "conv5", "conv6", "conv7", "pred"])
+        ["conv3_1", "conv4_1", "conv5", "conv6", "conv7", "pred",
+         "conv2", "conv3_2", "conv4_2"])
     moved = m.to("cpu")
     assert sorted(moved.packed) == sorted(m.packed)
     assert all(torch.equal(moved.packed[k], m.packed[k]) for k in m.packed)

@@ -287,6 +287,29 @@ def test_pack_res_blocks_packs_every_block(models):
         assert torch.equal(w1, m.w_q[i][0, 0]) and torch.equal(w2, m.w_q[i + 1])
 
 
+def test_to_carries_the_packed_weights(models, rng):
+    """A packed model moved with ``to`` keeps both packed dicts, equal
+    tensors in their K-major form, so its forward packs nothing."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    _, tm, x_q = models
+    m = tm.to("cpu")
+    m.pack_res_blocks()
+    m.pack_conv3x3s()
+    moved = m.to("cpu")
+    assert sorted(moved.res_packed) == sorted(m.res_packed)
+    assert sorted(moved.conv_packed) == sorted(m.conv_packed)
+    for i, pair in m.res_packed.items():
+        assert all(a is b for a, b in zip(moved.res_packed[i], pair))
+    for i, wp in m.conv_packed.items():
+        assert moved.conv_packed[i] is wp  # no copy on the same device
+    K.reset_res_block_pack_count()
+    K.reset_conv3x3_pack_count()
+    tv3.int8_yolo_v3_forward(moved, torch.tensor(x_q[:1]))
+    assert K.res_block_pack_count() == 0
+    assert K.conv3x3_pack_count() == 0
+
+
 def test_unported_options_raise(models):
     _, tm, x_q = models
     cfg = t_get_config("yolo_v3", "mask", input_size=(SIZE, SIZE))

@@ -569,3 +569,124 @@ def test_cuda_conv3x3_wgmma_layout_at_routed_shapes(cuda, shape):
     assert lay.smem_bytes <= 232448
     assert lay.tile_pixels == lay.tile_h * lay.tile_w
     assert lay.tile_pixels / lay.mma_rows >= 0.85
+
+
+# ---------------------------------------------------------------------------
+# The wgmma conv3x3's pooled form (conv3x3 + 2x2/2 max pool, C_in % 32 == 0
+# or C_in == 16): K3 (conv3x3_pool_wgmma_route).
+# ---------------------------------------------------------------------------
+
+POOL_ENTRY = "yolo_int8_conv3x3_pool_wgmma"
+# (B, H, W, C_in, C_out): the three shapes slim's serving path routes there
+# (conv2, conv3_2, conv4_2), then shapes whose even tiles leave edge tiles,
+# and other widths (C_out not a multiple of 16, past one 128-column tile)
+POOL_SHAPES = [
+    (2, 208, 208, 16, 32),
+    (2, 104, 104, 64, 64),
+    (2, 52, 52, 128, 128),
+    (2, 30, 30, 64, 64),
+    (2, 54, 54, 128, 128),
+    (2, 100, 100, 16, 32),
+    (2, 30, 64, 64, 64),
+    (1, 10, 14, 32, 35),
+    (2, 6, 8, 96, 200),
+    (1, 4, 2, 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("case", POOL_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_pool_wgmma_equals_plain(cuda, form, case):
+    x, wq, b = _conv3x3_args(case, seed=7)
+    kw = dict(SHIFTS, leaky=case[-1] != 35, pool=True)
+    want = K.int8_conv3x3_im2col(x, wq, b, **kw)
+    packed = K.pack_conv3x3_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
+    if form == "packed":
+        got = K.int8_conv3x3_im2col(x.to(cuda), None, b.to(cuda),
+                                    packed=packed, **kw)
+    else:
+        got = K.int8_conv3x3_im2col(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {POOL_ENTRY: 1}}
+    assert K.conv3x3_pack_count() == (form == "hwio")
+    assert got.shape == (case[0], case[1] // 2, case[2] // 2, case[4])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", [dict(SHIFTS), dict(SHIFTS, sw=40),
+                                    dict(SHIFTS, sa_out=14),
+                                    dict(SHIFTS, sa_out=-22)],
+                         ids=["plain", "acc_shift_33", "out_shift_lt_0",
+                              "out_shift_ge_32"])
+@pytest.mark.parametrize("case", [(2, 14, 10, 16, 32), (2, 12, 18, 64, 128)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_pool_wgmma_shifts(cuda, rounding, shifts, case):
+    """Both roundings; shifts outside [0, 31] take the kernel's general
+    shift form."""
+    x, wq, b = _conv3x3_args(case, seed=8)
+    kw = dict(shifts, rounding=rounding, pool=True)
+    want = K.int8_conv3x3_im2col(x, wq, b, **kw)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_im2col(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {POOL_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+# (tile_h, tile_w, ring stages, blocks per SM, BN) the pooled form takes at
+# slim's three K3 shapes, by (H, W, C_in, C_out): each tile as large as
+# lets its form's blocks per SM reside (conv3_2's 26 x 26 would not fit
+# two)
+POOL_TILES = {
+    (208, 208, 16, 32): (26, 26, 3, 3, 32),
+    (104, 104, 64, 64): (26, 14, 4, 2, 64),
+    (52, 52, 128, 128): (26, 26, 3, 1, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    *POOL_TILES, (30, 30, 64, 64), (54, 54, 128, 128), (100, 100, 16, 32),
+    (52, 52, 512, 128), (26, 26, 1024, 256)],
+    ids=lambda s: "-".join(map(str, s)))
+def test_cuda_conv3x3_pool_wgmma_tiles_are_even(cuda, shape):
+    """Whole 2x2 windows in every tile, edge tiles included; wide channels
+    halve the tile to even sizes."""
+    lay = K.conv3x3_pool_wgmma_layout(*shape)
+    h, w = shape[:2]
+    assert lay.tile_h % 2 == 0 and lay.tile_w % 2 == 0
+    assert (h % lay.tile_h) % 2 == 0 and (w % lay.tile_w) % 2 == 0
+    if shape in POOL_TILES:
+        assert (lay.tile_h, lay.tile_w, lay.ring_stages, lay.blocks_per_sm,
+                lay.bn) == POOL_TILES[shape]
+        assert lay.tile_pixels / lay.mma_rows >= 0.85
+    assert lay.bn == (128 if shape[3] % 128 == 0 else 32 if shape[3] <= 32
+                      else 64)
+    assert lay.smem_bytes <= 232448
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_pool_wgmma_rejects_bad_input(cuda):
+    """A misaligned input and an odd image raise before launch."""
+    x, wq, b = _conv3x3_args((1, 4, 4, 32, 64))
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv3x3_im2col(xm, wq.to(cuda), b.to(cuda), pool=True,
+                              **SHIFTS)
+    with pytest.raises(ValueError, match="even"):
+        K.int8_conv3x3_im2col(x[:, :3].contiguous().to(cuda), wq.to(cuda),
+                              b.to(cuda), pool=True, **SHIFTS)
+    with pytest.raises(ValueError, match="even"):
+        K.conv3x3_pool_wgmma_layout(5, 4, 32, 64)
+    assert K.launch_counts_by_entry() == {}

@@ -103,7 +103,9 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp]),
                 ("yolo_int8_res_block_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
-                ("yolo_int8_conv3x3_wgmma_info", [i] * 4 + [vp])):
+                ("yolo_int8_conv3x3_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_conv3x3_pool_wgmma", [vp] * 4 + [i] * 9 + [vp]),
+                ("yolo_int8_conv3x3_pool_wgmma_info", [i] * 4 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

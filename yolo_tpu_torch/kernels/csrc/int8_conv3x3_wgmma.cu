@@ -1,49 +1,74 @@
 // Int8 conv3x3 (stride 1, pad 1) + fixed-point requant, for Hopper
 // (sm_90a), on wgmma fed by a TMA ring: int8 NHWC [B, H, W, Cin] at scale
-// 2^sa_in, Cin % 32 == 0 -> int8 [B, H, W, Cout], any Cout >= 1. Plain C
-// interface, loaded with ctypes by yolo_tpu_torch/kernels/int8_conv.py,
-// whose int8_conv3x3_requant and int8_conv_requant send every conv of this
-// shape here (conv3x3_wgmma_route); the weights are packed K-major once per
-// model (pack_conv3x3_weights) as [Cout, 9 * Cin] in (dy, dx, c) order.
+// 2^sa_in, Cin % 32 == 0 -> int8 [B, H, W, Cout], any Cout >= 1; and its
+// pooled form, the same conv + a 2x2/2 max pool -> int8 [B, H/2, W/2,
+// Cout], H and W even, Cin % 32 == 0 or Cin == 16. Plain C interface,
+// loaded with ctypes by yolo_tpu_torch/kernels/int8_conv.py, whose
+// int8_conv3x3_requant and int8_conv_requant send every conv of the first
+// shape here (conv3x3_wgmma_route) and int8_conv3x3_im2col every pooled
+// conv of the second (conv3x3_pool_wgmma_route); the weights are packed
+// K-major once per model (pack_conv3x3_weights) as [Cout, 9 * CK] in (dy,
+// dx, c) order, CK = Cin rounded up to 32 (zero weights past Cin).
 //
-// Replaces the Pallas TPU kernel K1 _conv_kernel / int8_conv3x3_requant of
-// yolo_tpu/kernels/int8_conv.py (all six K1 layers of slim_yolo_v2), and
-// XLA's integer conv in yolo_tpu/quant/fixed_point.py::int_conv_requant at
-// the yolo_v3 head's nine stride-1 3x3s. The leaky slope is 0.125, none,
-// or any Q16 rational; both roundings.
+// Replaces the Pallas TPU kernels K1 _conv_kernel / int8_conv3x3_requant
+// (all six K1 layers of slim_yolo_v2) and K3 _im2col_kernel /
+// int8_conv3x3_im2col(pool=True) (slim's conv2, conv3_2 and conv4_2) of
+// yolo_tpu/kernels/int8_conv.py, and XLA's integer conv in
+// yolo_tpu/quant/fixed_point.py::int_conv_requant at the yolo_v3 head's
+// nine stride-1 3x3s. The leaky slope is 0.125, none, or any Q16
+// rational; both roundings.
 //
-// What bounds it on an H100: 18 * Cin * Cout ops per output pixel against
-// Cin + Cout bytes in and out, so every routed layer with Cin >= 64 is
-// bound by operations (1,979 dense int8 TOPS) and slim's conv3_1 (32 ->
-// 64, ~385 ops per byte) by bytes (3.35 TB/s). The design is the 3x3
-// phase of the fused residual block (int8_res_block.cu), with its input
-// loaded instead of computed; its pieces are shared through
-// int8_wgmma_conv.cuh. Each block owns a TH x TW output tile of one image
-// (plan_tile: up to 26 x 26, halved until it fits) and
-//   1. copies the tile plus a one-pixel halo of x, all Cin channels, into
-//      shared memory, zero outside the image (the conv's padding), rows
-//      Cin + 16 bytes apart so that the 8 rows of an ldmatrix fall in 8
-//      different 16-byte bank groups. The copy is cp.async, 16 bytes per
-//      thread (zero-filled outside the image), not 4-D TMA boxes: the
-//      padded rows let the 3x3 phase below run unchanged, where a TMA box
-//      (<= 128 channels of one 128-byte swizzled row) would need a swizzle
-//      XOR in every ldmatrix address and one box per 128 channels. The
-//      producer warp's first weight stages are in flight meanwhile;
-//   2. runs the 3x3 as an implicit GEMM [tile pixels, 9 * Cin] x
-//      [9 * Cin, Cout] on wgmma (RS): each consumer warpgroup loads its A
+// What bounds it on an H100: 18 * Cin * Cout ops per conv pixel against
+// Cin bytes in and Cout (pooled: Cout / 4) out, so every routed layer with
+// Cin >= 64 is bound by operations (1,979 dense int8 TOPS) and slim's
+// conv3_1 (32 -> 64, ~385 ops per byte) and conv2 (16 -> 32) by bytes
+// (3.35 TB/s). The design is the 3x3 phase of the fused residual block
+// (int8_res_block.cu), with its input loaded instead of computed; its
+// pieces are shared through int8_wgmma_conv.cuh. Each block owns a TH x TW
+// output tile of one image (plan_tile: up to 26 x 26, halved until it
+// fits; in the pooled form even, and halved until the form's blocks per
+// SM fit) and
+//   1. copies the tile plus a one-pixel halo of x, CK channels, into
+//      shared memory, zero outside the image (the conv's padding) and past
+//      Cin, rows CK + 16 bytes apart so that the 8 rows of an ldmatrix
+//      fall in 8 different 16-byte bank groups. The copy is cp.async, 16
+//      bytes per thread (zero-filled where it reads nothing), not 4-D TMA
+//      boxes: the padded rows let the 3x3 phase below run unchanged, where
+//      a TMA box (<= 128 channels of one 128-byte swizzled row) would need
+//      a swizzle XOR in every ldmatrix address and one box per 128
+//      channels. The producer warp's first weight stages are in flight
+//      meanwhile;
+//   2. runs the 3x3 as an implicit GEMM [tile pixels, 9 * CK] x
+//      [9 * CK, Cout] on wgmma (RS): each consumer warpgroup loads its A
 //      fragments straight from the tile with ldmatrix, taps outside and
 //      channels inside, so the tap offsets are additions; the weights
 //      stream through a shared-memory ring of 3-8 stages that TMA fills
 //      (128-byte swizzle, full / empty mbarriers), rows past Cout
-//      zero-filled, so Cout = 35 runs in one 64-column tile;
+//      zero-filled, so Cout = 35 runs in one 64-column tile. The pooled
+//      form orders the M rows by 2x2 window: M row 16 w + g + 8 h of a
+//      64-row step is window pixel (dy, dx) = (h, g % 2) of the step's
+//      pooled pixel 4 w + g / 2, so each thread's accumulator holds both
+//      rows of a window column and lane ^ 4 the other column (ldmatrix
+//      takes any row order, so the MMA loop is the same);
 //   3. requantizes in registers (every shift one branch-free form set up
 //      on the host), stages 64 x 64 bytes per warpgroup in shared memory
 //      and stores 16 bytes at a time (byte by byte, masked at Cout, where
-//      Cout % 16 != 0 leaves the output rows unaligned).
+//      Cout % 16 != 0 leaves the output rows unaligned). The pooled form
+//      first takes each window's max on the int32 accumulator, as the TPU
+//      kernel does (exact: the requant chain is monotone): over h in
+//      registers, then over dx with one shuffle per two values, which
+//      also leaves each of the two lanes half of the columns, so the
+//      requant runs once per pooled value (1/4 of the unpooled epilogue),
+//      and stages 16 x BN bytes.
 // Three consumer warpgroups share each weight tile where Cout % 128 == 0
 // (a producer warpgroup hands them its registers); else two, with a
-// 64-column tile and one producer warp, and two blocks per SM where the
-// tile and ring fit in half an SM.
+// 64-column tile and one producer warp, two blocks per SM where the tile
+// and ring fit in half an SM, or in the pooled form where Cout <= 32
+// (slim's conv2) a 32-column tile and three blocks per SM. On an H100 the
+// pooled form's latency-bound narrow layers ran 19-29% faster with the
+// tile shrunk until those blocks reside (slim's conv3_2: 26 x 14 tiles,
+// two blocks per SM, against one of 26 x 26) and with three conv2 blocks
+// per SM against two (PERF.md, section 6).
 //
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32 and s < 0.
@@ -55,12 +80,13 @@ namespace {
 template <int BN>
 struct ConvCfg {
   // consumer warpgroups, each owning 64 rows of an M step
-  static constexpr int NWG = BN == 64 ? 2 : 3;
+  static constexpr int NWG = BN == 128 ? 3 : 2;
   static constexpr int CONSUMERS = 128 * NWG;
   // + the producer: a whole warpgroup that hands its registers to the
-  // consumers (setmaxnreg) in the wide form, one warp in the narrow form
+  // consumers (setmaxnreg) in the wide form, one warp in the narrow forms
   static constexpr int THREADS = NWG == 3 ? 512 : CONSUMERS + 32;
-  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;
+  // blocks per SM where the tile and ring fit in their share of it
+  static constexpr int MIN_BLOCKS = BN == 128 ? 1 : BN == 64 ? 2 : 3;
   // a ring slot: two weight tiles (BN rows each), one 256-deep K step
   static constexpr int SLOT = 2 * BN * SW;
 };
@@ -68,8 +94,10 @@ struct ConvCfg {
 struct Conv3Args {
   const int8_t* x;  // [B, H, W, Cin]
   const int* bias;  // [Cout rounded up to 128], retune scale, 0 past Cout
-  int8_t* out;      // [B, H, W, Cout]
+  int8_t* out;      // [B, H, W, Cout], pooled [B, H / 2, W / 2, Cout]
   int B, H, W, Cin, Cout;
+  int CK;        // channels of the halo tile and of each tap's K: Cin
+                 // rounded up to 32
   int TH, TW;    // output tile (the edge tiles may be smaller)
   int stages;    // ring depth, 3..MAX_STAGES
   Epi epi;
@@ -89,7 +117,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int BN, bool SHORT>
+// staging byte of (row, column) of the pooled form's 16 x BN tile: the
+// 16-byte chunks XOR-ed with the row, so the 4 rows that a warp's 2-byte
+// stores reach at once fall in 4 different bank groups
+template <int BN>
+__device__ __forceinline__ int pool_stg_at(int row, int col) {
+  return row * BN + ((((col >> 4) ^ row) & (BN / 16 - 1)) << 4) + (col & 15);
+}
+
+template <int BN, bool SHORT, bool POOL>
 __global__ void __launch_bounds__(ConvCfg<BN>::THREADS,
                                   ConvCfg<BN>::MIN_BLOCKS)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
@@ -98,9 +134,9 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
-  const int HW = a.TW + 2, HH = a.TH + 2, S = y1_stride(a.Cin);
+  const int HW = a.TW + 2, HH = a.TH + 2, S = y1_stride(a.CK);
   int8_t* xt = reinterpret_cast<int8_t*>(smem + a.stages * Cfg::SLOT);
-  int8_t* stg_all = xt + halo_bytes(a.TH, a.TW, a.Cin);
+  int8_t* stg_all = xt + halo_bytes(a.TH, a.TW, a.CK);
   uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + NWG * STG_BYTES);
   const Ring ring{bars, bars + a.stages, a.stages};
   const int tid = threadIdx.x;
@@ -113,9 +149,13 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   const int th = min(a.TH, a.H - ty0), tw = min(a.TW, a.W - tx0);
 
   // ---- the producer's and the consumers' common walk over the ring
-  const int K = 9 * a.Cin, nk = (K + 2 * SW - 1) / (2 * SW);
+  const int K = 9 * a.CK, nk = (K + 2 * SW - 1) / (2 * SW);
   const int nn = (a.Cout + BN - 1) / BN;
-  const int nc = (a.TH * a.TW + 64 * NWG - 1) / (64 * NWG);
+  // M steps of NWG x 64 rows over the nominal tile: its pixels, or in the
+  // pooled form its pooled pixels, 16 (64 rows) per warpgroup
+  const int PW = a.TW / 2, Q = a.TH / 2 * PW;  // the pooled tile
+  const int nc = POOL ? (Q + 16 * NWG - 1) / (16 * NWG)
+                      : (a.TH * a.TW + 64 * NWG - 1) / (64 * NWG);
 
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) {
@@ -154,14 +194,15 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   const int gid = lane >> 2, tig = lane & 3, ltid = tid & 127;
   const long long img = (long long)b * a.H * a.W;  // first pixel of image b
 
-  // ---- 1. the tile and its halo of x, zero outside the image
+  // ---- 1. the tile and its halo of x, zero outside the image and past Cin
   {
-    const int chunks = a.Cin / 16;  // 16-byte chunks per pixel
+    const int chunks = a.CK / 16;  // 16-byte chunks per pixel
     for (int e = tid; e < HH * HW * chunks; e += CONSUMERS) {
       const int p = e / chunks, q = e - p * chunks;
       const int hy = p / HW, hx = p - hy * HW;
       const int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
-      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+      const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W &&
+                      16 * q < a.Cin;
       const int8_t* src =
           in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + 16 * q : a.x;
       cp_async16(xt + p * S + 16 * q, src, in ? 16 : 0);
@@ -171,28 +212,52 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   named_sync(1, CONSUMERS);  // the tile complete
 
   // ---- 2. the 3x3 over the tile, 3. requant
-  const int P = a.TH * a.TW;     // rows of the nominal tile
-  const int P_live = th * a.TW;  // rows from here on lie below the image
   int8_t* stg = stg_all + wg * STG_BYTES;
   int i = 0;
   for (int c = 0; c < nc; ++c) {
-    const int p0 = (c * NWG + wg) * 64;
-    const bool active = p0 < P_live;
-    // this lane's ldmatrix row: output pixel r of the tile
-    int r = p0 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-    if (r >= P) r = 0;
-    const int py = r / a.TW, px = r - py * a.TW;
-    const int8_t* arow = xt + (py * HW + px) * S + 16 * (lane >> 4);
-    // the two 16-byte chunks this thread copies out: output byte offset of
-    // their pixel, or -1 outside the image
+    bool active;
+    const int8_t* arow;
+    // output byte offsets of the 16-byte chunks this thread copies out, or
+    // -1 outside the image (the pooled form: one chunk)
     long long obase[2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int po = p0 + ((ltid + 128 * q) >> 2);
-      const int oy = po / a.TW, ox = po - oy * a.TW;
-      obase[q] = oy < th && ox < tw
-                     ? (img + (long long)(ty0 + oy) * a.W + tx0 + ox) * a.Cout
+    if constexpr (POOL) {
+      const int q0 = (c * NWG + wg) * 16;  // the step's first pooled pixel
+      active = q0 < th / 2 * PW;  // later ones lie below the image
+      // this lane's ldmatrix row g + 8 h (g = lane % 8, h = lane / 8 % 2):
+      // pixel (h, g % 2) of pooled pixel q
+      int q = q0 + warp * 4 + ((lane & 7) >> 1);
+      if (q >= Q) q = 0;
+      const int qy = q / PW;
+      const int py = 2 * qy + ((lane >> 3) & 1);
+      const int px = 2 * (q - qy * PW) + (lane & 1);
+      arow = xt + (py * HW + px) * S + 16 * (lane >> 4);
+      // chunk ltid % NCH of pooled pixel q0 + ltid / NCH
+      constexpr int NCH = BN / 16;
+      const int qq = q0 + ltid / NCH;
+      const int oy = qq / PW, ox = qq - oy * PW;
+      obase[0] = ltid < 16 * NCH && oy < th / 2 && ox < tw / 2
+                     ? ((long long)b * (a.H / 2) * (a.W / 2) +
+                        (long long)(ty0 / 2 + oy) * (a.W / 2) + tx0 / 2 +
+                        ox) * a.Cout
                      : -1;
+    } else {
+      const int P = a.TH * a.TW;  // rows of the nominal tile
+      const int p0 = (c * NWG + wg) * 64;
+      active = p0 < th * a.TW;  // rows from here on lie below the image
+      // this lane's ldmatrix row: output pixel r of the tile
+      int r = p0 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+      if (r >= P) r = 0;
+      const int py = r / a.TW, px = r - py * a.TW;
+      arow = xt + (py * HW + px) * S + 16 * (lane >> 4);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int po = p0 + ((ltid + 128 * q) >> 2);
+        const int oy = po / a.TW, ox = po - oy * a.TW;
+        obase[q] = oy < th && ox < tw
+                       ? (img + (long long)(ty0 + oy) * a.W + tx0 + ox) *
+                             a.Cout
+                       : -1;
+      }
     }
     for (int n = 0; n < nn; ++n) {
       int acc[BN / 2];
@@ -217,7 +282,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
               if (k * 2 * SW + half * SW + 32 * j < K) {
                 ldmatrix_x4(af[j], arow + tap_off + ch);
                 ch += 32;
-                if (ch == a.Cin) {
+                if (ch == a.CK) {
                   ch = 0;
                   if (++dx == 3) {
                     dx = 0;
@@ -240,32 +305,40 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
         ring.consumer_release(i);
       }
       if (!active) continue;
-      // 64 columns at a time through the warpgroup's staging tile
+      if constexpr (POOL) {
+        // Each window's max: over its rows g, g + 8 (dy) in this thread's
+        // registers, then over its columns (dx = g % 2) with lane ^ 4, each
+        // lane keeping the n8 groups j of its own dx parity (sending the
+        // other); then requant, stage and store BN columns of 16 pooled
+        // pixels. The thread's values: pooled pixel 4 warp + g / 2,
+        // columns 8 j + 2 tig (+1), j = 2 i + dx.
+        const int odd = gid & 1;
+        const int row = warp * 4 + (gid >> 1);
 #pragma unroll
-      for (int pass = 0; pass < BN / 64; ++pass) {
-        const int col0 = n * BN + pass * 64;
+        for (int h = 0; h < BN / 16; ++h) {
+          int v[2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int cl = 8 * j + 2 * tig;
-          const int2 bias = *reinterpret_cast<const int2*>(a.bias + col0 + cl);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int* v = &acc[4 * (8 * pass + j) + 2 * h];
-            *reinterpret_cast<uint16_t*>(
-                stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
-                pack2(a.epi.apply<SHORT>(v[0], bias.x),
-                      a.epi.apply<SHORT>(v[1], bias.y));
+          for (int e = 0; e < 2; ++e) {
+            const int m0 = max(acc[8 * h + e], acc[8 * h + 2 + e]);
+            const int m1 = max(acc[8 * h + 4 + e], acc[8 * h + 6 + e]);
+            v[e] = max(odd ? m1 : m0,
+                       __shfl_xor_sync(0xffffffffu, odd ? m0 : m1, 4));
           }
+          const int cl = 16 * h + 8 * odd + 2 * tig;
+          const int2 bias =
+              *reinterpret_cast<const int2*>(a.bias + n * BN + cl);
+          *reinterpret_cast<uint16_t*>(stg + pool_stg_at<BN>(row, cl)) =
+              pack2(a.epi.apply<SHORT>(v[0], bias.x),
+                    a.epi.apply<SHORT>(v[1], bias.y));
         }
         named_sync(2 + wg, 128);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int rl = (ltid + 128 * q) >> 2, c16 = ltid & 3;
-          const int left = a.Cout - col0 - 16 * c16;  // columns to store
-          if (obase[q] < 0 || left <= 0) continue;
-          const uint4 o =
-              *reinterpret_cast<const uint4*>(stg + stg_at(rl, 16 * c16));
-          int8_t* dst = a.out + obase[q] + col0 + 16 * c16;
+        constexpr int NCH = BN / 16;
+        const int c16 = ltid % NCH;
+        const int left = a.Cout - n * BN - 16 * c16;  // columns to store
+        if (obase[0] >= 0 && left > 0) {
+          const uint4 o = *reinterpret_cast<const uint4*>(
+              stg + pool_stg_at<BN>(ltid / NCH, 16 * c16));
+          int8_t* dst = a.out + obase[0] + n * BN + 16 * c16;
           if (a.Cout % 16 == 0) {
             *reinterpret_cast<uint4*>(dst) = o;
           } else {
@@ -276,71 +349,118 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
           }
         }
         named_sync(2 + wg, 128);
+      } else {
+        // 64 columns at a time through the warpgroup's staging tile
+#pragma unroll
+        for (int pass = 0; pass < BN / 64; ++pass) {
+          const int col0 = n * BN + pass * 64;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int cl = 8 * j + 2 * tig;
+            const int2 bias =
+                *reinterpret_cast<const int2*>(a.bias + col0 + cl);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+              *reinterpret_cast<uint16_t*>(
+                  stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                  pack2(a.epi.apply<SHORT>(v[0], bias.x),
+                        a.epi.apply<SHORT>(v[1], bias.y));
+            }
+          }
+          named_sync(2 + wg, 128);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int rl = (ltid + 128 * q) >> 2, c16 = ltid & 3;
+            const int left = a.Cout - col0 - 16 * c16;  // columns to store
+            if (obase[q] < 0 || left <= 0) continue;
+            const uint4 o =
+                *reinterpret_cast<const uint4*>(stg + stg_at(rl, 16 * c16));
+            int8_t* dst = a.out + obase[q] + col0 + 16 * c16;
+            if (a.Cout % 16 == 0) {
+              *reinterpret_cast<uint4*>(dst) = o;
+            } else {
+              const int8_t* ob = reinterpret_cast<const int8_t*>(&o);
+#pragma unroll
+              for (int e = 0; e < 16; ++e)
+                if (e < left) dst[e] = ob[e];
+            }
+          }
+          named_sync(2 + wg, 128);
+        }
       }
     }
   }
 }
 
-// The form's layout for an H x W image of Cin channels: plan_tile's output
-// tile and ring (int8_wgmma_conv.cuh), the ring in half an SM's shared
-// memory for the two-block form.
-template <int BN>
-TilePlan plan(int H, int W, int Cin) {
+// The form's layout for an H x W image whose halo tile holds CK channels:
+// plan_tile's output tile (even, and small enough for the form's blocks
+// per SM, in the pooled form) and ring (int8_wgmma_conv.cuh), the ring in
+// the block's share of an SM's shared memory.
+template <int BN, bool POOL>
+TilePlan plan(int H, int W, int CK) {
   using Cfg = ConvCfg<BN>;
-  return plan_tile(H, W, Cin, Cfg::SLOT, Cfg::NWG,
-                   Cfg::MIN_BLOCKS == 2 ? HALF_SM_SMEM : MAX_SMEM);
+  return plan_tile(H, W, CK, Cfg::SLOT, Cfg::NWG, sm_share(Cfg::MIN_BLOCKS),
+                   POOL);
 }
 
 constexpr int INFO_LEN = 9;
 
 // Launches the form, or with `info` reports its layout there instead.
-template <int BN, bool SHORT>
+template <int BN, bool SHORT, bool POOL>
 int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   using Cfg = ConvCfg<BN>;
-  const TilePlan p = plan<BN>(a.H, a.W, a.Cin);
+  const TilePlan p = plan<BN, POOL>(a.H, a.W, a.CK);
   if (p.smem == 0) return (int)cudaErrorInvalidValue;
   a.TH = p.th;
   a.TW = p.tw;
   a.stages = p.stages;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<BN, SHORT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      conv3x3_wgmma<BN, SHORT, POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv3x3_wgmma<BN, SHORT>, Cfg::THREADS, p.smem);
+        &blocks, conv3x3_wgmma<BN, SHORT, POOL>, Cfg::THREADS, p.smem);
     if (err != cudaSuccess) return (int)err;
     const int pixels = a.TH * a.TW;
-    const int vals[INFO_LEN] = {a.TH,     a.TW,     p.smem, blocks,
-                                BN,       Cfg::NWG, a.stages, pixels,
-                                (pixels + 63) / 64 * 64};
+    // 64 rows per step: 64 pixels, or the 4 pixels of 16 pooled ones
+    const int steps = POOL ? (pixels / 4 + 15) / 16 : (pixels + 63) / 64;
+    const int vals[INFO_LEN] = {a.TH, a.TW,     p.smem,   blocks, BN,
+                                Cfg::NWG, a.stages, pixels, 64 * steps};
     for (int k = 0; k < INFO_LEN; ++k) info[k] = vals[k];
     return 0;
   }
   CUtensorMap tm_w;
-  const cuuint64_t K = 9 * (cuuint64_t)a.Cin;
+  const cuuint64_t K = 9 * (cuuint64_t)a.CK;
   const cuuint64_t dims[2] = {K, (cuuint64_t)a.Cout}, strides[1] = {K};
   const cuuint32_t box[2] = {SW, BN};
   const int rc = make_map(&tm_w, wp, 2, dims, strides, box);
   if (rc != 0) return rc;
   const long long ntiles = (long long)((a.H + a.TH - 1) / a.TH) *
                            ((a.W + a.TW - 1) / a.TW);
-  conv3x3_wgmma<BN, SHORT>
+  conv3x3_wgmma<BN, SHORT, POOL>
       <<<(unsigned)(a.B * ntiles), Cfg::THREADS, p.smem, st>>>(tm_w, a);
   return (int)cudaGetLastError();
 }
 
-// the 128-column form where Cout fills it, else the 64-column one
-template <bool SHORT>
+// the 128-column form where Cout fills it, else the 64-column one, or in
+// the pooled form the 32-column one where Cout <= 32
+template <bool SHORT, bool POOL>
 int dispatch(const Conv3Args& a, const void* wp, int* info,
              cudaStream_t st) {
-  if (a.Cout % 128 == 0) return launch_form<128, SHORT>(a, wp, info, st);
-  return launch_form<64, SHORT>(a, wp, info, st);
+  if (a.Cout % 128 == 0) return launch_form<128, SHORT, POOL>(a, wp, info, st);
+  if constexpr (POOL)
+    if (a.Cout <= 32) return launch_form<32, SHORT, POOL>(a, wp, info, st);
+  return launch_form<64, SHORT, POOL>(a, wp, info, st);
 }
 
-bool bad_shape(int H, int W, int Cin, int Cout) {
-  return H < 1 || W < 1 || Cin < 32 || Cin % 32 || Cout < 1;
+bool bad_shape(int H, int W, int Cin, int Cout, bool pool) {
+  if (H < 1 || W < 1 || Cout < 1) return true;
+  if (pool && (H % 2 || W % 2)) return true;
+  if (pool && Cin == 16) return false;  // zero-extended to 32 channels
+  return Cin < 32 || Cin % 32;
 }
 
 Conv3Args base_args(int H, int W, int Cin, int Cout) {
@@ -349,7 +469,33 @@ Conv3Args base_args(int H, int W, int Cin, int Cout) {
   a.W = W;
   a.Cin = Cin;
   a.Cout = Cout;
+  a.CK = (Cin + 31) / 32 * 32;
   return a;
+}
+
+template <bool POOL>
+int run(const void* x, const void* wp, const void* bias_rt, void* out, int B,
+        int H, int W, int Cin, int Cout, int acc_shift, int out_shift,
+        int slope_num, int nearest, void* stream) {
+  if (bad_shape(H, W, Cin, Cout, POOL) || B < 1)
+    return (int)cudaErrorInvalidValue;
+  Conv3Args a = base_args(H, W, Cin, Cout);
+  a.x = static_cast<const int8_t*>(x);
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.B = B;
+  a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_shift(acc_shift) && short_shift(out_shift))
+    return dispatch<true, POOL>(a, wp, nullptr, st);
+  return dispatch<false, POOL>(a, wp, nullptr, st);
+}
+
+template <bool POOL>
+int layout(int H, int W, int Cin, int Cout, int* out) {
+  if (bad_shape(H, W, Cin, Cout, POOL)) return (int)cudaErrorInvalidValue;
+  return dispatch<true, POOL>(base_args(H, W, Cin, Cout), nullptr, out,
+                              nullptr);
 }
 
 }  // namespace
@@ -370,17 +516,21 @@ int yolo_int8_conv3x3_wgmma(const void* x, const void* wp,
                             int W, int Cin, int Cout, int acc_shift,
                             int out_shift, int slope_num, int nearest,
                             void* stream) {
-  if (bad_shape(H, W, Cin, Cout) || B < 1) return (int)cudaErrorInvalidValue;
-  Conv3Args a = base_args(H, W, Cin, Cout);
-  a.x = static_cast<const int8_t*>(x);
-  a.bias = static_cast<const int*>(bias_rt);
-  a.out = static_cast<int8_t*>(out);
-  a.B = B;
-  a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (short_shift(acc_shift) && short_shift(out_shift))
-    return dispatch<true>(a, wp, nullptr, st);
-  return dispatch<false>(a, wp, nullptr, st);
+  return run<false>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
+                    out_shift, slope_num, nearest, stream);
+}
+
+// The pooled form, conv3x3 + 2x2/2 max pool: as yolo_int8_conv3x3_wgmma,
+// with H and W even, Cin % 32 == 0 or Cin == 16, wp int8 [Cout, 9 * CK]
+// (CK = Cin rounded up to 32, zero past Cin) and out int8 [B, H / 2,
+// W / 2, Cout]; its layout: yolo_int8_conv3x3_pool_wgmma_info.
+int yolo_int8_conv3x3_pool_wgmma(const void* x, const void* wp,
+                                 const void* bias_rt, void* out, int B,
+                                 int H, int W, int Cin, int Cout,
+                                 int acc_shift, int out_shift, int slope_num,
+                                 int nearest, void* stream) {
+  return run<true>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
+                   out_shift, slope_num, nearest, stream);
 }
 
 // The kernel's layout for an H x W x Cin -> Cout conv: info[0..8] = tile
@@ -390,9 +540,15 @@ int yolo_int8_conv3x3_wgmma(const void* x, const void* wp,
 // Returns 0, or an error code where the shape is not taken or no tile
 // fits in shared memory.
 int yolo_int8_conv3x3_wgmma_info(int H, int W, int Cin, int Cout,
-                                 int* info) {
-  if (bad_shape(H, W, Cin, Cout)) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(base_args(H, W, Cin, Cout), nullptr, info, nullptr);
+                                 int* info_out) {
+  return layout<false>(H, W, Cin, Cout, info_out);
+}
+
+// The same for the pooled form (a full tile's pixels are 4 per pooled
+// pixel; its 64-row steps hold 16 pooled pixels each).
+int yolo_int8_conv3x3_pool_wgmma_info(int H, int W, int Cin, int Cout,
+                                      int* info_out) {
+  return layout<true>(H, W, Cin, Cout, info_out);
 }
 
 }  // extern "C"

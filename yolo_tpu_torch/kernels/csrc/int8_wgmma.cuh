@@ -281,6 +281,22 @@ __device__ __forceinline__ void mma_ss_n256(int (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[16] += A (4 registers, the m16n8k32 A fragment of this warp's 16
+// rows) x B (smem descriptor), m64n32k32
+__device__ __forceinline__ void mma_rs_n32(int (&d)[16], const unsigned (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d[32] += A (4 registers, the m16n8k32 A fragment of this warp's 16
 // rows) x B (smem descriptor), m64n64k32
 __device__ __forceinline__ void mma_rs_n64(int (&d)[32], const unsigned (&a)[4],

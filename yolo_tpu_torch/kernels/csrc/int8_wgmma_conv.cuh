@@ -22,9 +22,10 @@ constexpr int MAX_STAGES = 8;
 constexpr int STG_BYTES = 64 * 64;  // a warpgroup's staging tile
 // the largest dynamic shared memory of a block (H100: 227 KB)
 constexpr int MAX_SMEM = 232448;
-// a block's share when two run on an SM: half the SM's 228 KB, 1 KB of
+// a block's share when n run on an SM: 1/n of the SM's 228 KB, 1 KB of
 // it reserved per block
-constexpr int HALF_SM_SMEM = 233472 / 2 - 1024;
+constexpr int sm_share(int n) { return n == 1 ? MAX_SMEM : 233472 / n - 1024; }
+constexpr int HALF_SM_SMEM = sm_share(2);
 
 // v * 2^-s as fixed_point._shift computes it (round half away or floor,
 // s >= 32, s < 0 as an exact left shift), in one branch-free form set up
@@ -92,6 +93,7 @@ __device__ __forceinline__ int stg_at(int row, int col) {
 template <int N>
 __device__ __forceinline__ void mma_rs(int (&d)[N / 2],
                                        const unsigned (&a)[4], uint64_t db) {
+  if constexpr (N == 32) mma_rs_n32(d, a, db, 1);
   if constexpr (N == 64) mma_rs_n64(d, a, db, 1);
   if constexpr (N == 128) mma_rs_n128(d, a, db, 1);
 }
@@ -122,16 +124,25 @@ struct TilePlan {
 // `slot`-byte stages in MAX_SMEM (at the darknet53 stages: 26 x 26 from
 // 208^2 to 52^2, 26 x 13 at 26^2 C 256, 13 x 13 at 13^2 C 512, each
 // keeping >= 85% of its 64-row wgmma steps on pixels); then the deepest
-// ring that fits in `budget` bytes.
-inline TilePlan plan_tile(int H, int W, int C, int slot, int nwg,
-                          int budget) {
+// ring that fits in `budget` bytes. With `even` (a pooled conv of an even
+// image: whole 2x2 windows in every tile, edge tiles included) each
+// halving rounds up to even, down to 2 (26 -> 14 -> 8 -> 4 -> 2), and the
+// tile shrinks until its 3-stage block fits in `budget` itself, so that
+// the form's blocks per SM do reside.
+inline TilePlan plan_tile(int H, int W, int C, int slot, int nwg, int budget,
+                          bool even = false) {
   const auto smem = [&](int th, int tw, int stages) {
     return block_smem(halo_bytes(th, tw, C), slot, nwg, stages);
   };
+  const auto halve = [&](int t) {
+    t = (t + 1) / 2;
+    return even ? t + (t & 1) : t;
+  };
+  const int least = even ? 2 : 1, fit = even ? budget : MAX_SMEM;
   TilePlan p{std::min(26, H), std::min(26, W), 3, 0};
-  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.tw > 1) p.tw = (p.tw + 1) / 2;
-  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.th > 1) p.th = (p.th + 1) / 2;
-  if (smem(p.th, p.tw, 3) > MAX_SMEM) return p;
+  while (smem(p.th, p.tw, 3) > fit && p.tw > least) p.tw = halve(p.tw);
+  while (smem(p.th, p.tw, 3) > fit && p.th > least) p.th = halve(p.th);
+  if (smem(p.th, p.tw, 3) > fit) return p;
   while (p.stages < MAX_STAGES && smem(p.th, p.tw, p.stages + 1) <= budget)
     ++p.stages;
   p.smem = smem(p.th, p.tw, p.stages);

@@ -16,11 +16,14 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
 Every stride-1 3x3 conv of one input part with C_in % 32 == 0 and a
 scalar sw (``conv3x3_wgmma_route``: all of K1's main-path layers and the
 yolo_v3 head's nine 3x3s) launches the wgmma conv of
-``csrc/int8_conv3x3_wgmma.cu``, which reads its weights K-major, packed
-once per model by ``pack_conv3x3_weights``. The other K1 shapes, K2, K3
-and the other ``int8_conv_requant`` shapes launch the tensor-core implicit
-GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by ``csrc/int8_conv.cu``
-and ``csrc/int8_conv_general.cu``), K4 the fused block of
+``csrc/int8_conv3x3_wgmma.cu``, and every K3 conv with its pool and C_in
+% 32 == 0 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2,
+conv3_2 and conv4_2) that kernel's pooled form; both read their weights
+K-major, packed once per model by ``pack_conv3x3_weights``. The other K1
+and K3 shapes, K2 and the other ``int8_conv_requant`` shapes launch the
+tensor-core implicit GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by
+``csrc/int8_conv.cu`` and ``csrc/int8_conv_general.cu``), K4 the fused
+block of
 ``csrc/int8_res_block.cu``. Both wgmma kernels are fed by a TMA ring
 (``csrc/int8_wgmma.cuh``) and share their epilogue and tile planner
 (``csrc/int8_wgmma_conv.cuh``). Each file's header note says what bounds
@@ -258,28 +261,42 @@ def int8_conv3x3_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     if route(x_q) == "plain":
-        return int8_conv3x3_requant_plain(x_q, _hwio(w_q, packed), b_q,
-                                          **kw)
+        return int8_conv3x3_requant_plain(
+            x_q, _hwio(w_q, packed, x_q.shape[-1]), b_q, **kw)
     b, h, w, c_in = x_q.shape
     if conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw):
         _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_requant", x_q, w_q, b_q,
                                      packed, **kw)
-    return _launch("int8_conv3x3_requant", x_q, _hwio(w_q, packed), b_q,
-                   h=h, w=w, c_in=c_in, pool=False, s2d=False, **kw)
+    return _launch("int8_conv3x3_requant", x_q, _hwio(w_q, packed, c_in),
+                   b_q, h=h, w=w, c_in=c_in, pool=False, s2d=False, **kw)
 
 
 def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
-                        leaky=True, pool=False, rounding="nearest"):
+                        leaky=True, pool=False, rounding="nearest",
+                        packed=None):
     """Fused int8 conv3x3(s1, p1) + requant [+ 2x2/2 max pool, taken on the
-    int32 accumulator before requant: exact, the chain is monotone]."""
+    int32 accumulator before requant: exact, the chain is monotone].
+
+    ``packed``: the weights from ``pack_conv3x3_weights`` (then ``w_q``
+    may be None). On a CUDA tensor a pooled conv that
+    ``conv3x3_pool_wgmma_route`` takes runs the wgmma kernel's pooled form,
+    which reads that form (packed for this call where only the HWIO
+    weights are given). The CPU route reads the HWIO weights where
+    given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
+    c_in = x_q.shape[-1]
     if route(x_q) == "plain":
-        return int8_conv3x3_im2col_plain(x_q, w_q, b_q, pool=pool, **kw)
-    b, h, w, c_in = x_q.shape
-    return _launch("int8_conv3x3_im2col", x_q, w_q, b_q, h=h, w=w,
-                   c_in=c_in, pool=pool, s2d=False, **kw)
+        return int8_conv3x3_im2col_plain(x_q, _hwio(w_q, packed, c_in), b_q,
+                                         pool=pool, **kw)
+    if pool and conv3x3_pool_wgmma_route(c_in, sw):
+        _check_leaky_flag(leaky)
+        return _launch_conv3x3_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
+                                     packed, pool=True, **kw)
+    b, h, w, _ = x_q.shape
+    return _launch("int8_conv3x3_im2col", x_q, _hwio(w_q, packed, c_in), b_q,
+                   h=h, w=w, c_in=c_in, pool=pool, s2d=False, **kw)
 
 
 def int8_conv3x3_pool_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
@@ -445,8 +462,9 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
+    c_in = sum(xq.shape[-1] for xq, _ in parts)
     if route(parts[0][0]) == "plain":
-        return int8_conv_requant_plain(parts, _hwio(w_q, packed), b_q,
+        return int8_conv_requant_plain(parts, _hwio(w_q, packed, c_in), b_q,
                                        sa_in=None, **kw)
     k = 3 if w_q is None else w_q.shape[0]
     if conv3x3_wgmma_route(k, stride, padding, len(parts),
@@ -456,12 +474,17 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
             "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
             sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
             rounding=rounding)
-    return _launch_conv_requant(parts, _hwio(w_q, packed), b_q, **kw)
+    return _launch_conv_requant(parts, _hwio(w_q, packed, c_in), b_q, **kw)
 
 
 # ---------------------------------------------------------------------------
 # The wgmma conv3x3 (stride 1, pad 1): K1 and the general conv's 3x3s.
 # ---------------------------------------------------------------------------
+
+
+# the wgmma conv3x3 kernel's C entries: the conv, and its pooled form
+WGMMA_ENTRY = "yolo_int8_conv3x3_wgmma"
+POOL_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_wgmma"
 
 
 def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
@@ -474,32 +497,52 @@ def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
             and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
 
 
-def _pack3x3(w_q: torch.Tensor) -> torch.Tensor:
+def conv3x3_pool_wgmma_route(c_in, sw) -> bool:
+    """True where ``int8_conv3x3_im2col(pool=True)`` on a CUDA tensor runs
+    the wgmma conv3x3 kernel's pooled form (``csrc/int8_conv3x3_wgmma.cu``):
+    C_in % 32 == 0, or C_in == 16 (zero-extended to 32 channels in the
+    kernel's halo tile and in the packed weights: slim's conv2), and a
+    scalar ``sw``; H and W even, as every pooled conv. Every other pooled
+    conv runs the mma.sync conv kernel."""
+    return ((c_in == 16 or (c_in > 0 and c_in % 32 == 0))
+            and np.ndim(sw) == 0)
+
+
+def _pack3x3(w_q: torch.Tensor, pad32: bool = False) -> torch.Tensor:
     if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3):
         raise ValueError(f"3x3 weights must be HWIO [3, 3, C_in, C_out], "
                          f"got {list(w_q.shape)}")
     c_in, c_out = w_q.shape[2], w_q.shape[3]
+    if pad32 and c_in % 32:
+        w_q = torch.nn.functional.pad(w_q, (0, 0, 0, -c_in % 32))
+        c_in = w_q.shape[2]
     return w_q.permute(3, 0, 1, 2).reshape(c_out, 9 * c_in).contiguous()
 
 
 def pack_conv3x3_weights(w_q: torch.Tensor) -> torch.Tensor:
     """A 3x3 conv's HWIO weights [3, 3, C_in, C_out] in the K-major form
-    the wgmma kernels read, made once per model: [C_out, 9 * C_in] in
-    (dy, dx, c) order (OHWI), contiguous, on the weights' device."""
+    the wgmma kernels read, made once per model: [C_out, 9 * C_k] in
+    (dy, dx, c) order (OHWI), C_k = C_in rounded up to 32 with zero weights
+    past C_in (the kernels' 32-deep K steps), contiguous, on the weights'
+    device."""
+    wp = _pack3x3(w_q, pad32=True)
     _PACKS["conv3x3"] += 1
-    return _pack3x3(w_q)
+    return wp
 
 
-def unpack_conv3x3_weights(wp: torch.Tensor) -> torch.Tensor:
+def unpack_conv3x3_weights(wp: torch.Tensor, c_in=None) -> torch.Tensor:
     """The inverse of ``pack_conv3x3_weights``: an HWIO [3, 3, C_in,
-    C_out] view of the packed weights."""
+    C_out] view of the packed weights, the zero channels past ``c_in``
+    (where given) left out."""
     c_out, k9 = wp.shape
-    return wp.reshape(c_out, 3, 3, k9 // 9).permute(1, 2, 3, 0)
+    w = wp.reshape(c_out, 3, 3, k9 // 9).permute(1, 2, 3, 0)
+    return w if c_in is None else w[:, :, :c_in]
 
 
-def _hwio(w_q, packed):
-    """The HWIO weights where given, else those of ``packed``."""
-    return w_q if w_q is not None else unpack_conv3x3_weights(packed)
+def _hwio(w_q, packed, c_in):
+    """The HWIO weights where given, else those of ``packed`` (its first
+    ``c_in`` input channels)."""
+    return w_q if w_q is not None else unpack_conv3x3_weights(packed, c_in)
 
 
 def conv3x3_pack_count() -> int:
@@ -518,6 +561,25 @@ Conv3x3Layout = collections.namedtuple("Conv3x3Layout", (
     "consumer_warpgroups", "ring_stages", "tile_pixels", "mma_rows"))
 
 
+def _layout(entry, h, w, c_in, c_out, pool) -> Conv3x3Layout:
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(Conv3x3Layout._fields))()
+    rc = getattr(lib, entry)(h, w, c_in, c_out, info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        need = ("H and W even and C_in % 32 == 0 or C_in == 16" if pool
+                else "C_in % 32 == 0")
+        raise ValueError(f"the conv3x3 wgmma kernel takes no {h}x{w} "
+                         f"{'pooled ' if pool else ''}conv of C_in {c_in} "
+                         f"-> C_out {c_out}: it needs {need}, and a tile "
+                         f"that fits in shared memory")
+    if rc:
+        raise RuntimeError(f"{entry} failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return Conv3x3Layout(*info)
+
+
 @functools.lru_cache(maxsize=None)
 def conv3x3_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
     """The wgmma conv3x3 kernel's launch layout for an H x W x C_in ->
@@ -527,28 +589,28 @@ def conv3x3_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
     tile's pixels beside the rows its 64-row wgmma steps run. Needs the
     built kernels. Raises ValueError where the kernel takes no such conv
     (C_in % 32 != 0, or no tile fits in shared memory)."""
-    from yolo_tpu_torch.kernels import build
+    return _layout("yolo_int8_conv3x3_wgmma_info", h, w, c_in, c_out,
+                   False)
 
-    lib = build.load()
-    info = (ctypes.c_int * len(Conv3x3Layout._fields))()
-    rc = lib.yolo_int8_conv3x3_wgmma_info(h, w, c_in, c_out, info)
-    if rc == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"the conv3x3 wgmma kernel takes no {h}x{w} conv "
-                         f"of C_in {c_in} -> C_out {c_out}: C_in must be a "
-                         f"multiple of 32 and a tile must fit in shared "
-                         f"memory")
-    if rc:
-        raise RuntimeError(f"yolo_int8_conv3x3_wgmma_info failed: "
-                           f"{lib.yolo_int8_error_string(rc).decode()}")
-    return Conv3x3Layout(*info)
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_pool_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
+    """The same for the kernel's pooled form (conv3x3 + 2x2/2 max pool),
+    whose tiles are even: its 64-row wgmma steps hold the four pixels of
+    16 pooled pixels each. Raises ValueError where the form takes no such
+    conv (H or W odd, C_in neither 16 nor a multiple of 32, or no tile
+    fits in shared memory)."""
+    return _layout("yolo_int8_conv3x3_pool_wgmma_info", h, w, c_in, c_out,
+                   True)
 
 
 def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
-                          sa_out, retune, leaky, rounding) -> torch.Tensor:
-    """Check the operands and launch the wgmma conv3x3 kernel on the
-    current stream, counting the launch under ``name``; packs ``w_q`` for
-    this call where ``packed`` is None. Raises on anything the kernel does
-    not take and on a failed launch."""
+                          sa_out, retune, leaky, rounding,
+                          pool=False) -> torch.Tensor:
+    """Check the operands and launch the wgmma conv3x3 kernel (``pool``:
+    its pooled form) on the current stream, counting the launch under
+    ``name``; packs ``w_q`` for this call where ``packed`` is None. Raises
+    on anything the kernel does not take and on a failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
     _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
@@ -557,14 +619,20 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
     bsz, h, w, c_in = x.shape
-    if c_in % 32:
+    if pool:
+        if not conv3x3_pool_wgmma_route(c_in, sw):
+            raise ValueError(f"the pooled conv3x3 wgmma kernel needs C_in % "
+                             f"32 == 0 or C_in == 16, got {c_in}")
+        if h % 2 or w % 2:
+            raise ValueError("pooled conv requires even H, W")
+    elif c_in % 32:
         raise ValueError(f"the conv3x3 wgmma kernel needs C_in % 32 == 0, "
                          f"got {c_in}")
     if packed is None:
         packed = pack_conv3x3_weights(w_q)
     c_out = packed.shape[0]
     _check_operand("packed weights", packed, dev, torch.int8,
-                   (c_out, 9 * c_in))
+                   (c_out, 9 * (-(-c_in // 32) * 32)))
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
@@ -572,16 +640,19 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
-    out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
+    ho, wo = (h // 2, w // 2) if pool else (h, w)
+    out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    conv3x3_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
+    # raises where no tile fits
+    (conv3x3_pool_wgmma_layout if pool else conv3x3_wgmma_layout)(
+        h, w, c_in, c_out)
     _aligned("the output allocation", out, 16)
-    # the kernel reads bias pairs of whole 64- or 128-column tiles
+    # the kernel reads bias pairs of whole 32-, 64- or 128-column tiles
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
                           device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch(name, "yolo_int8_conv3x3_wgmma", dev,
+    launch(name, POOL_WGMMA_ENTRY if pool else WGMMA_ENTRY, dev,
            x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
            out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
            retune - sa_out, num, int(rounding == "nearest"))

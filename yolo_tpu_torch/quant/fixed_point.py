@@ -31,8 +31,8 @@ from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES, TRACKER_NAMES
 
 INT16_MIN, INT16_MAX = -(2 ** 15), 2 ** 15 - 1
 INT8_MIN, INT8_MAX = -128, 127
-# the layers with a 2x2 max pool; int8_forward runs every other layer in
-# int8_conv3x3_requant (K1)
+# the layers with a 2x2 max pool (K2 or K3); int8_forward runs every other
+# layer in int8_conv3x3_requant (K1)
 POOLED = frozenset(name for name, _, _, pool in CONV_LAYERS if pool)
 
 
@@ -63,15 +63,21 @@ class Int8Model:
     def pack_conv3x3(self) -> None:
         """Pack once the weights of every layer that ``int8_forward`` runs
         on the wgmma conv3x3 kernel (``int8_conv3x3_requant`` layers that
-        ``conv3x3_wgmma_route`` takes), so the forward never packs."""
+        ``conv3x3_wgmma_route`` takes, pooled ``int8_conv3x3_im2col``
+        layers that ``conv3x3_pool_wgmma_route`` takes), so the forward
+        never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv3x3_wgmma_route, pack_conv3x3_weights)
+            conv3x3_pool_wgmma_route, conv3x3_wgmma_route,
+            pack_conv3x3_weights)
 
-        self.packed = {
-            name: pack_conv3x3_weights(self.w_q[name])
-            for name in QUANT_LAYER_NAMES
-            if name not in POOLED and conv3x3_wgmma_route(
-                3, 1, 1, 1, self.w_q[name].shape[2], self.sw[name])}
+        def routed(name):
+            c_in, sw = self.w_q[name].shape[2], self.sw[name]
+            if name in POOLED:
+                return conv3x3_pool_wgmma_route(c_in, sw)
+            return conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw)
+
+        self.packed = {name: pack_conv3x3_weights(self.w_q[name])
+                       for name in QUANT_LAYER_NAMES if routed(name)}
 
 
 def resolve_device(device) -> torch.device:
@@ -331,8 +337,8 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
 
     Layer routing: conv1 on s2d input runs the s2d conv+pool form
     (int8_conv3x3_pool_s2d); every other pool layer runs
-    int8_conv3x3_im2col(pool=True); the rest int8_conv3x3_requant, with
-    the weights of ``m.packed`` where ``pack_conv3x3`` made them.
+    int8_conv3x3_im2col(pool=True); the rest int8_conv3x3_requant; both
+    with the weights of ``m.packed`` where ``pack_conv3x3`` made them.
     """
     from yolo_tpu_torch.kernels import int8_conv as K
 
@@ -352,7 +358,9 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
                                           c_in=3, **kw)
         elif name in POOLED:
             out = K.int8_conv3x3_im2col(out, m.w_q[name], m.b_q[name],
-                                        pool=True, **kw)
+                                        pool=True,
+                                        packed=(m.packed or {}).get(name),
+                                        **kw)
         else:
             out = K.int8_conv3x3_requant(out, m.w_q[name], m.b_q[name],
                                          packed=(m.packed or {}).get(name),

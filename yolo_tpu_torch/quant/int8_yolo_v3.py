@@ -137,12 +137,18 @@ class Int8YoloV3:
             self.program = _program(self.spp)
 
     def to(self, device) -> "Int8YoloV3":
-        """The same model with its tensors on ``device``."""
+        """The same model with its tensors on ``device``, packed weights
+        included (K-major as they are; no copy on their own device)."""
         return Int8YoloV3(
             spp=self.spp, w_q=[w.to(device) for w in self.w_q],
             b_q=[b.to(device) for b in self.b_q], sw=list(self.sw),
             sb=list(self.sb), sa_in=self.sa_in, tap_sa=list(self.tap_sa),
-            retune=list(self.retune), program=self.program)
+            retune=list(self.retune), program=self.program,
+            res_packed=None if self.res_packed is None else {
+                i: tuple(t.to(device) for t in pair)
+                for i, pair in self.res_packed.items()},
+            conv_packed=None if self.conv_packed is None else {
+                i: wp.to(device) for i, wp in self.conv_packed.items()})
 
     def pack_res_blocks(self) -> None:
         """Pack the weights of every residual block once
