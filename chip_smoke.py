@@ -43,9 +43,12 @@ raises and the script exits nonzero:
    the pre-packed K-major form; K4 also at three shapes whose tiles leave
    edge tiles (100², 50², 27²); ``int8_conv_requant`` at every distinct
    conv shape of the v3 program (the C_in = 3 entry conv, the stride-2
-   convs, the two-part concat convs, the heads), both roundings; the
-   wgmma conv3x3 through both wrappers at three shapes whose tiles leave
-   edge tiles (27², 50², 100²), from HWIO and from packed weights;
+   convs, the two-part concat convs, the heads), both roundings, the
+   stride-2 convs also with no activation and a negative output shift;
+   the wgmma conv3x3 through both wrappers at three shapes whose tiles
+   leave edge tiles (27², 50², 100²), and its stride-2 form at five odd
+   images (27², 53² twice, one over halo slabs, 101², 9² to C_out 35),
+   from HWIO and from packed weights;
    ``int8_gemm`` (K5) at six GEMM shapes, M, N and K not multiples of its
    128 x 256 x 128 tile, three with K % 16 != 0 (padded on K), each with b
    as [K, N] and K-major;
@@ -56,28 +59,30 @@ raises and the script exits nonzero:
    (atol = rtol = 1e-5);
 4b. yolo_v3 serving: batch 128 through ``make_int8_yolo_v3_detect_fn``,
    timed as phase 4, with the launch counts checked (per forward: K4 23,
-   ``int8_conv_requant`` 29: the nine head 3x3s on the wgmma conv3x3, 20
-   on the mma.sync conv) and the weights of K4 and of the nine 3x3s packed
-   once, when the detect fn took the model, never in the loop; then each
-   distinct shape checked
+   ``int8_conv_requant`` 29: the nine head 3x3s on the wgmma conv3x3, the
+   five stride-2 3x3s on its stride-2 form, 15 on the mma.sync conv) and
+   the weights of K4 and of the 14 wgmma 3x3s packed once, when the
+   detect fn took the model, never in the loop; then each distinct shape
+   checked
    and timed (kernel, plain version, bound, and a library yardstick the
    port never calls: cuDNN fp16 convs for K4 and the 3x3 convs,
    ``torch._int_mm`` for the 1x1 convs and K5), with K4's layout at each
-   stage and the wgmma conv3x3's at each head 3x3 as their CUDA sources
-   pick them (tile, the share of the 64-row wgmma steps that carry
-   pixels, blocks per SM, ring stages), the head 3x3s also beside the
-   mma.sync conv kernel (same call), and, at 13², K4's
+   stage and the wgmma conv3x3's at each head 3x3 and stride-2 conv as
+   their CUDA sources pick them (tile, the share of the 64-row wgmma steps
+   that carry pixels, blocks per SM, ring stages, halo channels), those
+   3x3s also beside the mma.sync conv kernel (same call), and, at 13², K4's
    time at batch 128, at one block per SM and at two (what the 4 SMs that
    batch 128 leaves idle could give); K5 is timed with b K-major, the
    layout ``torch._int_mm`` reads, so both read the same bytes.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
-stride-1 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the
-serving path and the v3 head's nine 3x3s; its pooled form: all of K3 on
-the serving path) run on wgmma fed by a TMA ring (``csrc/int8_wgmma.cuh``);
-K2 and the rest of the general conv keep the mma.sync main loop of
-``csrc/int8_common.cuh``. The ``kernels`` line has one entry per kernel
-and route: ``int8_conv_requant`` twice.
+3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
+and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
+path; its stride-2 form: v3's five downsampling convs) run on wgmma fed
+by a TMA ring (``csrc/int8_wgmma.cuh``); K2 and the rest of the general
+conv keep the mma.sync main loop of ``csrc/int8_common.cuh``. The
+``kernels`` line has one entry per kernel and route:
+``int8_conv_requant`` three times.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -103,6 +108,7 @@ SERVE_WARMUP, SERVE_ITERS = 3, 10
 CSRC = "yolo_tpu_torch/kernels/csrc/"
 WGMMA3 = "yolo_int8_conv3x3_wgmma"  # the wgmma conv3x3's C entry
 POOL3 = "yolo_int8_conv3x3_pool_wgmma"  # and its pooled form's
+S2_3 = "yolo_int8_conv3x3_s2_wgmma"  # and its stride-2 form's
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -123,6 +129,9 @@ LINES = {
     "int8_conv_requant.conv3x3_wgmma": (
         "int8_conv_requant", WGMMA3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_s2_wgmma": (
+        "int8_conv_requant", S2_3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
     "int8_conv_requant.mma_sync": (
         "int8_conv_requant", "yolo_int8_conv_requant",
         CSRC + "int8_conv_general.cu", "yolo_tpu/quant/fixed_point.py:725"),
@@ -133,6 +142,10 @@ LINES = {
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
+# its stride-2 form at (B, H, C_in, C_out), odd images whose tiles leave
+# edge tiles (53² C_in 256: a halo of two 128-channel slabs; 9²: C_out 35)
+S2_EDGE_SHAPES = [(2, 27, 256, 512), (2, 53, 256, 512), (2, 53, 64, 128),
+                  (2, 101, 32, 64), (2, 9, 32, 35)]
 # its pooled form (K3) at conv2's, conv3_2's and conv4_2's widths, whose
 # even tiles leave edge tiles
 POOL_EDGE_SHAPES = [(2, 100, 16, 32), (2, 30, 64, 64), (2, 54, 128, 128)]
@@ -572,11 +585,16 @@ def v3_shapes():
 
 def v3_tables(depth, case="plain"):
     """Shift tables that spread an int8 output over a conv of ``depth``
-    int8 products: acc_shift brings the accumulator's spread to ~2^12."""
+    int8 products: acc_shift brings the accumulator's spread to ~2^12;
+    case "out_shift<0" shifts the activation left by 2 to the output."""
     acc_shift = max(0, round(math.log2(math.sqrt(depth) * 74 * 60 / 4096)))
+    sa_out = 4
     if case == "acc_shift>=32":
         acc_shift = 33
-    return dict(sw=acc_shift + 10 - 4, sb=8, sa_in=4, sa_out=4, retune=10)
+    if case == "out_shift<0":
+        acc_shift, sa_out = acc_shift + 8, 12
+    return dict(sw=acc_shift + 10 - 4, sb=8, sa_in=4, sa_out=sa_out,
+                retune=10)
 
 
 def ri(gen, shape, lo, hi, dtype):
@@ -612,7 +630,8 @@ def conv_case(gen, b, key):
 def conv_kw(key, case="plain", rounding="nearest"):
     k, stride, pad, cins, cout, h, leaky = key
     kw = dict(v3_tables(k * k * sum(cins), case), padding=pad, stride=stride,
-              leaky=leaky, rounding=rounding)
+              leaky=False if case == "leaky_off" else leaky,
+              rounding=rounding)
     return kw
 
 
@@ -629,7 +648,8 @@ def layout_fields(lay):
     return dict(tile=[lay.tile_h, lay.tile_w], ring_stages=lay.ring_stages,
                 blocks_per_sm=lay.blocks_per_sm, bn=lay.bn,
                 consumer_warpgroups=lay.consumer_warpgroups,
-                rows_used=lay.tile_pixels / lay.mma_rows)
+                rows_used=lay.tile_pixels / lay.mma_rows,
+                halo_channels=lay.halo_channels)
 
 
 def check_equal(kernel, got, want, max_err, what):
@@ -686,6 +706,9 @@ def phase_v3_kernels(max_err):
                  ("nearest", "acc_shift>=32", True)]
         if len(xs) == 2:
             cases.append(("nearest", "plain", False))  # equal part scales
+        if key[1] == 2:  # the stride-2 form's other epilogues
+            cases += [("floor", "out_shift<0", True),
+                      ("nearest", "leaky_off", True)]
         for rounding, case, split in cases:
             kw = conv_kw(key, case, rounding)
             x = conv_input(xs, kw, split)
@@ -729,6 +752,33 @@ def phase_v3_kernels(max_err):
              shape=[bsz, h, h, c_in, c_out],
              tile=list(K.conv3x3_wgmma_layout(h, h, c_in, c_out)[:2]),
              equal=True)
+    for bsz, h, c_in, c_out in S2_EDGE_SHAPES:
+        x = ri(gen, (bsz, h, h, c_in), -128, 128, torch.int8)
+        w = ri(gen, (3, 3, c_in, c_out), -90, 120, torch.int8)
+        bias = ri(gen, (c_out,), -100, 100, torch.int32)
+        packed = K.pack_conv3x3_weights(w)
+        for rounding, case, form, leaky in (
+                ("nearest", "plain", "hwio", 0.1),
+                ("floor", "out_shift<0", "packed", 0.1),
+                ("nearest", "acc_shift>=32", "packed", True),
+                ("floor", "plain", "hwio", False)):
+            kw = dict(shifts(c_in, case), leaky=leaky, rounding=rounding,
+                      padding=1, stride=2)
+            K.reset_launch_counts()
+            got = (K.int8_conv_requant(x, None, bias, packed=packed, **kw)
+                   if form == "packed" else
+                   K.int8_conv_requant(x, w, bias, **kw))
+            torch.cuda.synchronize()
+            want = K.int8_conv_requant_plain(x, w, bias, **kw)
+            check_equal(ran_line(), got, want, max_err,
+                        f"stride 2 {h}x{h} {c_in}->{c_out} {rounding} "
+                        f"{case} {form} {leaky}")
+            n += 1
+        lay = K.conv3x3_s2_wgmma_layout(h, h, c_in, c_out)
+        emit("v3_kernels_vs_plain", kernel="conv3x3_s2_wgmma edge tiles",
+             shape=[bsz, h, h, c_in, c_out],
+             tile=[lay.tile_h, lay.tile_w],
+             halo_channels=lay.halo_channels, equal=True)
     for m, k, nn in GEMM_SHAPES:
         a = ri(gen, (m, k), -128, 128, torch.int8)
         b = ri(gen, (k, nn), -128, 128, torch.int8)
@@ -802,10 +852,10 @@ def phase_v3_serving(m, cfg, card):
     detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
     packs_at_setup = K.res_block_pack_count()
     conv_packs_at_setup = K.conv3x3_pack_count()
-    if packs_at_setup != 23 or conv_packs_at_setup != 9:
+    if packs_at_setup != 23 or conv_packs_at_setup != 14:
         raise AssertionError(f"the detect fn packed {packs_at_setup} "
                              f"residual blocks and {conv_packs_at_setup} "
-                             f"3x3 convs, want 23 and 9")
+                             f"3x3 convs, want 23 and 14")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
@@ -828,8 +878,8 @@ def phase_v3_serving(m, cfg, card):
     if counts != want:
         raise AssertionError(f"v3 launch counts {counts}, want {want}")
     entries = K.launch_counts_by_entry()
-    want_routes = {WGMMA3: 9 * SERVE_ITERS,
-                   "yolo_int8_conv_requant": 20 * SERVE_ITERS}
+    want_routes = {WGMMA3: 9 * SERVE_ITERS, S2_3: 5 * SERVE_ITERS,
+                   "yolo_int8_conv_requant": 15 * SERVE_ITERS}
     if entries["int8_conv_requant"] != want_routes:
         raise AssertionError(f"int8_conv_requant launched "
                              f"{entries['int8_conv_requant']}, want "
@@ -954,9 +1004,13 @@ def phase_v3_times(card_name, max_err):
         xs, w, bias = conv_case(gen, b, key)
         kw = conv_kw(key)
         x = conv_input(xs, kw)
-        extra, packed = {}, None
-        if K.conv3x3_wgmma_route(k, stride, pad, len(cins), cins[0],
-                                 kw["sw"]):
+        extra, packed, layout = {}, None, None
+        shape = (k, stride, pad, len(cins), cins[0], kw["sw"])
+        if K.conv3x3_wgmma_route(*shape):
+            layout = K.conv3x3_wgmma_layout
+        elif K.conv3x3_s2_wgmma_route(*shape):
+            layout = K.conv3x3_s2_wgmma_layout
+        if layout is not None:
             packed = K.pack_conv3x3_weights(w)  # as serving reads it
         K.reset_launch_counts()
         got = K.int8_conv_requant(x, w, bias, packed=packed, **kw)
@@ -970,8 +1024,7 @@ def phase_v3_times(card_name, max_err):
                 **{a: v for a, v in kw.items() if a != "sa_in"})
             check_equal(f"{line} (mma.sync)", mma(), want, max_err,
                         f"{key}, batch {b}")
-            extra = layout_fields(K.conv3x3_wgmma_layout(h, h, cins[0],
-                                                         cout))
+            extra = layout_fields(layout(h, h, cins[0], cout))
             extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
         ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
@@ -980,6 +1033,10 @@ def phase_v3_times(card_name, max_err):
                                                              **kw),
                            2, warmup=1)
         ho = (h + 2 * pad - k) // stride + 1
+        nbytes = (b * h * h * sum(cins) + w.numel() + 4 * cout
+                  + b * ho * ho * cout)
+        if layout is K.conv3x3_s2_wgmma_layout:  # GB/s beside the bound
+            extra["gbps"] = nbytes / ms / 1e6
         lib_ms = None
         if k == 1 and stride == 1 and pad == 0:
             lib_ms = int_mm_ms(b * h * h, sum(cins), cout)
@@ -987,8 +1044,7 @@ def phase_v3_times(card_name, max_err):
             lib_ms = fp16_conv_ms(b, h, sum(cins), cout, k, stride, pad)
         record(line, count, [b, h, h, list(cins), cout, k, stride, pad], ms,
                plain_ms, lib_ms, 2 * b * ho * ho * k * k * sum(cins) * cout,
-               b * h * h * sum(cins) + w.numel() + 4 * cout
-               + b * ho * ho * cout, **extra)
+               nbytes, **extra)
         del xs, x, w, bias, packed
         torch.cuda.empty_cache()
     m, k, n = GEMM_PROBE
@@ -1063,7 +1119,16 @@ def main() -> int:
                                            f"cuDNN fp16 conv2d; "
                                            f"mma_sync_ms the mma.sync conv "
                                            f"kernel on the same convs",
-        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 20 "
+        "int8_conv_requant.conv3x3_s2_wgmma": f"per yolo_v3 forward: "
+                                              f"darknet53's 5 stride-2 "
+                                              f"3x3s, batch "
+                                              f"{V3_BATCH_SERVE}, "
+                                              f"{SIZE}x{SIZE}; library_ms "
+                                              f"is cuDNN fp16 conv2d at "
+                                              f"stride 2; mma_sync_ms the "
+                                              f"mma.sync conv kernel on "
+                                              f"the same convs",
+        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 15 "
                                       f"convs by distinct shape, batch "
                                       f"{V3_BATCH_SERVE}, {SIZE}x{SIZE}; "
                                       f"library_ms is torch._int_mm for "

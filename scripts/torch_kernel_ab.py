@@ -1,0 +1,258 @@
+#!/usr/bin/env python3
+"""Time versions of yolo_tpu_torch's CUDA kernel sources against each other
+in one process, on one CUDA card:
+
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2]
+
+SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
+the kernel sources of that directory ("" for this checkout's own, or e.g.
+the ``yolo_tpu_torch/kernels/csrc`` of a parent commit unpacked with
+``git archive``), each ``old`` text replaced by ``new`` in ``file`` (it
+must occur). Each version is compiled with nvcc for sm_90a (the kernel
+sources with ``-Xptxas -v``, whose registers and spills are printed) and
+linked into a library of its own. Then the main-path shapes of each group
+are timed on every version in turn (ABBA order, twice):
+
+- ``s1``: the wgmma conv3x3 at slim's six K1 layers and three K3 layers
+  (batch 256) and the yolo_v3 head's three 3x3 shapes (batch 128);
+- ``res``: K4 at darknet53's five stage shapes (batch 128);
+- ``s2``: the wgmma conv3x3's stride-2 form at darknet53's five
+  downsampling convs (batch 128).
+
+Each time is the median over 5 CUDA-event pairs around 20 back-to-back
+launches, per launch: the card's time, with the wrappers' host work
+overlapped. Every output is checked equal to the first version's. A
+version without a kernel's C entry (an older tree) skips its shapes.
+Prints the card's name and power limit, one JSON line per shape (each
+version's times and their median) and the sums of the medians per group.
+The versions run through this checkout's wrappers, so they must share
+their C interface."""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from yolo_tpu_torch.kernels import build  # noqa: E402
+from yolo_tpu_torch.kernels import int8_conv as K  # noqa: E402
+
+VERBOSE = ("int8_conv3x3_wgmma.cu", "int8_res_block.cu")
+SHAPES = {
+    # (name, batch, H, C_in, C_out, form); K4: C_in = C, C_out = C_mid
+    "s1": [("conv3_1", 256, 104, 32, 64, "conv"),
+           ("conv4_1", 256, 52, 64, 128, "conv"),
+           ("conv5", 256, 26, 128, 256, "conv"),
+           ("conv6", 256, 26, 256, 256, "conv"),
+           ("pred", 256, 26, 256, 35, "conv"),
+           ("conv2", 256, 208, 16, 32, "pool"),
+           ("conv3_2", 256, 104, 64, 64, "pool"),
+           ("conv4_2", 256, 52, 128, 128, "pool"),
+           ("head52", 128, 52, 128, 256, "conv"),
+           ("head26", 128, 26, 256, 512, "conv"),
+           ("head13", 128, 13, 512, 1024, "conv")],
+    "res": [("res208", 128, 208, 64, 32, "res"),
+            ("res104", 128, 104, 128, 64, "res"),
+            ("res52", 128, 52, 256, 128, "res"),
+            ("res26", 128, 26, 512, 256, "res"),
+            ("res13", 128, 13, 1024, 512, "res")],
+    "s2": [("s2_416", 128, 416, 32, 64, "s2"),
+           ("s2_208", 128, 208, 64, 128, "s2"),
+           ("s2_104", 128, 104, 128, 256, "s2"),
+           ("s2_52", 128, 52, 256, 512, "s2"),
+           ("s2_26", 128, 26, 512, 1024, "s2")],
+}
+# the C entry each form launches
+ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
+         "pool": "yolo_int8_conv3x3_pool_wgmma",
+         "s2": "yolo_int8_conv3x3_s2_wgmma",
+         "res": "yolo_int8_res_block"}
+
+
+class Library:
+    """A version's library, its functions typed as this checkout's are."""
+
+    def __init__(self, path: Path, ref: ctypes.CDLL):
+        self.lib, self.ref = ctypes.CDLL(str(path)), ref
+
+    def has(self, name: str) -> bool:
+        return hasattr(self.lib, name)
+
+    def __getattr__(self, name):
+        f, r = getattr(self.lib, name), getattr(self.ref, name)
+        f.argtypes, f.restype = r.argtypes, r.restype
+        return f
+
+
+def build_versions(spec: dict, root: Path) -> dict:
+    nvcc = build._nvcc()
+    shutil.rmtree(root, ignore_errors=True)
+    jobs = []
+    for name, (src, edits) in spec.items():
+        d = root / name
+        shutil.copytree(ROOT / src if src else build.CSRC, d)
+        for fn, old, new in edits:
+            f = d / fn
+            text = f.read_text()
+            if old not in text:
+                raise ValueError(f"{name}: {fn} has no {old[:60]!r}")
+            f.write_text(text.replace(old, new))
+        jobs += [(name, s) for s in sorted(d.glob("*.cu"))]
+
+    def compile_one(job):
+        name, src = job
+        flags = ["-Xptxas", "-v"] if src.name in VERBOSE else []
+        r = subprocess.run([nvcc, *build.NVCC_FLAGS, *flags, "-c", str(src),
+                            "-o", str(src.with_suffix(".o"))],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed on {name}/{src.name}:\n"
+                               f"{r.stderr}")
+        return name, src.name, r.stderr
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for name, src, err in pool.map(compile_one, jobs):
+            if src in VERBOSE:
+                print_ptxas(name, src, err)
+    ref = build.load()
+    libs = {}
+    for name in spec:
+        d = root / name
+        subprocess.run([nvcc, "-shared", *build.NVCC_FLAGS,
+                        *map(str, sorted(d.glob("*.o"))), "-o",
+                        str(d / "lib.so")], check=True)
+        libs[name] = Library(d / "lib.so", ref)
+    print(json.dumps({"built_s": round(time.perf_counter() - t0, 1)}),
+          flush=True)
+    return libs
+
+
+def print_ptxas(name: str, src: str, err: str) -> None:
+    """Registers and spills of each kernel instantiation."""
+    fun = frame = None
+    for line in err.splitlines():
+        if "Compiling entry function" in line:
+            fun = line.split("'")[1]
+        elif "stack frame" in line:
+            frame = line.split(":")[-1].strip()
+        elif "Used" in line and fun:
+            print(json.dumps({"version": name, "source": src, "kernel": fun,
+                              "ptxas": line.split(":")[-1].strip(),
+                              "frame": frame}), flush=True)
+            fun = None
+
+
+def time_ms(fn, reps: int = 5, n: int = 20, warmup: int = 3) -> float:
+    """Median over `reps` event pairs of the time per launch of `n`
+    back-to-back launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def shape_fn(gen, b, h, c_in, c_out, form):
+    """The wrapper call of one shape on random inputs."""
+    def ri(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
+                             device="cuda").to(dtype)
+
+    x = ri((b, h, h, c_in), -128, 128, torch.int8)
+    if form == "res":
+        w1 = ri((1, 1, c_in, c_out), -90, 120, torch.int8)
+        w2 = ri((3, 3, c_out, c_in), -90, 120, torch.int8)
+        b1 = ri((c_out,), -100, 100, torch.int32)
+        b2 = ri((c_in,), -100, 100, torch.int32)
+        packed = K.pack_res_block_weights(w1, w2)
+        p1 = dict(sw=9, sb=8, sa_in=4, sa_out=4, retune=10)
+        p2 = dict(sw=12, sb=8, sa_in=4, sa_out=5, retune=10)
+        return lambda: K.int8_res_block(x, None, b1, p1, None, b2, p2,
+                                        sa_res=3, leaky=0.1, packed=packed)
+    w = ri((3, 3, c_in, c_out), -90, 120, torch.int8)
+    bias = ri((c_out,), -100, 100, torch.int32)
+    packed = K.pack_conv3x3_weights(w)
+    kw = dict(sw=12, sb=8, sa_in=4, sa_out=4, retune=10, rounding="nearest")
+    if form == "s2":
+        return lambda: K.int8_conv_requant(x, None, bias, packed=packed,
+                                           padding=1, stride=2, leaky=0.1,
+                                           **kw)
+    if form == "pool":
+        return lambda: K.int8_conv3x3_im2col(x, None, bias, pool=True,
+                                             packed=packed, leaky=True, **kw)
+    return lambda: K.int8_conv3x3_requant(x, None, bias, packed=packed,
+                                          leaky=True, **kw)
+
+
+def use(lib) -> None:
+    build._lib = lib
+    for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
+                   K.conv3x3_s2_wgmma_layout, K.res_block_layout):
+        layout.cache_clear()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("spec", help="JSON: name -> [csrc dir, edits]")
+    ap.add_argument("--groups", default="s1,res,s2")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    spec = json.loads(Path(args.spec).read_text())
+    libs = build_versions(spec, build.BUILD_ROOT / "ab")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    totals: dict = {}
+    for group in args.groups.split(","):
+        for name, b, h, c_in, c_out, form in SHAPES[group]:
+            names = [v for v in libs if libs[v].has(ENTRY[form])]
+            fn = shape_fn(gen, b, h, c_in, c_out, form)
+            times: dict = {}
+            ref = None
+            for v in (names + names[::-1]) * 2:
+                use(libs[v])
+                out = fn()
+                ref = out if ref is None else ref
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{v} differs at {name}")
+                times.setdefault(v, []).append(round(time_ms(fn), 4))
+            med = {v: statistics.median(t) for v, t in times.items()}
+            for v, t in med.items():
+                totals.setdefault(group, {}).setdefault(v, 0.0)
+                totals[group][v] += t
+            print(json.dumps({"shape": name, "group": group,
+                              "batch_h_cin_cout": [b, h, c_in, c_out],
+                              "median_ms": med, "ms": times}), flush=True)
+            del fn, ref, out
+            torch.cuda.empty_cache()
+    print(json.dumps({"sum_of_medians_ms": totals}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

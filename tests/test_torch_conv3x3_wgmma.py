@@ -190,12 +190,16 @@ def _zero_v3(pred_out=21):
 
 
 def test_v3_pack_conv3x3s_packs_the_nine_head_3x3s():
+    """... and the five stride-2 convs of the kernel's stride-2 form: 14 in
+    all (test_torch_conv3x3_s2_wgmma.py holds the stride-2 ones)."""
     m = _zero_v3()
     K.reset_conv3x3_pack_count()
     m.pack_conv3x3s()
-    assert K.conv3x3_pack_count() == 9 == len(m.conv_packed)
+    assert K.conv3x3_pack_count() == 14 == len(m.conv_packed)
     paths = [p for p, *_ in tv3.conv_specs(21)]
-    assert {paths[i][0] for i in m.conv_packed} == {
+    heads = [i for i in m.conv_packed if paths[i][0] != "backbone"]
+    assert len(heads) == 9
+    assert {paths[i][0] for i in heads} == {
         "conv_set_3", "conv_set_2", "conv_set_1", "extra_conv_3",
         "extra_conv_2", "extra_conv_1"}
     for i, wp in m.conv_packed.items():

@@ -690,3 +690,145 @@ def test_cuda_conv3x3_pool_wgmma_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="even"):
         K.conv3x3_pool_wgmma_layout(5, 4, 32, 64)
     assert K.launch_counts_by_entry() == {}
+
+
+# ---------------------------------------------------------------------------
+# The wgmma conv3x3's stride-2 form (3x3, stride 2, pad 1, C_in % 32 == 0):
+# darknet53's five downsampling convs (conv3x3_s2_wgmma_route).
+# ---------------------------------------------------------------------------
+
+S2_ENTRY = "yolo_int8_conv3x3_s2_wgmma"
+# (B, H, W, C_in, C_out): the five shapes yolo_v3's serving path routes
+# there (the last two over halo slabs of 128 channels), then odd images
+# whose tiles leave edge tiles (53^2 C_in 256 over slabs), and other widths
+# (C_out 35 in one masked 64-column tile, 200 past one 128-column tile)
+S2_SHAPES = [
+    (2, 416, 416, 32, 64),
+    (2, 208, 208, 64, 128),
+    (2, 104, 104, 128, 256),
+    (2, 52, 52, 256, 512),
+    (2, 26, 26, 512, 1024),
+    (2, 27, 27, 256, 512),
+    (2, 53, 53, 256, 512),
+    (2, 53, 53, 64, 128),
+    (2, 101, 101, 32, 64),
+    (2, 13, 13, 512, 1024),
+    (2, 9, 7, 32, 35),
+    (1, 13, 11, 96, 200),
+    (2, 26, 25, 512, 200),
+    (1, 1, 1, 32, 1),
+]
+
+
+def _s2(x, wq, b, **kw):
+    return K.int8_conv_requant(x, wq, b, padding=1, stride=2, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("case", S2_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_s2_wgmma_equals_plain(cuda, form, case):
+    x, wq, b = _conv3x3_args(case, seed=9)
+    kw = dict(SHIFTS, leaky=0.1 if case[-1] != 35 else False)
+    want = _s2(x, wq, b, **kw)
+    packed = K.pack_conv3x3_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
+    if form == "packed":
+        got = _s2(x.to(cuda), None, b.to(cuda), packed=packed, **kw)
+    else:
+        got = _s2(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {"int8_conv_requant": {S2_ENTRY: 1}}
+    assert K.conv3x3_pack_count() == (form == "hwio")
+    assert got.shape == (case[0], (case[1] + 1) // 2, (case[2] + 1) // 2,
+                         case[4])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [0.1, True, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", [dict(SHIFTS), dict(SHIFTS, sw=40),
+                                    dict(SHIFTS, sa_out=14),
+                                    dict(SHIFTS, sa_out=-22)],
+                         ids=["plain", "acc_shift_33", "out_shift_lt_0",
+                              "out_shift_ge_32"])
+@pytest.mark.parametrize("case", [(2, 15, 13, 32, 64), (2, 26, 26, 512, 128)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_s2_wgmma_epilogues(cuda, leaky, rounding, shifts,
+                                         case):
+    """Both roundings and every slope; shifts outside [0, 31] take the
+    kernel's general shift form (the second case copies its halo in four
+    slabs of 128 channels)."""
+    x, wq, b = _conv3x3_args(case, seed=10)
+    kw = dict(shifts, rounding=rounding, leaky=leaky)
+    want = _s2(x, wq, b, **kw)
+    K.reset_launch_counts()
+    got = _s2(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {"int8_conv_requant": {S2_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_s2_other_shapes_take_mma_sync(cuda):
+    """A stride-2 conv the form does not take (C_in 48; pad 0) stays on the
+    mma.sync conv kernel, and the form itself raises on it."""
+    for c_in, pad in ((48, 1), (32, 0)):
+        x, wq, b = _conv3x3_args((2, 9, 8, c_in, 64), seed=11)
+        assert not K.conv3x3_s2_wgmma_route(3, 2, pad, 1, c_in, SHIFTS["sw"])
+        want = K.int8_conv_requant(x, wq, b, padding=pad, stride=2, **SHIFTS)
+        K.reset_launch_counts()
+        got = K.int8_conv_requant(*(t.to(cuda) for t in (x, wq, b)),
+                                  padding=pad, stride=2, **SHIFTS)
+        torch.cuda.synchronize()
+        assert K.launch_counts_by_entry() == {
+            "int8_conv_requant": {"yolo_int8_conv_requant": 1}}
+        assert torch.equal(got.cpu(), want)
+    x, wq, b = _conv3x3_args((2, 9, 8, 48, 64), seed=11)
+    with pytest.raises(ValueError, match="C_in % 32"):
+        K._launch_conv3x3_wgmma("int8_conv_requant", x.to(cuda),
+                                wq.to(cuda), b.to(cuda), None, leaky=True,
+                                rounding="nearest", form="s2", **SHIFTS)
+    with pytest.raises(ValueError, match="stride-2"):
+        K.conv3x3_s2_wgmma_layout(9, 8, 48, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_s2_wgmma_raises_not_falls_back(cuda):
+    """A routed stride-2 conv with a misaligned input raises: it never
+    drops back to the mma.sync kernel."""
+    x, wq, b = _conv3x3_args((1, 8, 8, 32, 64))
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        _s2(xm, wq.to(cuda), b.to(cuda), **SHIFTS)
+    assert K.launch_counts_by_entry() == {}
+
+
+# (tile_h, tile_w, ring stages, blocks per SM, BN, halo channels) the
+# stride-2 form takes at the five routed shapes, by (H, W, C_in, C_out)
+S2_TILES = {
+    (416, 416, 32, 64): (16, 16, 3, 2, 64, 32),
+    (208, 208, 64, 128): (9, 21, 4, 1, 128, 64),
+    (104, 104, 128, 256): (7, 26, 3, 1, 128, 128),
+    (52, 52, 256, 512): (13, 13, 3, 1, 128, 128),
+    (26, 26, 512, 1024): (13, 13, 3, 1, 128, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(S2_TILES),
+                         ids=lambda s: "-".join(map(str, s)))
+def test_cuda_conv3x3_s2_wgmma_layout_at_routed_shapes(cuda, shape):
+    lay = K.conv3x3_s2_wgmma_layout(*shape)
+    assert (lay.tile_h, lay.tile_w, lay.ring_stages, lay.blocks_per_sm,
+            lay.bn, lay.halo_channels) == S2_TILES[shape]
+    assert lay.consumer_warpgroups == (3 if lay.bn == 128 else 2)
+    assert lay.smem_bytes <= 232448
+    assert lay.tile_pixels == lay.tile_h * lay.tile_w
+    assert lay.tile_pixels / lay.mma_rows >= 0.85

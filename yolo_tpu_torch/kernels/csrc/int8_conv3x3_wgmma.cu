@@ -2,10 +2,13 @@
 // (sm_90a), on wgmma fed by a TMA ring: int8 NHWC [B, H, W, Cin] at scale
 // 2^sa_in, Cin % 32 == 0 -> int8 [B, H, W, Cout], any Cout >= 1; and its
 // pooled form, the same conv + a 2x2/2 max pool -> int8 [B, H/2, W/2,
-// Cout], H and W even, Cin % 32 == 0 or Cin == 16. Plain C interface,
-// loaded with ctypes by yolo_tpu_torch/kernels/int8_conv.py, whose
+// Cout], H and W even, Cin % 32 == 0 or Cin == 16; and its stride-2 form,
+// conv3x3 with stride 2, pad 1 -> int8 [B, (H + 1) / 2, (W + 1) / 2,
+// Cout], Cin % 32 == 0, H and W odd or even. Plain C interface, loaded
+// with ctypes by yolo_tpu_torch/kernels/int8_conv.py, whose
 // int8_conv3x3_requant and int8_conv_requant send every conv of the first
-// shape here (conv3x3_wgmma_route) and int8_conv3x3_im2col every pooled
+// shape here (conv3x3_wgmma_route), int8_conv_requant every one of the
+// third (conv3x3_s2_wgmma_route) and int8_conv3x3_im2col every pooled
 // conv of the second (conv3x3_pool_wgmma_route); the weights are packed
 // K-major once per model (pack_conv3x3_weights) as [Cout, 9 * CK] in (dy,
 // dx, c) order, CK = Cin rounded up to 32 (zero weights past Cin).
@@ -15,23 +18,38 @@
 // int8_conv3x3_im2col(pool=True) (slim's conv2, conv3_2 and conv4_2) of
 // yolo_tpu/kernels/int8_conv.py, and XLA's integer conv in
 // yolo_tpu/quant/fixed_point.py::int_conv_requant at the yolo_v3 head's
-// nine stride-1 3x3s. The leaky slope is 0.125, none, or any Q16
-// rational; both roundings.
+// nine stride-1 3x3s and (the stride-2 form) darknet53's five
+// downsampling convs. The leaky slope is 0.125, none, or any Q16
+// rational (the darknet 0.1); both roundings.
 //
 // What bounds it on an H100: 18 * Cin * Cout ops per conv pixel against
 // Cin bytes in and Cout (pooled: Cout / 4) out, so every routed layer with
 // Cin >= 64 is bound by operations (1,979 dense int8 TOPS) and slim's
 // conv3_1 (32 -> 64, ~385 ops per byte) and conv2 (16 -> 32) by bytes
-// (3.35 TB/s). The design is the 3x3 phase of the fused residual block
+// (3.35 TB/s); at stride 2 the same ops per output pixel read 4 Cin bytes,
+// so darknet53's 416 -> 208 (Cin 32) and 208 -> 104 (Cin 64) are bound
+// by bytes, its deeper three by operations. The design is the 3x3 phase
+// of the fused residual block
 // (int8_res_block.cu), with its input loaded instead of computed; its
 // pieces are shared through int8_wgmma_conv.cuh. Each block owns a TH x TW
 // output tile of one image (plan_tile: up to 26 x 26, halved until it
 // fits; in the pooled form even, and halved until the form's blocks per
-// SM fit) and
+// SM fit; at stride 2 plan_tile_s2, the tile with the fewest M steps per
+// image, over slabs of the channels where that needs them) and
 //   1. copies the tile plus a one-pixel halo of x, CK channels, into
 //      shared memory, zero outside the image (the conv's padding) and past
 //      Cin, rows CK + 16 bytes apart so that the 8 rows of an ldmatrix
-//      fall in 8 different 16-byte bank groups. The copy is cp.async, 16
+//      fall in 8 different 16-byte bank groups. At stride 2 it copies the
+//      (2TH + 1) x (2TW + 1) input pixels the tile reads, each halo row
+//      as its even columns and then its odd ones: output pixel px reads
+//      at tap dx = 0, 1, 2 slot px, TW + 1 + px and px + 1, so the rows of
+//      consecutive pixels stay CK + 16 bytes apart (rows two pixels apart
+//      would fall in 4 bank groups: a 2-way conflict on every A load) and
+//      the tap offsets stay additions. At 52^2 and 26^2 a halo of all
+//      channels leaves thin tiles (26 x 2), so the halo holds a slab of
+//      128 channels and each slab's nine taps run before the next slab is
+//      copied over it (the weights' K walk follows, by TMA box
+//      coordinates: no other packing). The copy is cp.async, 16
 //      bytes per thread (zero-filled where it reads nothing), not 4-D TMA
 //      boxes: the padded rows let the 3x3 phase below run unchanged, where
 //      a TMA box (<= 128 channels of one 128-byte swizzled row) would need
@@ -91,13 +109,17 @@ struct ConvCfg {
   static constexpr int SLOT = 2 * BN * SW;
 };
 
+// the kernel's forms: the conv, its pooled form, its stride-2 form
+enum class Form { conv, pool, s2 };
+
 struct Conv3Args {
   const int8_t* x;  // [B, H, W, Cin]
   const int* bias;  // [Cout rounded up to 128], retune scale, 0 past Cout
-  int8_t* out;      // [B, H, W, Cout], pooled [B, H / 2, W / 2, Cout]
+  int8_t* out;      // [B, H, W, Cout], pooled [B, H / 2, W / 2, Cout],
+                    // stride 2 [B, (H + 1) / 2, (W + 1) / 2, Cout]
   int B, H, W, Cin, Cout;
-  int CK;        // channels of the halo tile and of each tap's K: Cin
-                 // rounded up to 32
+  int CK;        // channels of each tap's K: Cin rounded up to 32
+  int SL;        // channels of the halo tile: CK, or (stride 2) a slab
   int TH, TW;    // output tile (the edge tiles may be smaller)
   int stages;    // ring depth, 3..MAX_STAGES
   Epi epi;
@@ -125,31 +147,42 @@ __device__ __forceinline__ int pool_stg_at(int row, int col) {
   return row * BN + ((((col >> 4) ^ row) & (BN / 16 - 1)) << 4) + (col & 15);
 }
 
-template <int BN, bool SHORT, bool POOL>
+template <int BN, bool SHORT, Form F>
 __global__ void __launch_bounds__(ConvCfg<BN>::THREADS,
                                   ConvCfg<BN>::MIN_BLOCKS)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   using Cfg = ConvCfg<BN>;
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
+  constexpr bool POOL = F == Form::pool, S2 = F == Form::s2;
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
-  const int HW = a.TW + 2, HH = a.TH + 2, S = y1_stride(a.CK);
+  // the halo tile: (TH + 2) x (TW + 2) pixels; at stride 2, 2TH + 1 rows
+  // of 2TW + 1, each row its even input columns and then its odd ones
+  const int HW = S2 ? 2 * a.TW + 1 : a.TW + 2;
+  const int SL = S2 ? a.SL : a.CK, S = y1_stride(SL);
   int8_t* xt = reinterpret_cast<int8_t*>(smem + a.stages * Cfg::SLOT);
-  int8_t* stg_all = xt + halo_bytes(a.TH, a.TW, a.CK);
+  int8_t* stg_all = xt + halo_bytes(a.TH, a.TW, SL, S2 ? 2 : 1);
   uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + NWG * STG_BYTES);
   const Ring ring{bars, bars + a.stages, a.stages};
   const int tid = threadIdx.x;
 
-  // ---- this block's tile
-  const int ntx = (a.W + a.TW - 1) / a.TW, nty = (a.H + a.TH - 1) / a.TH;
+  // ---- this block's tile, on the output grid (pooled form: before the
+  // pool)
+  const int OH = S2 ? (a.H + 1) / 2 : a.H, OW = S2 ? (a.W + 1) / 2 : a.W;
+  const int ntx = (OW + a.TW - 1) / a.TW, nty = (OH + a.TH - 1) / a.TH;
   const int b = blockIdx.x / (ntx * nty);
   const int t = blockIdx.x - b * ntx * nty;
   const int ty0 = (t / ntx) * a.TH, tx0 = (t % ntx) * a.TW;
-  const int th = min(a.TH, a.H - ty0), tw = min(a.TW, a.W - tx0);
+  const int th = min(a.TH, OH - ty0), tw = min(a.TW, OW - tx0);
 
-  // ---- the producer's and the consumers' common walk over the ring
-  const int K = 9 * a.CK, nk = (K + 2 * SW - 1) / (2 * SW);
+  // ---- the producer's and the consumers' common walk over the ring: per
+  // M step and weight tile, each halo slab's nine taps (one slab but at
+  // stride 2), K-steps of 2 x SW channels over (tap, channel of the slab)
+  const int KS = 9 * SL, nk = (KS + 2 * SW - 1) / (2 * SW);
+  // (slabs only in the 128-column form: the 64-column one keeps under the
+  // registers of its two blocks per SM)
+  const int nslab = S2 && BN == 128 ? a.CK / SL : 1;
   const int nn = (a.Cout + BN - 1) / BN;
   // M steps of NWG x 64 rows over the nominal tile: its pixels, or in the
   // pooled form its pooled pixels, 16 (64 rows) per warpgroup
@@ -171,17 +204,25 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == CONSUMERS) {
       tma_prefetch_map(&tm_w);
+      // the packed K column of channel v of a slab's (tap, channel)
+      // walk: one box never straddles two taps where there are slabs
+      // (SL % SW == 0)
+      const auto kcol = [=](int v, int s) {
+        return S2 ? v / SL * a.CK + s * SL + v % SL : v;
+      };
       int i = 0;
       for (int c = 0; c < nc; ++c)
         for (int n = 0; n < nn; ++n)
-          for (int k = 0; k < nk; ++k, ++i) {
-            const bool two = k * 2 * SW + SW < K;
+          for (int k = 0, s = 0; k < nk; ++k, ++i) {
+            const bool two = k * 2 * SW + SW < KS;
             ring.producer_acquire(i, (two ? 2 : 1) * BN * SW);
             unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
             uint64_t* full = &ring.full[ring.stage(i)];
-            tma_load_2d(st, &tm_w, full, k * 2 * SW, n * BN);
+            tma_load_2d(st, &tm_w, full, kcol(k * 2 * SW, s), n * BN);
             if (two)
-              tma_load_2d(st + BN * SW, &tm_w, full, k * 2 * SW + SW, n * BN);
+              tma_load_2d(st + BN * SW, &tm_w, full, kcol(k * 2 * SW + SW, s),
+                          n * BN);
+            if (nslab > 1 && k == nk - 1 && ++s < nslab) k = -1;  // next slab
           }
     }
     return;
@@ -193,23 +234,47 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3, ltid = tid & 127;
   const long long img = (long long)b * a.H * a.W;  // first pixel of image b
+  // and of its output
+  const long long oimg = S2 ? (long long)b * OH * OW : img;
 
-  // ---- 1. the tile and its halo of x, zero outside the image and past Cin
-  {
-    const int chunks = a.CK / 16;  // 16-byte chunks per pixel
+  // ---- 1. the halo tile of x (slab s of its channels), zero outside the
+  // image and past Cin. The kernel's lambdas capture by value: capturing
+  // by reference took the addresses of S and CK, which then left the
+  // uniform registers, and the tap walk below became a branch at every
+  // 32-channel step (the stride-1 and pooled forms 3-7% slower on an H100,
+  // PERF.md, section 6)
+  const auto copy_halo = [=](int s) {
+    const int chunks = SL / 16;  // 16-byte chunks per pixel
+    const int HH = S2 ? 2 * a.TH + 1 : a.TH + 2;
     for (int e = tid; e < HH * HW * chunks; e += CONSUMERS) {
       const int p = e / chunks, q = e - p * chunks;
       const int hy = p / HW, hx = p - hy * HW;
-      const int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
+      // input pixel, and its place in the halo tile
+      int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx, at = p;
+      if constexpr (S2) {
+        gy = 2 * ty0 - 1 + hy;
+        gx = 2 * tx0 - 1 + hx;
+        at = hy * HW + (hx & 1 ? a.TW + 1 : 0) + (hx >> 1);
+      }
+      const int cq = s * SL + 16 * q;
       const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W &&
-                      16 * q < a.Cin;
+                      cq < a.Cin;
       const int8_t* src =
-          in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + 16 * q : a.x;
-      cp_async16(xt + p * S + 16 * q, src, in ? 16 : 0);
+          in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + cq : a.x;
+      cp_async16(xt + at * S + 16 * q, src, in ? 16 : 0);
     }
     cp_async_wait_all();
+  };
+  if (nslab == 1) {
+    copy_halo(0);
+    named_sync(1, CONSUMERS);  // the tile complete
   }
-  named_sync(1, CONSUMERS);  // the tile complete
+  // slab s over the last one, once all consumers have read it
+  const auto load_slab = [=](int s) {
+    named_sync(1, CONSUMERS);
+    copy_halo(s);
+    named_sync(1, CONSUMERS);
+  };
 
   // ---- 2. the 3x3 over the tile, 3. requant
   int8_t* stg = stg_all + wg * STG_BYTES;
@@ -244,17 +309,19 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       const int P = a.TH * a.TW;  // rows of the nominal tile
       const int p0 = (c * NWG + wg) * 64;
       active = p0 < th * a.TW;  // rows from here on lie below the image
-      // this lane's ldmatrix row: output pixel r of the tile
+      // this lane's ldmatrix row: output pixel r of the tile, at tap (0, 0)
+      // halo pixel (py, px), at stride 2 (2 py, 2 px): slot px of the even
+      // columns of halo row 2 py
       int r = p0 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
       if (r >= P) r = 0;
       const int py = r / a.TW, px = r - py * a.TW;
-      arow = xt + (py * HW + px) * S + 16 * (lane >> 4);
+      arow = xt + ((S2 ? 2 * py : py) * HW + px) * S + 16 * (lane >> 4);
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int po = p0 + ((ltid + 128 * q) >> 2);
         const int oy = po / a.TW, ox = po - oy * a.TW;
         obase[q] = oy < th && ox < tw
-                       ? (img + (long long)(ty0 + oy) * a.W + tx0 + ox) *
+                       ? (oimg + (long long)(ty0 + oy) * OW + tx0 + ox) *
                              a.Cout
                        : -1;
       }
@@ -263,10 +330,13 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       int acc[BN / 2];
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) acc[e] = 0;
-      // (tap, channel) of the next 32-deep K step: tile offset tap_off +
-      // ch, tap_off = (dy * HW + dx) * S
+      // (tap, channel) of the next 32-deep K step: tile offset tap_off
+      // + ch, tap_off = (dy * HW + dx) * S; at stride 2 (dy * HW + c)
+      // * S, c the slot of halo column dx: 0, TW + 1 (the odd columns)
+      // and 1
       int tap_off = 0, ch = 0, dx = 0;
-      for (int k = 0; k < nk; ++k, ++i) {
+      if (nslab > 1) load_slab(0);
+      for (int k = 0, s = 0; k < nk; ++k, ++i) {
         ring.consumer_wait(i);
         if (active) {
           const unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
@@ -279,14 +349,16 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             unsigned af[SW / 32][4];
 #pragma unroll
             for (int j = 0; j < SW / 32; ++j) {
-              if (k * 2 * SW + half * SW + 32 * j < K) {
+              if (k * 2 * SW + half * SW + 32 * j < KS) {
                 ldmatrix_x4(af[j], arow + tap_off + ch);
                 ch += 32;
-                if (ch == a.CK) {
+                if (ch == SL) {
                   ch = 0;
                   if (++dx == 3) {
                     dx = 0;
-                    tap_off += (HW - 2) * S;
+                    tap_off += (HW - (S2 ? 1 : 2)) * S;
+                  } else if constexpr (S2) {
+                    tap_off += (dx == 1 ? a.TW + 1 : -a.TW) * S;
                   } else {
                     tap_off += S;
                   }
@@ -296,13 +368,18 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             wgmma_fence();
 #pragma unroll
             for (int j = 0; j < SW / 32; ++j)
-              if (k * 2 * SW + half * SW + 32 * j < K)
+              if (k * 2 * SW + half * SW + 32 * j < KS)
                 mma_rs<BN>(acc, af[j], db + ((half * BN * SW + j * 32) >> 4));
             wgmma_commit();
           }
           wgmma_wait<0>();
         }
         ring.consumer_release(i);
+        if (nslab > 1 && k == nk - 1 && ++s < nslab) {  // the next slab
+          load_slab(s);
+          tap_off = ch = dx = 0;
+          k = -1;
+        }
       }
       if (!active) continue;
       if constexpr (POOL) {
@@ -393,42 +470,50 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   }
 }
 
-// The form's layout for an H x W image whose halo tile holds CK channels:
-// plan_tile's output tile (even, and small enough for the form's blocks
-// per SM, in the pooled form) and ring (int8_wgmma_conv.cuh), the ring in
-// the block's share of an SM's shared memory.
-template <int BN, bool POOL>
-TilePlan plan(int H, int W, int CK) {
+// The form's layout for an H x W image whose taps hold CK channels: the
+// output tile and ring of plan_tile (even, and small enough for the form's
+// blocks per SM, in the pooled form) or, at stride 2, of plan_tile_s2,
+// with its halo slab (int8_wgmma_conv.cuh), the ring in the block's share
+// of an SM's shared memory.
+template <int BN, Form F>
+TilePlan plan(int H, int W, int CK, int Cout) {
   using Cfg = ConvCfg<BN>;
+  if constexpr (F == Form::s2)
+    return plan_tile_s2((H + 1) / 2, (W + 1) / 2, CK, Cfg::SLOT, Cfg::NWG,
+                        sm_share(Cfg::MIN_BLOCKS), (Cout + BN - 1) / BN,
+                        BN == 128);
   return plan_tile(H, W, CK, Cfg::SLOT, Cfg::NWG, sm_share(Cfg::MIN_BLOCKS),
-                   POOL);
+                   F == Form::pool);
 }
 
-constexpr int INFO_LEN = 9;
+constexpr int INFO_LEN = 10;
 
 // Launches the form, or with `info` reports its layout there instead.
-template <int BN, bool SHORT, bool POOL>
+template <int BN, bool SHORT, Form F>
 int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   using Cfg = ConvCfg<BN>;
-  const TilePlan p = plan<BN, POOL>(a.H, a.W, a.CK);
+  const TilePlan p = plan<BN, F>(a.H, a.W, a.CK, a.Cout);
   if (p.smem == 0) return (int)cudaErrorInvalidValue;
   a.TH = p.th;
   a.TW = p.tw;
   a.stages = p.stages;
+  a.SL = p.slab;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<BN, SHORT, POOL>,
+      conv3x3_wgmma<BN, SHORT, F>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv3x3_wgmma<BN, SHORT, POOL>, Cfg::THREADS, p.smem);
+        &blocks, conv3x3_wgmma<BN, SHORT, F>, Cfg::THREADS, p.smem);
     if (err != cudaSuccess) return (int)err;
     const int pixels = a.TH * a.TW;
     // 64 rows per step: 64 pixels, or the 4 pixels of 16 pooled ones
-    const int steps = POOL ? (pixels / 4 + 15) / 16 : (pixels + 63) / 64;
-    const int vals[INFO_LEN] = {a.TH, a.TW,     p.smem,   blocks, BN,
-                                Cfg::NWG, a.stages, pixels, 64 * steps};
+    const int steps =
+        F == Form::pool ? (pixels / 4 + 15) / 16 : (pixels + 63) / 64;
+    const int vals[INFO_LEN] = {a.TH,     a.TW,     p.smem, blocks,
+                                BN,       Cfg::NWG, a.stages, pixels,
+                                64 * steps, a.SL};
     for (int k = 0; k < INFO_LEN; ++k) info[k] = vals[k];
     return 0;
   }
@@ -438,28 +523,31 @@ int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   const cuuint32_t box[2] = {SW, BN};
   const int rc = make_map(&tm_w, wp, 2, dims, strides, box);
   if (rc != 0) return rc;
-  const long long ntiles = (long long)((a.H + a.TH - 1) / a.TH) *
-                           ((a.W + a.TW - 1) / a.TW);
-  conv3x3_wgmma<BN, SHORT, POOL>
+  // the output grid the tiles cover (stride 2: (H + 1) / 2 x (W + 1) / 2)
+  const int OH = F == Form::s2 ? (a.H + 1) / 2 : a.H;
+  const int OW = F == Form::s2 ? (a.W + 1) / 2 : a.W;
+  const long long ntiles =
+      (long long)((OH + a.TH - 1) / a.TH) * ((OW + a.TW - 1) / a.TW);
+  conv3x3_wgmma<BN, SHORT, F>
       <<<(unsigned)(a.B * ntiles), Cfg::THREADS, p.smem, st>>>(tm_w, a);
   return (int)cudaGetLastError();
 }
 
 // the 128-column form where Cout fills it, else the 64-column one, or in
 // the pooled form the 32-column one where Cout <= 32
-template <bool SHORT, bool POOL>
+template <bool SHORT, Form F>
 int dispatch(const Conv3Args& a, const void* wp, int* info,
              cudaStream_t st) {
-  if (a.Cout % 128 == 0) return launch_form<128, SHORT, POOL>(a, wp, info, st);
-  if constexpr (POOL)
-    if (a.Cout <= 32) return launch_form<32, SHORT, POOL>(a, wp, info, st);
-  return launch_form<64, SHORT, POOL>(a, wp, info, st);
+  if (a.Cout % 128 == 0) return launch_form<128, SHORT, F>(a, wp, info, st);
+  if constexpr (F == Form::pool)
+    if (a.Cout <= 32) return launch_form<32, SHORT, F>(a, wp, info, st);
+  return launch_form<64, SHORT, F>(a, wp, info, st);
 }
 
-bool bad_shape(int H, int W, int Cin, int Cout, bool pool) {
+bool bad_shape(int H, int W, int Cin, int Cout, Form f) {
   if (H < 1 || W < 1 || Cout < 1) return true;
-  if (pool && (H % 2 || W % 2)) return true;
-  if (pool && Cin == 16) return false;  // zero-extended to 32 channels
+  if (f == Form::pool && (H % 2 || W % 2)) return true;
+  if (f == Form::pool && Cin == 16) return false;  // zero-extended to 32
   return Cin < 32 || Cin % 32;
 }
 
@@ -473,11 +561,11 @@ Conv3Args base_args(int H, int W, int Cin, int Cout) {
   return a;
 }
 
-template <bool POOL>
+template <Form F>
 int run(const void* x, const void* wp, const void* bias_rt, void* out, int B,
         int H, int W, int Cin, int Cout, int acc_shift, int out_shift,
         int slope_num, int nearest, void* stream) {
-  if (bad_shape(H, W, Cin, Cout, POOL) || B < 1)
+  if (bad_shape(H, W, Cin, Cout, F) || B < 1)
     return (int)cudaErrorInvalidValue;
   Conv3Args a = base_args(H, W, Cin, Cout);
   a.x = static_cast<const int8_t*>(x);
@@ -487,15 +575,15 @@ int run(const void* x, const void* wp, const void* bias_rt, void* out, int B,
   a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (short_shift(acc_shift) && short_shift(out_shift))
-    return dispatch<true, POOL>(a, wp, nullptr, st);
-  return dispatch<false, POOL>(a, wp, nullptr, st);
+    return dispatch<true, F>(a, wp, nullptr, st);
+  return dispatch<false, F>(a, wp, nullptr, st);
 }
 
-template <bool POOL>
+template <Form F>
 int layout(int H, int W, int Cin, int Cout, int* out) {
-  if (bad_shape(H, W, Cin, Cout, POOL)) return (int)cudaErrorInvalidValue;
-  return dispatch<true, POOL>(base_args(H, W, Cin, Cout), nullptr, out,
-                              nullptr);
+  if (bad_shape(H, W, Cin, Cout, F)) return (int)cudaErrorInvalidValue;
+  return dispatch<true, F>(base_args(H, W, Cin, Cout), nullptr, out,
+                           nullptr);
 }
 
 }  // namespace
@@ -516,8 +604,8 @@ int yolo_int8_conv3x3_wgmma(const void* x, const void* wp,
                             int W, int Cin, int Cout, int acc_shift,
                             int out_shift, int slope_num, int nearest,
                             void* stream) {
-  return run<false>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
-                    out_shift, slope_num, nearest, stream);
+  return run<Form::conv>(x, wp, bias_rt, out, B, H, W, Cin, Cout,
+                         acc_shift, out_shift, slope_num, nearest, stream);
 }
 
 // The pooled form, conv3x3 + 2x2/2 max pool: as yolo_int8_conv3x3_wgmma,
@@ -529,26 +617,46 @@ int yolo_int8_conv3x3_pool_wgmma(const void* x, const void* wp,
                                  int H, int W, int Cin, int Cout,
                                  int acc_shift, int out_shift, int slope_num,
                                  int nearest, void* stream) {
-  return run<true>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
-                   out_shift, slope_num, nearest, stream);
+  return run<Form::pool>(x, wp, bias_rt, out, B, H, W, Cin, Cout,
+                         acc_shift, out_shift, slope_num, nearest, stream);
 }
 
-// The kernel's layout for an H x W x Cin -> Cout conv: info[0..8] = tile
+// The stride-2 form, conv3x3 with stride 2 and pad 1: as
+// yolo_int8_conv3x3_wgmma, with out int8 [B, (H + 1) / 2, (W + 1) / 2,
+// Cout] (H and W odd or even); its layout:
+// yolo_int8_conv3x3_s2_wgmma_info.
+int yolo_int8_conv3x3_s2_wgmma(const void* x, const void* wp,
+                               const void* bias_rt, void* out, int B, int H,
+                               int W, int Cin, int Cout, int acc_shift,
+                               int out_shift, int slope_num, int nearest,
+                               void* stream) {
+  return run<Form::s2>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
+                       out_shift, slope_num, nearest, stream);
+}
+
+// The kernel's layout for an H x W x Cin -> Cout conv: info[0..9] = tile
 // height, tile width, dynamic shared memory bytes, resident blocks per SM,
 // columns per weight tile (BN), consumer warpgroups, ring stages, pixels
-// of a full tile, rows of the 64-row wgmma steps that a full tile runs.
+// of a full tile, rows of the 64-row wgmma steps that a full tile runs,
+// channels of the halo tile (Cin rounded up to 32, or a stride-2 slab).
 // Returns 0, or an error code where the shape is not taken or no tile
 // fits in shared memory.
 int yolo_int8_conv3x3_wgmma_info(int H, int W, int Cin, int Cout,
                                  int* info_out) {
-  return layout<false>(H, W, Cin, Cout, info_out);
+  return layout<Form::conv>(H, W, Cin, Cout, info_out);
 }
 
 // The same for the pooled form (a full tile's pixels are 4 per pooled
 // pixel; its 64-row steps hold 16 pooled pixels each).
 int yolo_int8_conv3x3_pool_wgmma_info(int H, int W, int Cin, int Cout,
                                       int* info_out) {
-  return layout<true>(H, W, Cin, Cout, info_out);
+  return layout<Form::pool>(H, W, Cin, Cout, info_out);
+}
+
+// The same for the stride-2 form, whose tile is in output pixels.
+int yolo_int8_conv3x3_s2_wgmma_info(int H, int W, int Cin, int Cout,
+                                    int* info_out) {
+  return layout<Form::s2>(H, W, Cin, Cout, info_out);
 }
 
 }  // extern "C"

@@ -1,18 +1,21 @@
 // Pieces shared by the port's wgmma convolution kernels, the fused
-// residual block (int8_res_block.cu, K4) and the stride-1 3x3 conv
+// residual block (int8_res_block.cu, K4) and the 3x3 conv
 // (int8_conv3x3_wgmma.cu): the requant epilogue with its shifts set up on
 // the host, the 64 x 64 staging tile of a consumer warpgroup, the RS
-// wgmma of a 3x3 phase, and the planner of a block's output tile and ring.
+// wgmma of a 3x3 phase, and the planners of a block's output tile and ring.
 //
-// Both kernels keep a TH x TW output tile plus a one-pixel halo of their
-// 3x3's input in shared memory (K4: y1; the conv: x), rows y1_stride(C)
-// = C + 16 bytes apart so that the 8 rows of an ldmatrix fall in 8
-// different 16-byte bank groups, beside a ring of weight stages that TMA
-// fills (int8_wgmma.cuh) and one staging tile per consumer warpgroup.
+// Both kernels keep a TH x TW output tile plus the halo of their 3x3's
+// input in shared memory (K4: y1; the conv: x; at stride 1 the tile and a
+// one-pixel border, at stride 2 the (2TH + 1) x (2TW + 1) input pixels it
+// reads), rows y1_stride(C) = C + 16 bytes apart so that the 8 rows of an
+// ldmatrix fall in 8 different 16-byte bank groups, beside a ring of
+// weight stages that TMA fills (int8_wgmma.cuh) and one staging tile per
+// consumer warpgroup.
 
 #pragma once
 
 #include <algorithm>
+#include <array>
 
 #include "int8_wgmma.cuh"
 
@@ -79,9 +82,12 @@ Epi make_epi(int acc_shift, int out_shift, int slope_num, bool nearest) {
 
 __host__ __device__ inline int y1_stride(int cmid) { return cmid + 16; }
 
-// bytes of a th x tw tile's halo tile of C channels, 128-byte aligned
-__host__ __device__ inline int halo_bytes(int th, int tw, int c) {
-  return ((th + 2) * (tw + 2) * y1_stride(c) + 127) & ~127;
+// bytes of the halo tile of C channels that a th x tw output tile of a
+// 3x3 of stride 1 or 2 reads, 128-byte aligned
+__host__ __device__ inline int halo_bytes(int th, int tw, int c,
+                                          int stride = 1) {
+  return (((th - 1) * stride + 3) * ((tw - 1) * stride + 3) * y1_stride(c) +
+          127) & ~127;
 }
 
 // staging byte of (row, column) of a 64 x 64 tile: 16-byte chunks XOR-ed
@@ -116,6 +122,7 @@ inline int block_smem(int tile_bytes, int slot, int nwg, int stages) {
 
 struct TilePlan {
   int th, tw, stages, smem;  // smem 0: no tile fits
+  int slab;  // channels of the halo tile: all C, or a slab of them
 };
 
 // A block's output tile and ring for an H x W image whose halo tile holds
@@ -139,7 +146,7 @@ inline TilePlan plan_tile(int H, int W, int C, int slot, int nwg, int budget,
     return even ? t + (t & 1) : t;
   };
   const int least = even ? 2 : 1, fit = even ? budget : MAX_SMEM;
-  TilePlan p{std::min(26, H), std::min(26, W), 3, 0};
+  TilePlan p{std::min(26, H), std::min(26, W), 3, 0, C};
   while (smem(p.th, p.tw, 3) > fit && p.tw > least) p.tw = halve(p.tw);
   while (smem(p.th, p.tw, 3) > fit && p.th > least) p.th = halve(p.th);
   if (smem(p.th, p.tw, 3) > fit) return p;
@@ -147,6 +154,61 @@ inline TilePlan plan_tile(int H, int W, int C, int slot, int nwg, int budget,
     ++p.stages;
   p.smem = smem(p.th, p.tw, p.stages);
   return p;
+}
+
+// The stride-2 3x3's output tile, halo slab and ring for an Ho x Wo output
+// whose halo holds C channels, with `nn` weight tiles across C_out. A
+// stride-2 halo holds ~4 input pixels per output pixel, so halving
+// plan_tile's way leaves the deep layers thin tiles that fill few rows of
+// an M step (52^2 C 256: 26 x 2). Instead every tile up to 26 x 26 whose
+// block (halo + a 3-stage ring) fits in `budget` is weighed, its halo
+// holding all C channels or, with `slabs` and where C is a multiple of 2
+// or more of them, a slab of 256 or 128 (each slab's nine taps then run
+// before the next slab is copied over it, for every M step and weight
+// tile). The plan kept has the fewest M steps of nwg x 64 rows per image
+// (each streams every weight and runs the whole K x N), then the fewest
+// 64-row wgmma steps run (a warpgroup whose rows lie past an edge tile
+// runs none), then the fewest halo bytes copied; then the deepest ring
+// that fits in `budget`. At darknet53's five downsampling convs: 16 x 16
+// tiles at 208^2 out, 9 x 21 at 104^2, 7 x 26 at 52^2, and 13 x 13 over
+// slabs of 128 channels at 26^2 and 13^2, where on an H100 the slabs ran
+// 16% and 45% faster than one halo of all channels (7 x 13 and 7 x 7
+// tiles; PERF.md, section 6).
+inline TilePlan plan_tile_s2(int Ho, int Wo, int C, int slot, int nwg,
+                             int budget, int nn, bool slabs) {
+  TilePlan best{0, 0, 3, 0, C};
+  std::array<long long, 3> best_key{};
+  for (const int slab : {C, 256, 128}) {
+    if (slab != C && (!slabs || slab >= C || C % slab)) continue;
+    const int loads = C / slab > 1 ? nn * (C / slab) : 1;  // per M step
+    for (int th = 1; th <= std::min(26, Ho); ++th)
+      for (int tw = 1; tw <= std::min(26, Wo); ++tw) {
+        const int halo = halo_bytes(th, tw, slab, 2);
+        if (block_smem(halo, slot, nwg, 3) > budget) continue;
+        const int nc = (th * tw + 64 * nwg - 1) / (64 * nwg);
+        const long long ntx = (Wo + tw - 1) / tw, nty = (Ho + th - 1) / th;
+        // 64-row steps run by a column of tiles: nty - 1 full tiles and
+        // one of the last rows
+        const auto run = [&](int h) {
+          return std::min(nc * nwg, (h * tw + 63) / 64);
+        };
+        const long long rows =
+            (nty - 1) * run(th) + run(Ho - (int)(nty - 1) * th);
+        const std::array<long long, 3> key{
+            ntx * nty * nc, ntx * rows,
+            ntx * nty * (C / slab > 1 ? nc : 1) * loads * (long long)halo};
+        if (best.smem && !(key < best_key)) continue;
+        best = TilePlan{th, tw, 3, block_smem(halo, slot, nwg, 3), slab};
+        best_key = key;
+      }
+  }
+  if (best.smem == 0) return best;
+  const int halo = halo_bytes(best.th, best.tw, best.slab, 2);
+  while (best.stages < MAX_STAGES &&
+         block_smem(halo, slot, nwg, best.stages + 1) <= budget)
+    ++best.stages;
+  best.smem = block_smem(halo, slot, nwg, best.stages);
+  return best;
 }
 
 }  // namespace

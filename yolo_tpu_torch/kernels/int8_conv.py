@@ -16,10 +16,12 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
 Every stride-1 3x3 conv of one input part with C_in % 32 == 0 and a
 scalar sw (``conv3x3_wgmma_route``: all of K1's main-path layers and the
 yolo_v3 head's nine 3x3s) launches the wgmma conv of
-``csrc/int8_conv3x3_wgmma.cu``, and every K3 conv with its pool and C_in
-% 32 == 0 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2,
-conv3_2 and conv4_2) that kernel's pooled form; both read their weights
-K-major, packed once per model by ``pack_conv3x3_weights``. The other K1
+``csrc/int8_conv3x3_wgmma.cu``, every such conv at stride 2
+(``conv3x3_s2_wgmma_route``: darknet53's five downsampling convs) that
+kernel's stride-2 form, and every K3 conv with its pool and C_in % 32 == 0
+or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2, conv3_2 and
+conv4_2) its pooled form; all three read their weights K-major, packed
+once per model by ``pack_conv3x3_weights``. The other K1
 and K3 shapes, K2 and the other ``int8_conv_requant`` shapes launch the
 tensor-core implicit GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by
 ``csrc/int8_conv.cu`` and ``csrc/int8_conv_general.cu``), K4 the fused
@@ -293,7 +295,7 @@ def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     if pool and conv3x3_pool_wgmma_route(c_in, sw):
         _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
-                                     packed, pool=True, **kw)
+                                     packed, form="pool", **kw)
     b, h, w, _ = x_q.shape
     return _launch("int8_conv3x3_im2col", x_q, _hwio(w_q, packed, c_in), b_q,
                    h=h, w=w, c_in=c_in, pool=pool, s2d=False, **kw)
@@ -458,7 +460,8 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     take one or two parts and a scalar ``sw``; the plain version also a
     per-channel one. ``packed``: a 3x3's weights from
     ``pack_conv3x3_weights`` (then ``w_q`` may be None), which the wgmma
-    kernel reads on the shapes of ``conv3x3_wgmma_route``."""
+    kernel reads on the shapes of ``conv3x3_wgmma_route`` and its stride-2
+    form on those of ``conv3x3_s2_wgmma_route``."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
@@ -467,24 +470,30 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
         return int8_conv_requant_plain(parts, _hwio(w_q, packed, c_in), b_q,
                                        sa_in=None, **kw)
     k = 3 if w_q is None else w_q.shape[0]
-    if conv3x3_wgmma_route(k, stride, padding, len(parts),
-                           parts[0][0].shape[-1], sw):
-        (x0, sa0), = parts
-        return _launch_conv3x3_wgmma(
-            "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
-            sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
-            rounding=rounding)
+    shape = (k, stride, padding, len(parts), parts[0][0].shape[-1], sw)
+    for taken, form in ((conv3x3_wgmma_route, "conv"),
+                        (conv3x3_s2_wgmma_route, "s2")):
+        if taken(*shape):
+            (x0, sa0), = parts
+            return _launch_conv3x3_wgmma(
+                "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
+                sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
+                rounding=rounding, form=form)
     return _launch_conv_requant(parts, _hwio(w_q, packed, c_in), b_q, **kw)
 
 
 # ---------------------------------------------------------------------------
-# The wgmma conv3x3 (stride 1, pad 1): K1 and the general conv's 3x3s.
+# The wgmma conv3x3 (pad 1): K1, K3 and the general conv's 3x3s.
 # ---------------------------------------------------------------------------
 
 
-# the wgmma conv3x3 kernel's C entries: the conv, and its pooled form
+# the wgmma conv3x3 kernel's C entries, by form: the conv, its pooled form
+# and its stride-2 form
 WGMMA_ENTRY = "yolo_int8_conv3x3_wgmma"
 POOL_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_wgmma"
+S2_WGMMA_ENTRY = "yolo_int8_conv3x3_s2_wgmma"
+_ENTRY_OF = {"conv": WGMMA_ENTRY, "pool": POOL_WGMMA_ENTRY,
+             "s2": S2_WGMMA_ENTRY}
 
 
 def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
@@ -494,6 +503,17 @@ def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
     requant`` and ``int8_conv_requant`` send such convs there and every
     other to the mma.sync conv kernel."""
     return (k == 3 and stride == 1 and padding == 1 and nparts == 1
+            and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
+
+
+def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
+    """True where ``int8_conv_requant`` on a CUDA tensor runs the wgmma
+    conv3x3 kernel's stride-2 form (``csrc/int8_conv3x3_wgmma.cu``): a
+    3x3, stride 2, pad 1, one input part of C_in % 32 == 0 channels, a
+    scalar ``sw`` (yolo_v3's five downsampling convs); any H and W, odd
+    ones included. Every other stride-2 conv runs the mma.sync conv
+    kernel."""
+    return (k == 3 and stride == 2 and padding == 1 and nparts == 1
             and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
 
 
@@ -555,25 +575,29 @@ def reset_conv3x3_pack_count() -> None:
 
 
 # the wgmma conv3x3 kernel's launch layout, as
-# yolo_int8_conv3x3_wgmma_info reports it
+# yolo_int8_conv3x3_wgmma_info reports it (halo_channels: C_in rounded up
+# to 32, or the slab of them a stride-2 halo tile holds at a time)
 Conv3x3Layout = collections.namedtuple("Conv3x3Layout", (
     "tile_h", "tile_w", "smem_bytes", "blocks_per_sm", "bn",
-    "consumer_warpgroups", "ring_stages", "tile_pixels", "mma_rows"))
+    "consumer_warpgroups", "ring_stages", "tile_pixels", "mma_rows",
+    "halo_channels"))
 
 
-def _layout(entry, h, w, c_in, c_out, pool) -> Conv3x3Layout:
+def _layout(form, h, w, c_in, c_out) -> Conv3x3Layout:
     from yolo_tpu_torch.kernels import build
 
     lib = build.load()
+    entry = _ENTRY_OF[form] + "_info"
     info = (ctypes.c_int * len(Conv3x3Layout._fields))()
     rc = getattr(lib, entry)(h, w, c_in, c_out, info)
     if rc == _CUDA_ERROR_INVALID_VALUE:
-        need = ("H and W even and C_in % 32 == 0 or C_in == 16" if pool
-                else "C_in % 32 == 0")
+        need = ("H and W even and C_in % 32 == 0 or C_in == 16"
+                if form == "pool" else "C_in % 32 == 0")
+        what = {"conv": "", "pool": "pooled ", "s2": "stride-2 "}[form]
         raise ValueError(f"the conv3x3 wgmma kernel takes no {h}x{w} "
-                         f"{'pooled ' if pool else ''}conv of C_in {c_in} "
-                         f"-> C_out {c_out}: it needs {need}, and a tile "
-                         f"that fits in shared memory")
+                         f"{what}conv of C_in {c_in} -> C_out {c_out}: it "
+                         f"needs {need}, and a tile that fits in shared "
+                         f"memory")
     if rc:
         raise RuntimeError(f"{entry} failed: "
                            f"{lib.yolo_int8_error_string(rc).decode()}")
@@ -589,8 +613,7 @@ def conv3x3_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
     tile's pixels beside the rows its 64-row wgmma steps run. Needs the
     built kernels. Raises ValueError where the kernel takes no such conv
     (C_in % 32 != 0, or no tile fits in shared memory)."""
-    return _layout("yolo_int8_conv3x3_wgmma_info", h, w, c_in, c_out,
-                   False)
+    return _layout("conv", h, w, c_in, c_out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -600,17 +623,32 @@ def conv3x3_pool_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
     16 pooled pixels each. Raises ValueError where the form takes no such
     conv (H or W odd, C_in neither 16 nor a multiple of 32, or no tile
     fits in shared memory)."""
-    return _layout("yolo_int8_conv3x3_pool_wgmma_info", h, w, c_in, c_out,
-                   True)
+    return _layout("pool", h, w, c_in, c_out)
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_s2_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
+    """The same for the kernel's stride-2 form (conv3x3, stride 2, pad 1,
+    of an H x W input), whose tile is in output pixels and whose halo tile
+    may hold a slab of C_in (``halo_channels``; ``plan_tile_s2`` in
+    ``csrc/int8_wgmma_conv.cuh``). Raises ValueError where the form takes
+    no such conv (C_in % 32 != 0, or no tile fits in shared memory)."""
+    return _layout("s2", h, w, c_in, c_out)
+
+
+_LAYOUT_OF = {"conv": conv3x3_wgmma_layout,
+              "pool": conv3x3_pool_wgmma_layout,
+              "s2": conv3x3_s2_wgmma_layout}
 
 
 def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
                           sa_out, retune, leaky, rounding,
-                          pool=False) -> torch.Tensor:
-    """Check the operands and launch the wgmma conv3x3 kernel (``pool``:
-    its pooled form) on the current stream, counting the launch under
-    ``name``; packs ``w_q`` for this call where ``packed`` is None. Raises
-    on anything the kernel does not take and on a failed launch."""
+                          form="conv") -> torch.Tensor:
+    """Check the operands and launch the wgmma conv3x3 kernel in ``form``
+    ("conv", "pool": its pooled form, "s2": its stride-2 form) on the
+    current stream, counting the launch under ``name``; packs ``w_q`` for
+    this call where ``packed`` is None. Raises on anything the form does
+    not take and on a failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
     _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
@@ -619,7 +657,7 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
     bsz, h, w, c_in = x.shape
-    if pool:
+    if form == "pool":
         if not conv3x3_pool_wgmma_route(c_in, sw):
             raise ValueError(f"the pooled conv3x3 wgmma kernel needs C_in % "
                              f"32 == 0 or C_in == 16, got {c_in}")
@@ -640,19 +678,18 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
-    ho, wo = (h // 2, w // 2) if pool else (h, w)
+    ho, wo = {"conv": (h, w), "pool": (h // 2, w // 2),
+              "s2": ((h + 1) // 2, (w + 1) // 2)}[form]
     out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    # raises where no tile fits
-    (conv3x3_pool_wgmma_layout if pool else conv3x3_wgmma_layout)(
-        h, w, c_in, c_out)
+    _LAYOUT_OF[form](h, w, c_in, c_out)  # raises where no tile fits
     _aligned("the output allocation", out, 16)
     # the kernel reads bias pairs of whole 32-, 64- or 128-column tiles
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
                           device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch(name, POOL_WGMMA_ENTRY if pool else WGMMA_ENTRY, dev,
+    launch(name, _ENTRY_OF[form], dev,
            x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
            out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
            retune - sa_out, num, int(rounding == "nearest"))

@@ -6,8 +6,9 @@ The forward walks the same program as the JAX package. Every ``push,
 conv 1x1, conv 3x3, res`` group (the 23 darknet53 residual blocks) runs as
 one fused residual-block kernel (``int8_res_block``, K4), every other conv
 through ``int8_conv_requant``: the head's nine stride-1 3x3s on the wgmma
-conv3x3 kernel, the rest (the stride-2 and entry convs, the 1x1s, the
-two-part concat convs, the preds) on the mma.sync conv kernel; each
+conv3x3 kernel, the five stride-2 3x3s on its stride-2 form, the rest (the
+entry conv, the 1x1s, the two-part concat convs, the preds) on the
+mma.sync conv kernel; each
 ``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
 their exact plain versions.
 
@@ -128,8 +129,9 @@ class Int8YoloV3:
     # {index of a block's 1x1 conv: its (w1, w2) packed K-major for the
     # residual-block kernel}, made once by ``pack_res_blocks``
     res_packed: Dict[int, Tuple] = field(repr=False, default=None)
-    # {index of a conv that runs on the wgmma conv3x3 kernel: its weights
-    # packed K-major}, made once by ``pack_conv3x3s``
+    # {index of a conv that runs on the wgmma conv3x3 kernel or its
+    # stride-2 form: its weights packed K-major}, made once by
+    # ``pack_conv3x3s``
     conv_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
 
     def __post_init__(self):
@@ -167,10 +169,12 @@ class Int8YoloV3:
 
     def pack_conv3x3s(self) -> None:
         """Pack once the weights of every conv outside the residual blocks
-        that ``conv3x3_wgmma_route`` takes (the head's stride-1 3x3s), so
-        the forward never packs."""
+        that ``conv3x3_wgmma_route`` or ``conv3x3_s2_wgmma_route`` takes
+        (the head's nine stride-1 3x3s, darknet53's five stride-2 3x3s),
+        so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv3x3_wgmma_route, pack_conv3x3_weights)
+            conv3x3_s2_wgmma_route, conv3x3_wgmma_route,
+            pack_conv3x3_weights)
 
         self.conv_packed = {}
         conv_i = i = 0
@@ -182,8 +186,10 @@ class Int8YoloV3:
                 continue
             if op[0] == "conv":
                 w = self.w_q[conv_i]
-                if conv3x3_wgmma_route(w.shape[0], op[2], op[3], nparts,
-                                       w.shape[2], self.sw[conv_i]):
+                shape = (w.shape[0], op[2], op[3], nparts, w.shape[2],
+                         self.sw[conv_i])
+                if (conv3x3_wgmma_route(*shape)
+                        or conv3x3_s2_wgmma_route(*shape)):
                     self.conv_packed[conv_i] = pack_conv3x3_weights(w)
                 conv_i += 1
             nparts = 2 if op[0] == "concat" else 1
@@ -288,9 +294,9 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
 
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the residual blocks and of the convs that run
-    the wgmma conv3x3 kernel are packed there once (the CPU route reads
-    the HWIO weights); the images are moved there per call if they are
-    elsewhere. Raises if ``device`` is CUDA and there is none; never falls
+    the wgmma conv3x3 kernel or its stride-2 form are packed there once
+    (the CPU route reads the HWIO weights); the images are moved there per
+    call if they are elsewhere. Raises if ``device`` is CUDA and there is none; never falls
     back to the CPU."""
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
