@@ -20,21 +20,25 @@ raises and the script exits nonzero:
    output shift; plus K2 with assembly='stride2', K3 with pool=False and
    K1 at C_in 16 (their mma.sync routes), and K3 (the wgmma conv3x3's
    pooled form) at conv2's, conv3_2's and conv4_2's widths on images
-   whose even tiles leave edge tiles, from HWIO and from packed weights
-   (phase 4 checks them again at the serving batch);
+   whose even tiles leave edge tiles, and K2's wgmma kernel on the s2d
+   layout at odd pooled widths, C_in 4, C_out 32, 20 and 7, partial row
+   tiles and width chunks, each from HWIO and from packed weights (phase
+   4 checks them again at the serving batch);
 3. the golden fixture (``yolo_tpu_torch/data/slim_int8_416_golden.npz``,
    made by the JAX package): the int8 head bit-exact, classes and valid
    exact, boxes and scores allclose (atol = rtol = 1e-5);
 4. serving: batch 256 through ``make_int8_detect_fn``, timed, with the
-   launch counts of each kernel checked (per forward: K2 once, K3 3
-   times, all 3 on the wgmma conv3x3's pooled form, K1 6 times, all 6 on
-   the wgmma conv3x3) and the weights of those 9 layers packed when the
-   detect fn took the model, never in the loop; then each layer's kernel
-   checked against its plain version (torch.equal) and both timed at
-   batch 256, beside cuDNN's fp16 conv (a speed yardstick only), K1's and
-   K3's layers also beside the mma.sync conv kernel they ran on before
-   (same call) and with the wgmma kernel's layout (tile, ring stages,
-   blocks per SM, share of its 64-row wgmma steps on pixels);
+   launch counts of each kernel checked (per forward: K2 once, on its
+   wgmma kernel, K3 3 times, all 3 on the wgmma conv3x3's pooled form, K1
+   6 times, all 6 on the wgmma conv3x3) and the weights of those 10
+   layers packed when the detect fn took the model, never in the loop;
+   then each layer's kernel checked against its plain version
+   (torch.equal) and both timed at batch 256, beside cuDNN's fp16 conv (a
+   speed yardstick only), K1's, K2's and K3's layers also beside the
+   mma.sync kernel they ran on before (same call) and with the wgmma
+   kernel's layout (tile, blocks per SM; ring stages and the share of its
+   64-row wgmma steps on pixels, or K2's row pitches, GB/s and share of
+   HBM bandwidth);
 2b. the yolo_v3 kernels against their plain versions (torch.equal):
    ``int8_res_block`` (K4) at the five darknet53 stage shapes, batch 4,
    slopes 0.1 and 0.125, both roundings, without the residual, with an
@@ -45,6 +49,8 @@ raises and the script exits nonzero:
    conv shape of the v3 program (the C_in = 3 entry conv, the stride-2
    convs, the two-part concat convs, the heads), both roundings, the
    stride-2 convs also with no activation and a negative output shift;
+   the entry conv kernel at odd widths, C_in 1 and 2, C_out 35 and 64,
+   partial row tiles and width chunks, every slope and shift form;
    the wgmma conv3x3 through both wrappers at three shapes whose tiles
    leave edge tiles (27², 50², 100²), and its stride-2 form at five odd
    images (27², 53² twice, one over halo slabs, 101², 9² to C_out 35),
@@ -60,17 +66,20 @@ raises and the script exits nonzero:
 4b. yolo_v3 serving: batch 128 through ``make_int8_yolo_v3_detect_fn``,
    timed as phase 4, with the launch counts checked (per forward: K4 23,
    ``int8_conv_requant`` 29: the nine head 3x3s on the wgmma conv3x3, the
-   five stride-2 3x3s on its stride-2 form, 15 on the mma.sync conv) and
-   the weights of K4 and of the 14 wgmma 3x3s packed once, when the
-   detect fn took the model, never in the loop; then each distinct shape
+   five stride-2 3x3s on its stride-2 form, the C_in = 3 entry conv on the
+   entry conv kernel, 14 on the mma.sync conv) and the weights of K4, of
+   the 14 wgmma 3x3s and of the entry conv packed once, when the detect
+   fn took the model, never in the loop; then each distinct shape
    checked
    and timed (kernel, plain version, bound, and a library yardstick the
    port never calls: cuDNN fp16 convs for K4 and the 3x3 convs,
    ``torch._int_mm`` for the 1x1 convs and K5), with K4's layout at each
    stage and the wgmma conv3x3's at each head 3x3 and stride-2 conv as
    their CUDA sources pick them (tile, the share of the 64-row wgmma steps
-   that carry pixels, blocks per SM, ring stages, halo channels), those
-   3x3s also beside the mma.sync conv kernel (same call), and, at 13², K4's
+   that carry pixels, blocks per SM, ring stages, halo channels; the
+   entry conv's tile and row pitches), those 3x3s and the entry conv also
+   beside the mma.sync conv kernel (same call), the stride-2 convs and the
+   entry conv with GB/s and the share of HBM bandwidth, and, at 13², K4's
    time at batch 128, at one block per SM and at two (what the 4 SMs that
    batch 128 leaves idle could give); K5 is timed with b K-major, the
    layout ``torch._int_mm`` reads, so both read the same bytes.
@@ -79,10 +88,12 @@ K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
 and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
 path; its stride-2 form: v3's five downsampling convs) run on wgmma fed
-by a TMA ring (``csrc/int8_wgmma.cuh``); K2 and the rest of the general
-conv keep the mma.sync main loop of ``csrc/int8_common.cuh``. The
+by a TMA ring (``csrc/int8_wgmma.cuh``); K2 on the s2d input and v3's
+C_in = 3 entry conv on row-streaming wgmma kernels
+(``csrc/int8_entry_conv.cu``); the rest of the general conv (the 1x1s)
+keeps the mma.sync main loop of ``csrc/int8_common.cuh``. The
 ``kernels`` line has one entry per kernel and route:
-``int8_conv_requant`` three times.
+``int8_conv_requant`` four times.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -109,6 +120,8 @@ CSRC = "yolo_tpu_torch/kernels/csrc/"
 WGMMA3 = "yolo_int8_conv3x3_wgmma"  # the wgmma conv3x3's C entry
 POOL3 = "yolo_int8_conv3x3_pool_wgmma"  # and its pooled form's
 S2_3 = "yolo_int8_conv3x3_s2_wgmma"  # and its stride-2 form's
+ENTRY3 = "yolo_int8_entry_conv3x3_wgmma"  # the v3 entry conv kernel's
+POOL_S2D = "yolo_int8_pool_s2d_wgmma"  # K2's on the s2d layout
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -118,8 +131,8 @@ LINES = {
         "int8_conv3x3_requant", WGMMA3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/kernels/int8_conv.py:100"),
     "int8_conv3x3_pool_requant": (
-        "int8_conv3x3_pool_requant", "yolo_int8_conv3x3_requant",
-        CSRC + "int8_conv.cu", "yolo_tpu/kernels/int8_conv.py:306"),
+        "int8_conv3x3_pool_requant", POOL_S2D, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/kernels/int8_conv.py:306"),
     "int8_conv3x3_im2col": (
         "int8_conv3x3_im2col", POOL3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/kernels/int8_conv.py:145"),
@@ -131,6 +144,9 @@ LINES = {
         "yolo_tpu/quant/fixed_point.py:725"),
     "int8_conv_requant.conv3x3_s2_wgmma": (
         "int8_conv_requant", S2_3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.entry_conv3x3_wgmma": (
+        "int8_conv_requant", ENTRY3, CSRC + "int8_entry_conv.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
     "int8_conv_requant.mma_sync": (
         "int8_conv_requant", "yolo_int8_conv_requant",
@@ -149,6 +165,16 @@ S2_EDGE_SHAPES = [(2, 27, 256, 512), (2, 53, 256, 512), (2, 53, 64, 128),
 # its pooled form (K3) at conv2's, conv3_2's and conv4_2's widths, whose
 # even tiles leave edge tiles
 POOL_EDGE_SHAPES = [(2, 100, 16, 32), (2, 30, 64, 64), (2, 54, 128, 128)]
+# the entry conv kernel at (B, H, W, C_in, C_out): odd widths whose rows
+# are no 16-byte multiple, C_in 1 and 2, C_out 35 and 64, row tiles that
+# leave a partial tile, width chunks
+ENTRY_EDGE_SHAPES = [(2, 17, 23, 3, 32), (1, 33, 40, 2, 35),
+                     (3, 50, 30, 1, 64), (1, 3, 1501, 3, 64)]
+# K2's wgmma kernel on the s2d layout of (B, H, W, C_in, C_out) images: odd
+# pooled widths, C_in 4, C_out 32 (128 columns) and 7, partial row tiles,
+# width chunks
+POOL_S2D_EDGE_SHAPES = [(2, 14, 10, 3, 32), (1, 6, 18, 4, 20),
+                        (3, 38, 26, 3, 16), (1, 4, 6002, 3, 7)]
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
@@ -255,7 +281,8 @@ def call(form, x, w, bias, c_in, kw, packed=None):
     from yolo_tpu_torch.kernels import int8_conv as K
 
     if form == "s2d":
-        return K.int8_conv3x3_pool_s2d(x, w, bias, c_in=c_in, **kw)
+        return K.int8_conv3x3_pool_s2d(x, w, bias, c_in=c_in, packed=packed,
+                                       **kw)
     if form == "stride2":
         return K.int8_conv3x3_pool_requant(x, w, bias, assembly="stride2",
                                            **kw)
@@ -302,9 +329,30 @@ def main_form(name, pool):
     return "im2col_pool" if pool else "requant"
 
 
+# (rounding, shift case, weights form, slope) of the thin-input kernels'
+# edge-shape checks (K2 reads the slope as on / off)
+THIN_CASES = (("nearest", "plain", "hwio", 0.1),
+              ("floor", "out_shift<0", "packed", 0.1),
+              ("nearest", "acc_shift>=32", "packed", True),
+              ("floor", "plain", "hwio", False))
+
+
+def rand_case(gen, b, h, w, c_in, c_out):
+    """Random int8 NHWC input [b, h, w, c_in], asymmetric weights, nonzero
+    biases, on the card."""
+    def r(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
+                             device=gen.device).to(dtype).cuda()
+
+    return (r((b, h, w, c_in), -128, 128, torch.int8),
+            r((3, 3, c_in, c_out), -90, 120, torch.int8),
+            r((c_out,), -100, 100, torch.int32))
+
+
 def phase_kernels(max_err):
     """Every kernel == its plain version on the card (phase 2)."""
     from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import fixed_point as fp
 
     gen = torch.Generator().manual_seed(0)
     cases = [(name, h, ci, co, pool, main_form(name, pool))
@@ -353,6 +401,29 @@ def phase_kernels(max_err):
         emit("kernels_vs_plain", kernel="conv3x3 pooled wgmma edge tiles",
              shape=[bsz, h, h, c_in, c_out],
              tile=list(K.conv3x3_pool_wgmma_layout(h, h, c_in, c_out)[:2]),
+             equal=True)
+    for bsz, h, w, c_in, c_out in POOL_S2D_EDGE_SHAPES:
+        x, wt, bias = rand_case(gen, bsz, h, w, c_in, c_out)
+        x2 = fp.s2d_input(x).contiguous()
+        packed = K.pack_pool_s2d_weights(wt)
+        for rounding, case, form, leaky in THIN_CASES:
+            kw = dict(shifts(c_in, case), leaky=bool(leaky),
+                      rounding=rounding)
+            K.reset_launch_counts()
+            got = (K.int8_conv3x3_pool_s2d(x2, None, bias, c_in=c_in,
+                                           packed=packed, **kw)
+                   if form == "packed" else
+                   K.int8_conv3x3_pool_s2d(x2, wt, bias, c_in=c_in, **kw))
+            torch.cuda.synchronize()
+            check_equal(ran_line(), got,
+                        K.int8_conv3x3_pool_s2d_plain(x2, wt, bias,
+                                                      c_in=c_in, **kw),
+                        max_err, f"K2 s2d {h}x{w} {c_in}->{c_out} "
+                                 f"{rounding} {case} {form} {leaky}")
+            n += 1
+        lay = K.pool_s2d_wgmma_layout(h, w, c_in, c_out)
+        emit("kernels_vs_plain", kernel="K2 s2d wgmma edge shapes",
+             shape=[bsz, h, w, c_in, c_out], tile=[lay.tile_h, lay.tile_w],
              equal=True)
     emit("kernels_vs_plain_done", cases=n, max_abs_err=max_err)
 
@@ -407,16 +478,20 @@ def phase_serving(m, cfg, card):
     x2 = fp.s2d_input(fp.quantize_input(images, m.sa["in"])).contiguous()
     del images
     K.reset_conv3x3_pack_count()
+    K.reset_pool_s2d_pack_count()
     detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
-    packs_at_setup = K.conv3x3_pack_count()
-    if packs_at_setup != 9:
-        raise AssertionError(f"the detect fn packed {packs_at_setup} K1 "
-                             f"and K3 layers, want 9")
+    packs_at_setup = K.conv3x3_pack_count() + K.pool_s2d_pack_count()
+    if K.conv3x3_pack_count() != 9 or K.pool_s2d_pack_count() != 1:
+        raise AssertionError(f"the detect fn packed {K.conv3x3_pack_count()}"
+                             f" K1 and K3 layers and "
+                             f"{K.pool_s2d_pack_count()} K2 layers, want 9 "
+                             f"and 1")
     for _ in range(SERVE_WARMUP):
         detect(x2)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     K.reset_conv3x3_pack_count()
+    K.reset_pool_s2d_pack_count()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x2)
@@ -436,9 +511,14 @@ def phase_serving(m, cfg, card):
     if entries["int8_conv3x3_im2col"] != {POOL3: 3 * SERVE_ITERS}:
         raise AssertionError(f"K3 launched {entries['int8_conv3x3_im2col']}"
                              f", want all {3 * SERVE_ITERS} on {POOL3}")
-    if K.conv3x3_pack_count():
+    if entries["int8_conv3x3_pool_requant"] != {POOL_S2D: SERVE_ITERS}:
+        raise AssertionError(f"K2 launched "
+                             f"{entries['int8_conv3x3_pool_requant']}, want "
+                             f"all {SERVE_ITERS} on {POOL_S2D}")
+    if K.conv3x3_pack_count() or K.pool_s2d_pack_count():
         raise AssertionError(f"serving packed K1 / K3 weights "
-                             f"{K.conv3x3_pack_count()} times")
+                             f"{K.conv3x3_pack_count()} times, K2's "
+                             f"{K.pool_s2d_pack_count()} times")
     boxes, scores, classes, valid = out
     if (tuple(boxes.shape) != (BATCH_SERVE, cfg.top_k, 4)
             or not torch.isfinite(boxes).all()
@@ -453,8 +533,7 @@ def phase_serving(m, cfg, card):
          images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
          launches=counts, launches_by_entry=entries,
-         conv3x3_packs_at_setup=packs_at_setup, conv3x3_packs_in_loop=0,
-         card=card)
+         packs_at_setup=packs_at_setup, packs_in_loop=0, card=card)
     return entries
 
 
@@ -474,9 +553,9 @@ def phase_layer_times(card_name, max_err):
                                s2d=form == "s2d")
         kw = dict(shifts(c_in, "plain"), leaky=name != "pred",
                   rounding="nearest")
-        # K1 and K3 read their weights packed, as serving does
-        packed = (K.pack_conv3x3_weights(w)
-                  if form in ("requant", "im2col_pool") else None)
+        # K1, K2 and K3 read their weights packed, as serving does
+        packed = (K.pack_pool_s2d_weights(w) if form == "s2d" else
+                  K.pack_conv3x3_weights(w))
         K.reset_launch_counts()
         got = call(form, x, w, bias, c_in, kw, packed)
         line = ran_line()
@@ -496,6 +575,16 @@ def phase_layer_times(card_name, max_err):
                       else K.conv3x3_wgmma_layout)
             extra = layout_fields(layout(h, h, c_in, c_out))
             extra["mma_sync_ms"] = time_ms(mma, 10)
+        elif line == "int8_conv3x3_pool_requant":
+            # the mma.sync pool_s2d kernel K2 ran on before
+            mma = lambda: K._launch(  # noqa: E731
+                line, x, w, bias, h=h, w=h, c_in=c_in, pool=True, s2d=True,
+                **kw)
+            check_equal(f"{line} (mma.sync)", mma(), want, max_err,
+                        f"{name}, batch {BATCH_SERVE}")
+            extra = row_layout_fields(K.pool_s2d_wgmma_layout(h, h, c_in,
+                                                              c_out))
+            extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
         ms = time_ms(lambda: call(form, x, w, bias, c_in, kw, packed), 10)
         plain_ms = time_ms(lambda: plain(form, x, w, bias, c_in, kw), 2,
@@ -514,6 +603,8 @@ def phase_layer_times(card_name, max_err):
         nbytes = (x.numel() + w.numel() + 4 * c_out
                   + BATCH_SERVE * ho * ho * c_out)
         t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
+        if line == "int8_conv3x3_pool_requant":  # bytes bound it
+            extra.update(bandwidth_fields(nbytes, ms, peak_bw))
         emit("layer_time", layer=name, kernel=line, batch=BATCH_SERVE,
              equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=max(t_ops, t_bytes),
@@ -652,6 +743,19 @@ def layout_fields(lay):
                 halo_channels=lay.halo_channels)
 
 
+def row_layout_fields(lay):
+    """The layout of a kernel of ``csrc/int8_entry_conv.cu``, for a JSON
+    line."""
+    return dict(tile=[lay.tile_h, lay.tile_w], blocks_per_sm=lay.blocks_per_sm,
+                bn=lay.bn, smem_bytes=lay.smem_bytes, in_pitch=lay.in_pitch,
+                out_pitch=lay.out_pitch)
+
+
+def bandwidth_fields(nbytes, ms, peak_bw):
+    """GB/s that ``nbytes`` moved in ``ms``, and its share of HBM's."""
+    return dict(gbps=nbytes / ms / 1e6, hbm_share=nbytes / ms * 1e3 / peak_bw)
+
+
 def check_equal(kernel, got, want, max_err, what):
     err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
     max_err[kernel] = max(max_err.get(kernel, 0), err)
@@ -779,6 +883,26 @@ def phase_v3_kernels(max_err):
              shape=[bsz, h, h, c_in, c_out],
              tile=[lay.tile_h, lay.tile_w],
              halo_channels=lay.halo_channels, equal=True)
+    for bsz, h, w, c_in, c_out in ENTRY_EDGE_SHAPES:
+        x, wt, bias = rand_case(gen, bsz, h, w, c_in, c_out)
+        packed = K.pack_entry_conv_weights(wt)
+        for rounding, case, form, leaky in THIN_CASES:
+            kw = dict(shifts(c_in, case), leaky=leaky, rounding=rounding,
+                      padding=1, stride=1)
+            K.reset_launch_counts()
+            got = (K.int8_conv_requant(x, None, bias, packed=packed, **kw)
+                   if form == "packed" else
+                   K.int8_conv_requant(x, wt, bias, **kw))
+            torch.cuda.synchronize()
+            check_equal(ran_line(), got,
+                        K.int8_conv_requant_plain(x, wt, bias, **kw),
+                        max_err, f"entry conv {h}x{w} {c_in}->{c_out} "
+                                 f"{rounding} {case} {form} {leaky}")
+            n += 1
+        lay = K.entry_conv3x3_layout(h, w, c_in, c_out)
+        emit("v3_kernels_vs_plain", kernel="entry_conv3x3_wgmma edge shapes",
+             shape=[bsz, h, w, c_in, c_out], tile=[lay.tile_h, lay.tile_w],
+             equal=True)
     for m, k, nn in GEMM_SHAPES:
         a = ri(gen, (m, k), -128, 128, torch.int8)
         b = ri(gen, (k, nn), -128, 128, torch.int8)
@@ -849,29 +973,36 @@ def phase_v3_serving(m, cfg, card):
     del images
     K.reset_res_block_pack_count()
     K.reset_conv3x3_pack_count()
+    K.reset_entry_conv_pack_count()
     detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
     packs_at_setup = K.res_block_pack_count()
     conv_packs_at_setup = K.conv3x3_pack_count()
-    if packs_at_setup != 23 or conv_packs_at_setup != 14:
+    entry_packs_at_setup = K.entry_conv_pack_count()
+    if (packs_at_setup, conv_packs_at_setup,
+            entry_packs_at_setup) != (23, 14, 1):
         raise AssertionError(f"the detect fn packed {packs_at_setup} "
-                             f"residual blocks and {conv_packs_at_setup} "
-                             f"3x3 convs, want 23 and 14")
+                             f"residual blocks, {conv_packs_at_setup} "
+                             f"3x3 convs and {entry_packs_at_setup} entry "
+                             f"convs, want 23, 14 and 1")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     K.reset_res_block_pack_count()
     K.reset_conv3x3_pack_count()
+    K.reset_entry_conv_pack_count()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x_q)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
-    if K.res_block_pack_count() or K.conv3x3_pack_count():
+    if (K.res_block_pack_count() or K.conv3x3_pack_count()
+            or K.entry_conv_pack_count()):
         raise AssertionError(f"serving packed K4 weights "
                              f"{K.res_block_pack_count()} times, 3x3 conv "
-                             f"weights {K.conv3x3_pack_count()} times")
+                             f"weights {K.conv3x3_pack_count()} times, the "
+                             f"entry conv's {K.entry_conv_pack_count()}")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_res_block": 23 * SERVE_ITERS,
                  "int8_conv_requant": 29 * SERVE_ITERS})
@@ -879,7 +1010,8 @@ def phase_v3_serving(m, cfg, card):
         raise AssertionError(f"v3 launch counts {counts}, want {want}")
     entries = K.launch_counts_by_entry()
     want_routes = {WGMMA3: 9 * SERVE_ITERS, S2_3: 5 * SERVE_ITERS,
-                   "yolo_int8_conv_requant": 15 * SERVE_ITERS}
+                   ENTRY3: SERVE_ITERS,
+                   "yolo_int8_conv_requant": 14 * SERVE_ITERS}
     if entries["int8_conv_requant"] != want_routes:
         raise AssertionError(f"int8_conv_requant launched "
                              f"{entries['int8_conv_requant']}, want "
@@ -899,7 +1031,8 @@ def phase_v3_serving(m, cfg, card):
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
          launches=counts, launches_by_entry=entries,
          res_block_packs_at_setup=packs_at_setup,
-         conv3x3_packs_at_setup=conv_packs_at_setup, packs_in_loop=0,
+         conv3x3_packs_at_setup=conv_packs_at_setup,
+         entry_conv_packs_at_setup=entry_packs_at_setup, packs_in_loop=0,
          card=card)
     return entries
 
@@ -1010,21 +1143,29 @@ def phase_v3_times(card_name, max_err):
             layout = K.conv3x3_wgmma_layout
         elif K.conv3x3_s2_wgmma_route(*shape):
             layout = K.conv3x3_s2_wgmma_layout
-        if layout is not None:
-            packed = K.pack_conv3x3_weights(w)  # as serving reads it
+        elif K.entry_conv3x3_route(*shape[:5], cout, kw["sw"]):
+            layout = K.entry_conv3x3_layout
+        if layout is K.entry_conv3x3_layout:  # as serving reads them
+            packed = K.pack_entry_conv_weights(w)
+        elif layout is not None:
+            packed = K.pack_conv3x3_weights(w)
         K.reset_launch_counts()
         got = K.int8_conv_requant(x, w, bias, packed=packed, **kw)
         line = ran_line()
         want = K.int8_conv_requant_plain(x, w, bias, **kw)
         check_equal(line, got, want, max_err, f"{key}, batch {b}")
         if packed is not None:
-            # the mma.sync conv kernel these 3x3s ran on before
+            # the mma.sync conv kernel these 3x3s (and the entry conv) ran
+            # on before
             mma = lambda: K._launch_conv_requant(  # noqa: E731
                 [(x, kw["sa_in"])], w, bias,
                 **{a: v for a, v in kw.items() if a != "sa_in"})
             check_equal(f"{line} (mma.sync)", mma(), want, max_err,
                         f"{key}, batch {b}")
-            extra = layout_fields(layout(h, h, cins[0], cout))
+            lay = layout(h, h, cins[0], cout)
+            extra = (row_layout_fields(lay)
+                     if layout is K.entry_conv3x3_layout
+                     else layout_fields(lay))
             extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
         ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
@@ -1035,8 +1176,8 @@ def phase_v3_times(card_name, max_err):
         ho = (h + 2 * pad - k) // stride + 1
         nbytes = (b * h * h * sum(cins) + w.numel() + 4 * cout
                   + b * ho * ho * cout)
-        if layout is K.conv3x3_s2_wgmma_layout:  # GB/s beside the bound
-            extra["gbps"] = nbytes / ms / 1e6
+        if layout in (K.conv3x3_s2_wgmma_layout, K.entry_conv3x3_layout):
+            extra.update(bandwidth_fields(nbytes, ms, peak_bw))
         lib_ms = None
         if k == 1 and stride == 1 and pad == 0:
             lib_ms = int_mm_ms(b * h * h, sum(cins), cout)
@@ -1128,7 +1269,23 @@ def main() -> int:
                                               f"stride 2; mma_sync_ms the "
                                               f"mma.sync conv kernel on "
                                               f"the same convs",
-        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 15 "
+        "int8_conv_requant.entry_conv3x3_wgmma": f"per yolo_v3 forward: "
+                                                 f"the C_in = 3 entry conv "
+                                                 f"(3 -> 32), batch "
+                                                 f"{V3_BATCH_SERVE}, "
+                                                 f"{SIZE}x{SIZE}; library_ms"
+                                                 f" is cuDNN fp16 conv2d; "
+                                                 f"mma_sync_ms the mma.sync "
+                                                 f"conv kernel on the same "
+                                                 f"conv",
+        "int8_conv3x3_pool_requant": f"per slim_yolo_v2 forward: conv1 on "
+                                     f"the s2d input (3 -> 16), batch "
+                                     f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
+                                     f"library_ms is cuDNN fp16 conv2d "
+                                     f"(without the pool); mma_sync_ms the "
+                                     f"mma.sync pool_s2d kernel on the same "
+                                     f"layer",
+        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 14 "
                                       f"convs by distinct shape, batch "
                                       f"{V3_BATCH_SERVE}, {SIZE}x{SIZE}; "
                                       f"library_ms is torch._int_mm for "

@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -17,7 +17,13 @@ are timed on every version in turn (ABBA order, twice):
   (batch 256) and the yolo_v3 head's three 3x3 shapes (batch 128);
 - ``res``: K4 at darknet53's five stage shapes (batch 128);
 - ``s2``: the wgmma conv3x3's stride-2 form at darknet53's five
-  downsampling convs (batch 128).
+  downsampling convs (batch 128);
+- ``thin``: the two thin-input entry convs, yolo_v3's C_in = 3 entry conv
+  (batch 128) and K2 on slim's s2d input (batch 256), each on its wgmma
+  kernel (``csrc/int8_entry_conv.cu``) and on the mma.sync kernel it
+  replaced (through the private launchers ``_launch_conv_requant`` and
+  ``_launch(..., s2d=True)``), so a parent without the wgmma entries still
+  times the mma.sync ones.
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -48,8 +54,10 @@ sys.path.insert(0, str(ROOT))
 
 from yolo_tpu_torch.kernels import build  # noqa: E402
 from yolo_tpu_torch.kernels import int8_conv as K  # noqa: E402
+from yolo_tpu_torch.quant import fixed_point as fp  # noqa: E402
 
-VERBOSE = ("int8_conv3x3_wgmma.cu", "int8_res_block.cu")
+VERBOSE = ("int8_conv3x3_wgmma.cu", "int8_res_block.cu",
+           "int8_entry_conv.cu")
 SHAPES = {
     # (name, batch, H, C_in, C_out, form); K4: C_in = C, C_out = C_mid
     "s1": [("conv3_1", 256, 104, 32, 64, "conv"),
@@ -73,12 +81,20 @@ SHAPES = {
            ("s2_104", 128, 104, 128, 256, "s2"),
            ("s2_52", 128, 52, 256, 512, "s2"),
            ("s2_26", 128, 26, 512, 1024, "s2")],
+    "thin": [("entry416", 128, 416, 3, 32, "entry"),
+             ("entry416_mma", 128, 416, 3, 32, "entry_mma"),
+             ("k2_416", 256, 416, 3, 16, "k2"),
+             ("k2_416_mma", 256, 416, 3, 16, "k2_mma")],
 }
 # the C entry each form launches
 ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "pool": "yolo_int8_conv3x3_pool_wgmma",
          "s2": "yolo_int8_conv3x3_s2_wgmma",
-         "res": "yolo_int8_res_block"}
+         "res": "yolo_int8_res_block",
+         "entry": "yolo_int8_entry_conv3x3_wgmma",
+         "entry_mma": "yolo_int8_conv_requant",
+         "k2": "yolo_int8_pool_s2d_wgmma",
+         "k2_mma": "yolo_int8_conv3x3_requant"}
 
 
 class Library:
@@ -193,8 +209,27 @@ def shape_fn(gen, b, h, c_in, c_out, form):
                                         sa_res=3, leaky=0.1, packed=packed)
     w = ri((3, 3, c_in, c_out), -90, 120, torch.int8)
     bias = ri((c_out,), -100, 100, torch.int32)
-    packed = K.pack_conv3x3_weights(w)
     kw = dict(sw=12, sb=8, sa_in=4, sa_out=4, retune=10, rounding="nearest")
+    if form in ("entry", "entry_mma"):
+        if form == "entry_mma":
+            return lambda: K._launch_conv_requant(
+                [(x, kw["sa_in"])], w, bias, padding=1, stride=1, leaky=0.1,
+                **{k: v for k, v in kw.items() if k != "sa_in"})
+        packed = K.pack_entry_conv_weights(w)
+        return lambda: K.int8_conv_requant(x, None, bias, packed=packed,
+                                           padding=1, stride=1, leaky=0.1,
+                                           **kw)
+    if form in ("k2", "k2_mma"):
+        x2 = fp.s2d_input(x).contiguous()
+        if form == "k2_mma":
+            return lambda: K._launch("int8_conv3x3_pool_requant", x2, w,
+                                     bias, h=h, w=h, c_in=c_in, pool=True,
+                                     s2d=True, leaky=True, **kw)
+        packed = K.pack_pool_s2d_weights(w)
+        return lambda: K.int8_conv3x3_pool_s2d(x2, None, bias, c_in=c_in,
+                                               packed=packed, leaky=True,
+                                               **kw)
+    packed = K.pack_conv3x3_weights(w)
     if form == "s2":
         return lambda: K.int8_conv_requant(x, None, bias, packed=packed,
                                            padding=1, stride=2, leaky=0.1,
@@ -209,14 +244,15 @@ def shape_fn(gen, b, h, c_in, c_out, form):
 def use(lib) -> None:
     build._lib = lib
     for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
-                   K.conv3x3_s2_wgmma_layout, K.res_block_layout):
+                   K.conv3x3_s2_wgmma_layout, K.res_block_layout,
+                   K.entry_conv3x3_layout, K.pool_s2d_wgmma_layout):
         layout.cache_clear()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("spec", help="JSON: name -> [csrc dir, edits]")
-    ap.add_argument("--groups", default="s1,res,s2")
+    ap.add_argument("--groups", default="s1,res,s2,thin")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA card", file=sys.stderr)

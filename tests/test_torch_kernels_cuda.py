@@ -832,3 +832,259 @@ def test_cuda_conv3x3_s2_wgmma_layout_at_routed_shapes(cuda, shape):
     assert lay.smem_bytes <= 232448
     assert lay.tile_pixels == lay.tile_h * lay.tile_w
     assert lay.tile_pixels / lay.mma_rows >= 0.85
+
+
+# ---------------------------------------------------------------------------
+# The thin-input entry convs (csrc/int8_entry_conv.cu): yolo_v3's C_in = 3
+# entry conv (entry_conv3x3_route) and K2 on the s2d layout, slim's conv1
+# (pool_s2d_wgmma_route).
+# ---------------------------------------------------------------------------
+
+ENTRY_CONV = "yolo_int8_entry_conv3x3_wgmma"
+POOL_S2D = "yolo_int8_pool_s2d_wgmma"
+# (B, H, W, C_in, C_out): the serving shape (batch 2), odd widths whose
+# rows (W * C_in bytes) are no 16-byte multiple, batch 1, three images
+# whose row tiles leave a partial tile, width chunks (a row of 1501
+# pixels x 64 channels does not fit one block), C_in 1 and 2, C_out 35
+# (odd: byte stores) and 64 (the 64-column form), a 1 x 1 image
+ENTRY_SHAPES = [
+    (2, 416, 416, 3, 32),
+    (2, 17, 23, 3, 32),
+    (1, 33, 40, 3, 35),
+    (1, 32, 32, 2, 32),
+    (2, 9, 7, 1, 64),
+    (3, 50, 30, 3, 32),
+    (1, 3, 1501, 3, 64),
+    (1, 1, 1, 3, 32),
+]
+SHIFT_CASES = [dict(SHIFTS), dict(SHIFTS, sw=40), dict(SHIFTS, sa_out=14),
+               dict(SHIFTS, sa_out=-22)]
+SHIFT_IDS = ["plain", "acc_shift_33", "out_shift_lt_0", "out_shift_ge_32"]
+
+
+def _entry(x, wq, b, **kw):
+    return K.int8_conv_requant(x, wq, b, padding=1, stride=1, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("case", ENTRY_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_entry_conv_equals_plain(cuda, form, case):
+    x, wq, b = _conv3x3_args(case, seed=12)
+    kw = dict(SHIFTS, leaky=0.1)
+    want = _entry(x, wq, b, **kw)
+    packed = K.pack_entry_conv_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    K.reset_entry_conv_pack_count()
+    if form == "packed":
+        got = _entry(x.to(cuda), None, b.to(cuda), packed=packed, **kw)
+    else:
+        got = _entry(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {"int8_conv_requant": {ENTRY_CONV: 1}}
+    assert K.entry_conv_pack_count() == (form == "hwio")
+    assert got.shape == case[:3] + (case[4],)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [0.1, True, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", SHIFT_CASES, ids=SHIFT_IDS)
+@pytest.mark.parametrize("case", [(2, 17, 23, 3, 32), (1, 12, 31, 2, 35)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_entry_conv_epilogues(cuda, leaky, rounding, shifts, case):
+    """Both roundings and every slope; shifts outside [0, 31] take the
+    kernel's general shift form."""
+    x, wq, b = _conv3x3_args(case, seed=13)
+    kw = dict(shifts, rounding=rounding, leaky=leaky)
+    want = _entry(x, wq, b, **kw)
+    K.reset_launch_counts()
+    got = _entry(*(t.to(cuda) for t in (x, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {"int8_conv_requant": {ENTRY_CONV: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_conv_raises_not_falls_back(cuda):
+    """A routed entry conv with a misaligned input raises: it never drops
+    back to the mma.sync kernel; the kernel itself raises on C_in 4."""
+    x, wq, b = _conv3x3_args((1, 8, 9, 3, 32))
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        _entry(xm, wq.to(cuda), b.to(cuda), **SHIFTS)
+    x4, w4, b4 = (t.to(cuda) for t in _conv3x3_args((1, 8, 9, 4, 32)))
+    with pytest.raises(ValueError, match="C_in <= 3"):
+        K._launch_entry_conv3x3(x4, None, b4, torch.zeros(
+            (32, 32), dtype=torch.int8, device=cuda), leaky=True,
+            rounding="nearest", **SHIFTS)
+    with pytest.raises(ValueError, match="entry conv"):
+        K.entry_conv3x3_layout(8, 9, 4, 32)
+    assert K.launch_counts_by_entry() == {}
+
+
+@pytest.mark.cuda
+def test_cuda_entry_conv_layout(cuda):
+    """Whole rows where one fits: at the serving shape 4 x 416 tiles sized
+    for two blocks per SM; a row too wide for a block is cut in halves."""
+    lay = K.entry_conv3x3_layout(416, 416, 3, 32)
+    assert (lay.tile_h, lay.tile_w, lay.bn, lay.warpgroups) == (4, 416, 32, 2)
+    assert lay.blocks_per_sm >= 2
+    assert lay.smem_bytes * lay.blocks_per_sm <= 233472
+    assert lay.in_pitch % 16 == 416 * 3 % 16
+    assert lay.out_pitch % 16 == 416 * 32 % 16
+    wide = K.entry_conv3x3_layout(3, 1501, 3, 64)
+    assert (wide.tile_w, wide.bn) == (751, 64)
+    assert K.entry_conv3x3_layout(17, 23, 3, 35).tile_w == 23
+
+
+# (B, H, W, C_in, C_out) of K2's wgmma kernel on the s2d layout of an H x W
+# image: the serving shape (batch 2; s2d row pitch 211 x 12 = 2,532 bytes,
+# no 16-byte multiple), odd pooled widths, C_in 4 and 2, C_out 32 (the
+# 128-column form), 20 and 7, three images whose row tiles leave a partial
+# tile, width chunks, a 2 x 2 image
+POOL_S2D_SHAPES = [
+    (2, 416, 416, 3, 16),
+    (2, 14, 10, 3, 32),
+    (1, 6, 18, 4, 20),
+    (2, 4, 10, 2, 7),
+    (3, 38, 26, 3, 16),
+    (1, 4, 6002, 3, 32),
+    (1, 2, 2, 1, 16),
+]
+
+
+def _s2d_args(case, seed):
+    x, wq, b = _conv3x3_args(case, seed=seed)
+    return torch.tensor(tfp.s2d_input_np(x.numpy())), wq, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("case", POOL_S2D_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_pool_s2d_wgmma_equals_plain(cuda, form, case):
+    x2, wq, b = _s2d_args(case, seed=14)
+    c_in = case[3]
+    kw = dict(SHIFTS, c_in=c_in)
+    want = K.int8_conv3x3_pool_s2d(x2, wq, b, **kw)
+    packed = K.pack_pool_s2d_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    K.reset_pool_s2d_pack_count()
+    if form == "packed":
+        got = K.int8_conv3x3_pool_s2d(x2.to(cuda), None, b.to(cuda),
+                                      packed=packed, **kw)
+    else:
+        got = K.int8_conv3x3_pool_s2d(*(t.to(cuda) for t in (x2, wq, b)),
+                                      **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_pool_requant": {POOL_S2D: 1}}
+    assert K.pool_s2d_pack_count() == (form == "hwio")
+    assert got.shape == (case[0], case[1] // 2, case[2] // 2, case[4])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", SHIFT_CASES, ids=SHIFT_IDS)
+@pytest.mark.parametrize("case", [(2, 16, 22, 3, 16), (1, 10, 14, 4, 32)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_pool_s2d_wgmma_epilogues(cuda, leaky, rounding, shifts, case):
+    """Both roundings, both activations; shifts outside [0, 31] take the
+    kernel's general shift form."""
+    x2, wq, b = _s2d_args(case, seed=15)
+    kw = dict(shifts, c_in=case[3], rounding=rounding, leaky=leaky)
+    want = K.int8_conv3x3_pool_s2d(x2, wq, b, **kw)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_pool_s2d(*(t.to(cuda) for t in (x2, wq, b)), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_pool_requant": {POOL_S2D: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_s2d_assembly_takes_the_wgmma_kernel(cuda):
+    """``int8_conv3x3_pool_requant(assembly='s2d')`` lays the input out
+    and runs the same kernel."""
+    x, wq, b = _conv3x3_args((2, 12, 18, 3, 16), seed=16)
+    want = K.int8_conv3x3_pool_requant(x, wq, b, assembly="s2d", **SHIFTS)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_pool_requant(*(t.to(cuda) for t in (x, wq, b)),
+                                      assembly="s2d", **SHIFTS)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_pool_requant": {POOL_S2D: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_s2d_other_shapes_take_mma_sync(cuda):
+    """C_in 8 or C_out 48 stays on the mma.sync pool_s2d kernel, and the
+    wgmma kernel itself raises on them; a misaligned routed input raises
+    rather than falling back."""
+    for c_in, c_out in ((8, 24), (3, 48)):
+        x2, wq, b = _s2d_args((2, 8, 10, c_in, c_out), seed=17)
+        assert not K.pool_s2d_wgmma_route(c_in, c_out, SHIFTS["sw"])
+        want = K.int8_conv3x3_pool_s2d(x2, wq, b, c_in=c_in, **SHIFTS)
+        K.reset_launch_counts()
+        got = K.int8_conv3x3_pool_s2d(*(t.to(cuda) for t in (x2, wq, b)),
+                                      c_in=c_in, **SHIFTS)
+        torch.cuda.synchronize()
+        assert K.launch_counts_by_entry() == {
+            "int8_conv3x3_pool_requant": {"yolo_int8_conv3x3_requant": 1}}
+        assert torch.equal(got.cpu(), want)
+        with pytest.raises(ValueError, match="C_in <= 4"):
+            K._launch_pool_s2d_wgmma(x2.to(cuda), wq.to(cuda), b.to(cuda),
+                                     None, c_in=c_in, leaky=True,
+                                     rounding="nearest", **SHIFTS)
+    with pytest.raises(ValueError, match="pooled s2d"):
+        K.pool_s2d_wgmma_layout(8, 10, 8, 24)
+    x2, wq, b = _s2d_args((1, 8, 8, 3, 16), seed=17)
+    buf = torch.zeros(1 + x2.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x2.shape)
+    xm.copy_(x2)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv3x3_pool_s2d(xm, wq.to(cuda), b.to(cuda), c_in=3,
+                                **SHIFTS)
+    assert K.launch_counts_by_entry() == {}
+
+
+@pytest.mark.cuda
+def test_cuda_pool_s2d_wgmma_layout(cuda):
+    """At slim's conv1 (416^2 -> 208^2 pooled): 9 x 208 tiles, three
+    blocks per SM, 4 phases x 16 columns; pitches keep the global rows'
+    alignment."""
+    lay = K.pool_s2d_wgmma_layout(416, 416, 3, 16)
+    assert (lay.tile_h, lay.tile_w, lay.blocks_per_sm, lay.bn,
+            lay.warpgroups) == (9, 208, 3, 64, 2)
+    assert lay.smem_bytes * lay.blocks_per_sm <= 233472
+    assert lay.in_pitch % 16 == 211 * 12 % 16
+    assert lay.out_pitch % 16 == 208 * 16 % 16
+    assert K.pool_s2d_wgmma_layout(14, 10, 3, 32).bn == 128
+    assert K.pool_s2d_wgmma_layout(4, 6002, 3, 32).tile_w == 1501
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["entry", "pool_s2d"])
+def test_cuda_thin_kernels_empty_batch_count_no_launch(cuda, kernel):
+    K.reset_launch_counts()
+    b = torch.zeros(16, dtype=torch.int32, device=cuda)
+    w = torch.zeros((3, 3, 3, 16), dtype=torch.int8, device=cuda)
+    if kernel == "entry":
+        out = _entry(torch.zeros((0, 8, 8, 3), dtype=torch.int8,
+                                 device=cuda), w, b, **SHIFTS)
+    else:
+        out = K.int8_conv3x3_pool_s2d(
+            torch.zeros((0, 7, 7, 12), dtype=torch.int8, device=cuda), w, b,
+            c_in=3, **SHIFTS)
+    assert out.shape[0] == 0
+    assert K.launch_counts() == {k: 0 for k in K.KERNEL_NAMES}

@@ -107,7 +107,11 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_conv3x3_pool_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_pool_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma", [vp] * 4 + [i] * 9 + [vp]),
-                ("yolo_int8_conv3x3_s2_wgmma_info", [i] * 4 + [vp])):
+                ("yolo_int8_conv3x3_s2_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
+                ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_pool_s2d_wgmma", [vp] * 4 + [i] * 9 + [vp]),
+                ("yolo_int8_pool_s2d_wgmma_info", [i] * 4 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

@@ -7,7 +7,9 @@
 //   K1 _conv_kernel        -> int8_conv3x3_requant       (conv kernel, for
 //                             C_in % 32 != 0; every other K1 conv runs on
 //                             the wgmma kernel of int8_conv3x3_wgmma.cu)
-//   K2 _pool_matmul_kernel -> int8_conv3x3_pool_requant  (pool_s2d kernel;
+//   K2 _pool_matmul_kernel -> int8_conv3x3_pool_requant  (pool_s2d kernel,
+//                             for C_in > 4 or C_out > 32: slim's conv1 runs
+//                             the wgmma kernel of int8_entry_conv.cu;
 //                             conv kernel with POOL for assembly='stride2')
 //   K3 _im2col_kernel      -> int8_conv3x3_im2col        (conv kernel, POOL)
 // On the TPU they differ in how the matmul operands were assembled in VMEM

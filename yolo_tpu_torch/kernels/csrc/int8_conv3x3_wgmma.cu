@@ -125,20 +125,6 @@ struct Conv3Args {
   Epi epi;
 };
 
-// 16 bytes global -> shared, the first `bytes` (0 or 16) of them read, the
-// rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // staging byte of (row, column) of the pooled form's 16 x BN tile: the
 // 16-byte chunks XOR-ed with the row, so the 4 rows that a warp's 2-byte
 // stores reach at once fall in 4 different bank groups

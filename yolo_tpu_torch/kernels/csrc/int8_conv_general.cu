@@ -10,8 +10,10 @@
 // int32 CUDA tensors). What bounds it, and what the design does about
 // that: int8_conv.cuh. Tiles are 32 or 64 columns wide; 1x1 convs and
 // two-part inputs take the 16-byte gather only (C_in % 16 == 0). The
-// stride-1 3x3s of one input with C_in % 32 == 0 (the yolo_v3 head's nine)
-// go to the wgmma kernel of int8_conv3x3_wgmma.cu instead.
+// 3x3s of one input with C_in % 32 == 0 (the yolo_v3 head's nine at
+// stride 1, darknet53's five at stride 2) go to the wgmma kernel of
+// int8_conv3x3_wgmma.cu instead, and the stride-1 3x3s with C_in <= 3
+// (yolo_v3's entry conv) to that of int8_entry_conv.cu.
 
 #include "int8_conv.cuh"
 

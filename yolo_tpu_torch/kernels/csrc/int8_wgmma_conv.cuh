@@ -1,8 +1,10 @@
 // Pieces shared by the port's wgmma convolution kernels, the fused
-// residual block (int8_res_block.cu, K4) and the 3x3 conv
-// (int8_conv3x3_wgmma.cu): the requant epilogue with its shifts set up on
+// residual block (int8_res_block.cu, K4), the 3x3 conv
+// (int8_conv3x3_wgmma.cu) and the thin-input entry convs
+// (int8_entry_conv.cu): the requant epilogue with its shifts set up on
 // the host, the 64 x 64 staging tile of a consumer warpgroup, the RS
-// wgmma of a 3x3 phase, and the planners of a block's output tile and ring.
+// wgmma of a 3x3 phase, the 16-byte cp.async, and the planners of a
+// block's output tile and ring.
 //
 // Both kernels keep a TH x TW output tile plus the halo of their 3x3's
 // input in shared memory (K4: y1; the conv: x; at stride 1 the tile and a
@@ -65,15 +67,29 @@ bool short_shift(int s) { return s >= 0 && s < 32; }
 struct Epi {
   Shift acc, out;
   int slope, rnd;  // rnd: 32767 (nearest, v < 0) or 0 (floor)
+  // the chain up to the output shift, before the int8 clamp
   template <bool SHORT>
-  __device__ __forceinline__ int8_t apply(int v, int bias) const {
+  __device__ __forceinline__ int unclamped(int v, int bias) const {
     v = (int)((unsigned)acc.apply<SHORT>(v) + (unsigned)bias);
     v = min(max(v, -32768), 32767);
     const int t = (v * slope + rnd) >> 16;
-    v = out.apply<SHORT>(v < 0 ? t : v);
-    return (int8_t)min(max(v, -128), 127);
+    return out.apply<SHORT>(v < 0 ? t : v);
+  }
+  template <bool SHORT>
+  __device__ __forceinline__ int8_t apply(int v, int bias) const {
+    return (int8_t)min(max(unclamped<SHORT>(v, bias), -128), 127);
   }
 };
+
+// two unclamped values clamped to int8 and packed (lo in the low byte)
+// by one instruction, cvt.pack.sat
+__device__ __forceinline__ uint16_t pack_sat2(int lo, int hi) {
+  unsigned d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(hi), "r"(lo), "r"(0));
+  return (uint16_t)d;
+}
 
 Epi make_epi(int acc_shift, int out_shift, int slope_num, bool nearest) {
   return Epi{make_shift(acc_shift, nearest), make_shift(out_shift, nearest),
@@ -102,6 +118,20 @@ __device__ __forceinline__ void mma_rs(int (&d)[N / 2],
   if constexpr (N == 32) mma_rs_n32(d, a, db, 1);
   if constexpr (N == 64) mma_rs_n64(d, a, db, 1);
   if constexpr (N == 128) mma_rs_n128(d, a, db, 1);
+}
+
+// 16 bytes global -> shared, the first `bytes` (0 to 16) of them read, the
+// rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {

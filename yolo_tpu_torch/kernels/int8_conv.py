@@ -21,12 +21,17 @@ yolo_v3 head's nine 3x3s) launches the wgmma conv of
 kernel's stride-2 form, and every K3 conv with its pool and C_in % 32 == 0
 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2, conv3_2 and
 conv4_2) its pooled form; all three read their weights K-major, packed
-once per model by ``pack_conv3x3_weights``. The other K1
-and K3 shapes, K2 and the other ``int8_conv_requant`` shapes launch the
+once per model by ``pack_conv3x3_weights``. The two thin-input entry
+convs run on the row-streaming wgmma kernels of
+``csrc/int8_entry_conv.cu``: K2 on the s2d layout with C_in <= 4 and
+C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
+``pack_pool_s2d_weights``) and every stride-1 3x3 of one part with C_in
+<= 3 and C_out <= 64 (``entry_conv3x3_route``: yolo_v3's entry conv;
+weights from ``pack_entry_conv_weights``). The other K1, K2 and K3
+shapes and the other ``int8_conv_requant`` shapes launch the
 tensor-core implicit GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by
 ``csrc/int8_conv.cu`` and ``csrc/int8_conv_general.cu``), K4 the fused
-block of
-``csrc/int8_res_block.cu``. Both wgmma kernels are fed by a TMA ring
+block of ``csrc/int8_res_block.cu``. Both wgmma kernels are fed by a TMA ring
 (``csrc/int8_wgmma.cuh``) and share their epilogue and tile planner
 (``csrc/int8_wgmma_conv.cuh``). Each file's header note says what bounds
 them. A wrapper given a CUDA tensor launches the kernel, adds one to its
@@ -328,20 +333,35 @@ def int8_conv3x3_pool_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
 
 
 def int8_conv3x3_pool_s2d(x2, w_q, b_q, *, c_in, sw, sb, sa_in, sa_out,
-                          retune, leaky=True, rounding="nearest"):
+                          retune, leaky=True, rounding="nearest",
+                          packed=None):
     """conv3x3 + requant + 2x2 pool reading the padded space-to-depth
     layout [B, H/2+3, W/2+3, 4*C_in] (``fixed_point.s2d_input_np``) ->
     int8 [B, H/2, W/2, C_out]. Counts as a launch of
-    ``int8_conv3x3_pool_requant`` (K2)."""
+    ``int8_conv3x3_pool_requant`` (K2).
+
+    ``packed``: the weights from ``pack_pool_s2d_weights`` (then ``w_q``
+    may be None; C_out is ``b_q``'s length). On a CUDA tensor a conv that
+    ``pool_s2d_wgmma_route`` takes (slim's conv1) runs the wgmma kernel of
+    ``csrc/int8_entry_conv.cu``, which reads that form (packed for this
+    call where only the HWIO weights are given); other shapes run the
+    mma.sync pool_s2d kernel of ``csrc/int8_conv.cu``. The CPU route reads
+    the HWIO weights where given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     if x2.ndim != 4 or x2.shape[-1] != 4 * c_in:
         raise ValueError(f"s2d input must be [B, H/2+3, W/2+3, {4 * c_in}], "
                          f"got {tuple(x2.shape)}")
+    c_out = b_q.shape[0]
     if route(x2) == "plain":
-        return int8_conv3x3_pool_s2d_plain(x2, w_q, b_q, c_in=c_in, **kw)
+        return int8_conv3x3_pool_s2d_plain(
+            x2, _s2d_hwio(w_q, packed, c_in, c_out), b_q, c_in=c_in, **kw)
+    if pool_s2d_wgmma_route(c_in, c_out, sw):
+        _check_leaky_flag(leaky)
+        return _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, c_in=c_in, **kw)
     b, hb, wb, _ = x2.shape
-    return _launch("int8_conv3x3_pool_requant", x2, w_q, b_q,
+    return _launch("int8_conv3x3_pool_requant", x2,
+                   _s2d_hwio(w_q, packed, c_in, c_out), b_q,
                    h=2 * (hb - 3), w=2 * (wb - 3), c_in=c_in, pool=True,
                    s2d=True, **kw)
 
@@ -461,7 +481,9 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     per-channel one. ``packed``: a 3x3's weights from
     ``pack_conv3x3_weights`` (then ``w_q`` may be None), which the wgmma
     kernel reads on the shapes of ``conv3x3_wgmma_route`` and its stride-2
-    form on those of ``conv3x3_s2_wgmma_route``."""
+    form on those of ``conv3x3_s2_wgmma_route``, or from
+    ``pack_entry_conv_weights``, which the entry conv kernel reads on the
+    shapes of ``entry_conv3x3_route`` (C_in <= 3)."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
@@ -471,6 +493,11 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                                        sa_in=None, **kw)
     k = 3 if w_q is None else w_q.shape[0]
     shape = (k, stride, padding, len(parts), parts[0][0].shape[-1], sw)
+    if entry_conv3x3_route(*shape[:5], b_q.shape[0], sw):
+        (x0, sa0), = parts
+        return _launch_entry_conv3x3(
+            x0, w_q, b_q, packed, sw=sw, sb=sb, sa_in=sa0, sa_out=sa_out,
+            retune=retune, leaky=leaky, rounding=rounding)
     for taken, form in ((conv3x3_wgmma_route, "conv"),
                         (conv3x3_s2_wgmma_route, "s2")):
         if taken(*shape):
@@ -561,8 +588,13 @@ def unpack_conv3x3_weights(wp: torch.Tensor, c_in=None) -> torch.Tensor:
 
 def _hwio(w_q, packed, c_in):
     """The HWIO weights where given, else those of ``packed`` (its first
-    ``c_in`` input channels)."""
-    return w_q if w_q is not None else unpack_conv3x3_weights(packed, c_in)
+    ``c_in`` input channels): the entry conv's [C_out, 32] form, or the
+    [C_out, 9 * C_k] form (9 * C_k >= 288) of ``pack_conv3x3_weights``."""
+    if w_q is not None:
+        return w_q
+    if packed.shape[1] == ENTRY_K:
+        return unpack_entry_conv_weights(packed, c_in)
+    return unpack_conv3x3_weights(packed, c_in)
 
 
 def conv3x3_pack_count() -> int:
@@ -717,7 +749,7 @@ def unpack_res_block_weights(packed):
 
 
 # packings made since the last reset (serving packs once per model)
-_PACKS = {"res_block": 0, "conv3x3": 0}
+_PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0}
 
 
 def res_block_pack_count() -> int:
@@ -862,3 +894,266 @@ def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
     if packed is None:
         packed = pack_res_block_weights(w1_q, w2_q)
     return _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The thin-input entry convs (csrc/int8_entry_conv.cu): yolo_v3's C_in = 3
+# entry conv and K2 on the s2d layout (slim's conv1), row-streaming wgmma.
+# ---------------------------------------------------------------------------
+
+
+ENTRY_CONV_ENTRY = "yolo_int8_entry_conv3x3_wgmma"
+POOL_S2D_WGMMA_ENTRY = "yolo_int8_pool_s2d_wgmma"
+ENTRY_K = 32  # the entry conv's one K step: 9 * C_in <= 27 bytes, padded
+POOL_S2D_K = 64  # K2's two K steps: 16 * C_in <= 64 bytes, padded
+
+
+def entry_conv3x3_route(k, stride, padding, nparts, c_in, c_out, sw) -> bool:
+    """True where ``int8_conv_requant`` on a CUDA tensor runs the entry
+    conv kernel (``csrc/int8_entry_conv.cu``): a 3x3, stride 1, pad 1, one
+    input part of 1 <= C_in <= 3 channels (9 * C_in <= 32: one K step),
+    C_out <= 64 and a scalar ``sw`` (yolo_v3's entry conv, 3 -> 32). There
+    is no fallback: a routed conv launches that kernel or raises."""
+    return (k == 3 and stride == 1 and padding == 1 and nparts == 1
+            and 1 <= c_in <= 3 and 1 <= c_out <= 64 and np.ndim(sw) == 0)
+
+
+def pool_s2d_wgmma_route(c_in, c_out, sw) -> bool:
+    """True where ``int8_conv3x3_pool_s2d`` on a CUDA tensor runs K2's
+    wgmma kernel (``csrc/int8_entry_conv.cu``): C_in <= 4 (K = 16 * C_in
+    <= 64), C_out <= 32 (4 phases of up to 32 columns) and a scalar ``sw``
+    (slim's conv1, 3 -> 16). Other shapes run the mma.sync pool_s2d
+    kernel of ``csrc/int8_conv.cu``."""
+    return 1 <= c_in <= 4 and 1 <= c_out <= 32 and np.ndim(sw) == 0
+
+
+def pack_entry_conv_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """The entry conv's HWIO weights [3, 3, C_in, C_out] (C_in <= 3) in the
+    K-major form its kernel reads, made once per model: [C_out, 32] in
+    (dy, dx, c) order, zero past 9 * C_in, contiguous, on the weights'
+    device."""
+    if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3) or w_q.shape[2] > 3:
+        raise ValueError(f"entry conv weights must be HWIO [3, 3, C_in <= 3, "
+                         f"C_out], got {list(w_q.shape)}")
+    wp = _pack3x3(w_q)
+    wp = torch.nn.functional.pad(wp, (0, ENTRY_K - wp.shape[1])).contiguous()
+    _PACKS["entry_conv"] += 1
+    return wp
+
+
+def unpack_entry_conv_weights(wp: torch.Tensor, c_in: int) -> torch.Tensor:
+    """The inverse of ``pack_entry_conv_weights``: HWIO [3, 3, C_in,
+    C_out]."""
+    return unpack_conv3x3_weights(wp[:, :9 * c_in], c_in)
+
+
+def _s2d_phases(c_out: int) -> int:
+    """Columns of one pool phase in K2's packed weights: C_out rounded up
+    to 16 or 32."""
+    return 16 if c_out <= 16 else 32
+
+
+def pack_pool_s2d_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """K2's HWIO weights [3, 3, C_in, C_out] (C_in <= 4, C_out <= 32) as the
+    phase-packed block-conv weights its wgmma kernel reads, made once per
+    model: [4 * CP, 64], row p * CP + co for pool phase p = 2a + b and
+    output channel co (CP = 16 where C_out <= 16, else 32; zero rows past
+    C_out), column k = r * 8C + s * 4C + (py * 2 + px) * C + c of the s2d
+    4x4 window (zero past 16 * C_in): ``fixed_point._s2d_phase_weights``
+    of the JAX package, transposed K-major. Contiguous, on the weights'
+    device."""
+    if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3):
+        raise ValueError(f"3x3 weights must be HWIO [3, 3, C_in, C_out], "
+                         f"got {list(w_q.shape)}")
+    c_in, c_out = w_q.shape[2], w_q.shape[3]
+    if c_in > 4 or c_out > 32:
+        raise ValueError(f"K2's wgmma weights take C_in <= 4 and C_out <= "
+                         f"32, got {c_in} -> {c_out}")
+    cp = _s2d_phases(c_out)
+    wp = torch.zeros((4, cp, POOL_S2D_K), dtype=torch.int8,
+                     device=w_q.device)
+    for a in range(2):              # pool phase row
+        for bph in range(2):        # pool phase column
+            for j in range(3):      # 3x3 tap
+                for k in range(3):
+                    r, py = divmod(a + j, 2)
+                    s, px = divmod(bph + k, 2)
+                    k0 = r * 8 * c_in + s * 4 * c_in + (py * 2 + px) * c_in
+                    wp[a * 2 + bph, :c_out, k0:k0 + c_in] = w_q[j, k].t()
+    _PACKS["pool_s2d"] += 1
+    return wp.reshape(4 * cp, POOL_S2D_K).contiguous()
+
+
+def unpack_pool_s2d_weights(wp: torch.Tensor, c_in: int,
+                            c_out: int) -> torch.Tensor:
+    """The inverse of ``pack_pool_s2d_weights``: HWIO [3, 3, C_in, C_out]
+    (read from pool phase 0, whose window holds all nine taps)."""
+    w = torch.empty((3, 3, c_in, c_out), dtype=wp.dtype, device=wp.device)
+    for j in range(3):
+        for k in range(3):
+            k0 = ((j // 2) * 8 * c_in + (k // 2) * 4 * c_in
+                  + ((j % 2) * 2 + k % 2) * c_in)
+            w[j, k] = wp[:c_out, k0:k0 + c_in].t()
+    return w
+
+
+def _s2d_hwio(w_q, packed, c_in, c_out):
+    """K2's HWIO weights where given, else those of ``packed``."""
+    return (w_q if w_q is not None
+            else unpack_pool_s2d_weights(packed, c_in, c_out))
+
+
+def entry_conv_pack_count() -> int:
+    """Calls of ``pack_entry_conv_weights`` since the last reset."""
+    return _PACKS["entry_conv"]
+
+
+def reset_entry_conv_pack_count() -> None:
+    _PACKS["entry_conv"] = 0
+
+
+def pool_s2d_pack_count() -> int:
+    """Calls of ``pack_pool_s2d_weights`` since the last reset."""
+    return _PACKS["pool_s2d"]
+
+
+def reset_pool_s2d_pack_count() -> None:
+    _PACKS["pool_s2d"] = 0
+
+
+# the launch layout of either kernel of csrc/int8_entry_conv.cu, as its
+# _info entry reports it: tile (whole rows of the output, or of the pooled
+# output), shared memory, blocks per SM, columns of the wgmma (BN), its
+# warpgroups, and the shared input and output row pitches
+RowTileLayout = collections.namedtuple("RowTileLayout", (
+    "tile_h", "tile_w", "smem_bytes", "blocks_per_sm", "bn", "warpgroups",
+    "in_pitch", "out_pitch"))
+
+
+def _row_layout(entry, what, h, w, c_in, c_out) -> RowTileLayout:
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(RowTileLayout._fields))()
+    rc = getattr(lib, entry + "_info")(h, w, c_in, c_out, info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"the {what} kernel takes no {h}x{w} conv of C_in "
+                         f"{c_in} -> C_out {c_out}")
+    if rc:
+        raise RuntimeError(f"{entry}_info failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return RowTileLayout(*info)
+
+
+@functools.lru_cache(maxsize=None)
+def entry_conv3x3_layout(h, w, c_in, c_out) -> RowTileLayout:
+    """The entry conv kernel's launch layout for an H x W x C_in -> C_out
+    conv, as its CUDA source picks it (``plan_rows`` in
+    ``csrc/int8_entry_conv.cu``). Needs the built kernels. Raises
+    ValueError where the kernel takes no such conv (C_in > 3, C_out > 64)."""
+    return _row_layout(ENTRY_CONV_ENTRY, "entry conv", h, w, c_in, c_out)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_s2d_wgmma_layout(h, w, c_in, c_out) -> RowTileLayout:
+    """The same for K2's wgmma kernel on the s2d layout of an H x W image
+    (its tile in pooled pixels). Raises ValueError where it takes no such
+    conv (H or W odd, C_in > 4, C_out > 32)."""
+    return _row_layout(POOL_S2D_WGMMA_ENTRY, "pooled s2d wgmma", h, w, c_in,
+                       c_out)
+
+
+def _check_input(x):
+    if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
+
+
+def _launch_entry_conv3x3(x, w_q, b_q, packed, *, sw, sb, sa_in, sa_out,
+                          retune, leaky, rounding) -> torch.Tensor:
+    """Check the operands and launch the entry conv kernel on the current
+    stream, counting the launch under ``int8_conv_requant``; packs ``w_q``
+    for this call where ``packed`` is None. Raises on anything the kernel
+    does not take and on a failed launch."""
+    _check_rounding(rounding)
+    num = _slope_num(leaky)
+    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
+                         retune=retune)
+    _check_input(x)
+    dev = x.device
+    bsz, h, w, c_in = x.shape
+    if packed is None:
+        packed = pack_entry_conv_weights(w_q)
+    c_out = packed.shape[0]
+    if not entry_conv3x3_route(3, 1, 1, 1, c_in, c_out, sw):
+        raise ValueError(f"the entry conv kernel needs 1 <= C_in <= 3 and "
+                         f"C_out <= 64, got {c_in} -> {c_out}")
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (c_out, ENTRY_K))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    _aligned("x", x, 16)
+    _aligned("packed weights", packed, 16)
+    if bsz * h * w >= 2 ** 31:
+        raise ValueError("B * H * W must stay below 2^31; split the batch")
+    out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    entry_conv3x3_layout(h, w, c_in, c_out)  # raises where no tile fits
+    _aligned("the output allocation", out, 16)
+    bias_rt = torch.zeros(64, dtype=torch.int32, device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    launch("int8_conv_requant", ENTRY_CONV_ENTRY, dev,
+           x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
+           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
+           retune - sa_out, num, int(rounding == "nearest"))
+    return out
+
+
+def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
+                           sa_out, retune, leaky, rounding) -> torch.Tensor:
+    """Check the operands and launch K2's wgmma kernel on the s2d layout
+    on the current stream, counting the launch under
+    ``int8_conv3x3_pool_requant``; packs ``w_q`` for this call where
+    ``packed`` is None. Raises on anything the kernel does not take and on
+    a failed launch."""
+    _check_rounding(rounding)
+    num = _slope_num(leaky)
+    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
+                         retune=retune)
+    _check_input(x2)
+    dev = x2.device
+    bsz, hb, wb, c4 = x2.shape
+    c_out = b_q.shape[0]
+    if c4 != 4 * c_in or hb < 4 or wb < 4:
+        raise ValueError(f"s2d input must be [B, H/2+3, W/2+3, {4 * c_in}], "
+                         f"got {tuple(x2.shape)}")
+    if not pool_s2d_wgmma_route(c_in, c_out, sw):
+        raise ValueError(f"K2's wgmma kernel needs C_in <= 4 and C_out <= "
+                         f"32, got {c_in} -> {c_out}")
+    if packed is None:
+        packed = pack_pool_s2d_weights(w_q)
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (4 * _s2d_phases(c_out), POOL_S2D_K))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    _aligned("x", x2, 16)
+    _aligned("packed weights", packed, 16)
+    h, w = 2 * (hb - 3), 2 * (wb - 3)
+    if bsz * hb * wb >= 2 ** 31:
+        raise ValueError("B * (H/2+3) * (W/2+3) must stay below 2^31; split "
+                         "the batch")
+    out = torch.empty((bsz, h // 2, w // 2, c_out), dtype=torch.int8,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    pool_s2d_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
+    _aligned("the output allocation", out, 16)
+    bias_rt = torch.zeros(32, dtype=torch.int32, device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    launch("int8_conv3x3_pool_requant", POOL_S2D_WGMMA_ENTRY, dev,
+           x2.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
+           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
+           retune - sa_out, num, int(rounding == "nearest"))
+    return out

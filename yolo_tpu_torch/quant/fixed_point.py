@@ -49,6 +49,9 @@ class Int8Model:
     # {layer name: its weights packed K-major for the wgmma conv3x3
     # kernel}, made once by ``pack_conv3x3``
     packed: Optional[Dict[str, torch.Tensor]] = None
+    # conv1's weights phase-packed for K2's wgmma kernel on the s2d layout
+    # (``pack_pool_s2d_weights``), made once by ``pack_conv3x3``
+    s2d_packed: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Int8Model":
         """The same model with its tensors on ``device``."""
@@ -58,17 +61,22 @@ class Int8Model:
             sw=dict(self.sw), sb=dict(self.sb), sa=dict(self.sa),
             retune=dict(self.retune),
             packed=None if self.packed is None else
-            {k: v.to(device) for k, v in self.packed.items()})
+            {k: v.to(device) for k, v in self.packed.items()},
+            s2d_packed=None if self.s2d_packed is None else
+            self.s2d_packed.to(device))
 
     def pack_conv3x3(self) -> None:
         """Pack once the weights of every layer that ``int8_forward`` runs
         on the wgmma conv3x3 kernel (``int8_conv3x3_requant`` layers that
         ``conv3x3_wgmma_route`` takes, pooled ``int8_conv3x3_im2col``
-        layers that ``conv3x3_pool_wgmma_route`` takes), so the forward
+        layers that ``conv3x3_pool_wgmma_route`` takes) into ``packed``,
+        and conv1's for K2's wgmma kernel on the s2d input
+        (``pool_s2d_wgmma_route``) into ``s2d_packed``, so the forward
         never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
             conv3x3_pool_wgmma_route, conv3x3_wgmma_route,
-            pack_conv3x3_weights)
+            pack_conv3x3_weights, pack_pool_s2d_weights,
+            pool_s2d_wgmma_route)
 
         def routed(name):
             c_in, sw = self.w_q[name].shape[2], self.sw[name]
@@ -78,6 +86,11 @@ class Int8Model:
 
         self.packed = {name: pack_conv3x3_weights(self.w_q[name])
                        for name in QUANT_LAYER_NAMES if routed(name)}
+        w1 = self.w_q[QUANT_LAYER_NAMES[0]]
+        self.s2d_packed = (
+            pack_pool_s2d_weights(w1) if pool_s2d_wgmma_route(
+                w1.shape[2], w1.shape[3], self.sw[QUANT_LAYER_NAMES[0]])
+            else None)
 
 
 def resolve_device(device) -> torch.device:
@@ -266,14 +279,17 @@ def _leaky_flag(leaky) -> bool:
 def int8_conv_pool_s2d_core(x2: torch.Tensor, w_q, b_q, *, c_in: int,
                             sw: int, sb: int, sa_in: int, sa_out: int,
                             retune: int, leaky: bool = True,
-                            rounding: str = "nearest") -> torch.Tensor:
+                            rounding: str = "nearest",
+                            packed=None) -> torch.Tensor:
     """conv3x3 + requant + 2x2 pool on an already space-to-depth input
-    [B,H/2+3,W/2+3,4*C_in] -> [B,H/2,W/2,C_out] int8."""
+    [B,H/2+3,W/2+3,4*C_in] -> [B,H/2,W/2,C_out] int8 (``packed``: the
+    weights from ``pack_pool_s2d_weights``, for K2's wgmma kernel)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_conv3x3_pool_s2d
 
     return int8_conv3x3_pool_s2d(
         x2, w_q, b_q, c_in=c_in, sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
-        retune=retune, leaky=_leaky_flag(leaky), rounding=rounding)
+        retune=retune, leaky=_leaky_flag(leaky), rounding=rounding,
+        packed=packed)
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +352,10 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
     layout [B, H/2+3, W/2+3, 12]) -> float head [B, H/16, W/16, C].
 
     Layer routing: conv1 on s2d input runs the s2d conv+pool form
-    (int8_conv3x3_pool_s2d); every other pool layer runs
-    int8_conv3x3_im2col(pool=True); the rest int8_conv3x3_requant; both
-    with the weights of ``m.packed`` where ``pack_conv3x3`` made them.
+    (int8_conv3x3_pool_s2d, with ``m.s2d_packed``); every other pool
+    layer runs int8_conv3x3_im2col(pool=True); the rest
+    int8_conv3x3_requant; both with the weights of ``m.packed``; each
+    packed form where ``pack_conv3x3`` made it.
     """
     from yolo_tpu_torch.kernels import int8_conv as K
 
@@ -355,7 +372,7 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
                   rounding=rounding)
         if input_s2d and i == 0:
             out = int8_conv_pool_s2d_core(out, m.w_q[name], m.b_q[name],
-                                          c_in=3, **kw)
+                                          c_in=3, packed=m.s2d_packed, **kw)
         elif name in POOLED:
             out = K.int8_conv3x3_im2col(out, m.w_q[name], m.b_q[name],
                                         pool=True,

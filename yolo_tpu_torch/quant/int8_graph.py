@@ -38,8 +38,9 @@ def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
     [B, H/2+3, W/2+3, 12]) -> (boxes, scores, classes, valid).
 
     The model's tensors move to ``device`` once, here, and on a CUDA
-    device the weights of the layers that run the wgmma conv3x3 kernel
-    are packed there once (the CPU route reads the HWIO weights); the
+    device the weights of the layers that run the wgmma conv3x3 kernel,
+    and conv1's for K2's wgmma kernel on the s2d input, are packed there
+    once (the CPU route reads the HWIO weights); the
     images are moved there per call if they are elsewhere. Raises if
     ``device`` is CUDA and there is none."""
     dev = fp.resolve_device(device)

@@ -6,9 +6,9 @@ The forward walks the same program as the JAX package. Every ``push,
 conv 1x1, conv 3x3, res`` group (the 23 darknet53 residual blocks) runs as
 one fused residual-block kernel (``int8_res_block``, K4), every other conv
 through ``int8_conv_requant``: the head's nine stride-1 3x3s on the wgmma
-conv3x3 kernel, the five stride-2 3x3s on its stride-2 form, the rest (the
-entry conv, the 1x1s, the two-part concat convs, the preds) on the
-mma.sync conv kernel; each
+conv3x3 kernel, the five stride-2 3x3s on its stride-2 form, the C_in = 3
+entry conv on the entry conv kernel, the rest (the 1x1s, the two-part
+concat convs, the preds) on the mma.sync conv kernel; each
 ``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
 their exact plain versions.
 
@@ -133,6 +133,9 @@ class Int8YoloV3:
     # stride-2 form: its weights packed K-major}, made once by
     # ``pack_conv3x3s``
     conv_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
+    # {index of a conv that runs on the entry conv kernel (C_in <= 3): its
+    # weights packed K-major}, made once by ``pack_conv3x3s``
+    entry_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
 
     def __post_init__(self):
         if self.program is None:
@@ -150,7 +153,9 @@ class Int8YoloV3:
                 i: tuple(t.to(device) for t in pair)
                 for i, pair in self.res_packed.items()},
             conv_packed=None if self.conv_packed is None else {
-                i: wp.to(device) for i, wp in self.conv_packed.items()})
+                i: wp.to(device) for i, wp in self.conv_packed.items()},
+            entry_packed=None if self.entry_packed is None else {
+                i: wp.to(device) for i, wp in self.entry_packed.items()})
 
     def pack_res_blocks(self) -> None:
         """Pack the weights of every residual block once
@@ -170,13 +175,16 @@ class Int8YoloV3:
     def pack_conv3x3s(self) -> None:
         """Pack once the weights of every conv outside the residual blocks
         that ``conv3x3_wgmma_route`` or ``conv3x3_s2_wgmma_route`` takes
-        (the head's nine stride-1 3x3s, darknet53's five stride-2 3x3s),
-        so the forward never packs."""
+        (the head's nine stride-1 3x3s, darknet53's five stride-2 3x3s)
+        into ``conv_packed``, and of every conv that
+        ``entry_conv3x3_route`` takes (the C_in = 3 entry conv) into
+        ``entry_packed``, so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
             conv3x3_s2_wgmma_route, conv3x3_wgmma_route,
-            pack_conv3x3_weights)
+            entry_conv3x3_route, pack_conv3x3_weights,
+            pack_entry_conv_weights)
 
-        self.conv_packed = {}
+        self.conv_packed, self.entry_packed = {}, {}
         conv_i = i = 0
         nparts = 1  # a conv right after a concat reads two parts
         while i < len(self.program):
@@ -191,6 +199,9 @@ class Int8YoloV3:
                 if (conv3x3_wgmma_route(*shape)
                         or conv3x3_s2_wgmma_route(*shape)):
                     self.conv_packed[conv_i] = pack_conv3x3_weights(w)
+                elif entry_conv3x3_route(*shape[:5], w.shape[3],
+                                         self.sw[conv_i]):
+                    self.entry_packed[conv_i] = pack_entry_conv_weights(w)
                 conv_i += 1
             nparts = 2 if op[0] == "concat" else 1
             i += 1
@@ -264,7 +275,8 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                 sb=m.sb[conv_i], sa_in=sa, sa_out=sa_out,
                 retune=m.retune[conv_i], padding=padding, stride=stride,
                 leaky=leaky, rounding=rounding,
-                packed=(m.conv_packed or {}).get(conv_i))
+                packed=(m.conv_packed or {}).get(
+                    conv_i, (m.entry_packed or {}).get(conv_i)))
             stream = (out, sa_out)
             tap_i += 1
             conv_i += 1
@@ -294,10 +306,10 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
 
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the residual blocks and of the convs that run
-    the wgmma conv3x3 kernel or its stride-2 form are packed there once
-    (the CPU route reads the HWIO weights); the images are moved there per
-    call if they are elsewhere. Raises if ``device`` is CUDA and there is none; never falls
-    back to the CPU."""
+    the wgmma conv3x3 kernel, its stride-2 form or the entry conv kernel
+    are packed there once (the CPU route reads the HWIO weights); the
+    images are moved there per call if they are elsewhere. Raises if
+    ``device`` is CUDA and there is none; never falls back to the CPU."""
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
