@@ -48,8 +48,14 @@ raises and the script exits nonzero:
    edge tiles (100², 50², 27²); ``int8_conv_requant`` at every distinct
    conv shape of the v3 program (the C_in = 3 entry conv, the stride-2
    convs, the two-part concat convs, the heads), both roundings, the
-   stride-2 convs also with no activation and a negative output shift;
-   the entry conv kernel at odd widths, C_in 1 and 2, C_out 35 and 64,
+   stride-2 convs also with no activation and a negative output shift,
+   the 1x1s (on the wgmma 1x1 kernel) also with a negative output shift,
+   slopes 0.1 and none, and each 1x1 and concat 1x1 also on the mma.sync
+   conv kernel it ran on before (``_launch_conv_requant``); the wgmma 1x1
+   kernel at edge shapes (M not a multiple of its tile, C_out 21, 24, 35
+   and 300, parts of C_in 16, 48 and 80, concats at equal and at distinct
+   part shifts) with every slope and shift form, from HWIO and from packed
+   weights; the entry conv kernel at odd widths, C_in 1 and 2, C_out 35 and 64,
    partial row tiles and width chunks, every slope and shift form;
    the wgmma conv3x3 through both wrappers at three shapes whose tiles
    leave edge tiles (27², 50², 100²), and its stride-2 form at five odd
@@ -67,9 +73,10 @@ raises and the script exits nonzero:
    timed as phase 4, with the launch counts checked (per forward: K4 23,
    ``int8_conv_requant`` 29: the nine head 3x3s on the wgmma conv3x3, the
    five stride-2 3x3s on its stride-2 form, the C_in = 3 entry conv on the
-   entry conv kernel, 14 on the mma.sync conv) and the weights of K4, of
-   the 14 wgmma 3x3s and of the entry conv packed once, when the detect
-   fn took the model, never in the loop; then each distinct shape
+   entry conv kernel, the fourteen 1x1s on the wgmma 1x1 kernel, none on
+   the mma.sync conv) and the weights of K4, of the 14 wgmma 3x3s, of the
+   entry conv and of the 14 1x1s packed once, when the detect fn took the
+   model, never in the loop; then each distinct shape
    checked
    and timed (kernel, plain version, bound, and a library yardstick the
    port never calls: cuDNN fp16 convs for K4 and the 3x3 convs,
@@ -77,9 +84,12 @@ raises and the script exits nonzero:
    stage and the wgmma conv3x3's at each head 3x3 and stride-2 conv as
    their CUDA sources pick them (tile, the share of the 64-row wgmma steps
    that carry pixels, blocks per SM, ring stages, halo channels; the
-   entry conv's tile and row pitches), those 3x3s and the entry conv also
-   beside the mma.sync conv kernel (same call), the stride-2 convs and the
-   entry conv with GB/s and the share of HBM bandwidth, and, at 13², K4's
+   entry conv's tile and row pitches; the 1x1 kernel's column tile, ring
+   stages, blocks launched and resident weight bytes), those 3x3s, the
+   entry conv and the 1x1s also beside the mma.sync conv kernel (same
+   call; its timed 1x1s are the ``mma_sync`` line's, which has no serving
+   launch), the stride-2 convs, the entry conv and the 1x1s with GB/s and
+   the share of HBM bandwidth, and, at 13², K4's
    time at batch 128, at one block per SM and at two (what the 4 SMs that
    batch 128 leaves idle could give); K5 is timed with b K-major, the
    layout ``torch._int_mm`` reads, so both read the same bytes.
@@ -90,10 +100,11 @@ and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
 path; its stride-2 form: v3's five downsampling convs) run on wgmma fed
 by a TMA ring (``csrc/int8_wgmma.cuh``); K2 on the s2d input and v3's
 C_in = 3 entry conv on row-streaming wgmma kernels
-(``csrc/int8_entry_conv.cu``); the rest of the general conv (the 1x1s)
-keeps the mma.sync main loop of ``csrc/int8_common.cuh``. The
-``kernels`` line has one entry per kernel and route:
-``int8_conv_requant`` four times.
+(``csrc/int8_entry_conv.cu``); v3's fourteen 1x1s on a wgmma GEMM with
+resident weights (``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
+``csrc/int8_conv.cuh`` serves no layer of either path; it is still held
+to its plain version and timed on the 1x1s. The ``kernels`` line has one
+entry per kernel and route: ``int8_conv_requant`` five times.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -122,6 +133,7 @@ POOL3 = "yolo_int8_conv3x3_pool_wgmma"  # and its pooled form's
 S2_3 = "yolo_int8_conv3x3_s2_wgmma"  # and its stride-2 form's
 ENTRY3 = "yolo_int8_entry_conv3x3_wgmma"  # the v3 entry conv kernel's
 POOL_S2D = "yolo_int8_pool_s2d_wgmma"  # K2's on the s2d layout
+CONV1X1 = "yolo_int8_conv1x1_wgmma"  # the v3 1x1 kernel's
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -147,6 +159,9 @@ LINES = {
         "yolo_tpu/quant/fixed_point.py:725"),
     "int8_conv_requant.entry_conv3x3_wgmma": (
         "int8_conv_requant", ENTRY3, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv1x1_wgmma": (
+        "int8_conv_requant", CONV1X1, CSRC + "int8_conv1x1_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
     "int8_conv_requant.mma_sync": (
         "int8_conv_requant", "yolo_int8_conv_requant",
@@ -175,6 +190,14 @@ ENTRY_EDGE_SHAPES = [(2, 17, 23, 3, 32), (1, 33, 40, 2, 35),
 # width chunks
 POOL_S2D_EDGE_SHAPES = [(2, 14, 10, 3, 32), (1, 6, 18, 4, 20),
                         (3, 38, 26, 3, 16), (1, 4, 6002, 3, 7)]
+# the wgmma 1x1 kernel at (B, H, W, C_in parts, C_out): M not a multiple of
+# its 64-row tile, C_out 21, 24, 35 and 300 (a ragged second column tile),
+# parts of C_in 16, 48 and 80, two-part concats (each case runs at equal
+# and at distinct part shifts), the served 26² concat at batch 3
+CONV1X1_EDGE_SHAPES = [(1, 7, 9, (16,), 24), (2, 5, 5, (48,), 21),
+                       (1, 11, 13, (80,), 35), (2, 9, 7, (48, 80), 64),
+                       (1, 3, 3, (16, 16), 21), (1, 10, 10, (256,), 300),
+                       (3, 13, 13, (512, 256), 256)]
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
@@ -720,10 +743,20 @@ def conv_case(gen, b, key):
 
 def conv_kw(key, case="plain", rounding="nearest"):
     k, stride, pad, cins, cout, h, leaky = key
+    leaky = {"leaky_off": False, "slope_0.1": 0.1}.get(case, leaky)
     kw = dict(v3_tables(k * k * sum(cins), case), padding=pad, stride=stride,
-              leaky=False if case == "leaky_off" else leaky,
-              rounding=rounding)
+              leaky=leaky, rounding=rounding)
     return kw
+
+
+def mma_sync_conv(x, w, bias, kw):
+    """``int8_conv_requant`` on the mma.sync conv kernel, whatever route
+    the wrapper would take."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    return K._launch_conv_requant(
+        K._parts(x, kw["sa_in"]), w, bias,
+        **{a: v for a, v in kw.items() if a != "sa_in"})
 
 
 def conv_input(xs, kw, split_scales=True):
@@ -810,9 +843,11 @@ def phase_v3_kernels(max_err):
                  ("nearest", "acc_shift>=32", True)]
         if len(xs) == 2:
             cases.append(("nearest", "plain", False))  # equal part scales
-        if key[1] == 2:  # the stride-2 form's other epilogues
+        if key[1] == 2 or key[0] == 1:  # the other epilogues
             cases += [("floor", "out_shift<0", True),
                       ("nearest", "leaky_off", True)]
+        if key[0] == 1:  # the darknet slope on the 1x1 kernel
+            cases.append(("floor", "slope_0.1", True))
         for rounding, case, split in cases:
             kw = conv_kw(key, case, rounding)
             x = conv_input(xs, kw, split)
@@ -823,6 +858,12 @@ def phase_v3_kernels(max_err):
             want = K.int8_conv_requant_plain(x, w, bias, **kw)
             check_equal(line, got, want, max_err,
                         f"{key} {rounding} {case} split={split}")
+            if key[0] == 1:
+                # the mma.sync conv kernel these convs ran on before
+                check_equal("int8_conv_requant.mma_sync",
+                            mma_sync_conv(x, w, bias, kw), want, max_err,
+                            f"{key} {rounding} {case} split={split}")
+                n += 1
             if case == "plain" and rounding == "nearest" and split:
                 std = float(got.float().std())
             n += 1
@@ -883,6 +924,33 @@ def phase_v3_kernels(max_err):
              shape=[bsz, h, h, c_in, c_out],
              tile=[lay.tile_h, lay.tile_w],
              halo_channels=lay.halo_channels, equal=True)
+    for bsz, h, w, cins, c_out in CONV1X1_EDGE_SHAPES:
+        xs = [ri(gen, (bsz, h, w, c), -128, 128, torch.int8) for c in cins]
+        wt = ri(gen, (1, 1, sum(cins), c_out), -90, 120, torch.int8)
+        bias = ri(gen, (c_out,), -100, 100, torch.int32)
+        packed = K.pack_conv1x1_weights(wt)
+        for (rounding, case, form, leaky), split in zip(
+                THIN_CASES + (("nearest", "plain", "packed", True),),
+                (True, False, True, False, True)):
+            kw = dict(v3_tables(sum(cins), case), leaky=leaky,
+                      rounding=rounding)
+            x = conv_input(xs, kw, split)
+            K.reset_launch_counts()
+            got = (K.int8_conv_requant(x, None, bias, packed=packed, **kw)
+                   if form == "packed" else
+                   K.int8_conv_requant(x, wt, bias, **kw))
+            torch.cuda.synchronize()
+            check_equal(ran_line(), got,
+                        K.int8_conv_requant_plain(x, wt, bias, **kw),
+                        max_err, f"1x1 {h}x{w} {cins}->{c_out} {rounding} "
+                                 f"{case} {form} {leaky} split={split}")
+            n += 1
+        lay = K.conv1x1_wgmma_layout(bsz * h * w, cins[0],
+                                     cins[1] if len(cins) == 2 else 0, c_out,
+                                     len(cins) == 2)
+        emit("v3_kernels_vs_plain", kernel="conv1x1_wgmma edge shapes",
+             shape=[bsz, h, w, list(cins), c_out], bn=lay.bn,
+             grid=lay.grid, equal=True)
     for bsz, h, w, c_in, c_out in ENTRY_EDGE_SHAPES:
         x, wt, bias = rand_case(gen, bsz, h, w, c_in, c_out)
         packed = K.pack_entry_conv_weights(wt)
@@ -971,26 +1039,28 @@ def phase_v3_serving(m, cfg, card):
                         device="cuda")
     x_q = fp.quantize_input(images, m.sa_in).contiguous()
     del images
-    K.reset_res_block_pack_count()
-    K.reset_conv3x3_pack_count()
-    K.reset_entry_conv_pack_count()
+    resets = (K.reset_res_block_pack_count, K.reset_conv3x3_pack_count,
+              K.reset_entry_conv_pack_count, K.reset_conv1x1_pack_count)
+    for reset in resets:
+        reset()
     detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
     packs_at_setup = K.res_block_pack_count()
     conv_packs_at_setup = K.conv3x3_pack_count()
     entry_packs_at_setup = K.entry_conv_pack_count()
-    if (packs_at_setup, conv_packs_at_setup,
-            entry_packs_at_setup) != (23, 14, 1):
+    conv1x1_packs_at_setup = K.conv1x1_pack_count()
+    if (packs_at_setup, conv_packs_at_setup, entry_packs_at_setup,
+            conv1x1_packs_at_setup) != (23, 14, 1, 14):
         raise AssertionError(f"the detect fn packed {packs_at_setup} "
                              f"residual blocks, {conv_packs_at_setup} "
-                             f"3x3 convs and {entry_packs_at_setup} entry "
-                             f"convs, want 23, 14 and 1")
+                             f"3x3 convs, {entry_packs_at_setup} entry "
+                             f"convs and {conv1x1_packs_at_setup} 1x1 "
+                             f"convs, want 23, 14, 1 and 14")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    K.reset_res_block_pack_count()
-    K.reset_conv3x3_pack_count()
-    K.reset_entry_conv_pack_count()
+    for reset in resets:
+        reset()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
         out = detect(x_q)
@@ -998,20 +1068,22 @@ def phase_v3_serving(m, cfg, card):
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
     if (K.res_block_pack_count() or K.conv3x3_pack_count()
-            or K.entry_conv_pack_count()):
+            or K.entry_conv_pack_count() or K.conv1x1_pack_count()):
         raise AssertionError(f"serving packed K4 weights "
                              f"{K.res_block_pack_count()} times, 3x3 conv "
                              f"weights {K.conv3x3_pack_count()} times, the "
-                             f"entry conv's {K.entry_conv_pack_count()}")
+                             f"entry conv's {K.entry_conv_pack_count()}, "
+                             f"1x1 conv weights {K.conv1x1_pack_count()}")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_res_block": 23 * SERVE_ITERS,
                  "int8_conv_requant": 29 * SERVE_ITERS})
     if counts != want:
         raise AssertionError(f"v3 launch counts {counts}, want {want}")
     entries = K.launch_counts_by_entry()
+    # none on the mma.sync conv (yolo_int8_conv_requant): an entry without
+    # a launch is left out
     want_routes = {WGMMA3: 9 * SERVE_ITERS, S2_3: 5 * SERVE_ITERS,
-                   ENTRY3: SERVE_ITERS,
-                   "yolo_int8_conv_requant": 14 * SERVE_ITERS}
+                   ENTRY3: SERVE_ITERS, CONV1X1: 14 * SERVE_ITERS}
     if entries["int8_conv_requant"] != want_routes:
         raise AssertionError(f"int8_conv_requant launched "
                              f"{entries['int8_conv_requant']}, want "
@@ -1032,7 +1104,8 @@ def phase_v3_serving(m, cfg, card):
          launches=counts, launches_by_entry=entries,
          res_block_packs_at_setup=packs_at_setup,
          conv3x3_packs_at_setup=conv_packs_at_setup,
-         entry_conv_packs_at_setup=entry_packs_at_setup, packs_in_loop=0,
+         entry_conv_packs_at_setup=entry_packs_at_setup,
+         conv1x1_packs_at_setup=conv1x1_packs_at_setup, packs_in_loop=0,
          card=card)
     return entries
 
@@ -1139,7 +1212,9 @@ def phase_v3_times(card_name, max_err):
         x = conv_input(xs, kw)
         extra, packed, layout = {}, None, None
         shape = (k, stride, pad, len(cins), cins[0], kw["sw"])
-        if K.conv3x3_wgmma_route(*shape):
+        if K.conv1x1_wgmma_route(*shape[:4], cins, kw["sw"]):
+            layout = K.conv1x1_wgmma_layout
+        elif K.conv3x3_wgmma_route(*shape):
             layout = K.conv3x3_wgmma_layout
         elif K.conv3x3_s2_wgmma_route(*shape):
             layout = K.conv3x3_s2_wgmma_layout
@@ -1147,6 +1222,8 @@ def phase_v3_times(card_name, max_err):
             layout = K.entry_conv3x3_layout
         if layout is K.entry_conv3x3_layout:  # as serving reads them
             packed = K.pack_entry_conv_weights(w)
+        elif layout is K.conv1x1_wgmma_layout:
+            packed = K.pack_conv1x1_weights(w)
         elif layout is not None:
             packed = K.pack_conv3x3_weights(w)
         K.reset_launch_counts()
@@ -1155,17 +1232,22 @@ def phase_v3_times(card_name, max_err):
         want = K.int8_conv_requant_plain(x, w, bias, **kw)
         check_equal(line, got, want, max_err, f"{key}, batch {b}")
         if packed is not None:
-            # the mma.sync conv kernel these 3x3s (and the entry conv) ran
-            # on before
-            mma = lambda: K._launch_conv_requant(  # noqa: E731
-                [(x, kw["sa_in"])], w, bias,
-                **{a: v for a, v in kw.items() if a != "sa_in"})
-            check_equal(f"{line} (mma.sync)", mma(), want, max_err,
+            # the mma.sync conv kernel these convs ran on before
+            mma = lambda: mma_sync_conv(x, w, bias, kw)  # noqa: E731
+            check_equal("int8_conv_requant.mma_sync", mma(), want, max_err,
                         f"{key}, batch {b}")
-            lay = layout(h, h, cins[0], cout)
-            extra = (row_layout_fields(lay)
-                     if layout is K.entry_conv3x3_layout
-                     else layout_fields(lay))
+            if layout is K.conv1x1_wgmma_layout:
+                lay = layout(b * h * h, cins[0],
+                             cins[1] if len(cins) == 2 else 0, cout,
+                             len(cins) == 2)
+                extra = dict(bn=lay.bn, ring_stages=lay.ring_stages,
+                             blocks_per_sm=lay.blocks_per_sm,
+                             grid=lay.grid, n_tiles=lay.n_tiles,
+                             weight_bytes=lay.weight_bytes)
+            elif layout is K.entry_conv3x3_layout:
+                extra = row_layout_fields(layout(h, h, cins[0], cout))
+            else:
+                extra = layout_fields(layout(h, h, cins[0], cout))
             extra["mma_sync_ms"] = time_ms(mma, 10)
         del got, want
         ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
@@ -1176,16 +1258,22 @@ def phase_v3_times(card_name, max_err):
         ho = (h + 2 * pad - k) // stride + 1
         nbytes = (b * h * h * sum(cins) + w.numel() + 4 * cout
                   + b * ho * ho * cout)
-        if layout in (K.conv3x3_s2_wgmma_layout, K.entry_conv3x3_layout):
+        if layout in (K.conv3x3_s2_wgmma_layout, K.entry_conv3x3_layout,
+                      K.conv1x1_wgmma_layout):
             extra.update(bandwidth_fields(nbytes, ms, peak_bw))
         lib_ms = None
         if k == 1 and stride == 1 and pad == 0:
             lib_ms = int_mm_ms(b * h * h, sum(cins), cout)
         if lib_ms is None:
             lib_ms = fp16_conv_ms(b, h, sum(cins), cout, k, stride, pad)
+        ops = 2 * b * ho * ho * k * k * sum(cins) * cout
         record(line, count, [b, h, h, list(cins), cout, k, stride, pad], ms,
-               plain_ms, lib_ms, 2 * b * ho * ho * k * k * sum(cins) * cout,
-               nbytes, **extra)
+               plain_ms, lib_ms, ops, nbytes, **extra)
+        if layout is K.conv1x1_wgmma_layout:
+            # the mma.sync conv's line: the same 1x1s, timed on it
+            add_time(per_kernel, "int8_conv_requant.mma_sync", count,
+                     extra["mma_sync_ms"], plain_ms, lib_ms,
+                     1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw)
         del xs, x, w, bias, packed
         torch.cuda.empty_cache()
     m, k, n = GEMM_PROBE
@@ -1285,12 +1373,22 @@ def main() -> int:
                                      f"(without the pool); mma_sync_ms the "
                                      f"mma.sync pool_s2d kernel on the same "
                                      f"layer",
-        "int8_conv_requant.mma_sync": f"per yolo_v3 forward: its other 14 "
-                                      f"convs by distinct shape, batch "
-                                      f"{V3_BATCH_SERVE}, {SIZE}x{SIZE}; "
-                                      f"library_ms is torch._int_mm for "
-                                      f"the 1x1 convs it takes, cuDNN fp16 "
-                                      f"conv2d for the rest",
+        "int8_conv_requant.conv1x1_wgmma": f"per yolo_v3 forward: its 14 "
+                                           f"1x1s (nine 1x1s, two concat "
+                                           f"1x1s, three preds) by "
+                                           f"distinct shape, batch "
+                                           f"{V3_BATCH_SERVE}, "
+                                           f"{SIZE}x{SIZE}; library_ms is "
+                                           f"torch._int_mm; mma_sync_ms "
+                                           f"the mma.sync conv kernel on "
+                                           f"the same convs",
+        "int8_conv_requant.mma_sync": f"no serving launch: the mma.sync "
+                                      f"conv kernel timed on the 14 yolo_v3 "
+                                      f"1x1s it ran before the wgmma 1x1 "
+                                      f"kernel took them, per forward, "
+                                      f"batch {V3_BATCH_SERVE}, "
+                                      f"{SIZE}x{SIZE}; library_ms is "
+                                      f"torch._int_mm",
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",

@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -23,14 +23,24 @@ are timed on every version in turn (ABBA order, twice):
   kernel (``csrc/int8_entry_conv.cu``) and on the mma.sync kernel it
   replaced (through the private launchers ``_launch_conv_requant`` and
   ``_launch(..., s2d=True)``), so a parent without the wgmma entries still
-  times the mma.sync ones.
+  times the mma.sync ones;
+- ``one``: yolo_v3's ten distinct 1x1 shapes (batch 128; the concat convs
+  as two parts at two scales, as the served model has them), each on the
+  wgmma 1x1 kernel (``csrc/int8_conv1x1_wgmma.cu``) and on the mma.sync
+  kernel it replaced (``_launch_conv_requant``).
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
-overlapped. Every output is checked equal to the first version's. A
+overlapped, so it reads the host's time (~0.1 ms) where a kernel takes
+less. Each shape's ``kernel_ms`` is the port's kernels alone: the
+device time that ``torch.profiler`` records for them over 20 launches,
+per launch recorded (``kernels_recorded``: CUPTI may drop some; the
+small PyTorch kernels of a wrapper's bias set-up are left out). Every output is checked equal to the first version's. A
 version without a kernel's C entry (an older tree) skips its shapes.
 Prints the card's name and power limit, one JSON line per shape (each
-version's times and their median) and the sums of the medians per group.
+version's times and their median, and the shape's launches per v3 or
+slim forward) and per group the sums of the medians and their sums per
+forward (each median times its launches per forward).
 The versions run through this checkout's wrappers, so they must share
 their C interface."""
 
@@ -57,7 +67,19 @@ from yolo_tpu_torch.kernels import int8_conv as K  # noqa: E402
 from yolo_tpu_torch.quant import fixed_point as fp  # noqa: E402
 
 VERBOSE = ("int8_conv3x3_wgmma.cu", "int8_res_block.cu",
-           "int8_entry_conv.cu")
+           "int8_entry_conv.cu", "int8_conv1x1_wgmma.cu")
+# the 1x1 shapes of the ``one`` group: (name, H, C_in parts, C_out,
+# launches per v3 forward)
+ONE_BY_ONE = [("c13_1024_512", 13, (1024,), 512, 3),
+              ("c13_512_256", 13, (512,), 256, 1),
+              ("pred13", 13, (1024,), 21, 1),
+              ("cat26", 26, (512, 256), 256, 1),
+              ("c26_512_256", 26, (512,), 256, 2),
+              ("c26_256_128", 26, (256,), 128, 1),
+              ("pred26", 26, (512,), 21, 1),
+              ("cat52", 52, (256, 128), 128, 1),
+              ("c52_256_128", 52, (256,), 128, 2),
+              ("pred52", 52, (256,), 21, 1)]
 SHAPES = {
     # (name, batch, H, C_in, C_out, form); K4: C_in = C, C_out = C_mid
     "s1": [("conv3_1", 256, 104, 32, 64, "conv"),
@@ -85,7 +107,13 @@ SHAPES = {
              ("entry416_mma", 128, 416, 3, 32, "entry_mma"),
              ("k2_416", 256, 416, 3, 16, "k2"),
              ("k2_416_mma", 256, 416, 3, 16, "k2_mma")],
+    # the 1x1s: C_in the tuple of a conv's parts
+    "one": [(name + sfx, 128, h, cins, c_out, form)
+            for name, h, cins, c_out, _ in ONE_BY_ONE
+            for sfx, form in (("", "one"), ("_mma", "one_mma"))],
 }
+PER_FORWARD = {name + sfx: n for name, *_, n in ONE_BY_ONE
+               for sfx in ("", "_mma")}
 # the C entry each form launches
 ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "pool": "yolo_int8_conv3x3_pool_wgmma",
@@ -94,7 +122,9 @@ ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "entry": "yolo_int8_entry_conv3x3_wgmma",
          "entry_mma": "yolo_int8_conv_requant",
          "k2": "yolo_int8_pool_s2d_wgmma",
-         "k2_mma": "yolo_int8_conv3x3_requant"}
+         "k2_mma": "yolo_int8_conv3x3_requant",
+         "one": "yolo_int8_conv1x1_wgmma",
+         "one_mma": "yolo_int8_conv_requant"}
 
 
 class Library:
@@ -190,12 +220,62 @@ def time_ms(fn, reps: int = 5, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def is_port_kernel(name: str) -> bool:
+    """The port's kernels live in anonymous namespaces of its sources."""
+    return "anonymous namespace" in name or "_GLOBAL__N_" in name
+
+
+def kernel_ms(fn, n: int = 20, warmup: int = 3):
+    """Device time per launch of the port's kernel in ``fn`` (one per
+    call), from ``torch.profiler`` over ``n`` calls: (the mean over the
+    launches it recorded, their number). CUPTI may drop records, at times
+    all of a window's: up to three windows are tried; raises where none
+    kept a record, or one kept more than n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if is_port_kernel(e.key):
+                t = getattr(e, "device_time_total", None)
+                total_us += e.cuda_time_total if t is None else t
+                count += e.count
+        if count > n:
+            raise RuntimeError(f"the profiler saw {count} port kernels in "
+                               f"{n} calls")
+        if count:
+            return total_us / count / 1e3, count
+    raise RuntimeError(f"the profiler saw no port kernel in three windows "
+                       f"of {n} calls")
+
+
 def shape_fn(gen, b, h, c_in, c_out, form):
     """The wrapper call of one shape on random inputs."""
     def ri(shape, lo, hi, dtype):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
                              device="cuda").to(dtype)
 
+    if form in ("one", "one_mma"):
+        # two parts at two scales: their partials take two shifts
+        parts = [(ri((b, h, h, c), -128, 128, torch.int8), 4 + 2 * p)
+                 for p, c in enumerate(c_in)]
+        w = ri((1, 1, sum(c_in), c_out), -90, 120, torch.int8)
+        bias = ri((c_out,), -100, 100, torch.int32)
+        kw = dict(sw=11, sb=8, sa_out=4, retune=10, leaky=c_out != 21,
+                  rounding="nearest")
+        if form == "one_mma":
+            return lambda: K._launch_conv_requant(parts, w, bias, padding=0,
+                                                  stride=1, **kw)
+        packed = K.pack_conv1x1_weights(w)
+        return lambda: K.int8_conv_requant(parts, None, bias, sa_in=None,
+                                           packed=packed, **kw)
     x = ri((b, h, h, c_in), -128, 128, torch.int8)
     if form == "res":
         w1 = ri((1, 1, c_in, c_out), -90, 120, torch.int8)
@@ -245,7 +325,8 @@ def use(lib) -> None:
     build._lib = lib
     for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
                    K.conv3x3_s2_wgmma_layout, K.res_block_layout,
-                   K.entry_conv3x3_layout, K.pool_s2d_wgmma_layout):
+                   K.entry_conv3x3_layout, K.pool_s2d_wgmma_layout,
+                   K.conv1x1_wgmma_layout):
         layout.cache_clear()
 
 
@@ -264,11 +345,15 @@ def main() -> int:
     libs = build_versions(spec, build.BUILD_ROOT / "ab")
     gen = torch.Generator(device="cuda").manual_seed(0)
     totals: dict = {}
+    per_forward: dict = {}
+    kernel_per_forward: dict = {}
     for group in args.groups.split(","):
         for name, b, h, c_in, c_out, form in SHAPES[group]:
             names = [v for v in libs if libs[v].has(ENTRY[form])]
             fn = shape_fn(gen, b, h, c_in, c_out, form)
             times: dict = {}
+            ktimes: dict = {}
+            kseen: dict = {}
             ref = None
             for v in (names + names[::-1]) * 2:
                 use(libs[v])
@@ -277,16 +362,31 @@ def main() -> int:
                 if not torch.equal(out, ref):
                     raise AssertionError(f"{v} differs at {name}")
                 times.setdefault(v, []).append(round(time_ms(fn), 4))
+                t, seen = kernel_ms(fn)
+                ktimes.setdefault(v, []).append(round(t, 4))
+                kseen.setdefault(v, []).append(seen)
             med = {v: statistics.median(t) for v, t in times.items()}
+            kmed = {v: statistics.median(t) for v, t in ktimes.items()}
+            n = PER_FORWARD.get(name, 1)
             for v, t in med.items():
                 totals.setdefault(group, {}).setdefault(v, 0.0)
                 totals[group][v] += t
+                per_forward.setdefault(group, {}).setdefault(v, 0.0)
+                per_forward[group][v] += n * t
+                kernel_per_forward.setdefault(group, {}).setdefault(v, 0.0)
+                kernel_per_forward[group][v] += n * kmed[v]
             print(json.dumps({"shape": name, "group": group,
                               "batch_h_cin_cout": [b, h, c_in, c_out],
-                              "median_ms": med, "ms": times}), flush=True)
+                              "per_forward": n, "median_ms": med,
+                              "kernel_ms": kmed, "ms": times,
+                              "kernel_ms_runs": ktimes,
+                              "kernels_recorded": kseen}), flush=True)
             del fn, ref, out
             torch.cuda.empty_cache()
-    print(json.dumps({"sum_of_medians_ms": totals}), flush=True)
+    print(json.dumps({"sum_of_medians_ms": totals,
+                      "per_forward_ms": per_forward,
+                      "kernel_per_forward_ms": kernel_per_forward}),
+          flush=True)
     return 0
 
 

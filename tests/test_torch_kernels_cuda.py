@@ -1088,3 +1088,199 @@ def test_cuda_thin_kernels_empty_batch_count_no_launch(cuda, kernel):
             c_in=3, **SHIFTS)
     assert out.shape[0] == 0
     assert K.launch_counts() == {k: 0 for k in K.KERNEL_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# The wgmma 1x1 kernel (csrc/int8_conv1x1_wgmma.cu): yolo_v3's fourteen 1x1s.
+# ---------------------------------------------------------------------------
+
+CONV1X1_ENTRY = "yolo_int8_conv1x1_wgmma"
+# (B, H, W, C_in parts, C_out): M off the 64-row tile, C_out 21, 24, 35 and
+# 300 (a ragged second column tile), parts of C_in 16, 48 and 80, concats,
+# a 4096-channel K (the most the weights' residence takes: 32 columns)
+CONV1X1_SHAPES = [
+    (1, 7, 9, (16,), 24),
+    (2, 5, 5, (48,), 21),
+    (1, 11, 13, (80,), 35),
+    (2, 9, 7, (48, 80), 64),
+    (1, 3, 3, (16, 16), 21),
+    (1, 10, 10, (256,), 300),
+    (2, 13, 13, (512, 256), 256),
+    (1, 6, 6, (2048, 2048), 64),
+]
+
+
+def _conv1x1_args(case, seed=0):
+    b, h, w, cins, c_out = case
+    rng = np.random.default_rng(seed)
+    xs = [torch.tensor(rng.integers(-128, 128, (b, h, w, c)).astype(np.int8))
+          for c in cins]
+    wq = torch.tensor(rng.integers(-30, 40, (1, 1, sum(cins), c_out))
+                      .astype(np.int8))
+    bias = torch.tensor(rng.integers(-100, 100, (c_out,)).astype(np.int32))
+    return xs, wq, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hwio", "packed"])
+@pytest.mark.parametrize("sas", [(4, 6), (5, 5)], ids=["distinct", "equal"])
+@pytest.mark.parametrize("case", CONV1X1_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv1x1_wgmma_equals_plain(cuda, form, sas, case):
+    """The wgmma 1x1 kernel == the plain conv at its edge shapes, from HWIO
+    and from packed weights, a concat's parts at distinct and at equal
+    scales; one launch, on its C entry."""
+    xs, wq, b = _conv1x1_args(case)
+    kw = dict(SHIFTS, leaky=True, rounding="nearest", sa_in=None)
+    want = K.int8_conv_requant(_parts_on(xs, sas, "cpu") if len(xs) == 2
+                               else [(xs[0], sas[0])], wq, b, **kw)
+    parts = [(x.to(cuda), sa) for x, sa in zip(xs, sas)]
+    packed = K.pack_conv1x1_weights(wq.to(cuda))
+    K.reset_launch_counts()
+    got = (K.int8_conv_requant(parts, None, b.to(cuda), packed=packed, **kw)
+           if form == "packed" else
+           K.int8_conv_requant(parts, wq.to(cuda), b.to(cuda), **kw))
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv_requant": {CONV1X1_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [True, 0.1, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", [dict(SHIFTS), dict(SHIFTS, sw=40),
+                                    dict(SHIFTS, sa_out=14)],
+                         ids=["plain", "acc_shift_ge_32", "out_shift_lt_0"])
+@pytest.mark.parametrize("case", [(2, 9, 7, (64,), 128),
+                                  (1, 6, 5, (32, 48), 21)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv1x1_wgmma_epilogues(cuda, leaky, rounding, shifts, case):
+    """Every slope (0.125, Q16 0.1, none), both roundings and both shift
+    forms (the general one: acc_shift >= 32, out_shift < 0), one part and
+    a concat at distinct scales."""
+    xs, wq, b = _conv1x1_args(case, seed=3)
+    kw = dict(shifts, leaky=leaky, rounding=rounding, sa_in=None)
+    sas = (4, 6)[:len(xs)]
+    want = K.int8_conv_requant(list(zip(xs, sas)), wq, b, **kw)
+    K.reset_launch_counts()
+    got = K.int8_conv_requant([(x.to(cuda), sa) for x, sa in zip(xs, sas)],
+                              wq.to(cuda), b.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv_requant": {CONV1X1_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", [dict(SHIFTS), dict(SHIFTS, sw=40),
+                                    dict(SHIFTS, sa_out=14)],
+                         ids=["plain", "acc_shift_ge_32", "out_shift_lt_0"])
+@pytest.mark.parametrize("case", [c for c in CONV_CASES if c[0] == 1],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_mma_sync_conv_1x1_equals_plain(cuda, rounding, shifts, case):
+    """CONV_CASES' 1x1s and two-part concats on the mma.sync conv kernel
+    (``_launch_conv_requant``), which int8_conv_requant no longer routes
+    them to: its 1x1 and two-part paths stay held to the plain version."""
+    _, stride, pad, cins, _, _, _, leaky = case
+    xs, wq, b = _conv_args(case)
+    kw = {k: v for k, v in shifts.items() if k != "sa_in"}
+    kw.update(padding=pad, stride=stride, leaky=leaky, rounding=rounding)
+    for sas in ((4, 6), (5, 5)) if len(cins) == 2 else ((4,),):
+        want = K.int8_conv_requant(list(zip(xs, sas)), wq, b, sa_in=None,
+                                   **kw)
+        K.reset_launch_counts()
+        got = K._launch_conv_requant(
+            [(x.to(cuda), sa) for x, sa in zip(xs, sas)], wq.to(cuda),
+            b.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert K.launch_counts_by_entry() == {
+            "int8_conv_requant": {"yolo_int8_conv_requant": 1}}
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_routes(cuda):
+    """CONV_CASES' stride-1 pad-0 1x1s and concats take the wgmma 1x1
+    kernel; the padded 1x1 stays on the mma.sync kernel."""
+    for case in CONV_CASES:
+        k, stride, pad, cins, _, _, _, leaky = case
+        if k != 1:
+            continue
+        xs, wq, b = _conv_args(case)
+        K.reset_launch_counts()
+        K.int8_conv_requant(_parts_on(xs, (4, 6), cuda), wq.to(cuda),
+                            b.to(cuda), padding=pad, stride=stride,
+                            leaky=leaky, **SHIFTS)
+        torch.cuda.synchronize()
+        entry = CONV1X1_ENTRY if pad == 0 else "yolo_int8_conv_requant"
+        assert K.launch_counts_by_entry() == {"int8_conv_requant": {entry: 1}}
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_wgmma_raises_not_falls_back(cuda):
+    """A routed 1x1 with a misaligned part raises, and the kernel's
+    launcher raises on what it does not take (C_in 24, 4224 channels):
+    nothing drops back to the mma.sync kernel."""
+    xs, wq, b = _conv1x1_args((1, 4, 4, (32, 16), 24))
+    buf = torch.zeros(1 + xs[1].numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(xs[1].shape)
+    xm.copy_(xs[1])
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv_requant([(xs[0].to(cuda), 4), (xm, 6)], wq.to(cuda),
+                            b.to(cuda), **SHIFTS)
+    for cins in ((24,), (2048, 2176)):
+        xs, wq, b = _conv1x1_args((1, 2, 2, cins, 8))
+        with pytest.raises(ValueError, match="1x1 wgmma kernel"):
+            K._launch_conv1x1_wgmma(
+                [(x.to(cuda), 4) for x in xs], wq.to(cuda), b.to(cuda),
+                None, leaky=True, rounding="nearest",
+                **{k: v for k, v in SHIFTS.items() if k != "sa_in"})
+    with pytest.raises(ValueError, match="1x1 wgmma kernel"):
+        K.conv1x1_wgmma_layout(64, 24, 0, 8, False)
+    assert K.launch_counts_by_entry() == {}
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_wgmma_empty_batch_counts_no_launch(cuda):
+    K.reset_launch_counts()
+    out = K.int8_conv_requant(
+        torch.zeros((0, 4, 4, 32), dtype=torch.int8, device=cuda),
+        torch.zeros((1, 1, 32, 8), dtype=torch.int8, device=cuda),
+        torch.zeros(8, dtype=torch.int32, device=cuda), **SHIFTS)
+    assert out.shape == (0, 4, 4, 8)
+    assert K.launch_counts() == {k: 0 for k in K.KERNEL_NAMES}
+
+
+# (BN, column tiles) the kernel takes at the v3 1x1s at batch 128, by
+# (M, C_in parts, C_out); the concats' parts take two shifts, as served
+CONV1X1_TILES = {
+    (21632, (1024,), 512): (128, 4),
+    (21632, (512,), 256): (256, 1),
+    (86528, (512, 256), 256): (128, 2),
+    (86528, (512,), 256): (256, 1),
+    (86528, (256,), 128): (128, 1),
+    (346112, (256, 128), 128): (128, 1),
+    (346112, (256,), 128): (128, 1),
+    (21632, (1024,), 21): (32, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CONV1X1_TILES),
+                         ids=lambda s: "-".join(map(str, s)))
+def test_cuda_conv1x1_wgmma_layout_at_v3_shapes(cuda, shape):
+    """The column tile covers C_out where the resident weights fit, the
+    rings keep 4 stages each, one block per SM, a grid of one block per
+    SM."""
+    m, cins, c_out = shape
+    lay = K.conv1x1_wgmma_layout(m, cins[0], cins[1] if len(cins) == 2
+                                 else 0, c_out, len(cins) == 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (lay.bn, lay.n_tiles) == CONV1X1_TILES[shape]
+    assert lay.tile_m == 64 and lay.blocks_per_sm == 1
+    assert lay.ring_stages == 4 and lay.smem_bytes <= 232448
+    assert lay.grid == sms // lay.n_tiles * lay.n_tiles
+    assert lay.weight_bytes == lay.bn * sum(-(-c // 128) * 128 for c in cins)

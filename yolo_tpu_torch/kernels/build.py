@@ -111,7 +111,9 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma", [vp] * 4 + [i] * 9 + [vp]),
-                ("yolo_int8_pool_s2d_wgmma_info", [i] * 4 + [vp])):
+                ("yolo_int8_pool_s2d_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_conv1x1_wgmma", [vp] * 5 + [i] * 9 + [vp]),
+                ("yolo_int8_conv1x1_wgmma_info", [i] * 5 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

@@ -12,8 +12,10 @@
 // two-part inputs take the 16-byte gather only (C_in % 16 == 0). The
 // 3x3s of one input with C_in % 32 == 0 (the yolo_v3 head's nine at
 // stride 1, darknet53's five at stride 2) go to the wgmma kernel of
-// int8_conv3x3_wgmma.cu instead, and the stride-1 3x3s with C_in <= 3
-// (yolo_v3's entry conv) to that of int8_entry_conv.cu.
+// int8_conv3x3_wgmma.cu instead, the stride-1 3x3s with C_in <= 3
+// (yolo_v3's entry conv) to that of int8_entry_conv.cu, and the stride-1,
+// pad-0 1x1s of one or two parts (yolo_v3's fourteen) to that of
+// int8_conv1x1_wgmma.cu: no conv of the served paths runs here.
 
 #include "int8_conv.cuh"
 

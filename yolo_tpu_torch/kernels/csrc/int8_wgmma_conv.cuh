@@ -1,7 +1,8 @@
 // Pieces shared by the port's wgmma convolution kernels, the fused
 // residual block (int8_res_block.cu, K4), the 3x3 conv
-// (int8_conv3x3_wgmma.cu) and the thin-input entry convs
-// (int8_entry_conv.cu): the requant epilogue with its shifts set up on
+// (int8_conv3x3_wgmma.cu), the thin-input entry convs
+// (int8_entry_conv.cu) and the 1x1 conv (int8_conv1x1_wgmma.cu): the
+// requant epilogue with its shifts set up on
 // the host, the 64 x 64 staging tile of a consumer warpgroup, the RS
 // wgmma of a 3x3 phase, the 16-byte cp.async, and the planners of a
 // block's output tile and ring.
@@ -78,6 +79,16 @@ struct Epi {
   template <bool SHORT>
   __device__ __forceinline__ int8_t apply(int v, int bias) const {
     return (int8_t)min(max(unclamped<SHORT>(v, bias), -128), 127);
+  }
+  // the chain after the accumulator shift, before the int8 clamp, from a
+  // value already at the retune scale (the sum of a two-part conv's
+  // partials, each shifted on its own)
+  template <bool SHORT>
+  __device__ __forceinline__ int rest(int v, int bias) const {
+    v = (int)((unsigned)v + (unsigned)bias);
+    v = min(max(v, -32768), 32767);
+    const int t = (v * slope + rnd) >> 16;
+    return out.apply<SHORT>(v < 0 ? t : v);
   }
 };
 

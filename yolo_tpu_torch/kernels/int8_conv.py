@@ -27,11 +27,16 @@ convs run on the row-streaming wgmma kernels of
 C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
 ``pack_pool_s2d_weights``) and every stride-1 3x3 of one part with C_in
 <= 3 and C_out <= 64 (``entry_conv3x3_route``: yolo_v3's entry conv;
-weights from ``pack_entry_conv_weights``). The other K1, K2 and K3
-shapes and the other ``int8_conv_requant`` shapes launch the
+weights from ``pack_entry_conv_weights``). Every 1x1 of stride 1, pad 0,
+one or two parts of C_in % 16 == 0 and a scalar sw
+(``conv1x1_wgmma_route``: yolo_v3's nine 1x1s, two concat 1x1s and three
+preds) runs as a GEMM on the wgmma kernel of
+``csrc/int8_conv1x1_wgmma.cu``, its weights resident in shared memory
+(packed K-major once per model by ``pack_conv1x1_weights``). The other
+K1, K2 and K3 shapes and the other ``int8_conv_requant`` shapes launch the
 tensor-core implicit GEMM of ``csrc/int8_conv.cuh`` (mma.sync; built by
 ``csrc/int8_conv.cu`` and ``csrc/int8_conv_general.cu``), K4 the fused
-block of ``csrc/int8_res_block.cu``. Both wgmma kernels are fed by a TMA ring
+block of ``csrc/int8_res_block.cu``. The wgmma kernels are fed by a TMA ring
 (``csrc/int8_wgmma.cuh``) and share their epilogue and tile planner
 (``csrc/int8_wgmma_conv.cuh``). Each file's header note says what bounds
 them. A wrapper given a CUDA tensor launches the kernel, adds one to its
@@ -378,17 +383,22 @@ def _parts(x, sa_in):
 
 def int8_conv_requant_plain(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                             padding=0, stride=1, leaky=True,
-                            rounding="nearest"):
+                            rounding="nearest", packed=None):
     """``fixed_point.int_conv_requant`` of the JAX package, without the
     residual: each part's raw int32 partial is summed with the partials of
     equal shift, each group shifted to the retune scale, then the requant
-    chain. ``sw`` may be per-channel (an int32 [C_out] array)."""
+    chain. ``sw`` may be per-channel (an int32 [C_out] array). The HWIO
+    weights are used where given, else those of ``packed`` (any packed
+    form ``int8_conv_requant`` takes)."""
     _check_rounding(rounding)
     _slope_num(leaky)
+    parts = _parts(x, sa_in)
+    if w_q is None:
+        w_q = _hwio(None, packed, sum(xq.shape[-1] for xq, _ in parts))
     sw_pc = np.ndim(sw) > 0
     raw: dict = {}
     c_ofs = 0
-    for xq, sa in _parts(x, sa_in):
+    for xq, sa in parts:
         c = xq.shape[-1]
         xp = torch.nn.functional.pad(
             xq, (0, 0, padding, padding, padding, padding))
@@ -406,26 +416,35 @@ def int8_conv_requant_plain(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                        rounding=rounding)
 
 
-def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
-                         padding, stride, leaky, rounding) -> torch.Tensor:
+def _check_parts(parts, *, sw, sb, sa_out, retune, leaky, rounding):
+    """Check a general conv's epilogue arguments and its (int8 tensor, sa)
+    input parts, one or two contiguous int8 [B, H, W, C] tensors on one
+    device; returns the slope's Q16 numerator and the parts' channels."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
     _check_scalar_shifts(sw=sw, sb=sb, sa_out=sa_out, retune=retune,
                          **{f"sa_in{i}": sa for i, (_, sa) in
                             enumerate(parts)})
     if len(parts) > 2:
-        raise ValueError(f"the conv kernel takes one or two input parts, got "
+        raise ValueError(f"the conv kernels take one or two input parts, got "
                          f"{len(parts)}")
+    x0 = parts[0][0]
+    for i, (xq, _) in enumerate(parts):
+        if (xq.dtype != torch.int8 or xq.device != x0.device or xq.ndim != 4
+                or xq.shape[:3] != x0.shape[:3] or not xq.is_contiguous()):
+            raise ValueError(f"input part {i} must be a contiguous int8 "
+                             f"[{', '.join(map(str, x0.shape[:3]))}, C] "
+                             f"tensor on {x0.device}")
+    return num, [xq.shape[-1] for xq, _ in parts]
+
+
+def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
+                         padding, stride, leaky, rounding) -> torch.Tensor:
+    num, cins = _check_parts(parts, sw=sw, sb=sb, sa_out=sa_out,
+                             retune=retune, leaky=leaky, rounding=rounding)
     x0 = parts[0][0]
     dev = x0.device
     bsz, h, w = x0.shape[:3]
-    for i, (xq, _) in enumerate(parts):
-        if (xq.dtype != torch.int8 or xq.device != dev or xq.ndim != 4
-                or tuple(xq.shape[:3]) != (bsz, h, w)
-                or not xq.is_contiguous()):
-            raise ValueError(f"input part {i} must be a contiguous int8 "
-                             f"[{bsz}, {h}, {w}, C] tensor on {dev}")
-    cins = [xq.shape[-1] for xq, _ in parts]
     k, c_out = w_q.shape[0], w_q.shape[-1]
     if k not in (1, 3):
         raise ValueError(f"the conv kernel takes 1x1 or 3x3 weights, got "
@@ -483,16 +502,22 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     kernel reads on the shapes of ``conv3x3_wgmma_route`` and its stride-2
     form on those of ``conv3x3_s2_wgmma_route``, or from
     ``pack_entry_conv_weights``, which the entry conv kernel reads on the
-    shapes of ``entry_conv3x3_route`` (C_in <= 3)."""
+    shapes of ``entry_conv3x3_route`` (C_in <= 3), or a 1x1's from
+    ``pack_conv1x1_weights``, which the wgmma 1x1 kernel reads on the
+    shapes of ``conv1x1_wgmma_route`` (one or two parts)."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
-    c_in = sum(xq.shape[-1] for xq, _ in parts)
+    cins = [xq.shape[-1] for xq, _ in parts]
     if route(parts[0][0]) == "plain":
-        return int8_conv_requant_plain(parts, _hwio(w_q, packed, c_in), b_q,
-                                       sa_in=None, **kw)
-    k = 3 if w_q is None else w_q.shape[0]
-    shape = (k, stride, padding, len(parts), parts[0][0].shape[-1], sw)
+        return int8_conv_requant_plain(parts, w_q, b_q, sa_in=None,
+                                       packed=packed, **kw)
+    k = _kernel_size(w_q, packed, sum(cins))
+    if conv1x1_wgmma_route(k, stride, padding, len(parts), cins, sw):
+        return _launch_conv1x1_wgmma(parts, w_q, b_q, packed, sw=sw, sb=sb,
+                                     sa_out=sa_out, retune=retune,
+                                     leaky=leaky, rounding=rounding)
+    shape = (k, stride, padding, len(parts), cins[0], sw)
     if entry_conv3x3_route(*shape[:5], b_q.shape[0], sw):
         (x0, sa0), = parts
         return _launch_entry_conv3x3(
@@ -506,7 +531,8 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                 "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
                 sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
                 rounding=rounding, form=form)
-    return _launch_conv_requant(parts, _hwio(w_q, packed, c_in), b_q, **kw)
+    return _launch_conv_requant(parts, _hwio(w_q, packed, sum(cins)), b_q,
+                                **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -588,13 +614,25 @@ def unpack_conv3x3_weights(wp: torch.Tensor, c_in=None) -> torch.Tensor:
 
 def _hwio(w_q, packed, c_in):
     """The HWIO weights where given, else those of ``packed`` (its first
-    ``c_in`` input channels): the entry conv's [C_out, 32] form, or the
-    [C_out, 9 * C_k] form (9 * C_k >= 288) of ``pack_conv3x3_weights``."""
+    ``c_in`` input channels): a 1x1's [C_out, C_in] form
+    (``pack_conv1x1_weights``), the entry conv's [C_out, 32] form (C_in <=
+    3), or the [C_out, 9 * C_k] form (9 * C_k >= 288) of
+    ``pack_conv3x3_weights``."""
     if w_q is not None:
         return w_q
+    if packed.shape[1] == c_in:
+        return unpack_conv1x1_weights(packed)
     if packed.shape[1] == ENTRY_K:
         return unpack_entry_conv_weights(packed, c_in)
     return unpack_conv3x3_weights(packed, c_in)
+
+
+def _kernel_size(w_q, packed, c_in) -> int:
+    """k of a conv given its HWIO weights, or only its packed ones: a 1x1's
+    packed form has one column per input channel (``_hwio``)."""
+    if w_q is not None:
+        return w_q.shape[0]
+    return 1 if packed.shape[1] == c_in else 3
 
 
 def conv3x3_pack_count() -> int:
@@ -749,7 +787,8 @@ def unpack_res_block_weights(packed):
 
 
 # packings made since the last reset (serving packs once per model)
-_PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0}
+_PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0,
+          "conv1x1": 0}
 
 
 def res_block_pack_count() -> int:
@@ -1155,5 +1194,143 @@ def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
     launch("int8_conv3x3_pool_requant", POOL_S2D_WGMMA_ENTRY, dev,
            x2.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
            out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
+           retune - sa_out, num, int(rounding == "nearest"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The wgmma 1x1 conv (csrc/int8_conv1x1_wgmma.cu): yolo_v3's fourteen 1x1s,
+# two-part concat inputs and preds included, as one GEMM.
+# ---------------------------------------------------------------------------
+
+
+CONV1X1_ENTRY = "yolo_int8_conv1x1_wgmma"
+# the kernel keeps all of K of its column tile in shared memory: the
+# parts' channels, each rounded up to 128, at most 4096 in all
+CONV1X1_MAX_K = 4096
+
+
+def conv1x1_wgmma_route(k, stride, padding, nparts, cins, sw) -> bool:
+    """True where ``int8_conv_requant`` on a CUDA tensor runs the wgmma 1x1
+    kernel (``csrc/int8_conv1x1_wgmma.cu``): a 1x1, stride 1, pad 0, one or
+    two input parts (``cins``: each part's channels) of C_in % 16 == 0,
+    at most ``CONV1X1_MAX_K`` channels in all once each part is rounded
+    up to 128, and a scalar ``sw`` (yolo_v3's nine 1x1s, two concat 1x1s
+    and three preds). Every other conv, the padded 1x1 included, keeps its
+    route. There is no fallback: a routed conv launches the kernel or
+    raises."""
+    return (k == 1 and stride == 1 and padding == 0 and nparts in (1, 2)
+            and len(cins) == nparts
+            and all(c > 0 and c % 16 == 0 for c in cins)
+            and sum(-(-c // 128) * 128 for c in cins) <= CONV1X1_MAX_K
+            and np.ndim(sw) == 0)
+
+
+def pack_conv1x1_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv's HWIO weights [1, 1, C_in, C_out] (C_in: all parts of a
+    concat input) in the K-major form its wgmma kernel reads, made once per
+    model: [C_out, C_in], contiguous, on the weights' device."""
+    if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (1, 1):
+        raise ValueError(f"1x1 weights must be HWIO [1, 1, C_in, C_out], "
+                         f"got {list(w_q.shape)}")
+    _PACKS["conv1x1"] += 1
+    return w_q[0, 0].t().contiguous()
+
+
+def unpack_conv1x1_weights(wp: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_conv1x1_weights``: an HWIO [1, 1, C_in, C_out]
+    view of the packed weights."""
+    return wp.t()[None, None]
+
+
+def conv1x1_pack_count() -> int:
+    """Calls of ``pack_conv1x1_weights`` since the last reset."""
+    return _PACKS["conv1x1"]
+
+
+def reset_conv1x1_pack_count() -> None:
+    _PACKS["conv1x1"] = 0
+
+
+# the wgmma 1x1 kernel's launch layout, as yolo_int8_conv1x1_wgmma_info
+# reports it: rows and columns (BN) of a tile, ring stages, resident
+# blocks per SM, shared memory, blocks launched (each walking its M tiles),
+# column tiles, and the bytes of a block's resident weights
+Conv1x1Layout = collections.namedtuple("Conv1x1Layout", (
+    "tile_m", "bn", "ring_stages", "blocks_per_sm", "smem_bytes", "grid",
+    "n_tiles", "weight_bytes"))
+
+
+@functools.lru_cache(maxsize=None)
+def conv1x1_wgmma_layout(m, cin0, cin1, c_out, split) -> Conv1x1Layout:
+    """The wgmma 1x1 kernel's launch layout for an M x (cin0 + cin1) ->
+    C_out GEMM (cin1 0: one part) whose two parts take different
+    accumulator shifts (``split``) or not, as its CUDA source picks it
+    (``plan`` in ``csrc/int8_conv1x1_wgmma.cu``). Needs the built kernels.
+    Raises ValueError where the kernel takes no such conv."""
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(Conv1x1Layout._fields))()
+    rc = lib.yolo_int8_conv1x1_wgmma_info(m, cin0, cin1, c_out, int(split),
+                                          info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"the 1x1 wgmma kernel takes no {m}-row conv of "
+                         f"C_in {cin0} + {cin1} -> C_out {c_out}: each part "
+                         f"needs C_in % 16 == 0, at most {CONV1X1_MAX_K} "
+                         f"channels in all")
+    if rc:
+        raise RuntimeError(f"yolo_int8_conv1x1_wgmma_info failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return Conv1x1Layout(*info)
+
+
+def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
+                          retune, leaky, rounding) -> torch.Tensor:
+    """Check the operands and launch the wgmma 1x1 kernel on the current
+    stream, counting the launch under ``int8_conv_requant``; ``parts``: the
+    (int8 tensor, sa) parts of the input; packs ``w_q`` for this call where
+    ``packed`` is None. Raises on anything the kernel does not take and on
+    a failed launch."""
+    num, cins = _check_parts(parts, sw=sw, sb=sb, sa_out=sa_out,
+                             retune=retune, leaky=leaky, rounding=rounding)
+    x0 = parts[0][0]
+    dev = x0.device
+    bsz, h, w = x0.shape[:3]
+    if not conv1x1_wgmma_route(1, 1, 0, len(parts), cins, sw):
+        raise ValueError(f"the 1x1 wgmma kernel takes one or two parts of "
+                         f"C_in % 16 == 0, at most {CONV1X1_MAX_K} channels "
+                         f"in all, got {cins}")
+    if packed is None:
+        packed = pack_conv1x1_weights(w_q)
+    c_out = packed.shape[0]
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (c_out, sum(cins)))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    for i, (xq, _) in enumerate(parts):
+        _aligned(f"input part {i}", xq, 16)
+    _aligned("packed weights", packed, 16)
+    m = bsz * h * w
+    if m >= 2 ** 31:
+        raise ValueError("B * H * W must stay below 2^31; split the batch")
+    out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    shifts = [sw + sa - retune for _, sa in parts]
+    two = len(parts) == 2
+    # raises where no tile fits
+    conv1x1_wgmma_layout(m, cins[0], cins[1] if two else 0, c_out,
+                         shifts[0] != shifts[-1])
+    _aligned("the output allocation", out, 16)
+    # the kernel reads bias pairs of whole 32- to 256-column tiles
+    bias_rt = torch.zeros(-(-c_out // 256) * 256, dtype=torch.int32,
+                          device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    launch("int8_conv_requant", CONV1X1_ENTRY, dev,
+           x0.data_ptr(), parts[1][0].data_ptr() if two else 0,
+           packed.data_ptr(), bias_rt.data_ptr(), out.data_ptr(), m, cins[0],
+           cins[1] if two else 0, c_out, shifts[0], shifts[-1],
            retune - sa_out, num, int(rounding == "nearest"))
     return out

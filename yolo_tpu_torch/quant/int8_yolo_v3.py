@@ -7,8 +7,8 @@ conv 1x1, conv 3x3, res`` group (the 23 darknet53 residual blocks) runs as
 one fused residual-block kernel (``int8_res_block``, K4), every other conv
 through ``int8_conv_requant``: the head's nine stride-1 3x3s on the wgmma
 conv3x3 kernel, the five stride-2 3x3s on its stride-2 form, the C_in = 3
-entry conv on the entry conv kernel, the rest (the 1x1s, the two-part
-concat convs, the preds) on the mma.sync conv kernel; each
+entry conv on the entry conv kernel, the fourteen 1x1s (nine 1x1s, the
+two two-part concat convs, the three preds) on the wgmma 1x1 kernel; each
 ``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
 their exact plain versions.
 
@@ -136,6 +136,9 @@ class Int8YoloV3:
     # {index of a conv that runs on the entry conv kernel (C_in <= 3): its
     # weights packed K-major}, made once by ``pack_conv3x3s``
     entry_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
+    # {index of a conv that runs on the wgmma 1x1 kernel: its weights
+    # packed K-major}, made once by ``pack_conv3x3s``
+    conv1x1_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
 
     def __post_init__(self):
         if self.program is None:
@@ -155,7 +158,18 @@ class Int8YoloV3:
             conv_packed=None if self.conv_packed is None else {
                 i: wp.to(device) for i, wp in self.conv_packed.items()},
             entry_packed=None if self.entry_packed is None else {
-                i: wp.to(device) for i, wp in self.entry_packed.items()})
+                i: wp.to(device) for i, wp in self.entry_packed.items()},
+            conv1x1_packed=None if self.conv1x1_packed is None else {
+                i: wp.to(device) for i, wp in self.conv1x1_packed.items()})
+
+    def packed_weights(self, conv_i: int):
+        """Conv ``conv_i``'s packed weights (from ``pack_conv3x3s``), or
+        None where it has none."""
+        for packs in (self.conv_packed, self.entry_packed,
+                      self.conv1x1_packed):
+            if packs and conv_i in packs:
+                return packs[conv_i]
+        return None
 
     def pack_res_blocks(self) -> None:
         """Pack the weights of every residual block once
@@ -176,34 +190,44 @@ class Int8YoloV3:
         """Pack once the weights of every conv outside the residual blocks
         that ``conv3x3_wgmma_route`` or ``conv3x3_s2_wgmma_route`` takes
         (the head's nine stride-1 3x3s, darknet53's five stride-2 3x3s)
-        into ``conv_packed``, and of every conv that
-        ``entry_conv3x3_route`` takes (the C_in = 3 entry conv) into
-        ``entry_packed``, so the forward never packs."""
+        into ``conv_packed``, of every conv that ``entry_conv3x3_route``
+        takes (the C_in = 3 entry conv) into ``entry_packed``, and of every
+        conv that ``conv1x1_wgmma_route`` takes (the fourteen 1x1s, the two
+        concat convs included) into ``conv1x1_packed``, so the forward
+        never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv3x3_s2_wgmma_route, conv3x3_wgmma_route,
-            entry_conv3x3_route, pack_conv3x3_weights,
+            conv1x1_wgmma_route, conv3x3_s2_wgmma_route, conv3x3_wgmma_route,
+            entry_conv3x3_route, pack_conv1x1_weights, pack_conv3x3_weights,
             pack_entry_conv_weights)
 
-        self.conv_packed, self.entry_packed = {}, {}
+        self.conv_packed, self.entry_packed, self.conv1x1_packed = {}, {}, {}
         conv_i = i = 0
-        nparts = 1  # a conv right after a concat reads two parts
+        # the channels of the stream and of the saved slots, and the parts
+        # the next conv reads (two right after a concat)
+        c, slots, cins = 3, {}, None
         while i < len(self.program):
             op = self.program[i]
             if op[0] == "push":  # a residual block: K4's two convs
                 conv_i, i = conv_i + 2, i + 4
                 continue
             if op[0] == "conv":
-                w = self.w_q[conv_i]
-                shape = (w.shape[0], op[2], op[3], nparts, w.shape[2],
-                         self.sw[conv_i])
+                w, sw = self.w_q[conv_i], self.sw[conv_i]
+                cins = cins or (w.shape[2],)
+                shape = (w.shape[0], op[2], op[3], len(cins), cins[0], sw)
                 if (conv3x3_wgmma_route(*shape)
                         or conv3x3_s2_wgmma_route(*shape)):
                     self.conv_packed[conv_i] = pack_conv3x3_weights(w)
-                elif entry_conv3x3_route(*shape[:5], w.shape[3],
-                                         self.sw[conv_i]):
+                elif entry_conv3x3_route(*shape[:5], w.shape[3], sw):
                     self.entry_packed[conv_i] = pack_entry_conv_weights(w)
+                elif conv1x1_wgmma_route(*shape[:4], cins, sw):
+                    self.conv1x1_packed[conv_i] = pack_conv1x1_weights(w)
+                c = w.shape[3]
                 conv_i += 1
-            nparts = 2 if op[0] == "concat" else 1
+            elif op[0] == "save":
+                slots[op[1]] = c
+            elif op[0] == "load":
+                c = slots[op[1]]
+            cins = (slots[op[1]], c) if op[0] == "concat" else None
             i += 1
 
 
@@ -275,8 +299,7 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                 sb=m.sb[conv_i], sa_in=sa, sa_out=sa_out,
                 retune=m.retune[conv_i], padding=padding, stride=stride,
                 leaky=leaky, rounding=rounding,
-                packed=(m.conv_packed or {}).get(
-                    conv_i, (m.entry_packed or {}).get(conv_i)))
+                packed=m.packed_weights(conv_i))
             stream = (out, sa_out)
             tap_i += 1
             conv_i += 1
@@ -306,8 +329,8 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
 
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the residual blocks and of the convs that run
-    the wgmma conv3x3 kernel, its stride-2 form or the entry conv kernel
-    are packed there once (the CPU route reads the HWIO weights); the
+    the wgmma conv3x3 kernel, its stride-2 form, the entry conv kernel or
+    the wgmma 1x1 kernel are packed there once (the CPU route reads the HWIO weights); the
     images are moved there per call if they are elsewhere. Raises if
     ``device`` is CUDA and there is none; never falls back to the CPU."""
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
