@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Two paths, each with the mask config (2 classes) at 416², through
+Three paths, each with the mask config (2 classes) at 416², through
 hand-written CUDA kernels, decode, softmax·sigmoid and greedy NMS:
 slim_yolo_v2 INT8 (int8 input in the padded space-to-depth layout, ten
-fixed-point conv layers; phases 2-4) and yolo_v3 INT8 (int8 NHWC input,
+fixed-point conv layers; phases 2-4), yolo_v3 INT8 (int8 NHWC input,
 75 convs: 23 fused darknet53 residual blocks and 29 general int8 convs,
-three scales; phases 2b-4b). Phases, each printing JSON lines; any failure
+three scales; phases 2b-4b) and slim_yolo_v2 INT8 with per-channel
+weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
+forward ``int8_forward_diagnostics``. Phases, each printing JSON lines; any failure
 raises and the script exits nonzero:
 
 0. header: versions, the card's name and power limit, and whether
@@ -92,7 +94,31 @@ raises and the script exits nonzero:
    the share of HBM bandwidth, and, at 13², K4's
    time at batch 128, at one block per SM and at two (what the 4 SMs that
    batch 128 leaves idle could give); K5 is timed with b K-major, the
-   layout ``torch._int_mm`` reads, so both read the same bytes.
+   layout ``torch._int_mm`` reads, so both read the same bytes;
+2c. the per-column forms against their plain versions (torch.equal): the
+   wgmma conv3x3's stride-1 form at slim's six K1 widths (pred's 35
+   columns included), its pooled form at the three K3 widths, and the
+   mma.sync conv at conv1 (C_in 3, pooled), NHWC, batch 8, both
+   roundings, per-channel sw with >= 3 distinct values and a negative
+   shift, shifts of 31, 33 and -40 (outside the short form), all in
+   [0, 30] (the short form); and the counting forms (per-channel and
+   scalar sw), their counts equal to the plain versions' and nonzero;
+3c. the per-channel golden fixture (``yolo_tpu_torch/data/
+   slim_int8_pc_416_golden.npz``: tables, checksum and seeds; the weights
+   rebuilt from the seed): the head of 4 NHWC images bit-exact from
+   packed and from HWIO weights, classes and valid exact, boxes and scores
+   allclose (atol = rtol = 1e-5), and the diagnostics forward's counts
+   equal to the JAX package's for the calibrated model and two
+   raised-retune variants;
+4c. per-channel serving: batch 256 of NHWC int8 through
+   ``make_int8_detect_fn``, timed as phase 4, per forward 6 launches on
+   the per-column stride-1 form, 3 on the per-column pooled form, 1 on
+   the mma.sync conv, the 9 packs and 20 shift tables made when the
+   detect fn took the model, none in the loop; ``int8_forward_diagnostics``
+   timed at batch 256 the same way (6 / 3 / 1 on the counting forms and
+   the mma.sync conv); each layer's per-column and counting kernel checked
+   and timed at batch 256 beside its plain version, cuDNN fp16 and the
+   scalar form at the same shape, with the bound.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -103,8 +129,11 @@ C_in = 3 entry conv on row-streaming wgmma kernels
 (``csrc/int8_entry_conv.cu``); v3's fourteen 1x1s on a wgmma GEMM with
 resident weights (``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
 ``csrc/int8_conv.cuh`` serves no layer of either path; it is still held
-to its plain version and timed on the 1x1s. The ``kernels`` line has one
-entry per kernel and route: ``int8_conv_requant`` five times.
+to its plain version and timed on the 1x1s; with per-channel sw it runs
+slim's conv1 on NHWC input. The ``kernels`` line has one entry per kernel
+and route: ``int8_conv_requant`` five times; the per-column and counting
+forms (whose launches come from the diagnostics run) and conv1's mma.sync
+route each their own.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -134,6 +163,12 @@ S2_3 = "yolo_int8_conv3x3_s2_wgmma"  # and its stride-2 form's
 ENTRY3 = "yolo_int8_entry_conv3x3_wgmma"  # the v3 entry conv kernel's
 POOL_S2D = "yolo_int8_pool_s2d_wgmma"  # K2's on the s2d layout
 CONV1X1 = "yolo_int8_conv1x1_wgmma"  # the v3 1x1 kernel's
+# the wgmma conv3x3's per-column (per-channel sw) and counting forms
+COLS3 = "yolo_int8_conv3x3_cols_wgmma"
+POOL_COLS3 = "yolo_int8_conv3x3_pool_cols_wgmma"
+COUNT3 = "yolo_int8_conv3x3_count_wgmma"
+POOL_COUNT3 = "yolo_int8_conv3x3_pool_count_wgmma"
+MMA3 = "yolo_int8_conv3x3_requant"  # the mma.sync conv3x3 (K1-K3)
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -169,7 +204,29 @@ LINES = {
     "int8_gemm": (
         "int8_gemm", "yolo_int8_gemm", CSRC + "int8_gemm.cu",
         "scripts/bench_int8_ceiling.py:68"),
+    # slim with per-channel sw on NHWC input (phases 2c-4c): K1's six
+    # layers and K3's conv2, conv3_2, conv4_2 on the per-column forms,
+    # conv1 (K3 at C_in 3) on the mma.sync conv with its shift table; the
+    # counting forms in int8_forward_diagnostics
+    "int8_conv3x3_requant.cols": (
+        "int8_conv3x3_requant", COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:100"),
+    "int8_conv3x3_im2col.cols": (
+        "int8_conv3x3_im2col", POOL_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
+    "int8_conv3x3_im2col.mma_sync": (
+        "int8_conv3x3_im2col", MMA3, CSRC + "int8_conv.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
+    "int8_conv3x3_requant.count": (
+        "int8_conv3x3_requant", COUNT3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:100"),
+    "int8_conv3x3_im2col.count": (
+        "int8_conv3x3_im2col", POOL_COUNT3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
 }
+# the kernels-line entries whose launches come from the diagnostics
+# forward (phase 4c), not from serving
+DIAGNOSTICS_LINES = ("int8_conv3x3_requant.count", "int8_conv3x3_im2col.count")
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
@@ -240,6 +297,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Host time of one call (the wrapper's checks, set-up and launch),
+    over ``n`` calls that the card runs behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / n
 
 
 def conv2d_probe(dtype) -> str:
@@ -555,9 +625,23 @@ def phase_serving(m, cfg, card):
     emit("serving", batch=BATCH_SERVE, iters=SERVE_ITERS,
          images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
+         postprocess_ms=postprocess_ms(m_packed, x2, cfg, input_s2d=True),
          launches=counts, launches_by_entry=entries,
          packs_at_setup=packs_at_setup, packs_in_loop=0, card=card)
     return entries
+
+
+def postprocess_ms(m, x, cfg, input_s2d=False):
+    """CUDA-event time of the detect fn's decode + greedy NMS alone, on
+    the outputs ``m`` gives for ``x`` (the NMS's Jacobi sweeps depend on
+    the detections, and each reads a flag on the host)."""
+    from yolo_tpu_torch.ops import nms
+    from yolo_tpu_torch.quant.int8_graph import int8_predict
+
+    boxes, probs = int8_predict(m, x, cfg, input_s2d=input_s2d)
+    return time_ms(lambda: nms.batched_postprocess(
+        boxes, probs, cfg.conf_thresh, cfg.nms_thresh, cfg.pre_nms_top_k,
+        cfg.top_k), 5)
 
 
 def phase_layer_times(card_name, max_err):
@@ -1291,6 +1375,362 @@ def phase_v3_times(card_name, max_err):
     return per_kernel
 
 
+# ---------------------------------------------------------------------------
+# slim_yolo_v2 with per-channel weight scales (phases 2c-4c)
+# ---------------------------------------------------------------------------
+
+
+def nhwc_layers():
+    """(name, H at the layer's input, c_in, c_out, pool, wrapper form) on
+    the per-channel path, NHWC input: conv1 too is a pooled
+    ``int8_conv3x3_im2col`` (the mma.sync conv, C_in 3)."""
+    return [(name, h, c_in, c_out, pool,
+             "im2col_pool" if pool else "requant")
+            for name, h, c_in, c_out, pool, _ in slim_layers()]
+
+
+def pc_shifts(gen, c_in, c_out, case):
+    """Shifts of a per-column case: sw an int32 [C_out] array whose
+    accumulator shifts spread +-2 around ``shifts``' (>= 3 distinct
+    values), with ``case``:
+
+    - "mixed": one column at -1 (a left shift), one at 33 and one at -40
+      (outside the short form), one at 31 (0 under nearest);
+    - "short": all in [0, 30] (the short shift form);
+    - "count": 4 lower (left shifts where that is below 0), so that
+      many values pass int16 (counting);
+    - "count_scalar": a scalar sw 4 lower (the counting form's table of
+      one shift)."""
+    kw = shifts(c_in, "plain")
+    base = kw["sw"] + kw["sa_in"] - kw["retune"]  # the accumulator shift
+    if case == "count_scalar":
+        kw["sw"] -= 4
+        return kw
+    s = base + torch.randint(-2, 3, (c_out,), generator=gen).numpy()
+    if case == "count":
+        s = s - 4
+    if case == "mixed":
+        s[: 4] = [-1, 33, 31, -40][: c_out]
+    if case == "short":
+        s = np.clip(s, 0, 30)
+    kw["sw"] = (s - kw["sa_in"] + kw["retune"]).astype(np.int32)
+    assert len(np.unique(kw["sw"])) >= 3
+    return kw
+
+
+PC_CASES = ("mixed", "short", "count", "count_scalar")
+
+
+def phase_pc_kernels(max_err):
+    """The per-column and counting forms == their plain versions at slim's
+    NHWC layer shapes (phase 2c): K1's six widths (pred's 35 columns
+    included) and K3's three on the wgmma conv3x3, conv1 (C_in 3) on the
+    mma.sync conv, both roundings, per-channel sw with >= 3 distinct
+    values, a negative shift, shifts >= 31 and a scalar sw counted; each
+    count equal to the plain version's, and nonzero."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    gen = torch.Generator().manual_seed(5)
+    n = 0
+    for name, h, c_in, c_out, pool, form in nhwc_layers():
+        x, w, bias = make_case(gen, BATCH_CHECK, h, c_in, c_out, s2d=False)
+        packed = K.pack_conv3x3_weights(w) if c_in % 16 == 0 else None
+        counts = []
+        for rounding in ("nearest", "floor"):
+            for case in PC_CASES:
+                kw = dict(pc_shifts(gen, c_in, c_out, case),
+                          leaky=name != "pred", rounding=rounding)
+                counting = case.startswith("count")
+                got_n = (torch.zeros(1, dtype=torch.int32, device="cuda")
+                         if counting else None)
+                want_n = torch.zeros_like(got_n) if counting else None
+                K.reset_launch_counts()
+                got = call(form, x, None if packed is not None else w, bias,
+                           c_in, dict(kw, overflow=got_n), packed)
+                torch.cuda.synchronize()
+                k = ran_line()
+                want = plain(form, x, w, bias, c_in,
+                             dict(kw, overflow=want_n))
+                what = f"{name} {rounding} {case}"
+                check_equal(k, got, want, max_err, what)
+                if counting:
+                    if int(got_n) != int(want_n) or int(want_n) == 0:
+                        raise AssertionError(
+                            f"{k} counted {int(got_n)} overflows at {what}, "
+                            f"its plain version {int(want_n)} (want equal "
+                            f"and nonzero)")
+                    counts.append(int(got_n))
+                n += 1
+        emit("pc_kernels_vs_plain", layer=name, form=form, kernel=k,
+             shape=[BATCH_CHECK, h, h, c_in, c_out], equal=True,
+             overflow_counts=counts)
+    emit("pc_kernels_vs_plain_done", cases=n)
+
+
+PC_FIXTURE = "slim_int8_pc_416_golden.npz"
+
+
+def pc_variant(m, g, key):
+    """The fixture's diagnostics model ``key``: ``m`` (overflow), its
+    ``raised`` layers' retune + ``raised_by`` (overflow_raised), or every
+    layer's + ``all_raised_by`` (overflow_all)."""
+    from yolo_tpu_torch.quant import fixed_point as fp
+
+    by = {"overflow": {},
+          "overflow_raised": dict.fromkeys(map(str, g["raised"]),
+                                           int(g["raised_by"])),
+          "overflow_all": dict.fromkeys(m.retune, int(g["all_raised_by"]))
+          }[key]
+    return fp.Int8Model(m.w_q, m.b_q, m.sw, m.sb, m.sa,
+                        {k: v + by.get(k, 0) for k, v in m.retune.items()})
+
+
+def phase_pc_golden():
+    """The per-channel golden 416² fixture (phase 3c): the head of 4 NHWC
+    images bit-exact with the JAX package's, from packed weights and from
+    HWIO ones; classes and valid exact, boxes and scores allclose (atol =
+    rtol = 1e-5); ``int8_forward_diagnostics``' head equal to the forward's
+    and its counts equal to the fixture's, for the calibrated model and
+    its two raised-retune variants."""
+    from pathlib import Path
+
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant.convert import int8_model_from_seed
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES
+
+    path = Path(__file__).resolve().parent / "yolo_tpu_torch" / "data"
+    with np.load(path / PC_FIXTURE) as z:
+        g = {k: z[k] for k in z.files}
+    m = int8_model_from_seed(g, device="cuda")
+    cfg = get_config("slim_yolo_v2", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = np.random.default_rng(int(g["image_seed"])).random(
+        (g["head_q"].shape[0], SIZE, SIZE, 3), dtype=np.float32)
+    x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa["in"])
+    want = torch.as_tensor(g["head_q"])
+    counts = {}
+    for key in ("overflow", "overflow_raised", "overflow_all"):
+        mv = pc_variant(m, g, key).to("cuda")
+        mv.pack_conv3x3()
+        head, ov = fp.int8_forward_diagnostics(mv, x_q)
+        if not torch.equal(head, fp.int8_forward(mv, x_q)):
+            raise AssertionError(f"the diagnostics forward's head differs "
+                                 f"from the forward's ({key})")
+        got = np.asarray([int(ov[n]) for n in QUANT_LAYER_NAMES], np.int32)
+        if not np.array_equal(got, g[key]):
+            raise AssertionError(f"per-channel golden {key} counts "
+                                 f"{got.tolist()}, want {g[key].tolist()}")
+        counts[key] = got.tolist()
+        if key != "overflow":
+            continue
+        for what, mm in (("packed", mv), ("hwio", m)):
+            head_q = torch.round(fp.int8_forward(mm, x_q)
+                                 * 2.0 ** m.sa["pred"]).to(torch.int8).cpu()
+            if not torch.equal(head_q, want):
+                diff = (head_q.int() - want.int()).abs()
+                raise AssertionError(
+                    f"per-channel golden head ({what} weights) differs: max "
+                    f"|diff| {int(diff.max())}, {int((diff > 0).sum())} "
+                    f"values")
+    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x_q))
+    np.testing.assert_array_equal(valid, g["valid"])
+    np.testing.assert_array_equal(classes, g["classes"])
+    np.testing.assert_allclose(boxes, g["boxes"], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(scores, g["scores"], atol=1e-5, rtol=1e-5)
+    emit("pc_golden", images=int(x_q.shape[0]), head_bit_exact=True,
+         classes_valid_exact=True, overflow_counts_equal=counts,
+         distinct_sw={n: int(len(np.unique(m.sw[n])))
+                      for n in QUANT_LAYER_NAMES},
+         boxes_max_abs_diff=float(np.abs(boxes - g["boxes"]).max()),
+         scores_max_abs_diff=float(np.abs(scores - g["scores"]).max()),
+         valid_slots=int(valid.sum()))
+    return m, cfg
+
+
+def phase_pc_serving(m, cfg, card):
+    """Batch-256 per-channel serving through the detect fn on NHWC int8
+    input, then ``int8_forward_diagnostics`` at the same batch (phase 4c):
+    per forward 6 launches on the per-column stride-1 form, 3 on the
+    per-column pooled form and 1 (conv1) on the mma.sync conv, the weights
+    and the shift tables made when the detect fn took the model, never in
+    the loop; the diagnostics forward 6 / 3 / 1 on the counting forms and
+    the mma.sync conv, its head equal to the forward's."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    images = torch.rand((BATCH_SERVE, SIZE, SIZE, 3), generator=gen,
+                        device="cuda")
+    x_q = fp.quantize_input(images, m.sa["in"]).contiguous()
+    del images
+    resets = (K.reset_conv3x3_pack_count, K.reset_pool_s2d_pack_count,
+              K.reset_shift_table_count)
+
+    def made():
+        return (K.conv3x3_pack_count(), K.pool_s2d_pack_count(),
+                K.shift_table_count())
+
+    for reset in resets:
+        reset()
+    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    at_setup = made()
+    if at_setup != (9, 0, 20):
+        raise AssertionError(f"the per-channel detect fn packed {at_setup[0]}"
+                             f" conv3x3 layers and {at_setup[1]} K2 layers "
+                             f"and made {at_setup[2]} shift tables, want 9, "
+                             f"0 and 20")
+    for _ in range(SERVE_WARMUP):
+        detect(x_q)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for reset in resets:
+        reset()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_ITERS):
+        out = detect(x_q)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    entries = K.launch_counts_by_entry()
+    if made() != (0, 0, 0):
+        raise AssertionError(f"per-channel serving packed or made tables "
+                             f"in the loop: {made()}")
+    want = dict.fromkeys(K.KERNEL_NAMES, 0)
+    want.update({"int8_conv3x3_requant": 6 * SERVE_ITERS,
+                 "int8_conv3x3_im2col": 4 * SERVE_ITERS})
+    want_entries = {"int8_conv3x3_requant": {COLS3: 6 * SERVE_ITERS},
+                    "int8_conv3x3_im2col": {POOL_COLS3: 3 * SERVE_ITERS,
+                                            MMA3: SERVE_ITERS}}
+    if counts != want or entries != want_entries:
+        raise AssertionError(f"per-channel launches {counts} "
+                             f"{entries}, want {want} {want_entries}")
+    boxes, scores, classes, valid = out
+    if (tuple(boxes.shape) != (BATCH_SERVE, cfg.top_k, 4)
+            or not torch.isfinite(boxes).all()
+            or not torch.isfinite(scores).all()):
+        raise AssertionError("per-channel serving output has the wrong "
+                             "shape or is not finite")
+    m_packed = m.to("cuda")
+    m_packed.pack_conv3x3()  # the weights and tables the detect fn serves
+    head_ms = time_ms(lambda: fp.int8_forward(m_packed, x_q), 5)
+    # the diagnostics forward, timed as serving is, its launches checked
+    fp.int8_forward_diagnostics(m_packed, x_q)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_ITERS):
+        head, ov = fp.int8_forward_diagnostics(m_packed, x_q)
+    torch.cuda.synchronize()
+    diag_dt = time.perf_counter() - t0
+    diag_entries = K.launch_counts_by_entry()
+    want_diag = {"int8_conv3x3_requant": {COUNT3: 6 * SERVE_ITERS},
+                 "int8_conv3x3_im2col": {POOL_COUNT3: 3 * SERVE_ITERS,
+                                         MMA3: SERVE_ITERS}}
+    if diag_entries != want_diag:
+        raise AssertionError(f"diagnostics launched {diag_entries}, want "
+                             f"{want_diag}")
+    if not torch.equal(head, fp.int8_forward(m_packed, x_q)):
+        raise AssertionError("the diagnostics head differs from the "
+                             "forward's at batch 256")
+    emit("pc_serving", batch=BATCH_SERVE, iters=SERVE_ITERS,
+         images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
+         ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
+         postprocess_ms=postprocess_ms(m_packed, x_q, cfg),
+         diagnostics_ms_per_batch=1e3 * diag_dt / SERVE_ITERS,
+         diagnostics_overflow={k: int(v) for k, v in ov.items()},
+         launches=counts, launches_by_entry=entries,
+         diagnostics_launches_by_entry=diag_entries,
+         packs_tables_at_setup=list(at_setup), packs_in_loop=0, card=card)
+    return entries, diag_entries
+
+
+def phase_pc_layer_times(card_name, max_err):
+    """Each per-channel layer at batch 256 (phase 4c, timing): the
+    per-column kernel (conv1: the mma.sync conv with its table) and the
+    counting one each == its plain version (output and count), then
+    timed, beside the plain versions, cuDNN's fp16 conv and the scalar
+    form at the same shape (one wrapper call each, CUDA events), and the
+    bound."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    peak_ops, peak_bw = peaks(card_name)
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator().manual_seed(7)
+    per_kernel = {}
+    for name, h, c_in, c_out, pool, form in nhwc_layers():
+        x, w, bias = make_case(gen, BATCH_SERVE, h, c_in, c_out, s2d=False)
+        packed = K.pack_conv3x3_weights(w) if c_in % 16 == 0 else None
+        wk = None if packed is not None else w
+        kw = dict(pc_shifts(gen, c_in, c_out, "short"), leaky=name != "pred",
+                  rounding="nearest")
+        table = K.acc_shift_table(kw["sw"], kw["sa_in"], kw["retune"],
+                                  "nearest", c_out, "cuda")
+        n = torch.zeros(1, dtype=torch.int32, device="cuda")
+        n_want = torch.zeros_like(n)
+        fields, host = {}, {}
+        for what, counter in (("cols", None), ("count", n)):
+            kern_kw = dict(kw, shifts=table, overflow=counter)
+            K.reset_launch_counts()
+            got = call(form, x, wk, bias, c_in, kern_kw, packed)
+            line = ran_line()
+            want = plain(form, x, w, bias, c_in, dict(
+                kw, overflow=n_want if counter is not None else None))
+            check_equal(line, got, want, max_err,
+                        f"{name} ({what}), batch {BATCH_SERVE}")
+            if counter is not None and int(n) != int(n_want):
+                raise AssertionError(f"{line} counted {int(n)} at {name}, "
+                                     f"its plain version {int(n_want)}")
+            overflow = int(n)
+            del got, want
+            ms = time_ms(lambda: call(form, x, wk, bias, c_in, kern_kw,
+                                      packed), 10)
+            host[what] = host_ms(lambda: call(form, x, wk, bias, c_in,
+                                              kern_kw, packed))
+            plain_ms = time_ms(lambda: plain(form, x, w, bias, c_in,
+                                             dict(kw, overflow=counter)), 2,
+                               warmup=1)
+            fields[what] = (line, ms, plain_ms)
+        scalar_kw = dict(kw, sw=int(np.max(kw["sw"])))
+        scalar_ms = time_ms(lambda: call(form, x, wk, bias, c_in, scalar_kw,
+                                         packed), 10)
+        host["scalar"] = host_ms(lambda: call(form, x, wk, bias, c_in,
+                                              scalar_kw, packed))
+        xh = torch.randn((BATCH_SERVE, c_in, h, h), device="cuda",
+                         dtype=torch.float16
+                         ).contiguous(memory_format=torch.channels_last)
+        wh = torch.randn((c_out, c_in, 3, 3), device="cuda",
+                         dtype=torch.float16
+                         ).contiguous(memory_format=torch.channels_last)
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.conv2d(xh, wh, padding=1), 10)
+        del xh, wh
+        ho = h // 2 if pool else h
+        ops = 2 * BATCH_SERVE * h * h * 9 * c_in * c_out
+        nbytes = (x.numel() + w.numel() + 8 * c_out
+                  + BATCH_SERVE * ho * ho * c_out)
+        t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
+        (line, ms, plain_ms), (cline, cms, cplain_ms) = (fields["cols"],
+                                                         fields["count"])
+        emit("pc_layer_time", layer=name, kernel=line, batch=BATCH_SERVE,
+             equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             scalar_ms=scalar_ms, count_kernel=cline, count_ms=cms,
+             count_plain_ms=cplain_ms, overflow=overflow, host_ms=host,
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             tops=ops / ms / 1e9, **bandwidth_fields(nbytes, ms, peak_bw))
+        add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops, t_bytes)
+        if cline != line:  # conv1: one line for both (the mma.sync conv)
+            add_time(per_kernel, cline, 1, cms, cplain_ms, lib_ms, t_ops,
+                     t_bytes)
+        del x, w, bias, packed, table
+        torch.cuda.empty_cache()
+    return per_kernel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1314,12 +1754,16 @@ def main() -> int:
     max_err = dict.fromkeys(LINES, 0)
     phase_kernels(max_err)
     phase_v3_kernels(max_err)
+    phase_pc_kernels(max_err)
     m, cfg = phase_golden()
     m3, cfg3 = phase_v3_golden()
+    mpc, cfgpc = phase_pc_golden()
     launches = phase_serving(m, cfg, card)
     launches_v3 = phase_v3_serving(m3, cfg3, card)
+    launches_pc, launches_diag = phase_pc_serving(mpc, cfgpc, card)
     times = phase_layer_times(name, max_err)
     times.update(phase_v3_times(name, max_err))
+    times.update(phase_pc_layer_times(name, max_err))
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -1392,12 +1836,44 @@ def main() -> int:
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",
+        "int8_conv3x3_requant.cols": f"per slim_yolo_v2 forward with "
+                                     f"per-channel sw, NHWC input: its 6 K1 "
+                                     f"layers, batch {BATCH_SERVE}, "
+                                     f"{SIZE}x{SIZE}; library_ms is cuDNN "
+                                     f"fp16 conv2d",
+        "int8_conv3x3_im2col.cols": f"per slim_yolo_v2 forward with "
+                                    f"per-channel sw: conv2, conv3_2, "
+                                    f"conv4_2, batch {BATCH_SERVE}, "
+                                    f"{SIZE}x{SIZE}; library_ms is cuDNN "
+                                    f"fp16 conv2d (without the pool)",
+        "int8_conv3x3_im2col.mma_sync": f"per slim_yolo_v2 forward with "
+                                        f"per-channel sw: conv1 on NHWC "
+                                        f"input (C_in 3 -> 16, pooled), "
+                                        f"with its shift table, batch "
+                                        f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
+                                        f"library_ms is cuDNN fp16 conv2d "
+                                        f"(without the pool); the "
+                                        f"diagnostics forward runs it with "
+                                        f"its counter",
+        "int8_conv3x3_requant.count": f"per int8_forward_diagnostics "
+                                      f"forward (launches from its run, "
+                                      f"not serving): the 6 K1 layers, "
+                                      f"batch {BATCH_SERVE}, "
+                                      f"{SIZE}x{SIZE}; library_ms is cuDNN "
+                                      f"fp16 conv2d",
+        "int8_conv3x3_im2col.count": f"per int8_forward_diagnostics "
+                                     f"forward (launches from its run): "
+                                     f"conv2, conv3_2, conv4_2, batch "
+                                     f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
+                                     f"library_ms is cuDNN fp16 conv2d "
+                                     f"(without the pool)",
     }
     kernels = []
     for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
-        ran = sum(served.get(wrapper, {}).get(entry, 0)
-                  for served in (launches, launches_v3))
+        runs = ((launches_diag,) if k in DIAGNOSTICS_LINES
+                else (launches, launches_v3, launches_pc))
+        ran = sum(served.get(wrapper, {}).get(entry, 0) for served in runs)
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,

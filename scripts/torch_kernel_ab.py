@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -27,7 +27,12 @@ are timed on every version in turn (ABBA order, twice):
 - ``one``: yolo_v3's ten distinct 1x1 shapes (batch 128; the concat convs
   as two parts at two scales, as the served model has them), each on the
   wgmma 1x1 kernel (``csrc/int8_conv1x1_wgmma.cu``) and on the mma.sync
-  kernel it replaced (``_launch_conv_requant``).
+  kernel it replaced (``_launch_conv_requant``);
+- ``pc``: slim with per-channel sw (batch 256, NHWC): the wgmma conv3x3's
+  per-column forms at the six K1 layers and the three K3 layers (the
+  shapes of ``s1``, where the scalar forms are timed), its counting forms
+  (``int8_forward_diagnostics``) at the same shapes, and conv1 (C_in 3,
+  pooled) on the mma.sync conv with its shift table and with a scalar sw.
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -36,7 +41,8 @@ less. Each shape's ``kernel_ms`` is the port's kernels alone: the
 device time that ``torch.profiler`` records for them over 20 launches,
 per launch recorded (``kernels_recorded``: CUPTI may drop some; the
 small PyTorch kernels of a wrapper's bias set-up are left out). Every output is checked equal to the first version's. A
-version without a kernel's C entry (an older tree) skips its shapes.
+version without a kernel's C entry (an older tree) skips its shapes, and
+so does one whose mma.sync conv3x3 entry predates its shift table.
 Prints the card's name and power limit, one JSON line per shape (each
 version's times and their median, and the shape's launches per v3 or
 slim forward) and per group the sums of the medians and their sums per
@@ -67,7 +73,8 @@ from yolo_tpu_torch.kernels import int8_conv as K  # noqa: E402
 from yolo_tpu_torch.quant import fixed_point as fp  # noqa: E402
 
 VERBOSE = ("int8_conv3x3_wgmma.cu", "int8_res_block.cu",
-           "int8_entry_conv.cu", "int8_conv1x1_wgmma.cu")
+           "int8_entry_conv.cu", "int8_conv1x1_wgmma.cu", "int8_conv.cu",
+           "int8_conv_general.cu")
 # the 1x1 shapes of the ``one`` group: (name, H, C_in parts, C_out,
 # launches per v3 forward)
 ONE_BY_ONE = [("c13_1024_512", 13, (1024,), 512, 3),
@@ -80,6 +87,16 @@ ONE_BY_ONE = [("c13_1024_512", 13, (1024,), 512, 3),
               ("cat52", 52, (256, 128), 128, 1),
               ("c52_256_128", 52, (256,), 128, 2),
               ("pred52", 52, (256,), 21, 1)]
+# slim's layers with per-channel sw: (name, H, C_in, C_out, form of the
+# wgmma conv3x3, launches per forward)
+PC_LAYERS = [("conv3_1", 104, 32, 64, "conv", 1),
+             ("conv4_1", 52, 64, 128, "conv", 1),
+             ("conv5", 26, 128, 256, "conv", 1),
+             ("conv6", 26, 256, 256, "conv", 2),
+             ("pred", 26, 256, 35, "conv", 1),
+             ("conv2", 208, 16, 32, "pool", 1),
+             ("conv3_2", 104, 64, 64, "pool", 1),
+             ("conv4_2", 52, 128, 128, "pool", 1)]
 SHAPES = {
     # (name, batch, H, C_in, C_out, form); K4: C_in = C, C_out = C_mid
     "s1": [("conv3_1", 256, 104, 32, 64, "conv"),
@@ -111,9 +128,16 @@ SHAPES = {
     "one": [(name + sfx, 128, h, cins, c_out, form)
             for name, h, cins, c_out, _ in ONE_BY_ONE
             for sfx, form in (("", "one"), ("_mma", "one_mma"))],
+    "pc": [(f"{name}_{kind}", 256, h, c_in, c_out, f"{form}_{kind}")
+           for kind in ("pc", "count")
+           for name, h, c_in, c_out, form, _ in PC_LAYERS]
+          + [("conv1_pc", 256, 416, 3, 16, "mma_pc"),
+             ("conv1_scalar", 256, 416, 3, 16, "mma_scalar")],
 }
 PER_FORWARD = {name + sfx: n for name, *_, n in ONE_BY_ONE
                for sfx in ("", "_mma")}
+PER_FORWARD.update({f"{name}_{kind}": n
+                    for name, *_, n in PC_LAYERS for kind in ("pc", "count")})
 # the C entry each form launches
 ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "pool": "yolo_int8_conv3x3_pool_wgmma",
@@ -124,7 +148,18 @@ ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "k2": "yolo_int8_pool_s2d_wgmma",
          "k2_mma": "yolo_int8_conv3x3_requant",
          "one": "yolo_int8_conv1x1_wgmma",
-         "one_mma": "yolo_int8_conv_requant"}
+         "one_mma": "yolo_int8_conv_requant",
+         "conv_pc": "yolo_int8_conv3x3_cols_wgmma",
+         "pool_pc": "yolo_int8_conv3x3_pool_cols_wgmma",
+         "conv_count": "yolo_int8_conv3x3_count_wgmma",
+         "pool_count": "yolo_int8_conv3x3_pool_count_wgmma",
+         "mma_pc": "yolo_int8_conv3x3_requant",
+         "mma_scalar": "yolo_int8_conv3x3_requant"}
+# the forms whose C entry took its shift table and counter with the
+# per-column forms: a version without those (an older tree) has the entry
+# but another interface, and skips them
+NEEDS = dict.fromkeys(("k2_mma", "mma_pc", "mma_scalar"),
+                      "yolo_int8_conv3x3_cols_wgmma")
 
 
 class Library:
@@ -290,6 +325,9 @@ def shape_fn(gen, b, h, c_in, c_out, form):
     w = ri((3, 3, c_in, c_out), -90, 120, torch.int8)
     bias = ri((c_out,), -100, 100, torch.int32)
     kw = dict(sw=12, sb=8, sa_in=4, sa_out=4, retune=10, rounding="nearest")
+    if form in ("conv_pc", "pool_pc", "conv_count", "pool_count", "mma_pc",
+                "mma_scalar"):
+        return pc_fn(x, w, bias, kw, form)
     if form in ("entry", "entry_mma"):
         if form == "entry_mma":
             return lambda: K._launch_conv_requant(
@@ -321,6 +359,33 @@ def shape_fn(gen, b, h, c_in, c_out, form):
                                           leaky=True, **kw)
 
 
+def pc_fn(x, w, bias, kw, form):
+    """A per-channel slim layer's wrapper call: a per-column sw of three
+    values around the scalar forms' 12 (accumulator shifts 5-7, the short
+    form), from the shift table a packed model holds; counting into one
+    int32 for the ``count`` forms; ``mma_scalar`` with the scalar sw."""
+    pool = form.startswith("pool") or form.startswith("mma")
+    c_out = w.shape[-1]
+    if form != "mma_scalar":
+        kw = dict(kw, sw=(11 + torch.arange(c_out) % 3).numpy().astype(
+            "int32"))
+    table = K.acc_shift_table(kw["sw"], kw["sa_in"], kw["retune"],
+                              kw["rounding"], c_out, x.device)
+    counter = (torch.zeros(1, dtype=torch.int32, device=x.device)
+               if form.endswith("count") else None)
+    extra = dict(shifts=table, overflow=counter)
+    if form.startswith("mma"):
+        return lambda: K.int8_conv3x3_im2col(x, w, bias, pool=True,
+                                             leaky=True, **extra, **kw)
+    packed = K.pack_conv3x3_weights(w)
+    if pool:
+        return lambda: K.int8_conv3x3_im2col(x, None, bias, pool=True,
+                                             packed=packed, leaky=True,
+                                             **extra, **kw)
+    return lambda: K.int8_conv3x3_requant(x, None, bias, packed=packed,
+                                          leaky=c_out != 35, **extra, **kw)
+
+
 def use(lib) -> None:
     build._lib = lib
     for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
@@ -349,7 +414,8 @@ def main() -> int:
     kernel_per_forward: dict = {}
     for group in args.groups.split(","):
         for name, b, h, c_in, c_out, form in SHAPES[group]:
-            names = [v for v in libs if libs[v].has(ENTRY[form])]
+            names = [v for v in libs if libs[v].has(ENTRY[form])
+                     and libs[v].has(NEEDS.get(form, ENTRY[form]))]
             fn = shape_fn(gen, b, h, c_in, c_out, form)
             times: dict = {}
             ktimes: dict = {}

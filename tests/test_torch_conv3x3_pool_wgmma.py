@@ -121,8 +121,8 @@ def test_packed_plain_acc_shift_ge_32_follows_fixed_point(rng, rounding,
 
 def test_route_takes_the_three_k3_layers():
     """slim's pooled layers after conv1 (C_in 16, 64, 128) take the pooled
-    route; conv1 (C_in 3: K2 on the s2d main path) and per-channel sw do
-    not."""
+    route, with a scalar sw or one of C_out entries; conv1 (C_in 3: K2
+    on the s2d main path) does not."""
     pooled = [(name, c_in) for name, c_in, _, pool in CONV_LAYERS if pool]
     assert [name for name, _ in pooled] == [
         "conv1", "conv2", "conv3_2", "conv4_2"]
@@ -131,6 +131,9 @@ def test_route_takes_the_three_k3_layers():
     assert routed == ["conv2", "conv3_2", "conv4_2"]
     for c_in in (3, 8, 24, 48, 80):
         assert not K.conv3x3_pool_wgmma_route(c_in, 8), c_in
+    # a per-channel sw is taken where it has one entry per output column
+    assert K.conv3x3_pool_wgmma_route(64, np.full(64, 8), c_out=64)
+    assert not K.conv3x3_pool_wgmma_route(64, np.full(64, 8), c_out=32)
     assert not K.conv3x3_pool_wgmma_route(64, np.full(64, 8))
 
 

@@ -133,14 +133,21 @@ def test_general_conv_packed_plain_equals_jax(rng, rounding):
 
 def test_route_takes_every_slim_k1_layer():
     """All six layers that run ``int8_conv3x3_requant`` (C_in 32 to 256)
-    take the route; the pooled conv1 and conv2 (C_in 3 and 16) would not."""
+    take the route, with a scalar sw or one of C_out entries; the pooled
+    conv1 and conv2 (C_in 3 and 16) would not."""
     layers = CONV_LAYERS + (("pred", 256, 35, False),)
     k1 = [name for name, _, _, pool in layers if not pool]
     assert k1 == ["conv3_1", "conv4_1", "conv5", "conv6", "conv7", "pred"]
     for name, c_in, _, pool in layers:
         want = name in k1 or c_in % 32 == 0
         assert K.conv3x3_wgmma_route(3, 1, 1, 1, c_in, 8) == want, name
+    # a per-channel sw is taken where it has one entry per output column
+    assert K.conv3x3_wgmma_route(3, 1, 1, 1, 256, np.full(35, 8), c_out=35)
+    assert not K.conv3x3_wgmma_route(3, 1, 1, 1, 256, np.full(35, 8),
+                                     c_out=36)
     assert not K.conv3x3_wgmma_route(3, 1, 1, 1, 256, np.full(35, 8))
+    assert not K.conv3x3_wgmma_route(3, 1, 1, 1, 256, np.full((5, 7), 8),
+                                     c_out=35)
 
 
 def _v3_general_convs():

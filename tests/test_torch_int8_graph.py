@@ -119,13 +119,18 @@ def test_npz_round_trip(models, tmp_path):
 
 
 def test_per_channel_sw_raises(models):
+    """A per-channel sw runs on NHWC input only: the s2d forward and an
+    s2d detect fn refuse it, as the JAX package does."""
     _, tm, images = models
+    _, tcfg = _cfgs()
     sw = dict(tm.sw)
     sw["conv5"] = np.full(256, 7, np.int32)
     pc = tfp.Int8Model(tm.w_q, tm.b_q, sw, tm.sb, tm.sa, tm.retune)
     x_q = tfp.quantize_input(torch.as_tensor(images), tm.sa["in"])
     with pytest.raises(ValueError, match="per-channel"):
-        tfp.int8_forward(pc, x_q)
+        tfp.int8_forward(pc, tfp.s2d_input(x_q), input_s2d=True)
+    with pytest.raises(ValueError, match="per-channel"):
+        t_make_int8_detect_fn(pc, tcfg, input_s2d=True, device="cpu")
 
 
 def test_bad_input_shape_raises(models):

@@ -1284,3 +1284,116 @@ def test_cuda_conv1x1_wgmma_layout_at_v3_shapes(cuda, shape):
     assert lay.ring_stages == 4 and lay.smem_bytes <= 232448
     assert lay.grid == sms // lay.n_tiles * lay.n_tiles
     assert lay.weight_bytes == lay.bn * sum(-(-c // 128) * 128 for c in cins)
+
+
+# ---------------------------------------------------------------------------
+# Per-channel sw and overflow counting: the wgmma conv3x3's per-column and
+# counting forms (stride 1 and pooled) and the mma.sync conv's shift table.
+# ---------------------------------------------------------------------------
+
+# slim's NHWC layers (B, H, C_in, C_out, pool): conv1 (the mma.sync conv),
+# the three pooled wgmma layers and the six stride-1 ones (pred: 35)
+PC_SHAPES = [(1, 416, 3, 16, True), (2, 208, 16, 32, True),
+             (2, 104, 64, 64, True), (2, 52, 128, 128, True),
+             (2, 104, 32, 64, False), (2, 52, 64, 128, False),
+             (2, 26, 128, 256, False), (2, 26, 256, 256, False),
+             (2, 26, 256, 35, False)]
+PC_KW = dict(sb=7, sa_in=4, sa_out=4, retune=11)
+
+
+def _pc_sw(rng, c_in, c_out, case):
+    """A per-channel sw: accumulator shifts around the one that spreads
+    the int8 output; "mixed" with -1, 33, 31 and -40 among them, "short"
+    all in [0, 30], "count" 4 lower (many values pass int16)."""
+    base = max(0, round(np.log2(np.sqrt(9 * c_in) * 74 * 35 / 4096)))
+    s = base + rng.integers(-2, 3, c_out)
+    if case == "count":
+        s -= 4
+    if case == "mixed":
+        s[:4] = [-1, 33, 31, -40]
+    if case == "short":
+        s = np.clip(s, 0, 30)
+    return (s - PC_KW["sa_in"] + PC_KW["retune"]).astype(np.int32)
+
+
+def _pc_run(x, w, b, pool, kw, **extra):
+    if pool:
+        return K.int8_conv3x3_im2col(x, w, b, pool=True, **kw, **extra)
+    return K.int8_conv3x3_requant(x, w, b, **kw, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("case", ["mixed", "short", "count",
+                                  "count_scalar"])
+@pytest.mark.parametrize("shape", PC_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_cuda_per_column_forms_equal_plain(cuda, rounding, case, shape):
+    """Output (and, counting, the count: equal and nonzero) of the
+    per-column and counting forms == the plain version's, on the C entry
+    the route names."""
+    bsz, h, c_in, c_out, pool = shape
+    rng = np.random.default_rng(c_in * c_out)
+    x, w, b = _conv3x3_args((bsz, h, h, c_in, c_out), seed=c_in)
+    sw = _pc_sw(rng, c_in, c_out, "count" if case == "count_scalar"
+                else case)
+    kw = dict(PC_KW, sw=int(sw[0]) if case == "count_scalar" else sw,
+              leaky=c_out != 35, rounding=rounding)
+    counting = case.startswith("count")
+    n_want = torch.zeros(1, dtype=torch.int32) if counting else None
+    want = _pc_run(x, w, b, pool, kw, overflow=n_want)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda) if counting else None
+    K.reset_launch_counts()
+    got = _pc_run(x.to(cuda), w.to(cuda), b.to(cuda), pool, kw, overflow=n)
+    torch.cuda.synchronize()
+    (entries,) = K.launch_counts_by_entry().values()
+    want_entry = (K.MMA_SYNC_ENTRY if c_in == 3 else
+                  {(False, False): K.COLS_WGMMA_ENTRY,
+                   (True, False): K.POOL_COLS_WGMMA_ENTRY,
+                   (False, True): K.COUNT_WGMMA_ENTRY,
+                   (True, True): K.POOL_COUNT_WGMMA_ENTRY}[pool, counting])
+    assert entries == {want_entry: 1}
+    assert torch.equal(got.cpu(), want)
+    if counting:
+        assert int(n) == int(n_want) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_per_column_forms_take_a_model_table(cuda):
+    """The table ``acc_shift_table`` makes once is read as given (no table
+    made per call), and a table or counter of the wrong kind raises."""
+    x, w, b = (t.to(cuda) for t in _conv3x3_args((2, 26, 26, 128, 256)))
+    sw = _pc_sw(np.random.default_rng(0), 128, 256, "mixed")
+    kw = dict(PC_KW, sw=sw, rounding="nearest")
+    table = K.acc_shift_table(sw, 4, 11, "nearest", 256, cuda)
+    K.reset_shift_table_count()
+    got = K.int8_conv3x3_requant(x, w, b, shifts=table, **kw)
+    assert K.shift_table_count() == 0
+    assert torch.equal(got.cpu(), K.int8_conv3x3_requant_plain(
+        x.cpu(), w.cpu(), b.cpu(), **kw))
+    with pytest.raises(ValueError, match="shift table"):
+        K.int8_conv3x3_requant(x, w, b, shifts=table[:128], **kw)
+    with pytest.raises(ValueError, match="shift table"):
+        K.int8_conv3x3_requant(x, w, b, shifts=table.cpu(), **kw)
+    with pytest.raises(ValueError, match="overflow counter"):
+        K.int8_conv3x3_requant(x, w, b, **kw,
+                               overflow=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="C_out"):
+        K.int8_conv3x3_requant(x, w, b, **dict(kw, sw=sw[:255]))
+
+
+@pytest.mark.cuda
+def test_cuda_other_routes_refuse_per_channel_sw(cuda):
+    """The stride-2 form, the s2d layout and the general conv keep one
+    shift per layer."""
+    x, w, b = (t.to(cuda) for t in _conv3x3_args((1, 14, 14, 32, 64)))
+    sw = np.full(64, 12, np.int32)
+    with pytest.raises(ValueError, match="per-channel"):
+        K.int8_conv_requant(x, w, b, padding=1, stride=2, **PC_KW, sw=sw)
+    with pytest.raises(ValueError, match="per-channel"):
+        K.int8_conv_requant(x, w, b, padding=1, stride=1, **PC_KW, sw=sw)
+    x3 = torch.zeros((1, 10, 10, 12), dtype=torch.int8, device=cuda)
+    w3 = torch.zeros((3, 3, 3, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="per-channel"):
+        K.int8_conv3x3_pool_s2d(x3, w3, b[:16], c_in=3, **PC_KW,
+                                sw=np.full(16, 12, np.int32))

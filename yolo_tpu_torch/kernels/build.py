@@ -97,7 +97,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn, argtypes in (
-                ("yolo_int8_conv3x3_requant", [vp] * 4 + [i] * 11 + [vp]),
+                ("yolo_int8_conv3x3_requant", [vp] * 6 + [i] * 11 + [vp]),
                 ("yolo_int8_conv_requant", [vp] * 6 + [i] * 15 + [vp]),
                 ("yolo_int8_res_block", [vp] * 6 + [i] * 15 + [vp]),
                 ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp]),
@@ -108,6 +108,12 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_conv3x3_pool_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_conv3x3_cols_wgmma", [vp] * 5 + [i] * 9 + [vp]),
+                ("yolo_int8_conv3x3_pool_cols_wgmma",
+                 [vp] * 5 + [i] * 9 + [vp]),
+                ("yolo_int8_conv3x3_count_wgmma", [vp] * 6 + [i] * 8 + [vp]),
+                ("yolo_int8_conv3x3_pool_count_wgmma",
+                 [vp] * 6 + [i] * 8 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma", [vp] * 4 + [i] * 9 + [vp]),

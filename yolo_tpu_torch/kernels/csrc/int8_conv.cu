@@ -221,10 +221,15 @@ extern "C" {
 // out: int8 [B, H, W, Cout], or [B, H/2, W/2, Cout] with pool. H and W are
 // even with pool or s2d. x is 4-byte aligned with s2d, else 16-byte aligned
 // when C_in % 16 == 0; w is 4-byte aligned, out 16-byte aligned;
-// B * H * W < 2^31. Returns cudaGetLastError() after the launch.
+// B * H * W < 2^31. shifts (nullable, not with s2d): int32 [>= Cout], each
+// column's accumulator shift in place of acc_shift (int8_conv.py's
+// acc_shift_table); overflow (nullable, not with s2d): an int32 to which
+// the outputs outside int16 after that shift and the bias are added,
+// before the pool. Returns cudaGetLastError() after the launch.
 int yolo_int8_conv3x3_requant(const void* x, const void* w,
-                              const void* bias_rt, void* out, int B, int H,
-                              int W, int Cin, int Cout, int acc_shift,
+                              const void* bias_rt, void* out,
+                              const void* shifts, void* overflow, int B,
+                              int H, int W, int Cin, int Cout, int acc_shift,
                               int out_shift, int leaky, int nearest, int pool,
                               int s2d, void* stream) {
   const int8_t* xi = static_cast<const int8_t*>(x);
@@ -235,13 +240,15 @@ int yolo_int8_conv3x3_requant(const void* x, const void* w,
   // slope 0.125 = 8192 / 2^16; no activation = slope 1
   const Requant rq{out_shift, leaky ? 8192 : 65536, nearest};
   if (s2d) {
-    if (!pool) return (int)cudaErrorInvalidValue;
+    if (!pool || shifts != nullptr || overflow != nullptr)
+      return (int)cudaErrorInvalidValue;
     const int rc = dispatch_pool_s2d(xi, wi, bi, oi, B, H, W, Cin, Cout,
                                      acc_shift, rq, st);
     if (rc != 0) return rc;
   } else {
     ConvArgs a{{xi, nullptr}, {wi, nullptr}, {Cin, 0}, {acc_shift, 0}, 1,
-               bi, oi, B, H, W, H, W, Cout, 1, 1, rq};
+               bi, oi, B, H, W, H, W, Cout, 1, 1, rq,
+               static_cast<const int*>(shifts), static_cast<int*>(overflow)};
     if (pool)
       dispatch_conv<true>(a, Cin % 16 == 0, st);
     else

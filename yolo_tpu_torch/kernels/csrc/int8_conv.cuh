@@ -36,7 +36,10 @@
 //
 // The requant epilogue mirrors yolo_tpu/quant/fixed_point.py::_shift
 // exactly, including shifts >= 32 (nearest -> 0, floor -> v >> 31) and
-// negative (exact left) shifts; int32 adds wrap as XLA's do.
+// negative (exact left) shifts; int32 adds wrap as XLA's do. One epilogue
+// form takes, at run time, a nullable per-column shift table (a
+// per-channel sw: slim's conv1 on NHWC input, C_in 3, runs here) and a
+// nullable overflow counter (int8_forward_diagnostics).
 
 #pragma once
 
@@ -58,6 +61,12 @@ struct ConvArgs {
   int8_t* out;         // [B, Ho, Wo, Cout], or pooled [B, Ho/2, Wo/2, Cout]
   int B, H, W, Ho, Wo, Cout, stride, pad;
   Requant rq;
+  // nullable: one accumulator shift per output column in place of
+  // acc_shift (a per-channel sw; int8_conv.py's acc_shift_table, one
+  // input part), and an int32 to which the outputs outside int16 after
+  // the shift and the bias are added (before any pool)
+  const int* shifts;
+  int* overflow;
 };
 
 // The pooled form asks for three blocks per SM (at most 85 registers): the
@@ -177,6 +186,41 @@ conv_requant_kernel(ConvArgs a) {
     gemm_mainloop<BN>(acc, smem, K, load_a, bt, wm0, wn0);
   }
   const int last_shift = TWO ? a.acc_shift[1] : a.acc_shift[0];
+  // each of this thread's columns' accumulator shift, read once: the
+  // layer's, or the column's table entry
+  int col_shift[T::NF][2];
+#pragma unroll
+  for (int nf = 0; nf < T::NF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = n0 + wn0 + 8 * nf + 2 * tig + e;
+      col_shift[nf][e] =
+          a.shifts != nullptr && co < a.Cout ? a.shifts[co] : last_shift;
+    }
+  if (a.overflow != nullptr) {
+    // every conv output at the retune scale, before the pool: one count
+    // per warp, one atomic
+    int cnt = 0;
+#pragma unroll
+    for (int mf = 0; mf < T::MF; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < T::NF; ++nf)
+#pragma unroll
+        for (int hrow = 0; hrow < 2; ++hrow)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long row = row0 + wm0 + 16 * mf + gid + 8 * hrow;
+            const int co = n0 + wn0 + 8 * nf + 2 * tig + e;
+            if (row >= rows || co >= a.Cout) continue;
+            int v = shift_i32(acc[mf][nf][2 * hrow + e], col_shift[nf][e],
+                              nr);
+            if (TWO && split) v = add_wrap(v, sum[mf][nf][2 * hrow + e]);
+            v = add_wrap(v, a.bias_rt[co]);
+            cnt += (unsigned)v + 32768u > 65535u;
+          }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0 && cnt != 0) atomicAdd(a.overflow, cnt);
+  }
 
   // ---- epilogue: [pool max on int32] + requant into a staged int8 tile,
   // then 16-byte stores. Fragment layout: acc[.][.][0..1] at row gid,
@@ -206,7 +250,7 @@ conv_requant_kernel(ConvArgs a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int co = n0 + cl + e;
-          int v = shift_i32(c[2 * hrow + e], last_shift, nr);
+          int v = shift_i32(c[2 * hrow + e], col_shift[nf][e], nr);
           if (TWO && split) v = add_wrap(v, sum[mf][nf][2 * hrow + e]);
           stage[ol * BN + cl + e] =
               co < a.Cout ? a.rq(add_wrap(v, a.bias_rt[co])) : (int8_t)0;

@@ -90,6 +90,18 @@
 //
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32 and s < 0.
+//
+// The conv and pooled forms also run with one accumulator shift per output
+// column (Cols::column: a per-channel sw, quantize_model(per_channel=True)
+// of the JAX package; every slim layer but conv1 on NHWC input), read
+// from a table beside the bias, an int2 per column pair, each Shift made
+// in registers from its entry (column_shift: the
+// table, made on the host, already maps _shift_arr onto _shift), and
+// with them counting the outputs that hit the int16 clamp (Cols::count:
+// int8_forward_diagnostics; the pooled form counts each window's four
+// values before its max), each warp's count summed by one shuffle
+// reduction and added by one atomic. Both are template forms: the scalar
+// instantiations are those of before.
 
 #include "int8_wgmma_conv.cuh"
 
@@ -111,6 +123,11 @@ struct ConvCfg {
 
 // the kernel's forms: the conv, its pooled form, its stride-2 form
 enum class Form { conv, pool, s2 };
+// its accumulator shifts: one for the layer (Epi's), one per output column
+// from a shift table (a per-channel sw), or per column counting the values
+// that reach the int16 clamp (int8_forward_diagnostics; the general shift
+// form only); the conv and pooled forms only
+enum class Cols { scalar, column, count };
 
 struct Conv3Args {
   const int8_t* x;  // [B, H, W, Cin]
@@ -123,6 +140,11 @@ struct Conv3Args {
   int TH, TW;    // output tile (the edge tiles may be smaller)
   int stages;    // ring depth, 3..MAX_STAGES
   Epi epi;
+  // Cols::column, count: the accumulator shift table ([Cout rounded up to
+  // 128], int8_conv.py's acc_shift_table, 0 past Cout), and with count
+  // the int32 the block's counts are added to
+  const int* shifts;
+  int* overflow;
 };
 
 // staging byte of (row, column) of the pooled form's 16 x BN tile: the
@@ -133,13 +155,16 @@ __device__ __forceinline__ int pool_stg_at(int row, int col) {
   return row * BN + ((((col >> 4) ^ row) & (BN / 16 - 1)) << 4) + (col & 15);
 }
 
-template <int BN, bool SHORT, Form F>
+template <int BN, bool SHORT, Form F, Cols C>
 __global__ void __launch_bounds__(ConvCfg<BN>::THREADS,
                                   ConvCfg<BN>::MIN_BLOCKS)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   using Cfg = ConvCfg<BN>;
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   constexpr bool POOL = F == Form::pool, S2 = F == Form::s2;
+  constexpr bool COUNT = C == Cols::count;
+  static_assert(C == Cols::scalar || !S2, "stride 2 takes one shift");
+  static_assert(!COUNT || !SHORT, "counting takes the general shifts");
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
@@ -264,10 +289,15 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
 
   // ---- 2. the 3x3 over the tile, 3. requant
   int8_t* stg = stg_all + wg * STG_BYTES;
+  const bool nearest = a.epi.rnd != 0;
+  int cnt = 0;  // Cols::count: values outside int16, this thread's
   int i = 0;
   for (int c = 0; c < nc; ++c) {
     bool active;
     const int8_t* arow;
+    // Cols::count: whether each of this thread's accumulator rows is a
+    // pixel of the image (the pooled form: whether its pooled pixel is)
+    int rv[2] = {0, 0};
     // output byte offsets of the 16-byte chunks this thread copies out, or
     // -1 outside the image (the pooled form: one chunk)
     long long obase[2];
@@ -286,6 +316,12 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       constexpr int NCH = BN / 16;
       const int qq = q0 + ltid / NCH;
       const int oy = qq / PW, ox = qq - oy * PW;
+      if constexpr (COUNT) {
+        // the accumulator rows g, g + 8 of pooled pixel 4 warp + g / 2
+        const int qa = q0 + warp * 4 + (gid >> 1);
+        const int ay = qa / PW, ax = qa - ay * PW;
+        rv[0] = rv[1] = qa < Q && ay < th / 2 && ax < tw / 2;
+      }
       obase[0] = ltid < 16 * NCH && oy < th / 2 && ox < tw / 2
                      ? ((long long)b * (a.H / 2) * (a.W / 2) +
                         (long long)(ty0 / 2 + oy) * (a.W / 2) + tx0 / 2 +
@@ -302,6 +338,14 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       if (r >= P) r = 0;
       const int py = r / a.TW, px = r - py * a.TW;
       arow = xt + ((S2 ? 2 * py : py) * HW + px) * S + 16 * (lane >> 4);
+      if constexpr (COUNT) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pa = p0 + warp * 16 + gid + 8 * h;
+          const int ay = pa / a.TW, ax = pa - ay * a.TW;
+          rv[h] = pa < P && ay < th && ax < tw;
+        }
+      }
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int po = p0 + ((ltid + 128 * q) >> 2);
@@ -379,6 +423,28 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
         const int row = warp * 4 + (gid >> 1);
 #pragma unroll
         for (int h = 0; h < BN / 16; ++h) {
+          if constexpr (COUNT) {
+            // the four values of each window, before its max: n8 groups
+            // 2h and 2h + 1 (this thread's dx), rows g and g + 8 (dy)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int cc = n * BN + 16 * h + 8 * jj + 2 * tig;
+              const int2 bb = *reinterpret_cast<const int2*>(a.bias + cc);
+              const int2 sc =
+                  __ldg(reinterpret_cast<const int2*>(a.shifts + cc));
+              const Shift s0 = column_shift<false>(sc.x, nearest);
+              const Shift s1 = column_shift<false>(sc.y, nearest);
+#pragma unroll
+              for (int r2 = 0; r2 < 2; ++r2) {
+                const int* u = &acc[8 * h + 4 * jj + 2 * r2];
+                if (rv[0])
+                  cnt += out_of_int16((int)((unsigned)s0.apply<false>(u[0]) +
+                                            (unsigned)bb.x)) +
+                         out_of_int16((int)((unsigned)s1.apply<false>(u[1]) +
+                                            (unsigned)bb.y));
+              }
+            }
+          }
           int v[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -390,9 +456,20 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
           const int cl = 16 * h + 8 * odd + 2 * tig;
           const int2 bias =
               *reinterpret_cast<const int2*>(a.bias + n * BN + cl);
-          *reinterpret_cast<uint16_t*>(stg + pool_stg_at<BN>(row, cl)) =
-              pack2(a.epi.apply<SHORT>(v[0], bias.x),
-                    a.epi.apply<SHORT>(v[1], bias.y));
+          uint16_t* dst =
+              reinterpret_cast<uint16_t*>(stg + pool_stg_at<BN>(row, cl));
+          if constexpr (C == Cols::scalar) {
+            *dst = pack2(a.epi.apply<SHORT>(v[0], bias.x),
+                         a.epi.apply<SHORT>(v[1], bias.y));
+          } else {
+            const int2 sc =
+                __ldg(reinterpret_cast<const int2*>(a.shifts + n * BN + cl));
+            *dst = pack2(
+                a.epi.apply<SHORT>(column_shift<SHORT>(sc.x, nearest), v[0],
+                                   bias.x),
+                a.epi.apply<SHORT>(column_shift<SHORT>(sc.y, nearest), v[1],
+                                   bias.y));
+          }
         }
         named_sync(2 + wg, 128);
         constexpr int NCH = BN / 16;
@@ -422,13 +499,35 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             const int cl = 8 * j + 2 * tig;
             const int2 bias =
                 *reinterpret_cast<const int2*>(a.bias + col0 + cl);
+            if constexpr (C == Cols::scalar) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int* v = &acc[4 * (8 * pass + j) + 2 * h];
-              *reinterpret_cast<uint16_t*>(
-                  stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
-                  pack2(a.epi.apply<SHORT>(v[0], bias.x),
-                        a.epi.apply<SHORT>(v[1], bias.y));
+              for (int h = 0; h < 2; ++h) {
+                const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+                *reinterpret_cast<uint16_t*>(
+                    stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                    pack2(a.epi.apply<SHORT>(v[0], bias.x),
+                          a.epi.apply<SHORT>(v[1], bias.y));
+              }
+            } else {
+              // this column pair's shifts, read through the read-only
+              // cache (2-5% faster than as the bias is read, on an H100)
+              const int2 sc =
+                  __ldg(reinterpret_cast<const int2*>(a.shifts + col0 + cl));
+              const Shift s0 = column_shift<SHORT>(sc.x, nearest);
+              const Shift s1 = column_shift<SHORT>(sc.y, nearest);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+                if (COUNT && rv[h])
+                  cnt += out_of_int16((int)((unsigned)s0.apply<false>(v[0]) +
+                                            (unsigned)bias.x)) +
+                         out_of_int16((int)((unsigned)s1.apply<false>(v[1]) +
+                                            (unsigned)bias.y));
+                *reinterpret_cast<uint16_t*>(
+                    stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                    pack2(a.epi.apply<SHORT>(s0, v[0], bias.x),
+                          a.epi.apply<SHORT>(s1, v[1], bias.y));
+              }
             }
           }
           named_sync(2 + wg, 128);
@@ -454,6 +553,11 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       }
     }
   }
+  if constexpr (COUNT) {
+    // one atomic per warp
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0 && cnt != 0) atomicAdd(a.overflow, cnt);
+  }
 }
 
 // The form's layout for an H x W image whose taps hold CK channels: the
@@ -475,7 +579,7 @@ TilePlan plan(int H, int W, int CK, int Cout) {
 constexpr int INFO_LEN = 10;
 
 // Launches the form, or with `info` reports its layout there instead.
-template <int BN, bool SHORT, Form F>
+template <int BN, bool SHORT, Form F, Cols C>
 int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   using Cfg = ConvCfg<BN>;
   const TilePlan p = plan<BN, F>(a.H, a.W, a.CK, a.Cout);
@@ -485,13 +589,13 @@ int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   a.stages = p.stages;
   a.SL = p.slab;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<BN, SHORT, F>,
+      conv3x3_wgmma<BN, SHORT, F, C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv3x3_wgmma<BN, SHORT, F>, Cfg::THREADS, p.smem);
+        &blocks, conv3x3_wgmma<BN, SHORT, F, C>, Cfg::THREADS, p.smem);
     if (err != cudaSuccess) return (int)err;
     const int pixels = a.TH * a.TW;
     // 64 rows per step: 64 pixels, or the 4 pixels of 16 pooled ones
@@ -514,20 +618,21 @@ int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   const int OW = F == Form::s2 ? (a.W + 1) / 2 : a.W;
   const long long ntiles =
       (long long)((OH + a.TH - 1) / a.TH) * ((OW + a.TW - 1) / a.TW);
-  conv3x3_wgmma<BN, SHORT, F>
+  conv3x3_wgmma<BN, SHORT, F, C>
       <<<(unsigned)(a.B * ntiles), Cfg::THREADS, p.smem, st>>>(tm_w, a);
   return (int)cudaGetLastError();
 }
 
 // the 128-column form where Cout fills it, else the 64-column one, or in
 // the pooled form the 32-column one where Cout <= 32
-template <bool SHORT, Form F>
+template <bool SHORT, Form F, Cols C = Cols::scalar>
 int dispatch(const Conv3Args& a, const void* wp, int* info,
              cudaStream_t st) {
-  if (a.Cout % 128 == 0) return launch_form<128, SHORT, F>(a, wp, info, st);
+  if (a.Cout % 128 == 0)
+    return launch_form<128, SHORT, F, C>(a, wp, info, st);
   if constexpr (F == Form::pool)
-    if (a.Cout <= 32) return launch_form<32, SHORT, F>(a, wp, info, st);
-  return launch_form<64, SHORT, F>(a, wp, info, st);
+    if (a.Cout <= 32) return launch_form<32, SHORT, F, C>(a, wp, info, st);
+  return launch_form<64, SHORT, F, C>(a, wp, info, st);
 }
 
 bool bad_shape(int H, int W, int Cin, int Cout, Form f) {
@@ -563,6 +668,33 @@ int run(const void* x, const void* wp, const void* bias_rt, void* out, int B,
   if (short_shift(acc_shift) && short_shift(out_shift))
     return dispatch<true, F>(a, wp, nullptr, st);
   return dispatch<false, F>(a, wp, nullptr, st);
+}
+
+// The per-column (C = column) and counting (C = count) forms: the
+// accumulator shift of each output column from the table `shifts`; the
+// short shift form where every entry and out_shift lie in [0, 31]
+// (short_cols: the entries, checked by the caller), never when counting.
+template <Form F, Cols C>
+int run_cols(const void* x, const void* wp, const void* bias_rt,
+             const void* shifts, void* out, void* overflow, int B, int H,
+             int W, int Cin, int Cout, int short_cols, int out_shift,
+             int slope_num, int nearest, void* stream) {
+  if (bad_shape(H, W, Cin, Cout, F) || B < 1 || shifts == nullptr ||
+      (C == Cols::count) != (overflow != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Conv3Args a = base_args(H, W, Cin, Cout);
+  a.x = static_cast<const int8_t*>(x);
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.B = B;
+  a.epi = make_epi(0, out_shift, slope_num, nearest != 0);
+  a.shifts = static_cast<const int*>(shifts);
+  a.overflow = static_cast<int*>(overflow);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (C == Cols::column)
+    if (short_cols && short_shift(out_shift))
+      return dispatch<true, F, C>(a, wp, nullptr, st);
+  return dispatch<false, F, C>(a, wp, nullptr, st);
 }
 
 template <Form F>
@@ -618,6 +750,62 @@ int yolo_int8_conv3x3_s2_wgmma(const void* x, const void* wp,
                                void* stream) {
   return run<Form::s2>(x, wp, bias_rt, out, B, H, W, Cin, Cout, acc_shift,
                        out_shift, slope_num, nearest, stream);
+}
+
+// The conv with one accumulator shift per output column (a per-channel
+// sw): as yolo_int8_conv3x3_wgmma, with shifts: int32 [Cout rounded up to
+// 128], each column's shift as _shift reads it (int8_conv.py's
+// acc_shift_table), 0 past Cout, 8-byte aligned; short_cols: every entry
+// in [0, 31].
+int yolo_int8_conv3x3_cols_wgmma(const void* x, const void* wp,
+                                 const void* bias_rt, const void* shifts,
+                                 void* out, int B, int H, int W, int Cin,
+                                 int Cout, int short_cols, int out_shift,
+                                 int slope_num, int nearest, void* stream) {
+  return run_cols<Form::conv, Cols::column>(
+      x, wp, bias_rt, shifts, out, nullptr, B, H, W, Cin, Cout, short_cols,
+      out_shift, slope_num, nearest, stream);
+}
+
+// The same for the pooled form.
+int yolo_int8_conv3x3_pool_cols_wgmma(const void* x, const void* wp,
+                                      const void* bias_rt,
+                                      const void* shifts, void* out, int B,
+                                      int H, int W, int Cin, int Cout,
+                                      int short_cols, int out_shift,
+                                      int slope_num, int nearest,
+                                      void* stream) {
+  return run_cols<Form::pool, Cols::column>(
+      x, wp, bias_rt, shifts, out, nullptr, B, H, W, Cin, Cout, short_cols,
+      out_shift, slope_num, nearest, stream);
+}
+
+// The conv with per-column shifts (as yolo_int8_conv3x3_cols_wgmma) that
+// also adds to *overflow (int32) how many of its outputs, after the
+// accumulator shift and the bias, lie outside int16 (the values the
+// requant clamps).
+int yolo_int8_conv3x3_count_wgmma(const void* x, const void* wp,
+                                  const void* bias_rt, const void* shifts,
+                                  void* out, void* overflow, int B, int H,
+                                  int W, int Cin, int Cout, int out_shift,
+                                  int slope_num, int nearest, void* stream) {
+  return run_cols<Form::conv, Cols::count>(
+      x, wp, bias_rt, shifts, out, overflow, B, H, W, Cin, Cout, 0,
+      out_shift, slope_num, nearest, stream);
+}
+
+// The same for the pooled form, which counts all four values of each 2x2
+// window, before the pool.
+int yolo_int8_conv3x3_pool_count_wgmma(const void* x, const void* wp,
+                                       const void* bias_rt,
+                                       const void* shifts, void* out,
+                                       void* overflow, int B, int H, int W,
+                                       int Cin, int Cout, int out_shift,
+                                       int slope_num, int nearest,
+                                       void* stream) {
+  return run_cols<Form::pool, Cols::count>(
+      x, wp, bias_rt, shifts, out, overflow, B, H, W, Cin, Cout, 0,
+      out_shift, slope_num, nearest, stream);
 }
 
 // The kernel's layout for an H x W x Cin -> Cout conv: info[0..9] = tile

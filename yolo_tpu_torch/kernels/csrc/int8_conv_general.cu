@@ -74,7 +74,7 @@ int yolo_int8_conv_requant(const void* x0, const void* w0, const void* x1,
              static_cast<const int*>(bias_rt),
              static_cast<int8_t*>(out),
              B, H, W, Ho, Wo, Cout, stride, pad,
-             Requant{out_shift, slope_num, nearest}};
+             Requant{out_shift, slope_num, nearest}, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ks == 1)
     dispatch_general<1>(a, vec16, st);

@@ -3,7 +3,7 @@
 // (int8_conv3x3_wgmma.cu), the thin-input entry convs
 // (int8_entry_conv.cu) and the 1x1 conv (int8_conv1x1_wgmma.cu): the
 // requant epilogue with its shifts set up on
-// the host, the 64 x 64 staging tile of a consumer warpgroup, the RS
+// the host (or, per column, from a shift table), the 64 x 64 staging tile of a consumer warpgroup, the RS
 // wgmma of a 3x3 phase, the 16-byte cp.async, and the planners of a
 // block's output tile and ring.
 //
@@ -60,6 +60,30 @@ Shift make_shift(int s, bool nearest) {
 
 bool short_shift(int s) { return s >= 0 && s < 32; }
 
+// The accumulator Shift of one output column, from its entry c of a
+// per-column shift table (int8_conv.py's acc_shift_table: c in [-32, 32],
+// the per-channel sw's _shift_arr semantics already mapped onto _shift's),
+// as make_shift(c, nearest) makes it, built in the kernel per column pair:
+// registers cannot hold the Shifts of a tile's columns. SHORT: every entry
+// of the table in [0, 31] (no left shift, no mask).
+template <bool SHORT>
+__device__ __forceinline__ Shift column_shift(int c, bool nearest) {
+  if constexpr (SHORT) {
+    const int a = nearest ? (int)((1u << c) >> 1) : 0;
+    return Shift{0, a, a != 0 ? -1 : 0, c, -1};
+  }
+  const int r = min(max(c, 0), 31);
+  const int a = nearest ? (int)((1u << r) >> 1) : 0;
+  const bool zero = c <= -32 || (nearest && c >= 32);
+  return Shift{min(max(-c, 0), 31), a, a != 0 ? -1 : 0, r, zero ? 0 : -1};
+}
+
+// 1 where the int32 v lies outside int16 (a value the requant clamps:
+// int8_forward_diagnostics counts them), else 0
+__device__ __forceinline__ int out_of_int16(int v) {
+  return (unsigned)v + 32768u > 65535u;
+}
+
 // The requant chain of fixed_point._requant from the raw accumulator:
 // shift to the retune scale, add the bias (int32 adds wrap), clamp to
 // int16, LeakyReLU as the Q16 rational (negatives -> shift(v * slope, 16);
@@ -79,6 +103,14 @@ struct Epi {
   template <bool SHORT>
   __device__ __forceinline__ int8_t apply(int v, int bias) const {
     return (int8_t)min(max(unclamped<SHORT>(v, bias), -128), 127);
+  }
+  // the chain with a column's own accumulator shift `sh` in place of
+  // `acc` (a per-channel sw)
+  template <bool SHORT>
+  __device__ __forceinline__ int8_t apply(const Shift& sh, int v,
+                                          int bias) const {
+    return (int8_t)min(max(rest<SHORT>(sh.apply<SHORT>(v), bias), -128),
+                       127);
   }
   // the chain after the accumulator shift, before the int8 clamp, from a
   // value already at the retune scale (the sum of a two-part conv's

@@ -21,7 +21,13 @@ yolo_v3 head's nine 3x3s) launches the wgmma conv of
 kernel's stride-2 form, and every K3 conv with its pool and C_in % 32 == 0
 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2, conv3_2 and
 conv4_2) its pooled form; all three read their weights K-major, packed
-once per model by ``pack_conv3x3_weights``. The two thin-input entry
+once per model by ``pack_conv3x3_weights``. ``int8_conv3x3_requant`` and
+``int8_conv3x3_im2col`` also take a per-channel sw (an int32 [C_out]
+array) and an overflow counter: the stride-1 and pooled forms and the
+mma.sync conv then read a per-column shift table (``acc_shift_table``,
+made once per model by ``fixed_point.Int8Model.pack_conv3x3``), the
+counting ones add to the counter. Every other wrapper refuses a
+per-channel sw on a CUDA tensor. The two thin-input entry
 convs run on the row-streaming wgmma kernels of
 ``csrc/int8_entry_conv.cu``: K2 on the s2d layout with C_in <= 4 and
 C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
@@ -73,8 +79,105 @@ def _check_scalar_shifts(**shifts):
     for k, v in shifts.items():
         if np.ndim(v):
             raise ValueError(
-                f"{k} must be a scalar: the kernels' epilogue takes one "
-                f"shift per layer (per-channel sw is not ported yet)")
+                f"{k} must be a scalar: this kernel's epilogue takes one "
+                f"shift per layer (per-channel sw runs only in "
+                f"int8_conv3x3_requant and int8_conv3x3_im2col)")
+
+
+def _sw_ok(sw, c_out) -> bool:
+    """A scalar sw, or a per-channel one: 1-D, ``c_out`` long."""
+    return np.ndim(sw) == 0 or (np.ndim(sw) == 1 and c_out is not None
+                                and len(sw) == c_out)
+
+
+def _check_sw(sw, c_out):
+    if not _sw_ok(sw, c_out):
+        raise ValueError(f"sw must be a scalar or a per-channel int array "
+                         f"of length C_out = {c_out}, got shape "
+                         f"{np.shape(sw)}")
+
+
+# ---------------------------------------------------------------------------
+# Per-column accumulator shift tables and overflow counters.
+# ---------------------------------------------------------------------------
+
+
+# the shift-table entry whose shift gives 0 (nearest) or v >> 31 (floor),
+# and -SHIFT_CODE_MAX the one whose left shift gives 0
+SHIFT_CODE_MAX = 32
+TABLE_ALIGN = 128  # tables are padded as the biases are, to whole tiles
+
+
+def acc_shift_codes(sw, sa_in, retune, rounding, c_out) -> np.ndarray:
+    """Each output column's accumulator shift sw + sa_in - retune as the
+    entry the kernels' shift reads (``_shift`` of that entry, the scalar
+    semantics of ``fixed_point._shift``): int32 [C_out], in [-32, 32].
+
+    A per-channel ``sw`` follows ``fixed_point._shift_arr``: there a
+    shift of 31 or more gives 0 under nearest (the scalar ``_shift``
+    gives (v + 2^30 - (v < 0)) >> 31 at 31), so such columns get entry
+    32; left shifts of 32 or more give 0 (entry -32). A scalar ``sw``
+    keeps ``_shift``'s semantics in every column."""
+    _check_rounding(rounding)
+    s = np.asarray(sw, np.int64) + int(sa_in) - int(retune)
+    if s.ndim and rounding == "nearest":
+        s = np.where(s >= 31, SHIFT_CODE_MAX, s)
+    s = np.clip(s, -SHIFT_CODE_MAX, SHIFT_CODE_MAX)
+    return np.broadcast_to(s, (c_out,)).astype(np.int32)
+
+
+def short_columns(codes) -> bool:
+    """Whether every entry lies in [0, 31], where the kernels' short shift
+    form (no left shift, no mask) gives the entry's shift."""
+    codes = np.asarray(codes)
+    return bool(((codes >= 0) & (codes <= 31)).all())
+
+
+def acc_shift_table(sw, sa_in, retune, rounding, c_out,
+                    device) -> torch.Tensor:
+    """The per-column shift table the conv3x3 kernels read where ``sw`` is
+    per-channel or overflows are counted: ``acc_shift_codes`` as int32
+    [C_out rounded up to 128] on ``device``, 0 past C_out (a zero
+    accumulator stays 0). Made once per model and layer by
+    ``Int8Model.pack_conv3x3``; a wrapper given none makes one per
+    call."""
+    table = np.zeros(-(-c_out // TABLE_ALIGN) * TABLE_ALIGN, np.int32)
+    table[:c_out] = acc_shift_codes(sw, sa_in, retune, rounding, c_out)
+    _PACKS["shift_table"] += 1
+    return torch.as_tensor(table).to(device)
+
+
+def shift_table_count() -> int:
+    """Calls of ``acc_shift_table`` since the last reset."""
+    return _PACKS["shift_table"]
+
+
+def reset_shift_table_count() -> None:
+    _PACKS["shift_table"] = 0
+
+
+def _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev):
+    """``shifts`` checked, or a table made for this call where None."""
+    if shifts is None:
+        return acc_shift_table(sw, sa_in, retune, rounding, c_out, dev)
+    need = -(-c_out // TABLE_ALIGN) * TABLE_ALIGN
+    if (shifts.dtype != torch.int32 or shifts.device != dev
+            or shifts.ndim != 1 or shifts.shape[0] < need
+            or not shifts.is_contiguous()):
+        raise ValueError(f"the shift table must be a contiguous int32 "
+                         f"[>= {need}] tensor on {dev}, got {shifts.dtype} "
+                         f"{list(shifts.shape)} on {shifts.device}")
+    _aligned("the shift table", shifts, 8)
+    return shifts
+
+
+def _check_counter(overflow, dev):
+    if (overflow.dtype != torch.int32 or overflow.device != dev
+            or overflow.numel() != 1):
+        raise ValueError(f"the overflow counter must be one int32 on {dev},"
+                         f" got {overflow.dtype} {list(overflow.shape)} on "
+                         f"{overflow.device}")
+    _aligned("the overflow counter", overflow, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -102,12 +205,13 @@ def _conv_acc(xp: torch.Tensor, w_q: torch.Tensor,
 
 
 def _plain_conv_requant(xp, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
-                        leaky, pool, rounding):
+                        leaky, pool, rounding, overflow=None):
     acc = _conv_acc(xp, w_q)
     out = fp._requant(acc, _bias_at_retune(b_q, sb, retune, rounding),
-                      acc_shift=sa_in + sw - retune,
+                      acc_shift=sa_in + np.asarray(sw) - retune
+                      if np.ndim(sw) else sa_in + sw - retune,
                       out_shift=retune - sa_out, leaky=leaky,
-                      rounding=rounding)
+                      rounding=rounding, overflow=overflow)
     return fp._maxpool_int(out) if pool else out
 
 
@@ -116,18 +220,26 @@ def _pad1(x_q: torch.Tensor) -> torch.Tensor:
 
 
 def int8_conv3x3_requant_plain(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
-                               retune, leaky=True, rounding="nearest"):
+                               retune, leaky=True, rounding="nearest",
+                               overflow=None):
+    """``sw``: an int or a per-channel int32 [C_out] array (``fixed_point.
+    _shift_arr``); ``overflow``: an int32 counter to which the values
+    outside int16 after the accumulator shift and the bias are added."""
     return _plain_conv_requant(_pad1(x_q), w_q, b_q, sw=sw, sb=sb,
                                sa_in=sa_in, sa_out=sa_out, retune=retune,
-                               leaky=leaky, pool=False, rounding=rounding)
+                               leaky=leaky, pool=False, rounding=rounding,
+                               overflow=overflow)
 
 
 def int8_conv3x3_im2col_plain(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
                               retune, leaky=True, pool=False,
-                              rounding="nearest"):
+                              rounding="nearest", overflow=None):
+    """As ``int8_conv3x3_requant_plain``; with ``pool`` the counter counts
+    every conv output before the pool."""
     return _plain_conv_requant(_pad1(x_q), w_q, b_q, sw=sw, sb=sb,
                                sa_in=sa_in, sa_out=sa_out, retune=retune,
-                               leaky=leaky, pool=pool, rounding=rounding)
+                               leaky=leaky, pool=pool, rounding=rounding,
+                               overflow=overflow)
 
 
 def int8_conv3x3_pool_requant_plain(x_q, w_q, b_q, *, sw, sb, sa_in,
@@ -219,18 +331,29 @@ def _aligned(name, t, align):
 
 
 def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
-            sa_out, retune, leaky, rounding) -> torch.Tensor:
+            sa_out, retune, leaky, rounding, shifts=None,
+            overflow=None) -> torch.Tensor:
     """Check the operands and launch the conv3x3 kernel on the current
     stream, counting the launch under ``kernel``; returns the int8 output.
-    Raises on anything the kernel does not take and on a failed launch."""
+    A per-channel ``sw`` or an ``overflow`` counter (int32, which the
+    kernel adds to) runs the epilogue on a per-column shift table
+    (``shifts``, made for this call where None), but not on the s2d
+    layout. Raises on anything the kernel does not take and on a failed
+    launch."""
     _check_rounding(rounding)
     _check_leaky_flag(leaky)
-    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
-                         retune=retune)
+    _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
     dev = x.device
     if x.dtype != torch.int8 or not x.is_contiguous():
         raise ValueError("x must be a contiguous int8 tensor")
     c_out = w_q.shape[-1]
+    _check_sw(sw, c_out)
+    cols = bool(np.ndim(sw)) or overflow is not None
+    if s2d and cols:
+        raise ValueError("the s2d-layout kernel phase-packs C_out: it takes "
+                         "neither a per-channel sw nor an overflow counter")
+    if overflow is not None:
+        _check_counter(overflow, dev)
     _check_operand("w_q", w_q, dev, torch.int8, (3, 3, c_in, c_out))
     if tuple(b_q.shape) != (c_out,) or b_q.device != dev:
         raise ValueError(f"b_q must be [{c_out}] on {dev}")
@@ -249,10 +372,15 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
         return out
     _aligned("the output allocation", out, 16)
     bias_rt = _bias_at_retune(b_q, sb, retune, rounding)
+    table = (_table_for(shifts, sw, sa_in, retune, rounding, c_out, dev)
+             if cols else None)
     launch(kernel, "yolo_int8_conv3x3_requant", dev,
            x.data_ptr(), w_c.data_ptr(), bias_rt.data_ptr(), out.data_ptr(),
-           bsz, h, w, c_in, c_out, sa_in + sw - retune, retune - sa_out,
-           int(leaky), int(rounding == "nearest"), int(pool), int(s2d))
+           0 if table is None else table.data_ptr(),
+           0 if overflow is None else overflow.data_ptr(),
+           bsz, h, w, c_in, c_out, 0 if cols else sa_in + sw - retune,
+           retune - sa_out, int(leaky), int(rounding == "nearest"),
+           int(pool), int(s2d))
     return out
 
 
@@ -262,31 +390,41 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
 
 
 def int8_conv3x3_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
-                         leaky=True, rounding="nearest", packed=None):
+                         leaky=True, rounding="nearest", packed=None,
+                         shifts=None, overflow=None):
     """Fused int8 conv3x3(stride 1, pad 1) + requant: int8 [B,H,W,C_in]
     at scale 2^sa_in -> int8 [B,H,W,C_out] at scale 2^sa_out.
 
-    ``packed``: the weights from ``pack_conv3x3_weights`` (then ``w_q``
-    may be None). On a CUDA tensor with C_in % 32 == 0 the wgmma kernel
-    reads that form; given only the HWIO weights it packs them for this
-    call. The CPU route reads the HWIO weights where given."""
+    ``sw``: an int, or a per-channel int32 [C_out] array (``fixed_point.
+    _shift_arr``). ``packed``: the weights from ``pack_conv3x3_weights``
+    (then ``w_q`` may be None). On a CUDA tensor with C_in % 32 == 0 the
+    wgmma kernel reads that form; given only the HWIO weights it packs
+    them for this call. ``shifts``: the per-column table of
+    ``acc_shift_table`` that the kernels read for a per-channel ``sw`` or
+    when counting (made for this call where None). ``overflow``: an int32
+    counter on the input's device to which the values outside int16 after
+    the accumulator shift and the bias are added (``int8_forward_
+    diagnostics``). The CPU route reads the HWIO weights where given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     if route(x_q) == "plain":
         return int8_conv3x3_requant_plain(
-            x_q, _hwio(w_q, packed, x_q.shape[-1]), b_q, **kw)
+            x_q, _hwio(w_q, packed, x_q.shape[-1]), b_q, overflow=overflow,
+            **kw)
     b, h, w, c_in = x_q.shape
-    if conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw):
+    if conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw, c_out=b_q.shape[0]):
         _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_requant", x_q, w_q, b_q,
-                                     packed, **kw)
+                                     packed, shifts=shifts,
+                                     overflow=overflow, **kw)
     return _launch("int8_conv3x3_requant", x_q, _hwio(w_q, packed, c_in),
-                   b_q, h=h, w=w, c_in=c_in, pool=False, s2d=False, **kw)
+                   b_q, h=h, w=w, c_in=c_in, pool=False, s2d=False,
+                   shifts=shifts, overflow=overflow, **kw)
 
 
 def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                         leaky=True, pool=False, rounding="nearest",
-                        packed=None):
+                        packed=None, shifts=None, overflow=None):
     """Fused int8 conv3x3(s1, p1) + requant [+ 2x2/2 max pool, taken on the
     int32 accumulator before requant: exact, the chain is monotone].
 
@@ -294,21 +432,25 @@ def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     may be None). On a CUDA tensor a pooled conv that
     ``conv3x3_pool_wgmma_route`` takes runs the wgmma kernel's pooled form,
     which reads that form (packed for this call where only the HWIO
-    weights are given). The CPU route reads the HWIO weights where
+    weights are given). ``sw``, ``shifts`` and ``overflow`` as in
+    ``int8_conv3x3_requant``; with ``pool`` the counter counts every conv
+    output before the pool. The CPU route reads the HWIO weights where
     given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     c_in = x_q.shape[-1]
     if route(x_q) == "plain":
         return int8_conv3x3_im2col_plain(x_q, _hwio(w_q, packed, c_in), b_q,
-                                         pool=pool, **kw)
-    if pool and conv3x3_pool_wgmma_route(c_in, sw):
+                                         pool=pool, overflow=overflow, **kw)
+    if pool and conv3x3_pool_wgmma_route(c_in, sw, c_out=b_q.shape[0]):
         _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
-                                     packed, form="pool", **kw)
+                                     packed, form="pool", shifts=shifts,
+                                     overflow=overflow, **kw)
     b, h, w, _ = x_q.shape
     return _launch("int8_conv3x3_im2col", x_q, _hwio(w_q, packed, c_in), b_q,
-                   h=h, w=w, c_in=c_in, pool=pool, s2d=False, **kw)
+                   h=h, w=w, c_in=c_in, pool=pool, s2d=False, shifts=shifts,
+                   overflow=overflow, **kw)
 
 
 def int8_conv3x3_pool_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
@@ -357,6 +499,9 @@ def int8_conv3x3_pool_s2d(x2, w_q, b_q, *, c_in, sw, sb, sa_in, sa_out,
     if x2.ndim != 4 or x2.shape[-1] != 4 * c_in:
         raise ValueError(f"s2d input must be [B, H/2+3, W/2+3, {4 * c_in}], "
                          f"got {tuple(x2.shape)}")
+    # the phase-packed form has 4 * C_out columns (as in the JAX package,
+    # which runs per-channel sw only on its plain conv path)
+    _check_scalar_shifts(sw=sw)
     c_out = b_q.shape[0]
     if route(x2) == "plain":
         return int8_conv3x3_pool_s2d_plain(
@@ -512,6 +657,7 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     if route(parts[0][0]) == "plain":
         return int8_conv_requant_plain(parts, w_q, b_q, sa_in=None,
                                        packed=packed, **kw)
+    _check_scalar_shifts(sw=sw)
     k = _kernel_size(w_q, packed, sum(cins))
     if conv1x1_wgmma_route(k, stride, padding, len(parts), cins, sw):
         return _launch_conv1x1_wgmma(parts, w_q, b_q, packed, sw=sw, sb=sb,
@@ -541,22 +687,34 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
 
 
 # the wgmma conv3x3 kernel's C entries, by form: the conv, its pooled form
-# and its stride-2 form
+# and its stride-2 form; the first two also with a per-column shift table
+# (cols) and counting the values that hit the int16 clamp (count)
 WGMMA_ENTRY = "yolo_int8_conv3x3_wgmma"
 POOL_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_wgmma"
 S2_WGMMA_ENTRY = "yolo_int8_conv3x3_s2_wgmma"
+COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_cols_wgmma"
+POOL_COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_cols_wgmma"
+COUNT_WGMMA_ENTRY = "yolo_int8_conv3x3_count_wgmma"
+POOL_COUNT_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_count_wgmma"
 _ENTRY_OF = {"conv": WGMMA_ENTRY, "pool": POOL_WGMMA_ENTRY,
              "s2": S2_WGMMA_ENTRY}
+_COLS_ENTRY_OF = {"conv": COLS_WGMMA_ENTRY, "pool": POOL_COLS_WGMMA_ENTRY}
+_COUNT_ENTRY_OF = {"conv": COUNT_WGMMA_ENTRY, "pool": POOL_COUNT_WGMMA_ENTRY}
+# the mma.sync conv3x3's C entry (K1 at C_in % 32 != 0, K3 at C_in = 3:
+# slim's conv1 on NHWC input)
+MMA_SYNC_ENTRY = "yolo_int8_conv3x3_requant"
 
 
-def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
+def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw,
+                        c_out=None) -> bool:
     """True where a conv on a CUDA tensor runs on the wgmma conv3x3 kernel
     (``csrc/int8_conv3x3_wgmma.cu``): a 3x3, stride 1, pad 1, one input
-    part of C_in % 32 == 0 channels, a scalar ``sw``. ``int8_conv3x3_
-    requant`` and ``int8_conv_requant`` send such convs there and every
-    other to the mma.sync conv kernel."""
+    part of C_in % 32 == 0 channels, a scalar ``sw`` or a per-channel one
+    of ``c_out`` entries. ``int8_conv3x3_requant`` sends such convs there
+    and every other to the mma.sync conv kernel; ``int8_conv_requant``
+    takes a scalar ``sw`` only."""
     return (k == 3 and stride == 1 and padding == 1 and nparts == 1
-            and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
+            and c_in > 0 and c_in % 32 == 0 and _sw_ok(sw, c_out))
 
 
 def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
@@ -570,15 +728,16 @@ def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
             and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
 
 
-def conv3x3_pool_wgmma_route(c_in, sw) -> bool:
+def conv3x3_pool_wgmma_route(c_in, sw, c_out=None) -> bool:
     """True where ``int8_conv3x3_im2col(pool=True)`` on a CUDA tensor runs
     the wgmma conv3x3 kernel's pooled form (``csrc/int8_conv3x3_wgmma.cu``):
     C_in % 32 == 0, or C_in == 16 (zero-extended to 32 channels in the
     kernel's halo tile and in the packed weights: slim's conv2), and a
-    scalar ``sw``; H and W even, as every pooled conv. Every other pooled
-    conv runs the mma.sync conv kernel."""
+    scalar ``sw`` or a per-channel one of ``c_out`` entries; H and W even,
+    as every pooled conv. Every other pooled conv runs the mma.sync conv
+    kernel."""
     return ((c_in == 16 or (c_in > 0 and c_in % 32 == 0))
-            and np.ndim(sw) == 0)
+            and _sw_ok(sw, c_out))
 
 
 def _pack3x3(w_q: torch.Tensor, pad32: bool = False) -> torch.Tensor:
@@ -712,23 +871,29 @@ _LAYOUT_OF = {"conv": conv3x3_wgmma_layout,
 
 
 def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
-                          sa_out, retune, leaky, rounding,
-                          form="conv") -> torch.Tensor:
+                          sa_out, retune, leaky, rounding, form="conv",
+                          shifts=None, overflow=None) -> torch.Tensor:
     """Check the operands and launch the wgmma conv3x3 kernel in ``form``
     ("conv", "pool": its pooled form, "s2": its stride-2 form) on the
     current stream, counting the launch under ``name``; packs ``w_q`` for
-    this call where ``packed`` is None. Raises on anything the form does
-    not take and on a failed launch."""
+    this call where ``packed`` is None. The conv and pooled forms also
+    take a per-channel ``sw`` (their per-column instantiations) and an
+    ``overflow`` counter (their counting ones), both on a per-column shift
+    table (``shifts``, made for this call where None). Raises on anything
+    the form does not take and on a failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
-    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
-                         retune=retune)
+    _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
+    if form == "s2":
+        _check_scalar_shifts(sw=sw)
+        if overflow is not None:
+            raise ValueError("the stride-2 form counts no overflow")
     dev = x.device
     if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
     bsz, h, w, c_in = x.shape
     if form == "pool":
-        if not conv3x3_pool_wgmma_route(c_in, sw):
+        if not conv3x3_pool_wgmma_route(c_in, 0):
             raise ValueError(f"the pooled conv3x3 wgmma kernel needs C_in % "
                              f"32 == 0 or C_in == 16, got {c_in}")
         if h % 2 or w % 2:
@@ -748,6 +913,9 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
+    _check_sw(sw, c_out)
+    if overflow is not None:
+        _check_counter(overflow, dev)
     ho, wo = {"conv": (h, w), "pool": (h // 2, w // 2),
               "s2": ((h + 1) // 2, (w + 1) // 2)}[form]
     out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
@@ -755,14 +923,30 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
         return out
     _LAYOUT_OF[form](h, w, c_in, c_out)  # raises where no tile fits
     _aligned("the output allocation", out, 16)
-    # the kernel reads bias pairs of whole 32-, 64- or 128-column tiles
+    # the kernel reads bias (and shift) pairs of whole 32-, 64- or
+    # 128-column tiles
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
                           device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch(name, _ENTRY_OF[form], dev,
+    nearest = int(rounding == "nearest")
+    if overflow is None and not np.ndim(sw):
+        launch(name, _ENTRY_OF[form], dev,
+               x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
+               out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
+               retune - sa_out, num, nearest)
+        return out
+    table = _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev)
+    if overflow is not None:
+        launch(name, _COUNT_ENTRY_OF[form], dev,
+               x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
+               table.data_ptr(), out.data_ptr(), overflow.data_ptr(), bsz, h,
+               w, c_in, c_out, retune - sa_out, num, nearest)
+        return out
+    codes = acc_shift_codes(sw, sa_in, retune, rounding, c_out)
+    launch(name, _COLS_ENTRY_OF[form], dev,
            x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
-           retune - sa_out, num, int(rounding == "nearest"))
+           table.data_ptr(), out.data_ptr(), bsz, h, w, c_in, c_out,
+           int(short_columns(codes)), retune - sa_out, num, nearest)
     return out
 
 
@@ -788,7 +972,7 @@ def unpack_res_block_weights(packed):
 
 # packings made since the last reset (serving packs once per model)
 _PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0,
-          "conv1x1": 0}
+          "conv1x1": 0, "shift_table": 0}
 
 
 def res_block_pack_count() -> int:

@@ -1,9 +1,11 @@
 """Carry an integer model across from the JAX package, and save / load it.
 
 ``int8_model_from_numpy`` takes the fields of a ``yolo_tpu`` ``Int8Model``
-after ``jax.device_get`` (numpy arrays and ints) and returns the port's
-``Int8Model``; the npz round trip stores the same fields under
-``<field>.<layer>`` keys. ``int8_yolo_v3_from_numpy`` and its npz round
+after ``jax.device_get`` (numpy arrays and ints; a per-channel sw as an
+int32 [C_out] array) and returns the port's ``Int8Model``; the npz round
+trip stores the same fields under ``<field>.<layer>`` keys.
+``int8_model_from_seed`` rebuilds the per-channel slim golden fixture's
+model from its seed and tables. ``int8_yolo_v3_from_numpy`` and its npz round
 trip do the same for ``Int8YoloV3``, whose per-conv lists are keyed by
 conv index. Layouts stay the JAX package's (HWIO weights).
 """
@@ -11,12 +13,17 @@ conv index. Layouts stay the JAX package's (HWIO weights).
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from yolo_tpu_torch.quant.fixed_point import Int8Model, resolve_device
+from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS
+from yolo_tpu_torch.quant.fixed_point import (
+    INT8_MAX, INT8_MIN, Int8Model, resolve_device)
+from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES
+from yolo_tpu_torch.quant.quantize import quantize_pow2_np
 
 _TABLES = ("sw", "sb", "sa", "retune")
 
@@ -78,6 +85,76 @@ def save_int8_model_npz(path, m: Int8Model, **extra: np.ndarray) -> None:
 def load_int8_model_npz(path, device="cuda") -> Int8Model:
     with np.load(path) as z:
         return int8_model_from_arrays({k: z[k] for k in z.files}, device)
+
+
+def slim_seeded_fused_params(seed: int, pred_out: int) -> dict:
+    """BN-fused float slim_yolo_v2 params {layer: {'w': HWIO, 'b':
+    [C_out]}} (the tree ``fold_batch_norm`` returns), drawn from
+    ``np.random.default_rng(seed)`` layer by layer with the kaiming-uniform
+    bounds of ``blocks.init_conv`` (torch's nn.Conv2d defaults), each
+    output channel's weights then scaled by 2^-u, u drawn per channel from
+    {0, 1, 2, 3}: channels whose pow2 exponents differ, so that a
+    per-channel sw holds several values (uniform random weights give every
+    channel the per-tensor exponent)."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, c_in, c_out, _ in CONV_LAYERS + (("pred", 256, pred_out,
+                                                 False),):
+        fan_in = 9 * c_in
+        bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
+        b_bound = 1.0 / math.sqrt(fan_in)
+        w = rng.uniform(-bound, bound, (3, 3, c_in, c_out)).astype(np.float32)
+        b = rng.uniform(-b_bound, b_bound, (c_out,)).astype(np.float32)
+        u = rng.integers(0, 4, c_out)
+        params[name] = {"w": w * np.exp2(-u).astype(np.float32), "b": b}
+    return params
+
+
+def quantize_slim_weights(fused: Mapping, per_channel: bool = False):
+    """Per layer the int8 weights, int8-valued int32 biases and their pow2
+    exponents, as the JAX package's ``fixed_point.quantize_model``
+    computes them (8-bit; ``per_channel``: one weight exponent per output
+    channel, an int32 [C_out] array) -> (w_q, b_q, sw, sb) dicts."""
+    w_q, b_q, sw, sb = {}, {}, {}, {}
+    for name in QUANT_LAYER_NAMES:
+        wq, sw[name] = quantize_pow2_np(fused[name]["w"], 8,
+                                        channel_axis=-1 if per_channel
+                                        else None)
+        bq, sb[name] = quantize_pow2_np(fused[name]["b"], 8)
+        w_q[name] = np.clip(wq, INT8_MIN, INT8_MAX).astype(np.int8)
+        b_q[name] = np.clip(bq, INT8_MIN, INT8_MAX).astype(np.int32)
+    return w_q, b_q, sw, sb
+
+
+def int8_model_from_seed(arrays: Mapping[str, np.ndarray],
+                         device="cuda") -> Int8Model:
+    """The per-channel slim golden fixture's model: int8 weights rebuilt
+    from the seed it names (``slim_seeded_fused_params`` +
+    ``quantize_slim_weights``), checked against its ``wb_sha256``, with
+    its calibrated tables (its ``sw.<layer>``, ``sb``, ``sa``, ``retune``
+    keys)."""
+    fused = slim_seeded_fused_params(int(arrays["weight_seed"]),
+                                     int(arrays["pred_out"]))
+    w_q, b_q, sw, sb = quantize_slim_weights(
+        fused, per_channel=bool(arrays["per_channel"]))
+    names = list(QUANT_LAYER_NAMES)
+    digest = weights_sha256([w_q[n] for n in names], [b_q[n] for n in names])
+    if digest != str(arrays["wb_sha256"]):
+        raise ValueError(f"the weights rebuilt from seed "
+                         f"{int(arrays['weight_seed'])} do not match the "
+                         f"fixture: sha256 {digest} != "
+                         f"{arrays['wb_sha256']}")
+    m = int8_model_from_arrays(
+        {**{k: v for k, v in arrays.items()
+            if k.partition(".")[0] in _TABLES},
+         **{f"w_q.{n}": w_q[n] for n in names},
+         **{f"b_q.{n}": b_q[n] for n in names}}, device)
+    for n in names:
+        if (not np.array_equal(np.asarray(m.sw[n]), np.asarray(sw[n]))
+                or m.sb[n] != sb[n]):
+            raise ValueError(f"the fixture's sw / sb of {n} differ from the "
+                             f"rebuilt weights' exponents")
+    return m
 
 
 # ---------------------------------------------------------------------------

@@ -52,37 +52,62 @@ class Int8Model:
     # conv1's weights phase-packed for K2's wgmma kernel on the s2d layout
     # (``pack_pool_s2d_weights``), made once by ``pack_conv3x3``
     s2d_packed: Optional[torch.Tensor] = None
+    # {rounding: {layer name: its per-column accumulator shift table}}
+    # (``acc_shift_table``), which the kernels read for a per-channel sw
+    # and when counting overflows, made once by ``pack_conv3x3``
+    shift_tables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
     def to(self, device) -> "Int8Model":
-        """The same model with its tensors on ``device``."""
+        """The same model with its tensors, packed ones and shift tables
+        included, on ``device``."""
+        def moved(d):
+            return None if d is None else {k: v.to(device)
+                                           for k, v in d.items()}
+
         return Int8Model(
-            w_q={k: v.to(device) for k, v in self.w_q.items()},
-            b_q={k: v.to(device) for k, v in self.b_q.items()},
+            w_q=moved(self.w_q), b_q=moved(self.b_q),
             sw=dict(self.sw), sb=dict(self.sb), sa=dict(self.sa),
-            retune=dict(self.retune),
-            packed=None if self.packed is None else
-            {k: v.to(device) for k, v in self.packed.items()},
+            retune=dict(self.retune), packed=moved(self.packed),
             s2d_packed=None if self.s2d_packed is None else
-            self.s2d_packed.to(device))
+            self.s2d_packed.to(device),
+            shift_tables=None if self.shift_tables is None else
+            {r: moved(t) for r, t in self.shift_tables.items()})
+
+    @property
+    def per_channel(self) -> bool:
+        """Whether any layer's sw is per-channel."""
+        return any(np.ndim(s) for s in self.sw.values())
+
+    def layer_shifts(self, i: int, name: str) -> dict:
+        """Layer ``name``'s (the ``i``-th) sw, sb, sa_in, sa_out, retune:
+        ints, sw a per-channel int32 array where it is one."""
+        sw = self.sw[name]
+        return dict(sw=np.asarray(sw, np.int32) if np.ndim(sw) else int(sw),
+                    sb=int(self.sb[name]),
+                    sa_in=int(self.sa[TRACKER_NAMES[i]]),
+                    sa_out=int(self.sa[TRACKER_NAMES[i + 1]]),
+                    retune=int(self.retune[name]))
 
     def pack_conv3x3(self) -> None:
         """Pack once the weights of every layer that ``int8_forward`` runs
         on the wgmma conv3x3 kernel (``int8_conv3x3_requant`` layers that
         ``conv3x3_wgmma_route`` takes, pooled ``int8_conv3x3_im2col``
         layers that ``conv3x3_pool_wgmma_route`` takes) into ``packed``,
-        and conv1's for K2's wgmma kernel on the s2d input
-        (``pool_s2d_wgmma_route``) into ``s2d_packed``, so the forward
-        never packs."""
+        conv1's for K2's wgmma kernel on the s2d input
+        (``pool_s2d_wgmma_route``, a scalar sw only) into ``s2d_packed``,
+        and every layer's per-column shift table, for both roundings, into
+        ``shift_tables``, so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv3x3_pool_wgmma_route, conv3x3_wgmma_route,
+            acc_shift_table, conv3x3_pool_wgmma_route, conv3x3_wgmma_route,
             pack_conv3x3_weights, pack_pool_s2d_weights,
             pool_s2d_wgmma_route)
 
         def routed(name):
-            c_in, sw = self.w_q[name].shape[2], self.sw[name]
+            _, _, c_in, c_out = self.w_q[name].shape
+            sw = self.sw[name]
             if name in POOLED:
-                return conv3x3_pool_wgmma_route(c_in, sw)
-            return conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw)
+                return conv3x3_pool_wgmma_route(c_in, sw, c_out=c_out)
+            return conv3x3_wgmma_route(3, 1, 1, 1, c_in, sw, c_out=c_out)
 
         self.packed = {name: pack_conv3x3_weights(self.w_q[name])
                        for name in QUANT_LAYER_NAMES if routed(name)}
@@ -91,6 +116,15 @@ class Int8Model:
             pack_pool_s2d_weights(w1) if pool_s2d_wgmma_route(
                 w1.shape[2], w1.shape[3], self.sw[QUANT_LAYER_NAMES[0]])
             else None)
+        dev = w1.device
+        self.shift_tables = {}
+        for rounding in ("nearest", "floor"):
+            tables = self.shift_tables[rounding] = {}
+            for i, name in enumerate(QUANT_LAYER_NAMES):
+                p = self.layer_shifts(i, name)
+                tables[name] = acc_shift_table(
+                    p["sw"], p["sa_in"], p["retune"], rounding,
+                    self.w_q[name].shape[-1], dev)
 
 
 def resolve_device(device) -> torch.device:
@@ -164,12 +198,18 @@ def _leaky_int_slope(v: torch.Tensor, slope: float,
     return torch.where(v >= 0, v, neg.to(v.dtype))
 
 
-def _requant(acc: torch.Tensor, bias_rt: torch.Tensor, *, acc_shift: int,
-             out_shift: int, leaky, rounding: str) -> torch.Tensor:
+def _requant(acc: torch.Tensor, bias_rt: torch.Tensor, *, acc_shift,
+             out_shift: int, leaky, rounding: str,
+             overflow: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The requant chain on an int32 accumulator whose bias is already at
-    the retune scale -> int8. ``leaky``: False, True (0.125) or a float
-    slope."""
+    the retune scale -> int8. ``acc_shift``: an int or a per-channel
+    array; ``leaky``: False, True (0.125) or a float slope; ``overflow``:
+    an int32 counter to which the values that hit the int16 clamp are
+    added (``int8_forward_diagnostics``)."""
     acc = _shift(acc, acc_shift, rounding) + bias_rt
+    if overflow is not None:
+        overflow += ((acc > INT16_MAX) | (acc < INT16_MIN)).sum().to(
+            overflow.dtype)
     acc = torch.clamp(acc, INT16_MIN, INT16_MAX)
     if leaky:
         acc = _leaky_int_slope(acc, 0.125 if leaky is True else float(leaky),
@@ -345,6 +385,40 @@ def int_upsample2x_ac(x_q: torch.Tensor,
     return torch.clamp(r, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+def _forward(m: Int8Model, x_q: torch.Tensor, rounding: str,
+             input_s2d: bool, counts: Optional[torch.Tensor] = None):
+    """``int8_forward``'s walk; with ``counts`` (int32 [10]) each layer's
+    kernel adds its overflow count to its entry."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    if input_s2d and m.per_channel:
+        raise ValueError(
+            "per-channel weight scales run on the plain NHWC conv path only "
+            "(the s2d form phase-packs C_out, as in the JAX package); "
+            "rebuild the detect fn without input_s2d")
+    tables = (m.shift_tables or {}).get(rounding, {})
+    out = x_q
+    for i, name in enumerate(QUANT_LAYER_NAMES):
+        kw = dict(m.layer_shifts(i, name), leaky=(name != "pred"),
+                  rounding=rounding)
+        if input_s2d and i == 0:
+            out = int8_conv_pool_s2d_core(out, m.w_q[name], m.b_q[name],
+                                          c_in=3, packed=m.s2d_packed, **kw)
+            continue
+        if counts is not None:
+            kw["overflow"] = counts[i:i + 1]
+        if counts is not None or np.ndim(kw["sw"]):
+            kw["shifts"] = tables.get(name)
+        if name in POOLED:
+            fn, kw["pool"] = K.int8_conv3x3_im2col, True
+        else:
+            fn = K.int8_conv3x3_requant
+        out = fn(out, m.w_q[name], m.b_q[name],
+                 packed=(m.packed or {}).get(name), **kw)
+    # dequantize the head to float for decode
+    return out.to(torch.float32) * (2.0 ** -m.sa["pred"])
+
+
 def int8_forward(m: Int8Model, x_q: torch.Tensor,
                  rounding: str = "nearest",
                  input_s2d: bool = False) -> torch.Tensor:
@@ -355,32 +429,27 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
     (int8_conv3x3_pool_s2d, with ``m.s2d_packed``); every other pool
     layer runs int8_conv3x3_im2col(pool=True); the rest
     int8_conv3x3_requant; both with the weights of ``m.packed``; each
-    packed form where ``pack_conv3x3`` made it.
+    packed form where ``pack_conv3x3`` made it. A per-channel sw (an int32
+    [C_out] array, ``fixed_point.quantize_model(per_channel=True)`` of
+    the JAX package) runs on NHWC input only, as in the JAX package
+    (ValueError with ``input_s2d``), its layers on the per-column shift
+    tables of ``m.shift_tables``.
     """
-    from yolo_tpu_torch.kernels import int8_conv as K
+    return _forward(m, x_q, rounding, input_s2d)
 
-    if any(np.ndim(s) for s in m.sw.values()):
-        raise ValueError(
-            "per-channel weight scales are not supported by the int8 conv "
-            "kernels yet (their epilogue takes one sw per layer)")
-    out = x_q
-    names = list(TRACKER_NAMES)
-    for i, name in enumerate(QUANT_LAYER_NAMES):
-        kw = dict(sw=int(m.sw[name]), sb=int(m.sb[name]),
-                  sa_in=int(m.sa[names[i]]), sa_out=int(m.sa[names[i + 1]]),
-                  retune=int(m.retune[name]), leaky=(name != "pred"),
-                  rounding=rounding)
-        if input_s2d and i == 0:
-            out = int8_conv_pool_s2d_core(out, m.w_q[name], m.b_q[name],
-                                          c_in=3, packed=m.s2d_packed, **kw)
-        elif name in POOLED:
-            out = K.int8_conv3x3_im2col(out, m.w_q[name], m.b_q[name],
-                                        pool=True,
-                                        packed=(m.packed or {}).get(name),
-                                        **kw)
-        else:
-            out = K.int8_conv3x3_requant(out, m.w_q[name], m.b_q[name],
-                                         packed=(m.packed or {}).get(name),
-                                         **kw)
-    # dequantize the head to float for decode
-    return out.to(torch.float32) * (2.0 ** -m.sa["pred"])
+
+def int8_forward_diagnostics(m: Int8Model, x_q: torch.Tensor,
+                             rounding: str = "nearest"):
+    """int8 NHWC input [B, H, W, 3] -> (head, {layer: int32 count}): the
+    forward of ``int8_forward`` on the same routes, each layer counting the
+    accumulator values that hit the int16 clamp this batch, as the JAX
+    package's ``int8_forward_diagnostics`` counts them: every conv output
+    after the accumulator shift and the bias, before the clamp and before
+    any pool. Any nonzero count means the retune table is too aggressive
+    for this input. On a CUDA tensor the counting kernels add to one int32
+    counter per layer on the card (the counts are 0-d int32 tensors
+    there); the CPU route counts in the plain versions."""
+    counts = torch.zeros(len(QUANT_LAYER_NAMES), dtype=torch.int32,
+                         device=x_q.device)
+    head = _forward(m, x_q, rounding, input_s2d=False, counts=counts)
+    return head, dict(zip(QUANT_LAYER_NAMES, counts))

@@ -40,9 +40,17 @@ def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the layers that run the wgmma conv3x3 kernel,
     and conv1's for K2's wgmma kernel on the s2d input, are packed there
-    once (the CPU route reads the HWIO weights); the
-    images are moved there per call if they are elsewhere. Raises if
-    ``device`` is CUDA and there is none."""
+    once, with every layer's per-column shift table (the CPU route reads
+    the HWIO weights and the exponents); the
+    images are moved there per call if they are elsewhere. A model with
+    per-channel weight scales serves NHWC input only: ValueError with
+    ``input_s2d``, as the JAX package refuses it. Raises if ``device`` is
+    CUDA and there is none."""
+    if input_s2d and m.per_channel:
+        raise ValueError(
+            "per-channel weight scales run on the plain NHWC conv path only "
+            "(the s2d form phase-packs C_out, as in the JAX package); "
+            "build the detect fn without input_s2d")
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
     if dev.type == "cuda":
