@@ -27,13 +27,17 @@ raises and the script exits nonzero:
    tiles and width chunks, each from HWIO and from packed weights (phase
    4 checks them again at the serving batch);
 3. the golden fixture (``yolo_tpu_torch/data/slim_int8_416_golden.npz``,
-   made by the JAX package): the int8 head bit-exact, classes and valid
-   exact, boxes and scores allclose (atol = rtol = 1e-5);
+   made by the JAX package): the int8 head bit-exact, on the s2d input
+   and on the same images' NHWC layout (conv1 then on the NHWC form of
+   K2's wgmma kernel), classes and valid exact, boxes and scores allclose
+   (atol = rtol = 1e-5);
 4. serving: batch 256 through ``make_int8_detect_fn``, timed, with the
    launch counts of each kernel checked (per forward: K2 once, on its
    wgmma kernel, K3 3 times, all 3 on the wgmma conv3x3's pooled form, K1
    6 times, all 6 on the wgmma conv3x3) and the weights of those 10
-   layers packed when the detect fn took the model, never in the loop;
+   layers (and conv1's NHWC form) packed when the detect fn took the
+   model, never in the loop; then the same on the images' NHWC layout,
+   conv1 once on the NHWC form of K2's wgmma kernel;
    then each layer's kernel checked against its plain version
    (torch.equal) and both timed at batch 256, beside cuDNN's fp16 conv (a
    speed yardstick only), K1's, K2's and K3's layers also beside the
@@ -98,11 +102,16 @@ raises and the script exits nonzero:
 2c. the per-column forms against their plain versions (torch.equal): the
    wgmma conv3x3's stride-1 form at slim's six K1 widths (pred's 35
    columns included), its pooled form at the three K3 widths, and the
-   mma.sync conv at conv1 (C_in 3, pooled), NHWC, batch 8, both
-   roundings, per-channel sw with >= 3 distinct values and a negative
-   shift, shifts of 31, 33 and -40 (outside the short form), all in
-   [0, 30] (the short form); and the counting forms (per-channel and
+   NHWC form of K2's wgmma kernel at conv1 (C_in 3, pooled), NHWC, batch
+   8, both roundings, per-channel sw with >= 3 distinct values and a
+   negative shift, shifts of 31, 33 and -40 (outside the short form), all
+   in [0, 30] (the short form); and the counting forms (per-channel and
    scalar sw), their counts equal to the plain versions' and nonzero;
+   then the NHWC form of K2's kernel at edge shapes (rows of W * C_in
+   bytes no 16-byte multiple, C_in 2-4, C_out 16-32, partial row tiles,
+   width chunks) in its scalar form (every shift form, both roundings,
+   leaky on and off, HWIO and packed weights), per-column and counting
+   forms;
 3c. the per-channel golden fixture (``yolo_tpu_torch/data/
    slim_int8_pc_416_golden.npz``: tables, checksum and seeds; the weights
    rebuilt from the seed): the head of 4 NHWC images bit-exact from
@@ -113,27 +122,29 @@ raises and the script exits nonzero:
 4c. per-channel serving: batch 256 of NHWC int8 through
    ``make_int8_detect_fn``, timed as phase 4, per forward 6 launches on
    the per-column stride-1 form, 3 on the per-column pooled form, 1 on
-   the mma.sync conv, the 9 packs and 20 shift tables made when the
-   detect fn took the model, none in the loop; ``int8_forward_diagnostics``
-   timed at batch 256 the same way (6 / 3 / 1 on the counting forms and
-   the mma.sync conv); each layer's per-column and counting kernel checked
-   and timed at batch 256 beside its plain version, cuDNN fp16 and the
-   scalar form at the same shape, with the bound.
+   the per-column NHWC form of K2's wgmma kernel (conv1), none on the
+   mma.sync conv, the 9 + 1 packs and 20 shift tables made when the
+   detect fn took the model, none in the loop;
+   ``int8_forward_diagnostics`` timed at batch 256 the same way (6 / 3 /
+   1 on the counting forms); each layer's per-column, counting and scalar
+   kernel checked and timed at batch 256 beside its plain version and
+   cuDNN fp16, with the bound, conv1's also beside the mma.sync conv it
+   ran on before.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
 and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
 path; its stride-2 form: v3's five downsampling convs) run on wgmma fed
-by a TMA ring (``csrc/int8_wgmma.cuh``); K2 on the s2d input and v3's
-C_in = 3 entry conv on row-streaming wgmma kernels
-(``csrc/int8_entry_conv.cu``); v3's fourteen 1x1s on a wgmma GEMM with
-resident weights (``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
-``csrc/int8_conv.cuh`` serves no layer of either path; it is still held
-to its plain version and timed on the 1x1s; with per-channel sw it runs
-slim's conv1 on NHWC input. The ``kernels`` line has one entry per kernel
-and route: ``int8_conv_requant`` five times; the per-column and counting
-forms (whose launches come from the diagnostics run) and conv1's mma.sync
-route each their own.
+by a TMA ring (``csrc/int8_wgmma.cuh``); K2 on the s2d input, its NHWC
+form (slim's conv1 on NHWC input) and v3's C_in = 3 entry conv on
+row-streaming wgmma kernels (``csrc/int8_entry_conv.cu``); v3's fourteen
+1x1s on a wgmma GEMM with resident weights
+(``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
+``csrc/int8_conv.cuh`` serves no layer of any path; it is still held to
+its plain version and timed on the 1x1s and at conv1 on NHWC input. The
+``kernels`` line has one entry per kernel and route: ``int8_conv_requant``
+five times; the per-column and counting forms (whose launches come from
+the diagnostics run) and conv1's NHWC route each their own.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -169,6 +180,11 @@ POOL_COLS3 = "yolo_int8_conv3x3_pool_cols_wgmma"
 COUNT3 = "yolo_int8_conv3x3_count_wgmma"
 POOL_COUNT3 = "yolo_int8_conv3x3_pool_count_wgmma"
 MMA3 = "yolo_int8_conv3x3_requant"  # the mma.sync conv3x3 (K1-K3)
+# the NHWC form of K2's wgmma kernel (conv1 on NHWC input): its scalar,
+# per-column and counting C entries
+POOL_NHWC = "yolo_int8_pool_nhwc_wgmma"
+POOL_NHWC_COLS = "yolo_int8_pool_nhwc_cols_wgmma"
+POOL_NHWC_COUNT = "yolo_int8_pool_nhwc_count_wgmma"
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -204,18 +220,26 @@ LINES = {
     "int8_gemm": (
         "int8_gemm", "yolo_int8_gemm", CSRC + "int8_gemm.cu",
         "scripts/bench_int8_ceiling.py:68"),
+    # slim on NHWC input: conv1 (K3 at C_in 3) on the NHWC form of K2's
+    # wgmma kernel, scalar (phase 4's NHWC serving), per-column and
+    # counting (phases 2c-4c)
+    "int8_conv3x3_im2col.pool_nhwc": (
+        "int8_conv3x3_im2col", POOL_NHWC, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
+    "int8_conv3x3_im2col.pool_nhwc_cols": (
+        "int8_conv3x3_im2col", POOL_NHWC_COLS, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
+    "int8_conv3x3_im2col.pool_nhwc_count": (
+        "int8_conv3x3_im2col", POOL_NHWC_COUNT, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/kernels/int8_conv.py:145"),
     # slim with per-channel sw on NHWC input (phases 2c-4c): K1's six
-    # layers and K3's conv2, conv3_2, conv4_2 on the per-column forms,
-    # conv1 (K3 at C_in 3) on the mma.sync conv with its shift table; the
+    # layers and K3's conv2, conv3_2, conv4_2 on the per-column forms; the
     # counting forms in int8_forward_diagnostics
     "int8_conv3x3_requant.cols": (
         "int8_conv3x3_requant", COLS3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/kernels/int8_conv.py:100"),
     "int8_conv3x3_im2col.cols": (
         "int8_conv3x3_im2col", POOL_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
-        "yolo_tpu/kernels/int8_conv.py:145"),
-    "int8_conv3x3_im2col.mma_sync": (
-        "int8_conv3x3_im2col", MMA3, CSRC + "int8_conv.cu",
         "yolo_tpu/kernels/int8_conv.py:145"),
     "int8_conv3x3_requant.count": (
         "int8_conv3x3_requant", COUNT3, CSRC + "int8_conv3x3_wgmma.cu",
@@ -226,7 +250,8 @@ LINES = {
 }
 # the kernels-line entries whose launches come from the diagnostics
 # forward (phase 4c), not from serving
-DIAGNOSTICS_LINES = ("int8_conv3x3_requant.count", "int8_conv3x3_im2col.count")
+DIAGNOSTICS_LINES = ("int8_conv3x3_requant.count", "int8_conv3x3_im2col.count",
+                     "int8_conv3x3_im2col.pool_nhwc_count")
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
@@ -247,6 +272,13 @@ ENTRY_EDGE_SHAPES = [(2, 17, 23, 3, 32), (1, 33, 40, 2, 35),
 # width chunks
 POOL_S2D_EDGE_SHAPES = [(2, 14, 10, 3, 32), (1, 6, 18, 4, 20),
                         (3, 38, 26, 3, 16), (1, 4, 6002, 3, 7)]
+# the NHWC form of K2's wgmma kernel at (B, H, W, C_in, C_out): NHWC rows of
+# W * C_in bytes that are no 16-byte multiple (10 x 3, 22 x 3, 14 x 4, 26 x
+# 2), C_out 20 and 32 (the 128-column form), row tiles that leave a partial
+# tile, width chunks
+POOL_NHWC_EDGE_SHAPES = [(2, 8, 10, 3, 16), (2, 12, 22, 3, 32),
+                         (1, 10, 14, 4, 32), (3, 38, 26, 2, 20),
+                         (1, 4, 6002, 3, 16)]
 # the wgmma 1x1 kernel at (B, H, W, C_in parts, C_out): M not a multiple of
 # its 64-row tile, C_out 21, 24, 35 and 300 (a ragged second column tile),
 # parts of C_in 16, 48 and 80, two-part concats (each case runs at equal
@@ -521,11 +553,23 @@ def phase_kernels(max_err):
     emit("kernels_vs_plain_done", cases=n, max_abs_err=max_err)
 
 
+def nhwc_from_s2d(x2, h, w):
+    """The NHWC images [B, h, w, C] whose padded s2d layout
+    (``fixed_point.s2d_input``) is ``x2``."""
+    b, hb, wb, c4 = x2.shape
+    c = c4 // 4
+    x = x2.reshape(b, hb, wb, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, 2 * hb, 2 * wb, c)[:, 3:3 + h, 3:3 + w].contiguous()
+
+
 def phase_golden():
-    """Golden 416² fixture: head bit-exact, detections (phase 3)."""
+    """Golden 416² fixture: head bit-exact on the s2d input and on the
+    same images' NHWC layout (conv1 on the NHWC form of K2's kernel),
+    detections (phase 3)."""
     from pathlib import Path
 
     from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.kernels import int8_conv as K
     from yolo_tpu_torch.quant import fixed_point as fp
     from yolo_tpu_torch.quant.convert import int8_model_from_arrays
     from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
@@ -545,6 +589,24 @@ def phase_golden():
         raise AssertionError(f"golden head differs: max |diff| "
                              f"{int(diff.max())}, {int((diff > 0).sum())} "
                              f"values")
+    # the same images on NHWC input: conv1 on the NHWC form of K2's kernel
+    x = nhwc_from_s2d(x2, SIZE, SIZE)
+    if not torch.equal(fp.s2d_input(x), x2):
+        raise AssertionError("the golden images' NHWC layout is not the "
+                             "inverse of their s2d layout")
+    m_packed = m.to("cuda")
+    m_packed.pack_conv3x3()
+    K.reset_launch_counts()
+    head_nhwc = fp.int8_forward(m_packed, x, "nearest")
+    want_entries = {"int8_conv3x3_requant": {WGMMA3: 6},
+                    "int8_conv3x3_im2col": {POOL3: 3, POOL_NHWC: 1}}
+    if K.launch_counts_by_entry() != want_entries:
+        raise AssertionError(f"the NHWC golden forward launched "
+                             f"{K.launch_counts_by_entry()}, want "
+                             f"{want_entries}")
+    if not torch.equal(head_nhwc.cpu(), head.cpu()):
+        raise AssertionError("the golden head on NHWC input differs from "
+                             "the s2d input's")
     detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
     boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x2))
     np.testing.assert_array_equal(valid, g["valid"])
@@ -552,6 +614,7 @@ def phase_golden():
     np.testing.assert_allclose(boxes, g["boxes"], atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(scores, g["scores"], atol=1e-5, rtol=1e-5)
     emit("golden", images=int(x2.shape[0]), head_bit_exact=True,
+         nhwc_head_bit_exact=True, nhwc_launches_by_entry=want_entries,
          classes_valid_exact=True,
          boxes_max_abs_diff=float(np.abs(boxes - g["boxes"]).max()),
          scores_max_abs_diff=float(np.abs(scores - g["scores"]).max()),
@@ -559,8 +622,10 @@ def phase_golden():
     return m, cfg
 
 
-def phase_serving(m, cfg, card):
-    """Batch-256 serving through the detect fn, launch counts (phase 4)."""
+def phase_serving(m, cfg, card, input_s2d=True):
+    """Batch-256 serving through the detect fn, launch counts (phase 4):
+    on the s2d input, then on the same images' NHWC layout (conv1 on the
+    NHWC form of K2's wgmma kernel)."""
     from yolo_tpu_torch.kernels import int8_conv as K
     from yolo_tpu_torch.quant import fixed_point as fp
     from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
@@ -568,50 +633,51 @@ def phase_serving(m, cfg, card):
     gen = torch.Generator(device="cuda").manual_seed(1)
     images = torch.rand((BATCH_SERVE, SIZE, SIZE, 3), generator=gen,
                         device="cuda")
-    x2 = fp.s2d_input(fp.quantize_input(images, m.sa["in"])).contiguous()
+    x = fp.quantize_input(images, m.sa["in"]).contiguous()
+    if input_s2d:
+        x = fp.s2d_input(x).contiguous()
     del images
-    K.reset_conv3x3_pack_count()
-    K.reset_pool_s2d_pack_count()
-    detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
-    packs_at_setup = K.conv3x3_pack_count() + K.pool_s2d_pack_count()
-    if K.conv3x3_pack_count() != 9 or K.pool_s2d_pack_count() != 1:
-        raise AssertionError(f"the detect fn packed {K.conv3x3_pack_count()}"
-                             f" K1 and K3 layers and "
-                             f"{K.pool_s2d_pack_count()} K2 layers, want 9 "
-                             f"and 1")
+    resets = (K.reset_conv3x3_pack_count, K.reset_pool_s2d_pack_count,
+              K.reset_pool_nhwc_pack_count)
+
+    def made():
+        return (K.conv3x3_pack_count(), K.pool_s2d_pack_count(),
+                K.pool_nhwc_pack_count())
+
+    for reset in resets:
+        reset()
+    detect = make_int8_detect_fn(m, cfg, input_s2d=input_s2d, device="cuda")
+    packs_at_setup = made()
+    if packs_at_setup != (9, 1, 1):
+        raise AssertionError(f"the detect fn packed {packs_at_setup[0]} K1 "
+                             f"and K3 layers and conv1 {packs_at_setup[1]} "
+                             f"times for K2, {packs_at_setup[2]} times for "
+                             f"its NHWC form, want 9, 1 and 1")
     for _ in range(SERVE_WARMUP):
-        detect(x2)
+        detect(x)
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    K.reset_conv3x3_pack_count()
-    K.reset_pool_s2d_pack_count()
+    for reset in resets:
+        reset()
     t0 = time.perf_counter()
     for _ in range(SERVE_ITERS):
-        out = detect(x2)
+        out = detect(x)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
-    want = dict.fromkeys(K.KERNEL_NAMES, 0)
-    want.update({"int8_conv3x3_pool_requant": SERVE_ITERS,
-                 "int8_conv3x3_im2col": 3 * SERVE_ITERS,
-                 "int8_conv3x3_requant": 6 * SERVE_ITERS})
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, want {want}")
     entries = K.launch_counts_by_entry()
-    if entries["int8_conv3x3_requant"] != {WGMMA3: 6 * SERVE_ITERS}:
-        raise AssertionError(f"K1 launched {entries['int8_conv3x3_requant']}"
-                             f", want all {6 * SERVE_ITERS} on {WGMMA3}")
-    if entries["int8_conv3x3_im2col"] != {POOL3: 3 * SERVE_ITERS}:
-        raise AssertionError(f"K3 launched {entries['int8_conv3x3_im2col']}"
-                             f", want all {3 * SERVE_ITERS} on {POOL3}")
-    if entries["int8_conv3x3_pool_requant"] != {POOL_S2D: SERVE_ITERS}:
-        raise AssertionError(f"K2 launched "
-                             f"{entries['int8_conv3x3_pool_requant']}, want "
-                             f"all {SERVE_ITERS} on {POOL_S2D}")
-    if K.conv3x3_pack_count() or K.pool_s2d_pack_count():
-        raise AssertionError(f"serving packed K1 / K3 weights "
-                             f"{K.conv3x3_pack_count()} times, K2's "
-                             f"{K.pool_s2d_pack_count()} times")
+    n = SERVE_ITERS
+    if input_s2d:
+        want = {"int8_conv3x3_pool_requant": {POOL_S2D: n},
+                "int8_conv3x3_im2col": {POOL3: 3 * n}}
+    else:
+        want = {"int8_conv3x3_im2col": {POOL3: 3 * n, POOL_NHWC: n}}
+    want["int8_conv3x3_requant"] = {WGMMA3: 6 * n}
+    if entries != want:
+        raise AssertionError(f"launches {counts} {entries}, want {want}")
+    if made() != (0, 0, 0):
+        raise AssertionError(f"serving packed weights in the loop: "
+                             f"{made()}")
     boxes, scores, classes, valid = out
     if (tuple(boxes.shape) != (BATCH_SERVE, cfg.top_k, 4)
             or not torch.isfinite(boxes).all()
@@ -620,14 +686,14 @@ def phase_serving(m, cfg, card):
                              "not finite")
     m_packed = m.to("cuda")
     m_packed.pack_conv3x3()  # the weights the detect fn serves
-    head_ms = time_ms(lambda: fp.int8_forward(m_packed, x2, input_s2d=True),
-                      5)
-    emit("serving", batch=BATCH_SERVE, iters=SERVE_ITERS,
-         images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
+    head_ms = time_ms(lambda: fp.int8_forward(m_packed, x,
+                                              input_s2d=input_s2d), 5)
+    emit("serving" if input_s2d else "serving_nhwc", batch=BATCH_SERVE,
+         iters=SERVE_ITERS, images_per_sec=BATCH_SERVE * SERVE_ITERS / dt,
          ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
-         postprocess_ms=postprocess_ms(m_packed, x2, cfg, input_s2d=True),
+         postprocess_ms=postprocess_ms(m_packed, x, cfg, input_s2d=input_s2d),
          launches=counts, launches_by_entry=entries,
-         packs_at_setup=packs_at_setup, packs_in_loop=0, card=card)
+         packs_at_setup=list(packs_at_setup), packs_in_loop=0, card=card)
     return entries
 
 
@@ -1383,7 +1449,8 @@ def phase_v3_times(card_name, max_err):
 def nhwc_layers():
     """(name, H at the layer's input, c_in, c_out, pool, wrapper form) on
     the per-channel path, NHWC input: conv1 too is a pooled
-    ``int8_conv3x3_im2col`` (the mma.sync conv, C_in 3)."""
+    ``int8_conv3x3_im2col`` (the NHWC form of K2's wgmma kernel, C_in
+    3)."""
     return [(name, h, c_in, c_out, pool,
              "im2col_pool" if pool else "requant")
             for name, h, c_in, c_out, pool, _ in slim_layers()]
@@ -1421,49 +1488,100 @@ def pc_shifts(gen, c_in, c_out, case):
 PC_CASES = ("mixed", "short", "count", "count_scalar")
 
 
+def packed_for(w, c_in):
+    """A layer's weights as the serving model packs them: conv1's (C_in
+    <= 4) for the NHWC form of K2's kernel, the others' for the wgmma
+    conv3x3."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    return (K.pack_pool_nhwc_weights(w) if c_in <= 4
+            else K.pack_conv3x3_weights(w))
+
+
+def pc_case(form, x, w, bias, c_in, kw, packed, max_err, case, where):
+    """One per-column or counting case (``kw`` from ``pc_shifts(...,
+    case)``): the kernel from packed weights == its plain version, and
+    counting, the counts equal and nonzero; returns (the kernels-line
+    name, the count or None)."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    counting, what = case.startswith("count"), f"{where} {case}"
+    got_n = (torch.zeros(1, dtype=torch.int32, device="cuda")
+             if counting else None)
+    want_n = torch.zeros_like(got_n) if counting else None
+    K.reset_launch_counts()
+    got = call(form, x, None, bias, c_in, dict(kw, overflow=got_n), packed)
+    torch.cuda.synchronize()
+    k = ran_line()
+    want = plain(form, x, w, bias, c_in, dict(kw, overflow=want_n))
+    check_equal(k, got, want, max_err, what)
+    if not counting:
+        return k, None
+    if int(got_n) != int(want_n) or int(want_n) == 0:
+        raise AssertionError(f"{k} counted {int(got_n)} overflows at {what}, "
+                             f"its plain version {int(want_n)} (want equal "
+                             f"and nonzero)")
+    return k, int(got_n)
+
+
 def phase_pc_kernels(max_err):
     """The per-column and counting forms == their plain versions at slim's
     NHWC layer shapes (phase 2c): K1's six widths (pred's 35 columns
     included) and K3's three on the wgmma conv3x3, conv1 (C_in 3) on the
-    mma.sync conv, both roundings, per-channel sw with >= 3 distinct
-    values, a negative shift, shifts >= 31 and a scalar sw counted; each
-    count equal to the plain version's, and nonzero."""
+    NHWC form of K2's wgmma kernel, both roundings, per-channel sw with >=
+    3 distinct values, a negative shift, shifts >= 31 and a scalar sw
+    counted; each count equal to the plain version's, and nonzero. Then
+    the NHWC form of K2's kernel at edge shapes, in its scalar form
+    (every shift form, both roundings, leaky on and off, from HWIO and
+    from packed weights) and its per-column and counting forms."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     gen = torch.Generator().manual_seed(5)
     n = 0
     for name, h, c_in, c_out, pool, form in nhwc_layers():
         x, w, bias = make_case(gen, BATCH_CHECK, h, c_in, c_out, s2d=False)
-        packed = K.pack_conv3x3_weights(w) if c_in % 16 == 0 else None
+        packed = packed_for(w, c_in)
         counts = []
         for rounding in ("nearest", "floor"):
             for case in PC_CASES:
                 kw = dict(pc_shifts(gen, c_in, c_out, case),
                           leaky=name != "pred", rounding=rounding)
-                counting = case.startswith("count")
-                got_n = (torch.zeros(1, dtype=torch.int32, device="cuda")
-                         if counting else None)
-                want_n = torch.zeros_like(got_n) if counting else None
-                K.reset_launch_counts()
-                got = call(form, x, None if packed is not None else w, bias,
-                           c_in, dict(kw, overflow=got_n), packed)
-                torch.cuda.synchronize()
-                k = ran_line()
-                want = plain(form, x, w, bias, c_in,
-                             dict(kw, overflow=want_n))
-                what = f"{name} {rounding} {case}"
-                check_equal(k, got, want, max_err, what)
-                if counting:
-                    if int(got_n) != int(want_n) or int(want_n) == 0:
-                        raise AssertionError(
-                            f"{k} counted {int(got_n)} overflows at {what}, "
-                            f"its plain version {int(want_n)} (want equal "
-                            f"and nonzero)")
-                    counts.append(int(got_n))
+                k, count = pc_case(form, x, w, bias, c_in, kw, packed,
+                                   max_err, case, f"{name} {rounding}")
+                if count is not None:
+                    counts.append(count)
                 n += 1
         emit("pc_kernels_vs_plain", layer=name, form=form, kernel=k,
              shape=[BATCH_CHECK, h, h, c_in, c_out], equal=True,
              overflow_counts=counts)
+    for bsz, h, w, c_in, c_out in POOL_NHWC_EDGE_SHAPES:
+        x, wt, bias = rand_case(gen, bsz, h, w, c_in, c_out)
+        packed = K.pack_pool_nhwc_weights(wt)
+        for rounding, case, form, leaky in THIN_CASES:
+            kw = dict(shifts(c_in, case), leaky=bool(leaky),
+                      rounding=rounding)
+            K.reset_launch_counts()
+            got = (call("im2col_pool", x, None, bias, c_in, kw, packed)
+                   if form == "packed" else
+                   call("im2col_pool", x, wt, bias, c_in, kw))
+            torch.cuda.synchronize()
+            check_equal(ran_line(), got,
+                        plain("im2col_pool", x, wt, bias, c_in, kw), max_err,
+                        f"NHWC pooled {h}x{w} {c_in}->{c_out} {rounding} "
+                        f"{case} {form} {leaky}")
+            n += 1
+        for i, case in enumerate(PC_CASES):
+            for rounding in ("nearest", "floor"):
+                kw = dict(pc_shifts(gen, c_in, c_out, case),
+                          leaky=i % 2 == 0, rounding=rounding)
+                pc_case("im2col_pool", x, wt, bias, c_in, kw, packed,
+                        max_err, case, f"NHWC pooled {h}x{w} {c_in}->"
+                                       f"{c_out} {rounding}")
+                n += 1
+        lay = K.pool_nhwc_wgmma_layout(h, w, c_in, c_out)
+        emit("pc_kernels_vs_plain", kernel="pooled NHWC wgmma edge shapes",
+             shape=[bsz, h, w, c_in, c_out], tile=[lay.tile_h, lay.tile_w],
+             equal=True)
     emit("pc_kernels_vs_plain_done", cases=n)
 
 
@@ -1554,10 +1672,11 @@ def phase_pc_serving(m, cfg, card):
     """Batch-256 per-channel serving through the detect fn on NHWC int8
     input, then ``int8_forward_diagnostics`` at the same batch (phase 4c):
     per forward 6 launches on the per-column stride-1 form, 3 on the
-    per-column pooled form and 1 (conv1) on the mma.sync conv, the weights
-    and the shift tables made when the detect fn took the model, never in
-    the loop; the diagnostics forward 6 / 3 / 1 on the counting forms and
-    the mma.sync conv, its head equal to the forward's."""
+    per-column pooled form and 1 (conv1) on the per-column NHWC form of
+    K2's wgmma kernel, none on the mma.sync conv, the weights and the
+    shift tables made when the detect fn took the model, never in the
+    loop; the diagnostics forward 6 / 3 / 1 on the counting forms, its
+    head equal to the forward's."""
     from yolo_tpu_torch.kernels import int8_conv as K
     from yolo_tpu_torch.quant import fixed_point as fp
     from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
@@ -1568,21 +1687,22 @@ def phase_pc_serving(m, cfg, card):
     x_q = fp.quantize_input(images, m.sa["in"]).contiguous()
     del images
     resets = (K.reset_conv3x3_pack_count, K.reset_pool_s2d_pack_count,
-              K.reset_shift_table_count)
+              K.reset_pool_nhwc_pack_count, K.reset_shift_table_count)
 
     def made():
         return (K.conv3x3_pack_count(), K.pool_s2d_pack_count(),
-                K.shift_table_count())
+                K.pool_nhwc_pack_count(), K.shift_table_count())
 
     for reset in resets:
         reset()
     detect = make_int8_detect_fn(m, cfg, device="cuda")
     at_setup = made()
-    if at_setup != (9, 0, 20):
+    if at_setup != (9, 0, 1, 20):
         raise AssertionError(f"the per-channel detect fn packed {at_setup[0]}"
-                             f" conv3x3 layers and {at_setup[1]} K2 layers "
-                             f"and made {at_setup[2]} shift tables, want 9, "
-                             f"0 and 20")
+                             f" conv3x3 layers, conv1 {at_setup[1]} times "
+                             f"for K2 and {at_setup[2]} times for its NHWC "
+                             f"form, and made {at_setup[3]} shift tables, "
+                             f"want 9, 0, 1 and 20")
     for _ in range(SERVE_WARMUP):
         detect(x_q)
     torch.cuda.synchronize()
@@ -1596,7 +1716,7 @@ def phase_pc_serving(m, cfg, card):
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
     entries = K.launch_counts_by_entry()
-    if made() != (0, 0, 0):
+    if made() != (0, 0, 0, 0):
         raise AssertionError(f"per-channel serving packed or made tables "
                              f"in the loop: {made()}")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
@@ -1604,7 +1724,7 @@ def phase_pc_serving(m, cfg, card):
                  "int8_conv3x3_im2col": 4 * SERVE_ITERS})
     want_entries = {"int8_conv3x3_requant": {COLS3: 6 * SERVE_ITERS},
                     "int8_conv3x3_im2col": {POOL_COLS3: 3 * SERVE_ITERS,
-                                            MMA3: SERVE_ITERS}}
+                                            POOL_NHWC_COLS: SERVE_ITERS}}
     if counts != want or entries != want_entries:
         raise AssertionError(f"per-channel launches {counts} "
                              f"{entries}, want {want} {want_entries}")
@@ -1629,7 +1749,7 @@ def phase_pc_serving(m, cfg, card):
     diag_entries = K.launch_counts_by_entry()
     want_diag = {"int8_conv3x3_requant": {COUNT3: 6 * SERVE_ITERS},
                  "int8_conv3x3_im2col": {POOL_COUNT3: 3 * SERVE_ITERS,
-                                         MMA3: SERVE_ITERS}}
+                                         POOL_NHWC_COUNT: SERVE_ITERS}}
     if diag_entries != want_diag:
         raise AssertionError(f"diagnostics launched {diag_entries}, want "
                              f"{want_diag}")
@@ -1649,12 +1769,12 @@ def phase_pc_serving(m, cfg, card):
 
 
 def phase_pc_layer_times(card_name, max_err):
-    """Each per-channel layer at batch 256 (phase 4c, timing): the
-    per-column kernel (conv1: the mma.sync conv with its table) and the
-    counting one each == its plain version (output and count), then
-    timed, beside the plain versions, cuDNN's fp16 conv and the scalar
-    form at the same shape (one wrapper call each, CUDA events), and the
-    bound."""
+    """Each per-channel layer at batch 256 (phase 4c, timing): its
+    per-column, counting and scalar kernels each == its plain version
+    (output and count), then timed, beside the plain versions and cuDNN's
+    fp16 conv (one wrapper call each, CUDA events), and the bound; conv1
+    (the NHWC form of K2's wgmma kernel) also on the mma.sync conv it ran
+    on before (same process), with its layout."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     peak_ops, peak_bw = peaks(card_name)
@@ -1663,42 +1783,48 @@ def phase_pc_layer_times(card_name, max_err):
     per_kernel = {}
     for name, h, c_in, c_out, pool, form in nhwc_layers():
         x, w, bias = make_case(gen, BATCH_SERVE, h, c_in, c_out, s2d=False)
-        packed = K.pack_conv3x3_weights(w) if c_in % 16 == 0 else None
-        wk = None if packed is not None else w
+        packed = packed_for(w, c_in)
         kw = dict(pc_shifts(gen, c_in, c_out, "short"), leaky=name != "pred",
                   rounding="nearest")
         table = K.acc_shift_table(kw["sw"], kw["sa_in"], kw["retune"],
                                   "nearest", c_out, "cuda")
         n = torch.zeros(1, dtype=torch.int32, device="cuda")
         n_want = torch.zeros_like(n)
-        fields, host = {}, {}
-        for what, counter in (("cols", None), ("count", n)):
-            kern_kw = dict(kw, shifts=table, overflow=counter)
+        fields, host, mma_ms = {}, {}, {}
+        for what, plain_kw, kern_kw in (
+                ("cols", kw, dict(kw, shifts=table)),
+                ("count", dict(kw, overflow=n_want),
+                 dict(kw, shifts=table, overflow=n)),
+                ("scalar", dict(kw, sw=int(np.max(kw["sw"]))),
+                 dict(kw, sw=int(np.max(kw["sw"]))))):
             K.reset_launch_counts()
-            got = call(form, x, wk, bias, c_in, kern_kw, packed)
+            got = call(form, x, None, bias, c_in, kern_kw, packed)
             line = ran_line()
-            want = plain(form, x, w, bias, c_in, dict(
-                kw, overflow=n_want if counter is not None else None))
+            want = plain(form, x, w, bias, c_in, plain_kw)
             check_equal(line, got, want, max_err,
                         f"{name} ({what}), batch {BATCH_SERVE}")
-            if counter is not None and int(n) != int(n_want):
-                raise AssertionError(f"{line} counted {int(n)} at {name}, "
-                                     f"its plain version {int(n_want)}")
-            overflow = int(n)
+            if what == "count":
+                if int(n) != int(n_want):
+                    raise AssertionError(f"{line} counted {int(n)} at "
+                                         f"{name}, its plain version "
+                                         f"{int(n_want)}")
+                overflow = int(n)
+            if c_in <= 4:
+                # the mma.sync conv conv1 ran on before, same shifts
+                mma = lambda: K._launch(  # noqa: E731
+                    "int8_conv3x3_im2col", x, w, bias, h=h, w=h, c_in=c_in,
+                    pool=True, s2d=False, **kern_kw)
+                check_equal(f"{line} (mma.sync)", mma(), want, max_err,
+                            f"{name} ({what}), batch {BATCH_SERVE}")
+                mma_ms[what] = time_ms(mma, 10)
             del got, want
-            ms = time_ms(lambda: call(form, x, wk, bias, c_in, kern_kw,
+            ms = time_ms(lambda: call(form, x, None, bias, c_in, kern_kw,
                                       packed), 10)
-            host[what] = host_ms(lambda: call(form, x, wk, bias, c_in,
+            host[what] = host_ms(lambda: call(form, x, None, bias, c_in,
                                               kern_kw, packed))
             plain_ms = time_ms(lambda: plain(form, x, w, bias, c_in,
-                                             dict(kw, overflow=counter)), 2,
-                               warmup=1)
+                                             plain_kw), 2, warmup=1)
             fields[what] = (line, ms, plain_ms)
-        scalar_kw = dict(kw, sw=int(np.max(kw["sw"])))
-        scalar_ms = time_ms(lambda: call(form, x, wk, bias, c_in, scalar_kw,
-                                         packed), 10)
-        host["scalar"] = host_ms(lambda: call(form, x, wk, bias, c_in,
-                                              scalar_kw, packed))
         xh = torch.randn((BATCH_SERVE, c_in, h, h), device="cuda",
                          dtype=torch.float16
                          ).contiguous(memory_format=torch.channels_last)
@@ -1713,19 +1839,26 @@ def phase_pc_layer_times(card_name, max_err):
         nbytes = (x.numel() + w.numel() + 8 * c_out
                   + BATCH_SERVE * ho * ho * c_out)
         t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
-        (line, ms, plain_ms), (cline, cms, cplain_ms) = (fields["cols"],
-                                                         fields["count"])
+        (line, ms, plain_ms), (cline, cms, cplain_ms), (sline, sms, _) = (
+            fields["cols"], fields["count"], fields["scalar"])
+        extra = ({} if c_in > 4 else dict(
+            mma_sync_ms=mma_ms, **row_layout_fields(
+                K.pool_nhwc_wgmma_layout(h, h, c_in, c_out))))
         emit("pc_layer_time", layer=name, kernel=line, batch=BATCH_SERVE,
              equal=True, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             scalar_ms=scalar_ms, count_kernel=cline, count_ms=cms,
-             count_plain_ms=cplain_ms, overflow=overflow, host_ms=host,
-             bound_ms=max(t_ops, t_bytes),
+             scalar_kernel=sline, scalar_ms=sms, count_kernel=cline,
+             count_ms=cms, count_plain_ms=cplain_ms, overflow=overflow,
+             host_ms=host, bound_ms=max(t_ops, t_bytes),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
-             tops=ops / ms / 1e9, **bandwidth_fields(nbytes, ms, peak_bw))
-        add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops, t_bytes)
-        if cline != line:  # conv1: one line for both (the mma.sync conv)
-            add_time(per_kernel, cline, 1, cms, cplain_ms, lib_ms, t_ops,
-                     t_bytes)
+             tops=ops / ms / 1e9, **bandwidth_fields(nbytes, ms, peak_bw),
+             **extra)
+        add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops, t_bytes,
+                 mma_ms.get("cols"))
+        add_time(per_kernel, cline, 1, cms, cplain_ms, lib_ms, t_ops,
+                 t_bytes, mma_ms.get("count"))
+        if c_in <= 4:  # the other layers' scalar lines are phase 4's
+            add_time(per_kernel, sline, 1, sms, fields["scalar"][2], lib_ms,
+                     t_ops, t_bytes, mma_ms["scalar"])
         del x, w, bias, packed, table
         torch.cuda.empty_cache()
     return per_kernel
@@ -1759,6 +1892,7 @@ def main() -> int:
     m3, cfg3 = phase_v3_golden()
     mpc, cfgpc = phase_pc_golden()
     launches = phase_serving(m, cfg, card)
+    launches_nhwc = phase_serving(m, cfg, card, input_s2d=False)
     launches_v3 = phase_v3_serving(m3, cfg3, card)
     launches_pc, launches_diag = phase_pc_serving(mpc, cfgpc, card)
     times = phase_layer_times(name, max_err)
@@ -1846,15 +1980,37 @@ def main() -> int:
                                     f"conv4_2, batch {BATCH_SERVE}, "
                                     f"{SIZE}x{SIZE}; library_ms is cuDNN "
                                     f"fp16 conv2d (without the pool)",
-        "int8_conv3x3_im2col.mma_sync": f"per slim_yolo_v2 forward with "
-                                        f"per-channel sw: conv1 on NHWC "
-                                        f"input (C_in 3 -> 16, pooled), "
-                                        f"with its shift table, batch "
-                                        f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
-                                        f"library_ms is cuDNN fp16 conv2d "
-                                        f"(without the pool); the "
-                                        f"diagnostics forward runs it with "
-                                        f"its counter",
+        "int8_conv3x3_im2col.pool_nhwc": f"per slim_yolo_v2 forward on "
+                                          f"NHWC input (phase 4's second "
+                                          f"serving run): conv1 (C_in 3 "
+                                          f"-> 16, pooled), batch "
+                                          f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
+                                          f"library_ms is cuDNN fp16 "
+                                          f"conv2d (without the pool); "
+                                          f"mma_sync_ms the mma.sync conv "
+                                          f"on the same layer",
+        "int8_conv3x3_im2col.pool_nhwc_cols": f"per slim_yolo_v2 forward "
+                                               f"with per-channel sw: conv1"
+                                               f" on NHWC input (C_in 3 -> "
+                                               f"16, pooled), with its "
+                                               f"shift table, batch "
+                                               f"{BATCH_SERVE}, "
+                                               f"{SIZE}x{SIZE}; library_ms "
+                                               f"is cuDNN fp16 conv2d "
+                                               f"(without the pool); "
+                                               f"mma_sync_ms the mma.sync "
+                                               f"conv with the same table",
+        "int8_conv3x3_im2col.pool_nhwc_count": f"per "
+                                                f"int8_forward_diagnostics "
+                                                f"forward (launches from "
+                                                f"its run): conv1 with its "
+                                                f"counter, batch "
+                                                f"{BATCH_SERVE}, "
+                                                f"{SIZE}x{SIZE}; library_ms "
+                                                f"is cuDNN fp16 conv2d "
+                                                f"(without the pool); "
+                                                f"mma_sync_ms the mma.sync "
+                                                f"conv with the counter",
         "int8_conv3x3_requant.count": f"per int8_forward_diagnostics "
                                       f"forward (launches from its run, "
                                       f"not serving): the 6 K1 layers, "
@@ -1872,12 +2028,13 @@ def main() -> int:
     for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
         runs = ((launches_diag,) if k in DIAGNOSTICS_LINES
-                else (launches, launches_v3, launches_pc))
-        ran = sum(served.get(wrapper, {}).get(entry, 0) for served in runs)
+                else (launches, launches_nhwc, launches_v3, launches_pc))
+        per_run = [served.get(wrapper, {}).get(entry, 0) for served in runs]
+        ran = sum(per_run)
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,
-            "launches_per_forward": ran // SERVE_ITERS,
+            "launches_per_forward": max(per_run) // SERVE_ITERS,
             "max_abs_err": max_err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("operations" if t["t_ops"] >= t["t_bytes"]

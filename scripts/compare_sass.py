@@ -2,7 +2,7 @@
 """Compare the SASS of one kernel source between two trees, kernel by
 kernel, on a machine with the CUDA toolkit:
 
-    python3 scripts/compare_sass.py OLD_CSRC NEW_CSRC FILE.cu
+    python3 scripts/compare_sass.py OLD_CSRC NEW_CSRC FILE.cu [--dump DIR]
 
 (NEW_CSRC "" for this checkout's own sources.)
 Compiles ``FILE.cu`` of each csrc directory (e.g. a parent commit's
@@ -14,7 +14,10 @@ changes with its template arguments (a template parameter added for new
 instantiations), and the address comments, labels and the name in its
 branch targets are dropped before the comparison. Prints one JSON line
 per old kernel (identical or not, instructions in each) and a summary
-line; exits 1 where an old kernel has no identical new one."""
+line; exits 1 where an old kernel has no identical new one. With
+``--dump DIR`` each kernel's normalized instructions are also written to
+``DIR/old/`` and ``DIR/new/``, one file per kernel named without its
+namespace hash, for ``diff``."""
 
 from __future__ import annotations
 
@@ -56,15 +59,30 @@ def sass(csrc: Path, name: str, tmp: Path) -> dict:
     return kernels
 
 
+def dump(kernels: dict, out: Path) -> None:
+    out.mkdir(parents=True, exist_ok=True)
+    for k, body in kernels.items():
+        short = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "", k)
+        (out / f"{short[:200]}.sass").write_text("\n".join(body) + "\n")
+
+
 def main() -> int:
-    if len(sys.argv) != 4:
+    args = sys.argv[1:]
+    dump_dir = None
+    if len(args) == 5 and args[3] == "--dump":
+        dump_dir = Path(args.pop())
+        args.pop()
+    if len(args) != 3:
         print(__doc__, file=sys.stderr)
         return 2
-    old_dir, new_dir, name = sys.argv[1:]
+    old_dir, new_dir, name = args
     with tempfile.TemporaryDirectory() as tmp:
         old = sass(ROOT / old_dir, name, Path(tmp))
         new = sass(ROOT / new_dir if new_dir else build.CSRC, name,
                    Path(tmp))
+    if dump_dir is not None:
+        dump(old, dump_dir / "old")
+        dump(new, dump_dir / "new")
     bodies = {tuple(v): k for k, v in new.items()}
     same = 0
     for k, body in old.items():

@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -32,7 +32,13 @@ are timed on every version in turn (ABBA order, twice):
   per-column forms at the six K1 layers and the three K3 layers (the
   shapes of ``s1``, where the scalar forms are timed), its counting forms
   (``int8_forward_diagnostics``) at the same shapes, and conv1 (C_in 3,
-  pooled) on the mma.sync conv with its shift table and with a scalar sw.
+  pooled) on the mma.sync conv with its shift table and with a scalar sw;
+- ``nhwc``: slim's conv1 on NHWC input (batch 256, 416², 3 -> 16,
+  pooled) on the NHWC form of K2's wgmma kernel (``csrc/
+  int8_entry_conv.cu``) in its scalar, per-column and counting forms,
+  beside the mma.sync conv it replaced (scalar sw and shift table,
+  through the private launcher ``_launch``) and K2 on the s2d layout of
+  the same images.
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -133,6 +139,12 @@ SHAPES = {
            for name, h, c_in, c_out, form, _ in PC_LAYERS]
           + [("conv1_pc", 256, 416, 3, 16, "mma_pc"),
              ("conv1_scalar", 256, 416, 3, 16, "mma_scalar")],
+    "nhwc": [("conv1_nhwc", 256, 416, 3, 16, "nhwc"),
+             ("conv1_nhwc_pc", 256, 416, 3, 16, "nhwc_pc"),
+             ("conv1_nhwc_count", 256, 416, 3, 16, "nhwc_count"),
+             ("conv1_mma", 256, 416, 3, 16, "mma_scalar"),
+             ("conv1_mma_pc", 256, 416, 3, 16, "mma_pc"),
+             ("k2_416", 256, 416, 3, 16, "k2")],
 }
 PER_FORWARD = {name + sfx: n for name, *_, n in ONE_BY_ONE
                for sfx in ("", "_mma")}
@@ -154,7 +166,10 @@ ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "conv_count": "yolo_int8_conv3x3_count_wgmma",
          "pool_count": "yolo_int8_conv3x3_pool_count_wgmma",
          "mma_pc": "yolo_int8_conv3x3_requant",
-         "mma_scalar": "yolo_int8_conv3x3_requant"}
+         "mma_scalar": "yolo_int8_conv3x3_requant",
+         "nhwc": "yolo_int8_pool_nhwc_wgmma",
+         "nhwc_pc": "yolo_int8_pool_nhwc_cols_wgmma",
+         "nhwc_count": "yolo_int8_pool_nhwc_count_wgmma"}
 # the forms whose C entry took its shift table and counter with the
 # per-column forms: a version without those (an older tree) has the entry
 # but another interface, and skips them
@@ -326,7 +341,7 @@ def shape_fn(gen, b, h, c_in, c_out, form):
     bias = ri((c_out,), -100, 100, torch.int32)
     kw = dict(sw=12, sb=8, sa_in=4, sa_out=4, retune=10, rounding="nearest")
     if form in ("conv_pc", "pool_pc", "conv_count", "pool_count", "mma_pc",
-                "mma_scalar"):
+                "mma_scalar", "nhwc", "nhwc_pc", "nhwc_count"):
         return pc_fn(x, w, bias, kw, form)
     if form in ("entry", "entry_mma"):
         if form == "entry_mma":
@@ -363,20 +378,30 @@ def pc_fn(x, w, bias, kw, form):
     """A per-channel slim layer's wrapper call: a per-column sw of three
     values around the scalar forms' 12 (accumulator shifts 5-7, the short
     form), from the shift table a packed model holds; counting into one
-    int32 for the ``count`` forms; ``mma_scalar`` with the scalar sw."""
-    pool = form.startswith("pool") or form.startswith("mma")
+    int32 for the ``count`` forms; ``mma_scalar`` and ``nhwc`` with the
+    scalar sw. conv1 (C_in 3) runs on the NHWC form of K2's kernel
+    (``nhwc*``) or on the mma.sync conv (``mma*``)."""
+    pool = form.startswith(("pool", "mma", "nhwc"))
     c_out = w.shape[-1]
-    if form != "mma_scalar":
+    scalar = form in ("mma_scalar", "nhwc")
+    if not scalar:
         kw = dict(kw, sw=(11 + torch.arange(c_out) % 3).numpy().astype(
             "int32"))
     table = K.acc_shift_table(kw["sw"], kw["sa_in"], kw["retune"],
                               kw["rounding"], c_out, x.device)
     counter = (torch.zeros(1, dtype=torch.int32, device=x.device)
                if form.endswith("count") else None)
-    extra = dict(shifts=table, overflow=counter)
+    extra = dict(shifts=None if scalar else table, overflow=counter)
     if form.startswith("mma"):
-        return lambda: K.int8_conv3x3_im2col(x, w, bias, pool=True,
-                                             leaky=True, **extra, **kw)
+        h, wd = x.shape[1:3]
+        return lambda: K._launch("int8_conv3x3_im2col", x, w, bias, h=h,
+                                 w=wd, c_in=x.shape[-1], pool=True,
+                                 s2d=False, leaky=True, **extra, **kw)
+    if form.startswith("nhwc"):
+        packed = K.pack_pool_nhwc_weights(w)
+        return lambda: K.int8_conv3x3_im2col(x, None, bias, pool=True,
+                                             packed=packed, leaky=True,
+                                             **extra, **kw)
     packed = K.pack_conv3x3_weights(w)
     if pool:
         return lambda: K.int8_conv3x3_im2col(x, None, bias, pool=True,
@@ -391,7 +416,7 @@ def use(lib) -> None:
     for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
                    K.conv3x3_s2_wgmma_layout, K.res_block_layout,
                    K.entry_conv3x3_layout, K.pool_s2d_wgmma_layout,
-                   K.conv1x1_wgmma_layout):
+                   K.pool_nhwc_wgmma_layout, K.conv1x1_wgmma_layout):
         layout.cache_clear()
 
 

@@ -1288,11 +1288,13 @@ def test_cuda_conv1x1_wgmma_layout_at_v3_shapes(cuda, shape):
 
 # ---------------------------------------------------------------------------
 # Per-channel sw and overflow counting: the wgmma conv3x3's per-column and
-# counting forms (stride 1 and pooled) and the mma.sync conv's shift table.
+# counting forms (stride 1 and pooled), those of the NHWC form of K2's
+# kernel (conv1) and the mma.sync conv's shift table.
 # ---------------------------------------------------------------------------
 
-# slim's NHWC layers (B, H, C_in, C_out, pool): conv1 (the mma.sync conv),
-# the three pooled wgmma layers and the six stride-1 ones (pred: 35)
+# slim's NHWC layers (B, H, C_in, C_out, pool): conv1 (the NHWC form of
+# K2's wgmma kernel), the three pooled wgmma layers and the six stride-1
+# ones (pred: 35)
 PC_SHAPES = [(1, 416, 3, 16, True), (2, 208, 16, 32, True),
              (2, 104, 64, 64, True), (2, 52, 128, 128, True),
              (2, 104, 32, 64, False), (2, 52, 64, 128, False),
@@ -1310,7 +1312,7 @@ def _pc_sw(rng, c_in, c_out, case):
     if case == "count":
         s -= 4
     if case == "mixed":
-        s[:4] = [-1, 33, 31, -40]
+        s[:4] = [-1, 33, 31, -40][:c_out]
     if case == "short":
         s = np.clip(s, 0, 30)
     return (s - PC_KW["sa_in"] + PC_KW["retune"]).astype(np.int32)
@@ -1347,7 +1349,8 @@ def test_cuda_per_column_forms_equal_plain(cuda, rounding, case, shape):
     got = _pc_run(x.to(cuda), w.to(cuda), b.to(cuda), pool, kw, overflow=n)
     torch.cuda.synchronize()
     (entries,) = K.launch_counts_by_entry().values()
-    want_entry = (K.MMA_SYNC_ENTRY if c_in == 3 else
+    want_entry = ({False: K.POOL_NHWC_COLS_ENTRY,
+                   True: K.POOL_NHWC_COUNT_ENTRY}[counting] if c_in == 3 else
                   {(False, False): K.COLS_WGMMA_ENTRY,
                    (True, False): K.POOL_COLS_WGMMA_ENTRY,
                    (False, True): K.COUNT_WGMMA_ENTRY,
@@ -1397,3 +1400,214 @@ def test_cuda_other_routes_refuse_per_channel_sw(cuda):
     with pytest.raises(ValueError, match="per-channel"):
         K.int8_conv3x3_pool_s2d(x3, w3, b[:16], c_in=3, **PC_KW,
                                 sw=np.full(16, 12, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The NHWC form of K2's wgmma kernel (csrc/int8_entry_conv.cu): conv3x3 + 2x2
+# pool of C_in <= 4 on NHWC input, slim's conv1 (pool_nhwc_wgmma_route), in
+# its scalar, per-column and counting forms.
+# ---------------------------------------------------------------------------
+
+POOL_NHWC_ENTRIES = {"scalar": K.POOL_NHWC_WGMMA_ENTRY,
+                     "cols": K.POOL_NHWC_COLS_ENTRY,
+                     "count": K.POOL_NHWC_COUNT_ENTRY,
+                     "count_scalar": K.POOL_NHWC_COUNT_ENTRY}
+# (B, H, W, C_in, C_out): slim's conv1 at batch 1, 8 and 256; NHWC rows of
+# W * C_in bytes that are no 16-byte multiple (8 x 10, 12 x 22, 14 x 10),
+# C_in 1, 2 and 4, C_out 1, 7, 20 and 32 (the 128-column form), row tiles
+# that leave a partial tile, width chunks (a 6002-pixel row does not fit
+# one block), a 2 x 2 image
+POOL_NHWC_SHAPES = [
+    (1, 416, 416, 3, 16),
+    (8, 416, 416, 3, 16),
+    (256, 416, 416, 3, 16),
+    (2, 8, 10, 3, 16),
+    (2, 12, 22, 3, 32),
+    (3, 38, 26, 3, 16),
+    (1, 6, 14, 1, 1),
+    (2, 10, 6, 2, 7),
+    (1, 8, 18, 4, 32),
+    (2, 14, 10, 3, 20),
+    (1, 4, 6002, 3, 32),
+    (1, 2, 2, 1, 16),
+]
+
+
+def _pool_nhwc_kw(form, c_in, c_out, seed):
+    """Shifts of one form: the scalar sw of SHIFTS; per-column sw with
+    shifts -1, 33, 31 and -40 among them ("cols"); 4 lower, so that many
+    values pass int16 ("count"); a scalar sw 4 lower, counted
+    ("count_scalar")."""
+    rng = np.random.default_rng(seed)
+    if form == "scalar":
+        return dict(SHIFTS)
+    sw = _pc_sw(rng, c_in, c_out, "mixed" if form == "cols" else "count")
+    return dict(PC_KW, sw=int(sw[0]) if form == "count_scalar" else sw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(POOL_NHWC_ENTRIES))
+@pytest.mark.parametrize("case", POOL_NHWC_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_pool_nhwc_wgmma_equals_plain(cuda, form, case):
+    """Each form == the plain pooled conv (output, and counting: the count,
+    equal, and nonzero at 416^2), on its C entry, from packed weights, at
+    batch 1, 8 and 256 of 416^2 and at edge shapes; the plain version runs
+    on the card."""
+    bsz, h, w, c_in, c_out = case
+    x, wq, b = (t.to(cuda) for t in _conv3x3_args(case, seed=18))
+    kw = dict(_pool_nhwc_kw(form, c_in, c_out, c_in * c_out), leaky=True,
+              rounding="nearest")
+    counting = form.startswith("count")
+    n_want = (torch.zeros(1, dtype=torch.int32, device=cuda) if counting
+              else None)
+    want = K.int8_conv3x3_im2col_plain(x, wq, b, pool=True, overflow=n_want,
+                                       **kw)
+    packed = K.pack_pool_nhwc_weights(wq)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda) if counting else None
+    K.reset_launch_counts()
+    K.reset_pool_nhwc_pack_count()
+    got = K.int8_conv3x3_im2col(x, None, b, pool=True, packed=packed,
+                                overflow=n, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {POOL_NHWC_ENTRIES[form]: 1}}
+    assert K.pool_nhwc_pack_count() == 0
+    assert got.shape == (bsz, h // 2, w // 2, c_out)
+    assert torch.equal(got, want)
+    if counting:
+        assert int(n) == int(n_want)
+        if h == 416:
+            assert int(n) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("shifts", SHIFT_CASES, ids=SHIFT_IDS)
+@pytest.mark.parametrize("case", [(2, 12, 22, 3, 16), (1, 10, 14, 4, 32),
+                                  (2, 8, 10, 1, 7)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_pool_nhwc_wgmma_epilogues(cuda, leaky, rounding, shifts, case):
+    """The scalar form in both roundings, both activations; shifts outside
+    [0, 31] take the kernel's general shift form; HWIO weights are packed
+    for the call."""
+    x, wq, b = _conv3x3_args(case, seed=19)
+    kw = dict(shifts, rounding=rounding, leaky=leaky)
+    want = K.int8_conv3x3_im2col(x, wq, b, pool=True, **kw)
+    K.reset_launch_counts()
+    K.reset_pool_nhwc_pack_count()
+    got = K.int8_conv3x3_im2col(*(t.to(cuda) for t in (x, wq, b)), pool=True,
+                                **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {K.POOL_NHWC_WGMMA_ENTRY: 1}}
+    assert K.pool_nhwc_pack_count() == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("form", ["cols", "count"])
+@pytest.mark.parametrize("case", [(2, 12, 22, 3, 16), (1, 10, 14, 4, 32),
+                                  (2, 8, 10, 2, 7)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_pool_nhwc_wgmma_column_epilogues(cuda, leaky, rounding, form,
+                                               case):
+    """The per-column and counting forms in both roundings, both
+    activations, with per-column shifts outside [0, 31]; counts equal."""
+    x, wq, b = _conv3x3_args(case, seed=20)
+    kw = dict(_pool_nhwc_kw(form, case[3], case[4], 7), rounding=rounding,
+              leaky=leaky)
+    n_want = torch.zeros(1, dtype=torch.int32) if form == "count" else None
+    want = K.int8_conv3x3_im2col(x, wq, b, pool=True, overflow=n_want, **kw)
+    n = (torch.zeros(1, dtype=torch.int32, device=cuda) if form == "count"
+         else None)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_im2col(*(t.to(cuda) for t in (x, wq, b)), pool=True,
+                                overflow=n, **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {POOL_NHWC_ENTRIES[form]: 1}}
+    assert torch.equal(got.cpu(), want)
+    if form == "count":
+        assert int(n) == int(n_want)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_nhwc_stride2_assembly_takes_the_wgmma_kernel(cuda):
+    """``int8_conv3x3_pool_requant(assembly='stride2')`` at C_in <= 4 runs
+    the same kernel on the NHWC input."""
+    x, wq, b = _conv3x3_args((2, 12, 18, 3, 16), seed=21)
+    want = K.int8_conv3x3_pool_requant(x, wq, b, assembly="stride2",
+                                       **SHIFTS)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_pool_requant(*(t.to(cuda) for t in (x, wq, b)),
+                                      assembly="stride2", **SHIFTS)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_pool_requant": {K.POOL_NHWC_WGMMA_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_nhwc_wgmma_raises_not_falls_back(cuda):
+    """A routed pooled conv with a misaligned input raises: it never drops
+    back to the mma.sync conv; the launcher raises on C_in 5 and C_out 48,
+    the layout on an odd image. C_in 8 stays on the mma.sync conv."""
+    x, wq, b = _conv3x3_args((1, 8, 10, 3, 16))
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        K.int8_conv3x3_im2col(xm, wq.to(cuda), b.to(cuda), pool=True,
+                              **SHIFTS)
+    for c_in, c_out in ((5, 16), (3, 48)):
+        x5, w5, b5 = (t.to(cuda) for t in _conv3x3_args((1, 8, 10, c_in,
+                                                         c_out)))
+        with pytest.raises(ValueError, match="C_in <= 4"):
+            K._launch_pool_nhwc_wgmma("int8_conv3x3_im2col", x5, w5, b5,
+                                      None, leaky=True, rounding="nearest",
+                                      **SHIFTS)
+    with pytest.raises(ValueError, match="pooled NHWC"):
+        K.pool_nhwc_wgmma_layout(9, 10, 3, 16)
+    assert K.launch_counts_by_entry() == {}
+    x8, w8, b8 = _conv3x3_args((2, 8, 10, 8, 16), seed=22)
+    want = K.int8_conv3x3_im2col(x8, w8, b8, pool=True, **SHIFTS)
+    got = K.int8_conv3x3_im2col(*(t.to(cuda) for t in (x8, w8, b8)),
+                                pool=True, **SHIFTS)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_im2col": {K.MMA_SYNC_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_nhwc_wgmma_empty_batch_counts_no_launch(cuda):
+    K.reset_launch_counts()
+    out = K.int8_conv3x3_im2col(
+        torch.zeros((0, 8, 8, 3), dtype=torch.int8, device=cuda),
+        torch.zeros((3, 3, 3, 16), dtype=torch.int8, device=cuda),
+        torch.zeros(16, dtype=torch.int32, device=cuda), pool=True, **SHIFTS)
+    assert out.shape == (0, 4, 4, 16)
+    assert K.launch_counts() == {k: 0 for k in K.KERNEL_NAMES}
+
+
+@pytest.mark.cuda
+def test_cuda_pool_nhwc_wgmma_layout(cuda):
+    """At slim's conv1 on NHWC input (416^2 -> 208^2 pooled): 9 x 208
+    pooled tiles of 20 input rows, three blocks per SM, 4 phases x 16
+    columns; the pitches keep the global rows' alignment; a row too wide
+    for a block is cut in halves."""
+    lay = K.pool_nhwc_wgmma_layout(416, 416, 3, 16)
+    assert (lay.tile_h, lay.tile_w, lay.blocks_per_sm, lay.bn,
+            lay.warpgroups) == (9, 208, 3, 64, 2)
+    assert lay.smem_bytes * lay.blocks_per_sm <= 233472
+    assert lay.in_pitch % 16 == 416 * 3 % 16
+    assert lay.in_pitch >= 418 * 3 + 48
+    assert lay.out_pitch % 16 == 208 * 16 % 16
+    odd = K.pool_nhwc_wgmma_layout(12, 22, 3, 32)
+    assert odd.bn == 128 and odd.in_pitch % 16 == 22 * 3 % 16
+    assert K.pool_nhwc_wgmma_layout(4, 6002, 3, 32).tile_w == 1501

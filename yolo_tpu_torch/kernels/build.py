@@ -118,6 +118,12 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_pool_nhwc_wgmma", [vp] * 4 + [i] * 9 + [vp]),
+                ("yolo_int8_pool_nhwc_cols_wgmma",
+                 [vp] * 5 + [i] * 9 + [vp]),
+                ("yolo_int8_pool_nhwc_count_wgmma",
+                 [vp] * 6 + [i] * 8 + [vp]),
+                ("yolo_int8_pool_nhwc_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv1x1_wgmma", [vp] * 5 + [i] * 9 + [vp]),
                 ("yolo_int8_conv1x1_wgmma_info", [i] * 5 + [vp])):
             getattr(lib, fn).argtypes = argtypes

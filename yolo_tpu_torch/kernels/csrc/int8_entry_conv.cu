@@ -17,21 +17,40 @@
 //     int8_conv3x3_pool_requant(assembly='s2d') of
 //     yolo_tpu/kernels/int8_conv.py, which int8_conv.cu's pool_s2d kernel
 //     (mma.sync) ran before; that kernel still takes the other shapes.
+//   - pool_nhwc (the same kernel's NHWC form, In::nhwc): the same conv +
+//     pool + requant on int8 NHWC [B, H, W, Cin] -> int8 [B, H/2, W/2,
+//     Cout], Cin <= 4, Cout <= 32 (int8_conv3x3_im2col(pool=True) and
+//     int8_conv3x3_pool_requant(assembly='stride2'), pool_nhwc_wgmma_route:
+//     slim's conv1 on NHWC input), with a scalar sw, a per-column shift
+//     table (Cols::column: a per-channel sw) or the table and a count of
+//     the values that hit the int16 clamp (Cols::count:
+//     int8_forward_diagnostics, all four window values counted before the
+//     max). It replaces the Pallas TPU kernel K3, _im2col_kernel /
+//     int8_conv3x3_im2col(pool=True), at C_in <= 4 (and, per-channel,
+//     XLA's conv + _shift + reduce_window of yolo_tpu/quant/fixed_point.py
+//     at slim's conv1), which int8_conv.cu's mma.sync conv (a byte gather
+//     from global memory per K byte) ran before. It is K2's GEMM with
+//     another A path: the s2d layout only re-indexes a pooled pixel's 4x4
+//     input window, so the A words are read from the NHWC rows in place,
+//     with no s2d pass over the input.
 //
 // What bounds them on an H100: bytes set their least time. The entry
 // conv does 18 Cin Cout ops per pixel against Cin bytes in and Cout out
 // (at 416^2, 3 -> 32, batch 128: 66.4 MB in, 708.8 MB out, 0.231 ms at
 // 3.35 TB/s against 0.019 ms of int8 tensor-core time); K2's GEMM does
 // 2 x 48 x 64 ops per pooled pixel against 12.4 bytes in and 16 out
-// (136.8 MB in, 177.2 MB out at batch 256: 0.094 ms). Each is one K step of a GEMM (K = 27 -> 32;
-// K = 16 Cin = 48 -> 64, two k32 steps), so the MMAs take little time and
+// (136.8 MB in, 177.2 MB out at batch 256: 0.094 ms; its NHWC form reads
+// 12 bytes a pooled pixel: 132.9 MB in, 0.093 ms). Each is one K step of
+// a GEMM (K = 27 -> 32; K = 16 Cin = 48 -> 64, two k32 steps), so the
+// MMAs take little time and
 // the kernel is its input copy, its operand assembly, its requant and its
 // stores. The mma.sync kernels ran each 128-row tile as a serial chain
 // (per-row global gathers, __syncthreads, MMA, __syncthreads, epilogue,
 // store). Here
 //   1. a block takes TH whole output rows of one image (a width chunk
 //      where a row does not fit: plan_rows), whose input is TH + 2 (K2:
-//      TH + 1 s2d) rows of contiguous bytes, and copies each row into
+//      TH + 1 s2d; its NHWC form: 2 TH + 2) rows of contiguous bytes,
+//      and copies each row into
 //      shared memory with 16-byte cp.async of the row's 16-byte-aligned
 //      superset (the chunk at the tensor's end clipped: nothing past it is
 //      read). Rows sit at a pitch congruent to the global row pitch mod 16
@@ -51,7 +70,13 @@
 //      bytes (4 tig .. +3, 16 + 4 tig .. +3) and assembles 4 registers from
 //      16 byte loads; K2's pooled pixel reads two runs of 8 Cin bytes (two
 //      s2d pixels, in (block column, py, px, c) order) in rows u + 1 and
-//      u + 2, so each of its registers is one aligned 32-bit load;
+//      u + 2, so each of its registers is one aligned 32-bit load; the
+//      NHWC form's pooled pixel reads four runs of 4 Cin bytes (window
+//      rows dy = 0..3, K in (dy, dx, c) order) in input rows 2u - 1 ..
+//      2u + 2, each a whole number of 4-byte words that Cin = 1, 2, 3
+//      leave unaligned, so each register is four byte loads packed by
+//      three byte permutes (on an H100 0-2% faster than two aligned
+//      32-bit loads and a funnel shift);
 //   3. runs one m64nNk32 wgmma per 64 pixels (K2: two), requantizes in
 //      registers with the branch-free shifts of int8_wgmma_conv.cuh (Epi;
 //      each pair of outputs clamped to int8 and packed by one
@@ -75,7 +100,14 @@
 //
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32 and s < 0; the slope is the Q16 numerator (8192: 0.125; 6554:
-// darknet's 0.1; 65536: none); both roundings.
+// darknet's 0.1; 65536: none); both roundings. The NHWC form's per-column
+// and counting forms read the shift table of int8_conv3x3_wgmma.cu's
+// (int8_conv.py's acc_shift_table), an int2 per column pair after the
+// phase max; each warp adds its count with one atomic. The input layout
+// and the shift forms are template forms: K2's and the entry conv's
+// instantiations are those of before.
+
+#include <type_traits>
 
 #include "int8_wgmma_conv.cuh"
 
@@ -244,6 +276,67 @@ __device__ __forceinline__ void stage2(int8_t* o, int col, int Cout,
   }
 }
 
+// The same with each column's own accumulator shift (a per-channel sw).
+template <bool SHORT>
+__device__ __forceinline__ void stage2(int8_t* o, int col, int Cout,
+                                       const Epi& epi, const Shift& s0,
+                                       const Shift& s1, int v0, int v1,
+                                       int2 bias) {
+  if (Cout % 2 == 0) {
+    *reinterpret_cast<uint16_t*>(o + col) =
+        pack_sat2(epi.rest<SHORT>(s0.apply<SHORT>(v0), bias.x),
+                  epi.rest<SHORT>(s1.apply<SHORT>(v1), bias.y));
+  } else {
+    o[col] = epi.apply<SHORT>(s0, v0, bias.x);
+    if (col + 1 < Cout) o[col + 1] = epi.apply<SHORT>(s1, v1, bias.y);
+  }
+}
+
+// Where a row-streaming tile's NHWC input lands in shared memory (the
+// NHWC form of K2; the entry conv keeps its own inline copy of these
+// steps, whose SASS moved when it called them): an
+// H x W x C image's rows iy0 - 1 .. iy0 + ith (r = 0 .. ith + 1) and
+// columns ix0 - 1 .. ix0 + itw (pixel i = 0 .. itw + 1) of image b, row r
+// of pixel i at ia + r * RP + i * C, co-aligned with its global byte.
+// Rows r0 .. r1 - 1 and columns xs .. xe (pixel is ..) lie in the image;
+// the rest is the conv's zero padding.
+struct InRows {
+  long long g0, gp;  // global byte of (row 0, column xs); row pitch
+  int ia, is, xs, xe, r0, r1;
+};
+
+__device__ __forceinline__ InRows in_rows_of(int b, int iy0, int ix0,
+                                             int ith, int itw, int H, int W,
+                                             int C) {
+  InRows r;
+  r.gp = (long long)W * C;
+  r.xs = max(ix0 - 1, 0);
+  r.xe = min(ix0 + itw, W - 1);
+  r.is = r.xs - ix0 + 1;
+  r.g0 = ((long long)b * H + iy0 - 1) * r.gp + (long long)r.xs * C;
+  r.ia = 16 + (int)mod16(r.g0 - (long long)r.is * C);
+  r.r0 = iy0 == 0 ? 1 : 0;
+  r.r1 = min(ith + 2, H - iy0 + 1);
+  return r;
+}
+
+// The padding of those rows (xb: their pixel 0 of row 0), once the copy
+// has landed: rows outside the image, columns -1 and W, zero
+__device__ __forceinline__ void zero_padding(int8_t* xb, int RP,
+                                             const InRows& r, int ix0,
+                                             int ith, int itw, int W, int C) {
+  const int tid = threadIdx.x;
+  for (int y = 0; y < ith + 2; ++y) {
+    int8_t* row = xb + y * RP;
+    if (y < r.r0 || y >= r.r1) {
+      for (int k = tid; k < (itw + 2) * C; k += THREADS) row[k] = 0;
+    } else if (tid < C) {
+      if (ix0 == 0) row[tid] = 0;
+      if (ix0 + itw == W) row[(itw + 1) * C + tid] = 0;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The entry conv: 3x3, stride 1, pad 1, Cin <= 3.
 // ---------------------------------------------------------------------------
@@ -382,12 +475,22 @@ __global__ void __launch_bounds__(THREADS, EntryCfg<BN>::BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// K2: conv3x3 + 2x2 pool on the padded s2d layout, Cin <= 4, Cout <= 32.
+// K2: conv3x3 + 2x2 pool, Cin <= 4, Cout <= 32, on the padded s2d layout
+// or (its NHWC form) on NHWC rows.
 // ---------------------------------------------------------------------------
 
+// the input: the padded s2d layout, or NHWC rows read in place
+enum class In { s2d, nhwc };
+// the accumulator shifts: one for the layer (Epi's), one per output column
+// from a shift table (a per-channel sw), or per column counting the values
+// that reach the int16 clamp (int8_forward_diagnostics; the general shift
+// form only); the NHWC form only
+enum class Cols { scalar, column, count };
+
 struct PoolArgs {
-  const int8_t* x;   // [B, Ho + 3, Wo + 3, 4 Cin]
-  const int8_t* wp;  // [4 CP, 64]: row p CP + co, K (r, s, py, px, c)
+  const int8_t* x;   // s2d: [B, Ho + 3, Wo + 3, 4 Cin]; NHWC: [B, H, W, Cin]
+  const int8_t* wp;  // [4 CP, 64]: row p CP + co; K (r, s, py, px, c) of
+                     // the s2d window, or (dy, dx, c) of the NHWC one
   const int* bias;   // [CP] at the retune scale, zero past Cout
   int8_t* out;       // [B, Ho, Wo, Cout]
   long long x_bytes;
@@ -396,52 +499,99 @@ struct PoolArgs {
   Epi epi;
 };
 
+// the per-column and counting forms' arguments: the accumulator shift
+// table ([>= 32], 0 past Cout), and with count the int32 the warps' counts
+// are added to (a separate type: a larger PoolArgs changed K2's SASS)
+struct ColsArgs : PoolArgs {
+  const int* shifts;
+  int* overflow;
+};
+
+template <Cols C>
+using PoolArgsOf =
+    std::conditional_t<C == Cols::scalar, PoolArgs, ColsArgs>;
+
 template <int BN>
 struct PoolCfg {
   static constexpr int CP = BN / 4;  // columns of one pool phase
   static constexpr int BLOCKS = BN == 64 ? 3 : 2;
 };
 
-template <int BN, bool SHORT>
+template <int BN, bool SHORT, In IN, Cols C>
 __global__ void __launch_bounds__(THREADS, PoolCfg<BN>::BLOCKS)
-    pool_s2d_wgmma(const PoolArgs a) {
+    pool_wgmma(const PoolArgsOf<C> a) {
   constexpr int CP = PoolCfg<BN>::CP;
+  constexpr bool NHWC = IN == In::nhwc, COUNT = C == Cols::count;
+  static_assert(NHWC || C == Cols::scalar, "the s2d layout takes one shift");
+  static_assert(!COUNT || !SHORT, "counting takes the general shifts");
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* wt = align1024(dsmem);
   int8_t* xin = reinterpret_cast<int8_t*>(wt + BN * 128);
-  int8_t* ost = xin + round16((a.TH + 1) * a.RP);
+  int8_t* ost = xin + round16((NHWC ? 2 * a.TH + 2 : a.TH + 1) * a.RP);
   const int tid = threadIdx.x, C4 = 4 * a.Cin;  // bytes of an s2d pixel
   const Tile t = tile_of(blockIdx.x, a.Ho, a.Wo, a.TH, a.TW);
 
-  // ---- 1. s2d rows u0 + 1 + r, r = 0 .. th, columns v0 + 1 .. v0 + tw +
-  // 1: pooled pixel (u, v) reads rows u + 1, u + 2 at columns v + 1, v + 2
-  // (all inside the padded layout)
-  const long long gp = (long long)(a.Wo + 3) * C4;
-  const long long g0 = ((long long)t.b * (a.Ho + 3) + t.y0 + 1) * gp +
-                       (long long)(t.x0 + 1) * C4;
-  int8_t* xb = xin + 16 + mod16(g0);
-  load_weights<BN, 64>(wt, a.wp, BN);
-  copy_rows(xb, a.RP, a.x, a.x_bytes, g0, gp, (t.tw + 1) * C4, 0, t.th + 1);
-  cp_async_wait_all();
-  fence_proxy_async();  // the weight tile is read by wgmma (async proxy)
-  __syncthreads();
+  int8_t* xb;  // pooled pixel (u, v)'s window: xb + 2u RP + 2v Cin (NHWC)
+  if constexpr (NHWC) {
+    // ---- 1. input rows 2 u0 - 1 + r, r = 0 .. 2 th + 1, columns 2 v0 -
+    // 1 .. 2 (v0 + tw): pooled pixel (u, v) reads rows 2u - 1 .. 2u + 2 at
+    // columns 2v - 1 .. 2v + 2, the padding zero
+    const InRows rows = in_rows_of(t.b, 2 * t.y0, 2 * t.x0, 2 * t.th,
+                                   2 * t.tw, 2 * a.Ho, 2 * a.Wo, a.Cin);
+    xb = xin + rows.ia;
+    load_weights<BN, 64>(wt, a.wp, BN);
+    copy_rows(xb + rows.is * a.Cin, a.RP, a.x, a.x_bytes, rows.g0, rows.gp,
+              (rows.xe - rows.xs + 1) * a.Cin, rows.r0, rows.r1);
+    cp_async_wait_all();
+    fence_proxy_async();  // the weight tile is read by wgmma (async proxy)
+    __syncthreads();
+    zero_padding(xb, a.RP, rows, 2 * t.x0, 2 * t.th, 2 * t.tw, 2 * a.Wo,
+                 a.Cin);
+    __syncthreads();
+  } else {
+    // ---- 1. s2d rows u0 + 1 + r, r = 0 .. th, columns v0 + 1 .. v0 + tw
+    // + 1: pooled pixel (u, v) reads rows u + 1, u + 2 at columns v + 1,
+    // v + 2 (all inside the padded layout)
+    const long long gp = (long long)(a.Wo + 3) * C4;
+    const long long g0 = ((long long)t.b * (a.Ho + 3) + t.y0 + 1) * gp +
+                         (long long)(t.x0 + 1) * C4;
+    xb = xin + 16 + mod16(g0);
+    load_weights<BN, 64>(wt, a.wp, BN);
+    copy_rows(xb, a.RP, a.x, a.x_bytes, g0, gp, (t.tw + 1) * C4, 0,
+              t.th + 1);
+    cp_async_wait_all();
+    fence_proxy_async();  // the weight tile is read by wgmma (async proxy)
+    __syncthreads();
+  }
 
   // ---- 2. this thread's A registers: K words tig + 4 e (k = 4 word), in
-  // window row r = k / 8Cin at byte k % 8Cin of the row's run; words past
+  // window row r = k / RUN at byte k % RUN of the row's run (s2d: two
+  // s2d pixels, RUN = 8 Cin; NHWC: four pixels, RUN = 4 Cin); words past
   // 16 Cin are zero (so are their weights)
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
+  const int run = NHWC ? C4 : 2 * C4;
   // (words past 16 Cin read the pixel's first word and are masked off)
   int off[4];
   unsigned mask[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int k = 4 * (tig + 4 * e);
-    off[e] = k < 4 * C4 ? k / (2 * C4) * a.RP + k % (2 * C4) : 0;
+    off[e] = k < 4 * C4 ? k / run * a.RP + k % run : 0;
     mask[e] = k < 4 * C4 ? ~0u : 0u;
   }
   const auto word = [=](const int8_t* px, int e) {
-    return *reinterpret_cast<const unsigned*>(px + off[e]) & mask[e];
+    if constexpr (NHWC) {
+      // the word at px + off[e], which Cin = 1, 2, 3 leave unaligned: its
+      // four bytes, packed by byte permutes (on an H100 as fast as two
+      // aligned loads and a funnel shift, PERF.md, section 6)
+      const uint8_t* p = reinterpret_cast<const uint8_t*>(px + off[e]);
+      const unsigned lo = __byte_perm(p[0], p[1], 0x0040);
+      const unsigned hi = __byte_perm(p[2], p[3], 0x0040);
+      return __byte_perm(lo, hi, 0x5410) & mask[e];
+    } else {
+      return *reinterpret_cast<const unsigned*>(px + off[e]) & mask[e];
+    }
   };
   // this thread's bias pairs, channels 8 jj + 2 tig (+1)
   int2 bias[CP / 8];
@@ -465,7 +615,8 @@ __global__ void __launch_bounds__(THREADS, PoolCfg<BN>::BLOCKS)
     for (int h = 0; h < 2; ++h) {
       const int q = s * 64 + row0 + 8 * h;
       const int2 yx = pixel_yx(q < npx ? q : 0, t.tw, rcp);
-      px[h] = xb + yx.x * a.RP + yx.y * C4;
+      px[h] = NHWC ? xb + 2 * yx.x * a.RP + 2 * yx.y * a.Cin
+                   : xb + yx.x * a.RP + yx.y * C4;
     }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -484,7 +635,9 @@ __global__ void __launch_bounds__(THREADS, PoolCfg<BN>::BLOCKS)
     mma_rs<BN>(d, k0, db);
     if (a.Cin > 2) mma_rs<BN>(d, k1, db + (32 >> 4));
   };
+  // (Cols::count: returns this thread's values outside int16 in step s)
   const auto epi = [=](const int (&d)[BN / 2], int s) {
+    [[maybe_unused]] int n = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int q = s * 64 + row0 + 8 * h;
@@ -502,13 +655,47 @@ __global__ void __launch_bounds__(THREADS, PoolCfg<BN>::BLOCKS)
               v[e] = max(max(m[0], m[4 * (CP / 8)]),
                          max(m[8 * (CP / 8)], m[12 * (CP / 8)]));
             }
-            stage2<SHORT>(o, co, a.Cout, a.epi, v[0], v[1], bias[jj]);
+            if constexpr (C == Cols::scalar) {
+              stage2<SHORT>(o, co, a.Cout, a.epi, v[0], v[1], bias[jj]);
+            } else {
+              // this column pair's shifts, through the read-only cache
+              const bool nearest = a.epi.rnd != 0;
+              const int2 sc =
+                  __ldg(reinterpret_cast<const int2*>(a.shifts + co));
+              const Shift s0 = column_shift<SHORT>(sc.x, nearest);
+              const Shift s1 = column_shift<SHORT>(sc.y, nearest);
+              if constexpr (COUNT) {
+                // the four phases' values of both columns, before the max
+#pragma unroll
+                for (int p = 0; p < 4; ++p) {
+                  const int* m = &d[4 * jj + 2 * h + 4 * (CP / 8) * p];
+                  n += out_of_int16((int)((unsigned)s0.apply<false>(m[0]) +
+                                          (unsigned)bias[jj].x)) +
+                       out_of_int16((int)((unsigned)s1.apply<false>(m[1]) +
+                                          (unsigned)bias[jj].y));
+                }
+              }
+              stage2<SHORT>(o, co, a.Cout, a.epi, s0, s1, v[0], v[1],
+                            bias[jj]);
+            }
           }
         }
       }
     }
+    if constexpr (COUNT) return n;
   };
-  run_steps<8, BN / 2>(wg, 2, steps, load, mma, epi);
+  if constexpr (COUNT) {
+    int cnt = 0;
+    run_steps<8, BN / 2>(wg, 2, steps, load, mma,
+                         [&](const int (&d)[BN / 2], int s) {
+                           cnt += epi(d, s);
+                         });
+    // one atomic per warp
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0 && cnt != 0) atomicAdd(a.overflow, cnt);
+  } else {
+    run_steps<8, BN / 2>(wg, 2, steps, load, mma, epi);
+  }
   __syncthreads();
   // ---- 4. whole pooled output rows
   store_rows(a.out, ob, a.OP, go, (long long)a.Wo * a.Cout, t.tw * a.Cout,
@@ -593,18 +780,23 @@ int launch_entry(EntryArgs a, int* info, cudaStream_t st) {
                      info, st);
 }
 
-template <int BN, bool SHORT>
-int launch_pool(PoolArgs a, int* info, cudaStream_t st) {
+template <int BN, bool SHORT, In IN, Cols C>
+int launch_pool(PoolArgsOf<C> a, int* info, cudaStream_t st) {
   const int C4 = 4 * a.Cin;
+  // the NHWC form's pooled tile reads 2 TH + 2 input rows of 2 TW + 2
+  // pixels, K2's TH + 1 s2d rows of TW + 1
+  constexpr bool NHWC = IN == In::nhwc;
   const RowPlan p = plan_rows(
-      a.Ho, a.Wo, a.Cout, BN, [](int th) { return th + 1; },
-      [&](int tw) { return (tw + 1) * C4; }, (long long)(a.Wo + 3) * C4,
+      a.Ho, a.Wo, a.Cout, BN,
+      [](int th) { return IN == In::nhwc ? 2 * th + 2 : th + 1; },
+      [&](int tw) { return NHWC ? (2 * tw + 2) * a.Cin : (tw + 1) * C4; },
+      NHWC ? 2LL * a.Wo * a.Cin : (long long)(a.Wo + 3) * C4,
       (long long)a.Wo * a.Cout, sm_share(PoolCfg<BN>::BLOCKS));
   a.TH = p.th;
   a.TW = p.tw;
   a.RP = p.rp;
   a.OP = p.op;
-  return launch_rows(pool_s2d_wgmma<BN, SHORT>, a, p, BN,
+  return launch_rows(pool_wgmma<BN, SHORT, IN, C>, a, p, BN,
                      (long long)a.B * ((a.Ho + p.th - 1) / p.th) *
                          ((a.Wo + p.tw - 1) / p.tw),
                      info, st);
@@ -628,13 +820,58 @@ int entry(EntryArgs a, bool short_form, int* info, cudaStream_t st) {
                     : launch_entry<64, false>(a, info, st);
 }
 
-// phases of 16 columns where Cout <= 16, else of 32
-int pool(PoolArgs a, bool short_form, int* info, cudaStream_t st) {
-  if (a.Cout <= 16)
-    return short_form ? launch_pool<64, true>(a, info, st)
-                      : launch_pool<64, false>(a, info, st);
-  return short_form ? launch_pool<128, true>(a, info, st)
-                    : launch_pool<128, false>(a, info, st);
+// phases of 16 columns where Cout <= 16, else of 32; the short shift form
+// where short_form (never when counting)
+template <In IN, Cols C = Cols::scalar>
+int pool(const PoolArgsOf<C>& a, bool short_form, int* info,
+         cudaStream_t st) {
+  if constexpr (C != Cols::count)
+    if (short_form)
+      return a.Cout <= 16 ? launch_pool<64, true, IN, C>(a, info, st)
+                          : launch_pool<128, true, IN, C>(a, info, st);
+  return a.Cout <= 16 ? launch_pool<64, false, IN, C>(a, info, st)
+                      : launch_pool<128, false, IN, C>(a, info, st);
+}
+
+// The pooled conv's arguments for an H x W x Cin -> Cout conv whose input
+// (of x_bytes bytes) is at x
+PoolArgs pool_args(const void* x, long long x_bytes, const void* wp,
+                   const void* bias_rt, void* out, int B, int H, int W,
+                   int Cin, int Cout) {
+  PoolArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.wp = static_cast<const int8_t*>(wp);
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.x_bytes = x_bytes;
+  a.B = B;
+  a.Ho = H / 2;
+  a.Wo = W / 2;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  return a;
+}
+
+// The NHWC form with one accumulator shift per output column (C = column)
+// or counting (C = count): the table `shifts`; the short shift form where
+// every entry and out_shift lie in [0, 31] (short_cols: the entries,
+// checked by the caller), never when counting.
+template <Cols C>
+int run_nhwc_cols(const void* x, const void* wp, const void* bias_rt,
+                  const void* shifts, void* out, void* overflow, int B, int H,
+                  int W, int Cin, int Cout, int short_cols, int out_shift,
+                  int slope_num, int nearest, void* stream) {
+  if (bad_pool(H, W, Cin, Cout) || B < 1 || shifts == nullptr ||
+      (C == Cols::count) != (overflow != nullptr))
+    return (int)cudaErrorInvalidValue;
+  ColsArgs a{};
+  static_cast<PoolArgs&>(a) = pool_args(x, (long long)B * H * W * Cin, wp,
+                                        bias_rt, out, B, H, W, Cin, Cout);
+  a.epi = make_epi(0, out_shift, slope_num, nearest != 0);
+  a.shifts = static_cast<const int*>(shifts);
+  a.overflow = static_cast<int*>(overflow);
+  return pool<In::nhwc, C>(a, short_cols && short_shift(out_shift), nullptr,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -699,20 +936,12 @@ int yolo_int8_pool_s2d_wgmma(const void* x2, const void* wp,
                              int out_shift, int slope_num, int nearest,
                              void* stream) {
   if (bad_pool(H, W, Cin, Cout) || B < 1) return (int)cudaErrorInvalidValue;
-  PoolArgs a{};
-  a.x = static_cast<const int8_t*>(x2);
-  a.wp = static_cast<const int8_t*>(wp);
-  a.bias = static_cast<const int*>(bias_rt);
-  a.out = static_cast<int8_t*>(out);
-  a.x_bytes = (long long)B * (H / 2 + 3) * (W / 2 + 3) * 4 * Cin;
-  a.B = B;
-  a.Ho = H / 2;
-  a.Wo = W / 2;
-  a.Cin = Cin;
-  a.Cout = Cout;
+  PoolArgs a =
+      pool_args(x2, (long long)B * (H / 2 + 3) * (W / 2 + 3) * 4 * Cin, wp,
+                bias_rt, out, B, H, W, Cin, Cout);
   a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
-  return pool(a, short_shift(acc_shift) && short_shift(out_shift), nullptr,
-              static_cast<cudaStream_t>(stream));
+  return pool<In::s2d>(a, short_shift(acc_shift) && short_shift(out_shift),
+                       nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // K2's layout for an H x W x Cin -> Cout pooled conv (its tile in pooled
@@ -720,12 +949,65 @@ int yolo_int8_pool_s2d_wgmma(const void* x2, const void* wp,
 int yolo_int8_pool_s2d_wgmma_info(int H, int W, int Cin, int Cout,
                                   int* info_out) {
   if (bad_pool(H, W, Cin, Cout)) return (int)cudaErrorInvalidValue;
-  PoolArgs a{};
-  a.Ho = H / 2;
-  a.Wo = W / 2;
-  a.Cin = Cin;
-  a.Cout = Cout;
-  return pool(a, true, info_out, nullptr);
+  return pool<In::s2d>(
+      pool_args(nullptr, 0, nullptr, nullptr, nullptr, 0, H, W, Cin, Cout),
+      true, info_out, nullptr);
+}
+
+// The NHWC form: x int8 NHWC [B, H, W, Cin] (H, W even), 1 <= Cin <= 4;
+// wp: int8 [4 CP, 64] (pack_pool_nhwc_weights: row p CP + co of pool phase
+// p, CP as K2's; K in the 4x4 window's (dy, dx, c) order, zero past 16
+// Cin); bias_rt: int32 [32], zero past Cout; out: int8 [B, H/2, W/2,
+// Cout], Cout <= 32; x, wp and out 16-byte aligned. Shifts and slope as
+// yolo_int8_entry_conv3x3_wgmma; layout: yolo_int8_pool_nhwc_wgmma_info.
+int yolo_int8_pool_nhwc_wgmma(const void* x, const void* wp,
+                              const void* bias_rt, void* out, int B, int H,
+                              int W, int Cin, int Cout, int acc_shift,
+                              int out_shift, int slope_num, int nearest,
+                              void* stream) {
+  if (bad_pool(H, W, Cin, Cout) || B < 1) return (int)cudaErrorInvalidValue;
+  PoolArgs a = pool_args(x, (long long)B * H * W * Cin, wp, bias_rt, out, B,
+                         H, W, Cin, Cout);
+  a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
+  return pool<In::nhwc>(a, short_shift(acc_shift) && short_shift(out_shift),
+                        nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The NHWC form with one accumulator shift per output column (a
+// per-channel sw): shifts: int32 [>= 32], each column's shift as _shift
+// reads it (int8_conv.py's acc_shift_table), 0 past Cout, 8-byte aligned;
+// short_cols: every entry in [0, 31].
+int yolo_int8_pool_nhwc_cols_wgmma(const void* x, const void* wp,
+                                   const void* bias_rt, const void* shifts,
+                                   void* out, int B, int H, int W, int Cin,
+                                   int Cout, int short_cols, int out_shift,
+                                   int slope_num, int nearest, void* stream) {
+  return run_nhwc_cols<Cols::column>(x, wp, bias_rt, shifts, out, nullptr,
+                                     B, H, W, Cin, Cout, short_cols,
+                                     out_shift, slope_num, nearest, stream);
+}
+
+// The NHWC form with per-column shifts that also adds to *overflow (int32)
+// how many conv outputs, all four values of each 2x2 window before the
+// pool, lie outside int16 after the accumulator shift and the bias.
+int yolo_int8_pool_nhwc_count_wgmma(const void* x, const void* wp,
+                                    const void* bias_rt, const void* shifts,
+                                    void* out, void* overflow, int B, int H,
+                                    int W, int Cin, int Cout, int out_shift,
+                                    int slope_num, int nearest,
+                                    void* stream) {
+  return run_nhwc_cols<Cols::count>(x, wp, bias_rt, shifts, out, overflow,
+                                    B, H, W, Cin, Cout, 0, out_shift,
+                                    slope_num, nearest, stream);
+}
+
+// The NHWC form's layout (every shift form's), info[0..7] as K2's.
+int yolo_int8_pool_nhwc_wgmma_info(int H, int W, int Cin, int Cout,
+                                   int* info_out) {
+  if (bad_pool(H, W, Cin, Cout)) return (int)cudaErrorInvalidValue;
+  return pool<In::nhwc>(
+      pool_args(nullptr, 0, nullptr, nullptr, nullptr, 0, H, W, Cin, Cout),
+      true, info_out, nullptr);
 }
 
 }  // extern "C"

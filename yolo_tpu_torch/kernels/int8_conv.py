@@ -26,15 +26,18 @@ once per model by ``pack_conv3x3_weights``. ``int8_conv3x3_requant`` and
 array) and an overflow counter: the stride-1 and pooled forms and the
 mma.sync conv then read a per-column shift table (``acc_shift_table``,
 made once per model by ``fixed_point.Int8Model.pack_conv3x3``), the
-counting ones add to the counter. Every other wrapper refuses a
-per-channel sw on a CUDA tensor. The two thin-input entry
-convs run on the row-streaming wgmma kernels of
+counting ones add to the counter; so does the NHWC form of K2's kernel
+below. Every other wrapper refuses a per-channel sw on a CUDA tensor. The
+thin-input convs run on the row-streaming wgmma kernels of
 ``csrc/int8_entry_conv.cu``: K2 on the s2d layout with C_in <= 4 and
 C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
-``pack_pool_s2d_weights``) and every stride-1 3x3 of one part with C_in
-<= 3 and C_out <= 64 (``entry_conv3x3_route``: yolo_v3's entry conv;
-weights from ``pack_entry_conv_weights``). Every 1x1 of stride 1, pad 0,
-one or two parts of C_in % 16 == 0 and a scalar sw
+``pack_pool_s2d_weights``), the same kernel's NHWC form on every pooled
+conv of C_in <= 4 and C_out <= 32 on NHWC input (``pool_nhwc_wgmma_route``:
+slim's conv1 there, with a scalar or a per-channel sw and the overflow
+counter; weights from ``pack_pool_nhwc_weights``) and every stride-1 3x3
+of one part with C_in <= 3 and C_out <= 64 (``entry_conv3x3_route``:
+yolo_v3's entry conv; weights from ``pack_entry_conv_weights``). Every
+1x1 of stride 1, pad 0, one or two parts of C_in % 16 == 0 and a scalar sw
 (``conv1x1_wgmma_route``: yolo_v3's nine 1x1s, two concat 1x1s and three
 preds) runs as a GEMM on the wgmma kernel of
 ``csrc/int8_conv1x1_wgmma.cu``, its weights resident in shared memory
@@ -428,28 +431,38 @@ def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     """Fused int8 conv3x3(s1, p1) + requant [+ 2x2/2 max pool, taken on the
     int32 accumulator before requant: exact, the chain is monotone].
 
-    ``packed``: the weights from ``pack_conv3x3_weights`` (then ``w_q``
-    may be None). On a CUDA tensor a pooled conv that
-    ``conv3x3_pool_wgmma_route`` takes runs the wgmma kernel's pooled form,
-    which reads that form (packed for this call where only the HWIO
-    weights are given). ``sw``, ``shifts`` and ``overflow`` as in
+    ``packed``: the weights from ``pack_conv3x3_weights``, or for a pooled
+    conv of C_in <= 4 from ``pack_pool_nhwc_weights`` (then ``w_q`` may be
+    None). On a CUDA tensor a pooled conv that ``conv3x3_pool_wgmma_route``
+    takes runs the wgmma conv3x3 kernel's pooled form, which reads the
+    first form, and one that ``pool_nhwc_wgmma_route`` takes (slim's conv1
+    on NHWC input) the NHWC form of K2's wgmma kernel, which reads the
+    second (each packed for this call where only the HWIO weights are
+    given). ``sw``, ``shifts`` and ``overflow`` as in
     ``int8_conv3x3_requant``; with ``pool`` the counter counts every conv
     output before the pool. The CPU route reads the HWIO weights where
     given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
-    c_in = x_q.shape[-1]
+    c_in, c_out = x_q.shape[-1], b_q.shape[0]
     if route(x_q) == "plain":
-        return int8_conv3x3_im2col_plain(x_q, _hwio(w_q, packed, c_in), b_q,
-                                         pool=pool, overflow=overflow, **kw)
-    if pool and conv3x3_pool_wgmma_route(c_in, sw, c_out=b_q.shape[0]):
+        return int8_conv3x3_im2col_plain(
+            x_q, _hwio(w_q, packed, c_in, c_out), b_q, pool=pool,
+            overflow=overflow, **kw)
+    if pool and conv3x3_pool_wgmma_route(c_in, sw, c_out=c_out):
         _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
                                      packed, form="pool", shifts=shifts,
                                      overflow=overflow, **kw)
+    if pool and pool_nhwc_wgmma_route(c_in, c_out, sw):
+        _check_leaky_flag(leaky)
+        return _launch_pool_nhwc_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
+                                       packed, shifts=shifts,
+                                       overflow=overflow, **kw)
     b, h, w, _ = x_q.shape
-    return _launch("int8_conv3x3_im2col", x_q, _hwio(w_q, packed, c_in), b_q,
-                   h=h, w=w, c_in=c_in, pool=pool, s2d=False, shifts=shifts,
+    return _launch("int8_conv3x3_im2col", x_q,
+                   _hwio(w_q, packed, c_in, c_out), b_q, h=h, w=w,
+                   c_in=c_in, pool=pool, s2d=False, shifts=shifts,
                    overflow=overflow, **kw)
 
 
@@ -459,9 +472,11 @@ def int8_conv3x3_pool_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
     """Fused int8 conv3x3(s1, p1) + 2x2/2 max pool + requant at pooled
     resolution: int8 [B,H,W,C_in] -> int8 [B,H/2,W/2,C_out].
 
-    ``assembly='stride2'`` reads the NHWC input directly; ``'s2d'`` first
-    lays it out as padded space-to-depth (``fixed_point.s2d_input``) and
-    runs the s2d-input form, ``int8_conv3x3_pool_s2d``."""
+    ``assembly='stride2'`` reads the NHWC input directly (on a CUDA tensor
+    a conv that ``pool_nhwc_wgmma_route`` takes runs the NHWC form of K2's
+    wgmma kernel, its weights packed for this call); ``'s2d'`` first lays
+    it out as padded space-to-depth (``fixed_point.s2d_input``) and runs
+    the s2d-input form, ``int8_conv3x3_pool_s2d``."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     if assembly not in ("stride2", "s2d"):
@@ -475,6 +490,10 @@ def int8_conv3x3_pool_requant(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
             raise ValueError("pooled conv requires even H, W")
         return int8_conv3x3_pool_s2d(fp.s2d_input(x_q).contiguous(), w_q,
                                      b_q, c_in=c_in, **kw)
+    if pool_nhwc_wgmma_route(c_in, b_q.shape[0], sw):
+        _check_leaky_flag(leaky)
+        return _launch_pool_nhwc_wgmma("int8_conv3x3_pool_requant", x_q,
+                                       w_q, b_q, None, **kw)
     return _launch("int8_conv3x3_pool_requant", x_q, w_q, b_q, h=h, w=w,
                    c_in=c_in, pool=True, s2d=False, **kw)
 
@@ -771,18 +790,21 @@ def unpack_conv3x3_weights(wp: torch.Tensor, c_in=None) -> torch.Tensor:
     return w if c_in is None else w[:, :, :c_in]
 
 
-def _hwio(w_q, packed, c_in):
+def _hwio(w_q, packed, c_in, c_out=None):
     """The HWIO weights where given, else those of ``packed`` (its first
     ``c_in`` input channels): a 1x1's [C_out, C_in] form
     (``pack_conv1x1_weights``), the entry conv's [C_out, 32] form (C_in <=
-    3), or the [C_out, 9 * C_k] form (9 * C_k >= 288) of
-    ``pack_conv3x3_weights``."""
+    3), the pooled NHWC form [4 * CP, 64] (C_in <= 4) of
+    ``pack_pool_nhwc_weights`` (its first ``c_out`` columns), or the
+    [C_out, 9 * C_k] form (9 * C_k >= 288) of ``pack_conv3x3_weights``."""
     if w_q is not None:
         return w_q
     if packed.shape[1] == c_in:
         return unpack_conv1x1_weights(packed)
     if packed.shape[1] == ENTRY_K:
         return unpack_entry_conv_weights(packed, c_in)
+    if packed.shape[1] == POOL_K and c_in <= 4:
+        return unpack_pool_nhwc_weights(packed, c_in, c_out)
     return unpack_conv3x3_weights(packed, c_in)
 
 
@@ -928,26 +950,40 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
                           device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    _launch_shift_form(
+        name, (_ENTRY_OF[form], _COLS_ENTRY_OF.get(form),
+               _COUNT_ENTRY_OF.get(form)), x, packed, bias_rt, out,
+        (bsz, h, w, c_in, c_out), sw=sw, sa_in=sa_in, sa_out=sa_out,
+        retune=retune, rounding=rounding, num=num, shifts=shifts,
+        overflow=overflow)
+    return out
+
+
+def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
+                       sa_in, sa_out, retune, rounding, num, shifts,
+                       overflow) -> None:
+    """Launch one of a kernel's three C entries, ``entries`` = (scalar,
+    per-column, counting), all with the conv3x3 kernels' interface, on
+    ``dims`` = (B, H, W, C_in, C_out), counting the launch under
+    ``name``: the scalar one for a scalar ``sw`` without a counter, the
+    counting one with ``overflow``, else the per-column one, those two on a
+    shift table (``shifts``, made for this call where None)."""
+    dev, c_out = x.device, dims[-1]
+    ptrs = (x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr())
     nearest = int(rounding == "nearest")
+    scalar, cols, count = entries
     if overflow is None and not np.ndim(sw):
-        launch(name, _ENTRY_OF[form], dev,
-               x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-               out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
-               retune - sa_out, num, nearest)
-        return out
+        launch(name, scalar, dev, *ptrs, out.data_ptr(), *dims,
+               sa_in + sw - retune, retune - sa_out, num, nearest)
+        return
     table = _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev)
     if overflow is not None:
-        launch(name, _COUNT_ENTRY_OF[form], dev,
-               x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-               table.data_ptr(), out.data_ptr(), overflow.data_ptr(), bsz, h,
-               w, c_in, c_out, retune - sa_out, num, nearest)
-        return out
+        launch(name, count, dev, *ptrs, table.data_ptr(), out.data_ptr(),
+               overflow.data_ptr(), *dims, retune - sa_out, num, nearest)
+        return
     codes = acc_shift_codes(sw, sa_in, retune, rounding, c_out)
-    launch(name, _COLS_ENTRY_OF[form], dev,
-           x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-           table.data_ptr(), out.data_ptr(), bsz, h, w, c_in, c_out,
+    launch(name, cols, dev, *ptrs, table.data_ptr(), out.data_ptr(), *dims,
            int(short_columns(codes)), retune - sa_out, num, nearest)
-    return out
 
 
 def pack_res_block_weights(w1_q: torch.Tensor, w2_q: torch.Tensor):
@@ -972,7 +1008,7 @@ def unpack_res_block_weights(packed):
 
 # packings made since the last reset (serving packs once per model)
 _PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0,
-          "conv1x1": 0, "shift_table": 0}
+          "pool_nhwc": 0, "conv1x1": 0, "shift_table": 0}
 
 
 def res_block_pack_count() -> int:
@@ -1128,7 +1164,8 @@ def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
 ENTRY_CONV_ENTRY = "yolo_int8_entry_conv3x3_wgmma"
 POOL_S2D_WGMMA_ENTRY = "yolo_int8_pool_s2d_wgmma"
 ENTRY_K = 32  # the entry conv's one K step: 9 * C_in <= 27 bytes, padded
-POOL_S2D_K = 64  # K2's two K steps: 16 * C_in <= 64 bytes, padded
+# K2's two K steps (both input forms): 16 * C_in <= 64 bytes, padded
+POOL_K = 64
 
 
 def entry_conv3x3_route(k, stride, padding, nparts, c_in, c_out, sw) -> bool:
@@ -1176,15 +1213,14 @@ def _s2d_phases(c_out: int) -> int:
     return 16 if c_out <= 16 else 32
 
 
-def pack_pool_s2d_weights(w_q: torch.Tensor) -> torch.Tensor:
-    """K2's HWIO weights [3, 3, C_in, C_out] (C_in <= 4, C_out <= 32) as the
-    phase-packed block-conv weights its wgmma kernel reads, made once per
-    model: [4 * CP, 64], row p * CP + co for pool phase p = 2a + b and
-    output channel co (CP = 16 where C_out <= 16, else 32; zero rows past
-    C_out), column k = r * 8C + s * 4C + (py * 2 + px) * C + c of the s2d
-    4x4 window (zero past 16 * C_in): ``fixed_point._s2d_phase_weights``
-    of the JAX package, transposed K-major. Contiguous, on the weights'
-    device."""
+def _pack_phases(w_q: torch.Tensor, column, what: str) -> torch.Tensor:
+    """HWIO weights [3, 3, C_in, C_out] (C_in <= 4, C_out <= 32) as K2's
+    phase-packed block-conv weights, K-major: [4 * CP, 64], row p * CP +
+    co for pool phase p = 2a + b and output channel co (CP = 16 where
+    C_out <= 16, else 32; zero rows past C_out), tap (j, k) of phase (a,
+    b) at columns ``column(a + j, b + k, C_in)`` .. + C_in of the pooled
+    pixel's 4x4 window (zero past 16 * C_in). Contiguous, on the weights'
+    device; counted under ``what``."""
     if w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3):
         raise ValueError(f"3x3 weights must be HWIO [3, 3, C_in, C_out], "
                          f"got {list(w_q.shape)}")
@@ -1193,31 +1229,49 @@ def pack_pool_s2d_weights(w_q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"K2's wgmma weights take C_in <= 4 and C_out <= "
                          f"32, got {c_in} -> {c_out}")
     cp = _s2d_phases(c_out)
-    wp = torch.zeros((4, cp, POOL_S2D_K), dtype=torch.int8,
-                     device=w_q.device)
+    wp = torch.zeros((4, cp, POOL_K), dtype=torch.int8, device=w_q.device)
     for a in range(2):              # pool phase row
         for bph in range(2):        # pool phase column
             for j in range(3):      # 3x3 tap
                 for k in range(3):
-                    r, py = divmod(a + j, 2)
-                    s, px = divmod(bph + k, 2)
-                    k0 = r * 8 * c_in + s * 4 * c_in + (py * 2 + px) * c_in
+                    k0 = column(a + j, bph + k, c_in)
                     wp[a * 2 + bph, :c_out, k0:k0 + c_in] = w_q[j, k].t()
-    _PACKS["pool_s2d"] += 1
-    return wp.reshape(4 * cp, POOL_S2D_K).contiguous()
+    _PACKS[what] += 1
+    return wp.reshape(4 * cp, POOL_K).contiguous()
+
+
+def _unpack_phases(wp: torch.Tensor, c_in: int, c_out: int,
+                   column) -> torch.Tensor:
+    """The inverse of ``_pack_phases``: HWIO [3, 3, C_in, C_out], read from
+    pool phase 0, whose window holds all nine taps."""
+    w = torch.empty((3, 3, c_in, c_out), dtype=wp.dtype, device=wp.device)
+    for j in range(3):
+        for k in range(3):
+            k0 = column(j, k, c_in)
+            w[j, k] = wp[:c_out, k0:k0 + c_in].t()
+    return w
+
+
+def _s2d_column(m: int, n: int, c: int) -> int:
+    """Column of 4x4-window pixel (m, n) in K2's s2d K order (r, s, py, px,
+    c): m = 2r + py, n = 2s + px."""
+    return (m // 2) * 8 * c + (n // 2) * 4 * c + ((m % 2) * 2 + n % 2) * c
+
+
+def pack_pool_s2d_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """K2's HWIO weights [3, 3, C_in, C_out] (C_in <= 4, C_out <= 32) as the
+    phase-packed block-conv weights its wgmma kernel reads, made once per
+    model (``_pack_phases``): column k = r * 8C + s * 4C + (py * 2 + px) *
+    C + c of the s2d 4x4 window, ``fixed_point._s2d_phase_weights`` of the
+    JAX package transposed K-major."""
+    return _pack_phases(w_q, _s2d_column, "pool_s2d")
 
 
 def unpack_pool_s2d_weights(wp: torch.Tensor, c_in: int,
                             c_out: int) -> torch.Tensor:
-    """The inverse of ``pack_pool_s2d_weights``: HWIO [3, 3, C_in, C_out]
-    (read from pool phase 0, whose window holds all nine taps)."""
-    w = torch.empty((3, 3, c_in, c_out), dtype=wp.dtype, device=wp.device)
-    for j in range(3):
-        for k in range(3):
-            k0 = ((j // 2) * 8 * c_in + (k // 2) * 4 * c_in
-                  + ((j % 2) * 2 + k % 2) * c_in)
-            w[j, k] = wp[:c_out, k0:k0 + c_in].t()
-    return w
+    """The inverse of ``pack_pool_s2d_weights``: HWIO [3, 3, C_in,
+    C_out]."""
+    return _unpack_phases(wp, c_in, c_out, _s2d_column)
 
 
 def _s2d_hwio(w_q, packed, c_in, c_out):
@@ -1357,7 +1411,7 @@ def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
     if packed is None:
         packed = pack_pool_s2d_weights(w_q)
     _check_operand("packed weights", packed, dev, torch.int8,
-                   (4 * _s2d_phases(c_out), POOL_S2D_K))
+                   (4 * _s2d_phases(c_out), POOL_K))
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
@@ -1379,6 +1433,127 @@ def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
            x2.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
            out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
            retune - sa_out, num, int(rounding == "nearest"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The NHWC form of K2's wgmma kernel (csrc/int8_entry_conv.cu): conv3x3 + 2x2
+# pool of C_in <= 4 on NHWC input (slim's conv1 there), K3's counterpart.
+# ---------------------------------------------------------------------------
+
+
+# its C entries: one shift per layer, a per-column shift table (a
+# per-channel sw), and the table with an overflow count
+POOL_NHWC_WGMMA_ENTRY = "yolo_int8_pool_nhwc_wgmma"
+POOL_NHWC_COLS_ENTRY = "yolo_int8_pool_nhwc_cols_wgmma"
+POOL_NHWC_COUNT_ENTRY = "yolo_int8_pool_nhwc_count_wgmma"
+_POOL_NHWC_ENTRIES = (POOL_NHWC_WGMMA_ENTRY, POOL_NHWC_COLS_ENTRY,
+                      POOL_NHWC_COUNT_ENTRY)
+
+
+def pool_nhwc_wgmma_route(c_in, c_out, sw) -> bool:
+    """True where a pooled conv3x3 on a CUDA NHWC tensor
+    (``int8_conv3x3_im2col(pool=True)``, ``int8_conv3x3_pool_requant(
+    assembly='stride2')``) runs the NHWC form of K2's wgmma kernel
+    (``csrc/int8_entry_conv.cu``): 1 <= C_in <= 4 (K = 16 * C_in <= 64),
+    1 <= C_out <= 32, and a scalar ``sw`` or a per-channel one of C_out
+    entries (slim's conv1 on NHWC input, 3 -> 16). There is no fallback: a
+    routed conv launches that kernel or raises."""
+    return 1 <= c_in <= 4 and 1 <= c_out <= 32 and _sw_ok(sw, c_out)
+
+
+def _nhwc_column(m: int, n: int, c: int) -> int:
+    """Column of 4x4-window pixel (m, n) in the NHWC form's K order (dy, dx,
+    c): the window's rows are NHWC runs of 4C bytes."""
+    return m * 4 * c + n * c
+
+
+def pack_pool_nhwc_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """The HWIO weights [3, 3, C_in, C_out] (C_in <= 4, C_out <= 32) of a
+    pooled conv in the phase-packed form the NHWC form of K2's wgmma kernel
+    reads, made once per model (``_pack_phases``): column k = dy * 4C + dx
+    * C + c of the pooled pixel's 4x4 NHWC input window (tap (j, k) of
+    phase (a, b) at dy = a + j, dx = b + k)."""
+    return _pack_phases(w_q, _nhwc_column, "pool_nhwc")
+
+
+def unpack_pool_nhwc_weights(wp: torch.Tensor, c_in: int,
+                             c_out: int) -> torch.Tensor:
+    """The inverse of ``pack_pool_nhwc_weights``: HWIO [3, 3, C_in,
+    C_out]."""
+    return _unpack_phases(wp, c_in, c_out, _nhwc_column)
+
+
+def pool_nhwc_pack_count() -> int:
+    """Calls of ``pack_pool_nhwc_weights`` since the last reset."""
+    return _PACKS["pool_nhwc"]
+
+
+def reset_pool_nhwc_pack_count() -> None:
+    _PACKS["pool_nhwc"] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def pool_nhwc_wgmma_layout(h, w, c_in, c_out) -> RowTileLayout:
+    """The launch layout of the NHWC form of K2's wgmma kernel (every shift
+    form's) for an H x W x C_in -> C_out pooled conv, its tile in pooled
+    pixels (``plan_rows`` in ``csrc/int8_entry_conv.cu``; the shared input
+    rows are 2 * tile_h + 2 NHWC rows). Needs the built kernels. Raises
+    ValueError where it takes no such conv (H or W odd, C_in > 4, C_out >
+    32)."""
+    return _row_layout(POOL_NHWC_WGMMA_ENTRY, "pooled NHWC wgmma", h, w,
+                       c_in, c_out)
+
+
+def _launch_pool_nhwc_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
+                            sa_out, retune, leaky, rounding, shifts=None,
+                            overflow=None) -> torch.Tensor:
+    """Check the operands and launch the NHWC form of K2's wgmma kernel on
+    the current stream, counting the launch under ``name``; packs ``w_q``
+    for this call where ``packed`` is None. A per-channel ``sw`` runs its
+    per-column form and an ``overflow`` counter its counting form, on a
+    per-column shift table (``shifts``, made for this call where None).
+    Raises on anything the kernel does not take and on a failed launch."""
+    _check_rounding(rounding)
+    num = _slope_num(leaky)
+    _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
+    _check_input(x)
+    dev = x.device
+    bsz, h, w, c_in = x.shape
+    c_out = b_q.shape[0]
+    if not pool_nhwc_wgmma_route(c_in, c_out, sw):
+        raise ValueError(f"the pooled NHWC wgmma kernel needs C_in <= 4, "
+                         f"C_out <= 32 and a scalar sw or one of C_out "
+                         f"entries, got {c_in} -> {c_out}, sw of shape "
+                         f"{np.shape(sw)}")
+    if h % 2 or w % 2:
+        raise ValueError("pooled conv requires even H, W")
+    if packed is None:
+        packed = pack_pool_nhwc_weights(w_q)
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (4 * _s2d_phases(c_out), POOL_K))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    _aligned("x", x, 16)
+    _aligned("packed weights", packed, 16)
+    if bsz * h * w >= 2 ** 31:
+        raise ValueError("B * H * W must stay below 2^31; split the batch")
+    if overflow is not None:
+        _check_counter(overflow, dev)
+    out = torch.empty((bsz, h // 2, w // 2, c_out), dtype=torch.int8,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    pool_nhwc_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
+    _aligned("the output allocation", out, 16)
+    # the kernel reads bias (and shift) pairs of 4 phases' 16 or 32 columns
+    bias_rt = torch.zeros(32, dtype=torch.int32, device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    _launch_shift_form(name, _POOL_NHWC_ENTRIES, x, packed, bias_rt, out,
+                       (bsz, h, w, c_in, c_out), sw=sw, sa_in=sa_in,
+                       sa_out=sa_out, retune=retune, rounding=rounding,
+                       num=num, shifts=shifts, overflow=overflow)
     return out
 
 

@@ -52,6 +52,10 @@ class Int8Model:
     # conv1's weights phase-packed for K2's wgmma kernel on the s2d layout
     # (``pack_pool_s2d_weights``), made once by ``pack_conv3x3``
     s2d_packed: Optional[torch.Tensor] = None
+    # conv1's weights phase-packed for the NHWC form of K2's wgmma kernel
+    # on NHWC input (``pack_pool_nhwc_weights``), made once by
+    # ``pack_conv3x3``
+    nhwc_packed: Optional[torch.Tensor] = None
     # {rounding: {layer name: its per-column accumulator shift table}}
     # (``acc_shift_table``), which the kernels read for a per-channel sw
     # and when counting overflows, made once by ``pack_conv3x3``
@@ -70,6 +74,8 @@ class Int8Model:
             retune=dict(self.retune), packed=moved(self.packed),
             s2d_packed=None if self.s2d_packed is None else
             self.s2d_packed.to(device),
+            nhwc_packed=None if self.nhwc_packed is None else
+            self.nhwc_packed.to(device),
             shift_tables=None if self.shift_tables is None else
             {r: moved(t) for r, t in self.shift_tables.items()})
 
@@ -94,12 +100,15 @@ class Int8Model:
         ``conv3x3_wgmma_route`` takes, pooled ``int8_conv3x3_im2col``
         layers that ``conv3x3_pool_wgmma_route`` takes) into ``packed``,
         conv1's for K2's wgmma kernel on the s2d input
-        (``pool_s2d_wgmma_route``, a scalar sw only) into ``s2d_packed``,
-        and every layer's per-column shift table, for both roundings, into
+        (``pool_s2d_wgmma_route``, a scalar sw only) into ``s2d_packed``
+        and for its NHWC form on NHWC input (``pool_nhwc_wgmma_route``, a
+        scalar or a per-channel sw) into ``nhwc_packed``, and every
+        layer's per-column shift table, for both roundings, into
         ``shift_tables``, so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
             acc_shift_table, conv3x3_pool_wgmma_route, conv3x3_wgmma_route,
-            pack_conv3x3_weights, pack_pool_s2d_weights,
+            pack_conv3x3_weights, pack_pool_nhwc_weights,
+            pack_pool_s2d_weights, pool_nhwc_wgmma_route,
             pool_s2d_wgmma_route)
 
         def routed(name):
@@ -112,10 +121,13 @@ class Int8Model:
         self.packed = {name: pack_conv3x3_weights(self.w_q[name])
                        for name in QUANT_LAYER_NAMES if routed(name)}
         w1 = self.w_q[QUANT_LAYER_NAMES[0]]
-        self.s2d_packed = (
-            pack_pool_s2d_weights(w1) if pool_s2d_wgmma_route(
-                w1.shape[2], w1.shape[3], self.sw[QUANT_LAYER_NAMES[0]])
-            else None)
+        c_in, c_out, sw1 = w1.shape[2], w1.shape[3], self.sw[
+            QUANT_LAYER_NAMES[0]]
+        self.s2d_packed = (pack_pool_s2d_weights(w1) if pool_s2d_wgmma_route(
+            c_in, c_out, sw1) else None)
+        self.nhwc_packed = (pack_pool_nhwc_weights(w1)
+                            if pool_nhwc_wgmma_route(c_in, c_out, sw1)
+                            else None)
         dev = w1.device
         self.shift_tables = {}
         for rounding in ("nearest", "floor"):
@@ -413,8 +425,8 @@ def _forward(m: Int8Model, x_q: torch.Tensor, rounding: str,
             fn, kw["pool"] = K.int8_conv3x3_im2col, True
         else:
             fn = K.int8_conv3x3_requant
-        out = fn(out, m.w_q[name], m.b_q[name],
-                 packed=(m.packed or {}).get(name), **kw)
+        packed = m.nhwc_packed if i == 0 else (m.packed or {}).get(name)
+        out = fn(out, m.w_q[name], m.b_q[name], packed=packed, **kw)
     # dequantize the head to float for decode
     return out.to(torch.float32) * (2.0 ** -m.sa["pred"])
 
@@ -426,8 +438,9 @@ def int8_forward(m: Int8Model, x_q: torch.Tensor,
     layout [B, H/2+3, W/2+3, 12]) -> float head [B, H/16, W/16, C].
 
     Layer routing: conv1 on s2d input runs the s2d conv+pool form
-    (int8_conv3x3_pool_s2d, with ``m.s2d_packed``); every other pool
-    layer runs int8_conv3x3_im2col(pool=True); the rest
+    (int8_conv3x3_pool_s2d, with ``m.s2d_packed``), on NHWC input
+    int8_conv3x3_im2col(pool=True) with ``m.nhwc_packed``; every other
+    pool layer runs int8_conv3x3_im2col(pool=True); the rest
     int8_conv3x3_requant; both with the weights of ``m.packed``; each
     packed form where ``pack_conv3x3`` made it. A per-channel sw (an int32
     [C_out] array, ``fixed_point.quantize_model(per_channel=True)`` of
