@@ -10,7 +10,10 @@ fixed-point conv layers; phases 2-4), yolo_v3 INT8 (int8 NHWC input,
 75 convs: 23 fused darknet53 residual blocks and 29 general int8 convs,
 three scales; phases 2b-4b) and slim_yolo_v2 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
-forward ``int8_forward_diagnostics``. Phases, each printing JSON lines; any failure
+forward ``int8_forward_diagnostics``; and yolo_v3 INT8 with per-channel
+weight scales as far as its kernels take them (phase 2d: the 29 convs
+outside the residual blocks; K4 does not take per-channel sw yet, so its
+detect fn refuses CUDA). Phases, each printing JSON lines; any failure
 raises and the script exits nonzero:
 
 0. header: versions, the card's name and power limit, and whether
@@ -112,6 +115,24 @@ raises and the script exits nonzero:
    width chunks) in its scalar form (every shift form, both roundings,
    leaky on and off, HWIO and packed weights), per-column and counting
    forms;
+2d. per-channel yolo_v3 on the per-channel 416² fixture's model
+   (``yolo_tpu_torch/data/yolo_v3_int8_pc_416_golden.npz``, weights
+   rebuilt from its seed): every conv's sw holds >= 2 values; its detect
+   fn raises on CUDA naming ``int8_res_block``; ``pack_conv3x3s`` makes
+   the shift tables once (one per input scale of a conv's parts, both
+   roundings); then the 29 convs outside the residual blocks at batch
+   128, 416², each on random int8 input through ``int8_conv_requant``
+   with the packed weights and tables, as the forward calls them: the
+   entry conv, the five stride-2 convs, the nine head 3x3s and the
+   fourteen 1x1s each one launch of its per-column C entry (none on the
+   mma.sync conv, no table made in a call), torch.equal to its plain
+   version in both roundings, each printing its share of saturated
+   outputs (all saturated or all one value fails); the launch counts of
+   the kernels line are the nearest walk's; the two concat 1x1s also with
+   their parts' scales forced equal (one table) and forced different (a
+   table per part); later each distinct shape timed beside its plain
+   version and a library yardstick, with the bound (it runs after phase
+   4c, so that the serving phases run as in a tree without it);
 3c. the per-channel golden fixture (``yolo_tpu_torch/data/
    slim_int8_pc_416_golden.npz``: tables, checksum and seeds; the weights
    rebuilt from the seed): the head of 4 NHWC images bit-exact from
@@ -185,6 +206,12 @@ MMA3 = "yolo_int8_conv3x3_requant"  # the mma.sync conv3x3 (K1-K3)
 POOL_NHWC = "yolo_int8_pool_nhwc_wgmma"
 POOL_NHWC_COLS = "yolo_int8_pool_nhwc_cols_wgmma"
 POOL_NHWC_COUNT = "yolo_int8_pool_nhwc_count_wgmma"
+# per-channel yolo_v3's per-column C entries (phase 2d): the wgmma
+# conv3x3's stride-2 form, the entry conv and the 1x1 GEMM (the head 3x3s
+# take COLS3)
+S2_COLS3 = "yolo_int8_conv3x3_s2_cols_wgmma"
+ENTRY_COLS3 = "yolo_int8_entry_conv3x3_cols_wgmma"
+CONV1X1_COLS = "yolo_int8_conv1x1_cols_wgmma"
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -247,11 +274,32 @@ LINES = {
     "int8_conv3x3_im2col.count": (
         "int8_conv3x3_im2col", POOL_COUNT3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/kernels/int8_conv.py:145"),
+    # yolo_v3 with per-channel sw (phase 2d): the 29 convs outside the
+    # residual blocks on the per-column forms
+    "int8_conv_requant.conv3x3_cols_wgmma": (
+        "int8_conv_requant", COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_s2_cols_wgmma": (
+        "int8_conv_requant", S2_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.entry_conv3x3_cols_wgmma": (
+        "int8_conv_requant", ENTRY_COLS3, CSRC + "int8_entry_conv.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv1x1_cols_wgmma": (
+        "int8_conv_requant", CONV1X1_COLS, CSRC + "int8_conv1x1_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
 }
 # the kernels-line entries whose launches come from the diagnostics
 # forward (phase 4c), not from serving
 DIAGNOSTICS_LINES = ("int8_conv3x3_requant.count", "int8_conv3x3_im2col.count",
                      "int8_conv3x3_im2col.pool_nhwc_count")
+# those whose launches come from phase 2d's walk of the per-channel v3
+# model's 29 convs outside the residual blocks (its detect fn does not run
+# on CUDA until K4 takes per-channel sw)
+PCV3_LINES = ("int8_conv_requant.conv3x3_cols_wgmma",
+              "int8_conv_requant.conv3x3_s2_cols_wgmma",
+              "int8_conv_requant.entry_conv3x3_cols_wgmma",
+              "int8_conv_requant.conv1x1_cols_wgmma")
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
@@ -1863,6 +1911,279 @@ def phase_pc_layer_times(card_name, max_err):
         torch.cuda.empty_cache()
     return per_kernel
 
+# ---------------------------------------------------------------------------
+# yolo_v3 with per-channel weight scales (phase 2d)
+# ---------------------------------------------------------------------------
+
+PCV3_FIXTURE = "yolo_v3_int8_pc_416_golden.npz"
+# each route's per-column C entry
+PCV3_ENTRY = {"s1": COLS3, "s2": S2_COLS3, "entry": ENTRY_COLS3,
+              "1x1": CONV1X1_COLS}
+# the walk's int8 inputs: uniform over int8 (on the CPU, at 26² and below,
+# the fixture's convs saturated 0-18% of their outputs on such inputs)
+PCV3_INPUT = (-128, 128)
+
+
+def pcv3_convs(m):
+    """The per-channel v3 model's 29 convs outside the residual blocks, in
+    program order: (conv index, route, k, stride, pad, parts ((C_in, sa),
+    ...), C_out, H at the input, leaky, sa_out)."""
+    prog = m.program
+    out, slots = [], {}
+    h, stream, parts, ci, ti, i = SIZE, (3, m.sa_in), None, 0, 0, 0
+    while i < len(prog):
+        op = prog[i]
+        if op[0] == "push":  # a residual block: K4's two convs, three taps
+            stream = (stream[0], m.tap_sa[ti + 2])
+            ci, ti, i = ci + 2, ti + 3, i + 4
+            continue
+        if op[0] == "conv":
+            k, cout = m.w_q[ci].shape[0], m.w_q[ci].shape[3]
+            parts = parts or (stream,)
+            route = ("1x1" if k == 1 else "entry" if parts[0][0] <= 3
+                     else "s2" if op[2] == 2 else "s1")
+            out.append((ci, route, k, op[2], op[3], parts, cout, h, op[4],
+                        m.tap_sa[ti]))
+            h = (h + 2 * op[3] - k) // op[2] + 1
+            stream, parts = (cout, m.tap_sa[ti]), None
+            ci, ti = ci + 1, ti + 1
+        elif op[0] == "save":
+            slots[op[1]] = (h, stream)
+        elif op[0] == "load":
+            h, stream = slots[op[1]]
+        elif op[0] == "up":
+            h *= 2
+        elif op[0] == "concat":
+            parts = (slots[op[1]][1], stream)
+        i += 1
+    return out
+
+
+def pcv3_inputs(gen, conv, sas=None, batch=V3_BATCH_SERVE):
+    """Random int8 input of ``conv`` (its parts at their scales, or at
+    ``sas``) and the ``int8_conv_requant`` keywords of the model's conv."""
+    _, _, _, stride, pad, parts, _, h, leaky, sa_out = conv
+    sas = list(sas or [sa for _, sa in parts])
+    xs = [ri(gen, (batch, h, h, c), *PCV3_INPUT, torch.int8)
+          for c, _ in parts]
+    x = xs[0] if len(xs) == 1 else list(zip(xs, sas))
+    return x, dict(sa_in=sas[0], sa_out=sa_out, padding=pad, stride=stride,
+                   leaky=leaky)
+
+
+def pcv3_call(m, conv, x, kw, rounding, tables=None):
+    """The per-column kernel of ``conv`` from the model's packed weights
+    and its shift tables (or ``tables``): the call a forward makes."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    ci = conv[0]
+    return K.int8_conv_requant(
+        x, None, m.b_q[ci], sw=m.sw[ci], sb=m.sb[ci], retune=m.retune[ci],
+        rounding=rounding, packed=m.packed_weights(ci),
+        shifts=m.shift_tables[rounding][ci] if tables is None else tables,
+        **kw)
+
+
+def pcv3_plain(m, conv, x, kw, rounding):
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    ci = conv[0]
+    parts = x if isinstance(x, list) else [(x, kw["sa_in"])]
+    return K.int8_conv_requant_plain(
+        parts, m.w_q[ci], m.b_q[ci], sw=m.sw[ci], sb=m.sb[ci],
+        retune=m.retune[ci], rounding=rounding,
+        **{a: v for a, v in kw.items() if a != "sa_in"}, sa_in=None)
+
+
+def pcv3_case(m, conv, x, kw, rounding, max_err, what, tables=None):
+    """One per-column case: exactly one launch, on the route's per-column
+    C entry (no shift table made in the call), equal to the plain
+    version, its output neither all saturated nor all one value; returns
+    the share of saturated outputs."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    before = dict(K.launch_counts_by_entry().get("int8_conv_requant", {}))
+    tables_before = K.shift_table_count()
+    got = pcv3_call(m, conv, x, kw, rounding, tables)
+    torch.cuda.synchronize()
+    after = K.launch_counts_by_entry().get("int8_conv_requant", {})
+    new = {e: n - before.get(e, 0) for e, n in after.items()
+           if n != before.get(e, 0)}
+    line = [k for k, (w, e, _, _) in LINES.items()
+            if (w, e) == ("int8_conv_requant", PCV3_ENTRY[conv[1]])][0]
+    if new != {PCV3_ENTRY[conv[1]]: 1}:
+        raise AssertionError(f"{what} launched {new}, want one launch of "
+                             f"{PCV3_ENTRY[conv[1]]}")
+    if K.shift_table_count() != tables_before:
+        raise AssertionError(f"{what} made a shift table in the call")
+    check_equal(line, got, pcv3_plain(m, conv, x, kw, rounding), max_err,
+                what)
+    sat = float(((got == 127) | (got == -128)).float().mean())
+    if sat == 1.0 or int(got.min()) == int(got.max()):
+        raise AssertionError(f"{what}: outputs all saturated or all one "
+                             f"value (saturated share {sat})")
+    return sat
+
+
+def phase_pcv3_kernels(max_err):
+    """yolo_v3 with per-channel sw (phase 2d), on the per-channel 416²
+    fixture's model (weights rebuilt from its seed): every conv's sw
+    holds >= 2 values; its detect fn raises on CUDA, naming
+    int8_res_block; ``pack_conv3x3s`` makes the 29 convs' shift tables
+    once; then the walk of the 29 convs outside the residual blocks at
+    batch 128, 416², each on random int8 input through
+    ``int8_conv_requant`` with the packed weights and tables, as the
+    forward calls it: each on its per-column C entry (9 head 3x3s, 5
+    stride-2, 1 entry conv, 14 1x1s), none on the mma.sync conv, no table
+    made in a call, each torch.equal to its plain version, in both
+    roundings (the launch counts are the nearest walk's); then the two
+    concat 1x1s with their parts' scales forced equal (one table, one
+    accumulator) and forced different (a table per part, split)."""
+    from pathlib import Path
+
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.convert import int8_yolo_v3_from_seed
+
+    path = Path(__file__).resolve().parent / "yolo_tpu_torch" / "data"
+    with np.load(path / PCV3_FIXTURE) as z:
+        g = {k: z[k] for k in z.files}
+    m = int8_yolo_v3_from_seed(g, device="cuda")
+    distinct = [int(len(np.unique(np.asarray(s)))) for s in m.sw]
+    if min(distinct) < 2:
+        raise AssertionError(f"a conv's per-channel sw has fewer than 2 "
+                             f"values: {distinct}")
+    cfg = get_config("yolo_v3", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    try:
+        tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the per-channel v3 detect fn built on CUDA")
+    if "int8_res_block" not in refusal:
+        raise AssertionError(f"the per-channel v3 detect fn's refusal does "
+                             f"not name int8_res_block: {refusal}")
+    K.reset_shift_table_count()
+    m.pack_conv3x3s()
+    tables_at_pack = K.shift_table_count()
+    convs = pcv3_convs(m)
+    routes = [c[1] for c in convs]
+    want = {PCV3_ENTRY[r]: routes.count(r) for r in PCV3_ENTRY}
+    if want != {COLS3: 9, S2_COLS3: 5, ENTRY_COLS3: 1, CONV1X1_COLS: 14}:
+        raise AssertionError(f"the walk's routes {want}")
+    groups = sum(len({sa for _, sa in c[5]}) for c in convs)
+    if tables_at_pack != 2 * groups:
+        raise AssertionError(f"pack_conv3x3s made {tables_at_pack} shift "
+                             f"tables, want {2 * groups}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    launches, n = None, 0
+    for rounding in ("nearest", "floor"):
+        K.reset_launch_counts()
+        for conv in convs:
+            ci, route, k, stride, pad, parts, cout, h = conv[:8]
+            x, kw = pcv3_inputs(gen, conv)
+            what = (f"v3 per-channel conv {ci} ({route}, {h}x{h} "
+                    f"{[c for c, _ in parts]} -> {cout}) {rounding}")
+            sat = pcv3_case(m, conv, x, kw, rounding, max_err, what)
+            emit("pcv3_kernels_vs_plain", conv=ci, route=route,
+                 entry=PCV3_ENTRY[route], rounding=rounding,
+                 shape=[V3_BATCH_SERVE, h, h, [c for c, _ in parts], cout,
+                        k, stride, pad],
+                 part_scales=[sa for _, sa in parts],
+                 distinct_sw=distinct[ci], saturated_share=sat, equal=True)
+            del x
+            n += 1
+        entries = K.launch_counts_by_entry()
+        if entries != {"int8_conv_requant": want}:
+            raise AssertionError(f"the per-channel v3 walk launched "
+                                 f"{entries}, want {want}")
+        launches = launches or entries
+        torch.cuda.empty_cache()
+    for conv in (c for c in convs if len(c[5]) == 2):
+        ci, route, k, stride, pad, parts, cout, h = conv[:8]
+        sa0, sa1 = (sa for _, sa in parts)
+        for what, sas in (("equal", (sa0, sa0)),
+                          ("different", (sa0, sa1 if sa1 != sa0
+                                         else sa0 + 2))):
+            for rounding in ("nearest", "floor"):
+                tables = K.conv_shift_tables(m.sw[ci], sas, m.retune[ci],
+                                             rounding, cout, "cuda",
+                                             K.CONV1X1_ALIGN)
+                x, kw = pcv3_inputs(gen, conv, sas)
+                sat = pcv3_case(m, conv, x, kw, rounding, max_err,
+                                f"v3 per-channel concat conv {ci}, part "
+                                f"scales {what} {sas}, {rounding}", tables)
+                lay = K.conv1x1_wgmma_layout(
+                    V3_BATCH_SERVE * h * h, parts[0][0], parts[1][0], cout,
+                    sas[0] != sas[1])
+                emit("pcv3_concat_vs_plain", conv=ci, scales=what,
+                     part_scales=list(sas), rounding=rounding,
+                     tables=len(tables), split=sas[0] != sas[1], bn=lay.bn,
+                     saturated_share=sat, equal=True)
+                del x
+                n += 1
+    emit("pcv3_kernels_vs_plain_done", cases=n, detect_fn_refusal=refusal,
+         shift_tables_at_pack=tables_at_pack, launches=launches,
+         distinct_sw_min=min(distinct), distinct_sw_max=max(distinct))
+    return launches, m, convs
+
+
+def phase_pcv3_times(card_name, max_err, m, convs):
+    """Each distinct per-channel v3 conv shape outside the residual blocks
+    at batch 128 (phase 2d, timing): its per-column kernel (the model's
+    packed weights and tables) == its plain version, then both timed
+    (CUDA events), beside a library yardstick the port never calls
+    (``torch._int_mm`` for the 1x1s, else cuDNN's fp16 conv), and the
+    bound."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    peak_ops, peak_bw = peaks(card_name)
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b = V3_BATCH_SERVE
+    shapes = {}
+    for conv in convs:
+        route, k, stride, pad, parts, cout, h = conv[1:8]
+        key = (route, k, stride, pad, tuple(c for c, _ in parts), cout, h)
+        shapes.setdefault(key, []).append(conv)
+    per_kernel = {}
+    for key, group in shapes.items():
+        route, k, stride, pad, cins, cout, h = key
+        conv = group[0]
+        x, kw = pcv3_inputs(gen, conv)
+        line = [n for n, (w, e, _, _) in LINES.items()
+                if (w, e) == ("int8_conv_requant", PCV3_ENTRY[route])][0]
+        check_equal(line, pcv3_call(m, conv, x, kw, "nearest"),
+                    pcv3_plain(m, conv, x, kw, "nearest"), max_err,
+                    f"v3 per-channel {key}, batch {b}")
+        ms = time_ms(lambda: pcv3_call(m, conv, x, kw, "nearest"), 10)
+        host = host_ms(lambda: pcv3_call(m, conv, x, kw, "nearest"))
+        plain_ms = time_ms(lambda: pcv3_plain(m, conv, x, kw, "nearest"), 2,
+                           warmup=1)
+        del x
+        torch.cuda.empty_cache()
+        ho = (h + 2 * pad - k) // stride + 1
+        ops = 2 * b * ho * ho * k * k * sum(cins) * cout
+        nbytes = (b * h * h * sum(cins) + k * k * sum(cins) * cout
+                  + 8 * cout + b * ho * ho * cout)
+        lib_ms = (int_mm_ms(b * h * h, sum(cins), cout) if route == "1x1"
+                  else None)
+        if lib_ms is None:
+            lib_ms = fp16_conv_ms(b, h, sum(cins), cout, k, stride, pad)
+        t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
+        emit("pcv3_shape_time", kernel=line, shape=[b, h, h, list(cins),
+                                                    cout, k, stride, pad],
+             per_forward=len(group), equal=True, ms=ms, host_ms=host,
+             plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             tops=ops / ms / 1e9, **bandwidth_fields(nbytes, ms, peak_bw))
+        add_time(per_kernel, line, len(group), ms, plain_ms, lib_ms, t_ops,
+                 t_bytes)
+    return per_kernel
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1895,9 +2216,13 @@ def main() -> int:
     launches_nhwc = phase_serving(m, cfg, card, input_s2d=False)
     launches_v3 = phase_v3_serving(m3, cfg3, card)
     launches_pc, launches_diag = phase_pc_serving(mpc, cfgpc, card)
+    # after the serving phases, so that they run as the parent tree's do
+    # (phase 2d's batch-128 plain checks take ~20 GB of the card)
+    launches_pcv3, mpcv3, pcv3 = phase_pcv3_kernels(max_err)
     times = phase_layer_times(name, max_err)
     times.update(phase_v3_times(name, max_err))
     times.update(phase_pc_layer_times(name, max_err))
+    times.update(phase_pcv3_times(name, max_err, mpcv3, pcv3))
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -2023,18 +2348,37 @@ def main() -> int:
                                      f"{BATCH_SERVE}, {SIZE}x{SIZE}; "
                                      f"library_ms is cuDNN fp16 conv2d "
                                      f"(without the pool)",
+        **{k: f"per yolo_v3 forward with per-channel sw (launches from "
+              f"phase 2d's walk of the 29 convs outside the residual "
+              f"blocks, its detect fn refusing CUDA until K4 takes "
+              f"per-channel sw): {what}, with the model's shift tables, "
+              f"batch {V3_BATCH_SERVE}, {SIZE}x{SIZE}; library_ms is "
+              f"{lib}" for k, what, lib in (
+                  ("int8_conv_requant.conv3x3_cols_wgmma",
+                   "the head's 9 stride-1 3x3s", "cuDNN fp16 conv2d"),
+                  ("int8_conv_requant.conv3x3_s2_cols_wgmma",
+                   "darknet53's 5 stride-2 3x3s",
+                   "cuDNN fp16 conv2d at stride 2"),
+                  ("int8_conv_requant.entry_conv3x3_cols_wgmma",
+                   "the C_in = 3 entry conv (3 -> 32)", "cuDNN fp16 conv2d"),
+                  ("int8_conv_requant.conv1x1_cols_wgmma",
+                   "its 14 1x1s (two concats)", "torch._int_mm"))},
     }
     kernels = []
     for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
         runs = ((launches_diag,) if k in DIAGNOSTICS_LINES
+                else (launches_pcv3,) if k in PCV3_LINES
                 else (launches, launches_nhwc, launches_v3, launches_pc))
         per_run = [served.get(wrapper, {}).get(entry, 0) for served in runs]
         ran = sum(per_run)
+        # phase 2d's walk is one pass over the convs, the serving runs
+        # SERVE_ITERS forwards
+        per_forward = ran if k in PCV3_LINES else max(per_run) // SERVE_ITERS
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,
-            "launches_per_forward": max(per_run) // SERVE_ITERS,
+            "launches_per_forward": per_forward,
             "max_abs_err": max_err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("operations" if t["t_ops"] >= t["t_bytes"]

@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc,pcv3]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -38,7 +38,14 @@ are timed on every version in turn (ABBA order, twice):
   int8_entry_conv.cu``) in its scalar, per-column and counting forms,
   beside the mma.sync conv it replaced (scalar sw and shift table,
   through the private launcher ``_launch``) and K2 on the s2d layout of
-  the same images.
+  the same images;
+- ``pcv3``: yolo_v3 with per-channel sw (batch 128, 416²): every distinct
+  conv shape outside the residual blocks (the entry conv, the five
+  stride-2 convs, the head's three 3x3 shapes, the ten 1x1 shapes)
+  through ``int8_conv_requant`` in the per-column form of its kernel
+  (``_pc``) beside its scalar form at the same shape, the two concat 1x1s
+  also with their parts at one scale (``_eq``: one accumulator; else two
+  scales, a split).
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -139,6 +146,25 @@ SHAPES = {
            for name, h, c_in, c_out, form, _ in PC_LAYERS]
           + [("conv1_pc", 256, 416, 3, 16, "mma_pc"),
              ("conv1_scalar", 256, 416, 3, 16, "mma_scalar")],
+    # per-channel yolo_v3: each shape's scalar form, then its per-column
+    # form (_pc); the concats also at one part scale (_eq)
+    "pcv3": [(name + sfx, 128, h, c_in, c_out, form + fsfx)
+             for name, h, c_in, c_out, form in (
+                 [("entry416", 416, 3, 32, "entry"),
+                  ("s2_416", 416, 32, 64, "s2"),
+                  ("s2_208", 208, 64, 128, "s2"),
+                  ("s2_104", 104, 128, 256, "s2"),
+                  ("s2_52", 52, 256, 512, "s2"),
+                  ("s2_26", 26, 512, 1024, "s2"),
+                  ("head52", 52, 128, 256, "v3s1"),
+                  ("head26", 26, 256, 512, "v3s1"),
+                  ("head13", 13, 512, 1024, "v3s1")]
+                 + [(n, h, cins, c_out, "one")
+                    for n, h, cins, c_out, _ in ONE_BY_ONE]
+                 + [(n + "_eq", h, cins, c_out, "one_eq")
+                    for n, h, cins, c_out, _ in ONE_BY_ONE
+                    if len(cins) == 2])
+             for sfx, fsfx in (("", ""), ("_pc", "_pc"))],
     "nhwc": [("conv1_nhwc", 256, 416, 3, 16, "nhwc"),
              ("conv1_nhwc_pc", 256, 416, 3, 16, "nhwc_pc"),
              ("conv1_nhwc_count", 256, 416, 3, 16, "nhwc_count"),
@@ -150,6 +176,10 @@ PER_FORWARD = {name + sfx: n for name, *_, n in ONE_BY_ONE
                for sfx in ("", "_mma")}
 PER_FORWARD.update({f"{name}_{kind}": n
                     for name, *_, n in PC_LAYERS for kind in ("pc", "count")})
+PER_FORWARD.update({f"{name}{sfx}": n for name, *_, n in ONE_BY_ONE
+                    for sfx in ("_pc", "_eq", "_eq_pc")})
+PER_FORWARD.update({f"head{h}{sfx}": 3 for h in (52, 26, 13)
+                    for sfx in ("", "_pc")})
 # the C entry each form launches
 ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "pool": "yolo_int8_conv3x3_pool_wgmma",
@@ -169,7 +199,14 @@ ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "mma_scalar": "yolo_int8_conv3x3_requant",
          "nhwc": "yolo_int8_pool_nhwc_wgmma",
          "nhwc_pc": "yolo_int8_pool_nhwc_cols_wgmma",
-         "nhwc_count": "yolo_int8_pool_nhwc_count_wgmma"}
+         "nhwc_count": "yolo_int8_pool_nhwc_count_wgmma",
+         "v3s1": "yolo_int8_conv3x3_wgmma",
+         "one_eq": "yolo_int8_conv1x1_wgmma",
+         "entry_pc": "yolo_int8_entry_conv3x3_cols_wgmma",
+         "s2_pc": "yolo_int8_conv3x3_s2_cols_wgmma",
+         "v3s1_pc": "yolo_int8_conv3x3_cols_wgmma",
+         "one_pc": "yolo_int8_conv1x1_cols_wgmma",
+         "one_eq_pc": "yolo_int8_conv1x1_cols_wgmma"}
 # the forms whose C entry took its shift table and counter with the
 # per-column forms: a version without those (an older tree) has the entry
 # but another interface, and skips them
@@ -312,9 +349,11 @@ def shape_fn(gen, b, h, c_in, c_out, form):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
                              device="cuda").to(dtype)
 
-    if form in ("one", "one_mma"):
-        # two parts at two scales: their partials take two shifts
-        parts = [(ri((b, h, h, c), -128, 128, torch.int8), 4 + 2 * p)
+    if form.startswith("one"):
+        # two parts at two scales: their partials take two shifts (_eq:
+        # one scale, one accumulator)
+        step = 0 if "_eq" in form else 2
+        parts = [(ri((b, h, h, c), -128, 128, torch.int8), 4 + step * p)
                  for p, c in enumerate(c_in)]
         w = ri((1, 1, sum(c_in), c_out), -90, 120, torch.int8)
         bias = ri((c_out,), -100, 100, torch.int32)
@@ -324,8 +363,14 @@ def shape_fn(gen, b, h, c_in, c_out, form):
             return lambda: K._launch_conv_requant(parts, w, bias, padding=0,
                                                   stride=1, **kw)
         packed = K.pack_conv1x1_weights(w)
+        extra = {}
+        if form.endswith("_pc"):
+            kw["sw"] = pc_sw(10, c_out)
+            extra["shifts"] = K.conv_shift_tables(
+                kw["sw"], [sa for _, sa in parts], kw["retune"], "nearest",
+                c_out, w.device, K.CONV1X1_ALIGN)
         return lambda: K.int8_conv_requant(parts, None, bias, sa_in=None,
-                                           packed=packed, **kw)
+                                           packed=packed, **kw, **extra)
     x = ri((b, h, h, c_in), -128, 128, torch.int8)
     if form == "res":
         w1 = ri((1, 1, c_in, c_out), -90, 120, torch.int8)
@@ -343,6 +388,8 @@ def shape_fn(gen, b, h, c_in, c_out, form):
     if form in ("conv_pc", "pool_pc", "conv_count", "pool_count", "mma_pc",
                 "mma_scalar", "nhwc", "nhwc_pc", "nhwc_count"):
         return pc_fn(x, w, bias, kw, form)
+    if form in ("entry_pc", "s2_pc", "v3s1", "v3s1_pc"):
+        return v3_pc_fn(x, w, bias, kw, form)
     if form in ("entry", "entry_mma"):
         if form == "entry_mma":
             return lambda: K._launch_conv_requant(
@@ -372,6 +419,34 @@ def shape_fn(gen, b, h, c_in, c_out, form):
                                              packed=packed, leaky=True, **kw)
     return lambda: K.int8_conv3x3_requant(x, None, bias, packed=packed,
                                           leaky=True, **kw)
+
+
+def pc_sw(base, c_out):
+    """A per-channel sw of three values, base .. base + 2, by column."""
+    return (base + torch.arange(c_out) % 3).numpy().astype("int32")
+
+
+def v3_pc_fn(x, w, bias, kw, form):
+    """A per-channel yolo_v3 3x3's ``int8_conv_requant`` call (the entry
+    conv, a stride-2 conv, a head 3x3) on its per-column form, from the
+    table a packed model holds, the sw three values around the scalar
+    forms' 12 (the short form); ``v3s1`` the head 3x3 with the scalar
+    sw."""
+    c_out = w.shape[-1]
+    entry = form.startswith("entry")
+    packed = (K.pack_entry_conv_weights(w) if entry
+              else K.pack_conv3x3_weights(w))
+    extra = {}
+    if form.endswith("_pc"):
+        kw = dict(kw, sw=pc_sw(11, c_out))
+        extra["shifts"] = K.conv_shift_tables(
+            kw["sw"], [kw["sa_in"]], kw["retune"], kw["rounding"], c_out,
+            x.device)
+    leaky = 0.1 if form.startswith(("entry", "s2")) else True
+    stride = 2 if form.startswith("s2") else 1
+    return lambda: K.int8_conv_requant(x, None, bias, packed=packed,
+                                       padding=1, stride=stride, leaky=leaky,
+                                       **kw, **extra)
 
 
 def pc_fn(x, w, bias, kw, form):

@@ -235,8 +235,9 @@ def _v3_general_convs():
 def test_routes_take_exactly_the_two_entry_convs():
     """Of slim's ten layers only conv1 takes K2's wgmma route, and of the
     v3 program's 29 general convs only the C_in = 3 entry conv takes the
-    entry conv route; neither route takes a per-channel sw, and no v3
-    conv takes two routes."""
+    entry conv route; K2's s2d route takes no per-channel sw, the entry
+    conv route one of C_out entries (its per-column form), and no v3 conv
+    takes two routes."""
     slim = [name for name, c_in, c_out, pool in CONV_LAYERS
             if pool and K.pool_s2d_wgmma_route(c_in, c_out, 7)]
     assert slim == ["conv1"]
@@ -254,7 +255,10 @@ def test_routes_take_exactly_the_two_entry_convs():
             (3, 1, 0, 1, 3, 32), (1, 1, 0, 1, 3, 32), (3, 1, 1, 2, 3, 32)):
         assert not K.entry_conv3x3_route(k, stride, pad, parts, c_in, c_out,
                                           7)
-    assert not K.entry_conv3x3_route(3, 1, 1, 1, 3, 32, np.full(32, 7))
+    assert K.entry_conv3x3_route(3, 1, 1, 1, 3, 32, np.full(32, 7))
+    assert not K.entry_conv3x3_route(3, 1, 1, 1, 3, 32, np.full(31, 7))
+    assert not K.entry_conv3x3_route(3, 1, 1, 1, 3, 32,
+                                     np.full((2, 32), 7))
     for c_in, c_out in ((5, 16), (3, 33), (16, 32)):
         assert not K.pool_s2d_wgmma_route(c_in, c_out, 7)
 

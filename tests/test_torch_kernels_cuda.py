@@ -318,11 +318,29 @@ def test_cuda_gemm_more_than_65535_row_tiles(cuda):
 
 @pytest.mark.cuda
 def test_cuda_per_channel_sw_raises(cuda):
-    xs, wq, b = _conv_args(CONV_CASES[3])
-    sw = np.full(wq.shape[-1], 8, np.int32)
-    with pytest.raises(ValueError, match="per-channel"):
-        K.int8_conv_requant(xs[0].to(cuda), wq.to(cuda), b.to(cuda),
-                            **dict(SHIFTS, sw=sw))
+    """A per-channel sw on every routed CONV_CASES shape equals the plain
+    version (the per-column forms); the mma.sync-only shapes (the padded
+    1x1, the unpadded 3x3 of C_in 5) and K4 still raise."""
+    for case in CONV_CASES:
+        k, stride, pad, cins, c_out, _, _, leaky = case
+        xs, wq, b = _conv_args(case)
+        sw = np.random.default_rng(c_out).integers(6, 11, c_out).astype(
+            np.int32)
+        kw = dict(SHIFTS, sw=sw, padding=pad, stride=stride, leaky=leaky)
+        parts = [(x, sa) for x, sa in zip(xs, (4, 6))]
+        if pad != (k == 3):
+            with pytest.raises(ValueError, match="per-channel"):
+                K.int8_conv_requant([(x.to(cuda), sa) for x, sa in parts],
+                                    wq.to(cuda), b.to(cuda), **kw)
+            continue
+        want = K.int8_conv_requant(parts, wq, b, **kw)
+        K.reset_launch_counts()
+        got = K.int8_conv_requant([(x.to(cuda), sa) for x, sa in parts],
+                                  wq.to(cuda), b.to(cuda), **kw)
+        torch.cuda.synchronize()
+        (entry, n), = K.launch_counts_by_entry()["int8_conv_requant"].items()
+        assert "_cols_" in entry and n == 1, entry
+        assert torch.equal(got.cpu(), want)
     x, w1, b1, w2, b2 = (t.to(cuda) for t in _res_args(RES_CASES[0]))
     with pytest.raises(ValueError, match="per-channel"):
         K.int8_res_block(x, w1, b1, dict(P1, sw=np.full(32, 8, np.int32)),
@@ -1387,14 +1405,26 @@ def test_cuda_per_column_forms_take_a_model_table(cuda):
 
 @pytest.mark.cuda
 def test_cuda_other_routes_refuse_per_channel_sw(cuda):
-    """The stride-2 form, the s2d layout and the general conv keep one
-    shift per layer."""
+    """The s2d layout and the general conv's mma.sync kernel keep one shift
+    per layer (a stride-2 3x3 of C_in 16, a 3x3 of pad 0); the stride-2
+    and stride-1 wgmma routes take a per-channel sw on their per-column
+    forms."""
     x, w, b = (t.to(cuda) for t in _conv3x3_args((1, 14, 14, 32, 64)))
     sw = np.full(64, 12, np.int32)
+    for stride, entry in ((2, K.S2_COLS_WGMMA_ENTRY),
+                          (1, K.COLS_WGMMA_ENTRY)):
+        kw = dict(PC_KW, sw=sw, padding=1, stride=stride)
+        K.reset_launch_counts()
+        got = K.int8_conv_requant(x, w, b, **kw)
+        assert K.launch_counts_by_entry() == {
+            "int8_conv_requant": {entry: 1}}
+        assert torch.equal(got.cpu(), K.int8_conv_requant(
+            x.cpu(), w.cpu(), b.cpu(), **kw))
     with pytest.raises(ValueError, match="per-channel"):
-        K.int8_conv_requant(x, w, b, padding=1, stride=2, **PC_KW, sw=sw)
+        K.int8_conv_requant(x[..., :16].contiguous(), w[:, :, :16], b,
+                            padding=1, stride=2, **PC_KW, sw=sw)
     with pytest.raises(ValueError, match="per-channel"):
-        K.int8_conv_requant(x, w, b, padding=1, stride=1, **PC_KW, sw=sw)
+        K.int8_conv_requant(x, w, b, padding=0, stride=1, **PC_KW, sw=sw)
     x3 = torch.zeros((1, 10, 10, 12), dtype=torch.int8, device=cuda)
     w3 = torch.zeros((3, 3, 3, 16), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="per-channel"):
@@ -1611,3 +1641,113 @@ def test_cuda_pool_nhwc_wgmma_layout(cuda):
     odd = K.pool_nhwc_wgmma_layout(12, 22, 3, 32)
     assert odd.bn == 128 and odd.in_pitch % 16 == 22 * 3 % 16
     assert K.pool_nhwc_wgmma_layout(4, 6002, 3, 32).tile_w == 1501
+
+
+# ---------------------------------------------------------------------------
+# Per-channel yolo_v3 (int8_conv_requant with a per-channel sw): the
+# per-column forms of the wgmma conv3x3's stride-2 form, the entry conv and
+# the 1x1 GEMM, and the stride-1 form the head's 3x3s take.
+# ---------------------------------------------------------------------------
+
+# each route's per-column C entry
+PCV3_ENTRY = {"s1": K.COLS_WGMMA_ENTRY, "s2": K.S2_COLS_WGMMA_ENTRY,
+              "entry": K.ENTRY_CONV_COLS_ENTRY,
+              "1x1": K.CONV1X1_COLS_ENTRY}
+# (route, B, H, W, C_in parts, C_out): odd H and W, C_out below a tile and
+# not a multiple of it (21, as the preds have), the 64- and 128-column
+# forms, a stride-2 halo over 128-channel slabs (27^2 C_in 256), the
+# entry conv's 32- and 64-column forms, the 1x1's ragged second column
+# tile (300) and concats (each at equal and at different part scales)
+PCV3_CASES = [
+    ("s2", 2, 13, 11, (32,), 64),
+    ("s2", 1, 9, 15, (64,), 21),
+    ("s2", 2, 27, 27, (256,), 512),
+    ("s2", 1, 7, 7, (512,), 1024),
+    ("s1", 2, 9, 7, (64,), 21),
+    ("s1", 1, 13, 13, (512,), 1024),
+    ("entry", 2, 17, 23, (3,), 32),
+    ("entry", 1, 9, 13, (3,), 21),
+    ("entry", 1, 8, 40, (2,), 64),
+    ("1x1", 2, 7, 9, (64,), 21),
+    ("1x1", 1, 11, 13, (256,), 300),
+    ("1x1", 2, 13, 13, (1024,), 512),
+    ("1x1", 2, 9, 7, (48, 80), 64),
+    ("1x1", 2, 13, 13, (512, 256), 256),
+    ("1x1", 1, 10, 10, (256, 128), 128),
+]
+
+
+def _pcv3_args(case, sw_case, seed=0):
+    route, bsz, h, w, cins, c_out = case
+    rng = np.random.default_rng(seed + c_out + sum(cins))
+    k = 1 if route == "1x1" else 3
+    xs = [torch.tensor(rng.integers(-128, 128, (bsz, h, w, c))
+                       .astype(np.int8)) for c in cins]
+    wq = torch.tensor(rng.integers(-30, 40, (k, k, sum(cins), c_out))
+                      .astype(np.int8))
+    b = torch.tensor(rng.integers(-100, 100, (c_out,)).astype(np.int32))
+    sw = _pc_sw(rng, sum(cins) * k * k // 9 or 1, c_out, sw_case)
+    kw = dict(PC_KW, sw=sw, sa_in=None, padding=k // 2,
+              stride=2 if route == "s2" else 1)
+    return xs, wq, b, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("sw_case", ["mixed", "short"])
+@pytest.mark.parametrize("case", PCV3_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_v3_per_column_forms_equal_plain(cuda, rounding, sw_case, case):
+    """int8_conv_requant with a per-channel sw on each per-column form ==
+    the plain version: shift codes >= 31 and <= -32 ("mixed") and all in
+    [0, 30] (the short form, "short"), both roundings, slopes 0.1, 0.125
+    and none; one launch, on the route's per-column C entry."""
+    xs, wq, b, kw = _pcv3_args(case, sw_case)
+    route, *_, cins, c_out = case
+    leaky = {21: False, 64: 0.1}.get(c_out, True)
+    for sas in ((4, 6), (5, 5)) if len(cins) == 2 else ((4,),):
+        kwr = dict(kw, leaky=leaky, rounding=rounding)
+        want = K.int8_conv_requant(list(zip(xs, sas)), wq, b, **kwr)
+        K.reset_launch_counts()
+        got = K.int8_conv_requant([(x.to(cuda), sa) for x, sa in zip(xs, sas)],
+                                  wq.to(cuda), b.to(cuda), **kwr)
+        torch.cuda.synchronize()
+        assert K.launch_counts_by_entry() == {
+            "int8_conv_requant": {PCV3_ENTRY[route]: 1}}
+        assert torch.equal(got.cpu(), want), sas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in PCV3_CASES
+                                  if c[0] in ("entry", "1x1")],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_v3_per_column_forms_take_model_tables(cuda, case):
+    """The tables ``conv_shift_tables`` makes once (a 1x1's 256-aligned)
+    and packed weights are read as given: no table is made per call; a
+    concat at different part scales takes a table per part, one at equal
+    scales one; a wrong count or a short table raises."""
+    xs, wq, b, kw = _pcv3_args(case, "mixed", seed=1)
+    route, *_, cins, c_out = case
+    align = K.CONV1X1_ALIGN if route == "1x1" else K.TABLE_ALIGN
+    packed = (K.pack_conv1x1_weights(wq.to(cuda)) if route == "1x1"
+              else K.pack_entry_conv_weights(wq.to(cuda)))
+    for sas in ((4, 6), (5, 5)) if len(cins) == 2 else ((4,),):
+        tables = K.conv_shift_tables(kw["sw"], sas, kw["retune"], "nearest",
+                                     c_out, cuda, align)
+        assert len(tables) == len(set(sas))
+        parts = [(x.to(cuda), sa) for x, sa in zip(xs, sas)]
+        K.reset_shift_table_count()
+        got = K.int8_conv_requant(parts, None, b.to(cuda), packed=packed,
+                                  shifts=tables, **kw)
+        assert K.shift_table_count() == 0
+        assert torch.equal(got.cpu(), K.int8_conv_requant(
+            list(zip(xs, sas)), wq, b, **kw))
+        with pytest.raises(ValueError, match="shift table"):
+            K.int8_conv_requant(parts, None, b.to(cuda), packed=packed,
+                                shifts=tables * 2, **kw)
+    if route == "1x1" and c_out % 256:
+        short = K.conv_shift_tables(kw["sw"], (4,) * len(cins), kw["retune"],
+                                    "nearest", c_out, cuda)
+        with pytest.raises(ValueError, match="shift table"):
+            K.int8_conv_requant([(x.to(cuda), 4) for x in xs], None,
+                                b.to(cuda), packed=packed, shifts=short, **kw)

@@ -108,6 +108,8 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_conv3x3_pool_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_conv3x3_s2_cols_wgmma",
+                 [vp] * 5 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_cols_wgmma", [vp] * 5 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_pool_cols_wgmma",
                  [vp] * 5 + [i] * 9 + [vp]),
@@ -116,6 +118,8 @@ def load() -> ctypes.CDLL:
                  [vp] * 6 + [i] * 8 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_entry_conv3x3_cols_wgmma",
+                 [vp] * 5 + [i] * 9 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_pool_s2d_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_pool_nhwc_wgmma", [vp] * 4 + [i] * 9 + [vp]),
@@ -125,7 +129,8 @@ def load() -> ctypes.CDLL:
                  [vp] * 6 + [i] * 8 + [vp]),
                 ("yolo_int8_pool_nhwc_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv1x1_wgmma", [vp] * 5 + [i] * 9 + [vp]),
-                ("yolo_int8_conv1x1_wgmma_info", [i] * 5 + [vp])):
+                ("yolo_int8_conv1x1_wgmma_info", [i] * 5 + [vp]),
+                ("yolo_int8_conv1x1_cols_wgmma", [vp] * 7 + [i] * 9 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

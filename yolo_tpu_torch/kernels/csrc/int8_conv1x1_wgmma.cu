@@ -57,8 +57,20 @@
 //     pairs clamped and packed by cvt.pack.sat into a 64 x 64 staging tile
 //     per warpgroup, then 16-byte stores (byte stores where Cout % 16 != 0
 //     leaves the output rows unaligned, as the preds' 21-byte rows).
+// With a per-channel sw (quantize_pipeline_yolo_v3(per_channel=True) of
+// the JAX package) the per-column form (Cols::column) takes each column's
+// accumulator shift from a table (int8_conv.py's acc_shift_table: sw[c] +
+// sa - retune, _shift_arr mapped onto _shift's codes), an int2 per column
+// pair read through the read-only cache, its Shift made in registers
+// (column_shift of int8_wgmma_conv.cuh). A concat's parts of equal input
+// scale take one table and run as one accumulator; parts of different
+// scales (int_conv_requant's groups) a table each: part 0's partial is
+// shifted by its own table's columns into the second accumulator. The
+// scalar instantiations are those of before: the tables sit in a
+// derived argument struct that only the per-column form takes.
 
 #include <climits>
+#include <type_traits>
 
 #include "int8_wgmma_conv.cuh"
 
@@ -84,6 +96,22 @@ struct Conv1Args {
   Epi epi;          // its acc shift: the last part's
 };
 
+// the accumulator shifts: one for the conv (Conv1Args' sh0 and epi.acc),
+// or per output column from a shift table (a per-channel sw)
+enum class Cols { scalar, column };
+
+// the per-column form's arguments: the accumulator shift table of the last
+// part (of every part where their shifts agree) and, where split, part
+// 0's, each [Cout rounded up to 256], 0 past Cout
+struct Conv1ColsArgs : Conv1Args {
+  const int* shifts0;
+  const int* shifts1;
+};
+
+template <Cols C>
+using Conv1ArgsOf =
+    std::conditional_t<C == Cols::scalar, Conv1Args, Conv1ColsArgs>;
+
 template <int N>
 __device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
@@ -96,14 +124,16 @@ __device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
 // Requantize a warpgroup's 64 x BN accumulator and store it at rows m0..,
 // columns n0..: PW columns at a time through the 64 x 64 staging tile.
 // With SPLIT the accumulator holds part 1's partial and `stash` part 0's,
-// already at the retune scale.
-template <int BN, bool SHORT, bool SPLIT>
+// already at the retune scale. Cols::column: each column's accumulator
+// shift from `shifts` (epi.acc unused).
+template <int BN, bool SHORT, bool SPLIT, Cols C = Cols::scalar>
 __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
                                            const int (&stash)[BN / 2],
                                            const Epi epi, const int* bias,
                                            int8_t* out, const int M,
                                            const int Cout, int8_t* stg,
-                                           const int m0, const int n0) {
+                                           const int m0, const int n0,
+                                           const int* shifts = nullptr) {
   constexpr int PW = BN < 64 ? BN : 64;  // columns per pass
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
@@ -115,25 +145,45 @@ __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
     for (int j = 0; j < PW / 8; ++j) {
       const int cl = 8 * j + 2 * tig;
       const int2 bb = *reinterpret_cast<const int2*>(bias + col0 + cl);
+      if constexpr (C == Cols::column) {
+        const bool nearest = epi.rnd != 0;
+        const int2 sc =
+            __ldg(reinterpret_cast<const int2*>(shifts + col0 + cl));
+        const Shift s0 = column_shift<SHORT>(sc.x, nearest);
+        const Shift s1 = column_shift<SHORT>(sc.y, nearest);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = 4 * (pass * (PW / 8) + j) + 2 * h;
-        int v0, v1;
-        if constexpr (SPLIT) {
-          v0 = epi.rest<SHORT>(
-              (int)((unsigned)epi.acc.apply<SHORT>(acc[e]) +
-                    (unsigned)stash[e]),
-              bb.x);
-          v1 = epi.rest<SHORT>(
-              (int)((unsigned)epi.acc.apply<SHORT>(acc[e + 1]) +
-                    (unsigned)stash[e + 1]),
-              bb.y);
-        } else {
-          v0 = epi.unclamped<SHORT>(acc[e], bb.x);
-          v1 = epi.unclamped<SHORT>(acc[e + 1], bb.y);
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * (pass * (PW / 8) + j) + 2 * h;
+          int u0 = s0.apply<SHORT>(acc[e]), u1 = s1.apply<SHORT>(acc[e + 1]);
+          if constexpr (SPLIT) {
+            u0 = (int)((unsigned)u0 + (unsigned)stash[e]);
+            u1 = (int)((unsigned)u1 + (unsigned)stash[e + 1]);
+          }
+          *reinterpret_cast<uint16_t*>(
+              stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+              pack_sat2(epi.rest<SHORT>(u0, bb.x), epi.rest<SHORT>(u1, bb.y));
         }
-        *reinterpret_cast<uint16_t*>(
-            stg + stg_at(warp * 16 + gid + 8 * h, cl)) = pack_sat2(v0, v1);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * (pass * (PW / 8) + j) + 2 * h;
+          int v0, v1;
+          if constexpr (SPLIT) {
+            v0 = epi.rest<SHORT>(
+                (int)((unsigned)epi.acc.apply<SHORT>(acc[e]) +
+                      (unsigned)stash[e]),
+                bb.x);
+            v1 = epi.rest<SHORT>(
+                (int)((unsigned)epi.acc.apply<SHORT>(acc[e + 1]) +
+                      (unsigned)stash[e + 1]),
+                bb.y);
+          } else {
+            v0 = epi.unclamped<SHORT>(acc[e], bb.x);
+            v1 = epi.unclamped<SHORT>(acc[e + 1], bb.y);
+          }
+          *reinterpret_cast<uint16_t*>(
+              stg + stg_at(warp * 16 + gid + 8 * h, cl)) = pack_sat2(v0, v1);
+        }
       }
     }
     named_sync(2 + wg, 128);
@@ -158,13 +208,15 @@ __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2],
   }
 }
 
-template <int BN, bool SHORT>
+template <int BN, bool SHORT, Cols C>
 __global__ void __launch_bounds__(THREADS, 1)
 conv1x1_wgmma(const __grid_constant__ CUtensorMap tm_a0,
               const __grid_constant__ CUtensorMap tm_a1,
-              const __grid_constant__ CUtensorMap tm_w, Conv1Args a) {
+              const __grid_constant__ CUtensorMap tm_w, Conv1ArgsOf<C> a) {
   // a second accumulator for part 0's shifted partial (two-part inputs of
-  // two shifts, which the host runs at BN <= 128 only)
+  // two shifts, which the host runs at BN <= 128 only; on an H100 the
+  // per-column form's splits ran 24-31% slower at 64 columns, PERF.md,
+  // section 6)
   constexpr bool CAN_SPLIT = BN <= 128;
   extern __shared__ __align__(16) unsigned char dsmem[];
   // the swizzled tiles need 1024-byte alignment: an offset from the shared
@@ -251,10 +303,30 @@ conv1x1_wgmma(const __grid_constant__ CUtensorMap tm_a0,
           wgmma_wait<0>();
           ring.consumer_release(prev);
           prev = -1;
+          if constexpr (C == Cols::scalar) {
 #pragma unroll
-          for (int e = 0; e < BN / 2; ++e) {
-            stash[e] = a.sh0.apply<SHORT>(acc[e]);
-            acc[e] = 0;
+            for (int e = 0; e < BN / 2; ++e) {
+              stash[e] = a.sh0.apply<SHORT>(acc[e]);
+              acc[e] = 0;
+            }
+          } else {
+            // columns 8 jj + 2 tig (+1) of the tile: accumulators 4 jj +
+            // 2 h (+1), rows gid + 8 h
+            const bool nearest = a.epi.rnd != 0;
+            const int tig = tid & 3;
+#pragma unroll
+            for (int jj = 0; jj < BN / 8; ++jj) {
+              const int2 sc = __ldg(reinterpret_cast<const int2*>(
+                  a.shifts0 + n0 + 8 * jj + 2 * tig));
+              const Shift s0 = column_shift<SHORT>(sc.x, nearest);
+              const Shift s1 = column_shift<SHORT>(sc.y, nearest);
+#pragma unroll
+              for (int e = 4 * jj; e < 4 * jj + 4; e += 2) {
+                stash[e] = s0.apply<SHORT>(acc[e]);
+                stash[e + 1] = s1.apply<SHORT>(acc[e + 1]);
+                acc[e] = acc[e + 1] = 0;
+              }
+            }
           }
         }
       }
@@ -274,12 +346,22 @@ conv1x1_wgmma(const __grid_constant__ CUtensorMap tm_a0,
     }
     wgmma_wait<0>();
     ring.consumer_release(prev);
-    if (CAN_SPLIT && a.split)
-      store_tile<BN, SHORT, CAN_SPLIT>(acc, stash, a.epi, a.bias, a.out, a.M,
-                                       a.Cout, stg, m0, n0);
-    else
-      store_tile<BN, SHORT, false>(acc, stash, a.epi, a.bias, a.out, a.M,
-                                   a.Cout, stg, m0, n0);
+    if constexpr (C == Cols::scalar) {
+      if (CAN_SPLIT && a.split)
+        store_tile<BN, SHORT, CAN_SPLIT>(acc, stash, a.epi, a.bias, a.out,
+                                         a.M, a.Cout, stg, m0, n0);
+      else
+        store_tile<BN, SHORT, false>(acc, stash, a.epi, a.bias, a.out, a.M,
+                                     a.Cout, stg, m0, n0);
+    } else {
+      if (CAN_SPLIT && a.split)
+        store_tile<BN, SHORT, CAN_SPLIT, C>(acc, stash, a.epi, a.bias, a.out,
+                                            a.M, a.Cout, stg, m0, n0,
+                                            a.shifts1);
+      else
+        store_tile<BN, SHORT, false, C>(acc, stash, a.epi, a.bias, a.out,
+                                        a.M, a.Cout, stg, m0, n0, a.shifts1);
+    }
   }
 }
 
@@ -298,7 +380,7 @@ struct Plan {
 // The narrowest column tile that covers Cout (256 past it), at most 128
 // where a split needs the second accumulator, halved while the resident
 // weights and two 2-stage rings do not fit; then rings of up to MAX_RING
-// stages.
+// stages. Both shift forms take the same plan.
 Plan plan(int Cout, int nk, bool split) {
   Plan p{Cout <= 32 ? 32 : Cout <= 64 ? 64 : Cout <= 128 ? 128 : 256, 2, 0};
   if (split) p.bn = std::min(p.bn, 128);
@@ -320,13 +402,13 @@ int sm_count(int* sms) {
 
 // Launches the kernel of `bn` columns, or with `info` reports its layout
 // there instead.
-template <int BN, bool SHORT>
-int launch_bn(Conv1Args a, const Plan& p, const void* x0, const void* x1,
-              const void* wp, int cin0, int cin1, int* info,
+template <int BN, bool SHORT, Cols C>
+int launch_bn(Conv1ArgsOf<C> a, const Plan& p, const void* x0,
+              const void* x1, const void* wp, int cin0, int cin1, int* info,
               cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv1x1_wgmma<BN, SHORT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      conv1x1_wgmma<BN, SHORT, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   int sms = 0;
   const int rc_sm = sm_count(&sms);
@@ -340,7 +422,7 @@ int launch_bn(Conv1Args a, const Plan& p, const void* x0, const void* x1,
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv1x1_wgmma<BN, SHORT>, THREADS, p.smem);
+        &blocks, conv1x1_wgmma<BN, SHORT, C>, THREADS, p.smem);
     if (err != cudaSuccess) return (int)err;
     const int vals[INFO_LEN] = {BM,       BN,     p.stages,   blocks,
                                 p.smem,   (int)grid, a.ntn, a.nk * BN * SW};
@@ -362,24 +444,26 @@ int launch_bn(Conv1Args a, const Plan& p, const void* x0, const void* x1,
   const cuuint64_t dims_w[2] = {K, (cuuint64_t)a.Cout}, str_w[1] = {K};
   if (rc == 0) rc = make_map(&tm_w, wp, 2, dims_w, str_w, box_w);
   if (rc != 0) return rc;
-  conv1x1_wgmma<BN, SHORT>
+  conv1x1_wgmma<BN, SHORT, C>
       <<<(unsigned)grid, THREADS, p.smem, st>>>(tm_a0, tm_a1, tm_w, a);
   return (int)cudaGetLastError();
 }
 
-template <bool SHORT>
-int dispatch(const Conv1Args& a, const Plan& p, const void* x0,
+template <bool SHORT, Cols C = Cols::scalar>
+int dispatch(const Conv1ArgsOf<C>& a, const Plan& p, const void* x0,
              const void* x1, const void* wp, int cin0, int cin1, int* info,
              cudaStream_t st) {
   switch (p.bn) {
     case 32:
-      return launch_bn<32, SHORT>(a, p, x0, x1, wp, cin0, cin1, info, st);
+      return launch_bn<32, SHORT, C>(a, p, x0, x1, wp, cin0, cin1, info, st);
     case 64:
-      return launch_bn<64, SHORT>(a, p, x0, x1, wp, cin0, cin1, info, st);
+      return launch_bn<64, SHORT, C>(a, p, x0, x1, wp, cin0, cin1, info, st);
     case 128:
-      return launch_bn<128, SHORT>(a, p, x0, x1, wp, cin0, cin1, info, st);
+      return launch_bn<128, SHORT, C>(a, p, x0, x1, wp, cin0, cin1, info,
+                                      st);
     default:
-      return launch_bn<256, SHORT>(a, p, x0, x1, wp, cin0, cin1, info, st);
+      return launch_bn<256, SHORT, C>(a, p, x0, x1, wp, cin0, cin1, info,
+                                      st);
   }
 }
 
@@ -417,6 +501,41 @@ int run(const void* x0, const void* x1, const void* wp, const void* bias_rt,
   return dispatch<false>(a, p, x0, x1, wp, cin0, cin1, info, st);
 }
 
+// The per-column form's launch: the parts' tables, split where the parts
+// take two (shifts0 part 0's, shifts1 part 1's; else shifts1 every
+// part's); the short shift form where every entry of the tables and
+// out_shift lie in [0, 31] (short_cols: the entries, checked by the
+// caller).
+int run_cols(const void* x0, const void* x1, const void* wp,
+             const void* bias_rt, const void* shifts0, const void* shifts1,
+             void* out, int M, int cin0, int cin1, int Cout, int split,
+             int short_cols, int out_shift, int slope_num, int nearest,
+             void* stream) {
+  if (bad_shape(M, cin0, cin1, Cout) || (split && cin1 == 0) ||
+      shifts1 == nullptr || (split && shifts0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Conv1ColsArgs a{};
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.M = M;
+  a.Cout = Cout;
+  a.nk0 = (cin0 + SW - 1) / SW;
+  a.nk = a.nk0 + (cin1 + SW - 1) / SW;
+  a.c0 = cin0;
+  a.split = split != 0;
+  a.epi = make_epi(0, out_shift, slope_num, nearest != 0);
+  a.shifts0 = static_cast<const int*>(shifts0);
+  a.shifts1 = static_cast<const int*>(shifts1);
+  const Plan p = plan(Cout, a.nk, a.split);
+  if (p.smem == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_cols && short_shift(out_shift))
+    return dispatch<true, Cols::column>(a, p, x0, x1, wp, cin0, cin1,
+                                        nullptr, st);
+  return dispatch<false, Cols::column>(a, p, x0, x1, wp, cin0, cin1,
+                                       nullptr, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -451,6 +570,26 @@ int yolo_int8_conv1x1_wgmma_info(int M, int cin0, int cin1, int Cout,
                                  int split, int* info_out) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, M, cin0, cin1, Cout,
              0, split ? 1 : 0, 0, 65536, 1, info_out, nullptr);
+}
+
+// The per-column form (a per-channel sw): as yolo_int8_conv1x1_wgmma, with
+// each column's accumulator shift from a table (int32 [Cout rounded up to
+// 256], each column's shift as _shift reads it, int8_conv.py's
+// acc_shift_table, 0 past Cout, 8-byte aligned) in place of acc_shift0 /
+// acc_shift1: with split != 0 (two parts of different input scales)
+// shifts0 is part 0's table and shifts1 part 1's, else shifts1 is every
+// part's (shifts0 unused); short_cols: every entry in [0, 31]. Its layout
+// is the scalar form's (yolo_int8_conv1x1_wgmma_info).
+int yolo_int8_conv1x1_cols_wgmma(const void* x0, const void* x1,
+                                 const void* wp, const void* bias_rt,
+                                 const void* shifts0, const void* shifts1,
+                                 void* out, int M, int cin0, int cin1,
+                                 int Cout, int split, int short_cols,
+                                 int out_shift, int slope_num, int nearest,
+                                 void* stream) {
+  return run_cols(x0, x1, wp, bias_rt, shifts0, shifts1, out, M, cin0, cin1,
+                  Cout, split, short_cols, out_shift, slope_num, nearest,
+                  stream);
 }
 
 }  // extern "C"

@@ -91,13 +91,15 @@
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32 and s < 0.
 //
-// The conv and pooled forms also run with one accumulator shift per output
-// column (Cols::column: a per-channel sw, quantize_model(per_channel=True)
-// of the JAX package; every slim layer but conv1 on NHWC input), read
-// from a table beside the bias, an int2 per column pair, each Shift made
-// in registers from its entry (column_shift: the
-// table, made on the host, already maps _shift_arr onto _shift), and
-// with them counting the outputs that hit the int16 clamp (Cols::count:
+// All three forms also run with one accumulator shift per output column
+// (Cols::column: a per-channel sw, quantize_model(per_channel=True) of the
+// JAX package; every slim layer but conv1 on NHWC input, and with
+// quantize_pipeline_yolo_v3(per_channel=True) the yolo_v3 head's nine
+// 3x3s and darknet53's five stride-2 convs), read from a table beside the
+// bias, an int2 per column pair, each Shift made in registers from its
+// entry (column_shift: the table, made on the host, already maps
+// _shift_arr onto _shift), and the conv and pooled forms with them
+// counting the outputs that hit the int16 clamp (Cols::count:
 // int8_forward_diagnostics; the pooled form counts each window's four
 // values before its max), each warp's count summed by one shuffle
 // reduction and added by one atomic. Both are template forms: the scalar
@@ -126,7 +128,7 @@ enum class Form { conv, pool, s2 };
 // its accumulator shifts: one for the layer (Epi's), one per output column
 // from a shift table (a per-channel sw), or per column counting the values
 // that reach the int16 clamp (int8_forward_diagnostics; the general shift
-// form only); the conv and pooled forms only
+// form only; the conv and pooled forms only)
 enum class Cols { scalar, column, count };
 
 struct Conv3Args {
@@ -163,7 +165,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   constexpr bool POOL = F == Form::pool, S2 = F == Form::s2;
   constexpr bool COUNT = C == Cols::count;
-  static_assert(C == Cols::scalar || !S2, "stride 2 takes one shift");
+  static_assert(!COUNT || !S2, "stride 2 counts no overflow");
   static_assert(!COUNT || !SHORT, "counting takes the general shifts");
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -670,7 +672,8 @@ int run(const void* x, const void* wp, const void* bias_rt, void* out, int B,
   return dispatch<false, F>(a, wp, nullptr, st);
 }
 
-// The per-column (C = column) and counting (C = count) forms: the
+// The per-column (C = column; all three forms) and counting (C = count;
+// the conv and pooled forms) forms: the
 // accumulator shift of each output column from the table `shifts`; the
 // short shift form where every entry and out_shift lie in [0, 31]
 // (short_cols: the entries, checked by the caller), never when counting.
@@ -776,6 +779,18 @@ int yolo_int8_conv3x3_pool_cols_wgmma(const void* x, const void* wp,
                                       int slope_num, int nearest,
                                       void* stream) {
   return run_cols<Form::pool, Cols::column>(
+      x, wp, bias_rt, shifts, out, nullptr, B, H, W, Cin, Cout, short_cols,
+      out_shift, slope_num, nearest, stream);
+}
+
+// The same for the stride-2 form.
+int yolo_int8_conv3x3_s2_cols_wgmma(const void* x, const void* wp,
+                                    const void* bias_rt, const void* shifts,
+                                    void* out, int B, int H, int W, int Cin,
+                                    int Cout, int short_cols, int out_shift,
+                                    int slope_num, int nearest,
+                                    void* stream) {
+  return run_cols<Form::s2, Cols::column>(
       x, wp, bias_rt, shifts, out, nullptr, B, H, W, Cin, Cout, short_cols,
       out_shift, slope_num, nearest, stream);
 }

@@ -4,8 +4,10 @@
 //
 //   - entry_conv3x3_wgmma: int8 NHWC [B, H, W, Cin] conv3x3 (stride 1,
 //     pad 1) + fixed-point requant -> int8 [B, H, W, Cout], 1 <= Cin <= 3,
-//     Cout <= 64, scalar sw (int8_conv_requant, entry_conv3x3_route:
-//     yolo_v3's C_in = 3 entry conv). It replaces XLA's integer conv in
+//     Cout <= 64, with a scalar sw or a per-column shift table
+//     (Cols::column: a per-channel sw) (int8_conv_requant,
+//     entry_conv3x3_route: yolo_v3's C_in = 3 entry conv). It replaces
+//     XLA's integer conv in
 //     yolo_tpu/quant/fixed_point.py::int_conv_requant at that conv (no
 //     Pallas kernel), which ran on the general conv's mma.sync loop
 //     (int8_conv_general.cu, a byte gather from global memory per K byte).
@@ -103,9 +105,12 @@
 // darknet's 0.1; 65536: none); both roundings. The NHWC form's per-column
 // and counting forms read the shift table of int8_conv3x3_wgmma.cu's
 // (int8_conv.py's acc_shift_table), an int2 per column pair after the
-// phase max; each warp adds its count with one atomic. The input layout
-// and the shift forms are template forms: K2's and the entry conv's
-// instantiations are those of before.
+// phase max; each warp adds its count with one atomic. The entry conv's
+// per-column form reads its int2 of that table per column pair in the
+// epilogue (on an H100 2% faster than holding the pairs in registers
+// beside the bias, whose 64-column general form then spilled). The input
+// layout and the shift forms are template forms:
+// K2's and the entry conv's scalar instantiations are those of before.
 
 #include <type_traits>
 
@@ -337,6 +342,13 @@ __device__ __forceinline__ void zero_padding(int8_t* xb, int RP,
   }
 }
 
+// the accumulator shifts: one for the layer (Epi's), one per output column
+// from a shift table (a per-channel sw), or per column counting the values
+// that reach the int16 clamp (int8_forward_diagnostics; the general shift
+// form only); the entry conv and K2's NHWC form take a table, only the
+// latter counts
+enum class Cols { scalar, column, count };
+
 // ---------------------------------------------------------------------------
 // The entry conv: 3x3, stride 1, pad 1, Cin <= 3.
 // ---------------------------------------------------------------------------
@@ -352,6 +364,17 @@ struct EntryArgs {
   Epi epi;
 };
 
+// the per-column form's arguments: the accumulator shift table ([>= 64],
+// 0 past Cout; a separate type, so that the scalar forms' arguments stay
+// those of before, as ColsArgs below)
+struct EntryColsArgs : EntryArgs {
+  const int* shifts;
+};
+
+template <Cols C>
+using EntryArgsOf =
+    std::conditional_t<C == Cols::scalar, EntryArgs, EntryColsArgs>;
+
 // blocks per SM each form is built for: two (128 registers a thread; on
 // an H100 the entry conv ran 12% slower at four blocks of 64 registers and
 // 7% at three, PERF.md, section 6)
@@ -360,9 +383,11 @@ struct EntryCfg {
   static constexpr int BLOCKS = 2;
 };
 
-template <int BN, bool SHORT>
+// (CF: the shift form; C below is Cin)
+template <int BN, bool SHORT, Cols CF>
 __global__ void __launch_bounds__(THREADS, EntryCfg<BN>::BLOCKS)
-    entry_conv3x3_wgmma(const EntryArgs a) {
+    entry_conv3x3_wgmma(const EntryArgsOf<CF> a) {
+  static_assert(CF != Cols::count, "the entry conv counts no overflow");
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* wt = align1024(dsmem);
   int8_t* xin = reinterpret_cast<int8_t*>(wt + BN * 128);
@@ -461,9 +486,21 @@ __global__ void __launch_bounds__(THREADS, EntryCfg<BN>::BLOCKS)
         int8_t* o = ob + yx.x * a.OP + yx.y * a.Cout;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
-          if (8 * j + 2 * tig < a.Cout)
-            stage2<SHORT>(o, 8 * j + 2 * tig, a.Cout, a.epi,
-                          d[4 * j + 2 * h], d[4 * j + 2 * h + 1], bias[j]);
+          if (8 * j + 2 * tig < a.Cout) {
+            if constexpr (CF == Cols::scalar) {
+              stage2<SHORT>(o, 8 * j + 2 * tig, a.Cout, a.epi,
+                            d[4 * j + 2 * h], d[4 * j + 2 * h + 1], bias[j]);
+            } else {
+              const bool nearest = a.epi.rnd != 0;
+              const int2 sc = __ldg(reinterpret_cast<const int2*>(
+                  a.shifts + 8 * j + 2 * tig));
+              stage2<SHORT>(o, 8 * j + 2 * tig, a.Cout, a.epi,
+                            column_shift<SHORT>(sc.x, nearest),
+                            column_shift<SHORT>(sc.y, nearest),
+                            d[4 * j + 2 * h], d[4 * j + 2 * h + 1],
+                            bias[j]);
+            }
+          }
       }
     }
   };
@@ -481,11 +518,6 @@ __global__ void __launch_bounds__(THREADS, EntryCfg<BN>::BLOCKS)
 
 // the input: the padded s2d layout, or NHWC rows read in place
 enum class In { s2d, nhwc };
-// the accumulator shifts: one for the layer (Epi's), one per output column
-// from a shift table (a per-channel sw), or per column counting the values
-// that reach the int16 clamp (int8_forward_diagnostics; the general shift
-// form only); the NHWC form only
-enum class Cols { scalar, column, count };
 
 struct PoolArgs {
   const int8_t* x;   // s2d: [B, Ho + 3, Wo + 3, 4 Cin]; NHWC: [B, H, W, Cin]
@@ -764,8 +796,8 @@ int launch_rows(void (*kern)(Args), const Args& a, const RowPlan& p, int bn,
   return (int)cudaGetLastError();
 }
 
-template <int BN, bool SHORT>
-int launch_entry(EntryArgs a, int* info, cudaStream_t st) {
+template <int BN, bool SHORT, Cols C>
+int launch_entry(EntryArgsOf<C> a, int* info, cudaStream_t st) {
   const RowPlan p = plan_rows(
       a.H, a.W, a.Cout, BN, [](int th) { return th + 2; },
       [&](int tw) { return (tw + 2) * a.Cin; }, (long long)a.W * a.Cin,
@@ -774,7 +806,7 @@ int launch_entry(EntryArgs a, int* info, cudaStream_t st) {
   a.TW = p.tw;
   a.RP = p.rp;
   a.OP = p.op;
-  return launch_rows(entry_conv3x3_wgmma<BN, SHORT>, a, p, BN,
+  return launch_rows(entry_conv3x3_wgmma<BN, SHORT, C>, a, p, BN,
                      (long long)a.B * ((a.H + p.th - 1) / p.th) *
                          ((a.W + p.tw - 1) / p.tw),
                      info, st);
@@ -812,12 +844,31 @@ bool bad_pool(int H, int W, int Cin, int Cout) {
 }
 
 // the 32-column form where Cout <= 32, else the 64-column one
-int entry(EntryArgs a, bool short_form, int* info, cudaStream_t st) {
+template <Cols C = Cols::scalar>
+int entry(const EntryArgsOf<C>& a, bool short_form, int* info,
+          cudaStream_t st) {
   if (a.Cout <= 32)
-    return short_form ? launch_entry<32, true>(a, info, st)
-                      : launch_entry<32, false>(a, info, st);
-  return short_form ? launch_entry<64, true>(a, info, st)
-                    : launch_entry<64, false>(a, info, st);
+    return short_form ? launch_entry<32, true, C>(a, info, st)
+                      : launch_entry<32, false, C>(a, info, st);
+  return short_form ? launch_entry<64, true, C>(a, info, st)
+                    : launch_entry<64, false, C>(a, info, st);
+}
+
+// The entry conv's arguments for an H x W x Cin -> Cout conv
+EntryArgs entry_args(const void* x, const void* wp, const void* bias_rt,
+                     void* out, int B, int H, int W, int Cin, int Cout) {
+  EntryArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.wp = static_cast<const int8_t*>(wp);
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.x_bytes = (long long)B * H * W * Cin;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  return a;
 }
 
 // phases of 16 columns where Cout <= 16, else of 32; the short shift form
@@ -892,20 +943,33 @@ int yolo_int8_entry_conv3x3_wgmma(const void* x, const void* wp,
                                   int acc_shift, int out_shift, int slope_num,
                                   int nearest, void* stream) {
   if (bad_entry(H, W, Cin, Cout) || B < 1) return (int)cudaErrorInvalidValue;
-  EntryArgs a{};
-  a.x = static_cast<const int8_t*>(x);
-  a.wp = static_cast<const int8_t*>(wp);
-  a.bias = static_cast<const int*>(bias_rt);
-  a.out = static_cast<int8_t*>(out);
-  a.x_bytes = (long long)B * H * W * Cin;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.Cin = Cin;
-  a.Cout = Cout;
+  EntryArgs a = entry_args(x, wp, bias_rt, out, B, H, W, Cin, Cout);
   a.epi = make_epi(acc_shift, out_shift, slope_num, nearest != 0);
   return entry(a, short_shift(acc_shift) && short_shift(out_shift), nullptr,
                static_cast<cudaStream_t>(stream));
+}
+
+// The entry conv with one accumulator shift per output column (a
+// per-channel sw): shifts: int32 [>= 64], each column's shift as _shift
+// reads it (int8_conv.py's acc_shift_table), 0 past Cout, 8-byte aligned;
+// short_cols: every entry in [0, 31]. Otherwise as
+// yolo_int8_entry_conv3x3_wgmma, whose layout it has.
+int yolo_int8_entry_conv3x3_cols_wgmma(const void* x, const void* wp,
+                                       const void* bias_rt,
+                                       const void* shifts, void* out, int B,
+                                       int H, int W, int Cin, int Cout,
+                                       int short_cols, int out_shift,
+                                       int slope_num, int nearest,
+                                       void* stream) {
+  if (bad_entry(H, W, Cin, Cout) || B < 1 || shifts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  EntryColsArgs a{};
+  static_cast<EntryArgs&>(a) =
+      entry_args(x, wp, bias_rt, out, B, H, W, Cin, Cout);
+  a.epi = make_epi(0, out_shift, slope_num, nearest != 0);
+  a.shifts = static_cast<const int*>(shifts);
+  return entry<Cols::column>(a, short_cols && short_shift(out_shift),
+                             nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // The entry conv's layout for an H x W x Cin -> Cout conv: info[0..7] =

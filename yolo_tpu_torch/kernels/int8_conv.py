@@ -13,8 +13,8 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
   counterpart of XLA's integer conv in ``fixed_point.int_conv_requant``
   (k 1 or 3, stride, padding, a two-part concat input, a leaky slope).
 
-Every stride-1 3x3 conv of one input part with C_in % 32 == 0 and a
-scalar sw (``conv3x3_wgmma_route``: all of K1's main-path layers and the
+Every stride-1 3x3 conv of one input part with C_in % 32 == 0
+(``conv3x3_wgmma_route``: all of K1's main-path layers and the
 yolo_v3 head's nine 3x3s) launches the wgmma conv of
 ``csrc/int8_conv3x3_wgmma.cu``, every such conv at stride 2
 (``conv3x3_s2_wgmma_route``: darknet53's five downsampling convs) that
@@ -27,7 +27,11 @@ array) and an overflow counter: the stride-1 and pooled forms and the
 mma.sync conv then read a per-column shift table (``acc_shift_table``,
 made once per model by ``fixed_point.Int8Model.pack_conv3x3``), the
 counting ones add to the counter; so does the NHWC form of K2's kernel
-below. Every other wrapper refuses a per-channel sw on a CUDA tensor. The
+below. ``int8_conv_requant`` takes a per-channel sw on every route named
+below (the per-column forms of the stride-1, stride-2, entry and 1x1
+kernels, on the tables of ``conv_shift_tables``, made once per model by
+``int8_yolo_v3.Int8YoloV3.pack_conv3x3s``); its mma.sync conv, K2 on the
+s2d layout and K4 refuse one on a CUDA tensor. The
 thin-input convs run on the row-streaming wgmma kernels of
 ``csrc/int8_entry_conv.cu``: K2 on the s2d layout with C_in <= 4 and
 C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
@@ -37,7 +41,7 @@ slim's conv1 there, with a scalar or a per-channel sw and the overflow
 counter; weights from ``pack_pool_nhwc_weights``) and every stride-1 3x3
 of one part with C_in <= 3 and C_out <= 64 (``entry_conv3x3_route``:
 yolo_v3's entry conv; weights from ``pack_entry_conv_weights``). Every
-1x1 of stride 1, pad 0, one or two parts of C_in % 16 == 0 and a scalar sw
+1x1 of stride 1, pad 0, one or two parts of C_in % 16 == 0
 (``conv1x1_wgmma_route``: yolo_v3's nine 1x1s, two concat 1x1s and three
 preds) runs as a GEMM on the wgmma kernel of
 ``csrc/int8_conv1x1_wgmma.cu``, its weights resident in shared memory
@@ -83,8 +87,9 @@ def _check_scalar_shifts(**shifts):
         if np.ndim(v):
             raise ValueError(
                 f"{k} must be a scalar: this kernel's epilogue takes one "
-                f"shift per layer (per-channel sw runs only in "
-                f"int8_conv3x3_requant and int8_conv3x3_im2col)")
+                f"shift per layer (a per-channel sw runs in "
+                f"int8_conv3x3_requant, int8_conv3x3_im2col and on "
+                f"int8_conv_requant's wgmma routes)")
 
 
 def _sw_ok(sw, c_out) -> bool:
@@ -109,6 +114,8 @@ def _check_sw(sw, c_out):
 # and -SHIFT_CODE_MAX the one whose left shift gives 0
 SHIFT_CODE_MAX = 32
 TABLE_ALIGN = 128  # tables are padded as the biases are, to whole tiles
+# the wgmma 1x1 kernel's tables and biases: whole tiles of up to 256 columns
+CONV1X1_ALIGN = 256
 
 
 def acc_shift_codes(sw, sa_in, retune, rounding, c_out) -> np.ndarray:
@@ -136,15 +143,15 @@ def short_columns(codes) -> bool:
     return bool(((codes >= 0) & (codes <= 31)).all())
 
 
-def acc_shift_table(sw, sa_in, retune, rounding, c_out,
-                    device) -> torch.Tensor:
-    """The per-column shift table the conv3x3 kernels read where ``sw`` is
+def acc_shift_table(sw, sa_in, retune, rounding, c_out, device,
+                    align=TABLE_ALIGN) -> torch.Tensor:
+    """The per-column shift table the conv kernels read where ``sw`` is
     per-channel or overflows are counted: ``acc_shift_codes`` as int32
-    [C_out rounded up to 128] on ``device``, 0 past C_out (a zero
+    [C_out rounded up to ``align``] on ``device``, 0 past C_out (a zero
     accumulator stays 0). Made once per model and layer by
-    ``Int8Model.pack_conv3x3``; a wrapper given none makes one per
-    call."""
-    table = np.zeros(-(-c_out // TABLE_ALIGN) * TABLE_ALIGN, np.int32)
+    ``Int8Model.pack_conv3x3`` and ``Int8YoloV3.pack_conv3x3s``; a wrapper
+    given none makes one per call."""
+    table = np.zeros(-(-c_out // align) * align, np.int32)
     table[:c_out] = acc_shift_codes(sw, sa_in, retune, rounding, c_out)
     _PACKS["shift_table"] += 1
     return torch.as_tensor(table).to(device)
@@ -159,11 +166,26 @@ def reset_shift_table_count() -> None:
     _PACKS["shift_table"] = 0
 
 
-def _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev):
+def conv_shift_tables(sw, sas, retune, rounding, c_out, device,
+                      align=TABLE_ALIGN):
+    """The per-column shift tables of a general conv with a per-channel
+    ``sw`` whose input parts have the scales ``sas``: one
+    ``acc_shift_table`` per distinct input scale, in the order the parts
+    first take it (``fixed_point.int_conv_requant`` groups the parts'
+    partials by input scale and shifts each group by sw[c] + sa -
+    retune). What ``int8_conv_requant`` takes as ``shifts``."""
+    return tuple(acc_shift_table(sw, sa, retune, rounding, c_out, device,
+                                 align)
+                 for sa in dict.fromkeys(int(sa) for sa in sas))
+
+
+def _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev,
+               align=TABLE_ALIGN):
     """``shifts`` checked, or a table made for this call where None."""
     if shifts is None:
-        return acc_shift_table(sw, sa_in, retune, rounding, c_out, dev)
-    need = -(-c_out // TABLE_ALIGN) * TABLE_ALIGN
+        return acc_shift_table(sw, sa_in, retune, rounding, c_out, dev,
+                               align)
+    need = -(-c_out // align) * align
     if (shifts.dtype != torch.int32 or shifts.device != dev
             or shifts.ndim != 1 or shifts.shape[0] < need
             or not shifts.is_contiguous()):
@@ -580,13 +602,14 @@ def int8_conv_requant_plain(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                        rounding=rounding)
 
 
-def _check_parts(parts, *, sw, sb, sa_out, retune, leaky, rounding):
-    """Check a general conv's epilogue arguments and its (int8 tensor, sa)
-    input parts, one or two contiguous int8 [B, H, W, C] tensors on one
-    device; returns the slope's Q16 numerator and the parts' channels."""
+def _check_parts(parts, *, sb, sa_out, retune, leaky, rounding):
+    """Check a general conv's epilogue arguments but sw and its (int8
+    tensor, sa) input parts, one or two contiguous int8 [B, H, W, C]
+    tensors on one device; returns the slope's Q16 numerator and the
+    parts' channels."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
-    _check_scalar_shifts(sw=sw, sb=sb, sa_out=sa_out, retune=retune,
+    _check_scalar_shifts(sb=sb, sa_out=sa_out, retune=retune,
                          **{f"sa_in{i}": sa for i, (_, sa) in
                             enumerate(parts)})
     if len(parts) > 2:
@@ -604,8 +627,9 @@ def _check_parts(parts, *, sw, sb, sa_out, retune, leaky, rounding):
 
 def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
                          padding, stride, leaky, rounding) -> torch.Tensor:
-    num, cins = _check_parts(parts, sw=sw, sb=sb, sa_out=sa_out,
-                             retune=retune, leaky=leaky, rounding=rounding)
+    _check_scalar_shifts(sw=sw)
+    num, cins = _check_parts(parts, sb=sb, sa_out=sa_out, retune=retune,
+                             leaky=leaky, rounding=rounding)
     x0 = parts[0][0]
     dev = x0.device
     bsz, h, w = x0.shape[:3]
@@ -653,22 +677,26 @@ def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
 
 def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                       padding=0, stride=1, leaky=True, rounding="nearest",
-                      packed=None):
+                      packed=None, shifts=None):
     """Integer conv (k 1 or 3 HWIO weights, any stride and padding) +
     fixed-point requant: int8 NHWC at scale 2^sa_in -> int8 at 2^sa_out.
 
     ``x`` is an int8 tensor, or a list of (int8 tensor, sa) parts whose
     channel concat is the conv input (``sa_in`` is then unused); ``leaky``
-    is False, True (0.125) or a float slope (Q16 rational). The kernels
-    take one or two parts and a scalar ``sw``; the plain version also a
-    per-channel one. ``packed``: a 3x3's weights from
-    ``pack_conv3x3_weights`` (then ``w_q`` may be None), which the wgmma
-    kernel reads on the shapes of ``conv3x3_wgmma_route`` and its stride-2
-    form on those of ``conv3x3_s2_wgmma_route``, or from
-    ``pack_entry_conv_weights``, which the entry conv kernel reads on the
-    shapes of ``entry_conv3x3_route`` (C_in <= 3), or a 1x1's from
-    ``pack_conv1x1_weights``, which the wgmma 1x1 kernel reads on the
-    shapes of ``conv1x1_wgmma_route`` (one or two parts)."""
+    is False, True (0.125) or a float slope (Q16 rational). ``sw`` is an
+    int or a per-channel int32 [C_out] array (``fixed_point._shift_arr``);
+    the kernels take one or two parts, and a per-channel ``sw`` on the
+    four wgmma routes below (their per-column forms), not on the mma.sync
+    conv. ``packed``: a 3x3's weights from ``pack_conv3x3_weights`` (then
+    ``w_q`` may be None), which the wgmma kernel reads on the shapes of
+    ``conv3x3_wgmma_route`` and its stride-2 form on those of
+    ``conv3x3_s2_wgmma_route``, or from ``pack_entry_conv_weights``, which
+    the entry conv kernel reads on the shapes of ``entry_conv3x3_route``
+    (C_in <= 3), or a 1x1's from ``pack_conv1x1_weights``, which the wgmma
+    1x1 kernel reads on the shapes of ``conv1x1_wgmma_route`` (one or two
+    parts). ``shifts``: with a per-channel ``sw``, the tables of
+    ``conv_shift_tables`` for the parts' scales (a 1x1's with
+    ``align=CONV1X1_ALIGN``), made for this call where None."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
@@ -676,28 +704,39 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     if route(parts[0][0]) == "plain":
         return int8_conv_requant_plain(parts, w_q, b_q, sa_in=None,
                                        packed=packed, **kw)
-    _check_scalar_shifts(sw=sw)
     k = _kernel_size(w_q, packed, sum(cins))
-    if conv1x1_wgmma_route(k, stride, padding, len(parts), cins, sw):
+    c_out = b_q.shape[0]
+    if conv1x1_wgmma_route(k, stride, padding, len(parts), cins, sw,
+                           c_out=c_out):
         return _launch_conv1x1_wgmma(parts, w_q, b_q, packed, sw=sw, sb=sb,
                                      sa_out=sa_out, retune=retune,
-                                     leaky=leaky, rounding=rounding)
+                                     leaky=leaky, rounding=rounding,
+                                     shifts=shifts)
     shape = (k, stride, padding, len(parts), cins[0], sw)
-    if entry_conv3x3_route(*shape[:5], b_q.shape[0], sw):
+    table = None if shifts is None else _one_table(shifts)
+    if entry_conv3x3_route(*shape[:5], c_out, sw):
         (x0, sa0), = parts
         return _launch_entry_conv3x3(
             x0, w_q, b_q, packed, sw=sw, sb=sb, sa_in=sa0, sa_out=sa_out,
-            retune=retune, leaky=leaky, rounding=rounding)
+            retune=retune, leaky=leaky, rounding=rounding, shifts=table)
     for taken, form in ((conv3x3_wgmma_route, "conv"),
                         (conv3x3_s2_wgmma_route, "s2")):
-        if taken(*shape):
+        if taken(*shape, c_out=c_out):
             (x0, sa0), = parts
             return _launch_conv3x3_wgmma(
                 "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
                 sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
-                rounding=rounding, form=form)
+                rounding=rounding, form=form, shifts=table)
     return _launch_conv_requant(parts, _hwio(w_q, packed, sum(cins)), b_q,
                                 **kw)
+
+
+def _one_table(shifts):
+    """The one table of a one-part conv's ``shifts``."""
+    if len(shifts) != 1:
+        raise ValueError(f"a one-part conv takes one shift table, got "
+                         f"{len(shifts)}")
+    return shifts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -706,18 +745,20 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
 
 
 # the wgmma conv3x3 kernel's C entries, by form: the conv, its pooled form
-# and its stride-2 form; the first two also with a per-column shift table
-# (cols) and counting the values that hit the int16 clamp (count)
+# and its stride-2 form, each also with a per-column shift table (cols),
+# the first two also counting the values that hit the int16 clamp (count)
 WGMMA_ENTRY = "yolo_int8_conv3x3_wgmma"
 POOL_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_wgmma"
 S2_WGMMA_ENTRY = "yolo_int8_conv3x3_s2_wgmma"
 COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_cols_wgmma"
 POOL_COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_cols_wgmma"
+S2_COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_s2_cols_wgmma"
 COUNT_WGMMA_ENTRY = "yolo_int8_conv3x3_count_wgmma"
 POOL_COUNT_WGMMA_ENTRY = "yolo_int8_conv3x3_pool_count_wgmma"
 _ENTRY_OF = {"conv": WGMMA_ENTRY, "pool": POOL_WGMMA_ENTRY,
              "s2": S2_WGMMA_ENTRY}
-_COLS_ENTRY_OF = {"conv": COLS_WGMMA_ENTRY, "pool": POOL_COLS_WGMMA_ENTRY}
+_COLS_ENTRY_OF = {"conv": COLS_WGMMA_ENTRY, "pool": POOL_COLS_WGMMA_ENTRY,
+                  "s2": S2_COLS_WGMMA_ENTRY}
 _COUNT_ENTRY_OF = {"conv": COUNT_WGMMA_ENTRY, "pool": POOL_COUNT_WGMMA_ENTRY}
 # the mma.sync conv3x3's C entry (K1 at C_in % 32 != 0, K3 at C_in = 3:
 # slim's conv1 on NHWC input)
@@ -730,21 +771,23 @@ def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw,
     (``csrc/int8_conv3x3_wgmma.cu``): a 3x3, stride 1, pad 1, one input
     part of C_in % 32 == 0 channels, a scalar ``sw`` or a per-channel one
     of ``c_out`` entries. ``int8_conv3x3_requant`` sends such convs there
-    and every other to the mma.sync conv kernel; ``int8_conv_requant``
-    takes a scalar ``sw`` only."""
+    and every other to the mma.sync conv kernel, and so does
+    ``int8_conv_requant``."""
     return (k == 3 and stride == 1 and padding == 1 and nparts == 1
             and c_in > 0 and c_in % 32 == 0 and _sw_ok(sw, c_out))
 
 
-def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw) -> bool:
+def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw,
+                           c_out=None) -> bool:
     """True where ``int8_conv_requant`` on a CUDA tensor runs the wgmma
     conv3x3 kernel's stride-2 form (``csrc/int8_conv3x3_wgmma.cu``): a
     3x3, stride 2, pad 1, one input part of C_in % 32 == 0 channels, a
-    scalar ``sw`` (yolo_v3's five downsampling convs); any H and W, odd
+    scalar ``sw`` or a per-channel one of ``c_out`` entries (its
+    per-column form; yolo_v3's five downsampling convs); any H and W, odd
     ones included. Every other stride-2 conv runs the mma.sync conv
     kernel."""
     return (k == 3 and stride == 2 and padding == 1 and nparts == 1
-            and c_in > 0 and c_in % 32 == 0 and np.ndim(sw) == 0)
+            and c_in > 0 and c_in % 32 == 0 and _sw_ok(sw, c_out))
 
 
 def conv3x3_pool_wgmma_route(c_in, sw, c_out=None) -> bool:
@@ -898,18 +941,16 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     """Check the operands and launch the wgmma conv3x3 kernel in ``form``
     ("conv", "pool": its pooled form, "s2": its stride-2 form) on the
     current stream, counting the launch under ``name``; packs ``w_q`` for
-    this call where ``packed`` is None. The conv and pooled forms also
-    take a per-channel ``sw`` (their per-column instantiations) and an
-    ``overflow`` counter (their counting ones), both on a per-column shift
-    table (``shifts``, made for this call where None). Raises on anything
-    the form does not take and on a failed launch."""
+    this call where ``packed`` is None. Every form also takes a
+    per-channel ``sw`` (its per-column instantiations), the conv and
+    pooled forms an ``overflow`` counter (their counting ones), both on a
+    per-column shift table (``shifts``, made for this call where None).
+    Raises on anything the form does not take and on a failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
     _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
-    if form == "s2":
-        _check_scalar_shifts(sw=sw)
-        if overflow is not None:
-            raise ValueError("the stride-2 form counts no overflow")
+    if form == "s2" and overflow is not None:
+        raise ValueError("the stride-2 form counts no overflow")
     dev = x.device
     if x.dtype != torch.int8 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous int8 [B, H, W, C] tensor")
@@ -963,7 +1004,8 @@ def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
                        sa_in, sa_out, retune, rounding, num, shifts,
                        overflow) -> None:
     """Launch one of a kernel's three C entries, ``entries`` = (scalar,
-    per-column, counting), all with the conv3x3 kernels' interface, on
+    per-column, counting; None where it has no such form), all with the
+    conv3x3 kernels' interface, on
     ``dims`` = (B, H, W, C_in, C_out), counting the launch under
     ``name``: the scalar one for a scalar ``sw`` without a counter, the
     counting one with ``overflow``, else the per-column one, those two on a
@@ -1162,6 +1204,8 @@ def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
 
 
 ENTRY_CONV_ENTRY = "yolo_int8_entry_conv3x3_wgmma"
+# its per-column form (a per-channel sw)
+ENTRY_CONV_COLS_ENTRY = "yolo_int8_entry_conv3x3_cols_wgmma"
 POOL_S2D_WGMMA_ENTRY = "yolo_int8_pool_s2d_wgmma"
 ENTRY_K = 32  # the entry conv's one K step: 9 * C_in <= 27 bytes, padded
 # K2's two K steps (both input forms): 16 * C_in <= 64 bytes, padded
@@ -1172,10 +1216,11 @@ def entry_conv3x3_route(k, stride, padding, nparts, c_in, c_out, sw) -> bool:
     """True where ``int8_conv_requant`` on a CUDA tensor runs the entry
     conv kernel (``csrc/int8_entry_conv.cu``): a 3x3, stride 1, pad 1, one
     input part of 1 <= C_in <= 3 channels (9 * C_in <= 32: one K step),
-    C_out <= 64 and a scalar ``sw`` (yolo_v3's entry conv, 3 -> 32). There
-    is no fallback: a routed conv launches that kernel or raises."""
+    C_out <= 64 and a scalar ``sw`` or a per-channel one of C_out entries
+    (its per-column form; yolo_v3's entry conv, 3 -> 32). There is no
+    fallback: a routed conv launches that kernel or raises."""
     return (k == 3 and stride == 1 and padding == 1 and nparts == 1
-            and 1 <= c_in <= 3 and 1 <= c_out <= 64 and np.ndim(sw) == 0)
+            and 1 <= c_in <= 3 and 1 <= c_out <= 64 and _sw_ok(sw, c_out))
 
 
 def pool_s2d_wgmma_route(c_in, c_out, sw) -> bool:
@@ -1346,15 +1391,17 @@ def _check_input(x):
 
 
 def _launch_entry_conv3x3(x, w_q, b_q, packed, *, sw, sb, sa_in, sa_out,
-                          retune, leaky, rounding) -> torch.Tensor:
+                          retune, leaky, rounding,
+                          shifts=None) -> torch.Tensor:
     """Check the operands and launch the entry conv kernel on the current
     stream, counting the launch under ``int8_conv_requant``; packs ``w_q``
-    for this call where ``packed`` is None. Raises on anything the kernel
-    does not take and on a failed launch."""
+    for this call where ``packed`` is None. A per-channel ``sw`` runs its
+    per-column form on a shift table (``shifts``, made for this call where
+    None). Raises on anything the kernel does not take and on a failed
+    launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
-    _check_scalar_shifts(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
-                         retune=retune)
+    _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
     _check_input(x)
     dev = x.device
     bsz, h, w, c_in = x.shape
@@ -1362,8 +1409,10 @@ def _launch_entry_conv3x3(x, w_q, b_q, packed, *, sw, sb, sa_in, sa_out,
         packed = pack_entry_conv_weights(w_q)
     c_out = packed.shape[0]
     if not entry_conv3x3_route(3, 1, 1, 1, c_in, c_out, sw):
-        raise ValueError(f"the entry conv kernel needs 1 <= C_in <= 3 and "
-                         f"C_out <= 64, got {c_in} -> {c_out}")
+        raise ValueError(f"the entry conv kernel needs 1 <= C_in <= 3, "
+                         f"C_out <= 64 and a scalar sw or one of C_out "
+                         f"entries, got {c_in} -> {c_out}, sw of shape "
+                         f"{np.shape(sw)}")
     _check_operand("packed weights", packed, dev, torch.int8,
                    (c_out, ENTRY_K))
     if not packed.is_contiguous():
@@ -1380,10 +1429,12 @@ def _launch_entry_conv3x3(x, w_q, b_q, packed, *, sw, sb, sa_in, sa_out,
     _aligned("the output allocation", out, 16)
     bias_rt = torch.zeros(64, dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch("int8_conv_requant", ENTRY_CONV_ENTRY, dev,
-           x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
-           retune - sa_out, num, int(rounding == "nearest"))
+    _launch_shift_form("int8_conv_requant",
+                       (ENTRY_CONV_ENTRY, ENTRY_CONV_COLS_ENTRY, None), x,
+                       packed, bias_rt, out, (bsz, h, w, c_in, c_out), sw=sw,
+                       sa_in=sa_in, sa_out=sa_out, retune=retune,
+                       rounding=rounding, num=num, shifts=shifts,
+                       overflow=None)
     return out
 
 
@@ -1564,17 +1615,21 @@ def _launch_pool_nhwc_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
 
 
 CONV1X1_ENTRY = "yolo_int8_conv1x1_wgmma"
+# its per-column form (a per-channel sw: a shift table per group of parts)
+CONV1X1_COLS_ENTRY = "yolo_int8_conv1x1_cols_wgmma"
 # the kernel keeps all of K of its column tile in shared memory: the
 # parts' channels, each rounded up to 128, at most 4096 in all
 CONV1X1_MAX_K = 4096
 
 
-def conv1x1_wgmma_route(k, stride, padding, nparts, cins, sw) -> bool:
+def conv1x1_wgmma_route(k, stride, padding, nparts, cins, sw,
+                        c_out=None) -> bool:
     """True where ``int8_conv_requant`` on a CUDA tensor runs the wgmma 1x1
     kernel (``csrc/int8_conv1x1_wgmma.cu``): a 1x1, stride 1, pad 0, one or
     two input parts (``cins``: each part's channels) of C_in % 16 == 0,
     at most ``CONV1X1_MAX_K`` channels in all once each part is rounded
-    up to 128, and a scalar ``sw`` (yolo_v3's nine 1x1s, two concat 1x1s
+    up to 128, and a scalar ``sw`` or a per-channel one of ``c_out``
+    entries (its per-column form; yolo_v3's nine 1x1s, two concat 1x1s
     and three preds). Every other conv, the padded 1x1 included, keeps its
     route. There is no fallback: a routed conv launches the kernel or
     raises."""
@@ -1582,7 +1637,7 @@ def conv1x1_wgmma_route(k, stride, padding, nparts, cins, sw) -> bool:
             and len(cins) == nparts
             and all(c > 0 and c % 16 == 0 for c in cins)
             and sum(-(-c // 128) * 128 for c in cins) <= CONV1X1_MAX_K
-            and np.ndim(sw) == 0)
+            and _sw_ok(sw, c_out))
 
 
 def pack_conv1x1_weights(w_q: torch.Tensor) -> torch.Tensor:
@@ -1622,11 +1677,12 @@ Conv1x1Layout = collections.namedtuple("Conv1x1Layout", (
 
 @functools.lru_cache(maxsize=None)
 def conv1x1_wgmma_layout(m, cin0, cin1, c_out, split) -> Conv1x1Layout:
-    """The wgmma 1x1 kernel's launch layout for an M x (cin0 + cin1) ->
-    C_out GEMM (cin1 0: one part) whose two parts take different
-    accumulator shifts (``split``) or not, as its CUDA source picks it
-    (``plan`` in ``csrc/int8_conv1x1_wgmma.cu``). Needs the built kernels.
-    Raises ValueError where the kernel takes no such conv."""
+    """The wgmma 1x1 kernel's launch layout (both shift forms') for an
+    M x (cin0 + cin1) -> C_out GEMM (cin1 0: one part) whose two parts
+    take different accumulator shifts (``split``) or not, as its CUDA
+    source picks it (``plan`` in ``csrc/int8_conv1x1_wgmma.cu``). Needs
+    the built kernels. Raises ValueError where the kernel takes no such
+    conv."""
     from yolo_tpu_torch.kernels import build
 
     lib = build.load()
@@ -1645,24 +1701,30 @@ def conv1x1_wgmma_layout(m, cin0, cin1, c_out, split) -> Conv1x1Layout:
 
 
 def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
-                          retune, leaky, rounding) -> torch.Tensor:
+                          retune, leaky, rounding,
+                          shifts=None) -> torch.Tensor:
     """Check the operands and launch the wgmma 1x1 kernel on the current
     stream, counting the launch under ``int8_conv_requant``; ``parts``: the
     (int8 tensor, sa) parts of the input; packs ``w_q`` for this call where
-    ``packed`` is None. Raises on anything the kernel does not take and on
+    ``packed`` is None. A per-channel ``sw`` runs its per-column form on
+    the tables of ``conv_shift_tables`` (``shifts``, made for this call
+    where None): one where the parts' scales agree, one per part (split)
+    where they differ. Raises on anything the kernel does not take and on
     a failed launch."""
-    num, cins = _check_parts(parts, sw=sw, sb=sb, sa_out=sa_out,
-                             retune=retune, leaky=leaky, rounding=rounding)
+    num, cins = _check_parts(parts, sb=sb, sa_out=sa_out, retune=retune,
+                             leaky=leaky, rounding=rounding)
     x0 = parts[0][0]
     dev = x0.device
     bsz, h, w = x0.shape[:3]
-    if not conv1x1_wgmma_route(1, 1, 0, len(parts), cins, sw):
-        raise ValueError(f"the 1x1 wgmma kernel takes one or two parts of "
-                         f"C_in % 16 == 0, at most {CONV1X1_MAX_K} channels "
-                         f"in all, got {cins}")
     if packed is None:
         packed = pack_conv1x1_weights(w_q)
     c_out = packed.shape[0]
+    if not conv1x1_wgmma_route(1, 1, 0, len(parts), cins, sw, c_out=c_out):
+        raise ValueError(f"the 1x1 wgmma kernel takes one or two parts of "
+                         f"C_in % 16 == 0, at most {CONV1X1_MAX_K} channels "
+                         f"in all, and a scalar sw or one of C_out = "
+                         f"{c_out} entries, got {cins}, sw of shape "
+                         f"{np.shape(sw)}")
     _check_operand("packed weights", packed, dev, torch.int8,
                    (c_out, sum(cins)))
     if not packed.is_contiguous():
@@ -1677,19 +1739,42 @@ def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    shifts = [sw + sa - retune for _, sa in parts]
-    two = len(parts) == 2
+    sas = [sa for _, sa in parts]
+    two, cols = len(parts) == 2, bool(np.ndim(sw))
+    # the parts' accumulator shifts differ: per-channel, where their input
+    # scales do (int_conv_requant's groups)
+    split = (sas[0] != sas[-1] if cols
+             else sw + sas[0] - retune != sw + sas[-1] - retune)
     # raises where no tile fits
-    conv1x1_wgmma_layout(m, cins[0], cins[1] if two else 0, c_out,
-                         shifts[0] != shifts[-1])
+    conv1x1_wgmma_layout(m, cins[0], cins[1] if two else 0, c_out, split)
     _aligned("the output allocation", out, 16)
-    # the kernel reads bias pairs of whole 32- to 256-column tiles
-    bias_rt = torch.zeros(-(-c_out // 256) * 256, dtype=torch.int32,
-                          device=dev)
+    # the kernel reads bias (and shift) pairs of whole 32- to 256-column
+    # tiles
+    bias_rt = torch.zeros(-(-c_out // CONV1X1_ALIGN) * CONV1X1_ALIGN,
+                          dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch("int8_conv_requant", CONV1X1_ENTRY, dev,
-           x0.data_ptr(), parts[1][0].data_ptr() if two else 0,
-           packed.data_ptr(), bias_rt.data_ptr(), out.data_ptr(), m, cins[0],
-           cins[1] if two else 0, c_out, shifts[0], shifts[-1],
-           retune - sa_out, num, int(rounding == "nearest"))
+    x1 = parts[1][0].data_ptr() if two else 0
+    tail = (retune - sa_out, num, int(rounding == "nearest"))
+    if not cols:
+        launch("int8_conv_requant", CONV1X1_ENTRY, dev,
+               x0.data_ptr(), x1, packed.data_ptr(), bias_rt.data_ptr(),
+               out.data_ptr(), m, cins[0], cins[1] if two else 0, c_out,
+               sw + sas[0] - retune, sw + sas[-1] - retune, *tail)
+        return out
+    groups = list(dict.fromkeys(sas))
+    if shifts is None:
+        shifts = conv_shift_tables(sw, sas, retune, rounding, c_out, dev,
+                                   CONV1X1_ALIGN)
+    if len(shifts) != len(groups):
+        raise ValueError(f"parts of {len(groups)} input scales take "
+                         f"{len(groups)} shift tables, got {len(shifts)}")
+    tables = [_table_for(t, sw, sa, retune, rounding, c_out, dev,
+                         CONV1X1_ALIGN) for t, sa in zip(shifts, groups)]
+    short = all(short_columns(acc_shift_codes(sw, sa, retune, rounding,
+                                              c_out)) for sa in groups)
+    launch("int8_conv_requant", CONV1X1_COLS_ENTRY, dev,
+           x0.data_ptr(), x1, packed.data_ptr(), bias_rt.data_ptr(),
+           tables[0].data_ptr(), tables[-1].data_ptr(), out.data_ptr(), m,
+           cins[0], cins[1] if two else 0, c_out, int(split), int(short),
+           *tail)
     return out

@@ -7,7 +7,9 @@ trip stores the same fields under ``<field>.<layer>`` keys.
 ``int8_model_from_seed`` rebuilds the per-channel slim golden fixture's
 model from its seed and tables. ``int8_yolo_v3_from_numpy`` and its npz round
 trip do the same for ``Int8YoloV3``, whose per-conv lists are keyed by
-conv index. Layouts stay the JAX package's (HWIO weights).
+conv index (a per-channel sw under ``sw.<i>``), and
+``int8_yolo_v3_from_seed`` rebuilds either yolo_v3 golden fixture's model.
+Layouts stay the JAX package's (HWIO weights).
 """
 
 from __future__ import annotations
@@ -161,9 +163,6 @@ def int8_model_from_seed(arrays: Mapping[str, np.ndarray],
 # yolo_v3: Int8YoloV3 (per-conv lists in program order).
 # ---------------------------------------------------------------------------
 
-_V3_LISTS = ("sw", "sb", "retune")
-
-
 def int8_yolo_v3_from_numpy(w_q: Sequence, b_q: Sequence, sw: Sequence,
                             sb: Sequence, sa_in, tap_sa: Sequence,
                             retune: Sequence, spp: bool = False,
@@ -186,17 +185,31 @@ def int8_yolo_v3_from_numpy(w_q: Sequence, b_q: Sequence, sw: Sequence,
 
 
 def int8_yolo_v3_tables(m) -> Dict[str, np.ndarray]:
-    """The model's exponent tables as {'sw', 'sb', 'retune': [n convs],
-    'tap_sa': [n taps] int32, 'sa_in', 'spp'} (per-tensor sw only)."""
+    """The model's exponent tables as {'sb', 'retune': [n convs],
+    'tap_sa': [n taps] int32, 'sa_in', 'spp', 'per_channel'} and its sw:
+    'sw' [n convs] int32 where every sw is an int, else (per-channel) one
+    int32 [C_out] array 'sw.<i>' per conv."""
+    per_channel = any(np.ndim(v) for v in m.sw)
+    sw = ({f"sw.{i}": np.asarray(v, np.int32) for i, v in enumerate(m.sw)}
+          if per_channel else {"sw": np.asarray(m.sw, np.int32)})
     return {"sa_in": np.int32(m.sa_in), "spp": np.bool_(m.spp),
+            "per_channel": np.bool_(per_channel), **sw,
             **{field: np.asarray(getattr(m, field), np.int32)
-               for field in _V3_LISTS + ("tap_sa",)}}
+               for field in ("sb", "retune", "tap_sa")}}
 
 
 def _v3_tables_from_arrays(arrays: Mapping[str, np.ndarray]) -> dict:
-    return {"sa_in": int(arrays["sa_in"]), "spp": bool(arrays["spp"]),
-            **{field: [int(v) for v in arrays[field]]
-               for field in _V3_LISTS + ("tap_sa",)}}
+    """Inverse of ``int8_yolo_v3_tables`` (tables written before the
+    'per_channel' key existed are per tensor)."""
+    tables = {"sa_in": int(arrays["sa_in"]), "spp": bool(arrays["spp"]),
+              **{field: [int(v) for v in arrays[field]]
+                 for field in ("sb", "retune", "tap_sa")}}
+    if "per_channel" in arrays and bool(arrays["per_channel"]):
+        tables["sw"] = [np.asarray(arrays[f"sw.{i}"], np.int32)
+                        for i in range(len(tables["sb"]))]
+    else:
+        tables["sw"] = [int(v) for v in arrays["sw"]]
+    return tables
 
 
 def save_int8_yolo_v3_npz(path, m, **extra: np.ndarray) -> None:
@@ -227,15 +240,21 @@ def weights_sha256(w_q: Sequence, b_q: Sequence) -> str:
 
 
 def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
-    """The yolo_v3 golden fixture's model: int8 weights rebuilt from the
-    seed it names (``seeded_fused_params`` + ``quantize_weights``), checked
-    against its ``wb_sha256``, with its calibrated tables."""
+    """A yolo_v3 golden fixture's model: int8 weights rebuilt from the
+    seed it names (``seeded_fused_params``, or where its 'per_channel'
+    flag is set ``seeded_fused_params_per_channel`` with per-channel
+    ``quantize_weights``), checked against its ``wb_sha256``, with its
+    calibrated tables, whose sw / sb must be the rebuilt weights'
+    exponents."""
     from yolo_tpu_torch.quant.int8_yolo_v3 import (
-        quantize_weights, seeded_fused_params)
+        quantize_weights, seeded_fused_params,
+        seeded_fused_params_per_channel)
 
-    fused = seeded_fused_params(int(arrays["weight_seed"]),
-                                int(arrays["pred_out"]))
-    w_q, b_q, sw, sb = quantize_weights(fused)
+    per_channel = "per_channel" in arrays and bool(arrays["per_channel"])
+    recipe = (seeded_fused_params_per_channel if per_channel
+              else seeded_fused_params)
+    fused = recipe(int(arrays["weight_seed"]), int(arrays["pred_out"]))
+    w_q, b_q, sw, sb = quantize_weights(fused, per_channel=per_channel)
     digest = weights_sha256(w_q, b_q)
     if digest != str(arrays["wb_sha256"]):
         raise ValueError(f"the weights rebuilt from seed "
@@ -243,7 +262,9 @@ def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
                          f"fixture: sha256 {digest} != "
                          f"{arrays['wb_sha256']}")
     tables = _v3_tables_from_arrays(arrays)
-    if tables["sw"] != sw or tables["sb"] != sb:
+    if (len(tables["sw"]) != len(sw) or tables["sb"] != sb
+            or not all(np.array_equal(a, b)
+                       for a, b in zip(tables["sw"], sw))):
         raise ValueError("the fixture's sw / sb tables differ from the "
                          "rebuilt weights' exponents")
     return int8_yolo_v3_from_numpy(w_q, b_q, device=device, **tables)

@@ -352,20 +352,22 @@ def int8_conv_pool_s2d_core(x2: torch.Tensor, w_q, b_q, *, c_in: int,
 def int_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                      padding: int = 0, stride: int = 1, leaky=True,
                      rounding: str = "nearest", residual=None,
-                     sa_res: int = None, packed=None) -> torch.Tensor:
+                     sa_res: int = None, packed=None,
+                     shifts=None) -> torch.Tensor:
     """Integer conv + fixed-point requant, generalized (the JAX package's
     ``int_conv_requant``): ``x`` is int8 at 2^sa_in or a list of (int8,
-    sa) concat parts, ``leaky`` False | True (0.125) | a float slope, and
-    ``residual`` an optional (r_q, sa_r) skip tensor added with
-    ``int_add_requant`` to scale 2^sa_res. The conv runs in
-    ``int8_conv_requant`` (a CUDA kernel on a CUDA tensor; ``packed``: a
-    3x3's weights from ``pack_conv3x3_weights``, for its wgmma route)."""
+    sa) concat parts, ``sw`` an int or a per-channel int32 [C_out] array,
+    ``leaky`` False | True (0.125) | a float slope, and ``residual`` an
+    optional (r_q, sa_r) skip tensor added with ``int_add_requant`` to
+    scale 2^sa_res. The conv runs in ``int8_conv_requant`` (a CUDA kernel
+    on a CUDA tensor; ``packed``: the weights packed for its route,
+    ``shifts``: a per-channel sw's shift tables, ``conv_shift_tables``)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_conv_requant
 
     out = int8_conv_requant(x, w_q, b_q, sw=sw, sb=sb, sa_in=sa_in,
                             sa_out=sa_out, retune=retune, padding=padding,
                             stride=stride, leaky=leaky, rounding=rounding,
-                            packed=packed)
+                            packed=packed, shifts=shifts)
     if residual is not None:
         r_q, sa_r = residual
         out = int_add_requant(out, sa_out, r_q, sa_r, sa_res, rounding)

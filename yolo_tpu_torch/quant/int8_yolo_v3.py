@@ -12,6 +12,14 @@ two two-part concat convs, the three preds) on the wgmma 1x1 kernel; each
 ``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
 their exact plain versions.
 
+Per-channel weight scales (``quantize_pipeline_yolo_v3(per_channel=True)``
+of the JAX package: each conv's sw an int32 [C_out] array) run the same
+walk. On the card the 29 convs outside the residual blocks take them on
+the per-column forms of their kernels, each on the shift tables that
+``Int8YoloV3.pack_conv3x3s`` makes once; K4 does not take them yet, so the
+detect fn of a per-channel model serves on the CPU only and raises on
+CUDA.
+
 Not ported here: the s2d execution forms (``s2d``, ``input_s2d``), the
 ``limit`` prefix hook, ``mesh`` sharding and yolo_v3_spp; each raises
 ``ValueError``.
@@ -115,8 +123,10 @@ def conv_specs(pred_out: int) -> List[Tuple[Tuple, int, int, int]]:
 @dataclass
 class Int8YoloV3:
     """Quantized yolo_v3: per conv (program order) int8 HWIO weights,
-    int32 (int8-valued) biases, sw / sb exponents and retune; the input
-    scale; the scale of every tap (conv outputs and residual sums)."""
+    int32 (int8-valued) biases, sw / sb exponents (sw an int, or with
+    per-channel weight scales an int32 [C_out] array) and retune; the
+    input scale; the scale of every tap (conv outputs and residual
+    sums)."""
     spp: bool
     w_q: List[torch.Tensor]
     b_q: List[torch.Tensor]
@@ -139,6 +149,11 @@ class Int8YoloV3:
     # {index of a conv that runs on the wgmma 1x1 kernel: its weights
     # packed K-major}, made once by ``pack_conv3x3s``
     conv1x1_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
+    # {rounding: {index of a routed conv with a per-channel sw: its shift
+    # tables (``conv_shift_tables``: one per input scale of its parts)}},
+    # made once by ``pack_conv3x3s``
+    shift_tables: Dict[str, Dict[int, Tuple]] = field(repr=False,
+                                                      default=None)
 
     def __post_init__(self):
         if self.program is None:
@@ -160,7 +175,16 @@ class Int8YoloV3:
             entry_packed=None if self.entry_packed is None else {
                 i: wp.to(device) for i, wp in self.entry_packed.items()},
             conv1x1_packed=None if self.conv1x1_packed is None else {
-                i: wp.to(device) for i, wp in self.conv1x1_packed.items()})
+                i: wp.to(device) for i, wp in self.conv1x1_packed.items()},
+            shift_tables=None if self.shift_tables is None else {
+                r: {i: tuple(t.to(device) for t in ts)
+                    for i, ts in tables.items()}
+                for r, tables in self.shift_tables.items()})
+
+    @property
+    def per_channel(self) -> bool:
+        """Whether any conv's sw is per-channel."""
+        return any(np.ndim(s) for s in self.sw)
 
     def packed_weights(self, conv_i: int):
         """Conv ``conv_i``'s packed weights (from ``pack_conv3x3s``), or
@@ -193,41 +217,58 @@ class Int8YoloV3:
         into ``conv_packed``, of every conv that ``entry_conv3x3_route``
         takes (the C_in = 3 entry conv) into ``entry_packed``, and of every
         conv that ``conv1x1_wgmma_route`` takes (the fourteen 1x1s, the two
-        concat convs included) into ``conv1x1_packed``, so the forward
-        never packs."""
+        concat convs included) into ``conv1x1_packed``, and where such a
+        conv's sw is per-channel its shift tables, for both roundings,
+        into ``shift_tables`` (``conv_shift_tables`` over its parts' input
+        scales: a concat of parts of one scale takes one table, of two
+        scales one per part), so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv1x1_wgmma_route, conv3x3_s2_wgmma_route, conv3x3_wgmma_route,
+            CONV1X1_ALIGN, TABLE_ALIGN, conv1x1_wgmma_route,
+            conv3x3_s2_wgmma_route, conv3x3_wgmma_route, conv_shift_tables,
             entry_conv3x3_route, pack_conv1x1_weights, pack_conv3x3_weights,
             pack_entry_conv_weights)
 
         self.conv_packed, self.entry_packed, self.conv1x1_packed = {}, {}, {}
-        conv_i = i = 0
-        # the channels of the stream and of the saved slots, and the parts
-        # the next conv reads (two right after a concat)
-        c, slots, cins = 3, {}, None
+        self.shift_tables = {"nearest": {}, "floor": {}}
+        conv_i = tap_i = i = 0
+        # the (channels, scale) of the stream and of the saved slots, and
+        # the parts the next conv reads (two right after a concat)
+        stream, slots, parts = (3, self.sa_in), {}, None
         while i < len(self.program):
             op = self.program[i]
             if op[0] == "push":  # a residual block: K4's two convs
-                conv_i, i = conv_i + 2, i + 4
+                stream = (stream[0], self.tap_sa[tap_i + 2])
+                conv_i, tap_i, i = conv_i + 2, tap_i + 3, i + 4
                 continue
             if op[0] == "conv":
                 w, sw = self.w_q[conv_i], self.sw[conv_i]
-                cins = cins or (w.shape[2],)
+                parts = parts or (stream,)
+                cins = tuple(c for c, _ in parts)
+                c_out = w.shape[3]
                 shape = (w.shape[0], op[2], op[3], len(cins), cins[0], sw)
-                if (conv3x3_wgmma_route(*shape)
-                        or conv3x3_s2_wgmma_route(*shape)):
+                align = TABLE_ALIGN
+                if (conv3x3_wgmma_route(*shape, c_out=c_out)
+                        or conv3x3_s2_wgmma_route(*shape, c_out=c_out)):
                     self.conv_packed[conv_i] = pack_conv3x3_weights(w)
-                elif entry_conv3x3_route(*shape[:5], w.shape[3], sw):
+                elif entry_conv3x3_route(*shape[:5], c_out, sw):
                     self.entry_packed[conv_i] = pack_entry_conv_weights(w)
-                elif conv1x1_wgmma_route(*shape[:4], cins, sw):
+                elif conv1x1_wgmma_route(*shape[:4], cins, sw, c_out=c_out):
                     self.conv1x1_packed[conv_i] = pack_conv1x1_weights(w)
-                c = w.shape[3]
-                conv_i += 1
+                    align = CONV1X1_ALIGN
+                else:
+                    align = None
+                if align and np.ndim(sw):
+                    for rounding, tables in self.shift_tables.items():
+                        tables[conv_i] = conv_shift_tables(
+                            sw, [sa for _, sa in parts], self.retune[conv_i],
+                            rounding, c_out, w.device, align)
+                stream = (c_out, self.tap_sa[tap_i])
+                conv_i, tap_i = conv_i + 1, tap_i + 1
             elif op[0] == "save":
-                slots[op[1]] = c
+                slots[op[1]] = stream
             elif op[0] == "load":
-                c = slots[op[1]]
-            cins = (slots[op[1]], c) if op[0] == "concat" else None
+                stream = slots[op[1]]
+            parts = (slots[op[1]], stream) if op[0] == "concat" else None
             i += 1
 
 
@@ -260,10 +301,13 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                          rounding: str = "nearest", s2d=False,
                          limit: int = None, input_s2d: bool = False):
     """int8 input [B, H, W, 3] at scale 2^sa_in -> [pred_1, pred_2,
-    pred_3] float heads (strides 8, 16, 32)."""
+    pred_3] float heads (strides 8, 16, 32). A per-channel sw runs on the
+    shift tables of ``m.shift_tables`` where ``pack_conv3x3s`` made them
+    (its convs in ``int8_conv_requant``; K4 takes a scalar sw only)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_res_block
 
     _check_unported(s2d=s2d, limit=limit, input_s2d=input_s2d)
+    tables = (m.shift_tables or {}).get(rounding, {})
     stream = (x_q, m.sa_in)     # (int8 tensor or parts list, scale)
     slots: Dict[str, Tuple] = {}
     tap_i = conv_i = i = 0
@@ -299,7 +343,8 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                 sb=m.sb[conv_i], sa_in=sa, sa_out=sa_out,
                 retune=m.retune[conv_i], padding=padding, stride=stride,
                 leaky=leaky, rounding=rounding,
-                packed=m.packed_weights(conv_i))
+                packed=m.packed_weights(conv_i),
+                shifts=tables.get(conv_i))
             stream = (out, sa_out)
             tap_i += 1
             conv_i += 1
@@ -330,9 +375,27 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the residual blocks and of the convs that run
     the wgmma conv3x3 kernel, its stride-2 form, the entry conv kernel or
-    the wgmma 1x1 kernel are packed there once (the CPU route reads the HWIO weights); the
-    images are moved there per call if they are elsewhere. Raises if
-    ``device`` is CUDA and there is none; never falls back to the CPU."""
+    the wgmma 1x1 kernel are packed there once (the CPU route reads the
+    HWIO weights); the images are moved there per call if they are
+    elsewhere. Raises if ``device`` is CUDA and there is none; never
+    falls back to the CPU.
+
+    A model with per-channel weight scales runs on the plain NHWC conv
+    path only, as in the JAX package (``input_s2d`` raises), and on the
+    CPU only: on a CUDA device this raises ValueError before anything is
+    moved or packed, since K4 (``int8_res_block``) takes one shift per
+    conv."""
+    if m.per_channel:
+        if input_s2d:
+            raise ValueError(
+                "per-channel weight scales run on the plain conv path "
+                "only; rebuild the detect fn without input_s2d")
+        if torch.device(device).type == "cuda":
+            raise ValueError(
+                "per-channel weight scales do not run on CUDA yet: "
+                "int8_res_block (K4, the 23 darknet53 residual blocks) "
+                "takes one weight shift per conv; build the detect fn "
+                "with device='cpu'")
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
@@ -365,16 +428,32 @@ def seeded_fused_params(seed: int, pred_out: int) -> dict:
     ``np.random.default_rng(seed)`` conv by conv in program order, with the
     kaiming-uniform bounds of ``blocks.init_conv`` (torch's nn.Conv2d
     defaults)."""
+    return _seeded_fused(seed, pred_out, per_channel=False)
+
+
+def seeded_fused_params_per_channel(seed: int, pred_out: int) -> dict:
+    """The per-channel fixture's recipe: ``seeded_fused_params``' draws,
+    each conv's w and b then followed by u = ``rng.integers(0, 4, C_out)``
+    and its output channels' weights scaled by 2^-u, so that a per-channel
+    sw holds several values (uniform random weights give every channel
+    the per-tensor exponent; slim's ``convert.slim_seeded_fused_params``
+    does the same). A stream of its own: ``seeded_fused_params(seed)``
+    draws what it drew before."""
+    return _seeded_fused(seed, pred_out, per_channel=True)
+
+
+def _seeded_fused(seed: int, pred_out: int, per_channel: bool) -> dict:
     rng = np.random.default_rng(seed)
     layers = {}
     for path, k, c_in, c_out in conv_specs(pred_out):
         fan_in = c_in * k * k
         bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
         b_bound = 1.0 / math.sqrt(fan_in)
-        layers[path] = {
-            "w": rng.uniform(-bound, bound, (k, k, c_in, c_out)
-                             ).astype(np.float32),
-            "b": rng.uniform(-b_bound, b_bound, (c_out,)).astype(np.float32)}
+        w = rng.uniform(-bound, bound, (k, k, c_in, c_out)).astype(np.float32)
+        b = rng.uniform(-b_bound, b_bound, (c_out,)).astype(np.float32)
+        if per_channel:
+            w = w * np.exp2(-rng.integers(0, 4, c_out)).astype(np.float32)
+        layers[path] = {"w": w, "b": b}
     tree: dict = {"backbone": {
         name: {"entry": [layers[("backbone", name, "entry", j)]
                          for j in range(len(entry))],
@@ -389,10 +468,12 @@ def seeded_fused_params(seed: int, pred_out: int) -> dict:
     return tree
 
 
-def quantize_weights(fused: dict, program=None):
+def quantize_weights(fused: dict, program=None, per_channel: bool = False):
     """Per conv (program order) the int8 weights, int8-valued int32
     biases and their pow2 exponents, as ``quantize_yolo_v3`` computes them
-    (8-bit, per tensor) -> (w_q, b_q, sw, sb) numpy lists."""
+    (8-bit; per tensor, or with ``per_channel`` one weight exponent per
+    output channel, an int32 [C_out] array) -> (w_q, b_q, sw, sb) numpy
+    lists."""
     w_q, b_q, sw, sb = [], [], [], []
     for op in program or _program():
         if op[0] != "conv":
@@ -400,7 +481,8 @@ def quantize_weights(fused: dict, program=None):
         layer = fused
         for p in op[1]:
             layer = layer[p]
-        wq, ws = quantize_pow2_np(layer["w"], 8)
+        wq, ws = quantize_pow2_np(layer["w"], 8,
+                                  channel_axis=-1 if per_channel else None)
         bq, bs = quantize_pow2_np(layer["b"])
         w_q.append(np.clip(wq, fp.INT8_MIN, fp.INT8_MAX).astype(np.int8))
         b_q.append(np.clip(bq, fp.INT8_MIN, fp.INT8_MAX).astype(np.int32))
