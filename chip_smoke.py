@@ -11,10 +11,9 @@ fixed-point conv layers; phases 2-4), yolo_v3 INT8 (int8 NHWC input,
 three scales; phases 2b-4b) and slim_yolo_v2 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
 forward ``int8_forward_diagnostics``; and yolo_v3 INT8 with per-channel
-weight scales as far as its kernels take them (phase 2d: the 29 convs
-outside the residual blocks; K4 does not take per-channel sw yet, so its
-detect fn refuses CUDA). Phases, each printing JSON lines; any failure
-raises and the script exits nonzero:
+weight scales (int8 NHWC input; phases 2d-4d), every conv on the
+per-column form of its kernel. Phases, each printing JSON lines; any
+failure raises and the script exits nonzero:
 
 0. header: versions, the card's name and power limit, and whether
    F.conv2d takes int8 / int32 CUDA tensors (information only);
@@ -117,22 +116,23 @@ raises and the script exits nonzero:
    forms;
 2d. per-channel yolo_v3 on the per-channel 416² fixture's model
    (``yolo_tpu_torch/data/yolo_v3_int8_pc_416_golden.npz``, weights
-   rebuilt from its seed): every conv's sw holds >= 2 values; its detect
-   fn raises on CUDA naming ``int8_res_block``; ``pack_conv3x3s`` makes
-   the shift tables once (one per input scale of a conv's parts, both
-   roundings); then the 29 convs outside the residual blocks at batch
-   128, 416², each on random int8 input through ``int8_conv_requant``
-   with the packed weights and tables, as the forward calls them: the
-   entry conv, the five stride-2 convs, the nine head 3x3s and the
-   fourteen 1x1s each one launch of its per-column C entry (none on the
-   mma.sync conv, no table made in a call), torch.equal to its plain
-   version in both roundings, each printing its share of saturated
-   outputs (all saturated or all one value fails); the launch counts of
-   the kernels line are the nearest walk's; the two concat 1x1s also with
-   their parts' scales forced equal (one table) and forced different (a
-   table per part); later each distinct shape timed beside its plain
-   version and a library yardstick, with the bound (it runs after phase
-   4c, so that the serving phases run as in a tree without it);
+   rebuilt from its seed; this phase and 3d-4d run after phase 4c, so
+   that the serving phases run as in a tree without them): every conv's
+   sw holds >= 2 values; ``pack_res_blocks`` and ``pack_conv3x3s`` make
+   the shift tables once (92 for K4: two per block; 62 for the others:
+   one per input scale of a conv's parts; both roundings); then K4's
+   per-column form at the five darknet53 stage shapes, batch 128, with
+   each stage's first block (packed weights, tables, scales), with and
+   without the residual, and the 29 convs outside the residual blocks at
+   batch 128, 416², each on random int8 input through
+   ``int8_res_block`` / ``int8_conv_requant`` with the packed weights and
+   tables, as the forward calls them: K4, the entry conv, the five
+   stride-2 convs, the nine head 3x3s and the fourteen 1x1s each one
+   launch of its per-column C entry (none on the mma.sync conv, no table
+   made in a call), torch.equal to its plain version in both roundings,
+   each printing its share of saturated outputs (all saturated or all one
+   value fails); the two concat 1x1s also with their parts' scales
+   forced equal (one table) and forced different (a table per part);
 3c. the per-channel golden fixture (``yolo_tpu_torch/data/
    slim_int8_pc_416_golden.npz``: tables, checksum and seeds; the weights
    rebuilt from the seed): the head of 4 NHWC images bit-exact from
@@ -150,7 +150,19 @@ raises and the script exits nonzero:
    1 on the counting forms); each layer's per-column, counting and scalar
    kernel checked and timed at batch 256 beside its plain version and
    cuDNN fp16, with the bound, conv1's also beside the mma.sync conv it
-   ran on before.
+   ran on before;
+3d. the per-channel v3 fixture on the card: the heads of its 2 images
+   through the CUDA forward (packed weights and tables) bit-exact with
+   the JAX package's, the detect fn's classes and valid exact, boxes and
+   scores allclose (atol = rtol = 1e-5);
+4d. per-channel v3 serving: batch 128 through
+   ``make_int8_yolo_v3_detect_fn``, timed as phase 4b, per forward 23
+   launches on K4's per-column C entry and 9 / 5 / 1 / 14 on the
+   per-column stride-1, stride-2, entry and 1x1 entries, none on a scalar
+   entry or the mma.sync conv, the 23 + 14 + 1 + 14 packs and 92 + 62
+   shift tables made when the detect fn took the model, none in the
+   loop; then K4's five stage shapes and each distinct conv shape timed
+   beside its plain version and a library yardstick, with the bound.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -164,8 +176,9 @@ row-streaming wgmma kernels (``csrc/int8_entry_conv.cu``); v3's fourteen
 ``csrc/int8_conv.cuh`` serves no layer of any path; it is still held to
 its plain version and timed on the 1x1s and at conv1 on NHWC input. The
 ``kernels`` line has one entry per kernel and route: ``int8_conv_requant``
-five times; the per-column and counting forms (whose launches come from
-the diagnostics run) and conv1's NHWC route each their own.
+five times; the per-column forms (of slim's and v3's per-channel serving)
+and the counting forms (whose launches come from the diagnostics run)
+and conv1's NHWC route each their own.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -212,6 +225,7 @@ POOL_NHWC_COUNT = "yolo_int8_pool_nhwc_count_wgmma"
 S2_COLS3 = "yolo_int8_conv3x3_s2_cols_wgmma"
 ENTRY_COLS3 = "yolo_int8_entry_conv3x3_cols_wgmma"
 CONV1X1_COLS = "yolo_int8_conv1x1_cols_wgmma"
+RES_COLS = "yolo_int8_res_block_cols_wgmma"  # K4's per-column form
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -274,8 +288,11 @@ LINES = {
     "int8_conv3x3_im2col.count": (
         "int8_conv3x3_im2col", POOL_COUNT3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/kernels/int8_conv.py:145"),
-    # yolo_v3 with per-channel sw (phase 2d): the 29 convs outside the
-    # residual blocks on the per-column forms
+    # yolo_v3 with per-channel sw (phase 4d): K4's 23 blocks and the 29
+    # convs outside them on the per-column forms
+    "int8_res_block.cols": (
+        "int8_res_block", RES_COLS, CSRC + "int8_res_block.cu",
+        "yolo_tpu/kernels/int8_conv.py:567"),
     "int8_conv_requant.conv3x3_cols_wgmma": (
         "int8_conv_requant", COLS3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
@@ -293,13 +310,6 @@ LINES = {
 # forward (phase 4c), not from serving
 DIAGNOSTICS_LINES = ("int8_conv3x3_requant.count", "int8_conv3x3_im2col.count",
                      "int8_conv3x3_im2col.pool_nhwc_count")
-# those whose launches come from phase 2d's walk of the per-channel v3
-# model's 29 convs outside the residual blocks (its detect fn does not run
-# on CUDA until K4 takes per-channel sw)
-PCV3_LINES = ("int8_conv_requant.conv3x3_cols_wgmma",
-              "int8_conv_requant.conv3x3_s2_cols_wgmma",
-              "int8_conv_requant.entry_conv3x3_cols_wgmma",
-              "int8_conv_requant.conv1x1_cols_wgmma")
 # the wgmma conv3x3 at (B, H, C_in, C_out) whose tiles leave edge tiles
 CONV3X3_EDGE_SHAPES = [(2, 27, 256, 256), (2, 50, 128, 256),
                        (2, 100, 32, 64)]
@@ -1924,16 +1934,20 @@ PCV3_ENTRY = {"s1": COLS3, "s2": S2_COLS3, "entry": ENTRY_COLS3,
 PCV3_INPUT = (-128, 128)
 
 
-def pcv3_convs(m):
-    """The per-channel v3 model's 29 convs outside the residual blocks, in
-    program order: (conv index, route, k, stride, pad, parts ((C_in, sa),
-    ...), C_out, H at the input, leaky, sa_out)."""
+def pcv3_walk(m):
+    """The per-channel v3 model's 29 convs outside the residual blocks and
+    its 23 residual blocks, in program order: ([(conv index, route, k,
+    stride, pad, parts ((C_in, sa), ...), C_out, H at the input, leaky,
+    sa_out)], [(index of the block's 1x1 conv, its first tap, its input
+    scale, H, C, C_mid, leaky)])."""
     prog = m.program
-    out, slots = [], {}
+    out, blocks, slots = [], [], {}
     h, stream, parts, ci, ti, i = SIZE, (3, m.sa_in), None, 0, 0, 0
     while i < len(prog):
         op = prog[i]
         if op[0] == "push":  # a residual block: K4's two convs, three taps
+            blocks.append((ci, ti, stream[1], h, stream[0],
+                           m.w_q[ci].shape[3], prog[i + 1][4]))
             stream = (stream[0], m.tap_sa[ti + 2])
             ci, ti, i = ci + 2, ti + 3, i + 4
             continue
@@ -1956,7 +1970,78 @@ def pcv3_convs(m):
         elif op[0] == "concat":
             parts = (slots[op[1]][1], stream)
         i += 1
-    return out
+    return out, blocks
+
+
+def pcv3_res_params(m, blk, with_res=True):
+    """(p1, p2, keywords) of K4 on residual block ``blk`` of the model:
+    its two convs' scales as the forward passes them."""
+    ci, ti, sa, _, _, _, leaky = blk
+    p1 = dict(sw=m.sw[ci], sb=m.sb[ci], sa_in=sa, sa_out=m.tap_sa[ti],
+              retune=m.retune[ci])
+    p2 = dict(sw=m.sw[ci + 1], sb=m.sb[ci + 1], sa_in=m.tap_sa[ti],
+              sa_out=m.tap_sa[ti + 1], retune=m.retune[ci + 1])
+    return p1, p2, dict(sa_res=m.tap_sa[ti + 2] if with_res else None,
+                        leaky=leaky)
+
+
+def pcv3_res_call(m, blk, x, rounding, with_res=True):
+    """K4's per-column form on block ``blk`` from the model's packed
+    weights and shift tables: the call a forward makes."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    ci = blk[0]
+    p1, p2, kw = pcv3_res_params(m, blk, with_res)
+    tables = m.shift_tables[rounding]
+    return K.int8_res_block(x, None, m.b_q[ci], p1, None, m.b_q[ci + 1], p2,
+                            rounding=rounding, packed=m.res_packed[ci],
+                            shifts=(tables[ci][0], tables[ci + 1][0]), **kw)
+
+
+def pcv3_res_plain(m, blk, x, rounding, with_res=True):
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    ci = blk[0]
+    p1, p2, kw = pcv3_res_params(m, blk, with_res)
+    return K.int8_res_block_plain(x, m.w_q[ci], m.b_q[ci], p1, m.w_q[ci + 1],
+                                  m.b_q[ci + 1], p2, rounding=rounding, **kw)
+
+
+def pcv3_res_case(m, blk, x, rounding, with_res, max_err, what):
+    """One K4 per-column case: exactly one launch, on its per-column C
+    entry (no shift table made in the call), equal to the plain version,
+    its output neither all saturated nor all one value; returns the share
+    of saturated outputs."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    before = dict(K.launch_counts_by_entry().get("int8_res_block", {}))
+    tables_before = K.shift_table_count()
+    got = pcv3_res_call(m, blk, x, rounding, with_res)
+    torch.cuda.synchronize()
+    after = K.launch_counts_by_entry().get("int8_res_block", {})
+    new = {e: n - before.get(e, 0) for e, n in after.items()
+           if n != before.get(e, 0)}
+    if new != {RES_COLS: 1}:
+        raise AssertionError(f"{what} launched {new}, want one launch of "
+                             f"{RES_COLS}")
+    if K.shift_table_count() != tables_before:
+        raise AssertionError(f"{what} made a shift table in the call")
+    check_equal("int8_res_block.cols", got,
+                pcv3_res_plain(m, blk, x, rounding, with_res), max_err, what)
+    sat = float(((got == 127) | (got == -128)).float().mean())
+    if sat == 1.0 or int(got.min()) == int(got.max()):
+        raise AssertionError(f"{what}: outputs all saturated or all one "
+                             f"value (saturated share {sat})")
+    return sat
+
+
+def pcv3_stages(blocks):
+    """The first residual block of each darknet53 stage shape (H, C,
+    C_mid)."""
+    stages = {}
+    for blk in blocks:
+        stages.setdefault(blk[3:6], blk)
+    return list(stages.values())
 
 
 def pcv3_inputs(gen, conv, sas=None, batch=V3_BATCH_SERVE):
@@ -2025,60 +2110,82 @@ def pcv3_case(m, conv, x, kw, rounding, max_err, what, tables=None):
     return sat
 
 
-def phase_pcv3_kernels(max_err):
-    """yolo_v3 with per-channel sw (phase 2d), on the per-channel 416²
-    fixture's model (weights rebuilt from its seed): every conv's sw
-    holds >= 2 values; its detect fn raises on CUDA, naming
-    int8_res_block; ``pack_conv3x3s`` makes the 29 convs' shift tables
-    once; then the walk of the 29 convs outside the residual blocks at
-    batch 128, 416², each on random int8 input through
-    ``int8_conv_requant`` with the packed weights and tables, as the
-    forward calls it: each on its per-column C entry (9 head 3x3s, 5
-    stride-2, 1 entry conv, 14 1x1s), none on the mma.sync conv, no table
-    made in a call, each torch.equal to its plain version, in both
-    roundings (the launch counts are the nearest walk's); then the two
-    concat 1x1s with their parts' scales forced equal (one table, one
-    accumulator) and forced different (a table per part, split)."""
+def load_pcv3():
+    """The per-channel 416² fixture's arrays and its model on the card
+    (weights rebuilt from its seed)."""
     from pathlib import Path
 
-    from yolo_tpu_torch.config import get_config
-    from yolo_tpu_torch.kernels import int8_conv as K
-    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
     from yolo_tpu_torch.quant.convert import int8_yolo_v3_from_seed
 
     path = Path(__file__).resolve().parent / "yolo_tpu_torch" / "data"
     with np.load(path / PCV3_FIXTURE) as z:
         g = {k: z[k] for k in z.files}
-    m = int8_yolo_v3_from_seed(g, device="cuda")
+    return g, int8_yolo_v3_from_seed(g, device="cuda")
+
+
+def phase_pcv3_kernels(max_err):
+    """yolo_v3 with per-channel sw (phase 2d), on the per-channel 416²
+    fixture's model: every conv's sw holds >= 2 values;
+    ``pack_res_blocks`` and ``pack_conv3x3s`` make the shift tables once
+    (K4's 92: two per block, both roundings; the 29 other convs' 62); then
+    K4's per-column form at the five darknet53 stage shapes, batch 128,
+    each on the first block of its stage (its packed weights, tables and
+    scales) with random int8 input, in both roundings, with and without
+    the residual, each one launch of its per-column C entry, no table
+    made in a call, torch.equal to its plain version; then the walk of the
+    29 convs outside the residual blocks at batch 128, 416², each on
+    random int8 input through ``int8_conv_requant`` with the packed
+    weights and tables, as the forward calls it: each on its per-column C
+    entry (9 head 3x3s, 5 stride-2, 1 entry conv, 14 1x1s), none on the
+    mma.sync conv, no table made in a call, each torch.equal to its plain
+    version, in both roundings; then the two concat 1x1s with their parts'
+    scales forced equal (one table, one accumulator) and forced different
+    (a table per part, split). Every case prints its share of saturated
+    outputs."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    _, m = load_pcv3()
     distinct = [int(len(np.unique(np.asarray(s)))) for s in m.sw]
     if min(distinct) < 2:
         raise AssertionError(f"a conv's per-channel sw has fewer than 2 "
                              f"values: {distinct}")
-    cfg = get_config("yolo_v3", "mask", input_size=(SIZE, SIZE),
-                     pre_nms_top_k=128)
-    try:
-        tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("the per-channel v3 detect fn built on CUDA")
-    if "int8_res_block" not in refusal:
-        raise AssertionError(f"the per-channel v3 detect fn's refusal does "
-                             f"not name int8_res_block: {refusal}")
     K.reset_shift_table_count()
+    m.pack_res_blocks()
+    res_tables = K.shift_table_count()
     m.pack_conv3x3s()
-    tables_at_pack = K.shift_table_count()
-    convs = pcv3_convs(m)
+    conv_tables = K.shift_table_count() - res_tables
+    convs, blocks = pcv3_walk(m)
     routes = [c[1] for c in convs]
     want = {PCV3_ENTRY[r]: routes.count(r) for r in PCV3_ENTRY}
     if want != {COLS3: 9, S2_COLS3: 5, ENTRY_COLS3: 1, CONV1X1_COLS: 14}:
         raise AssertionError(f"the walk's routes {want}")
     groups = sum(len({sa for _, sa in c[5]}) for c in convs)
-    if tables_at_pack != 2 * groups:
-        raise AssertionError(f"pack_conv3x3s made {tables_at_pack} shift "
-                             f"tables, want {2 * groups}")
+    if (len(blocks), res_tables, conv_tables) != (23, 92, 2 * groups):
+        raise AssertionError(f"{len(blocks)} residual blocks, "
+                             f"pack_res_blocks made {res_tables} shift "
+                             f"tables and pack_conv3x3s {conv_tables}, want "
+                             f"23, 92 and {2 * groups}")
     gen = torch.Generator(device="cuda").manual_seed(9)
-    launches, n = None, 0
+    n = 0
+    for blk in pcv3_stages(blocks):
+        ci, _, sa, h, c, cmid, _ = blk
+        for rounding in ("nearest", "floor"):
+            for with_res in (True, False):
+                x = ri(gen, (V3_BATCH_SERVE, h, h, c), *PCV3_INPUT,
+                       torch.int8)
+                sat = pcv3_res_case(
+                    m, blk, x, rounding, with_res, max_err,
+                    f"v3 per-channel residual block {ci} ({h}x{h} C {c}, "
+                    f"C_mid {cmid}) {rounding}, residual {with_res}")
+                emit("pcv3_res_block_vs_plain", conv=ci, entry=RES_COLS,
+                     rounding=rounding, residual=with_res,
+                     shape=[V3_BATCH_SERVE, h, h, c, cmid],
+                     distinct_sw=[distinct[ci], distinct[ci + 1]],
+                     saturated_share=sat, equal=True)
+                del x
+                n += 1
+        torch.cuda.empty_cache()
+    launches = None
     for rounding in ("nearest", "floor"):
         K.reset_launch_counts()
         for conv in convs:
@@ -2124,18 +2231,166 @@ def phase_pcv3_kernels(max_err):
                      saturated_share=sat, equal=True)
                 del x
                 n += 1
-    emit("pcv3_kernels_vs_plain_done", cases=n, detect_fn_refusal=refusal,
-         shift_tables_at_pack=tables_at_pack, launches=launches,
-         distinct_sw_min=min(distinct), distinct_sw_max=max(distinct))
-    return launches, m, convs
+    emit("pcv3_kernels_vs_plain_done", cases=n,
+         shift_tables_at_pack=[res_tables, conv_tables],
+         walk_launches=launches, distinct_sw_min=min(distinct),
+         distinct_sw_max=max(distinct))
+    return m, convs, blocks
 
 
-def phase_pcv3_times(card_name, max_err, m, convs):
-    """Each distinct per-channel v3 conv shape outside the residual blocks
-    at batch 128 (phase 2d, timing): its per-column kernel (the model's
-    packed weights and tables) == its plain version, then both timed
-    (CUDA events), beside a library yardstick the port never calls
-    (``torch._int_mm`` for the 1x1s, else cuDNN's fp16 conv), and the
+# the per-column C entries a per-channel v3 forward launches, and how
+# many times each
+PCV3_FORWARD = {"int8_res_block": {RES_COLS: 23},
+                "int8_conv_requant": {COLS3: 9, S2_COLS3: 5,
+                                      ENTRY_COLS3: 1, CONV1X1_COLS: 14}}
+
+
+def phase_pcv3_golden():
+    """The per-channel yolo_v3 golden 416² fixture on the card (phase 3d):
+    the heads of its 2 seeded images through the CUDA forward (the packed
+    weights and tables the detect fn serves, one launch of a per-column C
+    entry per conv or block) bit-exact with the JAX package's, and
+    through the detect fn classes and valid exact, boxes and scores
+    allclose (atol = rtol = 1e-5)."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    g, m = load_pcv3()
+    cfg = get_config("yolo_v3", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = np.random.default_rng(int(g["image_seed"])).random(
+        (g["head_q_1"].shape[0], SIZE, SIZE, 3), dtype=np.float32)
+    x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa_in)
+    m_packed = m.to("cuda")
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    K.reset_launch_counts()
+    heads = tv3.int8_yolo_v3_forward(m_packed, x_q)
+    torch.cuda.synchronize()
+    if K.launch_counts_by_entry() != PCV3_FORWARD:
+        raise AssertionError(f"the per-channel v3 forward launched "
+                             f"{K.launch_counts_by_entry()}, want "
+                             f"{PCV3_FORWARD}")
+    for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
+        head_q = torch.round(head * 2.0 ** sa).to(torch.int8).cpu()
+        want = torch.as_tensor(g[f"head_q_{i + 1}"])
+        if not torch.equal(head_q, want):
+            diff = (head_q.int() - want.int()).abs()
+            raise AssertionError(
+                f"per-channel v3 golden head {i + 1} differs: max |diff| "
+                f"{int(diff.max())}, {int((diff > 0).sum())} values")
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x_q))
+    np.testing.assert_array_equal(valid, g["valid"])
+    np.testing.assert_array_equal(classes, g["classes"])
+    np.testing.assert_allclose(boxes, g["boxes"], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(scores, g["scores"], atol=1e-5, rtol=1e-5)
+    emit("pcv3_golden", images=int(x_q.shape[0]), heads_bit_exact=True,
+         classes_valid_exact=True,
+         boxes_max_abs_diff=float(np.abs(boxes - g["boxes"]).max()),
+         scores_max_abs_diff=float(np.abs(scores - g["scores"]).max()),
+         valid_slots=int(valid.sum()), launches_by_entry=PCV3_FORWARD)
+    return m, cfg
+
+
+def v3_postprocess_ms(m, x_q, cfg):
+    """CUDA-event time of the v3 detect fn's decode + greedy NMS alone, on
+    the heads ``m`` gives for ``x_q``."""
+    from yolo_tpu_torch.detector import predict
+    from yolo_tpu_torch.ops import nms
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    boxes, probs = predict(tv3.int8_yolo_v3_forward(m, x_q), cfg)
+    return time_ms(lambda: nms.batched_postprocess(
+        boxes, probs, cfg.conf_thresh, cfg.nms_thresh, cfg.pre_nms_top_k,
+        cfg.top_k), 5)
+
+
+def phase_pcv3_serving(m, cfg, card):
+    """Batch-128 per-channel yolo_v3 serving through the detect fn (phase
+    4d), timed as phase 4b: per forward 23 launches on K4's per-column C
+    entry and 9 / 5 / 1 / 14 on the per-column entries of the stride-1,
+    stride-2, entry and 1x1 kernels, none on the mma.sync conv nor on a
+    scalar entry; the 23 blocks, 14 3x3s, the entry conv and the 14 1x1s
+    packed and the 92 + 62 shift tables made when the detect fn took the
+    model, none in the loop."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    images = torch.rand((V3_BATCH_SERVE, SIZE, SIZE, 3), generator=gen,
+                        device="cuda")
+    x_q = fp.quantize_input(images, m.sa_in).contiguous()
+    del images
+    resets = (K.reset_res_block_pack_count, K.reset_conv3x3_pack_count,
+              K.reset_entry_conv_pack_count, K.reset_conv1x1_pack_count,
+              K.reset_shift_table_count)
+
+    def made():
+        return (K.res_block_pack_count(), K.conv3x3_pack_count(),
+                K.entry_conv_pack_count(), K.conv1x1_pack_count(),
+                K.shift_table_count())
+
+    for reset in resets:
+        reset()
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    at_setup = made()
+    if at_setup != (23, 14, 1, 14, 92 + 62):
+        raise AssertionError(f"the per-channel v3 detect fn packed "
+                             f"{at_setup[:4]} residual blocks, 3x3s, entry "
+                             f"convs and 1x1s and made {at_setup[4]} shift "
+                             f"tables, want (23, 14, 1, 14) and 92 + 62")
+    for _ in range(SERVE_WARMUP):
+        detect(x_q)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for reset in resets:
+        reset()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_ITERS):
+        out = detect(x_q)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    entries = K.launch_counts_by_entry()
+    if made() != (0, 0, 0, 0, 0):
+        raise AssertionError(f"per-channel v3 serving packed or made "
+                             f"tables in the loop: {made()}")
+    want = {w: {e: n * SERVE_ITERS for e, n in by.items()}
+            for w, by in PCV3_FORWARD.items()}
+    if entries != want:
+        raise AssertionError(f"per-channel v3 launches {entries}, want "
+                             f"{want}")
+    boxes, scores, classes, valid = out
+    if (tuple(boxes.shape) != (V3_BATCH_SERVE, cfg.top_k, 4)
+            or not torch.isfinite(boxes).all()
+            or not torch.isfinite(scores).all()):
+        raise AssertionError("per-channel v3 serving output has the wrong "
+                             "shape or is not finite")
+    m_packed = m.to("cuda")  # the weights and tables the detect fn serves
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    head_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(m_packed, x_q), 5)
+    emit("pcv3_serving", batch=V3_BATCH_SERVE, iters=SERVE_ITERS,
+         images_per_sec=V3_BATCH_SERVE * SERVE_ITERS / dt,
+         ms_per_batch=1e3 * dt / SERVE_ITERS, backbone_ms_per_batch=head_ms,
+         postprocess_ms=v3_postprocess_ms(m_packed, x_q, cfg),
+         launches=counts, launches_by_entry=entries,
+         packs_tables_at_setup=list(at_setup), packs_in_loop=0,
+         tables_in_loop=0, card=card)
+    return entries
+
+
+def phase_pcv3_times(card_name, max_err, m, convs, blocks):
+    """Each per-channel v3 stage shape of K4 and each distinct conv shape
+    outside the residual blocks at batch 128 (phase 4d, timing): its
+    per-column kernel (the model's packed weights and tables) == its
+    plain version, then both timed (CUDA events), beside a library
+    yardstick the port never calls (cuDNN's fp16 1x1 + 3x3 convs for K4,
+    ``torch._int_mm`` for the 1x1s, else cuDNN's fp16 conv), and the
     bound."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
@@ -2143,12 +2398,40 @@ def phase_pcv3_times(card_name, max_err, m, convs):
     torch.backends.cudnn.benchmark = True
     gen = torch.Generator(device="cuda").manual_seed(10)
     b = V3_BATCH_SERVE
+    per_kernel = {}
+    for blk in pcv3_stages(blocks):
+        ci, _, sa, h, c, cmid, _ = blk
+        count = sum(1 for other in blocks if other[3:6] == blk[3:6])
+        x = ri(gen, (b, h, h, c), *PCV3_INPUT, torch.int8)
+        check_equal("int8_res_block.cols",
+                    pcv3_res_call(m, blk, x, "nearest"),
+                    pcv3_res_plain(m, blk, x, "nearest"), max_err,
+                    f"v3 per-channel residual block {h}x{h} C {c}, batch "
+                    f"{b}")
+        ms = time_ms(lambda: pcv3_res_call(m, blk, x, "nearest"), 10)
+        host = host_ms(lambda: pcv3_res_call(m, blk, x, "nearest"))
+        plain_ms = time_ms(lambda: pcv3_res_plain(m, blk, x, "nearest"), 2,
+                           warmup=1)
+        del x
+        torch.cuda.empty_cache()
+        lib_ms = (fp16_conv_ms(b, h, c, cmid, 1, 1, 0)
+                  + fp16_conv_ms(b, h, cmid, c, 3, 1, 1))
+        ops = 2 * b * h * h * 10 * c * cmid
+        nbytes = 2 * b * h * h * c + 10 * c * cmid + 8 * (c + cmid)
+        t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
+        emit("pcv3_shape_time", kernel="int8_res_block.cols",
+             shape=[b, h, h, c, cmid], per_forward=count, equal=True, ms=ms,
+             host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             tops=ops / ms / 1e9)
+        add_time(per_kernel, "int8_res_block.cols", count, ms, plain_ms,
+                 lib_ms, t_ops, t_bytes)
     shapes = {}
     for conv in convs:
         route, k, stride, pad, parts, cout, h = conv[1:8]
         key = (route, k, stride, pad, tuple(c for c, _ in parts), cout, h)
         shapes.setdefault(key, []).append(conv)
-    per_kernel = {}
     for key, group in shapes.items():
         route, k, stride, pad, cins, cout, h = key
         conv = group[0]
@@ -2218,11 +2501,15 @@ def main() -> int:
     launches_pc, launches_diag = phase_pc_serving(mpc, cfgpc, card)
     # after the serving phases, so that they run as the parent tree's do
     # (phase 2d's batch-128 plain checks take ~20 GB of the card)
-    launches_pcv3, mpcv3, pcv3 = phase_pcv3_kernels(max_err)
+    mpcv3, pcv3, blocks = phase_pcv3_kernels(max_err)
+    torch.cuda.empty_cache()
+    m3d, cfg3d = phase_pcv3_golden()
+    launches_pcv3 = phase_pcv3_serving(m3d, cfg3d, card)
+    del m3d
     times = phase_layer_times(name, max_err)
     times.update(phase_v3_times(name, max_err))
     times.update(phase_pc_layer_times(name, max_err))
-    times.update(phase_pcv3_times(name, max_err, mpcv3, pcv3))
+    times.update(phase_pcv3_times(name, max_err, mpcv3, pcv3, blocks))
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -2349,11 +2636,12 @@ def main() -> int:
                                      f"library_ms is cuDNN fp16 conv2d "
                                      f"(without the pool)",
         **{k: f"per yolo_v3 forward with per-channel sw (launches from "
-              f"phase 2d's walk of the 29 convs outside the residual "
-              f"blocks, its detect fn refusing CUDA until K4 takes "
-              f"per-channel sw): {what}, with the model's shift tables, "
-              f"batch {V3_BATCH_SERVE}, {SIZE}x{SIZE}; library_ms is "
-              f"{lib}" for k, what, lib in (
+              f"phase 4d's serving): {what}, with the model's shift "
+              f"tables, batch {V3_BATCH_SERVE}, {SIZE}x{SIZE}; library_ms "
+              f"is {lib}" for k, what, lib in (
+                  ("int8_res_block.cols",
+                   "K4's 5 stage shapes times their blocks (23)",
+                   "cuDNN fp16 conv2d 1x1 + 3x3"),
                   ("int8_conv_requant.conv3x3_cols_wgmma",
                    "the head's 9 stride-1 3x3s", "cuDNN fp16 conv2d"),
                   ("int8_conv_requant.conv3x3_s2_cols_wgmma",
@@ -2368,13 +2656,11 @@ def main() -> int:
     for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
         runs = ((launches_diag,) if k in DIAGNOSTICS_LINES
-                else (launches_pcv3,) if k in PCV3_LINES
-                else (launches, launches_nhwc, launches_v3, launches_pc))
+                else (launches, launches_nhwc, launches_v3, launches_pc,
+                      launches_pcv3))
         per_run = [served.get(wrapper, {}).get(entry, 0) for served in runs]
         ran = sum(per_run)
-        # phase 2d's walk is one pass over the convs, the serving runs
-        # SERVE_ITERS forwards
-        per_forward = ran if k in PCV3_LINES else max(per_run) // SERVE_ITERS
+        per_forward = max(per_run) // SERVE_ITERS
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,

@@ -2,7 +2,7 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc,pcv3]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc,pcv3,resc]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
@@ -45,7 +45,12 @@ are timed on every version in turn (ABBA order, twice):
   through ``int8_conv_requant`` in the per-column form of its kernel
   (``_pc``) beside its scalar form at the same shape, the two concat 1x1s
   also with their parts at one scale (``_eq``: one accumulator; else two
-  scales, a split).
+  scales, a split);
+- ``resc``: K4 at darknet53's five stage shapes (batch 128) in its scalar
+  form and in its per-column form (``_pc``: a per-channel sw in both
+  convs, of three values by column around the scalar sw, on tables made
+  once, as ``pack_res_blocks`` makes them; the short shift form, as the
+  per-channel fixture's blocks take it).
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -165,6 +170,15 @@ SHAPES = {
                     for n, h, cins, c_out, _ in ONE_BY_ONE
                     if len(cins) == 2])
              for sfx, fsfx in (("", ""), ("_pc", "_pc"))],
+    # K4 at each stage: scalar, then per-column (_pc)
+    "resc": [(name + sfx, b, h, c, cmid, form + sfx)
+             for name, b, h, c, cmid, form in [
+                 ("res208", 128, 208, 64, 32, "res"),
+                 ("res104", 128, 104, 128, 64, "res"),
+                 ("res52", 128, 52, 256, 128, "res"),
+                 ("res26", 128, 26, 512, 256, "res"),
+                 ("res13", 128, 13, 1024, 512, "res")]
+             for sfx in ("", "_pc")],
     "nhwc": [("conv1_nhwc", 256, 416, 3, 16, "nhwc"),
              ("conv1_nhwc_pc", 256, 416, 3, 16, "nhwc_pc"),
              ("conv1_nhwc_count", 256, 416, 3, 16, "nhwc_count"),
@@ -180,11 +194,16 @@ PER_FORWARD.update({f"{name}{sfx}": n for name, *_, n in ONE_BY_ONE
                     for sfx in ("_pc", "_eq", "_eq_pc")})
 PER_FORWARD.update({f"head{h}{sfx}": 3 for h in (52, 26, 13)
                     for sfx in ("", "_pc")})
+# darknet53's residual blocks per stage
+PER_FORWARD.update({f"res{h}{sfx}": n for h, n in ((208, 1), (104, 2),
+                                                   (52, 8), (26, 8), (13, 4))
+                    for sfx in ("", "_pc")})
 # the C entry each form launches
 ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "pool": "yolo_int8_conv3x3_pool_wgmma",
          "s2": "yolo_int8_conv3x3_s2_wgmma",
          "res": "yolo_int8_res_block",
+         "res_pc": "yolo_int8_res_block_cols_wgmma",
          "entry": "yolo_int8_entry_conv3x3_wgmma",
          "entry_mma": "yolo_int8_conv_requant",
          "k2": "yolo_int8_pool_s2d_wgmma",
@@ -372,7 +391,7 @@ def shape_fn(gen, b, h, c_in, c_out, form):
         return lambda: K.int8_conv_requant(parts, None, bias, sa_in=None,
                                            packed=packed, **kw, **extra)
     x = ri((b, h, h, c_in), -128, 128, torch.int8)
-    if form == "res":
+    if form in ("res", "res_pc"):
         w1 = ri((1, 1, c_in, c_out), -90, 120, torch.int8)
         w2 = ri((3, 3, c_out, c_in), -90, 120, torch.int8)
         b1 = ri((c_out,), -100, 100, torch.int32)
@@ -380,8 +399,16 @@ def shape_fn(gen, b, h, c_in, c_out, form):
         packed = K.pack_res_block_weights(w1, w2)
         p1 = dict(sw=9, sb=8, sa_in=4, sa_out=4, retune=10)
         p2 = dict(sw=12, sb=8, sa_in=4, sa_out=5, retune=10)
+        shifts = None
+        if form == "res_pc":
+            p1, p2 = dict(p1, sw=pc_sw(8, c_out)), dict(p2, sw=pc_sw(11, c_in))
+            shifts = tuple(K.acc_shift_table(p["sw"], p["sa_in"],
+                                             p["retune"], "nearest", n,
+                                             x.device)
+                           for p, n in ((p1, c_out), (p2, c_in)))
         return lambda: K.int8_res_block(x, None, b1, p1, None, b2, p2,
-                                        sa_res=3, leaky=0.1, packed=packed)
+                                        sa_res=3, leaky=0.1, packed=packed,
+                                        shifts=shifts)
     w = ri((3, 3, c_in, c_out), -90, 120, torch.int8)
     bias = ri((c_out,), -100, 100, torch.int32)
     kw = dict(sw=12, sb=8, sa_in=4, sa_out=4, retune=10, rounding="nearest")

@@ -320,7 +320,9 @@ def test_cuda_gemm_more_than_65535_row_tiles(cuda):
 def test_cuda_per_channel_sw_raises(cuda):
     """A per-channel sw on every routed CONV_CASES shape equals the plain
     version (the per-column forms); the mma.sync-only shapes (the padded
-    1x1, the unpadded 3x3 of C_in 5) and K4 still raise."""
+    1x1, the unpadded 3x3 of C_in 5) still raise. K4 with a per-channel
+    sw in one conv equals its plain version on its per-column C entry;
+    one of the wrong length raises."""
     for case in CONV_CASES:
         k, stride, pad, cins, c_out, _, _, leaky = case
         xs, wq, b = _conv_args(case)
@@ -341,9 +343,18 @@ def test_cuda_per_channel_sw_raises(cuda):
         (entry, n), = K.launch_counts_by_entry()["int8_conv_requant"].items()
         assert "_cols_" in entry and n == 1, entry
         assert torch.equal(got.cpu(), want)
-    x, w1, b1, w2, b2 = (t.to(cuda) for t in _res_args(RES_CASES[0]))
+    args = _res_args(RES_CASES[0])
+    x, w1, b1, w2, b2 = (t.to(cuda) for t in args)
+    p1 = dict(P1, sw=np.arange(32, dtype=np.int32) % 5 + 6)
+    want = K.int8_res_block(*args[:3], p1, *args[3:], P2, sa_res=3)
+    K.reset_launch_counts()
+    got = K.int8_res_block(x, w1, b1, p1, w2, b2, P2, sa_res=3)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_res_block": {K.RES_BLOCK_COLS_ENTRY: 1}}
+    assert torch.equal(got.cpu(), want)
     with pytest.raises(ValueError, match="per-channel"):
-        K.int8_res_block(x, w1, b1, dict(P1, sw=np.full(32, 8, np.int32)),
+        K.int8_res_block(x, w1, b1, dict(P1, sw=np.full(31, 8, np.int32)),
                          w2, b2, P2)
 
 
@@ -1751,3 +1762,145 @@ def test_cuda_v3_per_column_forms_take_model_tables(cuda, case):
         with pytest.raises(ValueError, match="shift table"):
             K.int8_conv_requant([(x.to(cuda), 4) for x in xs], None,
                                 b.to(cuda), packed=packed, shifts=short, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K4's per-column form: a per-channel sw in both convs of a residual block
+# (per-channel yolo_v3's 23 blocks).
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C, C_mid): each (BN1, BN2) form, (32, 64), (64, 128) and
+# (128, 128), at odd H and W in one tile and with edge tiles (tiles of up
+# to 26 x 26)
+RES_COLS_CASES = [
+    (2, 9, 7, 64, 32),
+    (1, 31, 29, 64, 32),
+    (2, 11, 13, 128, 64),
+    (1, 29, 27, 128, 64),
+    (1, 15, 17, 256, 128),
+    (1, 27, 25, 512, 256),
+]
+
+
+def _res_pc_sw(rng, depth, c_out, p, case):
+    """A per-channel sw of one of K4's convs (``p`` its scales):
+    accumulator shifts around the one that spreads an int8 output of
+    ``depth`` products; "mixed" with -1, 33, 31 and -40 among them (the
+    general shift form), "short" all in [0, 30]."""
+    base = max(0, round(np.log2(np.sqrt(depth) * 74 * 35 / 4096)))
+    s = base + rng.integers(-2, 3, c_out)
+    if case == "mixed":
+        s[:4] = [-1, 33, 31, -40]
+    else:
+        s = np.clip(s, 0, 30)
+    return (s - p["sa_in"] + p["retune"]).astype(np.int32)
+
+
+def _res_pc_params(case, sw_case):
+    c, cmid = case[3:]
+    rng = np.random.default_rng(c + cmid)
+    return (dict(P1, sw=_res_pc_sw(rng, c, cmid, P1, sw_case)),
+            dict(P2, sw=_res_pc_sw(rng, 9 * cmid, c, P2, sw_case)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["model", "per_call"])
+@pytest.mark.parametrize("sw_case", ["mixed", "short"])
+@pytest.mark.parametrize("sa_res", [None, 3])
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("case", RES_COLS_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_res_block_per_column_equals_plain(cuda, rounding, sa_res,
+                                                sw_case, tables, case):
+    """K4 with a per-channel sw in both convs == the plain version, at
+    shift codes >= 31 and <= -32 ("mixed") and all in [0, 30] (the short
+    form): one launch, on its per-column C entry, on the tables
+    ``acc_shift_table`` makes once and the packed weights (as
+    ``pack_res_blocks`` leaves them; no table made in the call), or on
+    tables the wrapper makes for the call (two)."""
+    x, w1, b1, w2, b2 = _res_args(case, seed=4)
+    c, cmid = case[3:]
+    p1, p2 = _res_pc_params(case, sw_case)
+    kw = dict(sa_res=sa_res, leaky=0.1, rounding=rounding)
+    want = K.int8_res_block(x, w1, b1, p1, w2, b2, p2, **kw)
+    x, w1, b1, w2, b2 = (t.to(cuda) for t in (x, w1, b1, w2, b2))
+    extra = {}
+    if tables == "model":
+        extra = dict(packed=K.pack_res_block_weights(w1, w2), shifts=tuple(
+            K.acc_shift_table(p["sw"], p["sa_in"], p["retune"], rounding,
+                              n, cuda) for p, n in ((p1, cmid), (p2, c))))
+        w1 = w2 = None
+    K.reset_launch_counts()
+    K.reset_shift_table_count()
+    got = K.int8_res_block(x, w1, b1, p1, w2, b2, p2, **kw, **extra)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_res_block": {K.RES_BLOCK_COLS_ENTRY: 1}}
+    assert K.shift_table_count() == (2 if tables == "per_call" else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_res_block_per_column_checks_tables(cuda):
+    """Tables that are too short for a conv's channels, of another type or
+    not two raise before any launch."""
+    case = RES_COLS_CASES[2]
+    x, w1, b1, w2, b2 = (t.to(cuda) for t in _res_args(case))
+    p1, p2 = _res_pc_params(case, "short")
+    good = [K.acc_shift_table(p["sw"], p["sa_in"], p["retune"], "nearest",
+                              n, cuda) for p, n in ((p1, 64), (p2, 128))]
+    K.reset_launch_counts()
+    for shifts in ((good[0][:32], good[1]), (good[0], good[1].long()),
+                   (good[0],), (*good, good[1])):
+        with pytest.raises(ValueError, match="shift table"):
+            K.int8_res_block(x, w1, b1, p1, w2, b2, p2, shifts=shifts)
+    assert K.launch_counts()["int8_res_block"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_per_channel_v3_detect_fn_serves(cuda):
+    """The per-channel yolo_v3 fixture's model (weights rebuilt from its
+    seed) served on CUDA at 64², batch 2: the heads equal the plain CPU
+    walk's, the detect fn's outputs its CPU detect fn's; per forward 23
+    launches on K4's per-column entry and 29 on the per-column entries of
+    int8_conv_requant (9 stride-1, 5 stride-2, 1 entry conv, 14 1x1s),
+    the 92 + 62 tables made when the fn took the model, none per call."""
+    from pathlib import Path
+
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.convert import int8_yolo_v3_from_seed
+
+    path = (Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "data"
+            / "yolo_v3_int8_pc_416_golden.npz")
+    with np.load(path) as z:
+        m = int8_yolo_v3_from_seed({k: z[k] for k in z.files}, device="cpu")
+    cfg = get_config("yolo_v3", "mask", input_size=(64, 64))
+    images = np.random.default_rng(3).random((2, 64, 64, 3),
+                                             dtype=np.float32)
+    x_q = tfp.quantize_input(torch.tensor(images), m.sa_in)
+    want = tv3.int8_yolo_v3_forward(m, x_q)
+    K.reset_shift_table_count()
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    assert K.shift_table_count() == 92 + 62
+    m_dev = m.to(cuda)
+    m_dev.pack_res_blocks()
+    m_dev.pack_conv3x3s()
+    K.reset_launch_counts()
+    K.reset_shift_table_count()
+    got = tv3.int8_yolo_v3_forward(m_dev, x_q.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert K.launch_counts_by_entry() == {
+        "int8_res_block": {K.RES_BLOCK_COLS_ENTRY: 23},
+        "int8_conv_requant": {PCV3_ENTRY["s1"]: 9, PCV3_ENTRY["s2"]: 5,
+                              PCV3_ENTRY["entry"]: 1, PCV3_ENTRY["1x1"]: 14}}
+    assert K.shift_table_count() == 0
+    cpu = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cpu")(images)
+    for g, w in zip(detect(images), cpu):
+        if g.dtype.is_floating_point:
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       atol=1e-5, rtol=1e-5)
+        else:
+            assert torch.equal(g.cpu(), w)

@@ -7,10 +7,10 @@ per_channel=True)`` on 2 seeded 64² images. Held bit-exact: the port's
 ``quantize_weights(per_channel=True)``, its plain integer walk against
 the JAX ``int8_yolo_v3_forward(s2d=False)`` at 64² (nearest) and 128²
 (both roundings), a two-part ``int8_conv_requant`` at equal part scales,
-and the shift tables ``pack_conv3x3s`` makes; the detections against the
-JAX per-channel detect fn: classes and valid exact, boxes and scores
-within atol = rtol = 1e-5 (float32 sigmoid, exp and softmax in another
-framework).
+and the shift tables ``pack_conv3x3s`` and ``pack_res_blocks`` make; the
+detections against the JAX per-channel detect fn: classes and valid exact,
+boxes and scores within atol = rtol = 1e-5 (float32 sigmoid, exp and
+softmax in another framework).
 
 Floor rounding is held at 128², not at 64²: the reference's floor
 upsample depends on the tensor's size (XLA fuses its align-corners
@@ -114,19 +114,72 @@ def test_detections_match_jax(models):
     assert valid.any()
 
 
+def _codes(sw, sa_in, retune, rounding):
+    """numpy twin of ``acc_shift_codes`` for a per-channel sw: the shift
+    sw + sa_in - retune as the entry ``_shift`` reads (``_shift_arr``
+    gives 0 from 31 on under nearest: entry 32), clipped to [-32, 32]."""
+    s = np.asarray(sw, np.int64) + sa_in - retune
+    if rounding == "nearest":
+        s = np.where(s >= 31, 32, s)
+    return np.clip(s, -32, 32)
+
+
+def _res_block_scales(m):
+    """(index of a residual block's 1x1 conv, the scale of its input, its
+    mid scale), from the program."""
+    out, sa, ci, ti, i = [], m.sa_in, 0, 0, 0
+    while i < len(m.program):
+        op = m.program[i]
+        if op[0] == "push":
+            out.append((ci, sa, m.tap_sa[ti]))
+            sa, ci, ti, i = m.tap_sa[ti + 2], ci + 2, ti + 3, i + 4
+            continue
+        if op[0] == "conv":
+            sa, ci, ti = m.tap_sa[ti], ci + 1, ti + 1
+        i += 1
+    return out
+
+
 def test_detect_fn_refusals(models):
-    """With input_s2d the JAX fn's per-channel message; on CUDA a
-    ValueError naming int8_res_block, raised before any device is asked
-    for or anything packed (so here too, with no card)."""
+    """With input_s2d the JAX fn's per-channel message, raised before any
+    device is asked for or anything packed. On CUDA the fn serves; what it
+    makes there once for K4, ``pack_res_blocks`` makes here: the 23
+    blocks' weights and two tables per block in each rounding (92), each
+    equal to a numpy twin of ``acc_shift_codes`` at its conv's input
+    scale; ``pack_conv3x3s`` then adds its 62 and keeps them."""
     tm = models[3]
     cfg = t_get_config("yolo_v3", "mask", input_size=(SIZE, SIZE))
-    with pytest.raises(ValueError, match="plain conv path only"):
-        tv3.make_int8_yolo_v3_detect_fn(tm, cfg, input_s2d=True,
-                                        device="cpu")
     K.reset_conv3x3_pack_count()
-    with pytest.raises(ValueError, match="int8_res_block"):
-        tv3.make_int8_yolo_v3_detect_fn(tm, cfg, device="cuda")
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="plain conv path only"):
+            tv3.make_int8_yolo_v3_detect_fn(tm, cfg, input_s2d=True,
+                                            device=device)
     assert K.conv3x3_pack_count() == 0
+    m = dataclasses.replace(tm, res_packed=None, shift_tables=None)
+    K.reset_shift_table_count()
+    K.reset_res_block_pack_count()
+    m.pack_res_blocks()
+    assert K.res_block_pack_count() == 23
+    assert K.shift_table_count() == 92
+    blocks = _res_block_scales(m)
+    assert len(blocks) == 23 and sorted(m.res_packed) == [b[0]
+                                                          for b in blocks]
+    for rounding, tables in m.shift_tables.items():
+        assert sorted(tables) == sorted(ci + d for ci, _, _ in blocks
+                                        for d in (0, 1))
+        for ci, sa, sa_mid in blocks:
+            for c, sa_in in ((ci, sa), (ci + 1, sa_mid)):
+                (t,) = tables[c]
+                c_out = m.w_q[c].shape[3]
+                assert t.dtype == torch.int32 and t.shape == (
+                    -(-c_out // K.TABLE_ALIGN) * K.TABLE_ALIGN,)
+                np.testing.assert_array_equal(
+                    t.numpy()[:c_out],
+                    _codes(m.sw[c], sa_in, m.retune[c], rounding))
+                assert not t.numpy()[c_out:].any()
+    m.pack_conv3x3s()
+    assert K.shift_table_count() == 92 + 62
+    assert all(len(t) == 46 + 29 for t in m.shift_tables.values())
 
 
 @pytest.mark.parametrize("rounding", ["nearest", "floor"])

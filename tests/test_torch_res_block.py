@@ -2,7 +2,8 @@
 package: against the Pallas ``int8_res_block`` in interpret mode at its
 hard-wired slope 0.125 (the shapes of tests/test_kernels.py), and against
 the JAX ``int_conv_requant`` chain at the darknet53 slope 0.1, which the
-Pallas kernel does not take; plus the int8 GEMM probe's plain version (K5).
+Pallas kernel does not take, also with a per-channel sw in both convs;
+plus the int8 GEMM probe's plain version (K5).
 test_torch_kernels_cuda.py holds the CUDA kernels against these plain
 versions on the card."""
 
@@ -81,6 +82,31 @@ def test_plain_equals_jax_chain(rng, rounding, sa_res, leaky):
                            *map(torch.tensor, (w2, b2)), P2, sa_res=sa_res,
                            leaky=leaky, rounding=rounding)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("sa_res", [None, 3])
+@pytest.mark.parametrize("leaky", [0.1, True])
+def test_per_channel_sw_equals_jax_chain(rounding, sa_res, leaky):
+    """A per-channel sw1 (C_mid long) and sw2 (C long) on the CPU route
+    against the chain the JAX walk runs for a per-channel block (the
+    Pallas K4 takes one shift per conv): ``fp.int_conv_requant`` (1x1),
+    then ``fp.int_conv_requant(residual=, sa_res=)`` (3x3), at the darknet
+    slope 0.1 and at 0.125, with entries whose shift codes sw + sa_in -
+    retune are >= 31 and <= -32 (``_shift_arr``'s semantics)."""
+    rng = np.random.default_rng(11)
+    x, w1, b1, w2, b2 = _block(rng, 2, 6, 7, 64, 32)
+    # codes sw - 7 in both convs: 0..4, then 31, 38, -32, -40, -1
+    sw1 = rng.integers(7, 12, 32).astype(np.int32)
+    sw2 = rng.integers(7, 12, 64).astype(np.int32)
+    sw1[:5] = sw2[-5:] = [38, 45, -25, -33, 6]
+    p1, p2 = dict(P1, sw=sw1), dict(P2, sw=sw2)
+    want = _jax_chain(x, w1, b1, w2, b2, p1, p2, sa_res, leaky, rounding)
+    got = K.int8_res_block(*map(torch.tensor, (x, w1, b1)), p1,
+                           *map(torch.tensor, (w2, b2)), p2, sa_res=sa_res,
+                           leaky=leaky, rounding=rounding)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > 8
 
 
 def test_plain_res_shift_ge_32_follows_fixed_point(rng):

@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_res_block", [vp] * 6 + [i] * 15 + [vp]),
                 ("yolo_int8_gemm", [vp] * 3 + [i] * 3 + [vp]),
                 ("yolo_int8_res_block_info", [i] * 4 + [vp]),
+                ("yolo_int8_res_block_cols_wgmma",
+                 [vp] * 8 + [i] * 14 + [vp]),
                 ("yolo_int8_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_pool_wgmma", [vp] * 4 + [i] * 9 + [vp]),

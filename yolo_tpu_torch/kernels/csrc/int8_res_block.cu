@@ -43,6 +43,14 @@
 //
 // The shifts follow yolo_tpu/quant/fixed_point.py::_shift, including
 // s >= 32, which the Pallas kernel's _shift_round_nearest does not guard.
+// A per-channel sw (quantize_pipeline_yolo_v3(per_channel=True) of the JAX
+// package) runs the per-column form (Cols::column): each conv's
+// accumulator shift per output column from an int32 table made on the
+// host (int8_conv.py's acc_shift_table), an int2 of entries per column
+// pair read through __ldg beside the bias at each use in both epilogues
+// (column_shift of int8_wgmma_conv.cuh); sb, sa and retune stay scalars.
+
+#include <type_traits>
 
 #include "int8_wgmma_conv.cuh"
 
@@ -82,6 +90,22 @@ struct ResArgs {
   Shift res_out;   // residual: the sum to 2^sa_res
 };
 
+// the accumulator shifts: one per conv (ResArgs' e1.acc, e2.acc), or per
+// output column from a table per conv (a per-channel sw)
+enum class Cols { scalar, column };
+
+// the per-column form's arguments: each conv's accumulator shift table,
+// conv1's [Cmid] and conv2's [C] (padded, 0 past the channels; e1.acc and
+// e2.acc unused). Apart from ResArgs, whose scalar SASS a larger struct
+// could move (int8_entry_conv.cu's ColsArgs).
+struct ResColsArgs : ResArgs {
+  const int* shifts1;
+  const int* shifts2;
+};
+
+template <Cols C>
+using ResArgsOf = std::conditional_t<C == Cols::scalar, ResArgs, ResColsArgs>;
+
 template <int N>
 __device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
@@ -90,12 +114,13 @@ __device__ __forceinline__ void mma_ss(int (&d)[N / 2], uint64_t da,
   if constexpr (N == 128) mma_ss_n128(d, da, db, 1);
 }
 
-template <int BN1, int BN2, bool SHORT>
+template <int BN1, int BN2, bool SHORT, Cols CF = Cols::scalar>
 __global__ void __launch_bounds__(ResCfg<BN1, BN2>::THREADS,
                                   ResCfg<BN1, BN2>::MIN_BLOCKS)
 res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
                 const __grid_constant__ CUtensorMap tm_w1,
-                const __grid_constant__ CUtensorMap tm_w2, ResArgs a) {
+                const __grid_constant__ CUtensorMap tm_w2,
+                ResArgsOf<CF> a) {
   using Cfg = ResCfg<BN1, BN2>;
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   extern __shared__ __align__(16) unsigned char dsmem[];
@@ -217,8 +242,19 @@ res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
         for (int j = 0; j < BN1 / 8; ++j) {
           const int co = n * BN1 + 8 * j + 2 * tig;
           const int2 bias = *reinterpret_cast<const int2*>(a.b1 + co);
-          const int8_t v0 = a.e1.apply<SHORT>(acc[4 * j + 2 * h], bias.x);
-          const int8_t v1 = a.e1.apply<SHORT>(acc[4 * j + 2 * h + 1], bias.y);
+          int8_t v0, v1;
+          if constexpr (CF == Cols::scalar) {
+            v0 = a.e1.apply<SHORT>(acc[4 * j + 2 * h], bias.x);
+            v1 = a.e1.apply<SHORT>(acc[4 * j + 2 * h + 1], bias.y);
+          } else {
+            const bool nearest = a.e1.rnd != 0;
+            const int2 sc =
+                __ldg(reinterpret_cast<const int2*>(a.shifts1 + co));
+            v0 = a.e1.apply<SHORT>(column_shift<SHORT>(sc.x, nearest),
+                                   acc[4 * j + 2 * h], bias.x);
+            v1 = a.e1.apply<SHORT>(column_shift<SHORT>(sc.y, nearest),
+                                   acc[4 * j + 2 * h + 1], bias.y);
+          }
           *reinterpret_cast<uint16_t*>(dst + 8 * j) =
               in[h] ? pack2(v0, v1) : (uint16_t)0;
         }
@@ -301,24 +337,56 @@ res_block_wgmma(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int pass = 0; pass < BN2 / 64; ++pass) {
         const int col0 = n * BN2 + pass * 64;
-        // the residual's x, loaded while the requant below runs
+        // the residual's x, loaded while the requant below runs (the
+        // per-column form: halfway through it, below)
         uint4 xv[2];
+        if constexpr (CF == Cols::scalar) {
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
-          if (a.res && obase[q] >= 0)
-            xv[q] = *reinterpret_cast<const uint4*>(a.x + obase[q] + col0 +
-                                                    16 * (ltid & 3));
+          for (int q = 0; q < 2; ++q)
+            if (a.res && obase[q] >= 0)
+              xv[q] = *reinterpret_cast<const uint4*>(a.x + obase[q] + col0 +
+                                                      16 * (ltid & 3));
+        }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int cl = 8 * j + 2 * tig;
           const int2 bias = *reinterpret_cast<const int2*>(a.b2 + col0 + cl);
+          if constexpr (CF == Cols::scalar) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int* v = &acc[4 * (8 * pass + j) + 2 * h];
-            *reinterpret_cast<uint16_t*>(
-                stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
-                pack2(a.e2.apply<SHORT>(v[0], bias.x),
-                      a.e2.apply<SHORT>(v[1], bias.y));
+            for (int h = 0; h < 2; ++h) {
+              const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+              *reinterpret_cast<uint16_t*>(
+                  stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                  pack2(a.e2.apply<SHORT>(v[0], bias.x),
+                        a.e2.apply<SHORT>(v[1], bias.y));
+            }
+          } else {
+            // x once half the pass's accumulators are stored: loaded
+            // beside the first column pairs' tables, it spilled the wide
+            // forms' general shift form and the narrow short form (8
+            // bytes each, on an H100)
+            if (j == 4) {
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                if (a.res && obase[q] >= 0)
+                  xv[q] = *reinterpret_cast<const uint4*>(
+                      a.x + obase[q] + col0 + 16 * (ltid & 3));
+            }
+            // this column pair's Shifts, built here at each use: held in
+            // registers beside the bias they could spill
+            const bool nearest = a.e2.rnd != 0;
+            const int2 sc =
+                __ldg(reinterpret_cast<const int2*>(a.shifts2 + col0 + cl));
+            const Shift s0 = column_shift<SHORT>(sc.x, nearest);
+            const Shift s1 = column_shift<SHORT>(sc.y, nearest);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int* v = &acc[4 * (8 * pass + j) + 2 * h];
+              *reinterpret_cast<uint16_t*>(
+                  stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                  pack2(a.e2.apply<SHORT>(s0, v[0], bias.x),
+                        a.e2.apply<SHORT>(s1, v[1], bias.y));
+            }
           }
         }
         named_sync(2 + wg, 128);
@@ -377,20 +445,20 @@ int plan(ResArgs& a) {
 }
 
 // Launches the form, or with `info` reports its layout there instead.
-template <int BN1, int BN2, bool SHORT>
-int launch_form(ResArgs a, const void* w1p, const void* w2p, int* info,
+template <int BN1, int BN2, bool SHORT, Cols CF = Cols::scalar>
+int launch_form(ResArgsOf<CF> a, const void* w1p, const void* w2p, int* info,
                 cudaStream_t st) {
   using Cfg = ResCfg<BN1, BN2>;
   const int smem = plan<BN1, BN2>(a);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      res_block_wgmma<BN1, BN2, SHORT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      res_block_wgmma<BN1, BN2, SHORT, CF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, res_block_wgmma<BN1, BN2, SHORT>, Cfg::THREADS, smem);
+        &blocks, res_block_wgmma<BN1, BN2, SHORT, CF>, Cfg::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     const int vals[9] = {a.TH, a.TW,     a.R1,     smem,    blocks,
                          BN1,  BN2,      Cfg::NWG, a.stages};
@@ -414,22 +482,22 @@ int launch_form(ResArgs a, const void* w1p, const void* w2p, int* info,
   if (rc != 0) return rc;
   const long long ntiles = (long long)((a.H + a.TH - 1) / a.TH) *
                            ((a.W + a.TW - 1) / a.TW);
-  res_block_wgmma<BN1, BN2, SHORT>
+  res_block_wgmma<BN1, BN2, SHORT, CF>
       <<<(unsigned)(a.B * ntiles), Cfg::THREADS, smem, st>>>(tm_x, tm_w1,
                                                              tm_w2, a);
   return (int)cudaGetLastError();
 }
 
-template <bool SHORT>
-int dispatch(const ResArgs& a, const void* w1p, const void* w2p, int* info,
-             cudaStream_t st) {
+template <bool SHORT, Cols CF = Cols::scalar>
+int dispatch(const ResArgsOf<CF>& a, const void* w1p, const void* w2p,
+             int* info, cudaStream_t st) {
   switch (pick_form(a.C, a.Cmid)) {
     case 2:
-      return launch_form<128, 128, SHORT>(a, w1p, w2p, info, st);
+      return launch_form<128, 128, SHORT, CF>(a, w1p, w2p, info, st);
     case 1:
-      return launch_form<64, 128, SHORT>(a, w1p, w2p, info, st);
+      return launch_form<64, 128, SHORT, CF>(a, w1p, w2p, info, st);
     default:
-      return launch_form<32, 64, SHORT>(a, w1p, w2p, info, st);
+      return launch_form<32, 64, SHORT, CF>(a, w1p, w2p, info, st);
   }
 }
 
@@ -444,6 +512,21 @@ ResArgs base_args(int H, int W, int C, int Cmid) {
   a.C = C;
   a.Cmid = Cmid;
   return a;
+}
+
+// The operands and the residual's shifts, the same in both forms.
+void set_operands(ResArgs& a, const void* x, const void* b1_rt,
+                  const void* b2_rt, void* out, int B, int res, int sh_a,
+                  int sh_b, int sh_out, bool nearest) {
+  a.x = static_cast<const int8_t*>(x);
+  a.b1 = static_cast<const int*>(b1_rt);
+  a.b2 = static_cast<const int*>(b2_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.B = B;
+  a.res = res;
+  a.sh_a = sh_a;
+  a.sh_b = sh_b;
+  a.res_out = make_shift(sh_out, nearest);
 }
 
 }  // namespace
@@ -467,22 +550,48 @@ int yolo_int8_res_block(const void* x, const void* w1p, const void* b1_rt,
                         void* stream) {
   if (bad_shape(H, W, C, Cmid) || B < 1) return (int)cudaErrorInvalidValue;
   ResArgs a = base_args(H, W, C, Cmid);
-  a.x = static_cast<const int8_t*>(x);
-  a.b1 = static_cast<const int*>(b1_rt);
-  a.b2 = static_cast<const int*>(b2_rt);
-  a.out = static_cast<int8_t*>(out);
-  a.B = B;
+  set_operands(a, x, b1_rt, b2_rt, out, B, res, sh_a, sh_b, sh_out,
+               nearest != 0);
   a.e1 = make_epi(acc1, out1, slope_num, nearest != 0);
   a.e2 = make_epi(acc2, out2, slope_num, nearest != 0);
-  a.res = res;
-  a.sh_a = sh_a;
-  a.sh_b = sh_b;
-  a.res_out = make_shift(sh_out, nearest != 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (short_shift(acc1) && short_shift(out1) && short_shift(acc2) &&
       short_shift(out2) && short_shift(sh_out))
     return dispatch<true>(a, w1p, w2p, nullptr, st);
   return dispatch<false>(a, w1p, w2p, nullptr, st);
+}
+
+// The per-column form (a per-channel sw): as yolo_int8_res_block, with
+// each column's accumulator shift from a table (int32, each column's shift
+// as _shift reads it, int8_conv.py's acc_shift_table, 0 past the
+// channels, 8-byte aligned) in place of acc1 / acc2: shifts1 conv1's
+// [>= Cmid], shifts2 conv2's [>= C]; short_cols: every entry of both in
+// [0, 31]. The short shift form where those, out1, out2 and sh_out are
+// short. Its layout is the scalar form's (yolo_int8_res_block_info).
+int yolo_int8_res_block_cols_wgmma(const void* x, const void* w1p,
+                                   const void* b1_rt, const void* shifts1,
+                                   const void* w2p, const void* b2_rt,
+                                   const void* shifts2, void* out, int B,
+                                   int H, int W, int C, int Cmid, int out1,
+                                   int out2, int short_cols, int slope_num,
+                                   int nearest, int res, int sh_a, int sh_b,
+                                   int sh_out, void* stream) {
+  if (bad_shape(H, W, C, Cmid) || B < 1 || shifts1 == nullptr ||
+      shifts2 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ResColsArgs a{};
+  static_cast<ResArgs&>(a) = base_args(H, W, C, Cmid);
+  set_operands(a, x, b1_rt, b2_rt, out, B, res, sh_a, sh_b, sh_out,
+               nearest != 0);
+  a.e1 = make_epi(0, out1, slope_num, nearest != 0);
+  a.e2 = make_epi(0, out2, slope_num, nearest != 0);
+  a.shifts1 = static_cast<const int*>(shifts1);
+  a.shifts2 = static_cast<const int*>(shifts2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_cols && short_shift(out1) && short_shift(out2) &&
+      short_shift(sh_out))
+    return dispatch<true, Cols::column>(a, w1p, w2p, nullptr, st);
+  return dispatch<false, Cols::column>(a, w1p, w2p, nullptr, st);
 }
 
 // The kernel's layout at an H x W x C stage with Cmid mid channels:

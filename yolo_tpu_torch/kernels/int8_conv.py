@@ -30,8 +30,10 @@ counting ones add to the counter; so does the NHWC form of K2's kernel
 below. ``int8_conv_requant`` takes a per-channel sw on every route named
 below (the per-column forms of the stride-1, stride-2, entry and 1x1
 kernels, on the tables of ``conv_shift_tables``, made once per model by
-``int8_yolo_v3.Int8YoloV3.pack_conv3x3s``); its mma.sync conv, K2 on the
-s2d layout and K4 refuse one on a CUDA tensor. The
+``int8_yolo_v3.Int8YoloV3.pack_conv3x3s``); so does ``int8_res_block``
+(K4's per-column form, on a table per conv made once per model by
+``Int8YoloV3.pack_res_blocks``); its mma.sync conv and K2 on the s2d
+layout refuse one on a CUDA tensor. The
 thin-input convs run on the row-streaming wgmma kernels of
 ``csrc/int8_entry_conv.cu``: K2 on the s2d layout with C_in <= 4 and
 C_out <= 32 (``pool_s2d_wgmma_route``: slim's conv1; weights from
@@ -88,8 +90,8 @@ def _check_scalar_shifts(**shifts):
             raise ValueError(
                 f"{k} must be a scalar: this kernel's epilogue takes one "
                 f"shift per layer (a per-channel sw runs in "
-                f"int8_conv3x3_requant, int8_conv3x3_im2col and on "
-                f"int8_conv_requant's wgmma routes)")
+                f"int8_conv3x3_requant, int8_conv3x3_im2col, "
+                f"int8_res_block and on int8_conv_requant's wgmma routes)")
 
 
 def _sw_ok(sw, c_out) -> bool:
@@ -1122,12 +1124,21 @@ def res_block_row_shares(th, tw, r1):
     return hh * hw / rows1, p2 / (-(-p2 // 64) * 64)
 
 
+# K4's per-column form (a per-channel sw)
+RES_BLOCK_COLS_ENTRY = "yolo_int8_res_block_cols_wgmma"
+
+
 def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
-                      rounding) -> torch.Tensor:
+                      rounding, shifts=None) -> torch.Tensor:
+    """Check the operands and launch K4 on the current stream: its scalar
+    form, or where either conv's sw is per-channel its per-column form on
+    the two convs' shift tables (``shifts`` = (conv1's, conv2's), each
+    made for this call where None). Raises on anything the kernel does not
+    take and on a failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
-    _check_scalar_shifts(**{f"{k}1": v for k, v in p1.items()},
-                         **{f"{k}2": v for k, v in p2.items()},
+    _check_scalar_shifts(**{f"{k}1": v for k, v in p1.items() if k != "sw"},
+                         **{f"{k}2": v for k, v in p2.items() if k != "sw"},
                          sa_res=sa_res or 0)
     dev = x_q.device
     if x_q.dtype != torch.int8 or x_q.ndim != 4 or not x_q.is_contiguous():
@@ -1144,6 +1155,8 @@ def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
     _check_operand("packed w2", w2p, dev, torch.int8, (c, 9 * cmid))
     _check_operand("b1_q", b1_q, dev, b1_q.dtype, (cmid,))
     _check_operand("b2_q", b2_q, dev, b2_q.dtype, (c,))
+    _check_sw(p1["sw"], cmid)
+    _check_sw(p2["sw"], c)
     if not (w1p.is_contiguous() and w2p.is_contiguous()):
         raise ValueError("the packed weights must be contiguous")
     _aligned("x_q", x_q, 16)
@@ -1164,28 +1177,51 @@ def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
     _aligned("the output allocation", out, 16)
     b1_rt = _bias_at_retune(b1_q, p1["sb"], p1["retune"], rounding)
     b2_rt = _bias_at_retune(b2_q, p2["sb"], p2["retune"], rounding)
-    launch("int8_res_block", "yolo_int8_res_block", dev,
-           x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(), w2p.data_ptr(),
-           b2_rt.data_ptr(), out.data_ptr(), bsz, h, w, c, cmid,
-           p1["sa_in"] + p1["sw"] - p1["retune"], p1["retune"] - p1["sa_out"],
-           p2["sa_in"] + p2["sw"] - p2["retune"], p2["retune"] - p2["sa_out"],
-           num, int(rounding == "nearest"), int(sa_res is not None),
-           *sh)
+    outs = (p1["retune"] - p1["sa_out"], p2["retune"] - p2["sa_out"])
+    tail = (num, int(rounding == "nearest"), int(sa_res is not None), *sh)
+    if not (np.ndim(p1["sw"]) or np.ndim(p2["sw"])):
+        launch("int8_res_block", "yolo_int8_res_block", dev,
+               x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(),
+               w2p.data_ptr(), b2_rt.data_ptr(), out.data_ptr(), bsz, h, w,
+               c, cmid, p1["sa_in"] + p1["sw"] - p1["retune"], outs[0],
+               p2["sa_in"] + p2["sw"] - p2["retune"], outs[1], *tail)
+        return out
+    if shifts is None:
+        shifts = (None, None)
+    if len(shifts) != 2:
+        raise ValueError(f"the residual block takes two shift tables "
+                         f"(conv1's, conv2's), got {len(shifts)}")
+    tables = [_table_for(t, p["sw"], p["sa_in"], p["retune"], rounding, n,
+                         dev)
+              for t, p, n in zip(shifts, (p1, p2), (cmid, c))]
+    short = all(short_columns(acc_shift_codes(p["sw"], p["sa_in"],
+                                              p["retune"], rounding, n))
+                for p, n in ((p1, cmid), (p2, c)))
+    launch("int8_res_block", RES_BLOCK_COLS_ENTRY, dev,
+           x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(),
+           tables[0].data_ptr(), w2p.data_ptr(), b2_rt.data_ptr(),
+           tables[1].data_ptr(), out.data_ptr(), bsz, h, w, c, cmid, *outs,
+           int(short), *tail)
     return out
 
 
 def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
-                   leaky=True, rounding="nearest", packed=None):
+                   leaky=True, rounding="nearest", packed=None, shifts=None):
     """Fused darknet residual block: int8 [B,H,W,C] -> 1x1 conv + requant
     (C -> Cmid) -> 3x3 conv (s1, p1) + requant (Cmid -> C) -> [residual
     add + requant to 2^sa_res] -> int8 [B,H,W,C], the mid activation kept
-    on chip. ``p1``/``p2`` carry sw, sb, sa_in, sa_out, retune; ``w1_q`` is
-    [C, Cmid] or [1, 1, C, Cmid]; ``leaky`` is False, True (0.125) or a
-    float slope (the darknet53 backbone's 0.1), for both convs.
+    on chip. ``p1``/``p2`` carry sw, sb, sa_in, sa_out, retune; each sw an
+    int or a per-channel int32 array (conv1's of length Cmid, conv2's of
+    length C; ``fixed_point._shift_arr``); ``w1_q`` is [C, Cmid] or [1, 1,
+    C, Cmid]; ``leaky`` is False, True (0.125) or a float slope (the
+    darknet53 backbone's 0.1), for both convs.
 
     ``packed``: the weights from ``pack_res_block_weights`` (then ``w1_q``
     and ``w2_q`` may be None). The kernel reads that form; given only the
-    HWIO weights, the wrapper packs them for this call."""
+    HWIO weights, the wrapper packs them for this call. ``shifts``: with a
+    per-channel sw on CUDA, the two convs' ``acc_shift_table``s (conv1's,
+    conv2's), made for this call where None; the plain version reads the
+    sw itself."""
     if p2["sa_in"] != p1["sa_out"]:
         raise ValueError("conv2's sa_in must be conv1's sa_out")
     kw = dict(sa_res=sa_res, leaky=leaky, rounding=rounding)
@@ -1194,7 +1230,8 @@ def int8_res_block(x_q, w1_q, b1_q, p1, w2_q, b2_q, p2, *, sa_res=None,
                                     packed=packed, **kw)
     if packed is None:
         packed = pack_res_block_weights(w1_q, w2_q)
-    return _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, **kw)
+    return _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, shifts=shifts,
+                             **kw)
 
 
 # ---------------------------------------------------------------------------

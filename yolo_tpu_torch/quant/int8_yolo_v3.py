@@ -14,11 +14,10 @@ their exact plain versions.
 
 Per-channel weight scales (``quantize_pipeline_yolo_v3(per_channel=True)``
 of the JAX package: each conv's sw an int32 [C_out] array) run the same
-walk. On the card the 29 convs outside the residual blocks take them on
-the per-column forms of their kernels, each on the shift tables that
-``Int8YoloV3.pack_conv3x3s`` makes once; K4 does not take them yet, so the
-detect fn of a per-channel model serves on the CPU only and raises on
-CUDA.
+walk, on the card on the per-column forms of the kernels: the 23 residual
+blocks on K4's, on the two shift tables per block that
+``Int8YoloV3.pack_res_blocks`` makes once, the 29 other convs on their
+kernels', on the tables that ``Int8YoloV3.pack_conv3x3s`` makes once.
 
 Not ported here: the s2d execution forms (``s2d``, ``input_s2d``), the
 ``limit`` prefix hook, ``mesh`` sharding and yolo_v3_spp; each raises
@@ -151,7 +150,8 @@ class Int8YoloV3:
     conv1x1_packed: Dict[int, torch.Tensor] = field(repr=False, default=None)
     # {rounding: {index of a routed conv with a per-channel sw: its shift
     # tables (``conv_shift_tables``: one per input scale of its parts)}},
-    # made once by ``pack_conv3x3s``
+    # made once by ``pack_conv3x3s``, and for the two convs of each
+    # residual block by ``pack_res_blocks``
     shift_tables: Dict[str, Dict[int, Tuple]] = field(repr=False,
                                                       default=None)
 
@@ -195,20 +195,36 @@ class Int8YoloV3:
                 return packs[conv_i]
         return None
 
+    def _own_shift_tables(self) -> Dict[str, Dict[int, Tuple]]:
+        """``shift_tables`` as dicts of this model's own (a copy of those
+        it may share with another model), for a packer to fill."""
+        old = self.shift_tables or {}
+        self.shift_tables = {r: dict(old.get(r, {}))
+                             for r in ("nearest", "floor")}
+        return self.shift_tables
+
     def pack_res_blocks(self) -> None:
         """Pack the weights of every residual block once
-        (``pack_res_block_weights``), so the forward never packs."""
-        from yolo_tpu_torch.kernels.int8_conv import pack_res_block_weights
+        (``pack_res_block_weights``) and, where its convs' sw is
+        per-channel, their shift tables for both roundings into
+        ``shift_tables`` (one ``acc_shift_table`` per conv, at the block's
+        input scale and at its mid scale), so the forward never packs."""
+        from yolo_tpu_torch.kernels.int8_conv import (
+            conv_shift_tables, pack_res_block_weights)
 
         self.res_packed = {}
-        conv_i = 0
-        for i, op in enumerate(self.program):
-            if op[0] == "push":
-                _check_res_block(self, i, conv_i)
-                self.res_packed[conv_i] = pack_res_block_weights(
-                    self.w_q[conv_i], self.w_q[conv_i + 1])
-            elif op[0] == "conv":
-                conv_i += 1
+        tables = self._own_shift_tables()
+        for conv_i, tap_i, sa in _res_blocks(self):
+            self.res_packed[conv_i] = pack_res_block_weights(
+                self.w_q[conv_i], self.w_q[conv_i + 1])
+            if not (np.ndim(self.sw[conv_i]) or np.ndim(self.sw[conv_i + 1])):
+                continue
+            for rounding, by_conv in tables.items():
+                for ci, sa_in in ((conv_i, sa), (conv_i + 1,
+                                                 self.tap_sa[tap_i])):
+                    by_conv[ci] = conv_shift_tables(
+                        self.sw[ci], [sa_in], self.retune[ci], rounding,
+                        self.w_q[ci].shape[3], self.w_q[ci].device)
 
     def pack_conv3x3s(self) -> None:
         """Pack once the weights of every conv outside the residual blocks
@@ -229,7 +245,7 @@ class Int8YoloV3:
             pack_entry_conv_weights)
 
         self.conv_packed, self.entry_packed, self.conv1x1_packed = {}, {}, {}
-        self.shift_tables = {"nearest": {}, "floor": {}}
+        shift_tables = self._own_shift_tables()
         conv_i = tap_i = i = 0
         # the (channels, scale) of the stream and of the saved slots, and
         # the parts the next conv reads (two right after a concat)
@@ -258,7 +274,7 @@ class Int8YoloV3:
                 else:
                     align = None
                 if align and np.ndim(sw):
-                    for rounding, tables in self.shift_tables.items():
+                    for rounding, tables in shift_tables.items():
                         tables[conv_i] = conv_shift_tables(
                             sw, [sa for _, sa in parts], self.retune[conv_i],
                             rounding, c_out, w.device, align)
@@ -283,6 +299,32 @@ def _check_unported(s2d=False, limit=None, input_s2d=False, mesh=None):
                 f"limit=None, mesh=None)")
 
 
+def _res_blocks(m: Int8YoloV3):
+    """(index of its 1x1 conv, index of its first tap, the scale of its
+    input) of every residual block, in program order; raises where a
+    ``push`` group is not one."""
+    slots: Dict[str, int] = {}
+    sa, conv_i, tap_i, i = m.sa_in, 0, 0, 0
+    while i < len(m.program):
+        op = m.program[i]
+        if op[0] == "push":
+            _check_res_block(m, i, conv_i)
+            yield conv_i, tap_i, sa
+            sa = m.tap_sa[tap_i + 2]
+            conv_i, tap_i, i = conv_i + 2, tap_i + 3, i + 4
+            continue
+        if op[0] == "conv":
+            sa = m.tap_sa[tap_i]
+            conv_i, tap_i = conv_i + 1, tap_i + 1
+        elif op[0] == "save":
+            slots[op[1]] = sa
+        elif op[0] == "load":
+            sa = slots[op[1]]
+        elif op[0] == "concat":
+            sa = None  # two parts: no block reads one
+        i += 1
+
+
 def _check_res_block(m: Int8YoloV3, i: int, conv_i: int) -> None:
     """Program ops i.. must be a ``push, conv 1x1, conv 3x3, res`` group
     of one slope: the block the fused residual-block kernel computes."""
@@ -302,8 +344,8 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                          limit: int = None, input_s2d: bool = False):
     """int8 input [B, H, W, 3] at scale 2^sa_in -> [pred_1, pred_2,
     pred_3] float heads (strides 8, 16, 32). A per-channel sw runs on the
-    shift tables of ``m.shift_tables`` where ``pack_conv3x3s`` made them
-    (its convs in ``int8_conv_requant``; K4 takes a scalar sw only)."""
+    shift tables of ``m.shift_tables`` where ``pack_res_blocks`` and
+    ``pack_conv3x3s`` made them (else the wrappers make them per call)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_res_block
 
     _check_unported(s2d=s2d, limit=limit, input_s2d=input_s2d)
@@ -324,11 +366,14 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
                       sa_in=m.tap_sa[tap_i], sa_out=m.tap_sa[tap_i + 1],
                       retune=m.retune[conv_i + 1])
             sa_res = m.tap_sa[tap_i + 2]
+            shifts = (None if conv_i not in tables
+                      else (tables[conv_i][0], tables[conv_i + 1][0]))
             out = int8_res_block(x, m.w_q[conv_i], m.b_q[conv_i], p1,
                                  m.w_q[conv_i + 1], m.b_q[conv_i + 1], p2,
                                  sa_res=sa_res, leaky=prog[i + 1][4],
                                  rounding=rounding,
-                                 packed=(m.res_packed or {}).get(conv_i))
+                                 packed=(m.res_packed or {}).get(conv_i),
+                                 shifts=shifts)
             stream = (out, sa_res)
             tap_i += 3
             conv_i += 2
@@ -381,21 +426,14 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
     falls back to the CPU.
 
     A model with per-channel weight scales runs on the plain NHWC conv
-    path only, as in the JAX package (``input_s2d`` raises), and on the
-    CPU only: on a CUDA device this raises ValueError before anything is
-    moved or packed, since K4 (``int8_res_block``) takes one shift per
-    conv."""
-    if m.per_channel:
-        if input_s2d:
-            raise ValueError(
-                "per-channel weight scales run on the plain conv path "
-                "only; rebuild the detect fn without input_s2d")
-        if torch.device(device).type == "cuda":
-            raise ValueError(
-                "per-channel weight scales do not run on CUDA yet: "
-                "int8_res_block (K4, the 23 darknet53 residual blocks) "
-                "takes one weight shift per conv; build the detect fn "
-                "with device='cpu'")
+    path only, as in the JAX package (``input_s2d`` raises); on a CUDA
+    device every conv runs the per-column form of its kernel, on the
+    shift tables ``pack_res_blocks`` and ``pack_conv3x3s`` make here
+    once."""
+    if m.per_channel and input_s2d:
+        raise ValueError(
+            "per-channel weight scales run on the plain conv path "
+            "only; rebuild the detect fn without input_s2d")
     _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
