@@ -164,6 +164,24 @@ failure raises and the script exits nonzero:
    loop; then K4's five stage shapes and each distinct conv shape timed
    beside its plain version and a library yardstick, with the bound.
 
+5. the port's own PTQ toolchain on the card at 416², full width
+   (``quant.int8_graph.quantize_pipeline``,
+   ``quant.int8_yolo_v3.quantize_pipeline_yolo_v3``: float models in
+   true float32, BN fold, pow2 fake-quant, tracker calibration, retune
+   search), on the recipes of the JAX package's fixtures: 5a per-channel
+   slim (``slim_int8_pc_416_golden.npz``), 5b yolo_v3 scalar and
+   per-channel (both v3 fixtures), 5c slim from BN-form params with the
+   fold (``slim_int8_bn_416_tables.npz``, whose weight.h sha256 it also
+   holds). Every table equal to the fixture's and the int8 weights'
+   sha256 equal; each built model served once through its detect fn,
+   with the launch counts of that run checked (5a on the per-column
+   kernels on NHWC input, 5b on K4 and the 29 general-conv launches, 5c
+   on the s2d path: K2, K3 x3, K1 x6), its int8 head bit-exact with the
+   fixture's, its detections as the fixture's where it holds them; the
+   seconds per pipeline, calibration ms per batch, the float forward's
+   ms per 416² image, and for 5c how far the card's float tracker scales
+   and maxima lie from the JAX package's.
+
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
 and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
@@ -2468,6 +2486,308 @@ def phase_pcv3_times(card_name, max_err, m, convs, blocks):
     return per_kernel
 
 
+# ---------------------------------------------------------------------------
+# The port's PTQ toolchain (phase 5)
+# ---------------------------------------------------------------------------
+
+BN_FIXTURE = "slim_int8_bn_416_tables.npz"
+V3_FIXTURE = "yolo_v3_int8_416_golden.npz"
+SLIM_TABLES = ("sw", "sb", "sa", "retune")
+# the launches of one served forward of each phase-5 model
+PTQ_PC_FORWARD = {"int8_conv3x3_requant": {COLS3: 6},
+                  "int8_conv3x3_im2col": {POOL_COLS3: 3, POOL_NHWC_COLS: 1}}
+PTQ_V3_FORWARD = {"int8_res_block": {"yolo_int8_res_block": 23},
+                  "int8_conv_requant": {WGMMA3: 9, S2_3: 5, ENTRY3: 1,
+                                        CONV1X1: 14}}
+PTQ_S2D_FORWARD = {"int8_conv3x3_pool_requant": {POOL_S2D: 1},
+                   "int8_conv3x3_im2col": {POOL3: 3},
+                   "int8_conv3x3_requant": {WGMMA3: 6}}
+
+
+def load_fixture(name):
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "yolo_tpu_torch" / "data"
+    with np.load(path / name) as z:
+        return {k: z[k] for k in z.files}
+
+
+def fixture_images(g, n):
+    return np.random.default_rng(int(g["image_seed"])).random(
+        (n, SIZE, SIZE, 3), dtype=np.float32)
+
+
+def timed(fn):
+    """(fn(), seconds), the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def log2_distance(v: float) -> float:
+    """How far log2(v) lies from the nearest integer."""
+    f = math.log2(v) % 1.0
+    return min(f, 1.0 - f)
+
+
+def check_slim_tables(m, g, what):
+    from yolo_tpu_torch.quant.convert import weights_sha256
+    from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES
+
+    for table in SLIM_TABLES:
+        for k, v in getattr(m, table).items():
+            if not np.array_equal(np.asarray(v), g[f"{table}.{k}"]):
+                raise AssertionError(f"{what}: {table}.{k} = {v}, the JAX "
+                                     f"package's {g[f'{table}.{k}']}")
+    names = list(QUANT_LAYER_NAMES)
+    digest = weights_sha256([m.w_q[n].cpu().numpy() for n in names],
+                            [m.b_q[n].cpu().numpy() for n in names])
+    if digest != str(g["wb_sha256"]):
+        raise AssertionError(f"{what}: int8 weights' sha256 {digest}, the "
+                             f"JAX package's {g['wb_sha256']}")
+
+
+def check_v3_tables(m, g, what):
+    from yolo_tpu_torch.quant.convert import (
+        _v3_tables_from_arrays, weights_sha256)
+
+    want = _v3_tables_from_arrays(g)
+    if m.sa_in != want["sa_in"]:
+        raise AssertionError(f"{what}: sa_in {m.sa_in}, want "
+                             f"{want['sa_in']}")
+    for field in ("tap_sa", "sb", "retune"):
+        got = [int(v) for v in getattr(m, field)]
+        bad = [i for i, (a, b) in enumerate(zip(got, want[field]))
+               if a != b]
+        if bad or len(got) != len(want[field]):
+            raise AssertionError(f"{what}: {field} differs at {bad[:8]} "
+                                 f"(port {[got[i] for i in bad[:8]]}, JAX "
+                                 f"{[want[field][i] for i in bad[:8]]})")
+    if len(m.sw) != len(want["sw"]) or not all(
+            np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(m.sw, want["sw"])):
+        raise AssertionError(f"{what}: sw differs from the JAX package's")
+    digest = weights_sha256([w.cpu().numpy() for w in m.w_q],
+                            [b.cpu().numpy() for b in m.b_q])
+    if digest != str(g["wb_sha256"]):
+        raise AssertionError(f"{what}: int8 weights' sha256 {digest}, the "
+                             f"JAX package's {g['wb_sha256']}")
+
+
+def check_head(head_q, want, what):
+    want = torch.as_tensor(want)
+    if not torch.equal(head_q.cpu(), want):
+        diff = (head_q.cpu().int() - want.int()).abs()
+        raise AssertionError(f"{what} differs: max |diff| "
+                             f"{int(diff.max())}, {int((diff > 0).sum())} "
+                             f"values")
+
+
+def check_detections(out, g):
+    boxes, scores, classes, valid = (t.cpu().numpy() for t in out)
+    np.testing.assert_array_equal(valid, g["valid"])
+    np.testing.assert_array_equal(classes, g["classes"])
+    np.testing.assert_allclose(boxes, g["boxes"], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(scores, g["scores"], atol=1e-5, rtol=1e-5)
+    return int(valid.sum())
+
+
+def served_once(detect, x, want, what):
+    """One detect call, the launch counts zeroed just before it and read
+    just after; they must be ``want``."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = detect(x)
+    torch.cuda.synchronize()
+    entries = K.launch_counts_by_entry()
+    if entries != want:
+        raise AssertionError(f"{what} launched {entries}, want {want}")
+    return out, entries
+
+
+def float_forward_ms(model, images):
+    """CUDA-event ms per image of the float model's forward (true
+    float32, no taps)."""
+    x = torch.as_tensor(images).cuda()
+    with torch.no_grad():
+        return time_ms(lambda: model(x), 5) / x.shape[0]
+
+
+def phase_ptq_slim_pc(card):
+    """5a: per-channel slim, the port's pipeline at 416² on the card."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import qsim
+    from yolo_tpu_torch.quant.convert import (
+        slim_from_params, slim_seeded_fused_params)
+    from yolo_tpu_torch.quant.int8_graph import (
+        make_int8_detect_fn, quantize_pipeline)
+
+    g = load_fixture(PC_FIXTURE)
+    cfg = get_config("slim_yolo_v2", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = fixture_images(g, g["head_q"].shape[0])
+    model = slim_from_params(slim_seeded_fused_params(
+        int(g["weight_seed"]), int(g["pred_out"])), device="cuda")
+    m, secs = timed(lambda: quantize_pipeline(model, cfg, [images],
+                                              fold_bn=False,
+                                              per_channel=True))
+    check_slim_tables(m, g, "5a per-channel slim")
+    pq = qsim.fake_quantize_params(model, per_channel=True)
+    _, calib_s = timed(lambda: qsim.calibrate(pq, cfg, [images]))
+    x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa["in"])
+    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    out, entries = served_once(detect, x_q, PTQ_PC_FORWARD, "5a served")
+    m_packed = m.to("cuda")
+    m_packed.pack_conv3x3()
+    check_head(torch.round(fp.int8_forward(m_packed, x_q)
+                           * 2.0 ** m.sa["pred"]).to(torch.int8),
+               g["head_q"], "5a head")
+    emit("ptq_slim_pc", images=len(images), pipeline_s=secs,
+         calib_ms_per_batch=1e3 * calib_s,
+         float_ms_per_image=float_forward_ms(model, images),
+         tables_equal=True, wb_sha256_equal=True, head_bit_exact=True,
+         valid_slots=check_detections(out, g), launches_by_entry=entries,
+         card=card)
+    return entries
+
+
+def phase_ptq_v3(card, fixture):
+    """5b: yolo_v3 (scalar or per-channel by the fixture), the port's
+    pipeline at 416² on the card."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.convert import yolo_v3_from_params
+    from yolo_tpu_torch.quant.generic import (
+        calibrate_generic, fake_quantize_all_convs)
+
+    g = load_fixture(fixture)
+    per_channel = "per_channel" in g and bool(g["per_channel"])
+    what = "5b per-channel v3" if per_channel else "5b v3"
+    cfg = get_config("yolo_v3", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = fixture_images(g, g["head_q_1"].shape[0])
+    recipe = (tv3.seeded_fused_params_per_channel if per_channel
+              else tv3.seeded_fused_params)
+    model = yolo_v3_from_params(recipe(int(g["weight_seed"]),
+                                       int(g["pred_out"])), device="cuda")
+    m, secs = timed(lambda: tv3.quantize_pipeline_yolo_v3(
+        model, cfg, [images], fold_bn=False, per_channel=per_channel))
+    check_v3_tables(m, g, what)
+    pq = fake_quantize_all_convs(model, per_channel=per_channel)
+    _, calib_s = timed(lambda: calibrate_generic(pq, cfg, [images]))
+    del pq
+    x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa_in)
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    out, entries = served_once(
+        detect, x_q, PCV3_FORWARD if per_channel else PTQ_V3_FORWARD,
+        f"{what} served")
+    m_packed = m.to("cuda")
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    heads = tv3.int8_yolo_v3_forward(m_packed, x_q)
+    for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
+        check_head(torch.round(head * 2.0 ** sa).to(torch.int8),
+                   g[f"head_q_{i + 1}"], f"{what} head {i + 1}")
+    emit("ptq_v3_pc" if per_channel else "ptq_v3", images=len(images),
+         pipeline_s=secs, calib_ms_per_batch=1e3 * calib_s,
+         float_ms_per_image=float_forward_ms(model, images),
+         tables_equal=True, wb_sha256_equal=True, heads_bit_exact=True,
+         valid_slots=check_detections(out, g), launches_by_entry=entries,
+         card=card)
+    return entries
+
+
+def phase_ptq_bn(card):
+    """5c: slim from BN-form params, the fold included, per tensor: the
+    port's pipeline at 416² on the card, its weight.h, the s2d path."""
+    import hashlib
+
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import qsim
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+    from yolo_tpu_torch.quant.convert import (
+        slim_from_params, slim_seeded_bn_params)
+    from yolo_tpu_torch.quant.int8_graph import (
+        make_int8_detect_fn, quantize_pipeline)
+    from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES, TRACKER_NAMES
+    from yolo_tpu_torch.quant.retune import c_header
+
+    g = load_fixture(BN_FIXTURE)
+    cfg = get_config("slim_yolo_v2", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = fixture_images(g, g["head_q"].shape[0])
+    model = slim_from_params(slim_seeded_bn_params(
+        int(g["weight_seed"]), int(g["pred_out"])), device="cuda")
+    m, secs = timed(lambda: quantize_pipeline(model, cfg, [images],
+                                              fold_bn=True))
+    # the card's float scales and maxima, for how far they lie from the
+    # JAX package's (the tables are checked below)
+    pq = qsim.fake_quantize_params(fold_batch_norm(model))
+    states, calib_s = timed(lambda: qsim.calibrate(pq, cfg, [images]))
+    _, _, maxima = qsim.quant_forward(pq, torch.as_tensor(images).cuda(),
+                                      cfg, states)
+    scale = np.asarray([float(states[n]["scale"]) for n in TRACKER_NAMES])
+    pre = np.asarray([float(maxima[n]) for n in QUANT_LAYER_NAMES])
+    drift = {"tracker_scale_max_rel": float(np.max(
+        np.abs(scale - g["tracker_scale"]) / g["tracker_scale"])),
+        "pre_max_max_rel": float(np.max(
+            np.abs(pre - g["pre_max"]) / g["pre_max"])),
+        "tracker_scale_unequal": int(np.sum(
+            scale.astype(np.float32) != g["tracker_scale"])),
+        "pre_max_unequal": int(np.sum(pre.astype(np.float32)
+                                      != g["pre_max"])),
+        "closest_sa_log2_to_integer": min(log2_distance(v) for v in scale)}
+    emit("ptq_bn_floats", **drift,
+         fixture_closest_log2_to_integer={
+             k[5:]: float(np.min(np.minimum(g[k], 1 - g[k])))
+             for k in g if k.startswith("frac_")})
+    check_slim_tables(m, g, "5c BN-fold slim")
+    header = hashlib.sha256(c_header(m).encode()).hexdigest()
+    if header != str(g["header_sha256"]):
+        raise AssertionError(f"5c weight.h sha256 {header}, the JAX "
+                             f"package's {g['header_sha256']}")
+    x2 = fp.s2d_input(fp.quantize_input(torch.as_tensor(images).cuda(),
+                                        m.sa["in"])).contiguous()
+    detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
+    out, entries = served_once(detect, x2, PTQ_S2D_FORWARD, "5c served")
+    boxes, scores = out[0], out[1]
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("5c detections are not finite")
+    m_packed = m.to("cuda")
+    m_packed.pack_conv3x3()
+    check_head(torch.round(fp.int8_forward(m_packed, x2, input_s2d=True)
+                           * 2.0 ** m.sa["pred"]).to(torch.int8),
+               g["head_q"], "5c head")
+    emit("ptq_bn", images=len(images), pipeline_s=secs,
+         calib_ms_per_batch=1e3 * calib_s,
+         float_ms_per_image=float_forward_ms(model, images),
+         fused_float_ms_per_image=float_forward_ms(fold_batch_norm(model),
+                                                   images),
+         tables_equal=True, wb_sha256_equal=True, header_sha256_equal=True,
+         head_bit_exact=True, valid_slots=int(out[3].sum()),
+         launches_by_entry=entries, card=card)
+    return entries
+
+
+def phase_ptq(card):
+    """Phase 5: the port's PTQ toolchain on the card, each model served
+    once; -> the launches of each served forward."""
+    runs = [phase_ptq_slim_pc(card)]
+    torch.cuda.empty_cache()
+    for fixture in (V3_FIXTURE, PCV3_FIXTURE):
+        runs.append(phase_ptq_v3(card, fixture))
+        torch.cuda.empty_cache()
+    runs.append(phase_ptq_bn(card))
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2510,6 +2830,9 @@ def main() -> int:
     times.update(phase_v3_times(name, max_err))
     times.update(phase_pc_layer_times(name, max_err))
     times.update(phase_pcv3_times(name, max_err, mpcv3, pcv3, blocks))
+    del mpcv3, pcv3, blocks
+    torch.cuda.empty_cache()
+    launches_ptq = phase_ptq(card)
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -2657,7 +2980,7 @@ def main() -> int:
         t = times[k]
         runs = ((launches_diag,) if k in DIAGNOSTICS_LINES
                 else (launches, launches_nhwc, launches_v3, launches_pc,
-                      launches_pcv3))
+                      launches_pcv3, *launches_ptq))
         per_run = [served.get(wrapper, {}).get(entry, 0) for served in runs]
         ran = sum(per_run)
         per_forward = max(per_run) // SERVE_ITERS

@@ -1,9 +1,11 @@
 """yolo_tpu_torch — the PyTorch / CUDA port of ``yolo_tpu``.
 
-This slice serves slim_yolo_v2 in INT8: host int8 input in the padded
-space-to-depth layout, ten fixed-point conv layers (each a hand-written
-CUDA kernel on the GPU), head decode, softmax·sigmoid scoring and
-fixed-shape greedy NMS. Module names follow ``yolo_tpu`` so each piece
+It serves slim_yolo_v2 and yolo_v3 in INT8: fixed-point conv layers
+(each a hand-written CUDA kernel on the GPU), head decode,
+softmax·sigmoid scoring and fixed-shape greedy NMS; and builds their INT8
+models with its own post-training quantization toolchain from the float
+models (BN fold, pow2 fake-quant, tracker calibration, the retune
+search, weight.h export). Module names follow ``yolo_tpu`` so each piece
 has an obvious counterpart there; public functions keep its layouts
 (NHWC activations, HWIO weights, s2d channel order ``(py, px, c)``).
 

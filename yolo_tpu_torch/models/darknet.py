@@ -1,15 +1,21 @@
-"""Darknet53 layer schedule (counterpart of ``yolo_tpu/models/darknet.py``
-and of ``cb`` in ``yolo_tpu/models/common.py``; the float backbones are
-not ported yet)."""
+"""Darknet53 (counterpart of ``yolo_tpu/models/darknet.py``, and of
+``cb`` / ``init_seq`` / ``run_seq`` in ``yolo_tpu/models/common.py``):
+Conv+BN+LeakyReLU(0.1) blocks, residual, C3 (s8, 256c), C4 (s16, 512c)
+and C5 (s32, 1024c) out. The other backbones are not ported yet."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from yolo_tpu_torch.ops import blocks
 
 Spec = Tuple[int, int, int, int, int]  # (ksize, c_in, c_out, stride, padding)
 
 # LeakyReLU slope of the darknet backbones (the heads use 0.125)
-SLOPE = 0.1
+SLOPE = blocks.BACKBONE_LEAKY_SLOPE
 
 
 def cb(ksize, c_in, c_out, stride=1, padding=0) -> Spec:
@@ -28,3 +34,55 @@ _D53_LAYERS = (
 
 def _res_specs(ch):
     return [cb(1, ch, ch // 2), cb(3, ch // 2, ch, 1, 1)]
+
+
+def conv_seq(specs: Sequence[Spec], slope: float, batch_norm: bool,
+             device, cls=nn.ModuleList) -> nn.ModuleList:
+    """One ConvBlock per spec, run in order by ``run_seq``."""
+    return cls(blocks.ConvBlock(k, ci, co, st, pad, slope, batch_norm,
+                                device) for k, ci, co, st, pad in specs)
+
+
+def run_seq(seq: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    for block in seq:
+        x = block(x)
+    return x
+
+
+class ResBlock(nn.ModuleList):
+    """A darknet residual block: its two convs (1x1 C->C/2, 3x3 C/2->C)
+    and the tapped residual add."""
+
+    def forward(self, x):
+        return blocks.residual_add(run_seq(self, x), x)
+
+
+class Darknet53(nn.Module):
+    """Children named as the JAX package's tree: ``layer_1`` ..
+    ``layer_5``, each with ``entry`` (its convs) and ``blocks`` (its
+    residual blocks). Takes and returns NCHW. Built on ``device`` (raises
+    where it names CUDA and there is none)."""
+
+    def __init__(self, batch_norm: bool = True, device="cuda"):
+        from yolo_tpu_torch.quant.fixed_point import resolve_device
+
+        super().__init__()
+        device = resolve_device(device)
+        for name, entry, ch, nblocks in _D53_LAYERS:
+            layer = nn.Module()
+            layer.entry = conv_seq(entry, SLOPE, batch_norm, device)
+            layer.blocks = nn.ModuleList(
+                conv_seq(_res_specs(ch), SLOPE, batch_norm, device, ResBlock)
+                for _ in range(nblocks))
+            self.add_module(name, layer)
+
+    def forward(self, x: torch.Tensor):
+        """-> (C3, C4, C5)."""
+        feats = []
+        for name, _, _, _ in _D53_LAYERS:
+            layer = getattr(self, name)
+            x = run_seq(layer.entry, x)
+            for block in layer.blocks:
+                x = block(x)
+            feats.append(x)
+        return feats[2], feats[3], feats[4]

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: grid flattening, decode, NMS."""
+"""Tensor ops of the port: the float conv blocks and the quantization
+tap, grid flattening, decode, NMS."""

@@ -1,1 +1,2 @@
-"""INT8 fixed-point engine of the port."""
+"""INT8 fixed-point engine of the port and the post-training quantization
+toolchain that builds its models."""

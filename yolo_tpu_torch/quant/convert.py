@@ -10,6 +10,13 @@ trip do the same for ``Int8YoloV3``, whose per-conv lists are keyed by
 conv index (a per-channel sw under ``sw.<i>``), and
 ``int8_yolo_v3_from_seed`` rebuilds either yolo_v3 golden fixture's model.
 Layouts stay the JAX package's (HWIO weights).
+
+The float models cross too: ``module_to_params`` gives a model's
+parameters as the JAX package's tree (numpy, HWIO weights, 'bn' dicts in
+the BN form), ``load_params`` loads such a tree (the one ``init_params``
+or ``fold_batch_norm`` returns there) into a model, and
+``slim_from_params`` / ``yolo_v3_from_params`` build the model in the
+tree's form and load it.
 """
 
 from __future__ import annotations
@@ -20,8 +27,11 @@ from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS
+from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS, SlimYOLOv2
+from yolo_tpu_torch.models.yolo_v3 import YOLOv3
+from yolo_tpu_torch.ops.blocks import Conv
 from yolo_tpu_torch.quant.fixed_point import (
     INT8_MAX, INT8_MIN, Int8Model, resolve_device)
 from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES
@@ -112,17 +122,49 @@ def slim_seeded_fused_params(seed: int, pred_out: int) -> dict:
     return params
 
 
-def quantize_slim_weights(fused: Mapping, per_channel: bool = False):
+def slim_seeded_bn_params(seed: int, pred_out: int) -> dict:
+    """Float slim_yolo_v2 params in the BN form {layer: {'w': HWIO, 'bn':
+    {'gamma', 'beta', 'mean', 'var'}}, 'pred': {'w', 'b'}} (the tree
+    ``init_params(batch_norm=True)`` returns), drawn from
+    ``np.random.default_rng(seed)`` layer by layer: the weights with the
+    kaiming-uniform bounds of ``blocks.init_conv``, then the BN stats as
+    the JAX package's quantization tests draw them (gamma U[0.5, 1.5),
+    beta N(0, 1), mean 0.1 N(0, 1), var U[0.5, 1.5)); pred's weights and
+    bias with nn.Conv2d's bounds."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, c_in, c_out, _ in CONV_LAYERS + (("pred", 256, pred_out,
+                                                 False),):
+        fan_in = 9 * c_in
+        bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
+        w = rng.uniform(-bound, bound, (3, 3, c_in, c_out)).astype(np.float32)
+        if name == "pred":
+            b_bound = 1.0 / math.sqrt(fan_in)
+            params[name] = {"w": w, "b": rng.uniform(
+                -b_bound, b_bound, (c_out,)).astype(np.float32)}
+            continue
+        params[name] = {"w": w, "bn": {
+            "gamma": rng.random(c_out, dtype=np.float32) + 0.5,
+            "beta": rng.standard_normal(c_out).astype(np.float32),
+            "mean": rng.standard_normal(c_out).astype(np.float32) * 0.1,
+            "var": rng.random(c_out, dtype=np.float32) + 0.5}}
+    return params
+
+
+def quantize_slim_weights(fused: Mapping, per_channel: bool = False,
+                          bitwidth: int = 8, weight_bitwidth: int = None):
     """Per layer the int8 weights, int8-valued int32 biases and their pow2
     exponents, as the JAX package's ``fixed_point.quantize_model``
-    computes them (8-bit; ``per_channel``: one weight exponent per output
+    computes them (weights at ``weight_bitwidth or bitwidth`` bits, biases
+    at ``bitwidth``; ``per_channel``: one weight exponent per output
     channel, an int32 [C_out] array) -> (w_q, b_q, sw, sb) dicts."""
     w_q, b_q, sw, sb = {}, {}, {}, {}
     for name in QUANT_LAYER_NAMES:
-        wq, sw[name] = quantize_pow2_np(fused[name]["w"], 8,
+        wq, sw[name] = quantize_pow2_np(fused[name]["w"],
+                                        weight_bitwidth or bitwidth,
                                         channel_axis=-1 if per_channel
                                         else None)
-        bq, sb[name] = quantize_pow2_np(fused[name]["b"], 8)
+        bq, sb[name] = quantize_pow2_np(fused[name]["b"], bitwidth)
         w_q[name] = np.clip(wq, INT8_MIN, INT8_MAX).astype(np.int8)
         b_q[name] = np.clip(bq, INT8_MIN, INT8_MAX).astype(np.int32)
     return w_q, b_q, sw, sb
@@ -268,3 +310,98 @@ def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
         raise ValueError("the fixture's sw / sb tables differ from the "
                          "rebuilt weights' exponents")
     return int8_yolo_v3_from_numpy(w_q, b_q, device=device, **tables)
+
+
+# ---------------------------------------------------------------------------
+# Float models <-> the JAX package's parameter trees.
+# ---------------------------------------------------------------------------
+
+_BN_KEYS = (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+            ("var", "running_var"))
+
+
+def module_to_params(model: nn.Module):
+    """The model's parameters as the JAX package's tree: a ``blocks.Conv``
+    is {'w': HWIO[, 'b'][, 'bn': {'gamma', 'beta', 'mean', 'var'}]}, a
+    ModuleList a list, any other module a dict of its children; float32
+    numpy arrays."""
+    def arr(t):
+        return t.detach().to(torch.float32).cpu().numpy()
+
+    if isinstance(model, Conv):
+        out = {"w": np.ascontiguousarray(arr(model.conv.weight)
+                                         .transpose(2, 3, 1, 0))}
+        if model.conv.bias is not None:
+            out["b"] = arr(model.conv.bias)
+        if model.bn is not None:
+            out["bn"] = {k: arr(getattr(model.bn, a)) for k, a in _BN_KEYS}
+        return out
+    if isinstance(model, nn.ModuleList):
+        return [module_to_params(m) for m in model]
+    return {name: module_to_params(m) for name, m in model.named_children()}
+
+
+def load_params(model: nn.Module, params) -> nn.Module:
+    """Copy a JAX-layout tree (numpy arrays or tensors, HWIO weights) into
+    ``model`` in place, on its device; the tree's form (a 'b' and a 'bn'
+    per conv) must be the model's. Returns ``model``."""
+    def put(dst: torch.Tensor, v, what):
+        v = torch.as_tensor(np.array(v, np.float32))
+        if tuple(v.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: shape {tuple(v.shape)}, the model's "
+                             f"is {tuple(dst.shape)}")
+        dst.copy_(v)
+
+    def visit(m, p, path):
+        if isinstance(m, Conv):
+            if set(p) - {"w", "b", "bn"} or (
+                    ("b" in p) != (m.conv.bias is not None)
+                    or ("bn" in p) != (m.bn is not None)):
+                raise ValueError(f"{path}: tree keys {sorted(p)} do not fit "
+                                 f"the model's form")
+            put(m.conv.weight, np.asarray(p["w"]).transpose(3, 2, 0, 1),
+                path + ".w")
+            if "b" in p:
+                put(m.conv.bias, p["b"], path + ".b")
+            if "bn" in p:
+                for k, a in _BN_KEYS:
+                    put(getattr(m.bn, a), p["bn"][k], f"{path}.bn.{k}")
+            return
+        children = (list(enumerate(m)) if isinstance(m, nn.ModuleList)
+                    else list(m.named_children()))
+        keys = range(len(p)) if isinstance(p, (list, tuple)) else p
+        if {k for k, _ in children} != set(keys):
+            raise ValueError(f"{path or 'model'}: children "
+                             f"{[k for k, _ in children]}, tree keys "
+                             f"{list(keys)}")
+        for k, child in children:
+            visit(child, p[k], f"{path}.{k}" if path else str(k))
+
+    with torch.no_grad():
+        visit(model, params, "")
+    return model
+
+
+def _has_bn(params) -> bool:
+    if isinstance(params, dict):
+        return "bn" in params or any(_has_bn(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return any(_has_bn(v) for v in params)
+    return False
+
+
+def slim_from_params(params, device="cuda"):
+    """A ``SlimYOLOv2`` on ``device`` in the tree's form (BN where its
+    convs have a 'bn'), loaded from a JAX-layout slim tree."""
+    model = SlimYOLOv2(int(np.shape(params["pred"]["w"])[-1]),
+                       batch_norm=_has_bn(params),
+                       device=resolve_device(device))
+    return load_params(model, params)
+
+
+def yolo_v3_from_params(params, device="cuda"):
+    """A ``YOLOv3`` on ``device`` in the tree's form, loaded from a
+    JAX-layout yolo_v3 tree (every conv with a BN, or every conv fused)."""
+    model = YOLOv3(int(np.shape(params["pred_1"]["w"])[-1]),
+                   batch_norm=_has_bn(params), device=resolve_device(device))
+    return load_params(model, params)

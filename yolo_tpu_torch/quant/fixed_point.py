@@ -150,6 +150,37 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def quantize_model(params_fused, tracker_states, retune: Dict[str, int],
+                   bitwidth: int = 8, weight_bitwidth: int = None,
+                   per_channel: bool = False, device=None) -> Int8Model:
+    """BN-fused float slim params (a ``SlimYOLOv2`` in the fused form, or
+    the JAX package's tree of it) + calibrated trackers + retune table ->
+    the integer model, with int8 HWIO weights, on ``device``: by default
+    the model's own, and for a tree the card (through ``resolve_device``,
+    which raises where there is none).
+
+    The weights quantize on the host in numpy float32, as the JAX package
+    quantizes them: at ``weight_bitwidth or bitwidth`` bits (a narrower
+    width's levels are a subset of int8), per tensor or (``per_channel``)
+    per output channel, sw then an int32 [C_out] array; biases at
+    ``bitwidth``."""
+    from yolo_tpu_torch.quant.convert import (
+        int8_model_from_numpy, module_to_params, quantize_slim_weights)
+    from yolo_tpu_torch.quant.qsim import activation_scale_exponents
+
+    if isinstance(params_fused, torch.nn.Module):
+        if device is None:
+            device = next(params_fused.parameters()).device
+        params_fused = module_to_params(params_fused)
+    w_q, b_q, sw, sb = quantize_slim_weights(
+        params_fused, per_channel=per_channel, bitwidth=bitwidth,
+        weight_bitwidth=weight_bitwidth)
+    return int8_model_from_numpy(w_q, b_q, sw, sb,
+                                 activation_scale_exponents(tracker_states),
+                                 dict(retune),
+                                 device="cuda" if device is None else device)
+
+
 # ---------------------------------------------------------------------------
 # Shared integer helpers (int32 tensors; wrap like XLA's int32).
 # ---------------------------------------------------------------------------

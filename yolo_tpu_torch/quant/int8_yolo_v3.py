@@ -19,6 +19,11 @@ blocks on K4's, on the two shift tables per block that
 ``Int8YoloV3.pack_res_blocks`` makes once, the 29 other convs on their
 kernels', on the tables that ``Int8YoloV3.pack_conv3x3s`` makes once.
 
+``quantize_pipeline_yolo_v3`` builds the model from a float ``YOLOv3``
+(BN fold, fake-quant, the generic calibration of ``quant.generic``, the
+per-conv pre-activation maxima) and ``quantize_yolo_v3`` from the fused
+weights and a calibration.
+
 Not ported here: the s2d execution forms (``s2d``, ``input_s2d``), the
 ``limit`` prefix hook, ``mesh`` sharding and yolo_v3_spp; each raises
 ``ValueError``.
@@ -39,7 +44,8 @@ from yolo_tpu_torch.models import yolo_v3 as v3
 from yolo_tpu_torch.models.darknet import SLOPE, _D53_LAYERS, _res_specs
 from yolo_tpu_torch.ops import nms
 from yolo_tpu_torch.quant import fixed_point as fp
-from yolo_tpu_torch.quant.quantize import quantize_pow2_np
+from yolo_tpu_torch.quant.qsim import retune_from_max
+from yolo_tpu_torch.quant.quantize import quantize_pow2_np, tracker_sa_np
 
 
 def _program(spp: bool = False) -> List[Tuple]:
@@ -506,12 +512,13 @@ def _seeded_fused(seed: int, pred_out: int, per_channel: bool) -> dict:
     return tree
 
 
-def quantize_weights(fused: dict, program=None, per_channel: bool = False):
+def quantize_weights(fused: dict, program=None, per_channel: bool = False,
+                     weight_bitwidth: int = None):
     """Per conv (program order) the int8 weights, int8-valued int32
     biases and their pow2 exponents, as ``quantize_yolo_v3`` computes them
-    (8-bit; per tensor, or with ``per_channel`` one weight exponent per
-    output channel, an int32 [C_out] array) -> (w_q, b_q, sw, sb) numpy
-    lists."""
+    (weights at ``weight_bitwidth or 8`` bits, biases at 8; per tensor, or
+    with ``per_channel`` one weight exponent per output channel, an int32
+    [C_out] array) -> (w_q, b_q, sw, sb) numpy lists."""
     w_q, b_q, sw, sb = [], [], [], []
     for op in program or _program():
         if op[0] != "conv":
@@ -519,7 +526,7 @@ def quantize_weights(fused: dict, program=None, per_channel: bool = False):
         layer = fused
         for p in op[1]:
             layer = layer[p]
-        wq, ws = quantize_pow2_np(layer["w"], 8,
+        wq, ws = quantize_pow2_np(layer["w"], weight_bitwidth or 8,
                                   channel_axis=-1 if per_channel else None)
         bq, bs = quantize_pow2_np(layer["b"])
         w_q.append(np.clip(wq, fp.INT8_MIN, fp.INT8_MAX).astype(np.int8))
@@ -527,3 +534,83 @@ def quantize_weights(fused: dict, program=None, per_channel: bool = False):
         sw.append(ws)
         sb.append(bs)
     return w_q, b_q, sw, sb
+
+
+# ---------------------------------------------------------------------------
+# The PTQ pipeline.
+# ---------------------------------------------------------------------------
+
+
+def quantize_yolo_v3(fused, tracker_states: List[dict],
+                     pre_maxima: List[float], spp: bool = False,
+                     acc_bits: int = 16, weight_bitwidth: int = None,
+                     per_channel: bool = False, device=None) -> Int8YoloV3:
+    """BN-fused yolo_v3 params (a fused ``YOLOv3``, or the JAX package's
+    tree of it) + the generic calibration (tracker_states index 0 the
+    input tap, the rest per tap in call order; pre_maxima per conv in call
+    order) -> the integer model on ``device``: by default the model's own,
+    and for a tree the card (through ``fp.resolve_device``, which raises
+    where there is none). The weights quantize on the host as
+    ``quantize_weights`` does; each conv's retune is the largest r with
+    max * 2^r < 2^(acc_bits-1), at most acc_bits - 2."""
+    from yolo_tpu_torch.quant.convert import (
+        int8_yolo_v3_from_numpy, module_to_params)
+
+    program = _program(spp)
+    if isinstance(fused, torch.nn.Module):
+        if device is None:
+            device = next(fused.parameters()).device
+        fused = module_to_params(fused)
+    w_q, b_q, sw, sb = quantize_weights(fused, program, per_channel,
+                                        weight_bitwidth)
+    if len(pre_maxima) != len(w_q):
+        raise ValueError(f"{len(pre_maxima)} pre-activation maxima for "
+                         f"{len(w_q)} convs")
+    retune = [retune_from_max(float(mx), acc_bits) for mx in pre_maxima]
+    return int8_yolo_v3_from_numpy(
+        w_q, b_q, sw, sb, tracker_sa_np(tracker_states[0]),
+        [tracker_sa_np(st) for st in tracker_states[1:]], retune, spp=spp,
+        device="cuda" if device is None else device)
+
+
+def quantize_pipeline_yolo_v3(model, cfg: DetectorConfig, calib_batches,
+                              spp: bool = False, max_images: int = 1000,
+                              head_clip: float = None, fold_bn: bool = True,
+                              states=None, act_percentile: float = None,
+                              weight_bitwidth: int = None,
+                              per_channel: bool = False) -> Int8YoloV3:
+    """The full yolo_v3 PTQ on the model's device: fold BN -> fake-quant
+    every conv -> generic calibration -> per-conv pre-activation maxima
+    over ``calib_batches`` -> integer model (on that device).
+
+    ``model`` is a ``YOLOv3``, in the BN form with ``fold_bn`` or already
+    fused without. ``states`` (a call-ordered tracker list) skips
+    calibration; the maxima still run. ``act_percentile`` clips every conv
+    tracker to that percentile of |act|. yolo_v3_spp is not ported
+    (``spp`` raises)."""
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+    from yolo_tpu_torch.quant.generic import (
+        as_batch, calibrate_generic, fake_quantize_all_convs, model_device,
+        quant_forward_generic)
+
+    _program(spp)  # raises for spp
+    calib_batches = list(calib_batches)
+    fused = fold_batch_norm(model) if fold_bn else model
+    params_q = fake_quantize_all_convs(fused,
+                                       weight_bitwidth=weight_bitwidth,
+                                       per_channel=per_channel)
+    if states is None:
+        states = calibrate_generic(params_q, cfg, calib_batches,
+                                   max_images=max_images,
+                                   head_clip=head_clip,
+                                   act_percentile=act_percentile)
+    dev = model_device(params_q)
+    agg = None
+    for x in calib_batches:
+        _, _, pre = quant_forward_generic(params_q, as_batch(x, dev), cfg,
+                                          states)
+        pre = torch.stack(pre).cpu().tolist()
+        agg = pre if agg is None else [max(a, b) for a, b in zip(agg, pre)]
+    return quantize_yolo_v3(fused, states, agg, spp=spp,
+                            weight_bitwidth=weight_bitwidth,
+                            per_channel=per_channel)
