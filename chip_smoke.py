@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Three paths, each with the mask config (2 classes) at 416², through
+Its paths, each with the mask config (2 classes) at 416², through
 hand-written CUDA kernels, decode, softmax·sigmoid and greedy NMS:
 slim_yolo_v2 INT8 (int8 input in the padded space-to-depth layout, ten
 fixed-point conv layers; phases 2-4), yolo_v3 INT8 (int8 NHWC input,
 75 convs: 23 fused darknet53 residual blocks and 29 general int8 convs,
-three scales; phases 2b-4b) and slim_yolo_v2 INT8 with per-channel
+three scales, the entry pair through ``int8_entry_pair_s2d``; phases
+2b-4b; on the s2d layout and as yolo_v3_spp in phase 6, served through
+``cli.serve`` with native preprocessing in phase 6d) and slim_yolo_v2
+INT8 with per-channel
 weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
 forward ``int8_forward_diagnostics``; and yolo_v3 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2d-4d), every conv on the
@@ -182,6 +185,27 @@ failure raises and the script exits nonzero:
    ms per 416² image, and for 5c how far the card's float tracker scales
    and maxima lie from the JAX package's.
 
+6. the serving entry point (phase 6): 6a the native
+   preprocessing library (``native/``, built by ``make`` on first use) in
+   use, its s2d layout byte-equal to ``s2d_input_np`` of its NHWC int8,
+   within the JAX package's tolerances of the numpy path, its ms per
+   batch of 128 camera frames; 6b yolo_v3 on the s2d serving layout
+   (``input_s2d``; the fused entry pair on the entry conv and stride-2
+   kernels after ``nhwc_from_entry_blocks``): the v3 fixture's heads
+   bit-exact, detections equal to the NHWC detect fn's, per-forward
+   launches phase 4b's, the relayout's device time and bound at batch
+   128, s2d and NHWC serving alternated (NHWC, s2d, s2d, NHWC); 6c
+   yolo_v3_spp on its fixture (``yolo_v3_spp_int8_416_golden.npz``):
+   heads bit-exact on NHWC and s2d input, detections, served at batch 128
+   (per forward v3's launches: K4 23, the fourteen 1x1s on the wgmma 1x1
+   kernel, the 4096 -> 512 one included), ``int_spp`` equal to the CPU's,
+   its pool kernels by
+   name; 6d ``cli.serve.main`` for slim_yolo_v2 and yolo_v3 (``--input
+   auto``: s2d), batch 64, 416²: end-to-end frames/sec sequential and
+   overlapped, native preprocessing in use, ``detect_frames`` equal to
+   the detect fn on the same batch and ``detect_stream`` to
+   ``detect_frames``.
+
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
 and the v3 head's nine 3x3s; its pooled form: all of K3 on the serving
@@ -196,7 +220,8 @@ its plain version and timed on the 1x1s and at conv1 on NHWC input. The
 ``kernels`` line has one entry per kernel and route: ``int8_conv_requant``
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
-and conv1's NHWC route each their own.
+and conv1's NHWC route each their own; ``launches`` also counts phase
+6's runs.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -2788,6 +2813,340 @@ def phase_ptq(card):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The serving entry point (phase 6)
+# ---------------------------------------------------------------------------
+
+SPP_FIXTURE = "yolo_v3_spp_int8_416_golden.npz"
+# the launches of one served yolo_v3_spp forward: v3's (conv_set_3's
+# first 1x1, 4096 -> 512 after the SPP block, is one of the fourteen)
+SPP_FORWARD = {"int8_res_block": {"yolo_int8_res_block": 23},
+               "int8_conv_requant": {WGMMA3: 9, S2_3: 5, ENTRY3: 1,
+                                     CONV1X1: 14}}
+SERVE_CLI_BATCH, SERVE_CLI_ITERS = 64, 20
+
+
+def synthetic_frames(n, seed=0):
+    """u8 BGR camera-sized frames, as ``cli.serve`` makes them."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+            for _ in range(n)]
+
+
+def phase_native(card):
+    """6a: the native preprocessing library built from ``native/`` and in
+    use; its s2d layout byte-equal to ``s2d_input_np`` of its NHWC int8,
+    and within the JAX package's tolerances of the numpy path."""
+    from yolo_tpu_torch.data import transforms
+    from yolo_tpu_torch.data.transforms import BaseTransform
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native preprocessing library did not "
+                             "build or load (make -C native)")
+    load_s = time.perf_counter() - t0
+    frames = synthetic_frames(8, seed=5)
+    size = (SIZE, SIZE)
+    nhwc = native.preprocess_batch(frames, size, int8_scale=16.0)
+    s2d = native.preprocess_batch(frames, size, int8_scale=16.0,
+                                  layout="s2d")
+    if not np.array_equal(s2d, fp.s2d_input_np(nhwc)):
+        raise AssertionError("native s2d differs from s2d_input_np of its "
+                             "NHWC output")
+    ref = np.stack([BaseTransform(size)(f)[0] for f in frames])
+    f32 = native.preprocess_batch(frames, size)
+    refq = np.clip(np.round(ref * 16.0), -128, 127)
+    f32_err = float(np.abs(f32 - ref).max())
+    i8_err = int(np.abs(nhwc.astype(np.int32) - refq).max())
+    if f32_err >= 0.05 or i8_err > 1:
+        raise AssertionError(f"native preprocessing off the numpy path: "
+                             f"float {f32_err}, int8 {i8_err} levels")
+    batch = synthetic_frames(V3_BATCH_SERVE, seed=6)
+    host = host_ms_once(lambda: native.preprocess_batch(
+        batch, size, int8_scale=16.0, layout="s2d"))
+    emit("native", load_or_build_s=load_s, s2d_equal=True,
+         f32_max_abs_diff=f32_err, int8_max_level_diff=i8_err,
+         cv2=transforms.cv2 is not None,
+         s2d_ms_per_batch=host, batch=V3_BATCH_SERVE, frame=[480, 640],
+         card=card)
+
+
+def host_ms_once(fn, n: int = 3) -> float:
+    """Median host ms of ``n`` calls of a host-only function."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def serve_loop(detect, x, iters=SERVE_ITERS):
+    """images/sec of ``iters`` detect calls after the warm-up, and the
+    launches by C entry of those calls."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    for _ in range(SERVE_WARMUP):
+        detect(x)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = detect(x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return x.shape[0] * iters / dt, K.launch_counts_by_entry(), out
+
+
+def per_forward(entries, n):
+    return {k: {e: c // n for e, c in v.items()} for k, v in entries.items()}
+
+
+def check_v3_forms(m, m_packed, x_q):
+    """6b: the other s2d modes ("stride2", True) on the card give the
+    plain walk's heads with its launches on each entry, and a residual
+    block cut by ``limit`` runs its convs one by one on the card and gives
+    the CPU walk's live tensors."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    K.reset_launch_counts()
+    plain = tv3.int8_yolo_v3_forward(m_packed, x_q, s2d=False)
+    plain_entries = K.launch_counts_by_entry()
+    for s2d in ("stride2", True):
+        K.reset_launch_counts()
+        got = tv3.int8_yolo_v3_forward(m_packed, x_q, s2d=s2d)
+        entries = K.launch_counts_by_entry()
+        if entries != plain_entries or not all(
+                torch.equal(a, b) for a, b in zip(got, plain)):
+            raise AssertionError(f"6b: s2d={s2d!r} differs from the plain "
+                                 f"walk (launches {entries}, plain "
+                                 f"{plain_entries})")
+    limit = 5  # the entry pair, then the first block's push, 1x1, 3x3
+    K.reset_launch_counts()
+    got = tv3.int8_yolo_v3_forward(m_packed, x_q[:1], limit=limit)
+    counts = K.launch_counts()
+    want = tv3.int8_yolo_v3_forward(m.to("cpu"), x_q[:1].cpu(),
+                                    limit=limit)
+    if (counts["int8_conv_requant"] != 4 or counts["int8_res_block"]
+            or len(got) != len(want)
+            or not all(torch.equal(a.cpu(), b) for a, b in zip(got, want))):
+        raise AssertionError(f"6b: limit={limit} differs from the CPU walk "
+                             f"(launches {counts})")
+
+
+def phase_v3_s2d(m, cfg, card, launches_v3):
+    """6b: yolo_v3 on the s2d serving layout (``input_s2d``, the fused
+    entry pair re-executed on the entry conv and stride-2 kernels) at
+    416²: the fixture's heads bit-exact, detections equal to the NHWC
+    detect fn's, per-forward launches phase 4b's, the relayout's device
+    time and s2d against NHWC serving at batch 128 (NHWC, s2d, s2d,
+    NHWC in one process)."""
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    g = load_fixture(V3_FIXTURE)
+    x_q = fp.quantize_input(torch.as_tensor(fixture_images(
+        g, g["head_q_1"].shape[0])).cuda(), m.sa_in)
+    x2 = fp.s2d_input(x_q).contiguous()
+    m_packed = m.to("cuda")
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    heads = tv3.int8_yolo_v3_forward(m_packed, x2, input_s2d=True)
+    for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
+        check_head(torch.round(head * 2.0 ** sa).to(torch.int8),
+                   g[f"head_q_{i + 1}"], f"6b v3 s2d head {i + 1}")
+    detect_s2d = tv3.make_int8_yolo_v3_detect_fn(m, cfg, input_s2d=True,
+                                                 device="cuda")
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    for a, b in zip(detect_s2d(x2), detect(x_q)):
+        if not torch.equal(a, b):
+            raise AssertionError("6b: s2d detections differ from NHWC's")
+    valid = check_detections(detect_s2d(x2), g)
+    check_v3_forms(m, m_packed, x_q)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xb = fp.quantize_input(torch.rand((V3_BATCH_SERVE, SIZE, SIZE, 3),
+                                      generator=gen, device="cuda"),
+                           m.sa_in).contiguous()
+    xb2 = fp.s2d_input(xb).contiguous()
+    relayout_ms = time_ms(lambda: fp.nhwc_from_entry_blocks(
+        fp.s2d_entry_from_input(xb2)), 10)
+    relayout_bytes = (fp.s2d_entry_from_input(xb2).numel() + xb.numel())
+    if not torch.equal(fp.nhwc_from_entry_blocks(
+            fp.s2d_entry_from_input(xb2)), xb):
+        raise AssertionError("6b: the relayout is not the NHWC images")
+    forward_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(
+        m_packed, xb2, input_s2d=True), 5)
+    ips = {"nhwc": [], "s2d": []}
+    entries = None
+    for form in ("nhwc", "s2d", "s2d", "nhwc"):
+        rate, got, _ = serve_loop(detect_s2d if form == "s2d" else detect,
+                                  xb2 if form == "s2d" else xb)
+        ips[form].append(rate)
+        if form == "s2d":
+            entries = got
+            want = per_forward(launches_v3, SERVE_ITERS)
+            if per_forward(got, SERVE_ITERS) != want:
+                raise AssertionError(f"6b: s2d serving launched "
+                                     f"{per_forward(got, SERVE_ITERS)} per "
+                                     f"forward, phase 4b {want}")
+    _, peak_bw = peaks(torch.cuda.get_device_name(0))
+    emit("v3_s2d", heads_bit_exact=True, detections_equal_nhwc=True,
+         valid_slots=valid, batch=V3_BATCH_SERVE, relayout_ms=relayout_ms,
+         relayout_bytes=relayout_bytes,
+         relayout_bound_ms=1e3 * relayout_bytes / peak_bw,
+         s2d_forward_ms=forward_ms,
+         relayout_share_of_forward=relayout_ms / forward_ms,
+         images_per_sec_s2d=ips["s2d"], images_per_sec_nhwc=ips["nhwc"],
+         launches_per_forward=per_forward(entries, SERVE_ITERS), card=card)
+    return entries
+
+
+def spp_kernels(x):
+    """The CUDA kernels one ``int_spp`` call runs, by name, as
+    ``torch.profiler`` records them (empty where it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_tpu_torch.quant import fixed_point as fp
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fp.int_spp(x)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def phase_spp(card):
+    """6c: yolo_v3_spp INT8 at 416² on its fixture: heads bit-exact (NHWC
+    and s2d input), detections, served at batch 128 with its launches
+    (the 4096 -> 512 1x1's route recorded); ``int_spp`` equal to its CPU
+    run, its device time and the kernels it runs."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.convert import int8_yolo_v3_from_seed
+
+    g = load_fixture(SPP_FIXTURE)
+    m = int8_yolo_v3_from_seed(g, device="cuda")
+    cfg = get_config("yolo_v3_spp", "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    x_q = fp.quantize_input(torch.as_tensor(fixture_images(
+        g, g["head_q_1"].shape[0])).cuda(), m.sa_in)
+    m_packed = m.to("cuda")
+    m_packed.pack_res_blocks()
+    m_packed.pack_conv3x3s()
+    for name, heads in (
+            ("nhwc", tv3.int8_yolo_v3_forward(m_packed, x_q)),
+            ("s2d", tv3.int8_yolo_v3_forward(m_packed, fp.s2d_input(x_q),
+                                             input_s2d=True))):
+        for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
+            check_head(torch.round(head * 2.0 ** sa).to(torch.int8),
+                       g[f"head_q_{i + 1}"], f"6c spp {name} head {i + 1}")
+    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, input_s2d=True,
+                                             device="cuda")
+    x2 = fp.s2d_input(x_q).contiguous()
+    out, _ = served_once(detect, x2, SPP_FORWARD, "6c spp served")
+    valid = check_detections(out, g)
+    i = [op[1] for op in m.program if op[0] == "conv"].index(
+        ("conv_set_3", 0))
+    w = m.w_q[i]
+    route = ("wgmma 1x1 (" + CONV1X1 + ")" if K.conv1x1_wgmma_route(
+        1, 1, 0, 1, (w.shape[2],), m.sw[i], c_out=w.shape[3])
+        else "mma.sync (yolo_int8_conv_requant)")
+    c5 = torch.randint(-128, 128, (V3_BATCH_SERVE, 13, 13, 1024),
+                       dtype=torch.int8, device="cuda")
+    if not torch.equal(fp.int_spp(c5).cpu(), fp.int_spp(c5.cpu())):
+        raise AssertionError("6c: int_spp on the card differs from the CPU")
+    spp_ms = time_ms(lambda: fp.int_spp(c5), 10)
+    x_mid = torch.randint(-128, 128, (V3_BATCH_SERVE, 13, 13, 4096),
+                          dtype=torch.int8, device="cuda")
+    kw = dict(sw=m.sw[i], sb=m.sb[i], sa_in=m.tap_sa[i], sa_out=m.sa_in,
+              retune=m.retune[i], leaky=True,
+              packed=m_packed.packed_weights(i))
+    conv_ms = time_ms(lambda: K.int8_conv_requant(x_mid, w, m.b_q[i], **kw),
+                      10)
+    del x_mid
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xb2 = fp.s2d_input(fp.quantize_input(
+        torch.rand((V3_BATCH_SERVE, SIZE, SIZE, 3), generator=gen,
+                   device="cuda"), m.sa_in)).contiguous()
+    forward_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(
+        m_packed, xb2, input_s2d=True), 5)
+    rate, entries, _ = serve_loop(detect, xb2)
+    if per_forward(entries, SERVE_ITERS) != SPP_FORWARD:
+        raise AssertionError(f"6c spp serving launched "
+                             f"{per_forward(entries, SERVE_ITERS)} per "
+                             f"forward, want {SPP_FORWARD}")
+    emit("v3_spp", heads_bit_exact=["nhwc", "s2d"], valid_slots=valid,
+         batch=V3_BATCH_SERVE, images_per_sec=rate,
+         launches_per_forward=per_forward(entries, SERVE_ITERS),
+         backbone_ms_per_batch=forward_ms,
+         conv_set_3_0=[int(v) for v in w.shape], conv_set_3_0_route=route,
+         conv_set_3_0_ms=conv_ms, int_spp_ms=spp_ms, int_spp_equal_cpu=True,
+         int_spp_kernels=spp_kernels(c5), card=card)
+    return entries
+
+
+def phase_serve_cli(card):
+    """6d: ``cli.serve.main`` in process for slim_yolo_v2 and yolo_v3
+    (``--input auto``: the s2d layout), batch 64, 416²: end-to-end
+    frames/sec sequential and overlapped, native preprocessing in use,
+    ``detect_frames`` equal to the detect fn on the same preprocessed
+    batch, ``detect_stream`` equal to ``detect_frames`` batch by batch.
+    -> the launches of each run."""
+    from yolo_tpu_torch.cli import serve
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    runs = []
+    for version in ("slim_yolo_v2", "yolo_v3"):
+        argv = ["-v", version, "--input_size", str(SIZE), str(SIZE),
+                "--batch", str(SERVE_CLI_BATCH), "--iters",
+                str(SERVE_CLI_ITERS)]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        entries = K.launch_counts_by_entry()
+        sd = res["detector"]
+        if sd._native is None or not sd.s2d:
+            raise AssertionError(f"6d {version}: native preprocessing "
+                                 f"{sd._native is not None}, s2d {sd.s2d}")
+        frames = synthetic_frames(SERVE_CLI_BATCH)
+        got = sd.detect_frames(frames)
+        preprocess_ms = host_ms_once(lambda: sd.preprocess(frames))
+        batch = torch.from_numpy(sd.preprocess(frames)).cuda()
+        detect_ms = time_ms(lambda: sd.detect_fn(batch), 5)
+        want = sd._postprocess(frames, sd.detect_fn(batch), None)
+        halves = [frames[:SERVE_CLI_BATCH // 2],
+                  frames[SERVE_CLI_BATCH // 2:]]
+        streamed = list(sd.detect_stream(halves))
+        for a, b in zip(got + streamed[0] + streamed[1],
+                        want + sd.detect_frames(halves[0])
+                        + sd.detect_frames(halves[1])):
+            if not all(np.array_equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f"6d {version}: served detections "
+                                     f"differ")
+        emit("serve_cli", version=version, argv=argv,
+             fps=res["fps"], fps_sequential=res["fps_sequential"],
+             overlap_gain=res["fps"] / res["fps_sequential"],
+             main_s=main_s, preprocess_ms_per_batch=preprocess_ms,
+             detect_ms_per_batch=detect_ms, native=True, s2d=True,
+             detect_frames_equal_detect_fn=True,
+             detect_stream_equal_detect_frames=True,
+             detections=int(sum(len(s) for _, s, _ in got)),
+             launches_by_entry=entries, card=card)
+        runs.append(entries)
+        del sd, res
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2833,6 +3192,16 @@ def main() -> int:
     del mpcv3, pcv3, blocks
     torch.cuda.empty_cache()
     launches_ptq = phase_ptq(card)
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    phase_native(card)
+    launches_6 = [phase_v3_s2d(m3, cfg3, card, launches_v3)]
+    del m3
+    torch.cuda.empty_cache()
+    launches_6.append(phase_spp(card))
+    torch.cuda.empty_cache()
+    launches_6 += phase_serve_cli(card)
+    emit("phase_6", seconds=time.perf_counter() - t6)
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -2983,6 +3352,9 @@ def main() -> int:
                       launches_pcv3, *launches_ptq))
         per_run = [served.get(wrapper, {}).get(entry, 0) for served in runs]
         ran = sum(per_run)
+        if k not in DIAGNOSTICS_LINES:
+            ran += sum(served.get(wrapper, {}).get(entry, 0)
+                       for served in launches_6)
         per_forward = max(per_run) // SERVE_ITERS
         kernels.append({
             "name": k, "route": "cuda", "source": source,

@@ -142,26 +142,41 @@ def test_v3_pack_conv3x3s_packs_the_stride2_convs():
 def test_v3_forward_hands_the_packed_weights_to_the_stride2_convs(
         rng, monkeypatch):
     """Each stride-2 conv gets its packed weights from
-    ``int8_yolo_v3_forward``, so the card's route packs nothing per call."""
+    ``int8_yolo_v3_forward``, so the card's route packs nothing per call:
+    on the plain walk (``s2d=False``) all five through
+    ``int8_conv_requant``; with the default fused entry pair the first
+    through ``int8_entry_pair_s2d``, which hands them on to
+    ``int8_conv_requant``."""
     m = _random_v3()
     m.pack_conv3x3s()
-    seen = []
-    plain = K.int8_conv_requant
+    seen, pairs = [], []
+    plain, plain_pair = K.int8_conv_requant, tfp.int8_entry_pair_s2d
 
     def spy(x, w_q, b_q, *, packed=None, stride=1, **kw):
         if stride == 2:
             seen.append((x.shape, packed))
         return plain(x, w_q, b_q, packed=packed, stride=stride, **kw)
 
+    def spy_pair(*args, packed=(None, None), **kw):
+        pairs.append(packed)
+        return plain_pair(*args, packed=packed, **kw)
+
     monkeypatch.setattr(K, "int8_conv_requant", spy)
+    monkeypatch.setattr(tfp, "int8_entry_pair_s2d", spy_pair)
     x = torch.tensor(rng.integers(-128, 128, (1, 32, 32, 3)).astype(np.int8))
-    tv3.int8_yolo_v3_forward(m, x)
+    tv3.int8_yolo_v3_forward(m, x, s2d=False)
     paths = [p for p, *_ in tv3.conv_specs(21)]
     want = [m.conv_packed[i] for i in sorted(m.conv_packed)
             if paths[i][0] == "backbone"]
     assert [s[-1] for s, _ in seen] == [32, 64, 128, 256, 512]
     assert [s[1] for s, _ in seen] == [32, 16, 8, 4, 2]
     assert all(p is q for (_, p), q in zip(seen, want))
+    assert pairs == []
+    seen.clear()
+    tv3.int8_yolo_v3_forward(m, x)
+    assert [s[-1] for s, _ in seen] == [32, 64, 128, 256, 512]
+    assert all(p is q for (_, p), q in zip(seen, want))
+    assert len(pairs) == 1 and pairs[0][1] is want[0]
 
 
 def test_cpu_v3_detect_fn_packs_nothing(rng):

@@ -319,19 +319,32 @@ def test_v3_pack_conv3x3s_packs_the_entry_conv():
 def test_v3_forward_hands_the_packed_weights_to_the_entry_conv(
         rng, monkeypatch):
     """The entry conv gets its packed weights from ``int8_yolo_v3_forward``
-    (no other conv gets the entry form)."""
+    (no other conv gets the entry form): through ``int8_conv_requant`` on
+    the plain walk (``s2d=False``), through ``int8_entry_pair_s2d``, which
+    hands them on to ``int8_conv_requant``, with the default fused entry
+    pair."""
     m = _random_v3()
     m.pack_conv3x3s()
-    seen = []
-    plain = K.int8_conv_requant
+    seen, pairs = [], []
+    plain, plain_pair = K.int8_conv_requant, tfp.int8_entry_pair_s2d
 
     def spy(x, w_q, b_q, *, packed=None, **kw):
         seen.append((x.shape[-1] if torch.is_tensor(x) else None, packed))
         return plain(x, w_q, b_q, packed=packed, **kw)
 
+    def spy_pair(*args, packed=(None, None), **kw):
+        pairs.append(packed)
+        return plain_pair(*args, packed=packed, **kw)
+
     monkeypatch.setattr(K, "int8_conv_requant", spy)
+    monkeypatch.setattr(tfp, "int8_entry_pair_s2d", spy_pair)
     x = torch.tensor(rng.integers(-128, 128, (1, 32, 32, 3)).astype(np.int8))
+    tv3.int8_yolo_v3_forward(m, x, s2d=False)
+    assert seen[0] == (3, m.entry_packed[0])
+    assert all(p is not m.entry_packed[0] for _, p in seen[1:])
+    seen.clear()
     tv3.int8_yolo_v3_forward(m, x)
+    assert len(pairs) == 1 and pairs[0][0] is m.entry_packed[0]
     assert seen[0] == (3, m.entry_packed[0])
     assert all(p is not m.entry_packed[0] for _, p in seen[1:])
 

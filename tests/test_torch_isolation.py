@@ -28,7 +28,9 @@ def test_package_imports_without_jax_or_yolo_tpu():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 21
+    # 35: the serving entry point's packages (cli, data, serving, utils)
+    # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp)
+    assert int(out.stdout.strip()) >= 35
 
 
 def test_chip_smoke_imports_nothing_of_jax():

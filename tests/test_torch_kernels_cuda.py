@@ -1904,3 +1904,106 @@ def test_cuda_per_channel_v3_detect_fn_serves(cuda):
                                        atol=1e-5, rtol=1e-5)
         else:
             assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# yolo_v3's serving forms on the card: the s2d execution forms and the
+# ``limit`` hook, scalar and per-channel.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def v3_fixtures():
+    """{kind: (the CPU model, the CUDA model, packed)} for the scalar and
+    per-channel yolo_v3 fixtures (weights rebuilt from their seeds), and
+    int8 input [2, 64, 64, 3] at each one's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from pathlib import Path
+
+    from yolo_tpu_torch.quant.convert import int8_yolo_v3_from_seed
+
+    data = Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "data"
+    images = torch.tensor(np.random.default_rng(4).random(
+        (2, 64, 64, 3), dtype=np.float32))
+    out = {}
+    for kind, name in (("scalar", "yolo_v3_int8_416_golden.npz"),
+                       ("per_channel", "yolo_v3_int8_pc_416_golden.npz")):
+        with np.load(data / name) as z:
+            m = int8_yolo_v3_from_seed({k: z[k] for k in z.files},
+                                       device="cpu")
+        m_dev = m.to(torch.device("cuda"))
+        m_dev.pack_res_blocks()
+        m_dev.pack_conv3x3s()
+        out[kind] = (m, m_dev, tfp.quantize_input(images, m.sa_in))
+    return out
+
+
+def _equal_lists(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["scalar", "per_channel"])
+@pytest.mark.parametrize("s2d", ["entry", "stride2", True])
+def test_cuda_v3_s2d_forms_equal_the_plain_walk(v3_fixtures, s2d, kind):
+    """The v3 forward on the card in each s2d mode: heads equal to the same
+    call with s2d=False on the card and to the CPU walk in that mode, with
+    the plain walk's launches on each entry (the forms run the kernels of
+    the convs they re-execute); scalar also on the s2d serving layout."""
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    m, m_dev, x_q = v3_fixtures[kind]
+    want = tv3.int8_yolo_v3_forward(m, x_q, s2d=s2d)
+    K.reset_launch_counts()
+    plain = tv3.int8_yolo_v3_forward(m_dev, x_q.cuda(), s2d=False)
+    plain_counts = K.launch_counts_by_entry()
+    K.reset_launch_counts()
+    got = tv3.int8_yolo_v3_forward(m_dev, x_q.cuda(), s2d=s2d)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == plain_counts
+    _equal_lists(got, want)
+    _equal_lists(plain, want)
+    if kind == "scalar":
+        got = tv3.int8_yolo_v3_forward(m_dev, tfp.s2d_input(x_q.cuda()),
+                                       s2d=s2d, input_s2d=True)
+        _equal_lists(got, want)
+
+
+# program ops of yolo_v3: 0-1 the entry pair, 2-5 the first residual
+# block (push, 1x1, 3x3, res), 78-81 a residual block of layer_4, 109 the
+# c4 concat
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["scalar", "per_channel"])
+@pytest.mark.parametrize("limit,s2d", [
+    (1, False), (1, "entry"), (4, False), (5, "entry"), (5, True),
+    (80, False), (110, "entry")])
+def test_cuda_v3_limit_equals_the_cpu_walk(v3_fixtures, limit, s2d, kind):
+    """``limit`` on the card: the live int8 tensors, list for list, equal
+    to the CPU walk's. 4, 5 and 80 cut a residual block, whose convs run
+    one by one on int8_conv_requant's kernels (per-channel: on tables made
+    per call); every whole block before the cut on K4."""
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+
+    m, m_dev, x_q = v3_fixtures[kind]
+    prog = m.program
+    assert [op[0] for op in prog[78:82]] == ["push", "conv", "conv", "res"]
+    blocks = convs = i = 0
+    while i < limit:
+        if prog[i][0] == "push" and i + 4 <= limit:
+            blocks, i = blocks + 1, i + 4
+            continue
+        convs += prog[i][0] == "conv"
+        i += 1
+    if limit == 1 and s2d and kind == "scalar":
+        convs = 2  # the fused entry pair does not look at limit
+    want = tv3.int8_yolo_v3_forward(m, x_q, s2d=s2d, limit=limit)
+    K.reset_launch_counts()
+    got = tv3.int8_yolo_v3_forward(m_dev, x_q.cuda(), s2d=s2d, limit=limit)
+    torch.cuda.synchronize()
+    _equal_lists(got, want)
+    counts = K.launch_counts()
+    assert counts.get("int8_res_block", 0) == blocks
+    assert counts.get("int8_conv_requant", 0) == convs

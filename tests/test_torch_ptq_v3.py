@@ -471,10 +471,16 @@ def test_builders_without_device_need_cuda(runs, build):
 
 
 def test_spp_is_not_ported():
-    with pytest.raises(ValueError, match="spp"):
-        tv3.quantize_pipeline_yolo_v3(
-            YOLOv3(PRED_OUT, batch_norm=False, device="cpu"), cfgs()[1], calib_batches(),
-            spp=True, fold_bn=False)
+    """yolo_v3_spp is ported (its tables: ``test_spp_pipeline_equal``);
+    what no pipeline takes is a model that is not the one ``spp`` names:
+    a YOLOv3 with spp=True, a YOLOv3SPP without, each refused by name."""
+    from yolo_tpu_torch.models.yolo_v3_spp import YOLOv3SPP
+
+    for model, spp in ((YOLOv3, True), (YOLOv3SPP, False)):
+        with pytest.raises(ValueError, match=f"spp={spp}.*{model.__name__}"):
+            tv3.quantize_pipeline_yolo_v3(
+                model(PRED_OUT, batch_norm=False, device="cpu"), cfgs()[1],
+                calib_batches(), spp=spp, fold_bn=False)
 
 
 def test_module_tree_round_trip(runs):

@@ -140,6 +140,13 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
     return F.max_pool2d(x, window, stride, padding)
 
 
+def spp(x: torch.Tensor) -> torch.Tensor:
+    """Spatial pyramid pooling, NCHW: concat [x, mp5(x), mp9(x), mp13(x)]
+    on C (stride 1, -inf padding; reference utils/modules.py:59-72)."""
+    return torch.cat([x, max_pool(x, 5, 1, 2), max_pool(x, 9, 1, 4),
+                      max_pool(x, 13, 1, 6)], dim=1)
+
+
 # Active quantization tap (see quantization_context), read at call time.
 _QUANT_TAP = None
 

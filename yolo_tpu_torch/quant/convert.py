@@ -31,6 +31,7 @@ from torch import nn
 
 from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS, SlimYOLOv2
 from yolo_tpu_torch.models.yolo_v3 import YOLOv3
+from yolo_tpu_torch.models.yolo_v3_spp import YOLOv3SPP
 from yolo_tpu_torch.ops.blocks import Conv
 from yolo_tpu_torch.quant.fixed_point import (
     INT8_MAX, INT8_MIN, Int8Model, resolve_device)
@@ -282,9 +283,10 @@ def weights_sha256(w_q: Sequence, b_q: Sequence) -> str:
 
 
 def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
-    """A yolo_v3 golden fixture's model: int8 weights rebuilt from the
-    seed it names (``seeded_fused_params``, or where its 'per_channel'
-    flag is set ``seeded_fused_params_per_channel`` with per-channel
+    """A yolo_v3 (or, where its 'spp' flag is set, yolo_v3_spp) golden
+    fixture's model: int8 weights rebuilt from the seed it names
+    (``seeded_fused_params``, or where its 'per_channel' flag is set
+    ``seeded_fused_params_per_channel`` with per-channel
     ``quantize_weights``), checked against its ``wb_sha256``, with its
     calibrated tables, whose sw / sb must be the rebuilt weights'
     exponents."""
@@ -293,9 +295,10 @@ def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
         seeded_fused_params_per_channel)
 
     per_channel = "per_channel" in arrays and bool(arrays["per_channel"])
-    recipe = (seeded_fused_params_per_channel if per_channel
-              else seeded_fused_params)
-    fused = recipe(int(arrays["weight_seed"]), int(arrays["pred_out"]))
+    seed, pred_out = int(arrays["weight_seed"]), int(arrays["pred_out"])
+    fused = (seeded_fused_params_per_channel(seed, pred_out) if per_channel
+             else seeded_fused_params(seed, pred_out,
+                                      spp=bool(arrays["spp"])))
     w_q, b_q, sw, sb = quantize_weights(fused, per_channel=per_channel)
     digest = weights_sha256(w_q, b_q)
     if digest != str(arrays["wb_sha256"]):
@@ -401,7 +404,11 @@ def slim_from_params(params, device="cuda"):
 
 def yolo_v3_from_params(params, device="cuda"):
     """A ``YOLOv3`` on ``device`` in the tree's form, loaded from a
-    JAX-layout yolo_v3 tree (every conv with a BN, or every conv fused)."""
-    model = YOLOv3(int(np.shape(params["pred_1"]["w"])[-1]),
-                   batch_norm=_has_bn(params), device=resolve_device(device))
+    JAX-layout yolo_v3 tree (every conv with a BN, or every conv fused);
+    a ``YOLOv3SPP`` where conv_set_3's first conv takes 4096 channels (the
+    yolo_v3_spp tree)."""
+    spp = np.shape(params["conv_set_3"][0]["w"])[2] == 4096
+    model = (YOLOv3SPP if spp else YOLOv3)(
+        int(np.shape(params["pred_1"]["w"])[-1]), batch_norm=_has_bn(params),
+        device=resolve_device(device))
     return load_params(model, params)

@@ -430,6 +430,151 @@ def int_upsample2x_ac(x_q: torch.Tensor,
     return torch.clamp(r, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+# ---------------------------------------------------------------------------
+# Space-to-depth execution forms (yolo_v3's stride-2 structure) and the SPP
+# pools.
+#
+# The JAX package runs these as 2x2 block convs over phase-packed layouts:
+# bit-exact re-executions of the plain convs that put small-C_in convs on
+# the TPU's MXU. The port runs the plain convs they re-execute, on every
+# device: on the card their kernels (the stride-2 form of the wgmma conv3x3
+# already splits even and odd columns in shared memory), on a CPU tensor
+# their exact plain versions. The same products summed exactly and the same
+# requant chain give the same integers.
+# ---------------------------------------------------------------------------
+
+
+def _no_route(what: str, x: torch.Tensor):
+    return ValueError(f"{what}: no CUDA kernel route takes these shapes "
+                      f"({tuple(x.shape)}); the port never runs it on the "
+                      f"CPU for a CUDA tensor")
+
+
+def int8_conv_stride2_s2d(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
+                          leaky=True, rounding: str = "nearest",
+                          packed=None, shifts=None) -> torch.Tensor:
+    """3x3 stride-2 pad-1 int8 conv: ``int_conv_requant(stride=2,
+    padding=1)``, which the JAX package's block-conv form re-executes.
+
+    On a CUDA tensor that is the stride-2 form of the wgmma conv3x3 kernel
+    (``conv3x3_s2_wgmma_route``, C_in % 32 == 0; ``packed`` and ``shifts``
+    as ``int_conv_requant`` takes them); other shapes raise."""
+    from yolo_tpu_torch.kernels.int8_conv import (
+        conv3x3_s2_wgmma_route, int8_conv_requant, route)
+
+    b, h, w, c = x_q.shape
+    if h % 2 or w % 2:
+        raise ValueError("stride-2 s2d conv requires even H, W")
+    if route(x_q) == "cuda" and not conv3x3_s2_wgmma_route(
+            3, 2, 1, 1, c, sw, c_out=b_q.shape[0]):
+        raise _no_route("int8_conv_stride2_s2d", x_q)
+    return int8_conv_requant(
+        x_q, w_q, b_q, sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
+        retune=retune, padding=1, stride=2, leaky=leaky, rounding=rounding,
+        packed=packed, shifts=shifts)
+
+
+def s2d_entry_from_input(x2: torch.Tensor) -> torch.Tensor:
+    """Serving s2d layout [B,H/2+3,W/2+3,4C] (``s2d_input`` / native
+    layout='s2d') -> the odd-aligned entry-pair layout [B,H/2+1,W/2+1,4C]
+    that ``int8_entry_pair_s2d`` takes with ``pre_s2d``: the input padded
+    by 1, each 2x2 block packed on C in (py, px, c) order.
+
+    Serving block k holds original rows (2k-3, 2k-2) (pad 3), the
+    odd-aligned block m rows (2m-1, 2m) (pad 1): the same content at
+    k = m+1, and the pad-3 zeros cover the pad-1 zeros, so the slice
+    [1:-1] converts losslessly (a view: no copy)."""
+    return x2[:, 1:-1, 1:-1, :]
+
+
+def nhwc_from_entry_blocks(x2: torch.Tensor) -> torch.Tensor:
+    """The odd-aligned block layout [B, H/2+1, W/2+1, 4C] back to the NHWC
+    image [B, H, W, C] it holds: an exact index permutation, one copy.
+
+    Block m holds rows (2m-1, 2m) at phase py = 0, 1, so image row
+    r = 2k + q sits in block k + q at phase 1 - q (columns alike). That is
+    one strided view of ``x2`` (strides of k and q: a block's and a block's
+    less a phase's; offset: phase (1, 1) of block 0), made contiguous."""
+    b, hb, wb, c4 = x2.shape
+    c = c4 // 4
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
+    s_b, s_m, s_n, _ = x2.stride()
+    h, w = 2 * (hb - 1), 2 * (wb - 1)
+    view = x2.as_strided((b, h // 2, 2, w // 2, 2, c),
+                         (s_b, s_m, s_m - 2 * c, s_n, s_n - c, 1),
+                         x2.storage_offset() + 3 * c)
+    return view.contiguous().view(b, h, w, c)
+
+
+def int8_entry_pair_s2d(x_q, w1, b1, p1: dict, w2, b2, p2: dict,
+                        rounding: str = "nearest", pre_s2d: bool = False,
+                        leaky=(True, True), packed=(None, None),
+                        shifts=(None, None)) -> torch.Tensor:
+    """The darknet entry, conv1 (3x3 s1 p1 leaky) then conv2 (3x3 s2 p1
+    leaky): the sequential ``int_conv_requant`` pair, which the JAX
+    package's fused block-conv form re-executes. ``p1``/``p2`` carry each
+    conv's requant parameters (sw, sb, sa_in, sa_out, retune).
+
+    The two give the same integers: conv1's phase-packed intermediate there
+    holds exactly the requantized values of conv1's output here, and the
+    zero block pad conv2 reads there is conv2's zero padding here.
+
+    On a CUDA tensor conv1 runs on the entry conv kernel
+    (``entry_conv3x3_route``, C_in <= 3), conv2 on the stride-2 form of the
+    wgmma conv3x3 (``conv3x3_s2_wgmma_route``), each with its ``packed``
+    weights and ``shifts`` tables; other shapes raise.
+
+    ``pre_s2d``: ``x_q`` is the odd-aligned block layout
+    [B, H/2+1, W/2+1, 4*C] (``s2d_entry_from_input`` of the serving
+    layout), which ``nhwc_from_entry_blocks`` first turns back into NHWC
+    (an exact permutation, one copy)."""
+    from yolo_tpu_torch.kernels.int8_conv import (
+        conv3x3_s2_wgmma_route, entry_conv3x3_route, int8_conv_requant,
+        route)
+
+    x = nhwc_from_entry_blocks(x_q) if pre_s2d else x_q
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError("entry pair requires even H, W")
+    c_in, c_mid, c_out = x.shape[-1], b1.shape[0], b2.shape[0]
+    if route(x) == "cuda" and not (
+            entry_conv3x3_route(3, 1, 1, 1, c_in, c_mid, p1["sw"])
+            and conv3x3_s2_wgmma_route(3, 2, 1, 1, c_mid, p2["sw"],
+                                       c_out=c_out)):
+        raise _no_route("int8_entry_pair_s2d", x)
+    y = int8_conv_requant(x, w1, b1, padding=1, stride=1, leaky=leaky[0],
+                          rounding=rounding, packed=packed[0],
+                          shifts=shifts[0], **p1)
+    return int8_conv_requant(y, w2, b2, padding=1, stride=2, leaky=leaky[1],
+                             rounding=rounding, packed=packed[1],
+                             shifts=shifts[1], **p2)
+
+
+def int_maxpool(x_q: torch.Tensor, window: int = 2, stride: int = 2,
+                padding: int = 0) -> torch.Tensor:
+    """int8 max pool, NHWC; padding uses INT8_MIN (torch -inf semantics).
+    No Pallas kernel in the JAX package (XLA's reduce_window): here two
+    int8 max reductions over unfolded windows, rows then columns (the max
+    over a window is the max over its rows' maxima), on any device."""
+    if padding:
+        x_q = torch.nn.functional.pad(
+            x_q, (0, 0, padding, padding, padding, padding), value=INT8_MIN)
+    rows = x_q.unfold(1, window, stride).amax(-1)
+    return rows.unfold(2, window, stride).amax(-1)
+
+
+def int_spp(x_q: torch.Tensor) -> torch.Tensor:
+    """int8 SPP: concat [x, mp5, mp9, mp13] on C (reference
+    utils/modules.py:59-72). Max pools preserve the scale, so the concat is
+    single-scale. mp9 runs as mp5 of mp5 and mp13 as mp5 of mp9: at stride
+    1 with INT8_MIN padding a 5-window of 5-window maxima is the max over
+    the 9-window they cover (clipped to the image alike), so the values are
+    the three pools' own."""
+    mp5 = int_maxpool(x_q, 5, 1, 2)
+    mp9 = int_maxpool(mp5, 5, 1, 2)
+    return torch.cat([x_q, mp5, mp9, int_maxpool(mp9, 5, 1, 2)], dim=-1)
+
+
 def _forward(m: Int8Model, x_q: torch.Tensor, rounding: str,
              input_s2d: bool, counts: Optional[torch.Tensor] = None):
     """``int8_forward``'s walk; with ``counts`` (int32 [10]) each layer's

@@ -1,6 +1,6 @@
-"""True-integer INT8 yolo_v3 (counterpart of
+"""True-integer INT8 yolo_v3 / yolo_v3_spp (counterpart of
 ``yolo_tpu/quant/int8_yolo_v3.py``): the layer program, the integer model,
-its forward on the plain integer walk and the end-to-end detect fn.
+its forward on the integer walk and the end-to-end detect fn.
 
 The forward walks the same program as the JAX package. Every ``push,
 conv 1x1, conv 3x3, res`` group (the 23 darknet53 residual blocks) runs as
@@ -8,25 +8,35 @@ one fused residual-block kernel (``int8_res_block``, K4), every other conv
 through ``int8_conv_requant``: the head's nine stride-1 3x3s on the wgmma
 conv3x3 kernel, the five stride-2 3x3s on its stride-2 form, the C_in = 3
 entry conv on the entry conv kernel, the fourteen 1x1s (nine 1x1s, the
-two two-part concat convs, the three preds) on the wgmma 1x1 kernel; each
-``up`` runs in ``int_upsample2x_ac``. On a CPU tensor the same wrappers run
-their exact plain versions.
+two two-part concat convs, the three preds; in yolo_v3_spp the first
+takes the ``spp`` op's 4096 channels) on the wgmma 1x1 kernel; each
+``up`` runs in ``int_upsample2x_ac``, ``spp`` in ``int_spp``. On a CPU
+tensor the same wrappers run their exact plain versions.
+
+The space-to-depth execution forms of the JAX package (``s2d``: the fused
+entry pair by default, the stride-2 convs with "stride2"; ``input_s2d``:
+the padded s2d serving layout) are block-conv re-executions of plain
+convs. The port runs those convs (``fixed_point.int8_entry_pair_s2d``,
+``int8_conv_stride2_s2d``; the s2d serving layout turned back into NHWC
+first): the same integers, and on the card the same launches as the plain
+walk. ``limit`` stops after
+that many program ops and returns the live int8 tensors, as the JAX
+package's prefix hook does.
 
 Per-channel weight scales (``quantize_pipeline_yolo_v3(per_channel=True)``
-of the JAX package: each conv's sw an int32 [C_out] array) run the same
-walk, on the card on the per-column forms of the kernels: the 23 residual
-blocks on K4's, on the two shift tables per block that
-``Int8YoloV3.pack_res_blocks`` makes once, the 29 other convs on their
-kernels', on the tables that ``Int8YoloV3.pack_conv3x3s`` makes once.
+of the JAX package: each conv's sw an int32 [C_out] array) run the plain
+walk (``s2d=False``; ``input_s2d`` raises), on the card on the per-column
+forms of the kernels: the 23 residual blocks on K4's, on the two shift
+tables per block that ``Int8YoloV3.pack_res_blocks`` makes once, the 29
+other convs on their kernels', on the tables that
+``Int8YoloV3.pack_conv3x3s`` makes once.
 
-``quantize_pipeline_yolo_v3`` builds the model from a float ``YOLOv3``
-(BN fold, fake-quant, the generic calibration of ``quant.generic``, the
-per-conv pre-activation maxima) and ``quantize_yolo_v3`` from the fused
-weights and a calibration.
+``quantize_pipeline_yolo_v3`` builds the model from a float ``YOLOv3`` or
+``YOLOv3SPP`` (BN fold, fake-quant, the generic calibration of
+``quant.generic``, the per-conv pre-activation maxima) and
+``quantize_yolo_v3`` from the fused weights and a calibration.
 
-Not ported here: the s2d execution forms (``s2d``, ``input_s2d``), the
-``limit`` prefix hook, ``mesh`` sharding and yolo_v3_spp; each raises
-``ValueError``.
+Not ported here: ``mesh`` sharding (``ValueError``).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from yolo_tpu_torch.config import DetectorConfig
 from yolo_tpu_torch.detector import predict
 from yolo_tpu_torch.models import yolo_v3 as v3
+from yolo_tpu_torch.models import yolo_v3_spp as v3spp
 from yolo_tpu_torch.models.darknet import SLOPE, _D53_LAYERS, _res_specs
 from yolo_tpu_torch.ops import nms
 from yolo_tpu_torch.quant import fixed_point as fp
@@ -50,11 +61,10 @@ from yolo_tpu_torch.quant.quantize import quantize_pow2_np, tracker_sa_np
 
 def _program(spp: bool = False) -> List[Tuple]:
     """Ops: ('conv', path, stride, padding, leaky) | ('push',) | ('res',)
-    | ('save', name) | ('load', name) | ('up',) | ('concat', left_name),
-    in the call order of the float forward. Backbone convs use the darknet
-    slope 0.1, head convs 0.125 (leaky=True)."""
-    if spp:
-        raise ValueError("yolo_v3_spp (int_spp) is not ported yet")
+    | ('save', name) | ('load', name) | ('spp',) | ('up',) |
+    ('concat', left_name), in the call order of the float forward.
+    Backbone convs use the darknet slope 0.1, head convs 0.125
+    (leaky=True)."""
     ops: List[Tuple] = []
     feat_names = {"layer_3": "c3", "layer_4": "c4", "layer_5": "c5"}
     for name, entry, ch, nblocks in _D53_LAYERS:
@@ -74,7 +84,9 @@ def _program(spp: bool = False) -> List[Tuple]:
         for j, (ks, ci, co, st, pad) in enumerate(specs):
             ops.append(("conv", (prefix, j), st, pad, True))
 
-    seq("conv_set_3", v3.CONV_SET_3)
+    if spp:
+        ops.append(("spp",))
+    seq("conv_set_3", v3spp.CONV_SET_3_SPP if spp else v3.CONV_SET_3)
     ops.append(("save", "fmp3"))
     ops.append(("conv", ("conv_1x1_3",), 1, 0, True))
     ops.append(("up",))
@@ -100,7 +112,8 @@ def _program(spp: bool = False) -> List[Tuple]:
     return ops
 
 
-def conv_specs(pred_out: int) -> List[Tuple[Tuple, int, int, int]]:
+def conv_specs(pred_out: int,
+               spp: bool = False) -> List[Tuple[Tuple, int, int, int]]:
     """(path, ksize, c_in, c_out) of every conv, in program order;
     ``pred_out`` = anchors_per_scale * (1 + 4 + num_classes)."""
     spec = {}
@@ -110,7 +123,8 @@ def conv_specs(pred_out: int) -> List[Tuple[Tuple, int, int, int]]:
         for k in range(nblocks):
             for j, s in enumerate(_res_specs(ch)):
                 spec[("backbone", name, "blocks", k, j)] = s
-    for prefix, specs in (("conv_set_3", v3.CONV_SET_3),
+    for prefix, specs in (("conv_set_3", v3spp.CONV_SET_3_SPP if spp
+                           else v3.CONV_SET_3),
                           ("conv_set_2", v3.CONV_SET_2),
                           ("conv_set_1", v3.CONV_SET_1)):
         for j, s in enumerate(specs):
@@ -122,7 +136,7 @@ def conv_specs(pred_out: int) -> List[Tuple[Tuple, int, int, int]]:
     for i, c_in in ((3, 1024), (2, 512), (1, 256)):
         spec[(f"pred_{i}",)] = (1, c_in, pred_out, 1, 0)
     return [(op[1], spec[op[1]][0], spec[op[1]][1], spec[op[1]][2])
-            for op in _program() if op[0] == "conv"]
+            for op in _program(spp) if op[0] == "conv"]
 
 
 @dataclass
@@ -290,19 +304,16 @@ class Int8YoloV3:
                 slots[op[1]] = stream
             elif op[0] == "load":
                 stream = slots[op[1]]
+            elif op[0] == "spp":
+                stream = (4 * stream[0], stream[1])
             parts = (slots[op[1]], stream) if op[0] == "concat" else None
             i += 1
 
 
-def _check_unported(s2d=False, limit=None, input_s2d=False, mesh=None):
-    for name, value, default in (("s2d", s2d, False), ("limit", limit, None),
-                                 ("input_s2d", input_s2d, False),
-                                 ("mesh", mesh, None)):
-        if value is not default and value != default:
-            raise ValueError(
-                f"{name}={value!r} is not ported yet: the port runs the "
-                f"plain integer walk (s2d=False, input_s2d=False, "
-                f"limit=None, mesh=None)")
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        raise ValueError(f"mesh={mesh!r} is not ported yet: the port serves "
+                         f"one card (mesh=None)")
 
 
 def _res_blocks(m: Int8YoloV3):
@@ -345,25 +356,64 @@ def _check_res_block(m: Int8YoloV3, i: int, conv_i: int) -> None:
                          f"block: {ops}")
 
 
+def _check_entry_pair(m: Int8YoloV3) -> None:
+    """``input_s2d`` needs the darknet conv1 + conv2 entry pair (every
+    v3-family program has it)."""
+    p0, p1 = m.program[0], m.program[1]
+    if not (p0[0] == "conv" and p0[2] == 1 and p0[3] == 1 and p0[4]
+            and p1[0] == "conv" and p1[2] == 2 and p1[3] == 1 and p1[4]):
+        raise ValueError("input_s2d requires the darknet conv1+conv2 entry "
+                         "pair")
+
+
 def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
-                         rounding: str = "nearest", s2d=False,
+                         rounding: str = "nearest", s2d="entry",
                          limit: int = None, input_s2d: bool = False):
-    """int8 input [B, H, W, 3] at scale 2^sa_in -> [pred_1, pred_2,
-    pred_3] float heads (strides 8, 16, 32). A per-channel sw runs on the
-    shift tables of ``m.shift_tables`` where ``pack_res_blocks`` and
-    ``pack_conv3x3s`` made them (else the wrappers make them per call)."""
+    """int8 input [B, H, W, 3] at scale 2^sa_in (with ``input_s2d`` the
+    padded s2d serving layout [B, H/2+3, W/2+3, 12]) -> [pred_1, pred_2,
+    pred_3] float heads (strides 8, 16, 32).
+
+    ``s2d``: "entry" (the default; the darknet conv1 + conv2 pair through
+    ``int8_entry_pair_s2d``), "stride2" (every other stride-2 3x3 through
+    ``int8_conv_stride2_s2d``), True (both) or False (the plain walk), as
+    in the JAX package; bit-exact, and on the card the same kernels and
+    launches. A per-channel sw runs the plain walk whatever ``s2d`` says,
+    and refuses ``input_s2d``, as the JAX detect fn does.
+
+    ``limit``: stop after the first ``limit`` program ops and return the
+    live int8 tensors (stream, slots, residual stack; concat parts
+    flattened), the JAX package's prefix hook. A residual block cut by
+    ``limit`` runs its convs one by one (K4 computes whole blocks only).
+    As in the JAX package the fused entry pair does not look at ``limit``:
+    ``limit=1`` returns conv2's output there, conv1's under ``s2d=False``.
+
+    A per-channel sw runs on the shift tables of ``m.shift_tables`` where
+    ``pack_res_blocks`` and ``pack_conv3x3s`` made them (else the wrappers
+    make them per call)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_res_block
 
-    _check_unported(s2d=s2d, limit=limit, input_s2d=input_s2d)
+    if m.per_channel:
+        if input_s2d:
+            raise ValueError(
+                "per-channel weight scales run on the plain conv path "
+                "only; rebuild the detect fn without input_s2d")
+        s2d = False
+    s2d_entry = s2d in (True, "entry") or input_s2d
+    s2d_stride2 = s2d in (True, "stride2")
+    if input_s2d:
+        _check_entry_pair(m)
+        x_q = fp.s2d_entry_from_input(x_q)
     tables = (m.shift_tables or {}).get(rounding, {})
     stream = (x_q, m.sa_in)     # (int8 tensor or parts list, scale)
     slots: Dict[str, Tuple] = {}
+    res_stack: List[Tuple] = []
     tap_i = conv_i = i = 0
+    cut = ()
     prog = m.program
-    while i < len(prog):
+    while i < len(prog) and (limit is None or i < limit):
         op = prog[i]
         kind = op[0]
-        if kind == "push":
+        if kind == "push" and (limit is None or i + 4 <= limit):
             _check_res_block(m, i, conv_i)
             x, sa = stream
             p1 = dict(sw=m.sw[conv_i], sb=m.sb[conv_i], sa_in=sa,
@@ -389,20 +439,53 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
             _, _, stride, padding, leaky = op
             x, sa = stream
             sa_out = m.tap_sa[tap_i]
-            out = fp.int_conv_requant(
-                x, m.w_q[conv_i], m.b_q[conv_i], sw=m.sw[conv_i],
-                sb=m.sb[conv_i], sa_in=sa, sa_out=sa_out,
-                retune=m.retune[conv_i], padding=padding, stride=stride,
-                leaky=leaky, rounding=rounding,
-                packed=m.packed_weights(conv_i),
-                shifts=tables.get(conv_i))
+            nxt = prog[i + 1] if i + 1 < len(prog) else None
+            one_part = not isinstance(x, (list, tuple))
+            if (s2d_entry and conv_i == 0 and stride == 1 and padding == 1
+                    and leaky and one_part and nxt is not None
+                    and nxt[0] == "conv" and nxt[2] == 2 and nxt[3] == 1
+                    and nxt[4]):
+                p1 = dict(sw=m.sw[0], sb=m.sb[0], sa_in=sa, sa_out=sa_out,
+                          retune=m.retune[0])
+                p2 = dict(sw=m.sw[1], sb=m.sb[1], sa_in=sa_out,
+                          sa_out=m.tap_sa[tap_i + 1], retune=m.retune[1])
+                out = fp.int8_entry_pair_s2d(
+                    x, m.w_q[0], m.b_q[0], p1, m.w_q[1], m.b_q[1], p2,
+                    rounding=rounding, pre_s2d=input_s2d,
+                    leaky=(leaky, nxt[4]),
+                    packed=(m.packed_weights(0), m.packed_weights(1)),
+                    shifts=(tables.get(0), tables.get(1)))
+                stream = (out, p2["sa_out"])
+                tap_i += 2
+                conv_i += 2
+                i += 2
+                continue
+            # the convs of a cut block have K4's tables, not their own
+            kw = dict(sw=m.sw[conv_i], sb=m.sb[conv_i], sa_in=sa,
+                      sa_out=sa_out, retune=m.retune[conv_i], leaky=leaky,
+                      rounding=rounding, packed=m.packed_weights(conv_i),
+                      shifts=None if conv_i in cut else tables.get(conv_i))
+            if (s2d_stride2 and stride == 2 and padding == 1
+                    and m.w_q[conv_i].shape[0] == 3 and one_part):
+                out = fp.int8_conv_stride2_s2d(x, m.w_q[conv_i],
+                                               m.b_q[conv_i], **kw)
+            else:
+                out = fp.int_conv_requant(x, m.w_q[conv_i], m.b_q[conv_i],
+                                          padding=padding, stride=stride,
+                                          **kw)
             stream = (out, sa_out)
             tap_i += 1
             conv_i += 1
+        elif kind == "push":  # a residual block that ``limit`` cuts
+            res_stack.append(stream)
+            cut = (conv_i, conv_i + 1)
         elif kind == "save":
             slots[op[1]] = stream
         elif kind == "load":
             stream = slots[op[1]]
+        elif kind == "spp":
+            x, sa = stream
+            stream = (fp.int_spp(x), sa)
         elif kind == "up":
             x, sa = stream
             stream = (fp.int_upsample2x_ac(x, rounding), sa)
@@ -411,17 +494,24 @@ def int8_yolo_v3_forward(m: Int8YoloV3, x_q: torch.Tensor,
         else:
             raise ValueError(f"unknown program op {op!r}")
         i += 1
+    if limit is not None:
+        live = [stream] + list(slots.values()) + res_stack
+        return [x for t, _ in live
+                for x in ([p for p, _ in t] if isinstance(t, list) else [t])]
     return [slots[name][0].to(torch.float32) * 2.0 ** -slots[name][1]
             for name in ("pred_1", "pred_2", "pred_3")]
 
 
 def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
-                                rounding: str = "nearest", s2d=False,
+                                rounding: str = "nearest", s2d="entry",
                                 input_s2d: bool = False, mesh=None,
                                 device="cuda"):
     """End-to-end int8 yolo_v3 detector on ``device``: images [B, H, W, 3]
-    float32 (quantized on the device) or int8 at scale 2^sa_in ->
-    (boxes, scores, classes, valid).
+    float32 (quantized on the device) or int8 at scale 2^sa_in (with
+    ``input_s2d``, int8 in the padded s2d serving layout from
+    ``fixed_point.s2d_input_np`` / native layout='s2d', and float32 laid
+    out so on the device) -> (boxes, scores, classes, valid). ``s2d`` as
+    ``int8_yolo_v3_forward`` takes it.
 
     The model's tensors move to ``device`` once, here, and on a CUDA
     device the weights of the residual blocks and of the convs that run
@@ -440,7 +530,7 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
         raise ValueError(
             "per-channel weight scales run on the plain conv path "
             "only; rebuild the detect fn without input_s2d")
-    _check_unported(s2d=s2d, input_s2d=input_s2d, mesh=mesh)
+    _check_mesh(mesh)
     dev = fp.resolve_device(device)
     m_dev = m.to(dev)
     if dev.type == "cuda":
@@ -449,10 +539,14 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
 
     def detect(images):
         images = torch.as_tensor(images).to(dev)
-        fp.check_serving_input(images, cfg)
-        x_q = (images if images.dtype == torch.int8
-               else fp.quantize_input(images, m_dev.sa_in))
-        heads = int8_yolo_v3_forward(m_dev, x_q.contiguous(), rounding)
+        fp.check_serving_input(images, cfg, input_s2d)
+        x_q = images
+        if images.dtype != torch.int8:
+            x_q = fp.quantize_input(images, m_dev.sa_in)
+            if input_s2d:
+                x_q = fp.s2d_input(x_q)
+        heads = int8_yolo_v3_forward(m_dev, x_q.contiguous(), rounding,
+                                     s2d=s2d, input_s2d=input_s2d)
         boxes, probs = predict(heads, cfg)
         return nms.batched_postprocess(
             boxes, probs, cfg.conf_thresh, cfg.nms_thresh,
@@ -466,13 +560,15 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
 # ---------------------------------------------------------------------------
 
 
-def seeded_fused_params(seed: int, pred_out: int) -> dict:
-    """BN-fused float yolo_v3 params {'w': HWIO, 'b': [C_out]} in the tree
-    layout ``fold_batch_norm`` returns, drawn from
-    ``np.random.default_rng(seed)`` conv by conv in program order, with the
-    kaiming-uniform bounds of ``blocks.init_conv`` (torch's nn.Conv2d
-    defaults)."""
-    return _seeded_fused(seed, pred_out, per_channel=False)
+def seeded_fused_params(seed: int, pred_out: int, spp: bool = False) -> dict:
+    """BN-fused float yolo_v3 (with ``spp`` yolo_v3_spp) params {'w': HWIO,
+    'b': [C_out]} in the tree layout ``fold_batch_norm`` returns, drawn
+    from ``np.random.default_rng(seed)`` conv by conv in program order,
+    with the kaiming-uniform bounds of ``blocks.init_conv`` (torch's
+    nn.Conv2d defaults). yolo_v3_spp's draws are yolo_v3's up to
+    conv_set_3's first conv, which takes 4096 inputs there: it and every
+    conv after it draw other values."""
+    return _seeded_fused(seed, pred_out, per_channel=False, spp=spp)
 
 
 def seeded_fused_params_per_channel(seed: int, pred_out: int) -> dict:
@@ -486,10 +582,11 @@ def seeded_fused_params_per_channel(seed: int, pred_out: int) -> dict:
     return _seeded_fused(seed, pred_out, per_channel=True)
 
 
-def _seeded_fused(seed: int, pred_out: int, per_channel: bool) -> dict:
+def _seeded_fused(seed: int, pred_out: int, per_channel: bool,
+                  spp: bool = False) -> dict:
     rng = np.random.default_rng(seed)
     layers = {}
-    for path, k, c_in, c_out in conv_specs(pred_out):
+    for path, k, c_in, c_out in conv_specs(pred_out, spp):
         fan_in = c_in * k * k
         bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
         b_bound = 1.0 / math.sqrt(fan_in)
@@ -583,17 +680,20 @@ def quantize_pipeline_yolo_v3(model, cfg: DetectorConfig, calib_batches,
     every conv -> generic calibration -> per-conv pre-activation maxima
     over ``calib_batches`` -> integer model (on that device).
 
-    ``model`` is a ``YOLOv3``, in the BN form with ``fold_bn`` or already
-    fused without. ``states`` (a call-ordered tracker list) skips
-    calibration; the maxima still run. ``act_percentile`` clips every conv
-    tracker to that percentile of |act|. yolo_v3_spp is not ported
-    (``spp`` raises)."""
+    ``model`` is a ``YOLOv3`` (with ``spp`` a ``YOLOv3SPP``), in the BN
+    form with ``fold_bn`` or already fused without. ``states`` (a
+    call-ordered tracker list) skips calibration; the maxima still run.
+    ``act_percentile`` clips every conv tracker to that percentile of
+    |act|."""
     from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
     from yolo_tpu_torch.quant.generic import (
         as_batch, calibrate_generic, fake_quantize_all_convs, model_device,
         quant_forward_generic)
 
-    _program(spp)  # raises for spp
+    if bool(getattr(model, "use_spp", False)) != bool(spp):
+        raise ValueError(f"spp={spp} but the model is "
+                         f"{type(model).__name__}: yolo_v3_spp takes a "
+                         f"YOLOv3SPP, yolo_v3 a YOLOv3")
     calib_batches = list(calib_batches)
     fused = fold_batch_norm(model) if fold_bn else model
     params_q = fake_quantize_all_convs(fused,
