@@ -13,10 +13,11 @@ three scales, the entry pair through ``int8_entry_pair_s2d``; phases
 ``cli.serve`` with native preprocessing in phase 6d) and slim_yolo_v2
 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
-forward ``int8_forward_diagnostics``; and yolo_v3 INT8 with per-channel
+forward ``int8_forward_diagnostics``; yolo_v3 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2d-4d), every conv on the
-per-column form of its kernel. Phases, each printing JSON lines; any
-failure raises and the script exits nonzero:
+per-column form of its kernel; and tiny_yolo_v3 and yolo_v2 INT8 (phase
+7; s2d and NHWC input). Phases, each printing JSON lines; any failure
+raises and the script exits nonzero:
 
 0. header: versions, the card's name and power limit, and whether
    F.conv2d takes int8 / int32 CUDA tensors (information only);
@@ -204,7 +205,23 @@ failure raises and the script exits nonzero:
    auto``: s2d), batch 64, 416²: end-to-end frames/sec sequential and
    overlapped, native preprocessing in use, ``detect_frames`` equal to
    the detect fn on the same batch and ``detect_stream`` to
-   ``detect_frames``.
+   ``detect_frames``;
+7. tiny_yolo_v3 (7a, batch 256) and yolo_v2 (7b, batch 128) INT8 on
+   their 416² fixtures (``tiny_yolo_v3_int8_416_golden.npz``,
+   ``yolo_v2_int8_416_golden.npz``, weights rebuilt from their seeds):
+   heads bit-exact on NHWC and s2d input, detections the fixture's,
+   served on both inputs with per-forward launches checked (tiny: the
+   entry conv or K2 once, 7 wgmma 3x3s, 3 wgmma 1x1s, 2 on the mma.sync
+   general conv, conv_2 and conv_set_1; yolo_v2: 1, 13, 8 and 1,
+   convsets_2.0), its weights packed when the detect fn took the model
+   and never in the loop, images/sec, backbone and decode + NMS ms; every
+   conv of one NHWC forward on its recorded input and the entry conv +
+   pool on the s2d layout against its plain version and timed beside
+   its plain version and cuDNN fp16 (``torch._int_mm`` for a 1x1), with
+   its bound; the port's PTQ of each from the fixture's seed and images,
+   every table and the weights' sha256 the fixture's, served once; 7c
+   ``cli.serve.main`` for tiny_yolo_v3 at batch 64 and yolo_v2 at batch
+   64 (``--input auto``: s2d) and 128 (int8 NHWC).
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -215,13 +232,18 @@ form (slim's conv1 on NHWC input) and v3's C_in = 3 entry conv on
 row-streaming wgmma kernels (``csrc/int8_entry_conv.cu``); v3's fourteen
 1x1s on a wgmma GEMM with resident weights
 (``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
-``csrc/int8_conv.cuh`` serves no layer of any path; it is still held to
-its plain version and timed on the 1x1s and at conv1 on NHWC input. The
+``csrc/int8_conv.cuh`` serves three layers of phase 7 (tiny_yolo_v3's
+conv_2 and conv_set_1, yolo_v2's convsets_2.0) and no layer of the
+others; it is also held to its plain version and timed on v3's 1x1s and
+at conv1 on NHWC input. The
 ``kernels`` line has one entry per kernel and route: ``int8_conv_requant``
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's runs.
+6's and 7's runs. The mma.sync general conv's entry times the three
+layers of phase 7 that run it (``v3_1x1s_ms``: on v3's 1x1s, which it
+ran before the wgmma 1x1 kernel took them); each entry on tiny_yolo_v3's or yolo_v2's path has
+``paths``: their launches per forward and the times of their shapes.
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -556,7 +578,8 @@ def main_form(name, pool):
 
 
 # (rounding, shift case, weights form, slope) of the thin-input kernels'
-# edge-shape checks (K2 reads the slope as on / off)
+# edge-shape checks (K2's NHWC form reads the slope as on / off; K2 on
+# the s2d layout takes 0.1, the entry slope of tiny_yolo_v3 and yolo_v2)
 THIN_CASES = (("nearest", "plain", "hwio", 0.1),
               ("floor", "out_shift<0", "packed", 0.1),
               ("nearest", "acc_shift>=32", "packed", True),
@@ -633,8 +656,7 @@ def phase_kernels(max_err):
         x2 = fp.s2d_input(x).contiguous()
         packed = K.pack_pool_s2d_weights(wt)
         for rounding, case, form, leaky in THIN_CASES:
-            kw = dict(shifts(c_in, case), leaky=bool(leaky),
-                      rounding=rounding)
+            kw = dict(shifts(c_in, case), leaky=leaky, rounding=rounding)
             K.reset_launch_counts()
             got = (K.int8_conv3x3_pool_s2d(x2, None, bias, c_in=c_in,
                                            packed=packed, **kw)
@@ -3004,19 +3026,29 @@ def phase_v3_s2d(m, cfg, card, launches_v3):
     return entries
 
 
-def spp_kernels(x):
-    """The CUDA kernels one ``int_spp`` call runs, by name, as
-    ``torch.profiler`` records them (empty where it recorded none)."""
+def profiled(fn, n: int = 1):
+    """``n`` calls of ``fn`` under ``torch.profiler`` -> (the names of the
+    CUDA kernels they ran, their device ms per call; None where it
+    recorded none)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from yolo_tpu_torch.quant import fixed_point as fp
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fp.int_spp(x)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    return sorted({e.name for e in kernels}), (ms if kernels else None)
+
+
+def spp_kernels(x):
+    """The CUDA kernels one ``int_spp`` call runs, by name, as
+    ``torch.profiler`` records them (empty where it recorded none)."""
+    from yolo_tpu_torch.quant import fixed_point as fp
+
+    return profiled(lambda: fp.int_spp(x))[0]
 
 
 def phase_spp(card):
@@ -3091,10 +3123,12 @@ def phase_spp(card):
     return entries
 
 
-def phase_serve_cli(card):
-    """6d: ``cli.serve.main`` in process for slim_yolo_v2 and yolo_v3
-    (``--input auto``: the s2d layout), batch 64, 416²: end-to-end
-    frames/sec sequential and overlapped, native preprocessing in use,
+def phase_serve_cli(card, cases=(("slim_yolo_v2", SERVE_CLI_BATCH, "s2d"),
+                                  ("yolo_v3", SERVE_CLI_BATCH, "s2d"))):
+    """6d (and 7c): ``cli.serve.main`` in process for each (version, batch,
+    the input mode ``--input auto`` must give) of ``cases`` (6d: slim_yolo_v2
+    and yolo_v3 at batch 64, the s2d layout), 416²: end-to-end frames/sec
+    sequential and overlapped, native preprocessing in use,
     ``detect_frames`` equal to the detect fn on the same preprocessed
     batch, ``detect_stream`` equal to ``detect_frames`` batch by batch.
     -> the launches of each run."""
@@ -3102,10 +3136,9 @@ def phase_serve_cli(card):
     from yolo_tpu_torch.kernels import int8_conv as K
 
     runs = []
-    for version in ("slim_yolo_v2", "yolo_v3"):
+    for version, bsz, mode in cases:
         argv = ["-v", version, "--input_size", str(SIZE), str(SIZE),
-                "--batch", str(SERVE_CLI_BATCH), "--iters",
-                str(SERVE_CLI_ITERS)]
+                "--batch", str(bsz), "--iters", str(SERVE_CLI_ITERS)]
         torch.cuda.synchronize()
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3114,17 +3147,19 @@ def phase_serve_cli(card):
         main_s = time.perf_counter() - t0
         entries = K.launch_counts_by_entry()
         sd = res["detector"]
-        if sd._native is None or not sd.s2d:
+        if (sd._native is None or sd.s2d != (mode == "s2d")
+                or sd.sa_in is None):
             raise AssertionError(f"6d {version}: native preprocessing "
-                                 f"{sd._native is not None}, s2d {sd.s2d}")
-        frames = synthetic_frames(SERVE_CLI_BATCH)
+                                 f"{sd._native is not None}, s2d {sd.s2d}, "
+                                 f"host int8 {sd.sa_in is not None}, want "
+                                 f"{mode}")
+        frames = synthetic_frames(bsz)
         got = sd.detect_frames(frames)
         preprocess_ms = host_ms_once(lambda: sd.preprocess(frames))
         batch = torch.from_numpy(sd.preprocess(frames)).cuda()
         detect_ms = time_ms(lambda: sd.detect_fn(batch), 5)
         want = sd._postprocess(frames, sd.detect_fn(batch), None)
-        halves = [frames[:SERVE_CLI_BATCH // 2],
-                  frames[SERVE_CLI_BATCH // 2:]]
+        halves = [frames[:bsz // 2], frames[bsz // 2:]]
         streamed = list(sd.detect_stream(halves))
         for a, b in zip(got + streamed[0] + streamed[1],
                         want + sd.detect_frames(halves[0])
@@ -3136,7 +3171,7 @@ def phase_serve_cli(card):
              fps=res["fps"], fps_sequential=res["fps_sequential"],
              overlap_gain=res["fps"] / res["fps_sequential"],
              main_s=main_s, preprocess_ms_per_batch=preprocess_ms,
-             detect_ms_per_batch=detect_ms, native=True, s2d=True,
+             detect_ms_per_batch=detect_ms, native=True, input=mode,
              detect_frames_equal_detect_fn=True,
              detect_stream_equal_detect_frames=True,
              detections=int(sum(len(s) for _, s, _ in got)),
@@ -3145,6 +3180,323 @@ def phase_serve_cli(card):
         del sd, res
         torch.cuda.empty_cache()
     return runs
+
+# ---------------------------------------------------------------------------
+# tiny_yolo_v3 and yolo_v2 (phase 7)
+# ---------------------------------------------------------------------------
+
+MMA_GENERAL = "yolo_int8_conv_requant"  # the mma.sync general conv's entry
+# version -> what phase 7 runs: its fixture, serving batch, the port's
+# functions by name (convert: from_seed, seeded, from_params; int8_models:
+# pipeline, forward, maker), its heads' tap names, and per forward on NHWC
+# input the launches of int8_conv_requant by C entry at a scalar sw
+FAMILY7 = {
+    "tiny_yolo_v3": dict(
+        fixture="tiny_yolo_v3_int8_416_golden.npz", batch=256,
+        from_seed="int8_tiny_from_seed", seeded="tiny_seeded_fused_params",
+        from_params="tiny_from_params", pipeline="quantize_pipeline_tiny",
+        forward="int8_tiny_forward", maker="make_int8_tiny_detect_fn",
+        heads=("pred_1", "pred_2"),
+        convs={ENTRY3: 1, WGMMA3: 7, CONV1X1: 3, MMA_GENERAL: 2}),
+    "yolo_v2": dict(
+        fixture="yolo_v2_int8_416_golden.npz", batch=128,
+        from_seed="int8_yolo_v2_from_seed",
+        seeded="yolo_v2_seeded_fused_params",
+        from_params="yolo_v2_from_params",
+        pipeline="quantize_pipeline_yolo_v2", forward="int8_yolo_v2_forward",
+        maker="make_int8_yolo_v2_detect_fn", heads=("pred",),
+        convs={ENTRY3: 1, WGMMA3: 13, CONV1X1: 8, MMA_GENERAL: 1}),
+}
+# cli.serve runs of phase 7c: (version, batch, the input mode --input auto
+# gives)
+CLI7 = (("tiny_yolo_v3", 64, "s2d"), ("yolo_v2", 64, "s2d"),
+        ("yolo_v2", 128, "int8"))
+
+
+def family7_launches(version, s2d):
+    """Per-forward launches by wrapper and C entry: on the s2d layout the
+    entry conv and its pool run once on K2's wgmma kernel instead."""
+    convs = dict(FAMILY7[version]["convs"])
+    if not s2d:
+        return {"int8_conv_requant": convs}
+    del convs[ENTRY3]
+    return {"int8_conv3x3_pool_requant": {POOL_S2D: 1},
+            "int8_conv_requant": convs}
+
+
+def family7_packs():
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    return (K.conv3x3_pack_count(), K.entry_conv_pack_count(),
+            K.conv1x1_pack_count(), K.pool_s2d_pack_count())
+
+
+def reset_family7_packs():
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    for reset in (K.reset_conv3x3_pack_count, K.reset_entry_conv_pack_count,
+                  K.reset_conv1x1_pack_count, K.reset_pool_s2d_pack_count):
+        reset()
+
+
+def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
+                       max_err):
+    """Every conv of one NHWC forward at the serving batch, on its real
+    input (recorded from the forward), and the entry conv + pool on the
+    s2d layout: kernel == plain version, then the kernel, the plain
+    version and a library yardstick (cuDNN fp16 conv2d; torch._int_mm
+    for a 1x1) timed, with the bound. -> {kernels-line name: per-forward
+    sums (``add_time``)}, each conv's line emitted."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    calls = []
+    real = m.conv
+
+    def spy(name, x, sa_in, rounding, leaky=True):
+        calls.append((name, x, sa_in, leaky))
+        return real(name, x, sa_in, rounding, leaky)
+
+    m.conv = spy
+    try:
+        forward(m, xb)
+    finally:
+        del m.conv
+    per_kernel = {}
+
+    def record(line, name, shape, ms, plain_ms, lib_ms, ops, nbytes,
+               **extra):
+        t_ops, t_bytes = 1e3 * ops / peak_ops, 1e3 * nbytes / peak_bw
+        emit("family7_conv_time", version=version, conv=name, kernel=line,
+             shape=shape, equal=True, ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             tops=ops / ms / 1e9, share_of_bound=max(t_ops, t_bytes) / ms,
+             **extra)
+        add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops, t_bytes)
+
+    for name, x, sa_in, leaky in calls:
+        w, bias, packed = m.w_q[name], m.b_q[name], m.packed.get(name)
+        kw = dict(sw=m.sw[name], sb=m.sb[name], sa_in=sa_in,
+                  sa_out=m.sa[name], retune=m.retune[name],
+                  padding=m.PAD[name], leaky=leaky, rounding="nearest")
+        K.reset_launch_counts()
+        got = K.int8_conv_requant(x, w, bias, packed=packed, **kw)
+        line = ran_line()
+        want = K.int8_conv_requant_plain(x, w, bias, **kw)
+        check_equal(line, got, want, max_err, f"{version} {name}")
+        del got, want
+        ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
+                                                 **kw), 10)
+        plain_ms = time_ms(lambda: K.int8_conv_requant_plain(x, w, bias,
+                                                             **kw),
+                           2, warmup=1)
+        xs = [p for p, _ in x] if isinstance(x, list) else [x]
+        b, h = xs[0].shape[:2]
+        cins = [t.shape[-1] for t in xs]
+        k, c_out = w.shape[0], w.shape[3]
+        lib_ms = int_mm_ms(b * h * h, sum(cins), c_out) if k == 1 else None
+        if lib_ms is None:
+            lib_ms = fp16_conv_ms(b, h, sum(cins), c_out, k, 1, m.PAD[name])
+        extra = {}
+        if line == "int8_conv_requant.mma_sync":  # its device time alone
+            extra["device_ms"] = profiled(lambda: K.int8_conv_requant(
+                x, w, bias, packed=packed, **kw), 5)[1]
+        record(line, name, [b, h, h, cins, c_out, k], ms, plain_ms, lib_ms,
+               2 * b * h * h * k * k * sum(cins) * c_out,
+               sum(t.numel() for t in xs) + w.numel() + 4 * c_out
+               + b * h * h * c_out, **extra)
+        torch.cuda.empty_cache()
+    del calls
+    # the entry conv + its pool on the s2d layout (K2)
+    first = m.CONV_ORDER[0]
+    w, bias = m.w_q[first], m.b_q[first]
+    kw = dict(c_in=3, sw=m.sw[first], sb=m.sb[first], sa_in=m.sa["in"],
+              sa_out=m.sa[first], retune=m.retune[first], leaky=0.1,
+              rounding="nearest")
+    K.reset_launch_counts()
+    got = m.entry_s2d(xb2, "nearest")
+    line = ran_line()
+    want = K.int8_conv3x3_pool_s2d_plain(xb2, w, bias, **kw)
+    check_equal(line, got, want, max_err, f"{version} {first} on s2d")
+    del got, want
+    b, c_out = xb2.shape[0], w.shape[3]
+    ms = time_ms(lambda: m.entry_s2d(xb2, "nearest"), 10)
+    plain_ms = time_ms(lambda: K.int8_conv3x3_pool_s2d_plain(
+        xb2, w, bias, **kw), 2, warmup=1)
+    record(line, f"{first} + pool (s2d)", [b, SIZE, SIZE, [3], c_out, 3], ms,
+           plain_ms, fp16_conv_ms(b, SIZE, 3, c_out, 3, 1, 1),
+           2 * b * SIZE * SIZE * 9 * 3 * c_out,
+           xb2.numel() + w.numel() + 4 * c_out + b * SIZE * SIZE * c_out // 4)
+    torch.cuda.empty_cache()
+    return per_kernel
+
+
+def phase_family7(version, card, max_err):
+    """7a / 7b: the family's 416² fixture on the card (heads bit-exact on
+    NHWC and s2d input, detections, launches per forward), served at its
+    batch on s2d and NHWC input (packs at setup, none in the loop), its
+    convs timed; -> (the serving runs' launches, {line: per-forward
+    sums})."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.detector import predict
+    from yolo_tpu_torch.ops import nms
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_models as tim
+
+    f = FAMILY7[version]
+    peak_ops, peak_bw = peaks(torch.cuda.get_device_name(0))
+    g = load_fixture(f["fixture"])
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    m = getattr(convert, f["from_seed"])(g, device="cuda")
+    forward, maker = getattr(tim, f["forward"]), getattr(tim, f["maker"])
+    x_q = fp.quantize_input(torch.as_tensor(fixture_images(
+        g, g["head_q_1"].shape[0])).cuda(), m.sa["in"]).contiguous()
+    x2 = fp.s2d_input(x_q).contiguous()
+    m_packed = m.to("cuda")
+    m_packed.pack()
+    for layout, x in (("nhwc", x_q), ("s2d", x2)):
+        heads = forward(m_packed, x, input_s2d=layout == "s2d")
+        for i, (head, name) in enumerate(zip(heads, f["heads"])):
+            check_head(torch.round(head * 2.0 ** m.sa[name]).to(torch.int8),
+                       g[f"head_q_{i + 1}"],
+                       f"7 {version} {layout} head {i + 1}")
+    detect_nhwc = maker(m, cfg, device="cuda")
+    reset_family7_packs()
+    detect = maker(m, cfg, input_s2d=True, device="cuda")
+    packs_at_setup = family7_packs()
+    valid = {}
+    for layout, fn, x in (("nhwc", detect_nhwc, x_q), ("s2d", detect, x2)):
+        out, _ = served_once(fn, x, family7_launches(version, layout == "s2d"),
+                             f"7 {version} {layout} served")
+        valid[layout] = check_detections(out, g)
+    batch = f["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xb = fp.quantize_input(torch.rand((batch, SIZE, SIZE, 3), generator=gen,
+                                      device="cuda"),
+                           m.sa["in"]).contiguous()
+    xb2 = fp.s2d_input(xb).contiguous()
+    reset_family7_packs()
+    ips, runs = {}, []
+    for layout, fn, x in (("s2d", detect, xb2), ("nhwc", detect_nhwc, xb)):
+        rate, entries, out = serve_loop(fn, x)
+        want = family7_launches(version, layout == "s2d")
+        if per_forward(entries, SERVE_ITERS) != want:
+            raise AssertionError(f"7 {version} {layout} serving launched "
+                                 f"{per_forward(entries, SERVE_ITERS)} per "
+                                 f"forward, want {want}")
+        if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
+            raise AssertionError(f"7 {version}: detections not finite")
+        ips[layout] = rate
+        runs.append(entries)
+    if any(family7_packs()):
+        raise AssertionError(f"7 {version}: serving packed weights "
+                             f"{family7_packs()}")
+    backbone_ms = {
+        layout: time_ms(lambda: forward(m_packed, x, input_s2d=s2d), 5)
+        for layout, x, s2d in (("s2d", xb2, True), ("nhwc", xb, False))}
+    boxes, probs = predict(forward(m_packed, xb2, input_s2d=True), cfg)
+    post_ms = time_ms(lambda: nms.batched_postprocess(
+        boxes, probs, cfg.conf_thresh, cfg.nms_thresh, cfg.pre_nms_top_k,
+        cfg.top_k), 5)
+    del boxes, probs, detect, detect_nhwc
+    torch.cuda.empty_cache()
+    ops = {}
+    if version == "tiny_yolo_v3":  # conv_6's output, 13² x 512
+        c = torch.randint(-128, 128, (batch, 13, 13, 512), dtype=torch.int8,
+                          device="cuda")
+        if not torch.equal(fp.int_zero_pad_maxpool_s1(c).cpu(),
+                           fp.int_zero_pad_maxpool_s1(c.cpu())):
+            raise AssertionError("7: int_zero_pad_maxpool_s1 on the card "
+                                 "differs from the CPU")
+        names, dev_ms = profiled(lambda: fp.int_zero_pad_maxpool_s1(c), 5)
+        ops["int_zero_pad_maxpool_s1"] = dict(
+            ms=time_ms(lambda: fp.int_zero_pad_maxpool_s1(c), 10),
+            device_ms=dev_ms, kernels=[n[:120] for n in names],
+            equal_cpu=True,
+            bound_ms=1e3 * 2 * c.numel() / peak_bw)
+    times = family7_conv_times(version, m_packed, forward, xb, xb2, peak_ops,
+                               peak_bw, max_err)
+    emit("family7_serving", version=version, batch=batch,
+         heads_bit_exact=["nhwc", "s2d"], valid_slots=valid,
+         images_per_sec=ips, backbone_ms_per_batch=backbone_ms,
+         postprocess_ms=post_ms,
+         launches_per_forward={
+             layout: family7_launches(version, layout == "s2d")
+             for layout in ("s2d", "nhwc")},
+         packs_at_setup=dict(zip(("conv3x3", "entry_conv", "conv1x1",
+                                  "pool_s2d"), packs_at_setup)),
+         packs_in_loop=0,
+         mma_sync_layers={k: v for k, v in times.items()
+                          if k == "int8_conv_requant.mma_sync"},
+         torch_ops=ops, card=card)
+    return runs, times
+
+
+def check_named_tables(m, g, what):
+    """An Int8Tiny / Int8YoloV2's tables and weights' sha256 equal to the
+    fixture's (the JAX package's)."""
+    from yolo_tpu_torch.quant.convert import weights_sha256
+
+    for table in SLIM_TABLES:
+        for k, v in getattr(m, table).items():
+            if not np.array_equal(np.asarray(v), g[f"{table}.{k}"]):
+                raise AssertionError(f"{what}: {table}.{k} = {v}, the JAX "
+                                     f"package's {g[f'{table}.{k}']}")
+    order = m.CONV_ORDER
+    digest = weights_sha256([m.w_q[n].cpu().numpy() for n in order],
+                            [m.b_q[n].cpu().numpy() for n in order])
+    if digest != str(g["wb_sha256"]):
+        raise AssertionError(f"{what}: int8 weights' sha256 {digest}, the "
+                             f"JAX package's {g['wb_sha256']}")
+
+
+def phase_ptq_family7(version, card):
+    """The port's PTQ of the family on the card from the fixture's seed and
+    images: every table and the weights' sha256 equal to the fixture's,
+    the model served once (its launches checked), detections the
+    fixture's. -> that run's launches."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_models as tim
+
+    f = FAMILY7[version]
+    g = load_fixture(f["fixture"])
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    images = fixture_images(g, g["head_q_1"].shape[0])
+    model = getattr(convert, f["from_params"])(getattr(convert, f["seeded"])(
+        int(g["weight_seed"]), int(g["pred_out"])), device="cuda")
+    m, secs = timed(lambda: getattr(tim, f["pipeline"])(
+        model, cfg, [images], fold_bn=False))
+    check_named_tables(m, g, f"7 {version} PTQ")
+    x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa["in"])
+    out, entries = served_once(getattr(tim, f["maker"])(m, cfg, device="cuda"),
+                               x_q, family7_launches(version, False),
+                               f"7 {version} PTQ served")
+    emit("family7_ptq", version=version, images=len(images),
+         pipeline_s=secs, float_ms_per_image=float_forward_ms(model, images),
+         tables_equal=True, wb_sha256_equal=True,
+         valid_slots=check_detections(out, g), launches_by_entry=entries,
+         card=card)
+    return entries
+
+
+def phase_7(card, max_err):
+    """Phase 7: tiny_yolo_v3 (7a) and yolo_v2 (7b) INT8 on the card, the
+    port's PTQ of each, then ``cli.serve.main`` for both (7c). -> (every
+    run's launches, {version: {line: per-forward sums}})."""
+    runs, times = [], {}
+    for version in FAMILY7:
+        served, times[version] = phase_family7(version, card, max_err)
+        runs += served
+        torch.cuda.empty_cache()
+        runs.append(phase_ptq_family7(version, card))
+        torch.cuda.empty_cache()
+    runs += phase_serve_cli(card, CLI7)
+    return runs, times
 
 
 def main() -> int:
@@ -3202,6 +3554,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_6 += phase_serve_cli(card)
     emit("phase_6", seconds=time.perf_counter() - t6)
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    launches_7, times_7 = phase_7(card, max_err)
+    emit("phase_7", seconds=time.perf_counter() - t7)
+    # the mma.sync conv's line: the three layers that run it per forward
+    # of tiny_yolo_v3 and yolo_v2 (its old times on the v3 1x1s beside)
+    on_1x1s = times["int8_conv_requant.mma_sync"]
+    times["int8_conv_requant.mma_sync"] = dict(times_7["tiny_yolo_v3"][
+        "int8_conv_requant.mma_sync"])
+    for field, v in times_7["yolo_v2"]["int8_conv_requant.mma_sync"].items():
+        times["int8_conv_requant.mma_sync"][field] += v
+    times["int8_conv_requant.mma_sync"]["v3_1x1s_ms"] = on_1x1s["ms"]
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -3264,13 +3628,18 @@ def main() -> int:
                                            f"torch._int_mm; mma_sync_ms "
                                            f"the mma.sync conv kernel on "
                                            f"the same convs",
-        "int8_conv_requant.mma_sync": f"no serving launch: the mma.sync "
-                                      f"conv kernel timed on the 14 yolo_v3 "
-                                      f"1x1s it ran before the wgmma 1x1 "
-                                      f"kernel took them, per forward, "
-                                      f"batch {V3_BATCH_SERVE}, "
-                                      f"{SIZE}x{SIZE}; library_ms is "
-                                      f"torch._int_mm",
+        "int8_conv_requant.mma_sync": f"the three convs no wgmma route "
+                                      f"takes: tiny_yolo_v3's conv_2 (C_in "
+                                      f"16) and conv_set_1 (two parts) per "
+                                      f"forward at batch "
+                                      f"{FAMILY7['tiny_yolo_v3']['batch']} "
+                                      f"plus yolo_v2's convsets_2.0 (two "
+                                      f"parts) per forward at batch "
+                                      f"{FAMILY7['yolo_v2']['batch']}, "
+                                      f"{SIZE}x{SIZE}; library_ms is cuDNN "
+                                      f"fp16 conv2d; v3_1x1s_ms the same "
+                                      f"kernel on yolo_v3's 14 1x1s "
+                                      f"(batch {V3_BATCH_SERVE})",
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",
@@ -3354,8 +3723,20 @@ def main() -> int:
         ran = sum(per_run)
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
-                       for served in launches_6)
+                       for served in launches_6 + launches_7)
         per_forward = max(per_run) // SERVE_ITERS
+        # tiny_yolo_v3's and yolo_v2's launches per forward on each input
+        # layout, and the times of their shapes (one NHWC forward; K2's on
+        # the s2d layout)
+        paths = {
+            version: dict(
+                launches_per_forward={
+                    layout: family7_launches(version, layout == "s2d").get(
+                        wrapper, {}).get(entry, 0)
+                    for layout in ("nhwc", "s2d")},
+                **{f: tv[k][f] for f in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms")})
+            for version, tv in times_7.items() if k in tv}
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,
@@ -3367,6 +3748,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **({"mma_sync_ms": t["mma_sync_ms"]} if "mma_sync_ms" in t
                else {}),
+            **({"v3_1x1s_ms": t["v3_1x1s_ms"]} if "v3_1x1s_ms" in t
+               else {}),
+            **({"paths": paths} if paths else {}),
             "entry": entry, "shapes": shapes.get(k, shapes["slim"]),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -161,8 +161,10 @@ def test_bad_arguments_raise(rng):
     x, w, b = _case(rng, 1, 4, 4, 4, 4)
     with pytest.raises(ValueError, match="assembly"):
         K.int8_conv3x3_pool_requant(*_t(x, w, b), assembly="nope", **SHIFTS)
+    # a slope outside [0, 1] (0.1, the darknet entry's, is taken since
+    # tiny_yolo_v3 and yolo_v2 serve their entry conv on this form)
     with pytest.raises(ValueError, match="leaky"):
         tfp.int8_conv_pool_s2d_core(*_t(fp.s2d_input_np(x), w, b), c_in=4,
-                                    leaky=0.1, **SHIFTS)
+                                    leaky=1.5, **SHIFTS)
     with pytest.raises(ValueError, match="s2d input"):
         K.int8_conv3x3_pool_s2d(*_t(x, w, b), c_in=3, **SHIFTS)

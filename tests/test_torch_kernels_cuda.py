@@ -2007,3 +2007,168 @@ def test_cuda_v3_limit_equals_the_cpu_walk(v3_fixtures, limit, s2d, kind):
     counts = K.launch_counts()
     assert counts.get("int8_res_block", 0) == blocks
     assert counts.get("int8_conv_requant", 0) == convs
+
+
+# ---------------------------------------------------------------------------
+# tiny_yolo_v3 and yolo_v2 on the card: the convs that run the mma.sync
+# general conv, K2 at the darknet slope, the whole forwards.
+# ---------------------------------------------------------------------------
+
+# (B, H, parts' C_in, C_out): tiny's conv_set_1 [256, 128] at 26², yolo_v2's
+# convsets_2.0 [256, 1024] at 13², tiny's conv_2 (one part, C_in 16) at 52²
+MMA_SYNC_CASES = [(2, 26, (256, 128), 256), (2, 13, (256, 1024), 64),
+                  (2, 52, (16,), 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("scales", ["equal", "unequal"])
+@pytest.mark.parametrize("case", MMA_SYNC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_tiny_v2_mma_sync_convs_equal_plain(cuda, rounding, scales,
+                                                 case):
+    """The three convs no wgmma route takes, on the mma.sync general conv:
+    the two-part 3x3s at equal part scales (the raw partials summed before
+    the shift) and unequal ones, conv_2 at the darknet slope 0.1."""
+    bsz, h, cins, c_out = case
+    rng = np.random.default_rng(sum(cins))
+    xs = [torch.tensor(rng.integers(-128, 128, (bsz, h, h, c)).astype(
+        np.int8)) for c in cins]
+    w = torch.tensor(rng.integers(-40, 50, (3, 3, sum(cins), c_out)).astype(
+        np.int8))
+    b = torch.tensor(rng.integers(-100, 100, (c_out,)).astype(np.int32))
+    sas = [4, 4 if scales == "equal" else 2][:len(cins)]
+    kw = dict(sw=7, sb=6, sa_in=sas[0], sa_out=2, retune=9, padding=1,
+              leaky=0.1 if len(cins) == 1 else True, rounding=rounding)
+    if len(cins) == 1:
+        x = xs[0]
+        if scales == "unequal":
+            kw["sa_in"] = 2
+    else:
+        x = list(zip(xs, sas))
+    want = K.int8_conv_requant(x, w, b, **kw)
+    dev_x = ([(t.to(cuda), sa) for t, sa in x] if isinstance(x, list)
+             else x.to(cuda))
+    K.reset_launch_counts()
+    got = K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv_requant": {"yolo_int8_conv_requant": 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("c_out", [16, 32])
+def test_cuda_pool_s2d_wgmma_takes_the_darknet_slope(cuda, rounding, c_out):
+    """K2's wgmma kernel at slope 0.1 (the Q16 rational), as tiny's conv_1
+    (3 -> 16) and yolo_v2's conv_1.0 (3 -> 32) run it on the s2d layout."""
+    rng = np.random.default_rng(c_out)
+    x = tfp.s2d_input_np(rng.integers(-128, 128, (2, 20, 24, 3)).astype(
+        np.int8))
+    w = torch.tensor(rng.integers(-60, 70, (3, 3, 3, c_out)).astype(np.int8))
+    b = torch.tensor(rng.integers(-100, 100, (c_out,)).astype(np.int32))
+    kw = dict(SHIFTS, c_in=3, leaky=0.1, rounding=rounding)
+    want = K.int8_conv3x3_pool_s2d(torch.tensor(x), w, b, **kw)
+    K.reset_launch_counts()
+    got = K.int8_conv3x3_pool_s2d(torch.tensor(x).to(cuda), w.to(cuda),
+                                  b.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "int8_conv3x3_pool_requant": {"yolo_int8_pool_s2d_wgmma": 1}}
+    assert torch.equal(got.cpu(), want)
+
+
+# version -> (fixture, from seed, forward, maker, per-forward launches of
+# int8_conv_requant by C entry at a scalar sw on NHWC input)
+TINY_V2 = {
+    "tiny_yolo_v3": ("tiny_yolo_v3_int8_416_golden.npz", "int8_tiny_from_seed",
+                     "int8_tiny_forward", "make_int8_tiny_detect_fn",
+                     {"yolo_int8_entry_conv3x3_wgmma": 1,
+                      "yolo_int8_conv3x3_wgmma": 7,
+                      "yolo_int8_conv1x1_wgmma": 3,
+                      "yolo_int8_conv_requant": 2}),
+    "yolo_v2": ("yolo_v2_int8_416_golden.npz", "int8_yolo_v2_from_seed",
+                "int8_yolo_v2_forward", "make_int8_yolo_v2_detect_fn",
+                {"yolo_int8_entry_conv3x3_wgmma": 1,
+                 "yolo_int8_conv3x3_wgmma": 13,
+                 "yolo_int8_conv1x1_wgmma": 8,
+                 "yolo_int8_conv_requant": 1}),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_v2_fixtures():
+    """{version: (the CPU model, the CUDA model, packed)} for the
+    tiny_yolo_v3 and yolo_v2 fixtures (weights rebuilt from their seeds),
+    and int8 input [2, 64, 64, 3] at each one's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from pathlib import Path
+
+    from yolo_tpu_torch.quant import convert
+
+    data = Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "data"
+    images = torch.tensor(np.random.default_rng(4).random(
+        (2, 64, 64, 3), dtype=np.float32))
+    out = {}
+    for version, (name, from_seed, *_) in TINY_V2.items():
+        with np.load(data / name) as z:
+            m = getattr(convert, from_seed)({k: z[k] for k in z.files},
+                                            device="cpu")
+        m_dev = m.to(torch.device("cuda"))
+        m_dev.pack()
+        out[version] = (m, m_dev, tfp.quantize_input(images, m.sa["in"]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("layout", ["nhwc", "s2d"])
+@pytest.mark.parametrize("version", list(TINY_V2))
+def test_cuda_tiny_v2_forward_equals_the_cpu_walk(tiny_v2_fixtures, version,
+                                                  layout, rounding):
+    """The forward on the card, packed weights: heads equal to the CPU
+    walk's, with the per-forward launches of the route table (the entry
+    conv on NHWC input; on s2d input conv 1 and its pool once on K2's
+    wgmma kernel instead) and no pack."""
+    from yolo_tpu_torch.quant import int8_models as tim
+
+    m, m_dev, x_q = tiny_v2_fixtures[version]
+    forward, routes = getattr(tim, TINY_V2[version][2]), TINY_V2[version][4]
+    s2d = layout == "s2d"
+    x = tfp.s2d_input(x_q) if s2d else x_q
+    want = forward(m, x, rounding, input_s2d=s2d)
+    K.reset_launch_counts()
+    K.reset_conv3x3_pack_count()
+    got = forward(m_dev, x.cuda(), rounding, input_s2d=s2d)
+    torch.cuda.synchronize()
+    _equal_lists(got, want)
+    entries = K.launch_counts_by_entry()
+    conv = dict(routes)
+    if s2d:
+        del conv["yolo_int8_entry_conv3x3_wgmma"]
+        assert entries.pop("int8_conv3x3_pool_requant") == {
+            "yolo_int8_pool_s2d_wgmma": 1}
+    assert entries == {"int8_conv_requant": conv}
+    assert K.conv3x3_pack_count() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", list(TINY_V2))
+def test_cuda_tiny_v2_detect_fn_refuses_per_channel(tiny_v2_fixtures,
+                                                    version):
+    """A per-channel model is not served on the card: the maker raises,
+    naming the convs that have no per-column route."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import int8_models as tim
+
+    m = tiny_v2_fixtures[version][0].to("cpu")
+    m.sw = {k: np.full(m.w_q[k].shape[3], v, np.int32)
+            for k, v in m.sw.items()}
+    cfg = get_config(version, "mask", input_size=(64, 64))
+    missing = ("conv_2, conv_set_1" if version == "tiny_yolo_v3"
+               else "convsets_2.0")
+    with pytest.raises(ValueError, match=f"{missing} have no per-column"):
+        getattr(tim, TINY_V2[version][3])(m, cfg)
+    getattr(tim, TINY_V2[version][3])(m, cfg, device="cpu")

@@ -348,12 +348,32 @@ def test_init_float_model_forms():
 
 @pytest.mark.parametrize("version", ["tiny_yolo_v3", "yolo_v2", "yolo_v9"])
 def test_dispatch_refuses_what_it_lacks(version):
-    cfg = t_get_config("slim_yolo_v2", "mask")
-    match = "no INT8 engine" if version == "yolo_v9" else "not ported"
-    with pytest.raises(ValueError, match=match):
-        dispatch.build_int8_detector(version, None, cfg, [], device="cpu")
-    with pytest.raises(ValueError, match=match):
-        dispatch.init_float_model(version, cfg, "cpu")
+    """yolo_v9 has no engine; tiny_yolo_v3 and yolo_v2 (ported) build on
+    the CPU from ``init_float_model`` and serve s2d input."""
+    if version == "yolo_v9":
+        cfg = t_get_config("slim_yolo_v2", "mask")
+        with pytest.raises(ValueError, match="no INT8 engine"):
+            dispatch.build_int8_detector(version, None, cfg, [],
+                                         device="cpu")
+        with pytest.raises(ValueError, match="no INT8 engine"):
+            dispatch.init_float_model(version, cfg, "cpu")
+        return
+    cfg = t_get_config(version, "mask", input_size=(SIZE, SIZE))
+    model = dispatch.init_float_model(version, cfg, "cpu",
+                                      torch.Generator().manual_seed(0))
+    calib = [np.random.default_rng(0).random((2, SIZE, SIZE, 3),
+                                             dtype=np.float32)]
+    m, detect = dispatch.build_int8_detector(version, model, cfg, calib,
+                                             input_s2d=True, device="cpu")
+    assert type(m).__name__ == ("Int8Tiny" if version == "tiny_yolo_v3"
+                                else "Int8YoloV2")
+    sa = dispatch.input_scale_exponent(m)
+    assert sa == m.sa["in"]
+    x2 = tfp.s2d_input_np(tfp.quantize_input(torch.tensor(calib[0]),
+                                             sa).numpy())
+    boxes, scores, classes, valid = detect(x2)
+    assert tuple(boxes.shape) == (2, cfg.top_k, 4)
+    assert torch.isfinite(scores).all()
 
 
 def test_dispatch_refuses_auto_head_clip():
@@ -381,19 +401,18 @@ def test_serve_cli_refuses_unported_flags(flag):
 
 
 def test_serve_cli_input_modes():
-    """--input auto is s2d for every version (the JAX CLI's int8 case,
-    yolo_v2 at batch >= 128, waits for yolo_v2 in dispatch); int8 and f32
-    as asked."""
+    """--input auto is the JAX CLI's rule: int8 for yolo_v2 at batch >=
+    128, s2d otherwise; int8 and f32 as asked."""
     if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: yolo_v3 would build there")
-    for argv, mode in ((["-v", "yolo_v2", "--batch", "128"], "s2d"),
+        pytest.skip("a CUDA device is present: the models would build there")
+    for argv, mode in ((["-v", "yolo_v2", "--batch", "128"], "int8"),
                        (["-v", "yolo_v2", "--batch", "64"], "s2d"),
+                       (["-v", "tiny_yolo_v3", "--batch", "128"], "s2d"),
                        (["-v", "yolo_v3"], "s2d")):
         args = serve.parse_args(argv)
         assert args.device == "cuda" and args.input == "auto"
-        with pytest.raises(ValueError if "yolo_v2" in argv else
-                           RuntimeError):
-            serve.build(args)  # yolo_v2: not ported; yolo_v3: no card
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.build(args)  # no card
         assert args.input == mode
     for mode in ("int8", "f32"):
         sd, _ = serve.build(serve.parse_args(

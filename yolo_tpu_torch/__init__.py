@@ -1,6 +1,7 @@
 """yolo_tpu_torch — the PyTorch / CUDA port of ``yolo_tpu``.
 
-It serves slim_yolo_v2 and yolo_v3 in INT8: fixed-point conv layers
+It serves every INT8 family of the JAX CLI (slim_yolo_v2, tiny_yolo_v3,
+yolo_v2, yolo_v3, yolo_v3_spp): fixed-point conv layers
 (each a hand-written CUDA kernel on the GPU), head decode,
 softmax·sigmoid scoring and fixed-shape greedy NMS; and builds their INT8
 models with its own post-training quantization toolchain from the float

@@ -46,8 +46,8 @@ def parse_args(argv=None):
                         help="host->device input mode: s2d (int8 in the "
                         "padded space-to-depth layout), int8 "
                         "(host-quantized NHWC), f32 (quantize on the "
-                        "device). auto: s2d (the JAX package's rule for "
-                        "every family the port serves)")
+                        "device). auto: int8 for yolo_v2 at batch >= 128, "
+                        "else s2d (the JAX package's rule)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) "
                              "or cpu")
@@ -86,7 +86,10 @@ def build(args):
             raise SystemExit(f"--{flag} is not ported yet: it needs {what}")
     cfg = build_cfg(args)
     if args.input == "auto":
-        args.input = "s2d"
+        # the JAX CLI's per-family rule: yolo_v2's s2d entry lost at
+        # batch >= 128 there
+        args.input = ("int8" if args.version == "yolo_v2"
+                      and args.batch >= 128 else "s2d")
     model = init_float_model(args.version, cfg, device=args.device,
                              generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)

@@ -532,13 +532,16 @@ def int8_conv3x3_pool_s2d(x2, w_q, b_q, *, c_in, sw, sb, sa_in, sa_out,
 
     ``packed``: the weights from ``pack_pool_s2d_weights`` (then ``w_q``
     may be None; C_out is ``b_q``'s length). On a CUDA tensor a conv that
-    ``pool_s2d_wgmma_route`` takes (slim's conv1) runs the wgmma kernel of
+    ``pool_s2d_wgmma_route`` takes (slim's conv1; the darknet entry convs
+    of tiny_yolo_v3 and yolo_v2) runs the wgmma kernel of
     ``csrc/int8_entry_conv.cu``, which reads that form (packed for this
-    call where only the HWIO weights are given); other shapes run the
-    mma.sync pool_s2d kernel of ``csrc/int8_conv.cu``. The CPU route reads
-    the HWIO weights where given."""
+    call where only the HWIO weights are given) and any ``leaky`` slope;
+    other shapes run the mma.sync pool_s2d kernel of ``csrc/int8_conv.cu``
+    (True or False only). The CPU route reads the HWIO weights where
+    given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
+    _slope_num(leaky)  # every route: False, True or a slope in [0, 1]
     if x2.ndim != 4 or x2.shape[-1] != 4 * c_in:
         raise ValueError(f"s2d input must be [B, H/2+3, W/2+3, {4 * c_in}], "
                          f"got {tuple(x2.shape)}")
@@ -550,7 +553,6 @@ def int8_conv3x3_pool_s2d(x2, w_q, b_q, *, c_in, sw, sb, sa_in, sa_out,
         return int8_conv3x3_pool_s2d_plain(
             x2, _s2d_hwio(w_q, packed, c_in, c_out), b_q, c_in=c_in, **kw)
     if pool_s2d_wgmma_route(c_in, c_out, sw):
-        _check_leaky_flag(leaky)
         return _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, c_in=c_in, **kw)
     b, hb, wb, _ = x2.shape
     return _launch("int8_conv3x3_pool_requant", x2,

@@ -1,7 +1,13 @@
-"""Darknet53 (counterpart of ``yolo_tpu/models/darknet.py``, and of
-``cb`` / ``init_seq`` / ``run_seq`` in ``yolo_tpu/models/common.py``):
-Conv+BN+LeakyReLU(0.1) blocks, residual, C3 (s8, 256c), C4 (s16, 512c)
-and C5 (s32, 1024c) out. The other backbones are not ported yet."""
+"""Darknet backbones (counterpart of ``yolo_tpu/models/darknet.py``, and
+of ``cb`` / ``init_seq`` / ``run_seq`` in ``yolo_tpu/models/common.py``),
+all Conv+BN+LeakyReLU(0.1) blocks, NCHW:
+
+- darknet53: residual, C3 (s8, 256c), C4 (s16, 512c), C5 (s32, 1024c);
+- darknet19 (yolo_v2's): C4 (s8, 256c), C5 (s16, 512c), C6 (s32, 1024c);
+- darknet_light (tiny_yolo_v3's), with the zero-pad stride-1 pool: C4
+  (s16, 256c), C5 (s32, 1024c).
+
+darknet_tiny is not ported yet."""
 
 from __future__ import annotations
 
@@ -47,6 +53,79 @@ def run_seq(seq: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
     for block in seq:
         x = block(x)
     return x
+
+
+def _seq_backbone(module: nn.Module, specs: dict, batch_norm: bool,
+                  device) -> None:
+    """One ``conv_seq`` child per entry of ``specs`` (name -> its specs),
+    named as the JAX package's tree."""
+    from yolo_tpu_torch.quant.fixed_point import resolve_device
+
+    device = resolve_device(device)
+    for name, seq in specs.items():
+        module.add_module(name, conv_seq(seq, SLOPE, batch_norm, device))
+
+
+_D19_SPECS = {
+    "conv_1": [cb(3, 3, 32, 1, 1)],
+    "conv_2": [cb(3, 32, 64, 1, 1)],
+    "conv_3": [cb(3, 64, 128, 1, 1), cb(1, 128, 64), cb(3, 64, 128, 1, 1)],
+    "conv_4": [cb(3, 128, 256, 1, 1), cb(1, 256, 128), cb(3, 128, 256, 1, 1)],
+    "conv_5": [cb(3, 256, 512, 1, 1), cb(1, 512, 256), cb(3, 256, 512, 1, 1),
+               cb(1, 512, 256), cb(3, 256, 512, 1, 1)],
+    "conv_6": [cb(3, 512, 1024, 1, 1), cb(1, 1024, 512),
+               cb(3, 512, 1024, 1, 1), cb(1, 1024, 512),
+               cb(3, 512, 1024, 1, 1)],
+}
+
+
+class Darknet19(nn.Module):
+    """Children ``conv_1`` .. ``conv_6``, each a list of conv blocks; a 2x2
+    max pool after the first three and between the last three. Takes and
+    returns NCHW."""
+
+    def __init__(self, batch_norm: bool = True, device="cuda"):
+        super().__init__()
+        _seq_backbone(self, _D19_SPECS, batch_norm, device)
+
+    def forward(self, x: torch.Tensor):
+        """-> (C4, C5, C6)."""
+        for name in ("conv_1", "conv_2", "conv_3"):
+            x = blocks.max_pool(run_seq(getattr(self, name), x))
+        c4 = run_seq(self.conv_4, x)
+        c5 = run_seq(self.conv_5, blocks.max_pool(c4))
+        c6 = run_seq(self.conv_6, blocks.max_pool(c5))
+        return c4, c5, c6
+
+
+_DLIGHT_SPECS = {
+    "conv_1": [cb(3, 3, 16, 1, 1)],
+    "conv_2": [cb(3, 16, 32, 1, 1)],
+    "conv_3": [cb(3, 32, 64, 1, 1)],
+    "conv_4": [cb(3, 64, 128, 1, 1)],
+    "conv_5": [cb(3, 128, 256, 1, 1)],
+    "conv_6": [cb(3, 256, 512, 1, 1)],
+    "conv_7": [cb(3, 512, 1024, 1, 1)],
+}
+
+
+class DarknetLight(nn.Module):
+    """Children ``conv_1`` .. ``conv_7``, each a list of one conv block; a
+    2x2 max pool after the first five, the zero-pad stride-1 pool after
+    ``conv_6``. Takes and returns NCHW."""
+
+    def __init__(self, batch_norm: bool = True, device="cuda"):
+        super().__init__()
+        _seq_backbone(self, _DLIGHT_SPECS, batch_norm, device)
+
+    def forward(self, x: torch.Tensor):
+        """-> (C4, C5)."""
+        for name in ("conv_1", "conv_2", "conv_3", "conv_4"):
+            x = blocks.max_pool(run_seq(getattr(self, name), x))
+        c4 = run_seq(self.conv_5, x)                      # stride 16
+        x = run_seq(self.conv_6, blocks.max_pool(c4))
+        c5 = run_seq(self.conv_7, blocks.zero_pad_maxpool_s1(x))  # s32
+        return c4, c5
 
 
 class ResBlock(nn.ModuleList):

@@ -11,9 +11,8 @@ package's does, in the same call order: after each conv block's
 activation, with a ``pre`` hook on the pre-activation value; on each
 residual sum; and before (``pre``) and after each prediction head.
 
-Not ported here: train-mode BN, the s2d pooled-conv form
-(``conv_block_pool_s2d``, ``fast_pool_context``), ``reorg``, ``spp`` and
-``zero_pad_maxpool_s1``.
+Not ported here: train-mode BN and the s2d pooled-conv form
+(``conv_block_pool_s2d``, ``fast_pool_context``).
 """
 
 from __future__ import annotations
@@ -145,6 +144,34 @@ def spp(x: torch.Tensor) -> torch.Tensor:
     on C (stride 1, -inf padding; reference utils/modules.py:59-72)."""
     return torch.cat([x, max_pool(x, 5, 1, 2), max_pool(x, 9, 1, 4),
                       max_pool(x, 13, 1, 6)], dim=1)
+
+
+def zero_pad_maxpool_s1(x: torch.Tensor) -> torch.Tensor:
+    """ZeroPad2d((0, 1, 0, 1)) + MaxPool2d(2, stride=1), NCHW: the
+    tiny-yolov3 backbone's last pool (reference backbone/darknet.py:
+    232-235). It pads with zero, not -inf, as the reference does: a
+    negative activation on the bottom row or right column meets a 0."""
+    return max_pool(F.pad(x, (0, 1, 0, 1)), 2, 1)
+
+
+def reorg(x: torch.Tensor, stride: int = 2, nchw: bool = False):
+    """Space-to-depth passthrough layer (reference utils/modules.py:43-57):
+    [B, H, W, C] -> [B, H/s, W/s, s*s*C] (NHWC; with ``nchw`` the same on
+    [B, C, H, W]). The output's channel blocks are ordered by the (row,
+    col) position inside each s x s window, the original channels
+    contiguous inside each block: NCHW ``[B, s*s, C, H/s, W/s]``
+    flattened."""
+    s = stride
+    if nchw:
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // s, s, w // s, s)
+        # -> [B, s(row), s(col), C, H/s, W/s]
+        return x.permute(0, 3, 5, 1, 2, 4).reshape(b, s * s * c, h // s,
+                                                   w // s)
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // s, s, w // s, s, c)
+    # -> [B, H/s, W/s, s(row), s(col), C]
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
 
 
 # Active quantization tap (see quantization_context), read at call time.

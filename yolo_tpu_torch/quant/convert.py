@@ -11,12 +11,21 @@ conv index (a per-channel sw under ``sw.<i>``), and
 ``int8_yolo_v3_from_seed`` rebuilds either yolo_v3 golden fixture's model.
 Layouts stay the JAX package's (HWIO weights).
 
+tiny_yolo_v3's ``Int8Tiny`` and yolo_v2's ``Int8YoloV2`` are keyed by
+conv name as slim's model is: ``int8_tiny_from_numpy`` /
+``int8_yolo_v2_from_numpy`` take a JAX model's fields after
+``jax.device_get``, ``int8_model_arrays`` gives their tables under the same
+``<field>.<name>`` keys, and ``int8_tiny_from_seed`` /
+``int8_yolo_v2_from_seed`` rebuild their golden fixtures' models from the
+seeded weights of ``tiny_seeded_fused_params`` /
+``yolo_v2_seeded_fused_params``.
+
 The float models cross too: ``module_to_params`` gives a model's
 parameters as the JAX package's tree (numpy, HWIO weights, 'bn' dicts in
 the BN form), ``load_params`` loads such a tree (the one ``init_params``
 or ``fold_batch_norm`` returns there) into a model, and
-``slim_from_params`` / ``yolo_v3_from_params`` build the model in the
-tree's form and load it.
+``slim_from_params`` / ``yolo_v3_from_params`` / ``tiny_from_params`` /
+``yolo_v2_from_params`` build the model in the tree's form and load it.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import torch
 from torch import nn
 
 from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS, SlimYOLOv2
+from yolo_tpu_torch.models.tiny_yolo_v3 import TinyYOLOv3
+from yolo_tpu_torch.models.yolo_v2 import YOLOv2
 from yolo_tpu_torch.models.yolo_v3 import YOLOv3
 from yolo_tpu_torch.models.yolo_v3_spp import YOLOv3SPP
 from yolo_tpu_torch.ops.blocks import Conv
@@ -65,8 +76,9 @@ def int8_model_from_numpy(w_q: Mapping, b_q: Mapping, sw: Mapping,
         retune={k: _exponent(v) for k, v in retune.items()})
 
 
-def int8_model_arrays(m: Int8Model) -> Dict[str, np.ndarray]:
-    """The model as a flat {'<field>.<layer>': array} dict."""
+def int8_model_arrays(m) -> Dict[str, np.ndarray]:
+    """The model (an ``Int8Model``, ``Int8Tiny`` or ``Int8YoloV2``) as a
+    flat {'<field>.<layer>': array} dict."""
     out = {}
     for k, v in m.w_q.items():
         out[f"w_q.{k}"] = v.cpu().numpy()
@@ -316,6 +328,171 @@ def int8_yolo_v3_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# tiny_yolo_v3 and yolo_v2: Int8Tiny, Int8YoloV2 (dicts keyed by conv name).
+# ---------------------------------------------------------------------------
+
+
+def int8_named_from_numpy(cls, w_q: Mapping, b_q: Mapping, sw: Mapping,
+                          sb: Mapping, sa: Mapping, retune: Mapping,
+                          device="cuda"):
+    """numpy weights (int8 HWIO), biases (int8-valued) and exponent tables
+    keyed by conv name (sa: 'in' and each conv) -> ``cls`` (``Int8Tiny``
+    or ``Int8YoloV2``) on ``device``; a per-channel sw stays an int32
+    array."""
+    dev = resolve_device(device)
+    missing = set(cls.CONV_ORDER) ^ set(w_q)
+    if missing:
+        raise ValueError(f"{cls.__name__} takes the convs "
+                         f"{list(cls.CONV_ORDER)}; the weights differ at "
+                         f"{sorted(missing)}")
+    return cls(
+        w_q={k: torch.as_tensor(np.asarray(w_q[k]).astype(np.int8)).to(dev)
+             for k in cls.CONV_ORDER},
+        b_q={k: torch.as_tensor(np.asarray(b_q[k]).astype(np.int32)).to(dev)
+             for k in cls.CONV_ORDER},
+        sw={k: _exponent(sw[k]) for k in cls.CONV_ORDER},
+        sb={k: int(sb[k]) for k in cls.CONV_ORDER},
+        sa={k: int(v) for k, v in sa.items()},
+        retune={k: int(retune[k]) for k in cls.CONV_ORDER})
+
+
+def int8_tiny_from_numpy(w_q, b_q, sw, sb, sa, retune, device="cuda"):
+    """The fields of a JAX ``Int8Tiny`` after ``jax.device_get`` -> the
+    port's ``Int8Tiny`` on ``device``."""
+    from yolo_tpu_torch.quant.int8_models import Int8Tiny
+
+    return int8_named_from_numpy(Int8Tiny, w_q, b_q, sw, sb, sa, retune,
+                                 device)
+
+
+def int8_yolo_v2_from_numpy(w_q, b_q, sw, sb, sa, retune, device="cuda"):
+    """The fields of a JAX ``Int8YoloV2`` after ``jax.device_get`` -> the
+    port's ``Int8YoloV2`` on ``device``."""
+    from yolo_tpu_torch.quant.int8_models import Int8YoloV2
+
+    return int8_named_from_numpy(Int8YoloV2, w_q, b_q, sw, sb, sa, retune,
+                                 device)
+
+
+def int8_named_tables(m) -> Dict[str, np.ndarray]:
+    """An ``Int8Tiny`` / ``Int8YoloV2``'s exponent tables, without its
+    weights: {'sw.<conv>', 'sb.<conv>', 'retune.<conv>', 'sa.<tap>'}
+    int32 (a per-channel sw an int32 [C_out] array)."""
+    return {k: v for k, v in int8_model_arrays(m).items()
+            if k.partition(".")[0] in _TABLES}
+
+
+def _seeded_named(rng, specs) -> Dict[str, dict]:
+    """{name: {'w': HWIO, 'b': [C_out]}} drawn conv by conv in the order of
+    ``specs`` ((name, k, c_in, c_out)) with the kaiming-uniform bounds of
+    ``blocks.init_conv`` (torch's nn.Conv2d defaults)."""
+    layers = {}
+    for name, k, c_in, c_out in specs:
+        fan_in = c_in * k * k
+        bound = math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
+        b_bound = 1.0 / math.sqrt(fan_in)
+        w = rng.uniform(-bound, bound, (k, k, c_in, c_out)).astype(np.float32)
+        b = rng.uniform(-b_bound, b_bound, (c_out,)).astype(np.float32)
+        layers[name] = {"w": w, "b": b}
+    return layers
+
+
+def _module_specs(model: nn.Module, flat, order) -> list:
+    """(name, k, c_in, c_out) of each conv of ``order`` in ``model`` (built
+    on the meta device: shapes only), through the tree walk of
+    ``module_to_params`` flattened by ``flat``."""
+    def shapes(m):
+        if isinstance(m, Conv):
+            c_out, c_in, k, _ = m.conv.weight.shape
+            return {"w": (k, c_in, c_out)}
+        if isinstance(m, nn.ModuleList):
+            return [shapes(c) for c in m]
+        return {name: shapes(c) for name, c in m.named_children()}
+
+    tree = flat(shapes(model))
+    return [(n, *tree[n]["w"]) for n in order]
+
+
+def tiny_seeded_fused_params(seed: int, pred_out: int) -> dict:
+    """BN-fused float tiny_yolo_v3 params in the JAX package's tree layout
+    (what ``fold_batch_norm`` returns there), drawn from
+    ``np.random.default_rng(seed)`` conv by conv in ``TINY_CONV_ORDER``:
+    the tiny golden fixture's recipe (no weight tensor in git)."""
+    from yolo_tpu_torch.quant.int8_models import (
+        TINY_CONV_ORDER, flat_tiny_params)
+
+    specs = _module_specs(TinyYOLOv3(pred_out, batch_norm=False,
+                                     device="meta"), flat_tiny_params,
+                          TINY_CONV_ORDER)
+    layers = _seeded_named(np.random.default_rng(seed), specs)
+    tree = {"backbone": {n: [layers[n]] for n in TINY_CONV_ORDER[:7]}}
+    tree.update({n: layers[n] for n in TINY_CONV_ORDER[7:]})
+    return tree
+
+
+def yolo_v2_seeded_fused_params(seed: int, pred_out: int) -> dict:
+    """As ``tiny_seeded_fused_params``, for yolo_v2 (``V2_CONV_ORDER``):
+    the yolo_v2 golden fixture's recipe."""
+    from yolo_tpu_torch.quant.int8_models import (
+        _D19_SEQ_LENS, V2_CONV_ORDER, flat_v2_params)
+
+    specs = _module_specs(YOLOv2(pred_out, batch_norm=False, device="meta"),
+                          flat_v2_params, V2_CONV_ORDER)
+    layers = _seeded_named(np.random.default_rng(seed), specs)
+    return {
+        "backbone": {seq: [layers[f"{seq}.{j}"] for j in range(n)]
+                     for seq, n in _D19_SEQ_LENS},
+        "convsets_1": [layers["convsets_1.0"], layers["convsets_1.1"]],
+        "route_layer": layers["route_layer"],
+        "convsets_2": [layers["convsets_2.0"]],
+        "pred": layers["pred"]}
+
+
+def _named_from_seed(cls, seeded, flat, arrays: Mapping, device):
+    from yolo_tpu_torch.quant.int8_models import quantize_named_weights
+
+    order = cls.CONV_ORDER
+    fused = seeded(int(arrays["weight_seed"]), int(arrays["pred_out"]))
+    w_q, b_q, sw, sb = quantize_named_weights(flat(fused), order)
+    digest = weights_sha256([w_q[n] for n in order], [b_q[n] for n in order])
+    if digest != str(arrays["wb_sha256"]):
+        raise ValueError(f"the weights rebuilt from seed "
+                         f"{int(arrays['weight_seed'])} do not match the "
+                         f"fixture: sha256 {digest} != "
+                         f"{arrays['wb_sha256']}")
+    tables = {f: {} for f in _TABLES}
+    for key, v in arrays.items():
+        f, _, name = key.partition(".")
+        if f in tables and name:
+            tables[f][name] = v
+    for n in order:
+        if (not np.array_equal(np.asarray(tables["sw"][n]), sw[n])
+                or int(tables["sb"][n]) != sb[n]):
+            raise ValueError(f"the fixture's sw / sb of {n} differ from the "
+                             f"rebuilt weights' exponents")
+    return int8_named_from_numpy(cls, w_q, b_q, device=device, **tables)
+
+
+def int8_tiny_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
+    """The tiny_yolo_v3 golden fixture's model: int8 weights rebuilt from
+    the seed it names (``tiny_seeded_fused_params``, per-tensor
+    quantization), checked against its ``wb_sha256``, with its calibrated
+    tables, whose sw / sb must be the rebuilt weights' exponents."""
+    from yolo_tpu_torch.quant.int8_models import Int8Tiny, flat_tiny_params
+
+    return _named_from_seed(Int8Tiny, tiny_seeded_fused_params,
+                            flat_tiny_params, arrays, device)
+
+
+def int8_yolo_v2_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
+    """As ``int8_tiny_from_seed``, for the yolo_v2 golden fixture."""
+    from yolo_tpu_torch.quant.int8_models import Int8YoloV2, flat_v2_params
+
+    return _named_from_seed(Int8YoloV2, yolo_v2_seeded_fused_params,
+                            flat_v2_params, arrays, device)
+
+
+# ---------------------------------------------------------------------------
 # Float models <-> the JAX package's parameter trees.
 # ---------------------------------------------------------------------------
 
@@ -411,4 +588,22 @@ def yolo_v3_from_params(params, device="cuda"):
     model = (YOLOv3SPP if spp else YOLOv3)(
         int(np.shape(params["pred_1"]["w"])[-1]), batch_norm=_has_bn(params),
         device=resolve_device(device))
+    return load_params(model, params)
+
+
+def tiny_from_params(params, device="cuda"):
+    """A ``TinyYOLOv3`` on ``device`` in the tree's form, loaded from a
+    JAX-layout tiny_yolo_v3 tree (every conv with a BN, or every conv
+    fused)."""
+    model = TinyYOLOv3(int(np.shape(params["pred_1"]["w"])[-1]),
+                       batch_norm=_has_bn(params),
+                       device=resolve_device(device))
+    return load_params(model, params)
+
+
+def yolo_v2_from_params(params, device="cuda"):
+    """A ``YOLOv2`` on ``device`` in the tree's form, loaded from a
+    JAX-layout yolo_v2 tree."""
+    model = YOLOv2(int(np.shape(params["pred"]["w"])[-1]),
+                   batch_norm=_has_bn(params), device=resolve_device(device))
     return load_params(model, params)

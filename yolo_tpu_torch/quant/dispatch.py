@@ -4,10 +4,10 @@ string onto its (quantize pipeline, detect-fn maker) pair, so the CLI
 needs no per-model branching, and onto its float model
 (``init_float_model``).
 
-Ported families: slim_yolo_v2, slim_yolo_v2_q_bf (its BN already folded:
-``fold_bn=False``), yolo_v3 and yolo_v3_spp. tiny_yolo_v3 and yolo_v2
-(their integer engines) and ``head_clip="auto"`` (``quant.autoclip``) are
-not ported yet and raise.
+Every family of the JAX package: slim_yolo_v2, slim_yolo_v2_q_bf (its BN
+already folded: ``fold_bn=False``), tiny_yolo_v3, yolo_v2, yolo_v3 and
+yolo_v3_spp. ``head_clip="auto"`` (``quant.autoclip``) is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -28,24 +28,16 @@ _FAMILY = {
     "yolo_v3": "v3",
     "yolo_v3_spp": "v3_spp",
 }
-# families whose integer engine the port does not have yet
-_UNPORTED = {"tiny": "tiny_yolo_v3's integer engine (int8_models)",
-             "v2": "yolo_v2's integer engine (int8_models)"}
-
 INT8_VERSIONS = tuple(_FAMILY)
 
 
 def _family(version: str) -> str:
     try:
-        family = _FAMILY[version]
+        return _FAMILY[version]
     except KeyError:
         raise ValueError(
             f"no INT8 engine for version {version!r}; "
             f"choose from {sorted(_FAMILY)}") from None
-    if family in _UNPORTED:
-        raise ValueError(f"{version!r} is not ported yet: the port lacks "
-                         f"{_UNPORTED[family]}")
-    return family
 
 
 def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
@@ -55,11 +47,13 @@ def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
     slim_yolo_v2_q_bf with BN pre-folded (biased convs), randomly
     initialised from ``generator`` where one is given."""
     from yolo_tpu_torch.models.slim_yolo_v2 import SlimYOLOv2
+    from yolo_tpu_torch.models.tiny_yolo_v3 import TinyYOLOv3
+    from yolo_tpu_torch.models.yolo_v2 import YOLOv2
     from yolo_tpu_torch.models.yolo_v3 import YOLOv3
     from yolo_tpu_torch.models.yolo_v3_spp import YOLOv3SPP
 
-    cls = {"slim": SlimYOLOv2, "v3": YOLOv3,
-           "v3_spp": YOLOv3SPP}[_family(version)]
+    cls = {"slim": SlimYOLOv2, "tiny": TinyYOLOv3, "v2": YOLOv2,
+           "v3": YOLOv3, "v3_spp": YOLOv3SPP}[_family(version)]
     pred_out = cfg.anchors_per_scale * (1 + 4 + cfg.num_classes)
     return cls(pred_out, batch_norm=not version.endswith("_q_bf"),
                device=resolve_device(device), generator=generator)
@@ -77,14 +71,16 @@ def build_int8_detector(version: str, params_fp32, cfg: DetectorConfig,
                         device="cuda",
                         **maker_kwargs) -> Tuple[object, Callable]:
     """Quantize the float model ``params_fp32`` (a ``SlimYOLOv2``,
-    ``YOLOv3`` or ``YOLOv3SPP``, moved to ``device``) with the family's
+    ``TinyYOLOv3``, ``YOLOv2``, ``YOLOv3`` or ``YOLOv3SPP``, moved to
+    ``device``) with the family's
     PTQ pipeline on ``device`` and return ``(int8_model, detect_fn)``;
     ``detect_fn(images) -> (boxes, scores, classes, valid)`` runs on
     ``device``.
 
     ``head_clip``: a float cap or None ("auto" needs ``quant.autoclip``,
     not ported yet: it raises). ``states``: pre-computed tracker states
-    (slim: a name dict, v3: a call-ordered list): skips calibration.
+    (slim: a name dict, the others: a call-ordered list): skips
+    calibration.
     ``act_percentile``: per-tracker outlier clip during calibration.
     ``maker_kwargs`` (``input_s2d=``, and for v3 ``s2d=``) pass through to
     the family's detect-fn maker."""
@@ -107,6 +103,15 @@ def build_int8_detector(version: str, params_fp32, cfg: DetectorConfig,
                               **pipe_kw)
         return m, make_int8_detect_fn(m, cfg, rounding=rounding, device=dev,
                                       **maker_kwargs)
+    if family in ("tiny", "v2"):
+        from yolo_tpu_torch.quant import int8_models as im
+        pipeline, maker = ((im.quantize_pipeline_tiny,
+                            im.make_int8_tiny_detect_fn) if family == "tiny"
+                           else (im.quantize_pipeline_yolo_v2,
+                                 im.make_int8_yolo_v2_detect_fn))
+        m = pipeline(model, cfg, calib_batches, **pipe_kw)
+        return m, maker(m, cfg, rounding=rounding, device=dev,
+                        **maker_kwargs)
     from yolo_tpu_torch.quant.int8_yolo_v3 import (
         make_int8_yolo_v3_detect_fn, quantize_pipeline_yolo_v3)
     m = quantize_pipeline_yolo_v3(model, cfg, calib_batches,

@@ -351,27 +351,21 @@ def s2d_input_np(x_q: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _leaky_flag(leaky) -> bool:
-    if leaky is True or leaky is False:
-        return leaky
-    raise ValueError(
-        f"leaky={leaky!r}: the int8 conv kernels implement the 0.125 "
-        f"shift only (True / False); float slopes are not ported yet")
-
-
 def int8_conv_pool_s2d_core(x2: torch.Tensor, w_q, b_q, *, c_in: int,
                             sw: int, sb: int, sa_in: int, sa_out: int,
-                            retune: int, leaky: bool = True,
+                            retune: int, leaky=True,
                             rounding: str = "nearest",
                             packed=None) -> torch.Tensor:
     """conv3x3 + requant + 2x2 pool on an already space-to-depth input
     [B,H/2+3,W/2+3,4*C_in] -> [B,H/2,W/2,C_out] int8 (``packed``: the
-    weights from ``pack_pool_s2d_weights``, for K2's wgmma kernel)."""
+    weights from ``pack_pool_s2d_weights``, for K2's wgmma kernel;
+    ``leaky``: False, True (0.125) or a float slope, the darknet entry's
+    0.1 on K2's wgmma kernel)."""
     from yolo_tpu_torch.kernels.int8_conv import int8_conv3x3_pool_s2d
 
     return int8_conv3x3_pool_s2d(
         x2, w_q, b_q, c_in=c_in, sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out,
-        retune=retune, leaky=_leaky_flag(leaky), rounding=rounding,
+        retune=retune, leaky=leaky, rounding=rounding,
         packed=packed)
 
 
@@ -573,6 +567,15 @@ def int_spp(x_q: torch.Tensor) -> torch.Tensor:
     mp5 = int_maxpool(x_q, 5, 1, 2)
     mp9 = int_maxpool(mp5, 5, 1, 2)
     return torch.cat([x_q, mp5, mp9, int_maxpool(mp9, 5, 1, 2)], dim=-1)
+
+
+def int_zero_pad_maxpool_s1(x_q: torch.Tensor) -> torch.Tensor:
+    """ZeroPad2d((0,1,0,1)) + MaxPool2d(2, stride=1) on int8 NHWC (the
+    darknet_light tail pool, reference backbone/darknet.py:232-235):
+    zero padding, not INT8_MIN, exactly as the reference pads, then the
+    int8 reductions of ``int_maxpool``."""
+    return int_maxpool(torch.nn.functional.pad(x_q, (0, 0, 0, 1, 0, 1)),
+                       2, 1)
 
 
 def _forward(m: Int8Model, x_q: torch.Tensor, rounding: str,

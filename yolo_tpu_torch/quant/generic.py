@@ -136,3 +136,36 @@ def calibrate_generic(model_q, cfg, batches: Iterable,
         if seen > max_images:
             break
     return states
+
+
+def calibrate_pipeline(model, cfg, calib_batches, max_images: int = 1000,
+                       head_clip: float = None, fold_bn: bool = True,
+                       states=None, act_percentile: float = None,
+                       weight_bitwidth: int = None,
+                       per_channel: bool = False):
+    """The float half of the generic PTQ pipelines (yolo_v3, tiny_yolo_v3,
+    yolo_v2), on the model's device: fold BN (with ``fold_bn``) ->
+    fake-quant every conv -> ``calibrate_generic`` (skipped where
+    ``states``, a call-ordered tracker list, is given) -> per-conv
+    pre-activation maxima over ``calib_batches``. -> (the fused model,
+    the tracker states, the maxima as floats in conv call order)."""
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+
+    calib_batches = list(calib_batches)
+    fused = fold_batch_norm(model) if fold_bn else model
+    params_q = fake_quantize_all_convs(fused,
+                                       weight_bitwidth=weight_bitwidth,
+                                       per_channel=per_channel)
+    if states is None:
+        states = calibrate_generic(params_q, cfg, calib_batches,
+                                   max_images=max_images,
+                                   head_clip=head_clip,
+                                   act_percentile=act_percentile)
+    dev = model_device(params_q)
+    agg = None
+    for x in calib_batches:
+        _, _, pre = quant_forward_generic(params_q, as_batch(x, dev), cfg,
+                                          states)
+        pre = torch.stack(pre).cpu().tolist()
+        agg = pre if agg is None else [max(a, b) for a, b in zip(agg, pre)]
+    return fused, states, agg

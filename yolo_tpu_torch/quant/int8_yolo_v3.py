@@ -685,32 +685,15 @@ def quantize_pipeline_yolo_v3(model, cfg: DetectorConfig, calib_batches,
     call-ordered tracker list) skips calibration; the maxima still run.
     ``act_percentile`` clips every conv tracker to that percentile of
     |act|."""
-    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
-    from yolo_tpu_torch.quant.generic import (
-        as_batch, calibrate_generic, fake_quantize_all_convs, model_device,
-        quant_forward_generic)
+    from yolo_tpu_torch.quant.generic import calibrate_pipeline
 
     if bool(getattr(model, "use_spp", False)) != bool(spp):
         raise ValueError(f"spp={spp} but the model is "
                          f"{type(model).__name__}: yolo_v3_spp takes a "
                          f"YOLOv3SPP, yolo_v3 a YOLOv3")
-    calib_batches = list(calib_batches)
-    fused = fold_batch_norm(model) if fold_bn else model
-    params_q = fake_quantize_all_convs(fused,
-                                       weight_bitwidth=weight_bitwidth,
-                                       per_channel=per_channel)
-    if states is None:
-        states = calibrate_generic(params_q, cfg, calib_batches,
-                                   max_images=max_images,
-                                   head_clip=head_clip,
-                                   act_percentile=act_percentile)
-    dev = model_device(params_q)
-    agg = None
-    for x in calib_batches:
-        _, _, pre = quant_forward_generic(params_q, as_batch(x, dev), cfg,
-                                          states)
-        pre = torch.stack(pre).cpu().tolist()
-        agg = pre if agg is None else [max(a, b) for a, b in zip(agg, pre)]
+    fused, states, agg = calibrate_pipeline(
+        model, cfg, calib_batches, max_images, head_clip, fold_bn, states,
+        act_percentile, weight_bitwidth, per_channel)
     return quantize_yolo_v3(fused, states, agg, spp=spp,
                             weight_bitwidth=weight_bitwidth,
                             per_channel=per_channel)
