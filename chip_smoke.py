@@ -16,8 +16,8 @@ weight scales (int8 NHWC input; phases 2c-4c), with its overflow-counting
 forward ``int8_forward_diagnostics``; yolo_v3 INT8 with per-channel
 weight scales (int8 NHWC input; phases 2d-4d), every conv on the
 per-column form of its kernel; and tiny_yolo_v3 and yolo_v2 INT8 (phase
-7; s2d and NHWC input). Phases, each printing JSON lines; any failure
-raises and the script exits nonzero:
+7; s2d and NHWC input; 7d with per-channel weight scales). Phases, each
+printing JSON lines; any failure raises and the script exits nonzero:
 
 0. header: versions, the card's name and power limit, and whether
    F.conv2d takes int8 / int32 CUDA tensors (information only);
@@ -155,6 +155,19 @@ raises and the script exits nonzero:
    kernel checked and timed at batch 256 beside its plain version and
    cuDNN fp16, with the bound, conv1's also beside the mma.sync conv it
    ran on before;
+2e. the wgmma conv3x3's two-part form (a 3x3 over a two-part concat:
+   tiny_yolo_v3's conv_set_1, yolo_v2's convsets_2.0) against its plain
+   version (torch.equal) at ``PARTS_SHAPES`` (26², odd 13² and 9², C_out
+   35, 64, 256, 1,024), both roundings, equal part scales (one
+   accumulator) and unequal ones (two), scalar sw in the short and the
+   general shift forms (an accumulator shift >= 32, a negative output
+   shift), per-column sw on one table or two (shifts of 31, 33, -1 and
+   -40, or all in [0, 30]), slopes 0.1, 0.125 and none, from the parts'
+   packed weights, each one launch of the two-part C entry; then the two
+   served convs at their serving batch (256, 128), scalar and per
+   column; then tiny's conv_2 with its pool as one pooled call at slope
+   0.1 (the pooled form, scalar and per column) at 64², 100² and the
+   served 208², batch 256;
 3d. the per-channel v3 fixture on the card: the heads of its 2 images
    through the CUDA forward (packed weights and tables) bit-exact with
    the JAX package's, the detect fn's classes and valid exact, boxes and
@@ -211,17 +224,28 @@ raises and the script exits nonzero:
    ``yolo_v2_int8_416_golden.npz``, weights rebuilt from their seeds):
    heads bit-exact on NHWC and s2d input, detections the fixture's,
    served on both inputs with per-forward launches checked (tiny: the
-   entry conv or K2 once, 7 wgmma 3x3s, 3 wgmma 1x1s, 2 on the mma.sync
-   general conv, conv_2 and conv_set_1; yolo_v2: 1, 13, 8 and 1,
-   convsets_2.0), its weights packed when the detect fn took the model
-   and never in the loop, images/sec, backbone and decode + NMS ms; every
-   conv of one NHWC forward on its recorded input and the entry conv +
-   pool on the s2d layout against its plain version and timed beside
-   its plain version and cuDNN fp16 (``torch._int_mm`` for a 1x1), with
-   its bound; the port's PTQ of each from the fixture's seed and images,
-   every table and the weights' sha256 the fixture's, served once; 7c
-   ``cli.serve.main`` for tiny_yolo_v3 at batch 64 and yolo_v2 at batch
-   64 (``--input auto``: s2d) and 128 (int8 NHWC).
+   entry conv or K2 once, 7 one-part wgmma 3x3s, conv_set_1 on the
+   two-part form, conv_2 with its pool on the pooled form, 3 wgmma 1x1s;
+   yolo_v2: 1, 13, convsets_2.0 on the two-part form, 8; none on the
+   mma.sync general conv), its weights packed when the detect fn took
+   the model and never in the loop, images/sec, backbone and decode +
+   NMS ms; every conv of one NHWC forward on its recorded input and the
+   entry conv + pool on the s2d layout against its plain version and
+   timed beside its plain version and cuDNN fp16 (``torch._int_mm`` for
+   a 1x1), with its bound, the two-part and pooled convs also with their
+   device time (``torch.profiler``); the port's PTQ of each from the
+   fixture's seed and images, every table and the weights' sha256 the
+   fixture's, served once; 7d both with per-channel weight scales on
+   their per-channel 416² fixtures (``tiny_yolo_v3_int8_pc_416_golden.npz``,
+   ``yolo_v2_int8_pc_416_golden.npz``, made by the JAX package, weights
+   rebuilt from their seeds): heads bit-exact on NHWC input, detections
+   the fixture's, served at batch 256 and 128 with every conv on the
+   per-column form of its kernel (launches checked, packs and shift
+   tables made when the detect fn took the model, none in the loop),
+   images/sec, and every conv of one forward on its real input against
+   its plain version and timed as 7a; 7c ``cli.serve.main`` for
+   tiny_yolo_v3 at batch 64 and yolo_v2 at batch 64 (``--input auto``:
+   s2d) and 128 (int8 NHWC).
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -231,19 +255,21 @@ by a TMA ring (``csrc/int8_wgmma.cuh``); K2 on the s2d input, its NHWC
 form (slim's conv1 on NHWC input) and v3's C_in = 3 entry conv on
 row-streaming wgmma kernels (``csrc/int8_entry_conv.cu``); v3's fourteen
 1x1s on a wgmma GEMM with resident weights
-(``csrc/int8_conv1x1_wgmma.cu``). The mma.sync conv of
-``csrc/int8_conv.cuh`` serves three layers of phase 7 (tiny_yolo_v3's
-conv_2 and conv_set_1, yolo_v2's convsets_2.0) and no layer of the
-others; it is also held to its plain version and timed on v3's 1x1s and
-at conv1 on NHWC input. The
+(``csrc/int8_conv1x1_wgmma.cu``); the two-part 3x3s of tiny_yolo_v3 and
+yolo_v2 on the wgmma conv3x3's two-part form, tiny's conv_2 with its
+pool on its pooled form. The mma.sync conv of ``csrc/int8_conv.cuh``
+serves no layer of any path; it is held to its plain version and timed
+on v3's 1x1s and at conv1 on NHWC input (the general conv's route for
+the shapes no wgmma route takes). The
 ``kernels`` line has one entry per kernel and route: ``int8_conv_requant``
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's and 7's runs. The mma.sync general conv's entry times the three
-layers of phase 7 that run it (``v3_1x1s_ms``: on v3's 1x1s, which it
-ran before the wgmma 1x1 kernel took them); each entry on tiny_yolo_v3's or yolo_v2's path has
-``paths``: their launches per forward and the times of their shapes.
+6's and 7's runs. The two-part form's entries time tiny's conv_set_1
+plus yolo_v2's convsets_2.0 (scalar: 7a, 7b; per column: 7d); each entry
+on tiny_yolo_v3's or yolo_v2's path has ``paths``: their launches per
+forward and the times of their shapes (``.pc``: 7d's per-channel
+models).
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -291,6 +317,10 @@ S2_COLS3 = "yolo_int8_conv3x3_s2_cols_wgmma"
 ENTRY_COLS3 = "yolo_int8_entry_conv3x3_cols_wgmma"
 CONV1X1_COLS = "yolo_int8_conv1x1_cols_wgmma"
 RES_COLS = "yolo_int8_res_block_cols_wgmma"  # K4's per-column form
+# the wgmma conv3x3's two-part form (a 3x3 over a two-part concat: tiny's
+# conv_set_1, yolo_v2's convsets_2.0), scalar and per column
+PARTS3 = "yolo_int8_conv3x3_parts_wgmma"
+PARTS_COLS3 = "yolo_int8_conv3x3_parts_cols_wgmma"
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -370,6 +400,14 @@ LINES = {
     "int8_conv_requant.conv1x1_cols_wgmma": (
         "int8_conv_requant", CONV1X1_COLS, CSRC + "int8_conv1x1_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
+    # tiny_yolo_v3's conv_set_1 and yolo_v2's convsets_2.0 (phases 2e, 7):
+    # the two-part form, scalar and (7d) per column
+    "int8_conv_requant.conv3x3_parts_wgmma": (
+        "int8_conv_requant", PARTS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_parts_cols_wgmma": (
+        "int8_conv_requant", PARTS_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
 }
 # the kernels-line entries whose launches come from the diagnostics
 # forward (phase 4c), not from serving
@@ -412,6 +450,13 @@ CONV1X1_EDGE_SHAPES = [(1, 7, 9, (16,), 24), (2, 5, 5, (48,), 21),
                        (3, 13, 13, (512, 256), 256)]
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
+# the two-part form at (B, H, parts' C_in, C_out) (phase 2e): conv_set_1's
+# [256, 128] -> 256 at 26², convsets_2.0's [256, 1024] -> 1024 at 13²,
+# C_out 35 and 64, odd images (13², 9²); then the two at the serving batch
+PARTS_SHAPES = [(2, 26, (256, 128), 256), (2, 13, (256, 1024), 1024),
+                (2, 13, (64, 32), 35), (3, 26, (128, 64), 64),
+                (1, 9, (32, 96), 64)]
+PARTS_SERVED = [(256, 26, (256, 128), 256), (128, 13, (256, 1024), 1024)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
 RES_EDGE_SHAPES = [(2, 100, 128, 64), (2, 50, 256, 128), (2, 27, 512, 256)]
 GEMM_PROBE = (8192, 8192, 8192)  # the TPU probe's headline shape
@@ -1706,6 +1751,122 @@ def phase_pc_kernels(max_err):
              shape=[bsz, h, w, c_in, c_out], tile=[lay.tile_h, lay.tile_w],
              equal=True)
     emit("pc_kernels_vs_plain_done", cases=n)
+
+
+# the two-part form's shift cases: ``shifts``' scalar ones and
+# ``pc_shifts``' per-column ones (one table where the parts' scales agree,
+# two where they differ)
+PARTS_CASES = ("plain", "acc_shift>=32", "out_shift<0", "mixed", "short")
+PARTS_LINES = ("int8_conv_requant.conv3x3_parts_wgmma",
+               "int8_conv_requant.conv3x3_parts_cols_wgmma")
+
+
+def parts_kw(gen, cins, c_out, case, unequal):
+    """(shifts of a two-part case, the parts' scales): part 1 one scale
+    below part 0 where ``unequal`` (two accumulator shifts: the split)."""
+    c_in = sum(cins)
+    kw = (pc_shifts(gen, c_in, c_out, case) if case in ("mixed", "short")
+          else shifts(c_in, case))
+    sa0 = kw.pop("sa_in")
+    return kw, (sa0, sa0 - 1 if unequal else sa0)
+
+
+def parts_case(x, cins, w, wp, bias, kw, max_err, what):
+    """One two-part conv from the packed weights, as the forward calls it,
+    == its plain version; -> (its kernels-line name, the share of its
+    outputs at the most common value)."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    parts = [(t.contiguous(), sa) for t, sa in
+             zip((x[..., :cins[0]], x[..., cins[0]:]), kw["sas"])]
+    kw = {k: v for k, v in kw.items() if k != "sas"}
+    K.reset_launch_counts()
+    got = K.int8_conv_requant(parts, None, bias, packed=wp, sa_in=None,
+                              padding=1, **kw)
+    torch.cuda.synchronize()
+    line = ran_line()
+    if line not in PARTS_LINES:
+        raise AssertionError(f"the two-part conv at {what} launched {line}")
+    want = K.int8_conv_requant_plain(parts, w, bias, sa_in=None, padding=1,
+                                     **kw)
+    check_equal(line, got, want, max_err, what)
+    top = float(torch.unique(want, return_counts=True)[1].max()
+                / want.numel())
+    if top == 1.0:
+        raise AssertionError(f"{line} at {what}: every output one value")
+    return line, top
+
+
+def phase_parts_kernels(max_err):
+    """The wgmma conv3x3's two-part form and tiny's conv_2 pooled call ==
+    their plain versions (phase 2e): the two-part form at
+    ``PARTS_SHAPES`` (odd 13² and 9², even 26², C_out 35, 64, 256 and
+    1,024), both roundings, equal part scales (one accumulator) and
+    unequal ones (the split: two), each shift case of ``PARTS_CASES``
+    (scalar sw in the short and the general shift forms; per-column sw
+    on one table or two, with shifts outside [0, 31] and all inside), the
+    slopes 0.1, 0.125 and none, from the parts' packed weights; then the
+    two served convs at their serving batch, scalar and per column; then
+    conv_2's pooled call (3x3, 16 -> 32 with its 2x2 pool) at slope 0.1,
+    scalar and per column, at 64², 100² and the served 208² at batch
+    256."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    gen = torch.Generator().manual_seed(17)
+    n = 0
+    for bsz, h, cins, c_out in PARTS_SHAPES + PARTS_SERVED:
+        served = (bsz, h, cins, c_out) in PARTS_SERVED
+        x, w, bias = make_case(gen, bsz, h, sum(cins), c_out, s2d=False)
+        wp = K.pack_conv3x3_parts_weights(w, cins)
+        lines, tops = set(), []
+        # at the serving batch: the served conv's scales (tiny's one,
+        # yolo_v2's two), scalar and per column, nearest
+        grid = ([("nearest", c_out == 1024, case) for case in
+                 ("plain", "short")] if served else
+                [(r, u, case) for r in ("nearest", "floor")
+                 for u in (False, True) for case in PARTS_CASES])
+        for i, (rounding, unequal, case) in enumerate(grid):
+            kw, sas = parts_kw(gen, cins, c_out, case, unequal)
+            kw.update(sas=sas, rounding=rounding,
+                      leaky=(0.1, True, False)[i % 3] if not served
+                      else 0.1 if c_out == 256 else True)
+            line, top = parts_case(x, cins, w, wp, bias, kw, max_err,
+                                   f"{bsz}x{h}² {list(cins)} -> {c_out} "
+                                   f"{rounding} {case} sas {list(sas)}")
+            lines.add(line)
+            tops.append(top)
+            n += 1
+        emit("parts_kernels_vs_plain", shape=[bsz, h, h, list(cins), c_out],
+             equal=True, cases=len(grid), lines=sorted(lines),
+             top_value_share_max=max(tops),
+             layouts={str(split): K.conv3x3_parts_wgmma_layout(
+                 h, h, *cins, c_out, split)._asdict()
+                 for split in (False, True)})
+        del x, w, bias, wp
+        torch.cuda.empty_cache()
+    for bsz, h in ((2, 64), (2, 100), (BATCH_SERVE, 208)):
+        x, w, bias = make_case(gen, bsz, h, 16, 32, s2d=False)
+        packed = K.pack_conv3x3_weights(w)
+        lines = set()
+        for rounding in ("nearest", "floor") if bsz == 2 else ("nearest",):
+            for case in ("plain", "mixed", "short"):
+                kw = (shifts(16, case) if case == "plain"
+                      else pc_shifts(gen, 16, 32, case))
+                kw.update(leaky=0.1, rounding=rounding)
+                K.reset_launch_counts()
+                got = call("im2col_pool", x, None, bias, 16, kw, packed)
+                torch.cuda.synchronize()
+                line = ran_line()
+                lines.add(line)
+                check_equal(line, got, plain("im2col_pool", x, w, bias, 16,
+                                             kw), max_err,
+                            f"conv_2 pooled {bsz}x{h}² {rounding} {case}")
+                n += 1
+        emit("parts_kernels_vs_plain", conv="tiny conv_2 + pool, slope 0.1",
+             shape=[bsz, h, h, 16, 32], equal=True, lines=sorted(lines))
+        del x, w, bias
+        torch.cuda.empty_cache()
+    emit("parts_kernels_vs_plain_done", cases=n)
 
 
 PC_FIXTURE = "slim_int8_pc_416_golden.npz"
@@ -3185,82 +3346,111 @@ def phase_serve_cli(card, cases=(("slim_yolo_v2", SERVE_CLI_BATCH, "s2d"),
 # tiny_yolo_v3 and yolo_v2 (phase 7)
 # ---------------------------------------------------------------------------
 
-MMA_GENERAL = "yolo_int8_conv_requant"  # the mma.sync general conv's entry
-# version -> what phase 7 runs: its fixture, serving batch, the port's
-# functions by name (convert: from_seed, seeded, from_params; int8_models:
-# pipeline, forward, maker), its heads' tap names, and per forward on NHWC
-# input the launches of int8_conv_requant by C entry at a scalar sw
+# version -> what phase 7 runs: its fixture and per-channel fixture,
+# serving batch, the port's functions by name (convert: from_seed, seeded,
+# from_params; int8_models: pipeline, forward, maker), its heads' tap
+# names, and per forward on NHWC input the launches by wrapper and C entry
+# at a scalar sw (none on the mma.sync general conv)
 FAMILY7 = {
     "tiny_yolo_v3": dict(
-        fixture="tiny_yolo_v3_int8_416_golden.npz", batch=256,
+        fixture="tiny_yolo_v3_int8_416_golden.npz",
+        pc_fixture="tiny_yolo_v3_int8_pc_416_golden.npz", batch=256,
         from_seed="int8_tiny_from_seed", seeded="tiny_seeded_fused_params",
         from_params="tiny_from_params", pipeline="quantize_pipeline_tiny",
         forward="int8_tiny_forward", maker="make_int8_tiny_detect_fn",
         heads=("pred_1", "pred_2"),
-        convs={ENTRY3: 1, WGMMA3: 7, CONV1X1: 3, MMA_GENERAL: 2}),
+        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 7, PARTS3: 1,
+                                        CONV1X1: 3},
+                  "int8_conv3x3_im2col": {POOL3: 1}}),
     "yolo_v2": dict(
-        fixture="yolo_v2_int8_416_golden.npz", batch=128,
+        fixture="yolo_v2_int8_416_golden.npz",
+        pc_fixture="yolo_v2_int8_pc_416_golden.npz", batch=128,
         from_seed="int8_yolo_v2_from_seed",
         seeded="yolo_v2_seeded_fused_params",
         from_params="yolo_v2_from_params",
         pipeline="quantize_pipeline_yolo_v2", forward="int8_yolo_v2_forward",
         maker="make_int8_yolo_v2_detect_fn", heads=("pred",),
-        convs={ENTRY3: 1, WGMMA3: 13, CONV1X1: 8, MMA_GENERAL: 1}),
+        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 13, PARTS3: 1,
+                                        CONV1X1: 8}}),
 }
+# the per-column C entry of each scalar one on phase 7's paths (7d)
+COLS_OF = {ENTRY3: ENTRY_COLS3, WGMMA3: COLS3, PARTS3: PARTS_COLS3,
+           CONV1X1: CONV1X1_COLS, POOL3: POOL_COLS3}
 # cli.serve runs of phase 7c: (version, batch, the input mode --input auto
 # gives)
 CLI7 = (("tiny_yolo_v3", 64, "s2d"), ("yolo_v2", 64, "s2d"),
         ("yolo_v2", 128, "int8"))
 
 
-def family7_launches(version, s2d):
+def family7_launches(version, s2d, per_channel=False):
     """Per-forward launches by wrapper and C entry: on the s2d layout the
-    entry conv and its pool run once on K2's wgmma kernel instead."""
-    convs = dict(FAMILY7[version]["convs"])
-    if not s2d:
-        return {"int8_conv_requant": convs}
-    del convs[ENTRY3]
-    return {"int8_conv3x3_pool_requant": {POOL_S2D: 1},
-            "int8_conv_requant": convs}
+    entry conv and its pool run once on K2's wgmma kernel instead; with a
+    per-channel sw (NHWC input only) each on its per-column C entry."""
+    out = {w: {COLS_OF[e] if per_channel else e: n for e, n in by.items()}
+           for w, by in FAMILY7[version]["launches"].items()}
+    if s2d:
+        del out["int8_conv_requant"][ENTRY3]
+        out["int8_conv3x3_pool_requant"] = {POOL_S2D: 1}
+    return out
+
+
+FAMILY7_PACKS = ("conv3x3", "conv3x3_parts", "entry_conv", "conv1x1",
+                 "pool_s2d", "shift_table")
 
 
 def family7_packs():
     from yolo_tpu_torch.kernels import int8_conv as K
 
-    return (K.conv3x3_pack_count(), K.entry_conv_pack_count(),
-            K.conv1x1_pack_count(), K.pool_s2d_pack_count())
+    return (K.conv3x3_pack_count(), K.conv3x3_parts_pack_count(),
+            K.entry_conv_pack_count(), K.conv1x1_pack_count(),
+            K.pool_s2d_pack_count(), K.shift_table_count())
 
 
 def reset_family7_packs():
     from yolo_tpu_torch.kernels import int8_conv as K
 
-    for reset in (K.reset_conv3x3_pack_count, K.reset_entry_conv_pack_count,
-                  K.reset_conv1x1_pack_count, K.reset_pool_s2d_pack_count):
+    for reset in (K.reset_conv3x3_pack_count,
+                  K.reset_conv3x3_parts_pack_count,
+                  K.reset_entry_conv_pack_count,
+                  K.reset_conv1x1_pack_count, K.reset_pool_s2d_pack_count,
+                  K.reset_shift_table_count):
         reset()
+
+
+# the kernels-line names whose device time phase 7 reads with
+# torch.profiler: the convs this slice moved onto the wgmma conv3x3
+FAMILY7_DEVICE_LINES = PARTS_LINES + ("int8_conv3x3_im2col",
+                                      "int8_conv3x3_im2col.cols")
 
 
 def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
                        max_err):
     """Every conv of one NHWC forward at the serving batch, on its real
-    input (recorded from the forward), and the entry conv + pool on the
-    s2d layout: kernel == plain version, then the kernel, the plain
-    version and a library yardstick (cuDNN fp16 conv2d; torch._int_mm
-    for a 1x1) timed, with the bound. -> {kernels-line name: per-forward
-    sums (``add_time``)}, each conv's line emitted."""
+    input (recorded from the forward), with the model's packed weights and
+    (per-channel) shift tables, and the entry conv + pool on the s2d
+    layout (``xb2``; None: not run): kernel == plain version, then the
+    kernel, the plain version and a library yardstick (cuDNN fp16 conv2d;
+    torch._int_mm for a 1x1) timed, with the bound; the two-part and
+    pooled convs also their device time (torch.profiler). -> {kernels-line
+    name: per-forward sums (``add_time``)}, each conv's line emitted."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     calls = []
-    real = m.conv
+    real_conv, real_pool = m.conv, m.conv_pool
 
     def spy(name, x, sa_in, rounding, leaky=True):
-        calls.append((name, x, sa_in, leaky))
-        return real(name, x, sa_in, rounding, leaky)
+        calls.append((name, x, sa_in, leaky, False))
+        return real_conv(name, x, sa_in, rounding, leaky)
 
-    m.conv = spy
+    def spy_pool(name, x, sa_in, rounding, leaky=True):
+        calls.append((name, x, sa_in, leaky, True))
+        return real_pool(name, x, sa_in, rounding, leaky)
+
+    m.conv, m.conv_pool = spy, spy_pool
     try:
         forward(m, xb)
     finally:
-        del m.conv
+        del m.conv, m.conv_pool
     per_kernel = {}
 
     def record(line, name, shape, ms, plain_ms, lib_ms, ops, nbytes,
@@ -3274,39 +3464,60 @@ def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
              **extra)
         add_time(per_kernel, line, 1, ms, plain_ms, lib_ms, t_ops, t_bytes)
 
-    for name, x, sa_in, leaky in calls:
+    for name, x, sa_in, leaky, pooled in calls:
         w, bias, packed = m.w_q[name], m.b_q[name], m.packed.get(name)
+        tables = m._tables(name, "nearest")
         kw = dict(sw=m.sw[name], sb=m.sb[name], sa_in=sa_in,
-                  sa_out=m.sa[name], retune=m.retune[name],
-                  padding=m.PAD[name], leaky=leaky, rounding="nearest")
+                  sa_out=m.sa[name], retune=m.retune[name], leaky=leaky,
+                  rounding="nearest")
+        if pooled:
+            def run():
+                return K.int8_conv3x3_im2col(
+                    x, w, bias, packed=packed, pool=True,
+                    shifts=None if tables is None else tables[0], **kw)
+
+            def run_plain():
+                return K.int8_conv3x3_im2col_plain(x, w, bias, pool=True,
+                                                   **kw)
+        else:
+            kw["padding"] = m.PAD[name]
+
+            def run():
+                return K.int8_conv_requant(x, w, bias, packed=packed,
+                                           shifts=tables, **kw)
+
+            def run_plain():
+                return K.int8_conv_requant_plain(x, w, bias, **kw)
         K.reset_launch_counts()
-        got = K.int8_conv_requant(x, w, bias, packed=packed, **kw)
+        got = run()
         line = ran_line()
-        want = K.int8_conv_requant_plain(x, w, bias, **kw)
-        check_equal(line, got, want, max_err, f"{version} {name}")
-        del got, want
-        ms = time_ms(lambda: K.int8_conv_requant(x, w, bias, packed=packed,
-                                                 **kw), 10)
-        plain_ms = time_ms(lambda: K.int8_conv_requant_plain(x, w, bias,
-                                                             **kw),
-                           2, warmup=1)
+        check_equal(line, got, run_plain(), max_err, f"{version} {name}")
+        del got
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(run_plain, 2, warmup=1)
         xs = [p for p, _ in x] if isinstance(x, list) else [x]
         b, h = xs[0].shape[:2]
         cins = [t.shape[-1] for t in xs]
         k, c_out = w.shape[0], w.shape[3]
         lib_ms = int_mm_ms(b * h * h, sum(cins), c_out) if k == 1 else None
         if lib_ms is None:
-            lib_ms = fp16_conv_ms(b, h, sum(cins), c_out, k, 1, m.PAD[name])
+            lib_ms = fp16_conv_ms(b, h, sum(cins), c_out, k, 1, k // 2)
         extra = {}
-        if line == "int8_conv_requant.mma_sync":  # its device time alone
-            extra["device_ms"] = profiled(lambda: K.int8_conv_requant(
-                x, w, bias, packed=packed, **kw), 5)[1]
-        record(line, name, [b, h, h, cins, c_out, k], ms, plain_ms, lib_ms,
+        if line in FAMILY7_DEVICE_LINES:  # their device time alone
+            extra["device_ms"] = profiled(run, 5)[1]
+        out_px = b * h * h // (4 if pooled else 1)
+        record(line, name + (" + pool" if pooled else ""),
+               [b, h, h, cins, c_out, k], ms, plain_ms, lib_ms,
                2 * b * h * h * k * k * sum(cins) * c_out,
                sum(t.numel() for t in xs) + w.numel() + 4 * c_out
-               + b * h * h * c_out, **extra)
+               + out_px * c_out, **extra)
+        if extra.get("device_ms") is not None:
+            agg = per_kernel[line]
+            agg["device_ms"] = agg.get("device_ms", 0.0) + extra["device_ms"]
         torch.cuda.empty_cache()
     del calls
+    if xb2 is None:
+        return per_kernel
     # the entry conv + its pool on the s2d layout (K2)
     first = m.CONV_ORDER[0]
     w, bias = m.w_q[first], m.b_q[first]
@@ -3425,13 +3636,79 @@ def phase_family7(version, card, max_err):
          launches_per_forward={
              layout: family7_launches(version, layout == "s2d")
              for layout in ("s2d", "nhwc")},
-         packs_at_setup=dict(zip(("conv3x3", "entry_conv", "conv1x1",
-                                  "pool_s2d"), packs_at_setup)),
+         packs_at_setup=dict(zip(FAMILY7_PACKS, packs_at_setup)),
          packs_in_loop=0,
-         mma_sync_layers={k: v for k, v in times.items()
-                          if k == "int8_conv_requant.mma_sync"},
+         wgmma_parts_and_pooled={k: v for k, v in times.items()
+                                 if k in FAMILY7_DEVICE_LINES},
          torch_ops=ops, card=card)
     return runs, times
+
+
+def phase_family7_pc(version, card, max_err):
+    """7d: the family with per-channel weight scales on its per-channel
+    416² fixture (weights rebuilt from its seed): the heads of its 2
+    images through the CUDA forward bit-exact with the JAX package's, the
+    detect fn's detections the fixture's, served at the family's batch on
+    NHWC input with every conv on the per-column form of its kernel (the
+    packs and shift tables made when the detect fn took the model, none
+    in the loop); then every conv of one forward on its real input against
+    its plain version, timed. -> (the serving runs' launches, {line:
+    per-forward sums})."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_models as tim
+
+    f = FAMILY7[version]
+    peak_ops, peak_bw = peaks(torch.cuda.get_device_name(0))
+    g = load_fixture(f["pc_fixture"])
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    m = getattr(convert, f["from_seed"])(g, device="cuda")
+    if not (m.per_channel and all(np.ndim(sw) for sw in m.sw.values())):
+        raise AssertionError(f"7d {version}: the fixture's sw is not "
+                             f"per-channel")
+    forward, maker = getattr(tim, f["forward"]), getattr(tim, f["maker"])
+    x_q = fp.quantize_input(torch.as_tensor(fixture_images(
+        g, g["head_q_1"].shape[0])).cuda(), m.sa["in"]).contiguous()
+    m_packed = m.to("cuda")
+    m_packed.pack()
+    heads = forward(m_packed, x_q)
+    for i, (head, name) in enumerate(zip(heads, f["heads"])):
+        check_head(torch.round(head * 2.0 ** m.sa[name]).to(torch.int8),
+                   g[f"head_q_{i + 1}"], f"7d {version} head {i + 1}")
+    reset_family7_packs()
+    detect = maker(m, cfg, device="cuda")
+    packs_at_setup = family7_packs()
+    want = family7_launches(version, False, per_channel=True)
+    out, _ = served_once(detect, x_q, want, f"7d {version} served")
+    valid = check_detections(out, g)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xb = fp.quantize_input(torch.rand((f["batch"], SIZE, SIZE, 3),
+                                      generator=gen, device="cuda"),
+                           m.sa["in"]).contiguous()
+    reset_family7_packs()
+    rate, entries, out = serve_loop(detect, xb)
+    if per_forward(entries, SERVE_ITERS) != want:
+        raise AssertionError(f"7d {version} serving launched "
+                             f"{per_forward(entries, SERVE_ITERS)} per "
+                             f"forward, want {want}")
+    if any(family7_packs()):
+        raise AssertionError(f"7d {version}: serving packed weights or made "
+                             f"shift tables {family7_packs()}")
+    if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()):
+        raise AssertionError(f"7d {version}: detections not finite")
+    backbone_ms = time_ms(lambda: forward(m_packed, xb), 5)
+    del detect, out
+    torch.cuda.empty_cache()
+    times = family7_conv_times(f"{version} per-channel", m_packed, forward,
+                               xb, None, peak_ops, peak_bw, max_err)
+    emit("family7_pc_serving", version=version, batch=f["batch"],
+         heads_bit_exact=True, valid_slots=valid, images_per_sec=rate,
+         backbone_ms_per_batch=backbone_ms, launches_per_forward=want,
+         packs_at_setup=dict(zip(FAMILY7_PACKS, packs_at_setup)),
+         packs_in_loop=0, tables_in_loop=0, card=card)
+    return [entries], times
 
 
 def check_named_tables(m, g, what):
@@ -3486,14 +3763,20 @@ def phase_ptq_family7(version, card):
 
 def phase_7(card, max_err):
     """Phase 7: tiny_yolo_v3 (7a) and yolo_v2 (7b) INT8 on the card, the
-    port's PTQ of each, then ``cli.serve.main`` for both (7c). -> (every
-    run's launches, {version: {line: per-forward sums}})."""
+    port's PTQ of each, both with per-channel weight scales (7d), then
+    ``cli.serve.main`` for both (7c). -> (every run's launches, {version,
+    or version + ".pc" for 7d: {line: per-forward sums}})."""
     runs, times = [], {}
     for version in FAMILY7:
         served, times[version] = phase_family7(version, card, max_err)
         runs += served
         torch.cuda.empty_cache()
         runs.append(phase_ptq_family7(version, card))
+        torch.cuda.empty_cache()
+    for version in FAMILY7:
+        served, times[version + ".pc"] = phase_family7_pc(version, card,
+                                                          max_err)
+        runs += served
         torch.cuda.empty_cache()
     runs += phase_serve_cli(card, CLI7)
     return runs, times
@@ -3523,6 +3806,7 @@ def main() -> int:
     phase_kernels(max_err)
     phase_v3_kernels(max_err)
     phase_pc_kernels(max_err)
+    phase_parts_kernels(max_err)
     m, cfg = phase_golden()
     m3, cfg3 = phase_v3_golden()
     mpc, cfgpc = phase_pc_golden()
@@ -3558,14 +3842,13 @@ def main() -> int:
     t7 = time.perf_counter()
     launches_7, times_7 = phase_7(card, max_err)
     emit("phase_7", seconds=time.perf_counter() - t7)
-    # the mma.sync conv's line: the three layers that run it per forward
-    # of tiny_yolo_v3 and yolo_v2 (its old times on the v3 1x1s beside)
-    on_1x1s = times["int8_conv_requant.mma_sync"]
-    times["int8_conv_requant.mma_sync"] = dict(times_7["tiny_yolo_v3"][
-        "int8_conv_requant.mma_sync"])
-    for field, v in times_7["yolo_v2"]["int8_conv_requant.mma_sync"].items():
-        times["int8_conv_requant.mma_sync"][field] += v
-    times["int8_conv_requant.mma_sync"]["v3_1x1s_ms"] = on_1x1s["ms"]
+    # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
+    # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
+    for line in PARTS_LINES:
+        times[line] = {}
+        for tv in times_7.values():
+            for field, v in tv.get(line, {}).items():
+                times[line][field] = times[line].get(field, 0.0) + v
 
     shapes = {
         "slim": f"per slim_yolo_v2 forward: summed over its layers, batch "
@@ -3628,18 +3911,21 @@ def main() -> int:
                                            f"torch._int_mm; mma_sync_ms "
                                            f"the mma.sync conv kernel on "
                                            f"the same convs",
-        "int8_conv_requant.mma_sync": f"the three convs no wgmma route "
-                                      f"takes: tiny_yolo_v3's conv_2 (C_in "
-                                      f"16) and conv_set_1 (two parts) per "
-                                      f"forward at batch "
-                                      f"{FAMILY7['tiny_yolo_v3']['batch']} "
-                                      f"plus yolo_v2's convsets_2.0 (two "
-                                      f"parts) per forward at batch "
-                                      f"{FAMILY7['yolo_v2']['batch']}, "
-                                      f"{SIZE}x{SIZE}; library_ms is cuDNN "
-                                      f"fp16 conv2d; v3_1x1s_ms the same "
-                                      f"kernel on yolo_v3's 14 1x1s "
-                                      f"(batch {V3_BATCH_SERVE})",
+        "int8_conv_requant.mma_sync": f"no served layer (0 launches on "
+                                      f"every path): the general conv's "
+                                      f"route for the shapes no wgmma "
+                                      f"route takes, timed on yolo_v3's 14 "
+                                      f"1x1s, batch {V3_BATCH_SERVE}, "
+                                      f"{SIZE}x{SIZE}; library_ms is "
+                                      f"torch._int_mm",
+        **{line: f"per forward: tiny_yolo_v3's conv_set_1 (3x3 over [256, "
+                 f"128] at 26², batch {FAMILY7['tiny_yolo_v3']['batch']}) "
+                 f"plus yolo_v2's convsets_2.0 ([256, 1024] at 13², two "
+                 f"scales, batch {FAMILY7['yolo_v2']['batch']}), {what}, "
+                 f"{SIZE}x{SIZE}, on real activations; library_ms is cuDNN "
+                 f"fp16 conv2d over the concat"
+           for line, what in zip(PARTS_LINES, (
+               "scalar sw (7a, 7b)", "per-channel sw (7d)"))},
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",
@@ -3729,14 +4015,18 @@ def main() -> int:
         # layout, and the times of their shapes (one NHWC forward; K2's on
         # the s2d layout)
         paths = {
-            version: dict(
+            key: dict(
                 launches_per_forward={
-                    layout: family7_launches(version, layout == "s2d").get(
+                    layout: family7_launches(
+                        key.split(".")[0], layout == "s2d",
+                        per_channel=key.endswith(".pc")).get(
                         wrapper, {}).get(entry, 0)
-                    for layout in ("nhwc", "s2d")},
-                **{f: tv[k][f] for f in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms")})
-            for version, tv in times_7.items() if k in tv}
+                    for layout in (("nhwc",) if key.endswith(".pc")
+                                   else ("nhwc", "s2d"))},
+                **{f: tv[k][f] for f in ("ms", "device_ms", "plain_ms",
+                                         "library_ms", "bound_ms")
+                   if f in tv[k]})
+            for key, tv in times_7.items() if k in tv}
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,
@@ -3748,8 +4038,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **({"mma_sync_ms": t["mma_sync_ms"]} if "mma_sync_ms" in t
                else {}),
-            **({"v3_1x1s_ms": t["v3_1x1s_ms"]} if "v3_1x1s_ms" in t
-               else {}),
+            **({"device_ms": t["device_ms"]} if "device_ms" in t else {}),
             **({"paths": paths} if paths else {}),
             "entry": entry, "shapes": shapes.get(k, shapes["slim"]),
         })

@@ -2010,26 +2010,35 @@ def test_cuda_v3_limit_equals_the_cpu_walk(v3_fixtures, limit, s2d, kind):
 
 
 # ---------------------------------------------------------------------------
-# tiny_yolo_v3 and yolo_v2 on the card: the convs that run the mma.sync
-# general conv, K2 at the darknet slope, the whole forwards.
+# tiny_yolo_v3 and yolo_v2 on the card: the convs that ran the mma.sync
+# general conv until the two-part and pooled wgmma routes took them, K2 at
+# the darknet slope, the whole forwards.
 # ---------------------------------------------------------------------------
 
 # (B, H, parts' C_in, C_out): tiny's conv_set_1 [256, 128] at 26², yolo_v2's
-# convsets_2.0 [256, 1024] at 13², tiny's conv_2 (one part, C_in 16) at 52²
+# convsets_2.0 [256, 1024] at 13² (C_out cut to 64), tiny's conv_2 (one
+# part, C_in 16, with its pool) at 52², and a two-part 3x3 of 48 + 16
+# channels, which no wgmma route takes: the mma.sync conv's
 MMA_SYNC_CASES = [(2, 26, (256, 128), 256), (2, 13, (256, 1024), 64),
-                  (2, 52, (16,), 32)]
+                  (2, 52, (16,), 32), (2, 11, (48, 16), 24)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("sw_kind", ["scalar", "per_column"])
 @pytest.mark.parametrize("scales", ["equal", "unequal"])
 @pytest.mark.parametrize("case", MMA_SYNC_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_cuda_tiny_v2_mma_sync_convs_equal_plain(cuda, rounding, scales,
-                                                 case):
-    """The three convs no wgmma route takes, on the mma.sync general conv:
-    the two-part 3x3s at equal part scales (the raw partials summed before
-    the shift) and unequal ones, conv_2 at the darknet slope 0.1."""
+                                                 sw_kind, case):
+    """The three convs that ran the mma.sync general conv, now on the
+    wgmma conv3x3 kernel: the two-part 3x3s on its two-part form
+    (``yolo_int8_conv3x3_parts_wgmma``, per column
+    ``..._parts_cols_wgmma``) at equal part scales (the raw partials
+    summed before one shift) and unequal ones (two shifts, two tables),
+    conv_2 with its pool on its pooled form at the darknet slope 0.1; a
+    two-part 3x3 of 48 + 16 channels still on the mma.sync conv, which
+    refuses a per-channel sw."""
     bsz, h, cins, c_out = case
     rng = np.random.default_rng(sum(cins))
     xs = [torch.tensor(rng.integers(-128, 128, (bsz, h, h, c)).astype(
@@ -2038,23 +2047,55 @@ def test_cuda_tiny_v2_mma_sync_convs_equal_plain(cuda, rounding, scales,
         np.int8))
     b = torch.tensor(rng.integers(-100, 100, (c_out,)).astype(np.int32))
     sas = [4, 4 if scales == "equal" else 2][:len(cins)]
-    kw = dict(sw=7, sb=6, sa_in=sas[0], sa_out=2, retune=9, padding=1,
+    sw = (7 if sw_kind == "scalar" else
+          (7 + rng.integers(-2, 3, c_out)).astype(np.int32))
+    kw = dict(sw=sw, sb=6, sa_in=sas[0], sa_out=2, retune=9,
               leaky=0.1 if len(cins) == 1 else True, rounding=rounding)
+    cols = sw_kind == "per_column"
     if len(cins) == 1:
-        x = xs[0]
         if scales == "unequal":
             kw["sa_in"] = 2
+        want = K.int8_conv3x3_im2col(xs[0], w, b, pool=True, **kw)
+        K.reset_launch_counts()
+        got = K.int8_conv3x3_im2col(xs[0].to(cuda), w.to(cuda), b.to(cuda),
+                                    pool=True, **kw)
+        entry = ("int8_conv3x3_im2col", K.POOL_COLS_WGMMA_ENTRY if cols
+                 else K.POOL_WGMMA_ENTRY)
     else:
         x = list(zip(xs, sas))
-    want = K.int8_conv_requant(x, w, b, **kw)
-    dev_x = ([(t.to(cuda), sa) for t, sa in x] if isinstance(x, list)
-             else x.to(cuda))
-    K.reset_launch_counts()
-    got = K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
+        kw["padding"] = 1
+        want = K.int8_conv_requant(x, w, b, **kw)
+        dev_x = [(t.to(cuda), sa) for t, sa in x]
+        K.reset_launch_counts()
+        if cins[0] % 32 and cols:
+            with pytest.raises(ValueError, match="must be a scalar"):
+                K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
+            return
+        got = K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
+        entry = ("int8_conv_requant",
+                 "yolo_int8_conv_requant" if cins[0] % 32 else
+                 K.PARTS_COLS_WGMMA_ENTRY if cols else K.PARTS_WGMMA_ENTRY)
     torch.cuda.synchronize()
-    assert K.launch_counts_by_entry() == {
-        "int8_conv_requant": {"yolo_int8_conv_requant": 1}}
+    assert K.launch_counts_by_entry() == {entry[0]: {entry[1]: 1}}
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+def test_cuda_conv3x3_parts_layout(cuda, split):
+    """The two-part form's layout at the served shapes: conv_set_1 one
+    scale (the 128-column tile, 3 warpgroups), convsets_2.0 two scales
+    (the 64-column tile, 2 warpgroups: its second accumulator), one block
+    per SM, the halo of both parts."""
+    tiny = K.conv3x3_parts_wgmma_layout(26, 26, 256, 128, 256, split)
+    v2 = K.conv3x3_parts_wgmma_layout(13, 13, 256, 1024, 1024, split)
+    for lay, c in ((tiny, 384), (v2, 1280)):
+        assert lay.split == split and lay.halo_channels == c
+        assert lay.blocks_per_sm == 1
+        assert lay.bn == (64 if split else 128)
+        assert lay.consumer_warpgroups == (2 if split else 3)
+    with pytest.raises(ValueError, match="two-part form takes no"):
+        K.conv3x3_parts_wgmma_layout(13, 13, 48, 16, 64, split)
 
 
 @pytest.mark.cuda
@@ -2079,22 +2120,38 @@ def test_cuda_pool_s2d_wgmma_takes_the_darknet_slope(cuda, rounding, c_out):
     assert torch.equal(got.cpu(), want)
 
 
-# version -> (fixture, from seed, forward, maker, per-forward launches of
-# int8_conv_requant by C entry at a scalar sw on NHWC input)
+# version -> (fixture, from seed, forward, maker, per-forward launches by
+# wrapper and C entry at a scalar sw on NHWC input, the per-channel
+# fixture)
 TINY_V2 = {
     "tiny_yolo_v3": ("tiny_yolo_v3_int8_416_golden.npz", "int8_tiny_from_seed",
                      "int8_tiny_forward", "make_int8_tiny_detect_fn",
-                     {"yolo_int8_entry_conv3x3_wgmma": 1,
-                      "yolo_int8_conv3x3_wgmma": 7,
-                      "yolo_int8_conv1x1_wgmma": 3,
-                      "yolo_int8_conv_requant": 2}),
+                     {"int8_conv_requant": {
+                         "yolo_int8_entry_conv3x3_wgmma": 1,
+                         "yolo_int8_conv3x3_wgmma": 7,
+                         "yolo_int8_conv3x3_parts_wgmma": 1,
+                         "yolo_int8_conv1x1_wgmma": 3},
+                      "int8_conv3x3_im2col": {
+                          "yolo_int8_conv3x3_pool_wgmma": 1}},
+                     "tiny_yolo_v3_int8_pc_416_golden.npz"),
     "yolo_v2": ("yolo_v2_int8_416_golden.npz", "int8_yolo_v2_from_seed",
                 "int8_yolo_v2_forward", "make_int8_yolo_v2_detect_fn",
-                {"yolo_int8_entry_conv3x3_wgmma": 1,
-                 "yolo_int8_conv3x3_wgmma": 13,
-                 "yolo_int8_conv1x1_wgmma": 8,
-                 "yolo_int8_conv_requant": 1}),
+                {"int8_conv_requant": {
+                    "yolo_int8_entry_conv3x3_wgmma": 1,
+                    "yolo_int8_conv3x3_wgmma": 13,
+                    "yolo_int8_conv3x3_parts_wgmma": 1,
+                    "yolo_int8_conv1x1_wgmma": 8}},
+                "yolo_v2_int8_pc_416_golden.npz"),
 }
+# the per-column C entry of each scalar one
+PER_COLUMN = {"yolo_int8_entry_conv3x3_wgmma":
+              "yolo_int8_entry_conv3x3_cols_wgmma",
+              "yolo_int8_conv3x3_wgmma": "yolo_int8_conv3x3_cols_wgmma",
+              "yolo_int8_conv3x3_parts_wgmma":
+              "yolo_int8_conv3x3_parts_cols_wgmma",
+              "yolo_int8_conv1x1_wgmma": "yolo_int8_conv1x1_cols_wgmma",
+              "yolo_int8_conv3x3_pool_wgmma":
+              "yolo_int8_conv3x3_pool_cols_wgmma"}
 
 
 @pytest.fixture(scope="module")
@@ -2141,34 +2198,62 @@ def test_cuda_tiny_v2_forward_equals_the_cpu_walk(tiny_v2_fixtures, version,
     want = forward(m, x, rounding, input_s2d=s2d)
     K.reset_launch_counts()
     K.reset_conv3x3_pack_count()
+    K.reset_conv3x3_parts_pack_count()
     got = forward(m_dev, x.cuda(), rounding, input_s2d=s2d)
     torch.cuda.synchronize()
     _equal_lists(got, want)
     entries = K.launch_counts_by_entry()
-    conv = dict(routes)
+    want_entries = {k: dict(v) for k, v in routes.items()}
     if s2d:
-        del conv["yolo_int8_entry_conv3x3_wgmma"]
-        assert entries.pop("int8_conv3x3_pool_requant") == {
+        del want_entries["int8_conv_requant"]["yolo_int8_entry_conv3x3_wgmma"]
+        want_entries["int8_conv3x3_pool_requant"] = {
             "yolo_int8_pool_s2d_wgmma": 1}
-    assert entries == {"int8_conv_requant": conv}
-    assert K.conv3x3_pack_count() == 0
+    assert entries == want_entries
+    assert K.conv3x3_pack_count() == K.conv3x3_parts_pack_count() == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("version", list(TINY_V2))
 def test_cuda_tiny_v2_detect_fn_refuses_per_channel(tiny_v2_fixtures,
                                                     version):
-    """A per-channel model is not served on the card: the maker raises,
-    naming the convs that have no per-column route."""
+    """A per-channel model is served on the card (the maker refused it
+    while conv_2 and the concat convs ran the mma.sync conv): the
+    per-channel fixture's detect fn on the card equals the CPU walk's,
+    every conv on the per-column form of its kernel, shift tables made
+    when the detect fn took the model and none per forward."""
+    from pathlib import Path
+
     from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
     from yolo_tpu_torch.quant import int8_models as tim
 
-    m = tiny_v2_fixtures[version][0].to("cpu")
-    m.sw = {k: np.full(m.w_q[k].shape[3], v, np.int32)
-            for k, v in m.sw.items()}
+    name, from_seed, forward, maker, routes, pc_name = TINY_V2[version]
+    data = Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "data"
+    with np.load(data / pc_name) as z:
+        m = getattr(convert, from_seed)({k: z[k] for k in z.files},
+                                        device="cpu")
+    assert m.per_channel
     cfg = get_config(version, "mask", input_size=(64, 64))
-    missing = ("conv_2, conv_set_1" if version == "tiny_yolo_v3"
-               else "convsets_2.0")
-    with pytest.raises(ValueError, match=f"{missing} have no per-column"):
-        getattr(tim, TINY_V2[version][3])(m, cfg)
-    getattr(tim, TINY_V2[version][3])(m, cfg, device="cpu")
+    images = np.random.default_rng(4).random((2, 64, 64, 3),
+                                             dtype=np.float32)
+    want = getattr(tim, maker)(m, cfg, device="cpu")(images)
+    K.reset_shift_table_count()
+    detect = getattr(tim, maker)(m, cfg)
+    assert K.shift_table_count() > 0
+    K.reset_shift_table_count()
+    K.reset_launch_counts()
+    got = detect(images)
+    torch.cuda.synchronize()
+    assert K.shift_table_count() == 0
+    assert K.launch_counts_by_entry() == {
+        wrapper: {PER_COLUMN[e]: n for e, n in by_entry.items()}
+        for wrapper, by_entry in routes.items()}
+    np.testing.assert_array_equal(got[3].cpu().numpy(), want[3].numpy())
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               atol=1e-5, rtol=1e-5)
+    m_dev = m.to(torch.device("cuda"))
+    m_dev.pack()
+    x_q = tfp.quantize_input(torch.tensor(images), m.sa["in"])
+    _equal_lists(getattr(tim, forward)(m_dev, x_q.cuda()),
+                 getattr(tim, forward)(m, x_q))

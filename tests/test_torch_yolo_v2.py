@@ -40,8 +40,10 @@ torch.set_num_threads(1)
 
 SIZE, PRED_OUT = 64, 35
 TOL = dict(atol=1e-5, rtol=1e-5)
-# the per-forward launches on the card at a scalar sw, by route
-V2_ROUTES = {"entry": 1, "conv3x3": 13, "conv1x1": 8, None: 1}
+# the per-forward launches on the card, by route (scalar and per-channel
+# sw): the entry conv, the one-part wgmma 3x3s, convsets_2.0 on their
+# two-part form, the 1x1s
+V2_ROUTES = {"entry": 1, "conv3x3": 13, "parts": 1, "conv1x1": 8}
 
 
 def cfgs():
@@ -285,8 +287,10 @@ def test_detections_equal_jax(runs, key, layout):
 
 
 def test_makers_refuse(runs):
-    """mesh; per-channel with input_s2d (forward too); per-channel on the
-    card, naming the conv without a per-column route."""
+    """mesh; per-channel with input_s2d (forward too). A per-channel model
+    is no longer refused on the card: every conv has a per-column route
+    (convsets_2.0 ran the mma.sync conv, which takes a scalar sw only),
+    and the refusal that named it is gone."""
     _, tcfg = cfgs()
     mt, pc = runs["scalar"]["mt"], runs["per_channel"]["mt"]
     with pytest.raises(ValueError, match="mesh"):
@@ -296,35 +300,66 @@ def test_makers_refuse(runs):
     with pytest.raises(ValueError, match="plain conv path"):
         tim.int8_yolo_v2_forward(pc, torch.zeros((1, 35, 35, 12), dtype=torch
                                               .int8), input_s2d=True)
-    with pytest.raises(ValueError, match="convsets_2.0 have no per-column"):
-        tim._check_card_routes(pc)
-    tim._check_card_routes(mt)  # a scalar sw has the mma.sync conv
+    assert pc.per_channel
+    assert all(pc.conv_route(n) is not None for n in pc.CONV_ORDER)
+    assert not hasattr(tim, "_check_card_routes")
 
 
-def test_card_routes_and_packing(runs):
-    """Per forward at a scalar sw: the entry conv, 13 wgmma 3x3s, 8 wgmma
-    1x1s, 1 conv on the mma.sync conv (convsets_2.0); ``pack``
-    packs each routed conv once (and K2's s2d form), and a forward on the
-    packed model equals the unpacked one."""
+@pytest.mark.parametrize("key", ["scalar", "per_channel"])
+def test_card_routes_and_packing(runs, key):
+    """Per forward (scalar and per-channel sw): the entry conv, 13 wgmma
+    3x3s, convsets_2.0 on their two-part form, 8 wgmma 1x1s, none on the
+    mma.sync conv; ``pack`` packs each routed conv once (K2's s2d form at
+    a scalar sw) and, per-channel, each conv's shift tables (one per input
+    scale of its parts, both roundings); the scales the forward passes
+    are ``conv_sas``; a forward on the packed model equals the unpacked
+    one."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
-    mt = runs["scalar"]["mt"].to("cpu")
+    ref = runs[key]["mt"]
+    mt = ref.to("cpu")
     routes = {n: mt.conv_route(n) for n in mt.CONV_ORDER}
     assert {r: list(routes.values()).count(r) for r in set(
         routes.values())} == V2_ROUTES
-    assert [n for n, r in routes.items() if r is None] == ["convsets_2.0"]
+    assert routes["convsets_2.0"] == "parts"
     K.reset_conv3x3_pack_count()
+    K.reset_conv3x3_parts_pack_count()
     K.reset_pool_s2d_pack_count()
+    K.reset_shift_table_count()
     mt.pack()
-    assert K.conv3x3_pack_count() == 13 and K.pool_s2d_pack_count() == 1
-    assert sorted(mt.packed) == sorted(n for n, r in routes.items() if r)
+    assert K.conv3x3_pack_count() == 13
+    assert K.conv3x3_parts_pack_count() == 1
+    assert K.pool_s2d_pack_count() == (key == "scalar")
+    assert sorted(mt.packed) == sorted(mt.CONV_ORDER)
+    tables = {n: len(set(mt.conv_sas(n))) for n in mt.CONV_ORDER}
+    if key == "per_channel":
+        assert K.shift_table_count() == 2 * sum(tables.values())
+        for rounding in ("nearest", "floor"):
+            assert {n: len(t) for n, t in mt.shift_tables[rounding].items()
+                    } == tables
+    else:
+        assert K.shift_table_count() == 0
+    seen = {}
+    real = mt.conv
+
+    def spy(name, x, sa_in, rounding, leaky=True):
+        seen[name] = (tuple(sa for _, sa in x) if isinstance(x, list)
+                      else (sa_in,))
+        return real(name, x, sa_in, rounding, leaky)
+
     x_q = tfp.quantize_input(torch.tensor(images(1)), mt.sa["in"])
-    ref = runs["scalar"]["mt"]
-    for s2d in (False, True):
+    for s2d in ((False, True) if key == "scalar" else (False,)):
         x = tfp.s2d_input(x_q) if s2d else x_q
-        for a, b in zip(tim.int8_yolo_v2_forward(mt, x, input_s2d=s2d),
-                        tim.int8_yolo_v2_forward(ref, x, input_s2d=s2d)):
+        mt.conv = spy
+        try:
+            got = tim.int8_yolo_v2_forward(mt, x, input_s2d=s2d)
+        finally:
+            del mt.conv
+        for a, b in zip(got, tim.int8_yolo_v2_forward(ref, x,
+                                                      input_s2d=s2d)):
             assert torch.equal(a, b)
+    assert sorted(seen) == sorted(mt.CONV_ORDER)
+    assert all(seen[n] == mt.conv_sas(n) for n in seen)
 
 
 @pytest.mark.parametrize("equal", [True, False])

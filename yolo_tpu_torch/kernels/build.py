@@ -118,6 +118,10 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_conv3x3_count_wgmma", [vp] * 6 + [i] * 8 + [vp]),
                 ("yolo_int8_conv3x3_pool_count_wgmma",
                  [vp] * 6 + [i] * 8 + [vp]),
+                ("yolo_int8_conv3x3_parts_wgmma", [vp] * 5 + [i] * 11 + [vp]),
+                ("yolo_int8_conv3x3_parts_cols_wgmma",
+                 [vp] * 7 + [i] * 11 + [vp]),
+                ("yolo_int8_conv3x3_parts_wgmma_info", [i] * 6 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_entry_conv3x3_cols_wgmma",

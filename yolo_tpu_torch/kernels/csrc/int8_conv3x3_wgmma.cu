@@ -104,6 +104,36 @@
 // values before its max), each warp's count summed by one shuffle
 // reduction and added by one atomic. Both are template forms: the scalar
 // instantiations are those of before.
+//
+// The two-part form (PARTS) is the stride-1 conv over the channel concat
+// of two int8 parts at their own scales, Cin0 and Cin1 each % 32 == 0:
+// XLA's integer conv in yolo_tpu/quant/fixed_point.py::int_conv_requant
+// over a list of two parts (:712-741), at tiny_yolo_v3's conv_set_1 ([256,
+// 128] -> 256, 26^2, one scale) and yolo_v2's convsets_2.0 ([256, 1024]
+// -> 1024, 13^2, two). Both parts are copied into one halo tile, rows of
+// Cin0 + Cin1 channels (part 0's, then part 1's), and the K walk runs part
+// 0's nine taps x Cin0 and then part 1's nine taps x Cin1, each part on
+// K steps of its own, over weights packed [Cout, 9 Cin0 + 9 Cin1], part
+// 0's (dy, dx, c) block and then part 1's (pack_conv3x3_parts_weights).
+// Where both parts take one accumulator shift their raw partials sum in
+// one accumulator (the conv over the concat); where they take two
+// (split), part 0's partial is shifted to the retune scale at the part
+// boundary into a second register array, as the 1x1 kernel does
+// (int8_conv1x1_wgmma.cu). The split forms run the 64-column two-warpgroup
+// tile (the 128-column one's 152 registers hold no second accumulator).
+// A one-scale concat keeps the 128-column tile where Cout % 128 == 0. The
+// halo of both parts leaves a tile of plan_tile's halving: 26 x 7 at
+// conv_set_1 (384 channels, a 3-stage ring; split: 26 x 13 on the
+// 64-column tile), 13 x 4 at convsets_2.0 (1,280 channels; 3 stages, or
+// split 6). The form's blocks run one per SM (its halo fills one). On an
+// H100 conv_set_1 ran 5.5x faster than on the mma.sync conv and near
+// cuDNN's fp16 time; convsets_2.0's 52-pixel tiles, each streaming all
+// 11.8 MB of its weights, only 1.3x (PERF.md, section 6: halo slabs, as
+// the stride-2 form's, would let it take whole 13 x 13 images). Its
+// arguments sit in a derived struct that only its instantiations take:
+// the one-part instantiations are those of before.
+
+#include <type_traits>
 
 #include "int8_wgmma_conv.cuh"
 
@@ -149,6 +179,20 @@ struct Conv3Args {
   int* overflow;
 };
 
+// the two-part form's arguments (PARTS): x is part 0, Cin and CK both
+// parts' channels (the halo tile's), `shifts` the last part's table (every
+// part's where they take one shift)
+struct Conv3PartsArgs : Conv3Args {
+  const int8_t* x1;      // part 1 [B, H, W, Cin - Cin0]
+  int Cin0;              // part 0's channels
+  int split;             // the parts take two accumulator shifts
+  Shift sh0;             // Cols::scalar: part 0's shift, where split
+  const int* shifts0;    // Cols::column: part 0's table, where split
+};
+
+template <bool PARTS>
+using Conv3ArgsOf = std::conditional_t<PARTS, Conv3PartsArgs, Conv3Args>;
+
 // staging byte of (row, column) of the pooled form's 16 x BN tile: the
 // 16-byte chunks XOR-ed with the row, so the 4 rows that a warp's 2-byte
 // stores reach at once fall in 4 different bank groups
@@ -157,16 +201,22 @@ __device__ __forceinline__ int pool_stg_at(int row, int col) {
   return row * BN + ((((col >> 4) ^ row) & (BN / 16 - 1)) << 4) + (col & 15);
 }
 
-template <int BN, bool SHORT, Form F, Cols C>
+template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false>
 __global__ void __launch_bounds__(ConvCfg<BN>::THREADS,
-                                  ConvCfg<BN>::MIN_BLOCKS)
-conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
+                                  PARTS ? 1 : ConvCfg<BN>::MIN_BLOCKS)
+conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
+              Conv3ArgsOf<PARTS> a) {
   using Cfg = ConvCfg<BN>;
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   constexpr bool POOL = F == Form::pool, S2 = F == Form::s2;
   constexpr bool COUNT = C == Cols::count;
   static_assert(!COUNT || !S2, "stride 2 counts no overflow");
   static_assert(!COUNT || !SHORT, "counting takes the general shifts");
+  static_assert(!PARTS || (F == Form::conv && !COUNT),
+                "two parts: the stride-1 conv, scalar or per column");
+  // a second accumulator for part 0's shifted partial: the two-part
+  // 64-column form (the host runs a split there only)
+  constexpr bool CAN_SPLIT = PARTS && BN == 64;
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
@@ -215,7 +265,30 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
   if (tid >= CONSUMERS) {
     if constexpr (NWG == 3)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == CONSUMERS) {
+    if constexpr (PARTS) {
+      if (tid != CONSUMERS) return;
+      tma_prefetch_map(&tm_w);
+      // each part's own K steps: part 0's nine taps x Cin0 from packed
+      // column 0, part 1's from column 9 Cin0 (a box past a part's end
+      // is loaded, and not read)
+      int i = 0;
+      for (int c = 0; c < nc; ++c)
+        for (int n = 0; n < nn; ++n)
+          for (int p = 0; p < 2; ++p) {
+            const int base = p ? 9 * a.Cin0 : 0;
+            const int kp = p ? KS - base : 9 * a.Cin0;  // the part's K
+            for (int k = 0; k * 2 * SW < kp; ++k, ++i) {
+              const bool two = k * 2 * SW + SW < kp;
+              ring.producer_acquire(i, (two ? 2 : 1) * BN * SW);
+              unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
+              uint64_t* full = &ring.full[ring.stage(i)];
+              tma_load_2d(st, &tm_w, full, base + k * 2 * SW, n * BN);
+              if (two)
+                tma_load_2d(st + BN * SW, &tm_w, full, base + k * 2 * SW + SW,
+                            n * BN);
+            }
+          }
+    } else if (tid == CONSUMERS) {  // (the one-part walk)
       tma_prefetch_map(&tm_w);
       // the packed K column of channel v of a slab's (tap, channel)
       // walk: one box never straddles two taps where there are slabs
@@ -272,8 +345,18 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       const int cq = s * SL + 16 * q;
       const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W &&
                       cq < a.Cin;
-      const int8_t* src =
-          in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + cq : a.x;
+      const int8_t* src;
+      if constexpr (PARTS) {
+        // channel cq of the concat: part 0's, or part 1's cq - Cin0
+        const bool p1 = cq >= a.Cin0;
+        const int cp = p1 ? a.Cin - a.Cin0 : a.Cin0;
+        src = in ? (p1 ? a.x1 : a.x) +
+                       (img + (long long)gy * a.W + gx) * cp +
+                       (p1 ? cq - a.Cin0 : cq)
+                 : a.x;
+      } else {
+        src = in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + cq : a.x;
+      }
       cp_async16(xt + at * S + 16 * q, src, in ? 16 : 0);
     }
     cp_async_wait_all();
@@ -367,8 +450,22 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
       // * S, c the slot of halo column dx: 0, TW + 1 (the odd columns)
       // and 1
       int tap_off = 0, ch = 0, dx = 0;
+      // PARTS: the current part's K, K steps and channels (part 0's, then
+      // part 1's, whose channels start at Cin0 in the halo rows), and
+      // where split part 0's partial at the retune scale
+      int kp = KS, nkp = nk, wl = SL, part = 0;
+      int stash[CAN_SPLIT ? BN / 2 : 1];
+      if constexpr (PARTS) {
+        kp = 9 * a.Cin0;
+        nkp = (kp + 2 * SW - 1) / (2 * SW);
+        wl = a.Cin0;
+      }
+      if constexpr (CAN_SPLIT) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) stash[e] = 0;
+      }
       if (nslab > 1) load_slab(0);
-      for (int k = 0, s = 0; k < nk; ++k, ++i) {
+      for (int k = 0, s = 0; k < (PARTS ? nkp : nk); ++k, ++i) {
         ring.consumer_wait(i);
         if (active) {
           const unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
@@ -381,10 +478,10 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             unsigned af[SW / 32][4];
 #pragma unroll
             for (int j = 0; j < SW / 32; ++j) {
-              if (k * 2 * SW + half * SW + 32 * j < KS) {
+              if (k * 2 * SW + half * SW + 32 * j < (PARTS ? kp : KS)) {
                 ldmatrix_x4(af[j], arow + tap_off + ch);
                 ch += 32;
-                if (ch == SL) {
+                if (ch == (PARTS ? wl : SL)) {
                   ch = 0;
                   if (++dx == 3) {
                     dx = 0;
@@ -400,13 +497,46 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             wgmma_fence();
 #pragma unroll
             for (int j = 0; j < SW / 32; ++j)
-              if (k * 2 * SW + half * SW + 32 * j < KS)
+              if (k * 2 * SW + half * SW + 32 * j < (PARTS ? kp : KS))
                 mma_rs<BN>(acc, af[j], db + ((half * BN * SW + j * 32) >> 4));
             wgmma_commit();
           }
           wgmma_wait<0>();
         }
         ring.consumer_release(i);
+        if constexpr (PARTS) {
+          if (part == 0 && k == nkp - 1) {  // part 0 done: part 1 next
+            part = 1;
+            kp = KS - kp;
+            nkp = (kp + 2 * SW - 1) / (2 * SW);
+            wl = a.Cin - a.Cin0;
+            tap_off = a.Cin0;
+            ch = dx = 0;
+            k = -1;
+            if constexpr (CAN_SPLIT) {
+              // its partial to the retune scale, part 1's afresh; columns
+              // 8 jj + 2 tig (+1) of the tile: accumulators 4 jj + 2 h (+1)
+              if (a.split && active) {
+#pragma unroll
+                for (int jj = 0; jj < BN / 8; ++jj) {
+                  Shift s0 = a.sh0, s1 = a.sh0;
+                  if constexpr (C == Cols::column) {
+                    const int2 sc = __ldg(reinterpret_cast<const int2*>(
+                        a.shifts0 + n * BN + 8 * jj + 2 * tig));
+                    s0 = column_shift<SHORT>(sc.x, nearest);
+                    s1 = column_shift<SHORT>(sc.y, nearest);
+                  }
+#pragma unroll
+                  for (int e = 4 * jj; e < 4 * jj + 4; e += 2) {
+                    stash[e] = s0.apply<SHORT>(acc[e]);
+                    stash[e + 1] = s1.apply<SHORT>(acc[e + 1]);
+                    acc[e] = acc[e + 1] = 0;
+                  }
+                }
+              }
+            }
+          }
+        }
         if (nslab > 1 && k == nk - 1 && ++s < nslab) {  // the next slab
           load_slab(s);
           tap_off = ch = dx = 0;
@@ -501,7 +631,29 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
             const int cl = 8 * j + 2 * tig;
             const int2 bias =
                 *reinterpret_cast<const int2*>(a.bias + col0 + cl);
-            if constexpr (C == Cols::scalar) {
+            if constexpr (CAN_SPLIT) {
+              // the last part's shift (every part's where not split; part
+              // 0's partial, where split, already in the stash, else 0)
+              Shift s0 = a.epi.acc, s1 = a.epi.acc;
+              if constexpr (C == Cols::column) {
+                const int2 sc =
+                    __ldg(reinterpret_cast<const int2*>(a.shifts + col0 + cl));
+                s0 = column_shift<SHORT>(sc.x, nearest);
+                s1 = column_shift<SHORT>(sc.y, nearest);
+              }
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int e = 4 * (8 * pass + j) + 2 * h;
+                const int u0 = (int)((unsigned)s0.apply<SHORT>(acc[e]) +
+                                     (unsigned)stash[e]);
+                const int u1 = (int)((unsigned)s1.apply<SHORT>(acc[e + 1]) +
+                                     (unsigned)stash[e + 1]);
+                *reinterpret_cast<uint16_t*>(
+                    stg + stg_at(warp * 16 + gid + 8 * h, cl)) =
+                    pack_sat2(a.epi.rest<SHORT>(u0, bias.x),
+                              a.epi.rest<SHORT>(u1, bias.y));
+              }
+            } else if constexpr (C == Cols::scalar) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int* v = &acc[4 * (8 * pass + j) + 2 * h];
@@ -566,38 +718,41 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w, Conv3Args a) {
 // output tile and ring of plan_tile (even, and small enough for the form's
 // blocks per SM, in the pooled form) or, at stride 2, of plan_tile_s2,
 // with its halo slab (int8_wgmma_conv.cuh), the ring in the block's share
-// of an SM's shared memory.
-template <int BN, Form F>
+// of an SM's shared memory (the two-part form's: all of it, one block per
+// SM; CK then both parts' channels).
+template <int BN, Form F, bool PARTS = false>
 TilePlan plan(int H, int W, int CK, int Cout) {
   using Cfg = ConvCfg<BN>;
   if constexpr (F == Form::s2)
     return plan_tile_s2((H + 1) / 2, (W + 1) / 2, CK, Cfg::SLOT, Cfg::NWG,
                         sm_share(Cfg::MIN_BLOCKS), (Cout + BN - 1) / BN,
                         BN == 128);
-  return plan_tile(H, W, CK, Cfg::SLOT, Cfg::NWG, sm_share(Cfg::MIN_BLOCKS),
-                   F == Form::pool);
+  return plan_tile(H, W, CK, Cfg::SLOT, Cfg::NWG,
+                   sm_share(PARTS ? 1 : Cfg::MIN_BLOCKS), F == Form::pool);
 }
 
 constexpr int INFO_LEN = 10;
 
 // Launches the form, or with `info` reports its layout there instead.
-template <int BN, bool SHORT, Form F, Cols C>
-int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
+template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false>
+int launch_form(Conv3ArgsOf<PARTS> a, const void* wp, int* info,
+                cudaStream_t st) {
   using Cfg = ConvCfg<BN>;
-  const TilePlan p = plan<BN, F>(a.H, a.W, a.CK, a.Cout);
+  const TilePlan p = plan<BN, F, PARTS>(a.H, a.W, a.CK, a.Cout);
   if (p.smem == 0) return (int)cudaErrorInvalidValue;
   a.TH = p.th;
   a.TW = p.tw;
   a.stages = p.stages;
   a.SL = p.slab;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<BN, SHORT, F, C>,
+      conv3x3_wgmma<BN, SHORT, F, C, PARTS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv3x3_wgmma<BN, SHORT, F, C>, Cfg::THREADS, p.smem);
+        &blocks, conv3x3_wgmma<BN, SHORT, F, C, PARTS>, Cfg::THREADS,
+        p.smem);
     if (err != cudaSuccess) return (int)err;
     const int pixels = a.TH * a.TW;
     // 64 rows per step: 64 pixels, or the 4 pixels of 16 pooled ones
@@ -620,7 +775,7 @@ int launch_form(Conv3Args a, const void* wp, int* info, cudaStream_t st) {
   const int OW = F == Form::s2 ? (a.W + 1) / 2 : a.W;
   const long long ntiles =
       (long long)((OH + a.TH - 1) / a.TH) * ((OW + a.TW - 1) / a.TW);
-  conv3x3_wgmma<BN, SHORT, F, C>
+  conv3x3_wgmma<BN, SHORT, F, C, PARTS>
       <<<(unsigned)(a.B * ntiles), Cfg::THREADS, p.smem, st>>>(tm_w, a);
   return (int)cudaGetLastError();
 }
@@ -705,6 +860,39 @@ int layout(int H, int W, int Cin, int Cout, int* out) {
   if (bad_shape(H, W, Cin, Cout, F)) return (int)cudaErrorInvalidValue;
   return dispatch<true, F>(base_args(H, W, Cin, Cout), nullptr, out,
                            nullptr);
+}
+
+// The two-part form: the 128-column tile where Cout fills it and the
+// parts take one shift, else the 64-column one (a split's second
+// accumulator fits there only).
+template <bool SHORT, Cols C>
+int dispatch_parts(const Conv3PartsArgs& a, const void* wp, int* info,
+                   cudaStream_t st) {
+  if (a.Cout % 128 == 0 && !a.split)
+    return launch_form<128, SHORT, Form::conv, C, true>(a, wp, info, st);
+  return launch_form<64, SHORT, Form::conv, C, true>(a, wp, info, st);
+}
+
+bool bad_parts(int H, int W, int Cin0, int Cin1, int Cout) {
+  return H < 1 || W < 1 || Cout < 1 || Cin0 < 32 || Cin0 % 32 ||
+         Cin1 < 32 || Cin1 % 32;
+}
+
+// the two-part form's arguments but its shifts: Cin and CK both parts'
+// channels (the halo tile's)
+Conv3PartsArgs parts_args(const void* x0, const void* x1,
+                          const void* bias_rt, void* out, int B, int H,
+                          int W, int Cin0, int Cin1, int Cout, bool split) {
+  Conv3PartsArgs a{};
+  static_cast<Conv3Args&>(a) = base_args(H, W, Cin0 + Cin1, Cout);
+  a.x = static_cast<const int8_t*>(x0);
+  a.x1 = static_cast<const int8_t*>(x1);
+  a.bias = static_cast<const int*>(bias_rt);
+  a.out = static_cast<int8_t*>(out);
+  a.B = B;
+  a.Cin0 = Cin0;
+  a.split = split;
+  return a;
 }
 
 }  // namespace
@@ -821,6 +1009,78 @@ int yolo_int8_conv3x3_pool_count_wgmma(const void* x, const void* wp,
   return run_cols<Form::pool, Cols::count>(
       x, wp, bias_rt, shifts, out, overflow, B, H, W, Cin, Cout, 0,
       out_shift, slope_num, nearest, stream);
+}
+
+// The two-part form, conv3x3 (stride 1, pad 1) over the channel concat of
+// x0: int8 NHWC [B, H, W, Cin0] and x1: [B, H, W, Cin1], each Cin % 32 ==
+// 0, each part at its own scale: wp int8 [Cout, 9 * Cin0 + 9 * Cin1],
+// part 0's (dy, dx, c) block and then part 1's
+// (pack_conv3x3_parts_weights); bias_rt as yolo_int8_conv3x3_wgmma's; out
+// int8 [B, H, W, Cout]. acc_shift0 / acc_shift1 bring each part's
+// accumulator to the retune scale: where they agree the raw partials are
+// summed before the one shift (the conv over the concat), else each
+// part's partial is shifted on its own and the two summed
+// (fixed_point.int_conv_requant's groups). Its layout:
+// yolo_int8_conv3x3_parts_wgmma_info.
+int yolo_int8_conv3x3_parts_wgmma(const void* x0, const void* x1,
+                                  const void* wp, const void* bias_rt,
+                                  void* out, int B, int H, int W, int Cin0,
+                                  int Cin1, int Cout, int acc_shift0,
+                                  int acc_shift1, int out_shift,
+                                  int slope_num, int nearest, void* stream) {
+  if (bad_parts(H, W, Cin0, Cin1, Cout) || B < 1)
+    return (int)cudaErrorInvalidValue;
+  Conv3PartsArgs a = parts_args(x0, x1, bias_rt, out, B, H, W, Cin0, Cin1,
+                                Cout, acc_shift0 != acc_shift1);
+  a.sh0 = make_shift(acc_shift0, nearest != 0);
+  a.epi = make_epi(acc_shift1, out_shift, slope_num, nearest != 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_shift(acc_shift0) && short_shift(acc_shift1) &&
+      short_shift(out_shift))
+    return dispatch_parts<true, Cols::scalar>(a, wp, nullptr, st);
+  return dispatch_parts<false, Cols::scalar>(a, wp, nullptr, st);
+}
+
+// The two-part form with one accumulator shift per output column (a
+// per-channel sw): as yolo_int8_conv3x3_parts_wgmma, with each column's
+// shift from a table (int32 [Cout rounded up to 128], int8_conv.py's
+// acc_shift_table, 0 past Cout, 8-byte aligned) in place of acc_shift0 /
+// acc_shift1: with split != 0 (parts of two input scales) shifts0 is part
+// 0's table and shifts1 part 1's, else shifts1 is both parts' (shifts0
+// unused); short_cols: every entry of the tables in [0, 31].
+int yolo_int8_conv3x3_parts_cols_wgmma(
+    const void* x0, const void* x1, const void* wp, const void* bias_rt,
+    const void* shifts0, const void* shifts1, void* out, int B, int H, int W,
+    int Cin0, int Cin1, int Cout, int split, int short_cols, int out_shift,
+    int slope_num, int nearest, void* stream) {
+  if (bad_parts(H, W, Cin0, Cin1, Cout) || B < 1 || shifts1 == nullptr ||
+      (split && shifts0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Conv3PartsArgs a = parts_args(x0, x1, bias_rt, out, B, H, W, Cin0, Cin1,
+                                Cout, split != 0);
+  a.epi = make_epi(0, out_shift, slope_num, nearest != 0);
+  a.shifts = static_cast<const int*>(shifts1);
+  a.shifts0 = static_cast<const int*>(shifts0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (short_cols && short_shift(out_shift))
+    return dispatch_parts<true, Cols::column>(a, wp, nullptr, st);
+  return dispatch_parts<false, Cols::column>(a, wp, nullptr, st);
+}
+
+// The two-part form's layout (both shift forms') for an H x W x (Cin0 +
+// Cin1) -> Cout conv whose parts take two shifts (split != 0) or one:
+// info[0..9] as yolo_int8_conv3x3_wgmma_info's (the halo tile's channels
+// both parts'), info[10] = split. Returns 0, or an error code where the
+// shape is not taken or no tile fits in shared memory.
+int yolo_int8_conv3x3_parts_wgmma_info(int H, int W, int Cin0, int Cin1,
+                                       int Cout, int split, int* info_out) {
+  if (bad_parts(H, W, Cin0, Cin1, Cout)) return (int)cudaErrorInvalidValue;
+  const Conv3PartsArgs a = parts_args(nullptr, nullptr, nullptr, nullptr, 1,
+                                      H, W, Cin0, Cin1, Cout, split != 0);
+  const int rc = dispatch_parts<true, Cols::scalar>(a, nullptr, info_out,
+                                                    nullptr);
+  if (rc == 0) info_out[INFO_LEN] = split != 0;
+  return rc;
 }
 
 // The kernel's layout for an H x W x Cin -> Cout conv: info[0..9] = tile

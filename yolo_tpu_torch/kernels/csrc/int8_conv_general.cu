@@ -11,8 +11,10 @@
 // that: int8_conv.cuh. Tiles are 32 or 64 columns wide; 1x1 convs and
 // two-part inputs take the 16-byte gather only (C_in % 16 == 0). The
 // 3x3s of one input with C_in % 32 == 0 (the yolo_v3 head's nine at
-// stride 1, darknet53's five at stride 2) go to the wgmma kernel of
-// int8_conv3x3_wgmma.cu instead, the stride-1 3x3s with C_in <= 3
+// stride 1, darknet53's five at stride 2) and the stride-1 3x3s of two
+// such parts (tiny_yolo_v3's conv_set_1, yolo_v2's convsets_2.0) go to
+// the wgmma kernel of int8_conv3x3_wgmma.cu instead, the stride-1 3x3s
+// with C_in <= 3
 // (yolo_v3's entry conv) to that of int8_entry_conv.cu, and the stride-1,
 // pad-0 1x1s of one or two parts (yolo_v3's fourteen) to that of
 // int8_conv1x1_wgmma.cu: no conv of the served paths runs here.

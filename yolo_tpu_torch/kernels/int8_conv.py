@@ -16,21 +16,25 @@ TPU tiling arguments), plus the space-to-depth input form conv1 uses:
 Every stride-1 3x3 conv of one input part with C_in % 32 == 0
 (``conv3x3_wgmma_route``: all of K1's main-path layers and the
 yolo_v3 head's nine 3x3s) launches the wgmma conv of
-``csrc/int8_conv3x3_wgmma.cu``, every such conv at stride 2
-(``conv3x3_s2_wgmma_route``: darknet53's five downsampling convs) that
-kernel's stride-2 form, and every K3 conv with its pool and C_in % 32 == 0
-or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's conv2, conv3_2 and
-conv4_2) its pooled form; all three read their weights K-major, packed
-once per model by ``pack_conv3x3_weights``. ``int8_conv3x3_requant`` and
+``csrc/int8_conv3x3_wgmma.cu``, every such conv over two parts of C_in %
+32 == 0 (tiny_yolo_v3's conv_set_1, yolo_v2's convsets_2.0) its two-part
+form (weights from ``pack_conv3x3_parts_weights``), every such conv at
+stride 2 (``conv3x3_s2_wgmma_route``: darknet53's five downsampling
+convs) that kernel's stride-2 form, and every K3 conv with its pool and
+C_in % 32 == 0 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's
+conv2, conv3_2 and conv4_2, tiny_yolo_v3's conv_2) its pooled form;
+those three read their weights K-major, packed once per model by
+``pack_conv3x3_weights``. ``int8_conv3x3_requant`` and
 ``int8_conv3x3_im2col`` also take a per-channel sw (an int32 [C_out]
 array) and an overflow counter: the stride-1 and pooled forms and the
 mma.sync conv then read a per-column shift table (``acc_shift_table``,
 made once per model by ``fixed_point.Int8Model.pack_conv3x3``), the
 counting ones add to the counter; so does the NHWC form of K2's kernel
 below. ``int8_conv_requant`` takes a per-channel sw on every route named
-below (the per-column forms of the stride-1, stride-2, entry and 1x1
-kernels, on the tables of ``conv_shift_tables``, made once per model by
-``int8_yolo_v3.Int8YoloV3.pack_conv3x3s``); so does ``int8_res_block``
+below (the per-column forms of the stride-1 (one or two parts),
+stride-2, entry and 1x1 kernels, on the tables of ``conv_shift_tables``,
+made once per model by ``int8_yolo_v3.Int8YoloV3.pack_conv3x3s`` and
+``int8_models._Int8Named.pack``); so does ``int8_res_block``
 (K4's per-column form, on a table per conv made once per model by
 ``Int8YoloV3.pack_res_blocks``); its mma.sync conv and K2 on the s2d
 layout refuse one on a CUDA tensor. The
@@ -261,8 +265,13 @@ def int8_conv3x3_requant_plain(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
 def int8_conv3x3_im2col_plain(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out,
                               retune, leaky=True, pool=False,
                               rounding="nearest", overflow=None):
-    """As ``int8_conv3x3_requant_plain``; with ``pool`` the counter counts
+    """As ``int8_conv3x3_requant_plain``, ``leaky`` also a float slope in
+    [0, 1] (the Q16 rational of ``fixed_point._leaky_int_slope``: the
+    darknet 0.1 of tiny_yolo_v3's conv_2); with ``pool`` the 2x2/2 max
+    pool of the requantized conv (the chain is monotone, so it equals the
+    pool of the accumulator that the kernels take) and the counter counts
     every conv output before the pool."""
+    _slope_num(leaky)
     return _plain_conv_requant(_pad1(x_q), w_q, b_q, sw=sw, sb=sb,
                                sa_in=sa_in, sa_out=sa_out, retune=retune,
                                leaky=leaky, pool=pool, rounding=rounding,
@@ -464,8 +473,9 @@ def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     second (each packed for this call where only the HWIO weights are
     given). ``sw``, ``shifts`` and ``overflow`` as in
     ``int8_conv3x3_requant``; with ``pool`` the counter counts every conv
-    output before the pool. The CPU route reads the HWIO weights where
-    given."""
+    output before the pool. ``leaky``: True (0.125), False, or on the CPU
+    and the wgmma pooled form a float slope (the Q16 rational; the
+    darknet 0.1). The CPU route reads the HWIO weights where given."""
     kw = dict(sw=sw, sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune,
               leaky=leaky, rounding=rounding)
     c_in, c_out = x_q.shape[-1], b_q.shape[0]
@@ -474,7 +484,6 @@ def int8_conv3x3_im2col(x_q, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
             x_q, _hwio(w_q, packed, c_in, c_out), b_q, pool=pool,
             overflow=overflow, **kw)
     if pool and conv3x3_pool_wgmma_route(c_in, sw, c_out=c_out):
-        _check_leaky_flag(leaky)
         return _launch_conv3x3_wgmma("int8_conv3x3_im2col", x_q, w_q, b_q,
                                      packed, form="pool", shifts=shifts,
                                      overflow=overflow, **kw)
@@ -579,12 +588,12 @@ def int8_conv_requant_plain(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     equal shift, each group shifted to the retune scale, then the requant
     chain. ``sw`` may be per-channel (an int32 [C_out] array). The HWIO
     weights are used where given, else those of ``packed`` (any packed
-    form ``int8_conv_requant`` takes)."""
+    form ``int8_conv_requant`` takes, a two-part 3x3's included)."""
     _check_rounding(rounding)
     _slope_num(leaky)
     parts = _parts(x, sa_in)
     if w_q is None:
-        w_q = _hwio(None, packed, sum(xq.shape[-1] for xq, _ in parts))
+        w_q = _hwio_parts(packed, [xq.shape[-1] for xq, _ in parts])
     sw_pc = np.ndim(sw) > 0
     raw: dict = {}
     c_ofs = 0
@@ -692,15 +701,20 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
     the kernels take one or two parts, and a per-channel ``sw`` on the
     four wgmma routes below (their per-column forms), not on the mma.sync
     conv. ``packed``: a 3x3's weights from ``pack_conv3x3_weights`` (then
-    ``w_q`` may be None), which the wgmma kernel reads on the shapes of
-    ``conv3x3_wgmma_route`` and its stride-2 form on those of
-    ``conv3x3_s2_wgmma_route``, or from ``pack_entry_conv_weights``, which
+    ``w_q`` may be None), which the wgmma kernel reads on the one-part
+    shapes of ``conv3x3_wgmma_route`` and its stride-2 form on those of
+    ``conv3x3_s2_wgmma_route``, or for two parts from
+    ``pack_conv3x3_parts_weights``, which its two-part form reads on the
+    two-part shapes of ``conv3x3_wgmma_route``, or from
+    ``pack_entry_conv_weights``, which
     the entry conv kernel reads on the shapes of ``entry_conv3x3_route``
     (C_in <= 3), or a 1x1's from ``pack_conv1x1_weights``, which the wgmma
     1x1 kernel reads on the shapes of ``conv1x1_wgmma_route`` (one or two
     parts). ``shifts``: with a per-channel ``sw``, the tables of
     ``conv_shift_tables`` for the parts' scales (a 1x1's with
-    ``align=CONV1X1_ALIGN``), made for this call where None."""
+    ``align=CONV1X1_ALIGN``), made for this call where None. There is no
+    fallback: a routed conv launches its kernel or raises; the mma.sync
+    conv takes the shapes no route takes."""
     parts = _parts(x, sa_in)
     kw = dict(sw=sw, sb=sb, sa_out=sa_out, retune=retune, padding=padding,
               stride=stride, leaky=leaky, rounding=rounding)
@@ -717,6 +731,11 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                                      leaky=leaky, rounding=rounding,
                                      shifts=shifts)
     shape = (k, stride, padding, len(parts), cins[0], sw)
+    if len(parts) == 2 and conv3x3_wgmma_route(*shape, c_out=c_out,
+                                               cins=cins):
+        return _launch_conv3x3_parts_wgmma(
+            parts, w_q, b_q, packed, sw=sw, sb=sb, sa_out=sa_out,
+            retune=retune, leaky=leaky, rounding=rounding, shifts=shifts)
     table = None if shifts is None else _one_table(shifts)
     if entry_conv3x3_route(*shape[:5], c_out, sw):
         (x0, sa0), = parts
@@ -731,8 +750,9 @@ def int8_conv_requant(x, w_q, b_q, *, sw, sb, sa_in, sa_out, retune,
                 "int8_conv_requant", x0, w_q, b_q, packed, sw=sw, sb=sb,
                 sa_in=sa0, sa_out=sa_out, retune=retune, leaky=leaky,
                 rounding=rounding, form=form, shifts=table)
-    return _launch_conv_requant(parts, _hwio(w_q, packed, sum(cins)), b_q,
-                                **kw)
+    return _launch_conv_requant(
+        parts, w_q if w_q is not None else _hwio_parts(packed, cins), b_q,
+        **kw)
 
 
 def _one_table(shifts):
@@ -764,21 +784,31 @@ _ENTRY_OF = {"conv": WGMMA_ENTRY, "pool": POOL_WGMMA_ENTRY,
 _COLS_ENTRY_OF = {"conv": COLS_WGMMA_ENTRY, "pool": POOL_COLS_WGMMA_ENTRY,
                   "s2": S2_COLS_WGMMA_ENTRY}
 _COUNT_ENTRY_OF = {"conv": COUNT_WGMMA_ENTRY, "pool": POOL_COUNT_WGMMA_ENTRY}
+# its two-part form's (a 3x3 over a two-part concat), scalar and per column
+PARTS_WGMMA_ENTRY = "yolo_int8_conv3x3_parts_wgmma"
+PARTS_COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_parts_cols_wgmma"
 # the mma.sync conv3x3's C entry (K1 at C_in % 32 != 0, K3 at C_in = 3:
 # slim's conv1 on NHWC input)
 MMA_SYNC_ENTRY = "yolo_int8_conv3x3_requant"
 
 
-def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw,
-                        c_out=None) -> bool:
+def conv3x3_wgmma_route(k, stride, padding, nparts, c_in, sw, c_out=None,
+                        cins=None) -> bool:
     """True where a conv on a CUDA tensor runs on the wgmma conv3x3 kernel
     (``csrc/int8_conv3x3_wgmma.cu``): a 3x3, stride 1, pad 1, one input
-    part of C_in % 32 == 0 channels, a scalar ``sw`` or a per-channel one
-    of ``c_out`` entries. ``int8_conv3x3_requant`` sends such convs there
-    and every other to the mma.sync conv kernel, and so does
-    ``int8_conv_requant``."""
-    return (k == 3 and stride == 1 and padding == 1 and nparts == 1
-            and c_in > 0 and c_in % 32 == 0 and _sw_ok(sw, c_out))
+    part of C_in % 32 == 0 channels, or two (``cins``: each part's
+    channels, each % 32 == 0; its two-part form), a scalar ``sw`` or a
+    per-channel one of ``c_out`` entries. ``int8_conv3x3_requant`` sends
+    such one-part convs there and every other to the mma.sync conv
+    kernel, and so does ``int8_conv_requant`` with the two-part ones too
+    (tiny_yolo_v3's conv_set_1, yolo_v2's convsets_2.0). There is no
+    fallback: a routed conv launches the kernel or raises."""
+    if cins is None:
+        cins = (c_in,) if nparts == 1 else ()
+    return (k == 3 and stride == 1 and padding == 1 and nparts in (1, 2)
+            and len(cins) == nparts and cins[0] == c_in
+            and all(c > 0 and c % 32 == 0 for c in cins)
+            and _sw_ok(sw, c_out))
 
 
 def conv3x3_s2_wgmma_route(k, stride, padding, nparts, c_in, sw,
@@ -835,6 +865,52 @@ def unpack_conv3x3_weights(wp: torch.Tensor, c_in=None) -> torch.Tensor:
     c_out, k9 = wp.shape
     w = wp.reshape(c_out, 3, 3, k9 // 9).permute(1, 2, 3, 0)
     return w if c_in is None else w[:, :, :c_in]
+
+
+def pack_conv3x3_parts_weights(w_q: torch.Tensor, cins) -> torch.Tensor:
+    """A 3x3 conv's HWIO weights [3, 3, C_in0 + C_in1, C_out] over a
+    two-part concat input (``cins`` = (C_in0, C_in1), each % 32 == 0) in
+    the K-major form the wgmma kernel's two-part form reads, made once per
+    model: [C_out, 9 * C_in0 + 9 * C_in1], part 0's (dy, dx, c) block and
+    then part 1's (each part's taps in turn, so that each part's partial
+    is a K range of its own), contiguous, on the weights' device."""
+    cins = tuple(int(c) for c in cins)
+    if (len(cins) != 2 or any(c <= 0 or c % 32 for c in cins)
+            or w_q.ndim != 4 or tuple(w_q.shape[:2]) != (3, 3)
+            or w_q.shape[2] != sum(cins)):
+        raise ValueError(f"two-part 3x3 weights must be HWIO [3, 3, C_in0 + "
+                         f"C_in1, C_out] with each C_in % 32 == 0, got "
+                         f"{list(w_q.shape)} for parts {list(cins)}")
+    wp = torch.cat([_pack3x3(w_q[:, :, :cins[0]]),
+                    _pack3x3(w_q[:, :, cins[0]:])], dim=1).contiguous()
+    _PACKS["conv3x3_parts"] += 1
+    return wp
+
+
+def unpack_conv3x3_parts_weights(wp: torch.Tensor, cins) -> torch.Tensor:
+    """The inverse of ``pack_conv3x3_parts_weights``: HWIO [3, 3, C_in0 +
+    C_in1, C_out]."""
+    k0 = 9 * int(cins[0])
+    return torch.cat([unpack_conv3x3_weights(wp[:, :k0]),
+                      unpack_conv3x3_weights(wp[:, k0:])], dim=2)
+
+
+def conv3x3_parts_pack_count() -> int:
+    """Calls of ``pack_conv3x3_parts_weights`` since the last reset."""
+    return _PACKS["conv3x3_parts"]
+
+
+def reset_conv3x3_parts_pack_count() -> None:
+    _PACKS["conv3x3_parts"] = 0
+
+
+def _hwio_parts(packed, cins):
+    """The HWIO weights of a general conv over parts of ``cins`` channels
+    from its packed form: a two-part 3x3's from
+    ``pack_conv3x3_parts_weights``, else any form ``_hwio`` reads."""
+    if len(cins) == 2 and packed.shape[1] == 9 * sum(cins):
+        return unpack_conv3x3_parts_weights(packed, cins)
+    return _hwio(None, packed, sum(cins))
 
 
 def _hwio(w_q, packed, c_in, c_out=None):
@@ -1032,6 +1108,118 @@ def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
            int(short_columns(codes)), retune - sa_out, num, nearest)
 
 
+# the two-part form's launch layout, as
+# yolo_int8_conv3x3_parts_wgmma_info reports it: the one-part fields (the
+# halo tile's channels both parts'), and whether the parts take two
+# accumulator shifts (split: the 64-column tile, two accumulators)
+Conv3x3PartsLayout = collections.namedtuple(
+    "Conv3x3PartsLayout", Conv3x3Layout._fields + ("split",))
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_parts_wgmma_layout(h, w, cin0, cin1, c_out,
+                               split) -> Conv3x3PartsLayout:
+    """The launch layout of the wgmma conv3x3 kernel's two-part form (both
+    shift forms') for an H x W x (C_in0 + C_in1) -> C_out conv whose parts
+    take two accumulator shifts (``split``) or one, as its CUDA source
+    picks it (``plan`` in ``csrc/int8_conv3x3_wgmma.cu``). Needs the built
+    kernels. Raises ValueError where the form takes no such conv (a part's
+    C_in % 32 != 0, or no tile fits in shared memory)."""
+    from yolo_tpu_torch.kernels import build
+
+    lib = build.load()
+    info = (ctypes.c_int * len(Conv3x3PartsLayout._fields))()
+    rc = lib.yolo_int8_conv3x3_parts_wgmma_info(h, w, cin0, cin1, c_out,
+                                                int(split), info)
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"the conv3x3 wgmma kernel's two-part form takes no "
+                         f"{h}x{w} conv of C_in {cin0} + {cin1} -> C_out "
+                         f"{c_out}: each part needs C_in % 32 == 0, and a "
+                         f"tile that fits in shared memory")
+    if rc:
+        raise RuntimeError(f"yolo_int8_conv3x3_parts_wgmma_info failed: "
+                           f"{lib.yolo_int8_error_string(rc).decode()}")
+    return Conv3x3PartsLayout(*info)
+
+
+def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
+                                retune, leaky, rounding,
+                                shifts=None) -> torch.Tensor:
+    """Check the operands and launch the wgmma conv3x3 kernel's two-part
+    form (pad 1) on the current stream, counting the launch under
+    ``int8_conv_requant``; ``parts``: the two (int8 tensor, sa) parts of
+    the input; packs ``w_q`` for this call where ``packed`` is None. The
+    parts' raw partials sum before one shift where they take one, else
+    each is shifted on its own (split). A per-channel ``sw`` runs its
+    per-column form on the tables of ``conv_shift_tables`` (``shifts``,
+    made for this call where None): one where the parts' scales agree, one
+    per part where they differ. Raises on anything the form does not take
+    and on a failed launch."""
+    num, cins = _check_parts(parts, sb=sb, sa_out=sa_out, retune=retune,
+                             leaky=leaky, rounding=rounding)
+    x0 = parts[0][0]
+    dev = x0.device
+    bsz, h, w = x0.shape[:3]
+    if packed is None:
+        packed = pack_conv3x3_parts_weights(w_q, cins)
+    c_out = packed.shape[0]
+    if not conv3x3_wgmma_route(3, 1, 1, len(parts), cins[0], sw,
+                               c_out=c_out, cins=cins) or len(parts) != 2:
+        raise ValueError(f"the two-part conv3x3 wgmma form takes two parts "
+                         f"of C_in % 32 == 0 and a scalar sw or one of "
+                         f"C_out = {c_out} entries, got {cins}, sw of shape "
+                         f"{np.shape(sw)}")
+    _check_operand("packed weights", packed, dev, torch.int8,
+                   (c_out, 9 * sum(cins)))
+    if not packed.is_contiguous():
+        raise ValueError("the packed weights must be contiguous")
+    _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
+    for i, (xq, _) in enumerate(parts):
+        _aligned(f"input part {i}", xq, 16)
+    _aligned("packed weights", packed, 16)
+    if bsz * h * w >= 2 ** 31:
+        raise ValueError("B * H * W must stay below 2^31; split the batch")
+    out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    sas = [sa for _, sa in parts]
+    cols = bool(np.ndim(sw))
+    # the parts' accumulator shifts sw + sa - retune differ where their
+    # input scales do (int_conv_requant's groups)
+    split = sas[0] != sas[1]
+    # raises where no tile fits
+    conv3x3_parts_wgmma_layout(h, w, cins[0], cins[1], c_out, split)
+    _aligned("the output allocation", out, 16)
+    # the kernel reads bias (and shift) pairs of whole 64- or 128-column
+    # tiles
+    bias_rt = torch.zeros(-(-c_out // TABLE_ALIGN) * TABLE_ALIGN,
+                          dtype=torch.int32, device=dev)
+    bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
+    ptrs = (x0.data_ptr(), parts[1][0].data_ptr(), packed.data_ptr(),
+            bias_rt.data_ptr())
+    dims = (bsz, h, w, cins[0], cins[1], c_out)
+    tail = (retune - sa_out, num, int(rounding == "nearest"))
+    if not cols:
+        launch("int8_conv_requant", PARTS_WGMMA_ENTRY, dev, *ptrs,
+               out.data_ptr(), *dims, sw + sas[0] - retune,
+               sw + sas[1] - retune, *tail)
+        return out
+    groups = list(dict.fromkeys(sas))
+    if shifts is None:
+        shifts = conv_shift_tables(sw, sas, retune, rounding, c_out, dev)
+    if len(shifts) != len(groups):
+        raise ValueError(f"parts of {len(groups)} input scales take "
+                         f"{len(groups)} shift tables, got {len(shifts)}")
+    tables = [_table_for(t, sw, sa, retune, rounding, c_out, dev)
+              for t, sa in zip(shifts, groups)]
+    short = all(short_columns(acc_shift_codes(sw, sa, retune, rounding,
+                                              c_out)) for sa in groups)
+    launch("int8_conv_requant", PARTS_COLS_WGMMA_ENTRY, dev, *ptrs,
+           tables[0].data_ptr(), tables[-1].data_ptr(), out.data_ptr(),
+           *dims, int(split), int(short), *tail)
+    return out
+
+
 def pack_res_block_weights(w1_q: torch.Tensor, w2_q: torch.Tensor):
     """K4's weights in the K-major form its kernel reads, made once per
     model: w1 [C, Cmid] (or [1, 1, C, Cmid]) -> [Cmid, C]; w2 HWIO
@@ -1053,8 +1241,9 @@ def unpack_res_block_weights(packed):
 
 
 # packings made since the last reset (serving packs once per model)
-_PACKS = {"res_block": 0, "conv3x3": 0, "entry_conv": 0, "pool_s2d": 0,
-          "pool_nhwc": 0, "conv1x1": 0, "shift_table": 0}
+_PACKS = {"res_block": 0, "conv3x3": 0, "conv3x3_parts": 0,
+          "entry_conv": 0, "pool_s2d": 0, "pool_nhwc": 0, "conv1x1": 0,
+          "shift_table": 0}
 
 
 def res_block_pack_count() -> int:

@@ -382,10 +382,14 @@ def int8_named_tables(m) -> Dict[str, np.ndarray]:
             if k.partition(".")[0] in _TABLES}
 
 
-def _seeded_named(rng, specs) -> Dict[str, dict]:
+def _seeded_named(rng, specs, per_channel=False) -> Dict[str, dict]:
     """{name: {'w': HWIO, 'b': [C_out]}} drawn conv by conv in the order of
     ``specs`` ((name, k, c_in, c_out)) with the kaiming-uniform bounds of
-    ``blocks.init_conv`` (torch's nn.Conv2d defaults)."""
+    ``blocks.init_conv`` (torch's nn.Conv2d defaults); with
+    ``per_channel`` each conv's w and b are followed by u =
+    ``rng.integers(0, 4, C_out)`` and its output channels' weights scaled
+    by 2^-u, so that a per-channel sw holds several values (the
+    per-channel yolo_v3 fixture's recipe)."""
     layers = {}
     for name, k, c_in, c_out in specs:
         fan_in = c_in * k * k
@@ -393,6 +397,8 @@ def _seeded_named(rng, specs) -> Dict[str, dict]:
         b_bound = 1.0 / math.sqrt(fan_in)
         w = rng.uniform(-bound, bound, (k, k, c_in, c_out)).astype(np.float32)
         b = rng.uniform(-b_bound, b_bound, (c_out,)).astype(np.float32)
+        if per_channel:
+            w = w * np.exp2(-rng.integers(0, 4, c_out)).astype(np.float32)
         layers[name] = {"w": w, "b": b}
     return layers
 
@@ -413,32 +419,35 @@ def _module_specs(model: nn.Module, flat, order) -> list:
     return [(n, *tree[n]["w"]) for n in order]
 
 
-def tiny_seeded_fused_params(seed: int, pred_out: int) -> dict:
+def tiny_seeded_fused_params(seed: int, pred_out: int,
+                             per_channel: bool = False) -> dict:
     """BN-fused float tiny_yolo_v3 params in the JAX package's tree layout
     (what ``fold_batch_norm`` returns there), drawn from
     ``np.random.default_rng(seed)`` conv by conv in ``TINY_CONV_ORDER``:
-    the tiny golden fixture's recipe (no weight tensor in git)."""
+    the tiny golden fixture's recipe (no weight tensor in git); with
+    ``per_channel`` the per-channel fixture's (``_seeded_named``)."""
     from yolo_tpu_torch.quant.int8_models import (
         TINY_CONV_ORDER, flat_tiny_params)
 
     specs = _module_specs(TinyYOLOv3(pred_out, batch_norm=False,
                                      device="meta"), flat_tiny_params,
                           TINY_CONV_ORDER)
-    layers = _seeded_named(np.random.default_rng(seed), specs)
+    layers = _seeded_named(np.random.default_rng(seed), specs, per_channel)
     tree = {"backbone": {n: [layers[n]] for n in TINY_CONV_ORDER[:7]}}
     tree.update({n: layers[n] for n in TINY_CONV_ORDER[7:]})
     return tree
 
 
-def yolo_v2_seeded_fused_params(seed: int, pred_out: int) -> dict:
+def yolo_v2_seeded_fused_params(seed: int, pred_out: int,
+                                per_channel: bool = False) -> dict:
     """As ``tiny_seeded_fused_params``, for yolo_v2 (``V2_CONV_ORDER``):
-    the yolo_v2 golden fixture's recipe."""
+    the yolo_v2 golden fixtures' recipe."""
     from yolo_tpu_torch.quant.int8_models import (
         _D19_SEQ_LENS, V2_CONV_ORDER, flat_v2_params)
 
     specs = _module_specs(YOLOv2(pred_out, batch_norm=False, device="meta"),
                           flat_v2_params, V2_CONV_ORDER)
-    layers = _seeded_named(np.random.default_rng(seed), specs)
+    layers = _seeded_named(np.random.default_rng(seed), specs, per_channel)
     return {
         "backbone": {seq: [layers[f"{seq}.{j}"] for j in range(n)]
                      for seq, n in _D19_SEQ_LENS},
@@ -452,8 +461,11 @@ def _named_from_seed(cls, seeded, flat, arrays: Mapping, device):
     from yolo_tpu_torch.quant.int8_models import quantize_named_weights
 
     order = cls.CONV_ORDER
-    fused = seeded(int(arrays["weight_seed"]), int(arrays["pred_out"]))
-    w_q, b_q, sw, sb = quantize_named_weights(flat(fused), order)
+    per_channel = "per_channel" in arrays and bool(arrays["per_channel"])
+    fused = seeded(int(arrays["weight_seed"]), int(arrays["pred_out"]),
+                   per_channel)
+    w_q, b_q, sw, sb = quantize_named_weights(flat(fused), order,
+                                              per_channel=per_channel)
     digest = weights_sha256([w_q[n] for n in order], [b_q[n] for n in order])
     if digest != str(arrays["wb_sha256"]):
         raise ValueError(f"the weights rebuilt from seed "
@@ -474,10 +486,12 @@ def _named_from_seed(cls, seeded, flat, arrays: Mapping, device):
 
 
 def int8_tiny_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
-    """The tiny_yolo_v3 golden fixture's model: int8 weights rebuilt from
+    """A tiny_yolo_v3 golden fixture's model: int8 weights rebuilt from
     the seed it names (``tiny_seeded_fused_params``, per-tensor
-    quantization), checked against its ``wb_sha256``, with its calibrated
-    tables, whose sw / sb must be the rebuilt weights' exponents."""
+    quantization, or where its 'per_channel' flag is set the per-channel
+    recipe and per-channel quantization), checked against its
+    ``wb_sha256``, with its calibrated tables, whose sw / sb must be the
+    rebuilt weights' exponents."""
     from yolo_tpu_torch.quant.int8_models import Int8Tiny, flat_tiny_params
 
     return _named_from_seed(Int8Tiny, tiny_seeded_fused_params,
@@ -485,7 +499,7 @@ def int8_tiny_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
 
 
 def int8_yolo_v2_from_seed(arrays: Mapping[str, np.ndarray], device="cuda"):
-    """As ``int8_tiny_from_seed``, for the yolo_v2 golden fixture."""
+    """As ``int8_tiny_from_seed``, for the yolo_v2 golden fixtures."""
     from yolo_tpu_torch.quant.int8_models import Int8YoloV2, flat_v2_params
 
     return _named_from_seed(Int8YoloV2, yolo_v2_seeded_fused_params,

@@ -10,19 +10,23 @@ and a fixed-point 2x upsample; yolo_v2 the darknet19 backbone, the
 conv over the passthrough concat. Both backbones run LeakyReLU(0.1) as
 the Q16 rational, their heads 0.125.
 
-Every conv runs through ``fixed_point.int_conv_requant``. On the card the
-stride-1 3x3s of one part with C_in % 32 == 0 run the wgmma conv3x3
-kernel, the 1x1s the wgmma 1x1 kernel, the entry conv on NHWC input the
-entry conv kernel and on the s2d layout (with its pool) K2's wgmma
-kernel, each on weights packed once (``pack``); the rest (tiny's conv_2,
-C_in 16, and the two-part 3x3s, tiny's conv_set_1 and yolo_v2's
-convsets_2.0) the mma.sync general conv. On a CPU tensor the same
-wrappers run their exact plain versions.
+Every conv runs through ``fixed_point.int_conv_requant`` but tiny's
+conv_2, which runs with its pool as one pooled conv
+(``kernels.int8_conv.int8_conv3x3_im2col(pool=True)``: the requant chain
+is monotone, so the pool of the accumulator gives the integers of the
+JAX package's conv then ``int_maxpool``). On the card the stride-1 3x3s
+with C_in % 32 == 0 run the wgmma conv3x3 kernel (the two-part ones,
+tiny's conv_set_1 and yolo_v2's convsets_2.0, its two-part form), tiny's
+conv_2 its pooled form, the 1x1s the wgmma 1x1 kernel, the entry conv on
+NHWC input the entry conv kernel and on the s2d layout (with its pool)
+K2's wgmma kernel, each on weights packed once (``pack``); no conv runs
+the mma.sync general conv. On a CPU tensor the same wrappers run their
+exact plain versions.
 
 Per-channel weight scales (``per_channel=True``: each conv's sw an int32
 [C_out] array) run on the plain NHWC conv path only, as in the JAX
-package (``input_s2d`` raises), and only on the CPU: the mma.sync conv
-takes a scalar sw, so the detect fns refuse such a model on the card.
+package (``input_s2d`` raises); on the card every conv runs the
+per-column form of its kernel, on shift tables made once by ``pack``.
 ``mesh`` sharding is not ported (``ValueError``).
 """
 
@@ -84,6 +88,24 @@ _V2_PAD.update({"route_layer": 0, "pred": 0, "convsets_1.0": 1,
                 "convsets_1.1": 1, "convsets_2.0": 1})
 
 
+def _v2_input_taps() -> Dict[str, object]:
+    """Which tap each yolo_v2 conv reads: the conv before it (a pool
+    keeps the scale), the head's convs their own; convsets_2.0 the concat
+    [reorg(route_layer) (a pure shuffle), convsets_1.1]."""
+    taps, prev = {}, "in"
+    for seq, n in _D19_SEQ_LENS:
+        for j in range(n):
+            taps[f"{seq}.{j}"], prev = prev, f"{seq}.{j}"
+    taps.update({"convsets_1.0": "conv_6.4", "convsets_1.1": "convsets_1.0",
+                 "route_layer": "conv_5.4",
+                 "convsets_2.0": ("route_layer", "convsets_1.1"),
+                 "pred": "convsets_2.0"})
+    return taps
+
+
+V2_INPUT_TAP = _v2_input_taps()
+
+
 @dataclass
 class _Int8Named:
     """A quantized model keyed by conv name: int8 HWIO weights, int32
@@ -102,10 +124,19 @@ class _Int8Named:
     # the entry conv's weights phase-packed for K2's wgmma kernel on the
     # s2d layout, made once by ``pack``
     s2d_packed: Optional[torch.Tensor] = field(repr=False, default=None)
+    # {rounding: {name of a conv with a per-channel sw: its shift tables
+    # (``conv_shift_tables``: one per input scale of its parts)}}, made
+    # once by ``pack``
+    shift_tables: Optional[Dict[str, Dict[str, tuple]]] = field(
+        repr=False, default=None)
 
-    # set by each family: its convs in call order, and their padding
+    # set by each family: its convs in call order, their padding, which
+    # tap each reads (a tuple for a concat's parts), and the convs that
+    # run with the 2x2/2 max pool after them as one pooled conv
     CONV_ORDER: ClassVar[Tuple[str, ...]] = ()
     PAD: ClassVar[Dict[str, int]] = {}
+    INPUT_TAP: ClassVar[Dict[str, object]] = {}
+    POOLED: ClassVar[Tuple[str, ...]] = ()
 
     def to(self, device):
         """The same model with its tensors, packed ones included, on
@@ -119,7 +150,11 @@ class _Int8Named:
             sb=dict(self.sb), sa=dict(self.sa), retune=dict(self.retune),
             packed=moved(self.packed),
             s2d_packed=None if self.s2d_packed is None
-            else self.s2d_packed.to(device))
+            else self.s2d_packed.to(device),
+            shift_tables=None if self.shift_tables is None else {
+                r: {k: tuple(t.to(device) for t in ts)
+                    for k, ts in tables.items()}
+                for r, tables in self.shift_tables.items()})
 
     @property
     def per_channel(self) -> bool:
@@ -130,19 +165,31 @@ class _Int8Named:
         """The channels of each input part of conv ``name``."""
         return (self.w_q[name].shape[2],)
 
+    def conv_sas(self, name: str) -> Tuple[int, ...]:
+        """The scale of each input part of conv ``name`` (its taps')."""
+        tap = self.INPUT_TAP[name]
+        return tuple(int(self.sa[t]) for t in (
+            tap if isinstance(tap, tuple) else (tap,)))
+
     def conv_route(self, name: str) -> Optional[str]:
         """The card route of conv ``name`` on NHWC input at its sw:
-        'conv3x3' (the wgmma conv3x3), 'entry' (the entry conv kernel),
-        'conv1x1' (the wgmma 1x1) or None (the mma.sync general conv,
-        which takes a scalar sw only)."""
+        'conv3x3' (the wgmma conv3x3), 'parts' (its two-part form), 'pool'
+        (its pooled form, the conv and the pool after it: ``POOLED``),
+        'entry' (the entry conv kernel), 'conv1x1' (the wgmma 1x1) or None
+        (the mma.sync general conv, which takes a scalar sw only)."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            conv1x1_wgmma_route, conv3x3_wgmma_route, entry_conv3x3_route)
+            conv1x1_wgmma_route, conv3x3_pool_wgmma_route,
+            conv3x3_wgmma_route, entry_conv3x3_route)
 
         w, sw, cins = self.w_q[name], self.sw[name], self.conv_cins(name)
         shape = (w.shape[0], 1, self.PAD[name], len(cins), cins[0], sw)
         c_out = w.shape[3]
-        if conv3x3_wgmma_route(*shape, c_out=c_out):
-            return "conv3x3"
+        if name in self.POOLED:
+            return ("pool" if conv3x3_pool_wgmma_route(cins[0], sw,
+                                                       c_out=c_out)
+                    else None)
+        if conv3x3_wgmma_route(*shape, c_out=c_out, cins=cins):
+            return "conv3x3" if len(cins) == 1 else "parts"
         if entry_conv3x3_route(*shape[:5], c_out, sw):
             return "entry"
         if conv1x1_wgmma_route(*shape[:4], cins, sw, c_out=c_out):
@@ -151,36 +198,71 @@ class _Int8Named:
 
     def pack(self) -> None:
         """Pack once the weights of every conv that a card route reads in
-        a packed form (``conv_route``) into ``packed``, and the entry
-        conv's for K2's wgmma kernel on the s2d layout into
-        ``s2d_packed``, so the forward never packs."""
+        a packed form (``conv_route``) into ``packed``, the entry conv's
+        for K2's wgmma kernel on the s2d layout into ``s2d_packed``, and
+        where a routed conv's sw is per-channel its shift tables, for both
+        roundings, into ``shift_tables`` (``conv_shift_tables`` over its
+        parts' input scales: one where they agree, one per part where
+        they differ), so the forward never packs."""
         from yolo_tpu_torch.kernels.int8_conv import (
-            pack_conv1x1_weights, pack_conv3x3_weights,
-            pack_entry_conv_weights, pack_pool_s2d_weights,
-            pool_s2d_wgmma_route)
+            CONV1X1_ALIGN, TABLE_ALIGN, conv_shift_tables,
+            pack_conv1x1_weights, pack_conv3x3_parts_weights,
+            pack_conv3x3_weights, pack_entry_conv_weights,
+            pack_pool_s2d_weights, pool_s2d_wgmma_route)
 
         packers = {"conv3x3": pack_conv3x3_weights,
+                   "pool": pack_conv3x3_weights,
+                   "parts": pack_conv3x3_parts_weights,
                    "entry": pack_entry_conv_weights,
                    "conv1x1": pack_conv1x1_weights}
         self.packed = {}
+        self.shift_tables = {"nearest": {}, "floor": {}}
         for name in self.CONV_ORDER:
             route = self.conv_route(name)
-            if route is not None:
-                self.packed[name] = packers[route](self.w_q[name])
+            if route is None:
+                continue
+            w = self.w_q[name]
+            self.packed[name] = (packers[route](w, self.conv_cins(name))
+                                 if route == "parts" else packers[route](w))
+            if np.ndim(self.sw[name]):
+                for rounding, tables in self.shift_tables.items():
+                    tables[name] = conv_shift_tables(
+                        self.sw[name], self.conv_sas(name),
+                        self.retune[name], rounding, w.shape[3], w.device,
+                        CONV1X1_ALIGN if route == "conv1x1" else TABLE_ALIGN)
         first = self.CONV_ORDER[0]
         w = self.w_q[first]
         self.s2d_packed = (pack_pool_s2d_weights(w) if pool_s2d_wgmma_route(
             w.shape[2], w.shape[3], self.sw[first]) else None)
 
+    def _tables(self, name, rounding):
+        return (self.shift_tables or {}).get(rounding, {}).get(name)
+
     def conv(self, name, x, sa_in, rounding, leaky=True):
         """``int_conv_requant`` of conv ``name`` (``x`` an int8 tensor at
         2^sa_in, or a list of (int8, sa) concat parts), on its packed
-        weights where ``pack`` made them."""
+        weights and shift tables where ``pack`` made them."""
         return fp.int_conv_requant(
             x, self.w_q[name], self.b_q[name], sw=self.sw[name],
             sb=self.sb[name], sa_in=sa_in, sa_out=self.sa[name],
             retune=self.retune[name], padding=self.PAD[name], leaky=leaky,
-            rounding=rounding, packed=(self.packed or {}).get(name))
+            rounding=rounding, packed=(self.packed or {}).get(name),
+            shifts=self._tables(name, rounding))
+
+    def conv_pool(self, name, x, sa_in, rounding, leaky=True):
+        """Conv ``name`` (3x3, pad 1) and the 2x2/2 max pool after it as
+        one pooled conv (``int8_conv3x3_im2col(pool=True)``), on its
+        packed weights and shift table where ``pack`` made them: the
+        integers of ``int_conv_requant`` then ``int_maxpool``."""
+        from yolo_tpu_torch.kernels.int8_conv import int8_conv3x3_im2col
+
+        tables = self._tables(name, rounding)
+        return int8_conv3x3_im2col(
+            x, self.w_q[name], self.b_q[name], sw=self.sw[name],
+            sb=self.sb[name], sa_in=sa_in, sa_out=self.sa[name],
+            retune=self.retune[name], leaky=leaky, pool=True,
+            rounding=rounding, packed=(self.packed or {}).get(name),
+            shifts=None if tables is None else tables[0])
 
     def entry_s2d(self, x2, rounding):
         """The entry conv + its 2x2 pool on the padded s2d layout, as ONE
@@ -198,6 +280,8 @@ class Int8Tiny(_Int8Named):
     """Quantized tiny_yolo_v3, keyed by ``TINY_CONV_ORDER``."""
     CONV_ORDER = TINY_CONV_ORDER
     PAD = _TINY_SPATIAL
+    INPUT_TAP = TINY_INPUT_TAP
+    POOLED = ("conv_2",)
 
     def conv_cins(self, name):
         tap = TINY_INPUT_TAP[name]
@@ -211,6 +295,7 @@ class Int8YoloV2(_Int8Named):
     """Quantized yolo_v2, keyed by ``V2_CONV_ORDER``."""
     CONV_ORDER = V2_CONV_ORDER
     PAD = _V2_PAD
+    INPUT_TAP = V2_INPUT_TAP
 
     def conv_cins(self, name):
         if name == "convsets_2.0":  # [reorg(route_layer), convsets_1.1]
@@ -336,8 +421,8 @@ def int8_tiny_forward(m: Int8Tiny, x_q: torch.Tensor,
     """int8 input [B, H, W, 3] at scale 2^sa['in'] (with ``input_s2d`` the
     padded s2d serving layout [B, H/2+3, W/2+3, 12], conv_1 and its pool
     then one pooled conv) -> [pred_1, pred_2] float heads (strides 16,
-    32). conv_2 runs, as in the JAX package, as a conv then
-    ``int_maxpool``."""
+    32). conv_2 and its pool run as one pooled conv (``conv_pool``): the
+    JAX package's conv then ``int_maxpool``, integer for integer."""
     _check_per_channel_plain(m, input_s2d)
     sa = m.sa
 
@@ -350,7 +435,8 @@ def int8_tiny_forward(m: Int8Tiny, x_q: torch.Tensor,
         out = m.entry_s2d(x_q, rounding)
     else:
         out = fp.int_maxpool(conv("conv_1", x_q, BB))
-    for name in ("conv_2", "conv_3", "conv_4"):
+    out = m.conv_pool("conv_2", out, sa["conv_1"], rounding, BB)
+    for name in ("conv_3", "conv_4"):
         out = fp.int_maxpool(conv(name, out, BB))
     c4 = conv("conv_5", out, BB)                               # stride 16
     out = conv("conv_6", fp.int_maxpool(c4), BB)
@@ -372,33 +458,31 @@ def int8_yolo_v2_forward(m: Int8YoloV2, x_q: torch.Tensor,
     (stride 32), with the reorg passthrough concat."""
     _check_per_channel_plain(m, input_s2d)
 
-    def run_seq(seq, n, x, prev):
+    def conv(name, x, leaky=True):  # at its input tap's scale
+        return m.conv(name, x, m.sa[V2_INPUT_TAP[name]], rounding, leaky)
+
+    def run_seq(seq, n, x):
         for j in range(n):
-            name = f"{seq}.{j}"
-            x = m.conv(name, x, m.sa[prev], rounding, BB)
-            prev = name
-        return x, prev
+            x = conv(f"{seq}.{j}", x, BB)
+        return x
 
     if input_s2d:
-        out, prev = m.entry_s2d(x_q, rounding), "conv_1.0"
+        out = m.entry_s2d(x_q, rounding)
     else:
-        out, prev = run_seq("conv_1", 1, x_q, "in")
-        out = fp.int_maxpool(out)
-    out, prev = run_seq("conv_2", 1, out, prev)
-    out, prev = run_seq("conv_3", 3, fp.int_maxpool(out), prev)
-    c4, prev4 = run_seq("conv_4", 3, fp.int_maxpool(out), prev)
-    c5, prev5 = run_seq("conv_5", 5, fp.int_maxpool(c4), prev4)
-    c6, prev6 = run_seq("conv_6", 5, fp.int_maxpool(c5), prev5)
+        out = fp.int_maxpool(run_seq("conv_1", 1, x_q))
+    out = run_seq("conv_2", 1, out)
+    out = run_seq("conv_3", 3, fp.int_maxpool(out))
+    c4 = run_seq("conv_4", 3, fp.int_maxpool(out))
+    c5 = run_seq("conv_5", 5, fp.int_maxpool(c4))
+    c6 = run_seq("conv_6", 5, fp.int_maxpool(c5))
 
-    fp2 = m.conv("convsets_1.0", c6, m.sa[prev6], rounding)
-    fp2 = m.conv("convsets_1.1", fp2, m.sa["convsets_1.0"], rounding)
-    route = m.conv("route_layer", c5, m.sa[prev5], rounding)
-    fp1 = blocks.reorg(route, 2)  # a pure int8 shuffle, scale-preserving
+    fp2 = conv("convsets_1.1", conv("convsets_1.0", c6))
+    fp1 = blocks.reorg(conv("route_layer", c5), 2)  # a pure int8 shuffle
     # the passthrough concat [fp1, fp2]: a split conv, exact scales
-    head = m.conv("convsets_2.0", [(fp1, m.sa["route_layer"]),
-                                   (fp2, m.sa["convsets_1.1"])], None,
-                  rounding)
-    pred = m.conv("pred", head, m.sa["convsets_2.0"], rounding, False)
+    head = m.conv("convsets_2.0", list(zip((fp1, fp2),
+                                           m.conv_sas("convsets_2.0"))),
+                  None, rounding)
+    pred = conv("pred", head, False)
     return [pred.to(torch.float32) * 2.0 ** -m.sa["pred"]]
 
 
@@ -468,27 +552,11 @@ def _check_mesh(mesh) -> None:
                          f"one card (mesh=None)")
 
 
-def _check_card_routes(m: _Int8Named) -> None:
-    """A per-channel model on the card needs a per-column route for every
-    conv; the mma.sync general conv takes a scalar sw only."""
-    if not m.per_channel:
-        return
-    missing = [n for n in m.CONV_ORDER if m.conv_route(n) is None]
-    if missing:
-        raise ValueError(
-            f"per-channel weight scales do not run on CUDA for this model: "
-            f"{', '.join(missing)} have no per-column kernel route (the "
-            f"mma.sync general conv takes a scalar sw); serve it with "
-            f"device='cpu' or with per-tensor scales")
-
-
 def _make_detect_fn(m: _Int8Named, forward, cfg: DetectorConfig, rounding,
                     input_s2d, mesh, device):
     _check_per_channel_plain(m, input_s2d)
     _check_mesh(mesh)
     dev = fp.resolve_device(device)
-    if dev.type == "cuda":
-        _check_card_routes(m)
     m_dev = m.to(dev)
     if dev.type == "cuda":
         m_dev.pack()
@@ -522,11 +590,10 @@ def make_int8_tiny_detect_fn(m: Int8Tiny, cfg: DetectorConfig,
     out so on the device) -> (boxes, scores, classes, valid).
 
     The model's tensors move to ``device`` once, here, and on a CUDA
-    device its weights are packed there once (``pack``); the images move
-    there per call. Raises if ``device`` is CUDA and there is none, for a
-    per-channel model with ``input_s2d``, and for a per-channel model on
-    CUDA (naming the convs without a per-column route); never falls back
-    to the CPU."""
+    device its weights (and a per-channel sw's shift tables) are packed
+    there once (``pack``); the images move there per call. Raises if
+    ``device`` is CUDA and there is none, and for a per-channel model with
+    ``input_s2d``; never falls back to the CPU."""
     return _make_detect_fn(m, int8_tiny_forward, cfg, rounding, input_s2d,
                            mesh, device)
 
