@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Its paths, each with the mask config (2 classes) at 416², through
-hand-written CUDA kernels, decode, softmax·sigmoid and greedy NMS:
+hand-written CUDA kernels, decode, softmax·sigmoid and greedy NMS (a
+hand-written kernel too):
 slim_yolo_v2 INT8 (int8 input in the padded space-to-depth layout, ten
 fixed-point conv layers; phases 2-4), yolo_v3 INT8 (int8 NHWC input,
 75 convs: 23 fused darknet53 residual blocks and 29 general int8 convs,
@@ -246,6 +247,37 @@ printing JSON lines; any failure raises and the script exits nonzero:
    its plain version and timed as 7a; 7c ``cli.serve.main`` for
    tiny_yolo_v3 at batch 64 and yolo_v2 at batch 64 (``--input auto``:
    s2d) and 128 (int8 NHWC).
+8. the serving entry point's last slice: 8b every served configuration
+   (slim on s2d, NHWC and per-channel; yolo_v3, per-channel, on s2d and
+   yolo_v3_spp; tiny_yolo_v3 and yolo_v2 on s2d and NHWC and per-channel)
+   through its detect fn captured in a CUDA graph (the makers' only
+   form on the card) and eager (its ``captured.fn``): detections
+   ``torch.equal``; one replay of each graph under ``torch.profiler``
+   runs the hand-written kernels, by name and number, of an eager call,
+   whose wrapper launches the graph recorded at its capture (so the
+   launches derived for replays are launches the card made; every graph
+   of the CLI and artifact runs of 6d, 7c, 8c and 8d is held so too); no
+   wrapper launch in the captured loop; one NMS launch a forward; no
+   host read in the eager call (``torch.cuda.set_sync_debug_mode``);
+   images/sec both
+   ways, decode + NMS ms with the NMS kernel and with the plain fixpoint
+   the detect fns ran before, the device's idle share
+   (``torch.profiler``) on slim s2d and tiny s2d; 8a the greedy NMS
+   kernel (``csrc/nms_greedy.cu``) ``torch.equal`` to its plain version
+   on those configurations' real candidates, on the chain of boxes that
+   greedy thins to every other one (K = 128, 512, 1024) and on tied boxes
+   at thresholds not exact in float32, each served shape timed (CUDA
+   events and ``torch.profiler``) beside its plain version and bound,
+   and K = 512 on slim s2d at the CLI's batch 64 and tiny s2d at 256; 8c
+   ``serving.export.save_artifact`` -> ``load_artifact`` of slim s2d at
+   batch 256 and yolo_v3 at 128, outputs ``torch.equal`` to the live
+   detect fn's, images/sec of the loaded (captured) program, then
+   ``cli.serve --artifact``; 8d ``cli.serve --fp32`` (the float
+   Detector) for slim and yolo_v3, and ``--trained_model`` from a
+   checkpoint the port's ``save_checkpoint`` wrote of the CLI's own
+   seeded weights, detecting as the CLI does without it. The earlier
+   phases drive their detect fns eagerly (``captured.fn``), so their
+   counts are per eager forward.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -265,7 +297,10 @@ the shapes no wgmma route takes). The
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's and 7's runs. The two-part form's entries time tiny's conv_set_1
+6's, 7's and 8's runs, their wrappers' own launches (the eager calls,
+a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
+graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
+its serving shape (8a). The two-part form's entries time tiny's conv_set_1
 plus yolo_v2's convsets_2.0 (scalar: 7a, 7b; per column: 7d); each entry
 on tiny_yolo_v3's or yolo_v2's path has ``paths``: their launches per
 forward and the times of their shapes (``.pc``: 7d's per-channel
@@ -281,6 +316,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -298,6 +334,7 @@ POOL3 = "yolo_int8_conv3x3_pool_wgmma"  # and its pooled form's
 S2_3 = "yolo_int8_conv3x3_s2_wgmma"  # and its stride-2 form's
 ENTRY3 = "yolo_int8_entry_conv3x3_wgmma"  # the v3 entry conv kernel's
 POOL_S2D = "yolo_int8_pool_s2d_wgmma"  # K2's on the s2d layout
+NMS_K = "yolo_nms_greedy"  # the greedy NMS kernel's
 CONV1X1 = "yolo_int8_conv1x1_wgmma"  # the v3 1x1 kernel's
 # the wgmma conv3x3's per-column (per-channel sw) and counting forms
 COLS3 = "yolo_int8_conv3x3_cols_wgmma"
@@ -408,6 +445,11 @@ LINES = {
     "int8_conv_requant.conv3x3_parts_cols_wgmma": (
         "int8_conv_requant", PARTS_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
+    # every detect fn's greedy NMS (phase 8a; the JAX package runs it as a
+    # lax.while_loop of Jacobi sweeps, no Pallas kernel)
+    "greedy_nms_keep": (
+        "greedy_nms_keep", NMS_K, CSRC + "nms_greedy.cu",
+        "yolo_tpu/ops/nms.py:165"),
 }
 # the kernels-line entries whose launches come from the diagnostics
 # forward (phase 4c), not from serving
@@ -467,6 +509,12 @@ CARD, PEAK_OPS, PEAK_BW = "H100 80GB HBM3", 1979e12, 3.35e12
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nms_launches(n: int) -> dict:
+    """The greedy NMS kernel's launches by entry for ``n`` detect calls
+    (one a call, every detect fn's postprocess)."""
+    return {"greedy_nms_keep": {NMS_K: n}}
 
 
 def nvidia_smi() -> str:
@@ -775,7 +823,7 @@ def phase_golden():
     if not torch.equal(head_nhwc.cpu(), head.cpu()):
         raise AssertionError("the golden head on NHWC input differs from "
                              "the s2d input's")
-    detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda"))
     boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x2))
     np.testing.assert_array_equal(valid, g["valid"])
     np.testing.assert_array_equal(classes, g["classes"])
@@ -814,7 +862,8 @@ def phase_serving(m, cfg, card, input_s2d=True):
 
     for reset in resets:
         reset()
-    detect = make_int8_detect_fn(m, cfg, input_s2d=input_s2d, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, input_s2d=input_s2d,
+                                       device="cuda"))
     packs_at_setup = made()
     if packs_at_setup != (9, 1, 1):
         raise AssertionError(f"the detect fn packed {packs_at_setup[0]} K1 "
@@ -841,6 +890,7 @@ def phase_serving(m, cfg, card, input_s2d=True):
     else:
         want = {"int8_conv3x3_im2col": {POOL3: 3 * n, POOL_NHWC: n}}
     want["int8_conv3x3_requant"] = {WGMMA3: 6 * n}
+    want.update(nms_launches(n))
     if entries != want:
         raise AssertionError(f"launches {counts} {entries}, want {want}")
     if made() != (0, 0, 0):
@@ -1332,7 +1382,7 @@ def phase_v3_golden():
             raise AssertionError(
                 f"v3 golden head {i + 1} differs: max |diff| "
                 f"{int(diff.max())}, {int((diff > 0).sum())} values")
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x_q))
     np.testing.assert_array_equal(valid, g["valid"])
     np.testing.assert_array_equal(classes, g["classes"])
@@ -1361,7 +1411,7 @@ def phase_v3_serving(m, cfg, card):
               K.reset_entry_conv_pack_count, K.reset_conv1x1_pack_count)
     for reset in resets:
         reset()
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     packs_at_setup = K.res_block_pack_count()
     conv_packs_at_setup = K.conv3x3_pack_count()
     entry_packs_at_setup = K.entry_conv_pack_count()
@@ -1394,7 +1444,8 @@ def phase_v3_serving(m, cfg, card):
                              f"1x1 conv weights {K.conv1x1_pack_count()}")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_res_block": 23 * SERVE_ITERS,
-                 "int8_conv_requant": 29 * SERVE_ITERS})
+                 "int8_conv_requant": 29 * SERVE_ITERS,
+                 "greedy_nms_keep": SERVE_ITERS})
     if counts != want:
         raise AssertionError(f"v3 launch counts {counts}, want {want}")
     entries = K.launch_counts_by_entry()
@@ -1936,7 +1987,7 @@ def phase_pc_golden():
                     f"per-channel golden head ({what} weights) differs: max "
                     f"|diff| {int(diff.max())}, {int((diff > 0).sum())} "
                     f"values")
-    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, device="cuda"))
     boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x_q))
     np.testing.assert_array_equal(valid, g["valid"])
     np.testing.assert_array_equal(classes, g["classes"])
@@ -1979,7 +2030,7 @@ def phase_pc_serving(m, cfg, card):
 
     for reset in resets:
         reset()
-    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, device="cuda"))
     at_setup = made()
     if at_setup != (9, 0, 1, 20):
         raise AssertionError(f"the per-channel detect fn packed {at_setup[0]}"
@@ -2005,10 +2056,12 @@ def phase_pc_serving(m, cfg, card):
                              f"in the loop: {made()}")
     want = dict.fromkeys(K.KERNEL_NAMES, 0)
     want.update({"int8_conv3x3_requant": 6 * SERVE_ITERS,
-                 "int8_conv3x3_im2col": 4 * SERVE_ITERS})
+                 "int8_conv3x3_im2col": 4 * SERVE_ITERS,
+                 "greedy_nms_keep": SERVE_ITERS})
     want_entries = {"int8_conv3x3_requant": {COLS3: 6 * SERVE_ITERS},
                     "int8_conv3x3_im2col": {POOL_COLS3: 3 * SERVE_ITERS,
-                                            POOL_NHWC_COLS: SERVE_ITERS}}
+                                            POOL_NHWC_COLS: SERVE_ITERS},
+                    **nms_launches(SERVE_ITERS)}
     if counts != want or entries != want_entries:
         raise AssertionError(f"per-channel launches {counts} "
                              f"{entries}, want {want} {want_entries}")
@@ -2507,7 +2560,7 @@ def phase_pcv3_golden():
             raise AssertionError(
                 f"per-channel v3 golden head {i + 1} differs: max |diff| "
                 f"{int(diff.max())}, {int((diff > 0).sum())} values")
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     boxes, scores, classes, valid = (t.cpu().numpy() for t in detect(x_q))
     np.testing.assert_array_equal(valid, g["valid"])
     np.testing.assert_array_equal(classes, g["classes"])
@@ -2562,7 +2615,7 @@ def phase_pcv3_serving(m, cfg, card):
 
     for reset in resets:
         reset()
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     at_setup = made()
     if at_setup != (23, 14, 1, 14, 92 + 62):
         raise AssertionError(f"the per-channel v3 detect fn packed "
@@ -2587,6 +2640,7 @@ def phase_pcv3_serving(m, cfg, card):
                              f"tables in the loop: {made()}")
     want = {w: {e: n * SERVE_ITERS for e, n in by.items()}
             for w, by in PCV3_FORWARD.items()}
+    want.update(nms_launches(SERVE_ITERS))
     if entries != want:
         raise AssertionError(f"per-channel v3 launches {entries}, want "
                              f"{want}")
@@ -2802,9 +2856,19 @@ def check_detections(out, g):
     return int(valid.sum())
 
 
+def eager(detect):
+    """A detect fn of the port's makers, uncaptured: its device function
+    (``detect.captured.fn``, the one ``serving.export`` traces) on the
+    input moved to its device, so that every launch of a call goes
+    through its wrapper and counts there."""
+    fn, dev = detect.captured.fn, detect.device
+    return lambda x: fn(torch.as_tensor(x).to(dev))
+
+
 def served_once(detect, x, want, what):
     """One detect call, the launch counts zeroed just before it and read
-    just after; they must be ``want``."""
+    just after; they must be ``want`` (the forward's) and one NMS
+    launch."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     torch.cuda.synchronize()
@@ -2812,6 +2876,7 @@ def served_once(detect, x, want, what):
     out = detect(x)
     torch.cuda.synchronize()
     entries = K.launch_counts_by_entry()
+    want = {**want, **nms_launches(1)}
     if entries != want:
         raise AssertionError(f"{what} launched {entries}, want {want}")
     return out, entries
@@ -2848,7 +2913,7 @@ def phase_ptq_slim_pc(card):
     pq = qsim.fake_quantize_params(model, per_channel=True)
     _, calib_s = timed(lambda: qsim.calibrate(pq, cfg, [images]))
     x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa["in"])
-    detect = make_int8_detect_fn(m, cfg, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, device="cuda"))
     out, entries = served_once(detect, x_q, PTQ_PC_FORWARD, "5a served")
     m_packed = m.to("cuda")
     m_packed.pack_conv3x3()
@@ -2891,7 +2956,7 @@ def phase_ptq_v3(card, fixture):
     _, calib_s = timed(lambda: calibrate_generic(pq, cfg, [images]))
     del pq
     x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa_in)
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     out, entries = served_once(
         detect, x_q, PCV3_FORWARD if per_channel else PTQ_V3_FORWARD,
         f"{what} served")
@@ -2963,7 +3028,7 @@ def phase_ptq_bn(card):
                              f"package's {g['header_sha256']}")
     x2 = fp.s2d_input(fp.quantize_input(torch.as_tensor(images).cuda(),
                                         m.sa["in"])).contiguous()
-    detect = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
+    detect = eager(make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda"))
     out, entries = served_once(detect, x2, PTQ_S2D_FORWARD, "5c served")
     boxes, scores = out[0], out[1]
     if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
@@ -3141,9 +3206,9 @@ def phase_v3_s2d(m, cfg, card, launches_v3):
     for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
         check_head(torch.round(head * 2.0 ** sa).to(torch.int8),
                    g[f"head_q_{i + 1}"], f"6b v3 s2d head {i + 1}")
-    detect_s2d = tv3.make_int8_yolo_v3_detect_fn(m, cfg, input_s2d=True,
-                                                 device="cuda")
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda")
+    detect_s2d = eager(tv3.make_int8_yolo_v3_detect_fn(
+        m, cfg, input_s2d=True, device="cuda"))
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(m, cfg, device="cuda"))
     for a, b in zip(detect_s2d(x2), detect(x_q)):
         if not torch.equal(a, b):
             raise AssertionError("6b: s2d detections differ from NHWC's")
@@ -3239,8 +3304,8 @@ def phase_spp(card):
         for i, (head, sa) in enumerate(zip(heads, m.tap_sa[::-1][:3])):
             check_head(torch.round(head * 2.0 ** sa).to(torch.int8),
                        g[f"head_q_{i + 1}"], f"6c spp {name} head {i + 1}")
-    detect = tv3.make_int8_yolo_v3_detect_fn(m, cfg, input_s2d=True,
-                                             device="cuda")
+    detect = eager(tv3.make_int8_yolo_v3_detect_fn(
+        m, cfg, input_s2d=True, device="cuda"))
     x2 = fp.s2d_input(x_q).contiguous()
     out, _ = served_once(detect, x2, SPP_FORWARD, "6c spp served")
     valid = check_detections(out, g)
@@ -3270,10 +3335,11 @@ def phase_spp(card):
     forward_ms = time_ms(lambda: tv3.int8_yolo_v3_forward(
         m_packed, xb2, input_s2d=True), 5)
     rate, entries, _ = serve_loop(detect, xb2)
-    if per_forward(entries, SERVE_ITERS) != SPP_FORWARD:
+    if per_forward(entries, SERVE_ITERS) != {**SPP_FORWARD,
+                                             **nms_launches(1)}:
         raise AssertionError(f"6c spp serving launched "
                              f"{per_forward(entries, SERVE_ITERS)} per "
-                             f"forward, want {SPP_FORWARD}")
+                             f"forward, want {SPP_FORWARD} and the NMS")
     emit("v3_spp", heads_bit_exact=["nhwc", "s2d"], valid_slots=valid,
          batch=V3_BATCH_SERVE, images_per_sec=rate,
          launches_per_forward=per_forward(entries, SERVE_ITERS),
@@ -3308,6 +3374,8 @@ def phase_serve_cli(card, cases=(("slim_yolo_v2", SERVE_CLI_BATCH, "s2d"),
         main_s = time.perf_counter() - t0
         entries = K.launch_counts_by_entry()
         sd = res["detector"]
+        per_replay = check_replays(sd.detect_fn.captured,
+                                   f"cli.serve -v {version}")
         if (sd._native is None or sd.s2d != (mode == "s2d")
                 or sd.sa_in is None):
             raise AssertionError(f"6d {version}: native preprocessing "
@@ -3336,7 +3404,8 @@ def phase_serve_cli(card, cases=(("slim_yolo_v2", SERVE_CLI_BATCH, "s2d"),
              detect_frames_equal_detect_fn=True,
              detect_stream_equal_detect_frames=True,
              detections=int(sum(len(s) for _, s, _ in got)),
-             launches_by_entry=entries, card=card)
+             launches_by_entry=entries, launches_per_replay=per_replay,
+             card=card)
         runs.append(entries)
         del sd, res
         torch.cuda.empty_cache()
@@ -3573,9 +3642,9 @@ def phase_family7(version, card, max_err):
             check_head(torch.round(head * 2.0 ** m.sa[name]).to(torch.int8),
                        g[f"head_q_{i + 1}"],
                        f"7 {version} {layout} head {i + 1}")
-    detect_nhwc = maker(m, cfg, device="cuda")
+    detect_nhwc = eager(maker(m, cfg, device="cuda"))
     reset_family7_packs()
-    detect = maker(m, cfg, input_s2d=True, device="cuda")
+    detect = eager(maker(m, cfg, input_s2d=True, device="cuda"))
     packs_at_setup = family7_packs()
     valid = {}
     for layout, fn, x in (("nhwc", detect_nhwc, x_q), ("s2d", detect, x2)):
@@ -3592,7 +3661,8 @@ def phase_family7(version, card, max_err):
     ips, runs = {}, []
     for layout, fn, x in (("s2d", detect, xb2), ("nhwc", detect_nhwc, xb)):
         rate, entries, out = serve_loop(fn, x)
-        want = family7_launches(version, layout == "s2d")
+        want = {**family7_launches(version, layout == "s2d"),
+                **nms_launches(1)}
         if per_forward(entries, SERVE_ITERS) != want:
             raise AssertionError(f"7 {version} {layout} serving launched "
                                  f"{per_forward(entries, SERVE_ITERS)} per "
@@ -3678,7 +3748,7 @@ def phase_family7_pc(version, card, max_err):
         check_head(torch.round(head * 2.0 ** m.sa[name]).to(torch.int8),
                    g[f"head_q_{i + 1}"], f"7d {version} head {i + 1}")
     reset_family7_packs()
-    detect = maker(m, cfg, device="cuda")
+    detect = eager(maker(m, cfg, device="cuda"))
     packs_at_setup = family7_packs()
     want = family7_launches(version, False, per_channel=True)
     out, _ = served_once(detect, x_q, want, f"7d {version} served")
@@ -3689,7 +3759,7 @@ def phase_family7_pc(version, card, max_err):
                            m.sa["in"]).contiguous()
     reset_family7_packs()
     rate, entries, out = serve_loop(detect, xb)
-    if per_forward(entries, SERVE_ITERS) != want:
+    if per_forward(entries, SERVE_ITERS) != {**want, **nms_launches(1)}:
         raise AssertionError(f"7d {version} serving launched "
                              f"{per_forward(entries, SERVE_ITERS)} per "
                              f"forward, want {want}")
@@ -3750,7 +3820,8 @@ def phase_ptq_family7(version, card):
         model, cfg, [images], fold_bn=False))
     check_named_tables(m, g, f"7 {version} PTQ")
     x_q = fp.quantize_input(torch.as_tensor(images).cuda(), m.sa["in"])
-    out, entries = served_once(getattr(tim, f["maker"])(m, cfg, device="cuda"),
+    out, entries = served_once(eager(getattr(tim, f["maker"])(
+                                   m, cfg, device="cuda")),
                                x_q, family7_launches(version, False),
                                f"7 {version} PTQ served")
     emit("family7_ptq", version=version, images=len(images),
@@ -3779,6 +3850,604 @@ def phase_7(card, max_err):
         runs += served
         torch.cuda.empty_cache()
     runs += phase_serve_cli(card, CLI7)
+    return runs, times
+
+
+# ---------------------------------------------------------------------------
+# The serving entry point's last slice (phase 8): the greedy NMS kernel,
+# detect fns captured in CUDA graphs, artifacts, the float Detector and
+# trained weights
+# ---------------------------------------------------------------------------
+
+# the NMS kernel's bytes a candidate (box 16, class 4 and valid 1 read,
+# keep 1 written) and float operations an IoU test (two max, two min,
+# three subtractions, two clamps, a product, a sum, a division)
+NMS_BYTES, NMS_IOU_OPS = 22, 12
+# the card's float32 rate outside the tensor cores (data sheet, FMA as 2)
+PEAK_F32 = 67e12
+# phase 8b's serving configurations (PERF.md §4): name -> (fixture,
+# loader, config version, batch, input layout); the loader is
+# "slim" (int8_model_from_arrays), "slim_pc" (int8_model_from_seed),
+# "v3" (int8_yolo_v3_from_seed) or a FAMILY7 version
+SERVED = {
+    "slim_s2d": ("slim_int8_416_golden.npz", "slim", "slim_yolo_v2",
+                 BATCH_SERVE, "s2d"),
+    "slim_nhwc": ("slim_int8_416_golden.npz", "slim", "slim_yolo_v2",
+                  BATCH_SERVE, "nhwc"),
+    "slim_pc": (PC_FIXTURE, "slim_pc", "slim_yolo_v2", BATCH_SERVE, "nhwc"),
+    "yolo_v3": (V3_FIXTURE, "v3", "yolo_v3", V3_BATCH_SERVE, "nhwc"),
+    "yolo_v3_pc": (PCV3_FIXTURE, "v3", "yolo_v3", V3_BATCH_SERVE, "nhwc"),
+    "yolo_v3_s2d": (V3_FIXTURE, "v3", "yolo_v3", V3_BATCH_SERVE, "s2d"),
+    "yolo_v3_spp": (SPP_FIXTURE, "v3", "yolo_v3_spp", V3_BATCH_SERVE,
+                    "s2d"),
+    **{f"{v}_{layout}": (FAMILY7[v]["fixture"], v, v, FAMILY7[v]["batch"],
+                         layout)
+       for v in ("tiny_yolo_v3", "yolo_v2") for layout in ("s2d", "nhwc")},
+    **{f"{v}_pc": (FAMILY7[v]["pc_fixture"], v, v, FAMILY7[v]["batch"],
+                   "nhwc") for v in ("tiny_yolo_v3", "yolo_v2")},
+}
+# the configurations whose device idle share phase 8b reads
+IDLE_SHARE = ("slim_s2d", "tiny_yolo_v3_s2d")
+# the configurations whose candidates 8a also times at K = 512, and the
+# batch: slim s2d at cli.serve's batch, tiny s2d at its serving batch
+NMS_K512 = {"slim_s2d": SERVE_CLI_BATCH, "tiny_yolo_v3_s2d": BATCH_SERVE}
+
+
+def served_model(name):
+    """(int8 model on the card, its config, maker() -> detect fn,
+    forward(x) -> heads from packed weights, an input batch) of a phase
+    8b configuration, random images from a seed."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant import int8_models as tim
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+
+    fixture, loader, version, batch, layout = SERVED[name]
+    g = load_fixture(fixture)
+    s2d = layout == "s2d"
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE),
+                     pre_nms_top_k=128)
+    if loader in ("slim", "slim_pc"):
+        m = (convert.int8_model_from_arrays(g, device="cuda")
+             if loader == "slim" else
+             convert.int8_model_from_seed(g, device="cuda"))
+        mp = m.to("cuda")
+        mp.pack_conv3x3()
+
+        def maker():
+            return make_int8_detect_fn(m, cfg, input_s2d=s2d, device="cuda")
+
+        def forward(x):
+            return [fp.int8_forward(mp, x, input_s2d=s2d)]
+        sa = m.sa["in"]
+    elif loader == "v3":
+        m = convert.int8_yolo_v3_from_seed(g, device="cuda")
+        mp = m.to("cuda")
+        mp.pack_res_blocks()
+        mp.pack_conv3x3s()
+
+        def maker():
+            return tv3.make_int8_yolo_v3_detect_fn(m, cfg, input_s2d=s2d,
+                                                   device="cuda")
+
+        def forward(x):
+            return tv3.int8_yolo_v3_forward(mp, x, input_s2d=s2d)
+        sa = m.sa_in
+    else:
+        f = FAMILY7[loader]
+        m = getattr(convert, f["from_seed"])(g, device="cuda")
+        mp = m.to("cuda")
+        mp.pack()
+
+        def maker():
+            return getattr(tim, f["maker"])(m, cfg, input_s2d=s2d,
+                                            device="cuda")
+
+        def forward(x):
+            return getattr(tim, f["forward"])(mp, x, input_s2d=s2d)
+        sa = m.sa["in"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = fp.quantize_input(torch.rand((batch, SIZE, SIZE, 3), generator=gen,
+                                     device="cuda"), sa).contiguous()
+    if s2d:
+        x = fp.s2d_input(x).contiguous()
+    return m, cfg, maker, forward, x
+
+
+def host_reads(fn) -> int:
+    """The synchronizing calls (host reads) of one ``fn()`` call, as
+    ``torch.cuda.set_sync_debug_mode('warn')`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")  # warns once that it is new
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # torch's message: "called a synchronizing CUDA operation"
+    return sum("synchronizing" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
+
+
+def idle_share(fn, n: int = 5) -> float:
+    """1 - (device busy time / host wall time) over ``n`` calls of ``fn``
+    that end in a synchronize: the union of the CUDA kernels'
+    ``torch.profiler`` intervals against the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return 1.0 - busy / wall_us if spans else float("nan")
+
+
+def decode_nms_ms(heads, cfg, plain: bool) -> float:
+    """CUDA-event ms of decode + postprocess from ``heads``, greedy NMS on
+    the kernel or (``plain``) on its plain version, the torch fixpoint
+    the detect fns ran before this slice."""
+    from yolo_tpu_torch.detector import predict
+    from yolo_tpu_torch.ops import nms
+
+    def post():
+        boxes, probs = predict(heads, cfg)
+        return nms.batched_postprocess(
+            boxes, probs, cfg.conf_thresh, cfg.nms_thresh, cfg.pre_nms_top_k,
+            cfg.top_k)
+
+    kernel = nms.greedy_nms_keep
+    if plain:
+        nms.greedy_nms_keep = nms.greedy_nms_keep_plain
+    try:
+        return time_ms(post, 3 if plain else 5)
+    finally:
+        nms.greedy_nms_keep = kernel
+
+
+def our_kernels() -> set:
+    """The names of the repo's hand-written CUDA kernels: the
+    ``__global__`` functions of ``yolo_tpu_torch/kernels/csrc``."""
+    import glob
+    import re
+
+    import yolo_tpu_torch.kernels as kernels
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)"
+                     r"\s*)?(\w+)\s*\(")
+    names = set()
+    for path in glob.glob(os.path.join(os.path.dirname(kernels.__file__),
+                                       "csrc", "*.cu*")):
+        with open(path) as f:
+            names.update(pat.findall(f.read()))
+    return names
+
+
+def kernel_base(name: str) -> str:
+    """A CUDA kernel's function name from the profiler's demangled one
+    (``void conv3x3_wgmma<128, ...>(...)`` -> ``conv3x3_wgmma``)."""
+    import re
+
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return re.split(r"[(<]", name, maxsplit=1)[0].split("::")[-1].strip()
+
+
+def device_kernels(fn) -> dict:
+    """{CUDA kernel name: runs} of one ``fn()`` call, as ``torch.profiler``
+    records them on the card (memcpys and memsets left out). ``fn`` runs
+    twice in the session, a marker kernel (``torch.cuda._sleep``'s) between
+    the two, and the second call's kernels are read: a session lost the
+    first kernels it should have recorded, of an eager call and of a
+    graph's replay alike."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    ran = sorted((e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [t for t, name in ran if "spin_kernel" in name]
+    if len(marks) != 1:
+        raise AssertionError(f"torch.profiler recorded {len(marks)} marker "
+                             f"kernels, want 1")
+    out: dict = {}
+    for t, name in ran:
+        if t > marks[0] and not name.startswith(("Memcpy", "Memset")):
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def check_replays(core, what) -> dict:
+    """Holds what each graph of ``core`` (a ``utils.capture.CapturedFn``)
+    runs against what its launch counts say. Under ``torch.profiler``, one
+    replay of the graph and one eager call of ``core.fn`` on its input
+    must run the same hand-written kernels (``our_kernels``), by name and
+    number, as many as the eager call's wrappers launched, and those
+    wrapper launches must be the ones the graph recorded at its capture.
+    So the launches ``utils.capture.replayed_launches`` derives for the
+    replays are launches the card made. The check's own launches are taken
+    back out of the counts. -> {kernel name: {C entry: launches a replay
+    runs}}, summed over the graphs."""
+    import yolo_tpu_torch.kernels as kernels
+
+    ours = our_kernels()
+    saved = kernels.entry_counts()
+    per_replay: dict = {}
+    try:
+        for key, g in core.graphs.items():
+            kernels.reset_launch_counts()
+            ran_eager = device_kernels(lambda: core.fn(g.input))
+            called = {k: n // 2 for k, n in kernels.entry_counts().items()
+                      if n % 2 == 0}  # two calls
+            ran_replay = device_kernels(g.graph.replay)
+            mine_e, mine_r = ({n: c for n, c in ran.items()
+                               if kernel_base(n) in ours}
+                              for ran in (ran_eager, ran_replay))
+            if (mine_r != mine_e or called != g.launches
+                    or sum(mine_e.values()) != sum(called.values())):
+                raise AssertionError(
+                    f"{what} {key[0]}: a replay ran {mine_r}, an eager call "
+                    f"{mine_e} through the wrappers' {called}; the capture "
+                    f"recorded {g.launches}")
+            for (wrapper, entry), n in called.items():
+                by = per_replay.setdefault(wrapper, {})
+                by[entry] = by.get(entry, 0) + n
+    finally:
+        kernels.restore_entry_counts(saved)
+    return per_replay
+
+
+def replayed_since(before: dict) -> dict:
+    """The launches ``utils.capture.replayed_launches`` derived for the
+    replays since it read ``before``."""
+    from yolo_tpu_torch.utils import capture
+
+    out: dict = {}
+    for wrapper, by in capture.replayed_launches().items():
+        for entry, n in by.items():
+            d = n - before.get(wrapper, {}).get(entry, 0)
+            if d:
+                out.setdefault(wrapper, {})[entry] = d
+    return out
+
+
+def phase_captured(card):
+    """8b: every served configuration's detect fn, captured whole in a
+    CUDA graph, against its eager form (``eager``): detections
+    ``torch.equal``; what a replay runs held to the launches it is
+    credited with (``check_replays``); no wrapper launch in the captured
+    serving loop, no host read in the eager call; images/sec both ways;
+    decode + NMS ms with the NMS kernel and with the plain fixpoint; the
+    device's idle share on slim s2d and tiny. -> (the eager serving loops'
+    launches, {shape: NMS candidates} for 8a, the slim s2d and v3 models
+    for 8c)."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.detector import predict
+    from yolo_tpu_torch.ops import nms
+    from yolo_tpu_torch.utils import capture
+
+    runs, candidates, keep = [], {}, {}
+    for name in SERVED:
+        m, cfg, maker, forward, x = served_model(name)
+        graphed = maker()
+        uncaptured = eager(graphed)
+        rate_e, entries_e, out_e = serve_loop(uncaptured, x)
+        reads = host_reads(lambda: uncaptured(x))
+        before = capture.replayed_launches()
+        rate_c, entries_c, out_c = serve_loop(graphed, x)
+        replayed = replayed_since(before)
+        if not all(torch.equal(a, b) for a, b in zip(out_e, out_c)):
+            raise AssertionError(f"8b {name}: captured detections differ "
+                                 f"from the eager ones")
+        once = per_forward(entries_e, SERVE_ITERS)
+        calls = SERVE_WARMUP + SERVE_ITERS
+        if entries_c or reads or replayed != {
+                w: {e: n * calls for e, n in by.items()}
+                for w, by in once.items()}:
+            raise AssertionError(f"8b {name}: wrapper launches {entries_c} "
+                                 f"in the captured loop, replayed "
+                                 f"{replayed}, eager {entries_e}, host "
+                                 f"reads {reads}")
+        if entries_e.get("greedy_nms_keep") != {NMS_K: SERVE_ITERS}:
+            raise AssertionError(f"8b {name}: NMS launches {entries_e}")
+        per_replay = check_replays(graphed.captured, f"8b {name}")
+        if per_replay != once:
+            raise AssertionError(f"8b {name}: a replay runs {per_replay}, "
+                                 f"an eager forward {once}")
+        heads = forward(x)
+        boxes, probs = predict(heads, cfg)
+        candidates[name] = (*nms.nms_candidates(
+            boxes, probs, cfg.conf_thresh, cfg.pre_nms_top_k)[1:],
+            cfg.nms_thresh)
+        # the NMS kernel at K = 512 (pre_nms_top_k's default): the CLI's
+        # batch on slim s2d, and tiny's serving batch
+        k_cli = get_config(cfg.name, "mask").pre_nms_top_k
+        if name in NMS_K512:
+            b = NMS_K512[name]
+            candidates[f"{name}_b{b}_k{k_cli}"] = (*nms.nms_candidates(
+                boxes[:b], probs[:b], cfg.conf_thresh, k_cli)[1:],
+                cfg.nms_thresh)
+        idle = ({"eager": idle_share(lambda: uncaptured(x)),
+                 "captured": idle_share(lambda: graphed(x))}
+                if name in IDLE_SHARE else None)
+        emit("captured", config=name, batch=int(x.shape[0]),
+             images_per_sec_eager=rate_e, images_per_sec_captured=rate_c,
+             captured_equal_eager=True, host_reads_eager=reads,
+             graphs=len(graphed.captured.graphs),
+             launches_per_forward=once, replay_checked=per_replay,
+             decode_nms_ms_plain=decode_nms_ms(heads, cfg, plain=True),
+             decode_nms_ms_kernel=decode_nms_ms(heads, cfg, plain=False),
+             valid_candidates=int(candidates[name][2].sum()),
+             idle_share=idle, card=card)
+        runs.append(entries_e)
+        if name in ("slim_s2d", "yolo_v3"):
+            keep[name] = (m, cfg, x)
+        del uncaptured, graphed, out_e, out_c, heads, boxes, probs
+        torch.cuda.empty_cache()
+    return runs, candidates, keep
+
+
+def nms_chain(b, k):
+    """K same-class valid boxes in score order, each overlapping only its
+    neighbours (IoU 0.25 > 0.2): greedy keeps every other one, the
+    fixpoint needs about K sweeps."""
+    x1 = torch.arange(k, dtype=torch.float32, device="cuda") * 0.6
+    z = torch.zeros(k, device="cuda")
+    boxes = torch.stack([x1, z, x1 + 1.0, z + 1.0], -1)
+    return (boxes.expand(b, k, 4).contiguous(),
+            torch.zeros((b, k), dtype=torch.int32, device="cuda"),
+            torch.ones((b, k), dtype=torch.bool, device="cuda"))
+
+
+def nms_ties(b, k, seed=0):
+    """Boxes and classes on a coarse grid (equal boxes, equal IoUs), a
+    fifth of the candidates not valid."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xy = torch.randint(0, 8, (b, k, 2), generator=gen, device="cuda") / 8.0
+    wh = torch.randint(1, 4, (b, k, 2), generator=gen, device="cuda") / 8.0
+    return (torch.cat([xy, xy + wh], -1).float().contiguous(),
+            torch.randint(0, 2, (b, k), generator=gen, device="cuda",
+                          dtype=torch.int32),
+            torch.rand((b, k), generator=gen, device="cuda") > 0.2)
+
+
+def nms_iou_tests(cls, valid) -> int:
+    """The IoU tests the kernel makes on these inputs: pairs i < j of one
+    class with i valid."""
+    k = cls.shape[1]
+    upper = torch.ones((k, k), dtype=torch.bool, device=cls.device).triu(1)
+    same = cls[:, :, None] == cls[:, None, :]
+    return int((same & upper & valid[:, :, None]).sum())
+
+
+def phase_nms(card, candidates, max_err):
+    """8a: the greedy NMS kernel (``csrc/nms_greedy.cu``) ``torch.equal``
+    to its plain version (the Jacobi fixpoint, a host read a sweep) on
+    the served configurations' real candidates, on the chain (K = 128,
+    512, 1024) and on tied boxes with thresholds that are not exact in
+    float32; each served shape timed, kernel and plain, beside its bound
+    (``ms``: CUDA events around the call, the op's host work included;
+    ``device_ms``: the kernel alone, ``torch.profiler``), and at K = 512
+    slim s2d at cli.serve's batch and tiny s2d at its serving batch. ->
+    the kernels line's times (slim s2d's shape) with the K = 512 shapes
+    as its ``paths``."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.ops import nms
+
+    cases = {f"{name} (nms_thresh {c[-1]})": c
+             for name, c in candidates.items()}
+    for b, k in ((1, 1024), (BATCH_SERVE, 128), (SERVE_CLI_BATCH, 512)):
+        cases[f"chain B {b} K {k}"] = (*nms_chain(b, k), 0.2)
+        for th in (0.3, 0.45, 0.7):
+            cases[f"ties B {b} K {k} nms_thresh {th}"] = (*nms_ties(b, k),
+                                                          th)
+    times = {}
+    for what, (boxes, cls, valid, th) in cases.items():
+        K.reset_launch_counts()
+        got = nms.greedy_nms_keep(boxes, cls, valid, th)
+        want = nms.greedy_nms_keep_plain(boxes, cls, valid, th)
+        if K.launch_counts()["greedy_nms_keep"] != 1 or not torch.equal(
+                got, want):
+            raise AssertionError(f"8a: the NMS kernel differs from its "
+                                 f"plain version on {what}: "
+                                 f"{int((got != want).sum())} candidates")
+        if what.startswith("chain"):
+            kept = got[0].nonzero().flatten().tolist()
+            if kept != list(range(0, boxes.shape[1], 2)):
+                raise AssertionError(f"8a: {what} kept {kept[:8]}...")
+        if what.startswith("chain") or what.startswith("ties"):
+            continue
+        b, k = valid.shape
+        t_bytes = b * k * NMS_BYTES / PEAK_BW
+        t_ops = nms_iou_tests(cls, valid) * NMS_IOU_OPS / PEAK_F32
+        names, device_ms = profiled(
+            lambda: nms.greedy_nms_keep(boxes, cls, valid, th), 20)
+        times[what.split(" ")[0]] = dict(
+            batch=b, candidates=k, valid=int(valid.sum()),
+            ms=time_ms(lambda: nms.greedy_nms_keep(boxes, cls, valid, th),
+                       20),
+            device_ms=device_ms, device_kernels=names,
+            plain_ms=time_ms(lambda: nms.greedy_nms_keep_plain(
+                boxes, cls, valid, th), 3),
+            t_bytes=1e3 * t_bytes, t_ops=1e3 * t_ops,
+            bound_ms=1e3 * max(t_bytes, t_ops))
+    max_err["greedy_nms_keep"] = 0  # every case torch.equal
+    emit("nms_kernel", cases=len(cases), all_equal=True, shapes=times,
+         card=card)
+    line = {f: times["slim_s2d"][f] for f in ("ms", "device_ms", "plain_ms",
+                                              "t_bytes", "t_ops", "bound_ms")}
+    paths = {k: dict(t, library_ms=None) for k, t in times.items()
+             if k not in SERVED}
+    return {"greedy_nms_keep": dict(line, library_ms=None, paths=paths)}
+
+
+def phase_artifacts(card, keep):
+    """8c: ``serving.export.save_artifact`` -> ``load_artifact`` of slim on
+    the s2d layout at batch 256 and yolo_v3 at 128: the loaded program's
+    outputs ``torch.equal`` to the live detect fn's, its images/sec
+    (captured), what the replays run held to their credited launches
+    (``check_replays``), then ``cli.serve --artifact`` on the slim one. ->
+    the launches of the artifacts' warm-up calls and of the CLI run."""
+    import tempfile
+
+    from yolo_tpu_torch.cli import serve
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.dispatch import input_scale_exponent
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.serving.export import load_artifact, save_artifact
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (m, cfg, x) in keep.items():
+            s2d = name == "slim_s2d"
+            live = (make_int8_detect_fn(m, cfg, input_s2d=True)
+                    if s2d else tv3.make_int8_yolo_v3_detect_fn(m, cfg))
+            meta = {"input": "s2d" if s2d else "int8",
+                    "sa_in": input_scale_exponent(m),
+                    "batch": int(x.shape[0]), "input_size": [SIZE, SIZE],
+                    "version": cfg.name}
+            path = f"{tmp}/{name}.pt2"
+            _, export_s = timed(lambda: save_artifact(live, x, path,
+                                                      meta=meta))
+            (serve_fn, got_meta), load_s = timed(
+                lambda: load_artifact(path, with_meta=True))
+            K.reset_launch_counts()
+            got = serve_fn(x)  # captured here
+            runs.append(K.launch_counts_by_entry())  # its warm-up calls
+            want = live(x)
+            if got_meta != meta or not all(
+                    torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"8c {name}: the artifact's outputs "
+                                     f"differ from the live detect fn's")
+            per_replay = check_replays(serve_fn.captured, f"8c {name}")
+            if per_replay != check_replays(live.captured,
+                                           f"8c {name} live"):
+                raise AssertionError(f"8c {name}: the artifact's replay "
+                                     f"runs {per_replay}, the live fn's "
+                                     f"another")
+            rate, _, _ = serve_loop(serve_fn, x)
+            rate_live, _, _ = serve_loop(live, x)
+            emit("artifact", config=name, batch=int(x.shape[0]),
+                 megabytes=os.path.getsize(path) / 1e6, export_s=export_s,
+                 load_s=load_s, equal_live=True,
+                 images_per_sec_artifact=rate,
+                 images_per_sec_live_captured=rate_live,
+                 launches_per_replay=per_replay, card=card)
+            if s2d:
+                argv = ["--artifact", path, "--iters", "2"]
+                K.reset_launch_counts()
+                res = serve.main(argv)
+                runs.append(K.launch_counts_by_entry())
+                emit("serve_cli_artifact", argv=argv[2:], fps=res["fps"],
+                     batch=res["detector"].batch_size,
+                     launches_by_entry=runs[-1],
+                     launches_per_replay=check_replays(
+                         res["detector"].detect_fn.captured,
+                         "8c cli.serve --artifact"), card=card)
+            del live, serve_fn, got, want
+            torch.cuda.empty_cache()
+    return runs
+
+
+def phase_float_and_trained(card):
+    """8d: ``cli.serve --fp32`` for slim and yolo_v3 (the float Detector,
+    captured), and ``--trained_model`` from a checkpoint the port's
+    ``save_checkpoint`` wrote of the CLI's own seeded weights: its detect
+    fn equal to the one the CLI builds without the checkpoint. -> the
+    launches of the runs."""
+    import tempfile
+
+    from yolo_tpu_torch.cli import serve
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant.convert import module_to_params
+    from yolo_tpu_torch.quant.dispatch import init_float_model
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    runs = []
+    base = ["--input_size", str(SIZE), str(SIZE), "--batch",
+            str(SERVE_CLI_BATCH), "--iters", "3"]
+    for version in ("slim_yolo_v2", "yolo_v3"):
+        argv = ["-v", version, "--fp32", *base]
+        K.reset_launch_counts()
+        res, main_s = timed(lambda: serve.main(argv))
+        runs.append(K.launch_counts_by_entry())
+        if set(runs[-1]) != {"greedy_nms_keep"}:
+            raise AssertionError(f"8d --fp32 {version} launched "
+                                 f"{runs[-1]}: only the NMS kernel serves "
+                                 f"the float Detector")
+        emit("serve_cli_fp32", version=version, fps=res["fps"],
+             fps_sequential=res["fps_sequential"], main_s=main_s,
+             launches_by_entry=runs[-1],
+             launches_per_replay=check_replays(
+                 res["detector"].detect_fn.captured, f"8d --fp32 {version}"),
+             card=card)
+        del res
+        torch.cuda.empty_cache()
+    cfg = get_config("slim_yolo_v2", "mask", input_size=(SIZE, SIZE))
+    model = init_float_model("slim_yolo_v2", cfg, "cuda",
+                             torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/slim.msgpack"
+        save_checkpoint(path, module_to_params(model), extra={"seed": 0})
+        argv = ["--trained_model", path, *base]
+        K.reset_launch_counts()
+        res, main_s = timed(lambda: serve.main(argv))
+        runs.append(K.launch_counts_by_entry())
+        default, _ = serve.build(serve.parse_args(base))
+        x = torch.from_numpy(default.preprocess(
+            synthetic_frames(SERVE_CLI_BATCH))).cuda()
+        if not all(torch.equal(a, b) for a, b in zip(
+                res["detector"].detect_fn(x), default.detect_fn(x))):
+            raise AssertionError("8d: --trained_model of the CLI's seeded "
+                                 "weights detects otherwise than the CLI")
+        emit("serve_cli_trained", fps=res["fps"],
+             fps_sequential=res["fps_sequential"], main_s=main_s,
+             equal_seeded_cli=True, launches_by_entry=runs[-1],
+             launches_per_replay=check_replays(
+                 res["detector"].detect_fn.captured, "8d --trained_model"),
+             card=card)
+    return runs
+
+
+def phase_8(card, max_err):
+    """Phase 8 (8b, 8a, 8c, 8d) -> (every run's launches, the NMS
+    kernel's times)."""
+    runs, candidates, keep = phase_captured(card)
+    times = phase_nms(card, candidates, max_err)
+    runs += phase_artifacts(card, keep)
+    del keep
+    torch.cuda.empty_cache()
+    runs += phase_float_and_trained(card)
     return runs, times
 
 
@@ -3842,6 +4511,11 @@ def main() -> int:
     t7 = time.perf_counter()
     launches_7, times_7 = phase_7(card, max_err)
     emit("phase_7", seconds=time.perf_counter() - t7)
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    launches_8, times_8 = phase_8(card, max_err)
+    times.update(times_8)
+    emit("phase_8", seconds=time.perf_counter() - t8)
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
     for line in PARTS_LINES:
@@ -3926,6 +4600,16 @@ def main() -> int:
                  f"fp16 conv2d over the concat"
            for line, what in zip(PARTS_LINES, (
                "scalar sw (7a, 7b)", "per-channel sw (7d)"))},
+        "greedy_nms_keep": f"one launch per detect call: slim_yolo_v2's "
+                           f"candidates on the s2d layout, batch "
+                           f"{BATCH_SERVE}, K = 128 (pre_nms_top_k), "
+                           f"{SIZE}x{SIZE}, phase 8a; paths: K = 512 (the "
+                           f"CLI's pre_nms_top_k) on slim s2d at batch "
+                           f"{SERVE_CLI_BATCH} and tiny_yolo_v3 s2d at "
+                           f"batch {BATCH_SERVE}; plain_ms is the Jacobi "
+                           f"fixpoint the detect fns ran before (a host "
+                           f"read a sweep); no library call computes "
+                           f"greedy NMS",
         "int8_gemm": "the int8 GEMM probe at M = K = N = 8192, b "
                      "K-major, off the serving paths (0 launches there); "
                      "library_ms is torch._int_mm on the same operands",
@@ -3999,6 +4683,12 @@ def main() -> int:
                   ("int8_conv_requant.conv1x1_cols_wgmma",
                    "its 14 1x1s (two concats)", "torch._int_mm"))},
     }
+    from yolo_tpu_torch.utils.capture import replayed_launches
+
+    # what the CUDA graphs' replays ran, derived from the launches each
+    # recorded at its capture and held to a profiled replay of each graph
+    # (check_replays); ``launches`` counts only the wrappers' own
+    replayed = replayed_launches()
     kernels = []
     for k, (wrapper, entry, source, replaces) in LINES.items():
         t = times[k]
@@ -4009,7 +4699,7 @@ def main() -> int:
         ran = sum(per_run)
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
-                       for served in launches_6 + launches_7)
+                       for served in launches_6 + launches_7 + launches_8)
         per_forward = max(per_run) // SERVE_ITERS
         # tiny_yolo_v3's and yolo_v2's launches per forward on each input
         # layout, and the times of their shapes (one NHWC forward; K2's on
@@ -4027,9 +4717,11 @@ def main() -> int:
                                          "library_ms", "bound_ms")
                    if f in tv[k]})
             for key, tv in times_7.items() if k in tv}
+        paths.update(t.get("paths", {}))
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": ran,
+            "replayed_launches": replayed.get(wrapper, {}).get(entry, 0),
             "launches_per_forward": per_forward,
             "max_abs_err": max_err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None          # any import of jax now raises
+for blocked in ("jax", "flax", "msgpack"):
+    sys.modules[blocked] = None    # any import of it now raises
 import yolo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(yolo_tpu_torch.__path__,
                                                "yolo_tpu_torch.")]
@@ -21,16 +22,27 @@ for name in names:
 bad = [m for m in sys.modules if m == "yolo_tpu" or m.startswith("yolo_tpu.")]
 assert not bad, bad
 print(len(names))
+print(" ".join(names))
 """
+
+# the modules of the serving entry point's last slice: the checkpoint
+# reader and its codec, the CUDA-graph capture, the artifact format
+NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
+               "yolo_tpu_torch.utils.msgpack_codec",
+               "yolo_tpu_torch.utils.capture", "yolo_tpu_torch.utils.device",
+               "yolo_tpu_torch.serving.export")
 
 
 def test_package_imports_without_jax_or_yolo_tpu():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    count, names = out.stdout.strip().split("\n")
     # 35: the serving entry point's packages (cli, data, serving, utils)
-    # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp)
-    assert int(out.stdout.strip()) >= 35
+    # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp);
+    # 40 with the checkpoint reader, its codec, capture, device and export
+    assert int(count) >= 40
+    assert set(NEW_MODULES) <= set(names.split())
 
 
 def test_chip_smoke_imports_nothing_of_jax():

@@ -2238,16 +2238,17 @@ def test_cuda_tiny_v2_detect_fn_refuses_per_channel(tiny_v2_fixtures,
                                              dtype=np.float32)
     want = getattr(tim, maker)(m, cfg, device="cpu")(images)
     K.reset_shift_table_count()
-    detect = getattr(tim, maker)(m, cfg)
+    detect = getattr(tim, maker)(m, cfg).captured.fn  # eager, not captured
     assert K.shift_table_count() > 0
     K.reset_shift_table_count()
     K.reset_launch_counts()
-    got = detect(images)
+    got = detect(torch.from_numpy(images).cuda())
     torch.cuda.synchronize()
     assert K.shift_table_count() == 0
     assert K.launch_counts_by_entry() == {
-        wrapper: {PER_COLUMN[e]: n for e, n in by_entry.items()}
-        for wrapper, by_entry in routes.items()}
+        **{wrapper: {PER_COLUMN[e]: n for e, n in by_entry.items()}
+           for wrapper, by_entry in routes.items()},
+        "greedy_nms_keep": {"yolo_nms_greedy": 1}}
     np.testing.assert_array_equal(got[3].cpu().numpy(), want[3].numpy())
     np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
@@ -2257,3 +2258,196 @@ def test_cuda_tiny_v2_detect_fn_refuses_per_channel(tiny_v2_fixtures,
     x_q = tfp.quantize_input(torch.tensor(images), m.sa["in"])
     _equal_lists(getattr(tim, forward)(m_dev, x_q.cuda()),
                  getattr(tim, forward)(m, x_q))
+
+
+# ---------------------------------------------------------------------------
+# The greedy NMS kernel, the launch op, captured detect fns and artifacts.
+# ---------------------------------------------------------------------------
+
+
+def _nms_case(b, k, kind, seed=0):
+    from yolo_tpu_torch.ops import nms  # noqa: F401 (registers the op)
+
+    g = torch.Generator().manual_seed(seed)
+    if kind == "chain":  # each box overlaps only its neighbours
+        x1 = torch.arange(k, dtype=torch.float32) * 0.6
+        z = torch.zeros(k)
+        boxes = torch.stack([x1, z, x1 + 1.0, z + 1.0], -1).expand(b, k, 4)
+        cls = torch.zeros((b, k), dtype=torch.int32)
+        valid = torch.ones((b, k), dtype=torch.bool)
+    else:
+        xy = torch.rand((b, k, 2), generator=g) * 0.8
+        wh = torch.rand((b, k, 2), generator=g) * 0.3 + 0.01
+        if kind == "ties":  # equal boxes, equal IoUs
+            xy, wh = (xy * 8).round() / 8, (wh * 8).round() / 8 + 0.125
+        boxes = torch.cat([xy, xy + wh], -1)
+        cls = torch.randint(0, 3, (b, k), generator=g, dtype=torch.int32)
+        valid = torch.rand((b, k), generator=g) > 0.2
+    return boxes.contiguous(), cls, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 128, 256])
+@pytest.mark.parametrize("k", [128, 512, 1024])
+@pytest.mark.parametrize("kind,thresh", [("rand", 0.45), ("ties", 0.3),
+                                         ("ties", 0.7), ("chain", 0.2)])
+def test_cuda_nms_kernel_equals_plain(cuda, b, k, kind, thresh):
+    """The kernel's keep mask is the plain fixpoint's (the CPU op's
+    function, run on the card: the CPU takes minutes for K sweeps of 256
+    images of 1024 candidates; for one image also the CPU op's), bit for
+    bit: thresholds not exact in float32, tied boxes, and the chain that
+    needs about K sweeps (greedy keeps every other box)."""
+    from yolo_tpu_torch.ops import nms
+
+    boxes, cls, valid = _nms_case(b, k, kind)
+    dev = [t.to(cuda) for t in (boxes, cls, valid)]
+    want = nms.greedy_nms_keep_plain(*dev, thresh).cpu()
+    if b == 1:
+        assert torch.equal(nms.greedy_nms_keep(boxes, cls, valid, thresh),
+                           want)
+    K.reset_launch_counts()
+    got = nms.greedy_nms_keep(*dev, thresh)
+    torch.cuda.synchronize()
+    assert K.launch_counts_by_entry() == {
+        "greedy_nms_keep": {"yolo_nms_greedy": 1}}
+    assert torch.equal(got.cpu(), want)
+    if kind == "chain":
+        assert torch.equal(want[0], torch.arange(k) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_kernel_refuses_more_than_1024(cuda):
+    from yolo_tpu_torch.ops import nms
+
+    boxes, cls, valid = (t.to(cuda) for t in _nms_case(1, 1025, "rand"))
+    with pytest.raises(ValueError, match="1024"):
+        nms.greedy_nms_keep(boxes, cls, valid, 0.5)
+
+
+@pytest.mark.cuda
+def test_cuda_opcheck_nms_and_launch_ops(cuda):
+    from yolo_tpu_torch.kernels import _launch_op
+    from yolo_tpu_torch.ops import nms
+
+    boxes, cls, valid = (t.to(cuda) for t in _nms_case(4, 96, "rand"))
+    torch.library.opcheck(nms.greedy_nms_keep, (boxes, cls, valid, 0.45))
+    a = torch.randint(-128, 128, (64, 32), dtype=torch.int8, device=cuda)
+    bt = torch.randint(-128, 128, (48, 32), dtype=torch.int8, device=cuda)
+    out = torch.empty((64, 48), dtype=torch.int32, device=cuda)
+    args = ("int8_gemm", "yolo_int8_gemm", [a, bt], [out], [0, 1, -1],
+            [64, 48, 32], [16, 16, 8], "a\nb\nout")
+    torch.library.opcheck(_launch_op, args)
+    _launch_op(*args)
+    assert torch.equal(out, G.int8_gemm_plain(a, bt.t()))
+
+
+def _golden(name):
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "yolo_tpu_torch" / "data"
+    with np.load(path / name) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["slim_yolo_v2", "yolo_v3"])
+def test_cuda_captured_detect_equals_eager(cuda, version):
+    """The detect fn captured in a CUDA graph gives its eager form's
+    (``captured.fn``) detections; its replays launch through no wrapper,
+    and the launches derived for them are the eager call's (slim on the
+    s2d layout, yolo_v3 on NHWC)."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant import int8_yolo_v3 as tv3
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.utils import capture
+
+    cfg = get_config(version, "mask", input_size=(416, 416),
+                     pre_nms_top_k=128)
+    if version == "slim_yolo_v2":
+        m = convert.int8_model_from_arrays(
+            _golden("slim_int8_416_golden.npz"), device="cuda")
+        x = torch.randint(-128, 128, (8, 211, 211, 12), dtype=torch.int8,
+                          device=cuda)
+
+        def make():
+            return make_int8_detect_fn(m, cfg, input_s2d=True)
+    else:
+        m = convert.int8_yolo_v3_from_seed(
+            _golden("yolo_v3_int8_416_golden.npz"), device="cuda")
+        x = torch.randint(-128, 128, (4, 416, 416, 3), dtype=torch.int8,
+                          device=cuda)
+
+        def make():
+            return tv3.make_int8_yolo_v3_detect_fn(m, cfg)
+    eager, graphed = make().captured.fn, make()
+    K.reset_launch_counts()
+    want = eager(x)
+    torch.cuda.synchronize()
+    once = K.launch_counts_by_entry()
+    K.reset_launch_counts()
+    graphed(x)  # two warm-up calls, the capture, a replay
+    assert K.launch_counts_by_entry() == {
+        w: {e: 2 * n for e, n in by.items()} for w, by in once.items()}
+    K.reset_launch_counts()
+    capture.reset_replayed_launches()
+    for _ in range(3):
+        got = graphed(x)
+    torch.cuda.synchronize()
+    assert len(graphed.captured.graphs) == 1
+    assert K.launch_counts_by_entry() == {}
+    assert capture.replayed_launches() == {
+        w: {e: 3 * n for e, n in by.items()} for w, by in once.items()}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_slim_artifact_equals_live(cuda, tmp_path):
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant import convert
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.serving.export import load_artifact, save_artifact
+
+    cfg = get_config("slim_yolo_v2", "mask", input_size=(416, 416),
+                     pre_nms_top_k=128)
+    m = convert.int8_model_from_arrays(_golden("slim_int8_416_golden.npz"),
+                                       device="cuda")
+    live = make_int8_detect_fn(m, cfg, input_s2d=True)
+    x = torch.randint(-128, 128, (8, 211, 211, 12), dtype=torch.int8,
+                      device=cuda)
+    path = save_artifact(live, x, str(tmp_path / "slim.pt2"),
+                         meta={"input": "s2d"})
+    serve, meta = load_artifact(path, with_meta=True)
+    assert meta == {"input": "s2d"} and serve.device.type == "cuda"
+    for a, b in zip(serve(x), live(x)):
+        assert torch.equal(a, b)
+    for a, b in zip(load_artifact(path).captured.fn(x), live(x)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_float_detector_captured(cuda):
+    """The float Detector on the card: captured equal to eager, float32
+    close to the CPU's (cuDNN sums in another order), bf16 served."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.detector import Detector
+    from yolo_tpu_torch.quant.convert import module_to_params
+
+    cfg = get_config("yolo_v3", "mask", input_size=(64, 64))
+    det = Detector(cfg).init_params(torch.Generator().manual_seed(0))
+    eager = det.detect_fn().captured.fn
+    params = module_to_params(det.model)
+    cpu = Detector(cfg, device="cpu").load_params(params)
+    x = np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32)
+    for a, b in zip(det.detect(x), eager(torch.from_numpy(x).to(cuda))):
+        assert torch.equal(a, b)
+    boxes, probs = det.predict(x)
+    want = cpu.predict(x)
+    np.testing.assert_allclose(boxes.cpu().numpy(), want[0].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(probs.cpu().numpy(), want[1].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    bf = Detector(cfg, dtype=torch.bfloat16).load_params(params)
+    assert bf.detect(x)[0].dtype == torch.float32
+

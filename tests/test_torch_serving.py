@@ -393,11 +393,126 @@ def test_serve_cli_runs_slim_on_the_cpu(capsys):
     assert "frames/sec" in printed and "frame 1:" in printed
 
 
+def _jax_slim_checkpoint(path, version="slim_yolo_v2"):
+    """A slim checkpoint written by the JAX package: its BN-form init
+    (fused, seeded, for *_q_bf) -> (path, the tree)."""
+    from yolo_tpu.detector import Detector as JaxDetector
+    from yolo_tpu.utils.checkpoint import save_checkpoint
+
+    if version.endswith("_q_bf"):
+        tree = C.slim_seeded_fused_params(0, 35)
+    else:
+        cfg = get_config(version, "mask", input_size=(SIZE, SIZE))
+        tree = jax.device_get(JaxDetector(cfg).init_params(
+            jax.random.PRNGKey(3)))
+    save_checkpoint(str(path), tree, extra={"epoch": 1})
+    return str(path), tree
+
+
 @pytest.mark.parametrize("flag", [["--artifact", "x.bin"], ["--fp32"],
                                   ["--trained_model", "w.msgpack"]])
-def test_serve_cli_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--device", "cpu", "--input_size", "32", "32", *flag])
+def test_serve_cli_refuses_unported_flags(flag, tmp_path, capsys):
+    """The three flags the CLI refused before the port had their pieces,
+    each now doing what the JAX CLI's does: ``--artifact`` serves a
+    ``serving.export`` artifact from its header (a blob without one exits
+    with the JAX CLI's message), ``--fp32`` serves the float Detector,
+    ``--trained_model`` loads a checkpoint the JAX package wrote."""
+    base = ["--device", "cpu", "--input_size", "32", "32", "--batch", "2",
+            "--iters", "1"]
+    if flag[0] == "--artifact":
+        from yolo_tpu_torch.serving.export import _MAGIC, save_artifact
+
+        sd, m = serve.build(serve.parse_args(base))
+        x2 = np.zeros((2, 19, 19, 12), np.int8)
+        meta = {"input": "s2d", "sa_in": dispatch.input_scale_exponent(m),
+                "batch": 2, "input_size": [32, 32],
+                "version": "slim_yolo_v2"}
+        path = save_artifact(sd.detect_fn, x2, str(tmp_path / "y.bin"),
+                             meta=meta)
+        out = serve.main(["--device", "cpu", "--iters", "1", "--artifact",
+                          path])
+        assert out["fps"] > 0 and out["detector"].s2d
+        assert "frozen artifact" in capsys.readouterr().out
+        blob = open(path, "rb").read()
+        hlen = int.from_bytes(blob[len(_MAGIC):len(_MAGIC) + 4], "little")
+        raw = tmp_path / flag[1]
+        raw.write_bytes(blob[len(_MAGIC) + 4 + hlen:])
+        with pytest.raises(SystemExit, match="no metadata header"):
+            serve.main(["--device", "cpu", "--artifact", str(raw)])
+        return
+    if flag[0] == "--fp32":
+        from yolo_tpu_torch.detector import Detector
+
+        out = serve.main(base + flag)
+        assert out["fps"] > 0 and out["detector"].sa_in is None
+        _, det = serve.build(serve.parse_args(base + flag))
+        assert isinstance(det, Detector)
+        assert "FP32" in capsys.readouterr().out
+        return
+    path, tree = _jax_slim_checkpoint(tmp_path / flag[1])
+    out = serve.main(base + [flag[0], path])
+    assert out["fps"] > 0
+    from yolo_tpu_torch.cli.common import load_params
+    from yolo_tpu_torch.quant.convert import module_to_params
+
+    model = load_params(serve.parse_args(base + [flag[0], path]),
+                        dispatch.init_float_model("slim_yolo_v2", out[
+                            "detector"].cfg, "cpu"))
+    got = module_to_params(model)
+    for name in tree:
+        for key in tree[name]:
+            want = tree[name][key]
+            if key == "bn":
+                for k in want:
+                    np.testing.assert_array_equal(got[name]["bn"][k],
+                                                  want[k])
+            else:
+                np.testing.assert_array_equal(got[name][key], want)
+
+
+@pytest.mark.parametrize("fmt", ["msgpack", "pth"])
+def test_serve_cli_trained_int8_matches_the_jax_cli_path(tmp_path, fmt):
+    """The same trained slim checkpoint (fused: no BN fold, whose CPU
+    rsqrt differs by ulps between the packages) through the port's CLI
+    build and the JAX CLI's (``load_params`` + ``build_int8_detector``,
+    the CLI's calibration draw): equal detections."""
+    from yolo_tpu.cli.eval import load_params as jax_load_params
+
+    version = "slim_yolo_v2_q_bf"
+    path, tree = _jax_slim_checkpoint(tmp_path / "w.msgpack", version)
+    if fmt == "pth":
+        sd = {}
+        for name, t in tree.items():
+            prefix = "pred" if name == "pred" else f"{name}.convs.0"
+            sd[f"{prefix}.weight"] = torch.tensor(
+                np.ascontiguousarray(t["w"].transpose(3, 2, 0, 1)))
+            sd[f"{prefix}.bias"] = torch.tensor(t["b"])
+        path = str(tmp_path / "w.pth")
+        torch.save(sd, path)
+    argv = ["-v", version, "--device", "cpu", "--input_size", "32", "32",
+            "--batch", "2", "--trained_model", path]
+    sd_t, m_t = serve.build(serve.parse_args(argv))
+    args = serve.parse_args(argv)
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE))
+    params = jax_load_params(args, None)
+    rng = np.random.default_rng(0)
+    calib = [rng.random((8, SIZE, SIZE, 3), dtype=np.float32)
+             for _ in range(4)]
+    m_j, detect_j = jdispatch.build_int8_detector(
+        version, jax.tree_util.tree_map(jnp.asarray, params), cfg, calib,
+        input_s2d=True)
+    m_j = jax.device_get(m_j)
+    for k in m_j.w_q:
+        np.testing.assert_array_equal(m_t.w_q[k].numpy(), m_j.w_q[k])
+    x2 = jfp.s2d_input_np(np.asarray(jfp.quantize_input(
+        jnp.asarray(calib[1][:2]), int(m_j.sa["in"]))))
+    got = [t.numpy() for t in sd_t.detect_fn(x2)]
+    want = [np.asarray(a) for a in detect_j(x2)]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    np.testing.assert_allclose(got[1], want[1], **TOL)
+    assert got[3].any()
 
 
 def test_serve_cli_input_modes():

@@ -7,9 +7,13 @@ batch -> per-frame boxes.
 
 Runs on ``--device cuda`` (the default; it raises without a card) or, for
 a check on a machine without one, ``--device cpu`` (the kernels' plain
-versions). Weights are random, from seeds. Not ported yet: ``--artifact``
-(serving/export), ``--fp32`` (the float Detector) and ``--trained_model``
-(the checkpoint reader); each exits with a message.
+versions). Weights come from ``--trained_model`` (a ``.msgpack``
+checkpoint of either package, or a reference slim ``.pth``), else random
+from a seed. ``--fp32`` serves the float ``detector.Detector`` instead of
+the INT8 engine; ``--artifact`` serves a ``serving.export`` artifact, its
+header giving the input mode, quantization exponent, batch and size (no
+model code runs). On the card every detect fn is captured in a CUDA
+graph per input shape.
 """
 
 from __future__ import annotations
@@ -22,25 +26,25 @@ import torch
 from yolo_tpu_torch.cli.common import add_common_args, build_cfg
 from yolo_tpu_torch.serving import StreamingDetector
 
-# flag -> the piece of the port it needs
-_UNPORTED = {"artifact": "serving/export (a torch.export artifact format)",
-             "fp32": "the float Detector (detector.Detector)",
-             "trained_model": "the msgpack checkpoint reader"}
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="yolo_tpu_torch serving "
                                                  "bench")
     add_common_args(parser)
     parser.add_argument("--trained_model", default=None,
-                        help="not ported yet")
-    parser.add_argument("--artifact", default=None, help="not ported yet")
+                        help="checkpoint (.msgpack, or a reference slim "
+                             ".pth)")
+    parser.add_argument("--artifact", default=None,
+                        help="serve a serving.export artifact: no model "
+                             "code, weights or calibration; the blob "
+                             "header supplies the input mode, "
+                             "quantization exponent, batch and resolution")
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--source", default="synthetic",
                         help="synthetic | video path | camera index")
     parser.add_argument("--fp32", action="store_true", default=False,
-                        help="not ported yet")
+                        help="serve the FP32 graph instead of INT8")
     parser.add_argument("--input", default="auto",
                         choices=["auto", "s2d", "int8", "f32"],
                         help="host->device input mode: s2d (int8 in the "
@@ -73,25 +77,32 @@ def _frames(args, cfg, n):
 
 
 def build(args):
-    """The INT8 detector of ``args`` -> (StreamingDetector, int8 model):
-    the version's float model from ``torch.Generator().manual_seed(0)``,
-    calibrated on 4 batches of 8 uniform images from
-    ``np.random.default_rng(0)`` (as the JAX CLI draws them), served by
-    its family's detect fn (``quant.dispatch``)."""
+    """The detector of ``args`` -> (StreamingDetector, int8 model, or the
+    ``Detector`` with ``--fp32``): the version's float model with
+    ``--trained_model``'s weights (``cli.common.load_params``; without
+    one, random from ``torch.Generator().manual_seed(0)``); with
+    ``--fp32`` served as it is, else calibrated on 4 batches of 8 uniform
+    images from ``np.random.default_rng(0)`` (as the JAX CLI draws them)
+    and served by its family's INT8 detect fn (``quant.dispatch``)."""
+    from yolo_tpu_torch.cli.common import load_params
     from yolo_tpu_torch.quant.dispatch import (
         build_int8_detector, init_float_model, input_scale_exponent)
 
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported yet: it needs {what}")
     cfg = build_cfg(args)
     if args.input == "auto":
         # the JAX CLI's per-family rule: yolo_v2's s2d entry lost at
         # batch >= 128 there
         args.input = ("int8" if args.version == "yolo_v2"
                       and args.batch >= 128 else "s2d")
-    model = init_float_model(args.version, cfg, device=args.device,
-                             generator=torch.Generator().manual_seed(0))
+    model = load_params(args, init_float_model(args.version, cfg,
+                                               device=args.device))
+    if args.fp32:
+        from yolo_tpu_torch.detector import Detector
+
+        det = Detector(cfg, model=model, device=args.device)
+        sd = StreamingDetector(cfg, det.detect_fn(), batch_size=args.batch,
+                               device=args.device)
+        return sd, det
     rng = np.random.default_rng(0)
     h, w = cfg.input_size
     calib = [rng.random((8, h, w, 3), dtype=np.float32) for _ in range(4)]
@@ -105,11 +116,47 @@ def build(args):
     return sd, m
 
 
+def _serve_artifact(args):
+    """Serve a ``serving.export`` artifact: its header supplies the input
+    contract, so no model or quantization code runs here. It runs on the
+    device it was exported for -> {"fps": overlapped, "detector": the
+    StreamingDetector}."""
+    from yolo_tpu_torch.serving.export import load_artifact
+
+    detect, meta = load_artifact(args.artifact, with_meta=True)
+    if not meta:
+        raise SystemExit(
+            f"{args.artifact} has no metadata header — re-export with "
+            f"'quantize export --artifact' (raw blobs can still be "
+            f"served programmatically via load_artifact)")
+    h, w = meta["input_size"]
+    batch = meta["batch"]
+    cfg = build_cfg(args).with_input_size((h, w))
+    mode = meta["input"]
+    sd = StreamingDetector(
+        cfg, detect, batch_size=batch,
+        sa_in=(meta["sa_in"] if mode in ("s2d", "int8") else None),
+        s2d=(mode == "s2d"), device=detect.device)
+    frames = _frames(args, cfg, batch)
+    print(f"artifact: {args.artifact} ({meta.get('version')}, input "
+          f"{mode}, batch {batch}, {h}x{w}, device {detect.device})")
+
+    results = sd.detect_frames(frames[:4])
+    for i, (boxes, scores, classes) in enumerate(results):
+        print(f"frame {i}: {len(scores)} detections")
+    fps = sd.benchmark(frames, iters=args.iters, overlap=True)
+    print(f"end-to-end throughput: {fps:.1f} frames/sec "
+          f"(batch {batch}, {h}x{w}, frozen artifact)")
+    return {"fps": fps, "detector": sd}
+
+
 def main(argv=None):
     """Serve synthetic (or video / camera) frames and print end-to-end
     frames/sec -> {"fps": overlapped, "fps_sequential": sequential,
     "detector": the StreamingDetector}."""
     args = parse_args(argv)
+    if args.artifact:
+        return _serve_artifact(args)
     sd, _ = build(args)
     cfg = sd.cfg
     frames = _frames(args, cfg, args.batch)
@@ -125,8 +172,8 @@ def main(argv=None):
     fps = sd.benchmark(frames, iters=args.iters, overlap=True)
     print(f"end-to-end throughput: {fps:.1f} frames/sec "
           f"(batch {args.batch}, {cfg.input_size[0]}x{cfg.input_size[1]},"
-          f" INT8); prefetch overlap gain {fps / max(fps_seq, 1e-9):.2f}x "
-          f"over sequential {fps_seq:.1f}")
+          f" {'FP32' if args.fp32 else 'INT8'}); prefetch overlap gain "
+          f"{fps / max(fps_seq, 1e-9):.2f}x over sequential {fps_seq:.1f}")
     return {"fps": fps, "fps_sequential": fps_seq, "detector": sd}
 
 

@@ -136,7 +136,8 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_pool_nhwc_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv1x1_wgmma", [vp] * 5 + [i] * 9 + [vp]),
                 ("yolo_int8_conv1x1_wgmma_info", [i] * 5 + [vp]),
-                ("yolo_int8_conv1x1_cols_wgmma", [vp] * 7 + [i] * 9 + [vp])):
+                ("yolo_int8_conv1x1_cols_wgmma", [vp] * 7 + [i] * 9 + [vp]),
+                ("yolo_nms_greedy", [vp] * 4 + [i] * 3 + [vp])):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = i
         lib.yolo_int8_error_string.argtypes = [i]

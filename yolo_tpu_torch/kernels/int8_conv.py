@@ -198,7 +198,6 @@ def _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev,
         raise ValueError(f"the shift table must be a contiguous int32 "
                          f"[>= {need}] tensor on {dev}, got {shifts.dtype} "
                          f"{list(shifts.shape)} on {shifts.device}")
-    _aligned("the shift table", shifts, 8)
     return shifts
 
 
@@ -208,7 +207,6 @@ def _check_counter(overflow, dev):
         raise ValueError(f"the overflow counter must be one int32 on {dev},"
                          f" got {overflow.dtype} {list(overflow.shape)} on "
                          f"{overflow.device}")
-    _aligned("the overflow counter", overflow, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +289,24 @@ def int8_conv3x3_pool_requant_plain(x_q, w_q, b_q, *, sw, sb, sa_in,
     return _plain_conv_requant(_pad1(x_q), w_q, b_q, pool=True, **kw)
 
 
+def _s2d_phase_weights(w_q: torch.Tensor, c_in: int, c_out: int):
+    """``fixed_point._s2d_phase_weights`` in torch ops (so an exported
+    program computes it from its weights): [3, 3, C_in, C_out] -> [2, 2,
+    4 C_in, 4 C_out] block-conv weights over the s2d input, one output
+    group per pool phase."""
+    w4 = w_q.new_zeros((2, 2, 4 * c_in, 4 * c_out))
+    for a in range(2):
+        for bph in range(2):
+            for j in range(3):
+                for k in range(3):
+                    r_, py = divmod(a + j, 2)
+                    s_, px = divmod(bph + k, 2)
+                    ci = (py * 2 + px) * c_in
+                    co = (a * 2 + bph) * c_out
+                    w4[r_, s_, ci:ci + c_in, co:co + c_out] = w_q[j, k]
+    return w4
+
+
 def int8_conv3x3_pool_s2d_plain(x2, w_q, b_q, *, c_in, sw, sb, sa_in,
                                 sa_out, retune, leaky=True,
                                 rounding="nearest"):
@@ -300,9 +316,7 @@ def int8_conv3x3_pool_s2d_plain(x2, w_q, b_q, *, c_in, sw, sb, sa_in,
     b, hb, wb, _ = x2.shape
     ho, wo = hb - 3, wb - 3
     c_out = w_q.shape[-1]
-    w4 = torch.as_tensor(
-        fp._s2d_phase_weights(w_q.cpu().numpy(), c_in, c_out),
-        device=x2.device).to(torch.float64)
+    w4 = _s2d_phase_weights(w_q.to(torch.float64), c_in, c_out)
     xf = x2.to(torch.float64)
     acc = None
     for r in range(2):
@@ -361,9 +375,10 @@ def _check_operand(name, t, dev, dtype, shape):
                          f"{t.dtype} {list(t.shape)} on {t.device}")
 
 
-def _aligned(name, t, align):
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
+# the labels of a launch's address checks (``launch``'s ``align``): the
+# output, a per-column shift table (8-byte pairs), an overflow counter
+OUT, TABLE, COUNTER = ("the output allocation", "the shift table",
+                       "the overflow counter")
 
 
 def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
@@ -396,9 +411,6 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
     if (pool or s2d) and (h % 2 or w % 2):
         raise ValueError("pooled conv requires even H, W")
     w_c = w_q.contiguous()
-    # 4-byte loads on the s2d layout, 16-byte loads when C_in % 16 == 0
-    _aligned("x", x, 4 if s2d else 16 if c_in % 16 == 0 else 1)
-    _aligned("w_q", w_c, 4)
     bsz = x.shape[0]
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
@@ -406,17 +418,19 @@ def _launch(kernel, x, w_q, b_q, *, h, w, c_in, pool, s2d, sw, sb, sa_in,
     out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    _aligned("the output allocation", out, 16)
     bias_rt = _bias_at_retune(b_q, sb, retune, rounding)
     table = (_table_for(shifts, sw, sa_in, retune, rounding, c_out, dev)
              if cols else None)
-    launch(kernel, "yolo_int8_conv3x3_requant", dev,
-           x.data_ptr(), w_c.data_ptr(), bias_rt.data_ptr(), out.data_ptr(),
-           0 if table is None else table.data_ptr(),
-           0 if overflow is None else overflow.data_ptr(),
+    launch(kernel, "yolo_int8_conv3x3_requant",
+           x, w_c, bias_rt, out, table, overflow,
            bsz, h, w, c_in, c_out, 0 if cols else sa_in + sw - retune,
            retune - sa_out, int(leaky), int(rounding == "nearest"),
-           int(pool), int(s2d))
+           int(pool), int(s2d), writes=(out, overflow),
+           # 4-byte loads on the s2d layout, 16-byte loads when C_in % 16
+           # == 0
+           align=[("x", x, 4 if s2d else 16 if c_in % 16 == 0 else 1),
+                  ("w_q", w_c, 4), (OUT, out, 16), (TABLE, table, 8),
+                  (COUNTER, overflow, 4)])
     return out
 
 
@@ -657,12 +671,9 @@ def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
     if (len(parts) == 2 or k == 1) and any(c % 16 for c in cins):
         raise ValueError(f"the kernel takes a two-part input or a 1x1 conv "
                          f"only with C_in % 16 == 0, got {cins}")
-    for i, ((xq, _), c) in enumerate(zip(parts, cins)):
-        _aligned(f"input part {i}", xq, 16 if c % 16 == 0 else 1)
     w_parts, ofs = [], 0
     for c in cins:
         w_parts.append(w_q[:, :, ofs:ofs + c].contiguous())
-        _aligned("w_q", w_parts[-1], 4)
         ofs += c
     ho = (h + 2 * padding - k) // stride + 1
     wo = (w + 2 * padding - k) // stride + 1
@@ -673,18 +684,18 @@ def _launch_conv_requant(parts, w_q, b_q, *, sw, sb, sa_out, retune,
     out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    _aligned("the output allocation", out, 16)
     bias_rt = _bias_at_retune(b_q, sb, retune, rounding)
     shifts = [sw + sa - retune for _, sa in parts]
     two = len(parts) == 2
-    launch("int8_conv_requant", "yolo_int8_conv_requant", dev,
-           x0.data_ptr(), w_parts[0].data_ptr(),
-           parts[1][0].data_ptr() if two else 0,
-           w_parts[1].data_ptr() if two else 0,
-           bias_rt.data_ptr(), out.data_ptr(), bsz, h, w, cins[0],
+    launch("int8_conv_requant", "yolo_int8_conv_requant",
+           x0, w_parts[0], parts[1][0] if two else None,
+           w_parts[1] if two else None, bias_rt, out, bsz, h, w, cins[0],
            cins[1] if two else 0, c_out, k, stride, padding, len(parts),
            shifts[0], shifts[-1], retune - sa_out, num,
-           int(rounding == "nearest"))
+           int(rounding == "nearest"), writes=(out,),
+           align=[*((f"input part {i}", xq, 16 if c % 16 == 0 else 1)
+                    for i, ((xq, _), c) in enumerate(zip(parts, cins))),
+                  *(("w_q", wp, 4) for wp in w_parts), (OUT, out, 16)])
     return out
 
 
@@ -1052,8 +1063,6 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    _aligned("x", x, 16)
-    _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     _check_sw(sw, c_out)
@@ -1065,7 +1074,6 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if out.numel() == 0:
         return out
     _LAYOUT_OF[form](h, w, c_in, c_out)  # raises where no tile fits
-    _aligned("the output allocation", out, 16)
     # the kernel reads bias (and shift) pairs of whole 32-, 64- or
     # 128-column tiles
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
@@ -1089,23 +1097,30 @@ def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
     ``dims`` = (B, H, W, C_in, C_out), counting the launch under
     ``name``: the scalar one for a scalar ``sw`` without a counter, the
     counting one with ``overflow``, else the per-column one, those two on a
-    shift table (``shifts``, made for this call where None)."""
+    shift table (``shifts``, made for this call where None). Every
+    address is 16-byte aligned, the table's 8-byte, the counter's 4."""
     dev, c_out = x.device, dims[-1]
-    ptrs = (x.data_ptr(), packed.data_ptr(), bias_rt.data_ptr())
     nearest = int(rounding == "nearest")
     scalar, cols, count = entries
+
+    def go(entry, *args):
+        launch(name, entry, x, packed, bias_rt, *args, writes=(out, overflow),
+               align=[("x", x, 16), ("packed weights", packed, 16),
+                      (OUT, out, 16), (TABLE, table, 8),
+                      (COUNTER, overflow, 4)])
+
+    table = None
     if overflow is None and not np.ndim(sw):
-        launch(name, scalar, dev, *ptrs, out.data_ptr(), *dims,
-               sa_in + sw - retune, retune - sa_out, num, nearest)
+        go(scalar, out, *dims, sa_in + sw - retune, retune - sa_out, num,
+           nearest)
         return
     table = _table_for(shifts, sw, sa_in, retune, rounding, c_out, dev)
     if overflow is not None:
-        launch(name, count, dev, *ptrs, table.data_ptr(), out.data_ptr(),
-               overflow.data_ptr(), *dims, retune - sa_out, num, nearest)
+        go(count, table, out, overflow, *dims, retune - sa_out, num, nearest)
         return
     codes = acc_shift_codes(sw, sa_in, retune, rounding, c_out)
-    launch(name, cols, dev, *ptrs, table.data_ptr(), out.data_ptr(), *dims,
-           int(short_columns(codes)), retune - sa_out, num, nearest)
+    go(cols, table, out, *dims, int(short_columns(codes)), retune - sa_out,
+       num, nearest)
 
 
 # the two-part form's launch layout, as
@@ -1174,9 +1189,6 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    for i, (xq, _) in enumerate(parts):
-        _aligned(f"input part {i}", xq, 16)
-    _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
@@ -1189,20 +1201,20 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     split = sas[0] != sas[1]
     # raises where no tile fits
     conv3x3_parts_wgmma_layout(h, w, cins[0], cins[1], c_out, split)
-    _aligned("the output allocation", out, 16)
     # the kernel reads bias (and shift) pairs of whole 64- or 128-column
     # tiles
     bias_rt = torch.zeros(-(-c_out // TABLE_ALIGN) * TABLE_ALIGN,
                           dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    ptrs = (x0.data_ptr(), parts[1][0].data_ptr(), packed.data_ptr(),
-            bias_rt.data_ptr())
+    ptrs = (x0, parts[1][0], packed, bias_rt)
     dims = (bsz, h, w, cins[0], cins[1], c_out)
     tail = (retune - sa_out, num, int(rounding == "nearest"))
+    align = [*((f"input part {i}", xq, 16) for i, (xq, _) in enumerate(parts)),
+             ("packed weights", packed, 16), (OUT, out, 16)]
     if not cols:
-        launch("int8_conv_requant", PARTS_WGMMA_ENTRY, dev, *ptrs,
-               out.data_ptr(), *dims, sw + sas[0] - retune,
-               sw + sas[1] - retune, *tail)
+        launch("int8_conv_requant", PARTS_WGMMA_ENTRY, *ptrs, out, *dims,
+               sw + sas[0] - retune, sw + sas[1] - retune, *tail,
+               writes=(out,), align=align)
         return out
     groups = list(dict.fromkeys(sas))
     if shifts is None:
@@ -1214,9 +1226,9 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
               for t, sa in zip(shifts, groups)]
     short = all(short_columns(acc_shift_codes(sw, sa, retune, rounding,
                                               c_out)) for sa in groups)
-    launch("int8_conv_requant", PARTS_COLS_WGMMA_ENTRY, dev, *ptrs,
-           tables[0].data_ptr(), tables[-1].data_ptr(), out.data_ptr(),
-           *dims, int(split), int(short), *tail)
+    launch("int8_conv_requant", PARTS_COLS_WGMMA_ENTRY, *ptrs, tables[0],
+           tables[-1], out, *dims, int(split), int(short), *tail,
+           writes=(out,), align=[*align, *((TABLE, t, 8) for t in tables)])
     return out
 
 
@@ -1350,9 +1362,6 @@ def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
     _check_sw(p2["sw"], c)
     if not (w1p.is_contiguous() and w2p.is_contiguous()):
         raise ValueError("the packed weights must be contiguous")
-    _aligned("x_q", x_q, 16)
-    _aligned("packed w1", w1p, 16)
-    _aligned("packed w2", w2p, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     sh = (0, 0, 0)
@@ -1365,17 +1374,18 @@ def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
     out = torch.empty_like(x_q)
     if out.numel() == 0:
         return out
-    _aligned("the output allocation", out, 16)
+    align = [("x_q", x_q, 16), ("packed w1", w1p, 16),
+             ("packed w2", w2p, 16), (OUT, out, 16)]
     b1_rt = _bias_at_retune(b1_q, p1["sb"], p1["retune"], rounding)
     b2_rt = _bias_at_retune(b2_q, p2["sb"], p2["retune"], rounding)
     outs = (p1["retune"] - p1["sa_out"], p2["retune"] - p2["sa_out"])
     tail = (num, int(rounding == "nearest"), int(sa_res is not None), *sh)
     if not (np.ndim(p1["sw"]) or np.ndim(p2["sw"])):
-        launch("int8_res_block", "yolo_int8_res_block", dev,
-               x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(),
-               w2p.data_ptr(), b2_rt.data_ptr(), out.data_ptr(), bsz, h, w,
-               c, cmid, p1["sa_in"] + p1["sw"] - p1["retune"], outs[0],
-               p2["sa_in"] + p2["sw"] - p2["retune"], outs[1], *tail)
+        launch("int8_res_block", "yolo_int8_res_block", x_q, w1p, b1_rt,
+               w2p, b2_rt, out, bsz, h, w, c, cmid,
+               p1["sa_in"] + p1["sw"] - p1["retune"], outs[0],
+               p2["sa_in"] + p2["sw"] - p2["retune"], outs[1], *tail,
+               writes=(out,), align=align)
         return out
     if shifts is None:
         shifts = (None, None)
@@ -1388,11 +1398,10 @@ def _launch_res_block(x_q, packed, b1_q, p1, b2_q, p2, *, sa_res, leaky,
     short = all(short_columns(acc_shift_codes(p["sw"], p["sa_in"],
                                               p["retune"], rounding, n))
                 for p, n in ((p1, cmid), (p2, c)))
-    launch("int8_res_block", RES_BLOCK_COLS_ENTRY, dev,
-           x_q.data_ptr(), w1p.data_ptr(), b1_rt.data_ptr(),
-           tables[0].data_ptr(), w2p.data_ptr(), b2_rt.data_ptr(),
-           tables[1].data_ptr(), out.data_ptr(), bsz, h, w, c, cmid, *outs,
-           int(short), *tail)
+    launch("int8_res_block", RES_BLOCK_COLS_ENTRY, x_q, w1p, b1_rt,
+           tables[0], w2p, b2_rt, tables[1], out, bsz, h, w, c, cmid, *outs,
+           int(short), *tail, writes=(out,),
+           align=[*align, *((TABLE, t, 8) for t in tables)])
     return out
 
 
@@ -1646,15 +1655,12 @@ def _launch_entry_conv3x3(x, w_q, b_q, packed, *, sw, sb, sa_in, sa_out,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    _aligned("x", x, 16)
-    _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     out = torch.empty((bsz, h, w, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
     entry_conv3x3_layout(h, w, c_in, c_out)  # raises where no tile fits
-    _aligned("the output allocation", out, 16)
     bias_rt = torch.zeros(64, dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
     _launch_shift_form("int8_conv_requant",
@@ -1694,8 +1700,6 @@ def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    _aligned("x", x2, 16)
-    _aligned("packed weights", packed, 16)
     h, w = 2 * (hb - 3), 2 * (wb - 3)
     if bsz * hb * wb >= 2 ** 31:
         raise ValueError("B * (H/2+3) * (W/2+3) must stay below 2^31; split "
@@ -1705,13 +1709,13 @@ def _launch_pool_s2d_wgmma(x2, w_q, b_q, packed, *, c_in, sw, sb, sa_in,
     if out.numel() == 0:
         return out
     pool_s2d_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
-    _aligned("the output allocation", out, 16)
     bias_rt = torch.zeros(32, dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    launch("int8_conv3x3_pool_requant", POOL_S2D_WGMMA_ENTRY, dev,
-           x2.data_ptr(), packed.data_ptr(), bias_rt.data_ptr(),
-           out.data_ptr(), bsz, h, w, c_in, c_out, sa_in + sw - retune,
-           retune - sa_out, num, int(rounding == "nearest"))
+    launch("int8_conv3x3_pool_requant", POOL_S2D_WGMMA_ENTRY, x2, packed,
+           bias_rt, out, bsz, h, w, c_in, c_out, sa_in + sw - retune,
+           retune - sa_out, num, int(rounding == "nearest"), writes=(out,),
+           align=[("x", x2, 16), ("packed weights", packed, 16),
+                  (OUT, out, 16)])
     return out
 
 
@@ -1814,8 +1818,6 @@ def _launch_pool_nhwc_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    _aligned("x", x, 16)
-    _aligned("packed weights", packed, 16)
     if bsz * h * w >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
     if overflow is not None:
@@ -1825,7 +1827,6 @@ def _launch_pool_nhwc_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     if out.numel() == 0:
         return out
     pool_nhwc_wgmma_layout(h, w, c_in, c_out)  # raises where no tile fits
-    _aligned("the output allocation", out, 16)
     # the kernel reads bias (and shift) pairs of 4 phases' 16 or 32 columns
     bias_rt = torch.zeros(32, dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
@@ -1958,9 +1959,6 @@ def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     if not packed.is_contiguous():
         raise ValueError("the packed weights must be contiguous")
     _check_operand("b_q", b_q, dev, b_q.dtype, (c_out,))
-    for i, (xq, _) in enumerate(parts):
-        _aligned(f"input part {i}", xq, 16)
-    _aligned("packed weights", packed, 16)
     m = bsz * h * w
     if m >= 2 ** 31:
         raise ValueError("B * H * W must stay below 2^31; split the batch")
@@ -1975,19 +1973,20 @@ def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
              else sw + sas[0] - retune != sw + sas[-1] - retune)
     # raises where no tile fits
     conv1x1_wgmma_layout(m, cins[0], cins[1] if two else 0, c_out, split)
-    _aligned("the output allocation", out, 16)
     # the kernel reads bias (and shift) pairs of whole 32- to 256-column
     # tiles
     bias_rt = torch.zeros(-(-c_out // CONV1X1_ALIGN) * CONV1X1_ALIGN,
                           dtype=torch.int32, device=dev)
     bias_rt[:c_out] = _bias_at_retune(b_q, sb, retune, rounding)
-    x1 = parts[1][0].data_ptr() if two else 0
+    x1 = parts[1][0] if two else None
     tail = (retune - sa_out, num, int(rounding == "nearest"))
+    align = [*((f"input part {i}", xq, 16) for i, (xq, _) in enumerate(parts)),
+             ("packed weights", packed, 16), (OUT, out, 16)]
     if not cols:
-        launch("int8_conv_requant", CONV1X1_ENTRY, dev,
-               x0.data_ptr(), x1, packed.data_ptr(), bias_rt.data_ptr(),
-               out.data_ptr(), m, cins[0], cins[1] if two else 0, c_out,
-               sw + sas[0] - retune, sw + sas[-1] - retune, *tail)
+        launch("int8_conv_requant", CONV1X1_ENTRY, x0, x1, packed, bias_rt,
+               out, m, cins[0], cins[1] if two else 0, c_out,
+               sw + sas[0] - retune, sw + sas[-1] - retune, *tail,
+               writes=(out,), align=align)
         return out
     groups = list(dict.fromkeys(sas))
     if shifts is None:
@@ -2000,9 +1999,8 @@ def _launch_conv1x1_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
                          CONV1X1_ALIGN) for t, sa in zip(shifts, groups)]
     short = all(short_columns(acc_shift_codes(sw, sa, retune, rounding,
                                               c_out)) for sa in groups)
-    launch("int8_conv_requant", CONV1X1_COLS_ENTRY, dev,
-           x0.data_ptr(), x1, packed.data_ptr(), bias_rt.data_ptr(),
-           tables[0].data_ptr(), tables[-1].data_ptr(), out.data_ptr(), m,
-           cins[0], cins[1] if two else 0, c_out, int(split), int(short),
-           *tail)
+    launch("int8_conv_requant", CONV1X1_COLS_ENTRY, x0, x1, packed, bias_rt,
+           tables[0], tables[-1], out, m, cins[0], cins[1] if two else 0,
+           c_out, int(split), int(short), *tail, writes=(out,),
+           align=[*align, *((TABLE, t, 8) for t in tables)])
     return out

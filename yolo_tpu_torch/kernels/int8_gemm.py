@@ -60,15 +60,12 @@ def _launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if k == 0 or max(m, n, k) > 2 ** 31 - 256:
         raise ValueError(f"int8_gemm cannot take M, N, K = {m}, {n}, {k}")
     a, bt = pad_k(a.contiguous()), pad_k(k_major(b))
-    if a.data_ptr() % 16 or bt.data_ptr() % 16:
-        raise ValueError("a and b must be 16-byte aligned (TMA)")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    if out.data_ptr() % 8:
-        raise ValueError("the output allocation is not 8-byte aligned")
-    launch("int8_gemm", "yolo_int8_gemm", a.device, a.data_ptr(),
-           bt.data_ptr(), out.data_ptr(), m, n, a.shape[1])
+    launch("int8_gemm", "yolo_int8_gemm", a, bt, out, m, n, a.shape[1],
+           writes=(out,), align=[("a (TMA)", a, 16), ("b (TMA)", bt, 16),
+                                 ("the output allocation", out, 8)])
     return out
 
 

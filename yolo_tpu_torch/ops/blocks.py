@@ -18,6 +18,7 @@ Not ported here: train-mode BN and the s2d pooled-conv form
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import numpy as np
@@ -72,20 +73,30 @@ def upsample2x_align_corners(x: torch.Tensor, axes=(1, 2)) -> torch.Tensor:
     dense matmul are exact zeros."""
     for axis in axes:
         n = x.shape[axis]
-        lo, hi, frac = _align_corners_weights(n, 2 * n)
-        u = _upsample2x_matrix(n)
-        rows = np.arange(2 * n)
-        w_lo = torch.as_tensor(u[rows, lo], device=x.device)
-        w_hi = torch.as_tensor(np.where(hi != lo, u[rows, hi], 0.0)
-                               .astype(np.float32), device=x.device)
+        lo, hi, w_lo, w_hi = _upsample2x_taps(n, str(x.device))
         shape = [1] * x.ndim
         shape[axis] = 2 * n
-        a = torch.index_select(x, axis, torch.as_tensor(lo, device=x.device)
-                               .long())
-        b = torch.index_select(x, axis, torch.as_tensor(hi, device=x.device)
-                               .long())
-        x = a * w_lo.reshape(shape) + b * w_hi.reshape(shape)
+        a = torch.index_select(x, axis, lo)
+        b = torch.index_select(x, axis, hi)
+        x = (a * w_lo.to(x.dtype).reshape(shape)
+             + b * w_hi.to(x.dtype).reshape(shape))
     return x
+
+
+@functools.lru_cache(maxsize=64)
+def _upsample2x_taps(n: int, device: str):
+    """The [2n] gather indices and weights of ``upsample2x_align_corners``
+    on ``device``, made once per size, so that a serving call (or a CUDA
+    graph's capture) copies nothing from the host; shared, never
+    written."""
+    lo, hi, _ = _align_corners_weights(n, 2 * n)
+    u = _upsample2x_matrix(n)
+    rows = np.arange(2 * n)
+    w_hi = np.where(hi != lo, u[rows, hi], 0.0).astype(np.float32)
+    return (torch.as_tensor(lo, device=device).long(),
+            torch.as_tensor(hi, device=device).long(),
+            torch.as_tensor(u[rows, lo], device=device),
+            torch.as_tensor(w_hi, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +139,8 @@ def batch_norm_inference(x: torch.Tensor, bn: nn.BatchNorm2d):
     ulp)."""
     var = bn.running_var.to(torch.float32)
     inv = torch.ones_like(var) / torch.sqrt(var + _BN_EPS)
-    scale = bn.weight * inv
-    offset = bn.bias - bn.weight * bn.running_mean * inv
+    scale = (bn.weight * inv).to(x.dtype)  # a bf16 model stays bf16
+    offset = (bn.bias - bn.weight * bn.running_mean * inv).to(x.dtype)
     return x * scale.reshape(1, -1, 1, 1) + offset.reshape(1, -1, 1, 1)
 
 

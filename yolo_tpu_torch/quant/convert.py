@@ -540,7 +540,10 @@ def load_params(model: nn.Module, params) -> nn.Module:
     ``model`` in place, on its device; the tree's form (a 'b' and a 'bn'
     per conv) must be the model's. Returns ``model``."""
     def put(dst: torch.Tensor, v, what):
-        v = torch.as_tensor(np.array(v, np.float32))
+        # a bfloat16 leaf of a checkpoint is a tensor (numpy has no bf16)
+        v = (v.detach().cpu().to(torch.float32)
+             if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.array(v, np.float32)))
         if tuple(v.shape) != tuple(dst.shape):
             raise ValueError(f"{what}: shape {tuple(v.shape)}, the model's "
                              f"is {tuple(dst.shape)}")
@@ -553,7 +556,10 @@ def load_params(model: nn.Module, params) -> nn.Module:
                     or ("bn" in p) != (m.bn is not None)):
                 raise ValueError(f"{path}: tree keys {sorted(p)} do not fit "
                                  f"the model's form")
-            put(m.conv.weight, np.asarray(p["w"]).transpose(3, 2, 0, 1),
+            w = p["w"]
+            put(m.conv.weight, (w.permute(3, 2, 0, 1)
+                                if isinstance(w, torch.Tensor)
+                                else np.asarray(w).transpose(3, 2, 0, 1)),
                 path + ".w")
             if "b" in p:
                 put(m.conv.bias, p["b"], path + ".b")

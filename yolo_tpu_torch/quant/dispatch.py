@@ -40,12 +40,19 @@ def _family(version: str) -> str:
             f"choose from {sorted(_FAMILY)}") from None
 
 
+def has_batch_norm(version: str) -> bool:
+    """Whether ``version``'s float model is in BN form: all but
+    slim_yolo_v2_q_bf, whose BN is pre-folded (the JAX package's
+    ``build_detector`` rule)."""
+    return not version.endswith("_q_bf")
+
+
 def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
                      generator: torch.Generator = None):
     """The float model of ``version`` on ``device`` (the JAX package's
     ``build_detector(version).init_params``): BN-form, or for
-    slim_yolo_v2_q_bf with BN pre-folded (biased convs), randomly
-    initialised from ``generator`` where one is given."""
+    slim_yolo_v2_q_bf with BN pre-folded (biased convs; ``has_batch_norm``),
+    randomly initialised from ``generator`` where one is given."""
     from yolo_tpu_torch.models.slim_yolo_v2 import SlimYOLOv2
     from yolo_tpu_torch.models.tiny_yolo_v3 import TinyYOLOv3
     from yolo_tpu_torch.models.yolo_v2 import YOLOv2
@@ -55,7 +62,7 @@ def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
     cls = {"slim": SlimYOLOv2, "tiny": TinyYOLOv3, "v2": YOLOv2,
            "v3": YOLOv3, "v3_spp": YOLOv3SPP}[_family(version)]
     pred_out = cfg.anchors_per_scale * (1 + 4 + cfg.num_classes)
-    return cls(pred_out, batch_norm=not version.endswith("_q_bf"),
+    return cls(pred_out, batch_norm=has_batch_norm(version),
                device=resolve_device(device), generator=generator)
 
 

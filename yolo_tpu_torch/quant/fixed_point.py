@@ -28,6 +28,7 @@ import torch
 
 from yolo_tpu_torch.models.slim_yolo_v2 import CONV_LAYERS
 from yolo_tpu_torch.quant.qsim import QUANT_LAYER_NAMES, TRACKER_NAMES
+from yolo_tpu_torch.utils.device import resolve_device  # noqa: F401
 
 INT16_MIN, INT16_MAX = -(2 ** 15), 2 ** 15 - 1
 INT8_MIN, INT8_MAX = -128, 127
@@ -137,17 +138,6 @@ class Int8Model:
                 tables[name] = acc_shift_table(
                     p["sw"], p["sa_in"], p["retune"], rounding,
                     self.w_q[name].shape[-1], dev)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises if it names CUDA and there is
-    none (an entry point never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels")
-    return dev
 
 
 def quantize_model(params_fused, tracker_states, retune: Dict[str, int],

@@ -15,6 +15,7 @@ from yolo_tpu_torch.config import DetectorConfig
 from yolo_tpu_torch.detector import predict
 from yolo_tpu_torch.ops import nms
 from yolo_tpu_torch.quant import fixed_point as fp
+from yolo_tpu_torch.utils.capture import CapturedFn
 
 
 def int8_predict(m: fp.Int8Model, images: torch.Tensor, cfg: DetectorConfig,
@@ -50,7 +51,12 @@ def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
     images are moved there per call if they are elsewhere. A model with
     per-channel weight scales serves NHWC input only: ValueError with
     ``input_s2d``, as the JAX package refuses it. Raises if ``device`` is
-    CUDA and there is none."""
+    CUDA and there is none.
+
+    On CUDA the fn from the device input to the outputs (quantize,
+    backbone, decode, NMS) is captured whole in a CUDA graph per input
+    shape (``utils.capture``: two eager warm-up calls, then replays); the
+    eager function is ``detect.captured.fn``."""
     if input_s2d and m.per_channel:
         raise ValueError(
             "per-channel weight scales run on the plain NHWC conv path only "
@@ -61,14 +67,31 @@ def make_int8_detect_fn(m: fp.Int8Model, cfg: DetectorConfig,
     if dev.type == "cuda":
         m_dev.pack_conv3x3()
 
-    def detect(images):
-        images = torch.as_tensor(images).to(dev)
-        fp.check_serving_input(images, cfg, input_s2d)
+    def run(images):
         boxes, probs = int8_predict(m_dev, images, cfg, rounding, input_s2d)
         return nms.batched_postprocess(
             boxes, probs, cfg.conf_thresh, cfg.nms_thresh,
             cfg.pre_nms_top_k, cfg.top_k)
 
+    return serving_fn(run, cfg, dev, input_s2d)
+
+
+def serving_fn(run, cfg: DetectorConfig, dev: torch.device,
+               input_s2d: bool = False):
+    """The detect fn around ``run`` (device images -> (boxes, scores,
+    classes, valid)): images move to ``dev``, are checked against ``cfg``
+    and go through ``run``, captured per input shape on CUDA
+    (``utils.capture``). Its ``captured`` attribute is the ``CapturedFn``
+    (``captured.fn`` is ``run``), its ``device`` ``dev``."""
+    core = CapturedFn(run)
+
+    def detect(images):
+        images = torch.as_tensor(images).to(dev)
+        fp.check_serving_input(images, cfg, input_s2d)
+        return core(images)
+
+    detect.captured = core
+    detect.device = dev
     return detect
 
 

@@ -554,6 +554,8 @@ def _check_mesh(mesh) -> None:
 
 def _make_detect_fn(m: _Int8Named, forward, cfg: DetectorConfig, rounding,
                     input_s2d, mesh, device):
+    from yolo_tpu_torch.quant.int8_graph import serving_fn
+
     _check_per_channel_plain(m, input_s2d)
     _check_mesh(mesh)
     dev = fp.resolve_device(device)
@@ -561,9 +563,7 @@ def _make_detect_fn(m: _Int8Named, forward, cfg: DetectorConfig, rounding,
     if dev.type == "cuda":
         m_dev.pack()
 
-    def detect(images):
-        images = torch.as_tensor(images).to(dev)
-        fp.check_serving_input(images, cfg, input_s2d)
+    def run(images):
         x_q = images
         if images.dtype != torch.int8:
             x_q = fp.quantize_input(images, m_dev.sa["in"])
@@ -576,7 +576,7 @@ def _make_detect_fn(m: _Int8Named, forward, cfg: DetectorConfig, rounding,
             boxes, probs, cfg.conf_thresh, cfg.nms_thresh,
             cfg.pre_nms_top_k, cfg.top_k)
 
-    return detect
+    return serving_fn(run, cfg, dev, input_s2d)
 
 
 def make_int8_tiny_detect_fn(m: Int8Tiny, cfg: DetectorConfig,
@@ -593,7 +593,8 @@ def make_int8_tiny_detect_fn(m: Int8Tiny, cfg: DetectorConfig,
     device its weights (and a per-channel sw's shift tables) are packed
     there once (``pack``); the images move there per call. Raises if
     ``device`` is CUDA and there is none, and for a per-channel model with
-    ``input_s2d``; never falls back to the CPU."""
+    ``input_s2d``; never falls back to the CPU. On CUDA the fn is captured
+    per input shape as ``make_int8_detect_fn``'s."""
     return _make_detect_fn(m, int8_tiny_forward, cfg, rounding, input_s2d,
                            mesh, device)
 

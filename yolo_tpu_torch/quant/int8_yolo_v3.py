@@ -525,7 +525,10 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
     path only, as in the JAX package (``input_s2d`` raises); on a CUDA
     device every conv runs the per-column form of its kernel, on the
     shift tables ``pack_res_blocks`` and ``pack_conv3x3s`` make here
-    once."""
+    once. On CUDA the fn is captured per input shape as
+    ``make_int8_detect_fn``'s."""
+    from yolo_tpu_torch.quant.int8_graph import serving_fn
+
     if m.per_channel and input_s2d:
         raise ValueError(
             "per-channel weight scales run on the plain conv path "
@@ -537,9 +540,7 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
         m_dev.pack_res_blocks()
         m_dev.pack_conv3x3s()
 
-    def detect(images):
-        images = torch.as_tensor(images).to(dev)
-        fp.check_serving_input(images, cfg, input_s2d)
+    def run(images):
         x_q = images
         if images.dtype != torch.int8:
             x_q = fp.quantize_input(images, m_dev.sa_in)
@@ -552,7 +553,7 @@ def make_int8_yolo_v3_detect_fn(m: Int8YoloV3, cfg: DetectorConfig,
             boxes, probs, cfg.conf_thresh, cfg.nms_thresh,
             cfg.pre_nms_top_k, cfg.top_k)
 
-    return detect
+    return serving_fn(run, cfg, dev, input_s2d)
 
 
 # ---------------------------------------------------------------------------

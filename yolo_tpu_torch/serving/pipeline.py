@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from yolo_tpu_torch.config import DetectorConfig
-from yolo_tpu_torch.quant.fixed_point import resolve_device
+from yolo_tpu_torch.utils.device import resolve_device
 
 
 class StreamingDetector:
