@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive yolo_tpu_torch's serving paths on one CUDA card and check them.
+"""Drive yolo_tpu_torch's serving and evaluation paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -278,6 +279,28 @@ printing JSON lines; any failure raises and the script exits nonzero:
    seeded weights, detecting as the CLI does without it. The earlier
    phases drive their detect fns eagerly (``captured.fn``), so their
    counts are per eager forward.
+9. the evaluation path: 9a slim_yolo_v2 INT8 as ``cli.eval -q`` builds
+   it (the CLI's seeded weights, the port's PTQ on the card on the stack
+   of the first 16 images), 256 synthetic images of the CLI's recipe
+   (seed 1) at batch 64 on NHWC float32 input through
+   ``eval.VOCEvaluator(cache_device=True)``: mAP and class APs,
+   images/sec of the first pass (ms per batch of generation + transform,
+   host-to-device copy, detect, bookkeeping) and of the cached second
+   pass (the same mAP); per forward slim's NHWC serving launches and one
+   NMS, the evaluation all replays of one captured graph, held to its
+   recorded kernels; the first 16 images' detections (per class and
+   image: as many, boxes and scores within 1e-5) and mAP (within 1e-9)
+   equal to the same evaluator's on the CPU route; 9b slim ``--fp32`` (the
+   float Detector) and tiny_yolo_v3, yolo_v2 and yolo_v3 INT8 on 64
+   images each: mAP, images/sec, the INT8 ones' launches per forward their
+   NHWC serving forward's (4b, 7); 9c ``cli.eval.evaluate`` with ``-q``
+   on the CLI's default set (32 images) prints ``Mean AP``,
+   ``cli.kmeans.main`` on the same set; where cv2 imports (a line says
+   so otherwise) ``cli.test`` and ``cli.demo``, and 16 of the images as
+   jpgs in a VOC-format tree through ``cli.eval -d mask --dataset_root``
+   and in a COCO tree through ``eval.coco_eval.COCOEvaluator``. The
+   weights are random: the mAPs show that the path runs and scores, not
+   accuracy.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -297,7 +320,7 @@ the shapes no wgmma route takes). The
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's, 7's and 8's runs, their wrappers' own launches (the eager calls,
+6's, 7's, 8's and 9's runs, their wrappers' own launches (the eager calls,
 a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
 graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
 its serving shape (8a). The two-part form's entries time tiny's conv_set_1
@@ -4451,6 +4474,384 @@ def phase_8(card, max_err):
     return runs, times
 
 
+# ---------------------------------------------------------------------------
+# The evaluation path (phase 9): synthetic images through VOCEvaluator and
+# the CLI's detect fns, INT8 on the hand-written kernels
+# ---------------------------------------------------------------------------
+
+# 9a: slim's images, evaluation batch, and the images held to the CPU
+EVAL_IMAGES, EVAL_BATCH, EVAL_CPU_IMAGES = 256, 64, 16
+# 9b: the other families' images (one batch); (version, -q)
+EVAL_OTHER_IMAGES = 64
+EVAL_OTHERS = (("slim_yolo_v2", False), ("tiny_yolo_v3", True),
+               ("yolo_v2", True), ("yolo_v3", True))
+
+
+def eval_forward(version):
+    """Per-forward launches by wrapper and C entry of ``version``'s INT8
+    detect fn on NHWC float32 input: slim's NHWC serving forward (phase
+    4), yolo_v3's (4b), tiny_yolo_v3's and yolo_v2's (7), and one NMS."""
+    if version.startswith("slim_yolo_v2"):
+        out = {"int8_conv3x3_im2col": {POOL3: 3, POOL_NHWC: 1},
+               "int8_conv3x3_requant": {WGMMA3: 6}}
+    elif version == "yolo_v3":
+        out = {"int8_res_block": {"yolo_int8_res_block": 23},
+               "int8_conv_requant": {WGMMA3: 9, S2_3: 5, ENTRY3: 1,
+                                     CONV1X1: 14}}
+    else:
+        out = family7_launches(version, s2d=False)
+    return {**out, **nms_launches(1)}
+
+
+def eval_build(version, quantize, n):
+    """``cli.eval``'s detector of ``version`` on the card (the CLI's seeded
+    weights, mask config, 416²; with ``quantize`` its family's PTQ on the
+    stack of the first 16 images) and the CLI's synthetic recipe (seed 1,
+    easy) at ``n`` images -> (args, cfg, dataset, model, detect fn,
+    seconds to build)."""
+    from yolo_tpu_torch.cli import eval as cli_eval
+    from yolo_tpu_torch.cli.common import build_cfg
+    from yolo_tpu_torch.data import BaseTransform, SyntheticDetection
+
+    args = cli_eval.parse_args(["-v", version, "-d", "synthetic"]
+                               + (["-q"] if quantize else []))
+    cfg = build_cfg(args)
+    dataset = SyntheticDetection(size=cfg.input_size,
+                                 num_classes=cfg.num_classes,
+                                 transform=BaseTransform(cfg.input_size),
+                                 length=n, seed=1)
+    (model, detect), seconds = timed(
+        lambda: cli_eval.build_detect(args, cfg, dataset))
+    return args, cfg, dataset, model, detect, seconds
+
+
+def eval_capture(detect, cfg, batch):
+    """The detect fn's one graph at the evaluation batch, captured on a
+    zero batch before the evaluator runs (its capture, two eager warm-up
+    forwards, is no evaluation cost) -> seconds."""
+    h, w = cfg.input_size
+    zeros = torch.zeros((batch, h, w, 3), device="cuda")
+    _, seconds = timed(lambda: detect(zeros))
+    return seconds
+
+
+def eval_per_forward(detect, dataset, batch, want, what):
+    """One eager forward of the detect fn on a batch of the dataset's
+    images: its launches, zeroed just before and read just after, must be
+    ``want``."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    x = torch.from_numpy(np.stack([dataset.pull_item(i)[0]
+                                   for i in range(batch)])).cuda()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    eager(detect)(x)
+    torch.cuda.synchronize()
+    got = K.launch_counts_by_entry()
+    if got != want:
+        raise AssertionError(f"{what}: an eager forward launched {got}, "
+                             f"want {want}")
+    return got
+
+
+def eval_pass_fields(ev, wall, n, batch):
+    """The JSON fields of one evaluator pass: images/sec and ms per batch
+    of each part of ``ev.seconds``."""
+    batches = -(-n // batch)
+    return dict(images_per_sec=n / wall, seconds=wall,
+                ms_per_batch={k: 1e3 * v / batches
+                              for k, v in ev.seconds.items()},
+                mean_ap=ev.map)
+
+
+def phase_eval_slim(card):
+    """9a: slim_yolo_v2 INT8 evaluated on the card: ``cli.eval``'s detector
+    (PTQ on the card), 256 synthetic images at batch 64 through
+    ``VOCEvaluator(cache_device=True)``, two passes; per forward slim's
+    NHWC serving launches and one NMS; the replays held to their recorded
+    kernels; the first 16 images' detections and mAP held to the same
+    evaluator's on the CPU route. -> the runs' wrapper launches (the
+    evaluation passes are all replays)."""
+    from yolo_tpu_torch.eval import VOCEvaluator
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.utils import capture
+
+    version = "slim_yolo_v2"
+    K.reset_launch_counts()
+    args, cfg, ds, m, detect, build_s = eval_build(version, True,
+                                                   EVAL_IMAGES)
+    capture_s = eval_capture(detect, cfg, EVAL_BATCH)
+    want = eval_forward(version)
+    eval_per_forward(detect, ds, EVAL_BATCH, want, "9a")
+    setup = K.launch_counts_by_entry()  # the capture's warm-ups, the check
+    ev = VOCEvaluator(ds, cfg.num_classes, cfg.input_size,
+                      batch_size=EVAL_BATCH, cache_device=True)
+    before = capture.replayed_launches()
+    K.reset_launch_counts()
+    passes = []
+    for _ in range(2):
+        mean_ap, wall = timed(lambda: ev.evaluate(detect))
+        passes.append(eval_pass_fields(ev, wall, EVAL_IMAGES, EVAL_BATCH))
+    calls = 2 * (-(-EVAL_IMAGES // EVAL_BATCH))
+    replayed = replayed_since(before)
+    wrapper = K.launch_counts_by_entry()
+    if wrapper or replayed != {w: {e: n * calls for e, n in by.items()}
+                               for w, by in want.items()}:
+        raise AssertionError(f"9a: the evaluation's wrapper launches "
+                             f"{wrapper} (want none: replays), replayed "
+                             f"{replayed}, want {calls} x {want}")
+    if passes[0]["mean_ap"] != passes[1]["mean_ap"]:
+        raise AssertionError(f"9a: the cached pass scored "
+                             f"{passes[1]['mean_ap']}, the first "
+                             f"{passes[0]['mean_ap']}")
+    per_replay = check_replays(detect.captured, "9a")
+    if per_replay != want:
+        raise AssertionError(f"9a: a replay runs {per_replay}, want {want}")
+    # the first 16 images on the card and on the CPU route (the plain
+    # versions), the same int8 model
+    sub = type(ds)(size=ds.size, num_classes=ds.num_classes,
+                   transform=ds.transform, length=EVAL_CPU_IMAGES, seed=1)
+    evs = {dev: VOCEvaluator(sub, cfg.num_classes, cfg.input_size,
+                             batch_size=EVAL_CPU_IMAGES)
+           for dev in ("cuda", "cpu")}
+    K.reset_launch_counts()
+    evs["cuda"].evaluate(detect)
+    runs = [setup, K.launch_counts_by_entry()]  # batch 16: a new graph
+    (_, cpu_s) = timed(lambda: evs["cpu"].evaluate(
+        make_int8_detect_fn(m, cfg, device="cpu")))
+    n_dets = 0
+    for cls_a, cls_b in zip(evs["cuda"].raw[0], evs["cpu"].raw[0]):
+        for a, b in zip(cls_a, cls_b):
+            if a.shape != b.shape:
+                raise AssertionError(f"9a: {a.shape} detections on the "
+                                     f"card, {b.shape} on the CPU")
+            np.testing.assert_allclose(a[:, 4], b[:, 4], atol=1e-5,
+                                       rtol=1e-5)
+            np.testing.assert_allclose(
+                a[:, :4] / np.float32(SIZE), b[:, :4] / np.float32(SIZE),
+                atol=1e-5, rtol=1e-5)
+            n_dets += len(a)
+    d_map = abs(evs["cuda"].map - evs["cpu"].map)
+    if d_map > 1e-9 or n_dets == 0:
+        raise AssertionError(f"9a: the first {EVAL_CPU_IMAGES} images score "
+                             f"{evs['cuda'].map} on the card, "
+                             f"{evs['cpu'].map} on the CPU ({n_dets} "
+                             f"detections)")
+    emit("eval_slim", version=version, images=EVAL_IMAGES, batch=EVAL_BATCH,
+         input="nhwc float32", build_s=build_s, capture_s=capture_s,
+         mean_ap=passes[0]["mean_ap"],
+         class_aps=[float(a) for a in ev.class_aps],
+         first_pass=passes[0], cached_pass=passes[1],
+         launches_per_forward=want, launches_per_replay=per_replay,
+         replayed=replayed,
+         cpu_check=dict(images=EVAL_CPU_IMAGES, detections=n_dets,
+                        mean_ap_card=evs["cuda"].map,
+                        mean_ap_cpu=evs["cpu"].map, abs_diff=d_map,
+                        cpu_seconds=cpu_s),
+         card=card)
+    return runs
+
+
+def phase_eval_others(card):
+    """9b: slim ``--fp32`` (the float Detector: cuDNN float32, TF32 off)
+    and tiny_yolo_v3, yolo_v2 and yolo_v3 ``-q`` evaluated on the card, 64
+    images each (one batch): mAP, images/sec, the INT8 ones' launches per
+    forward their NHWC serving forward's, every graph's replay held to its
+    recorded kernels. -> the runs' launches."""
+    from yolo_tpu_torch.eval import VOCEvaluator
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    runs = []
+    for version, quantize in EVAL_OTHERS:
+        K.reset_launch_counts()
+        args, cfg, ds, model, detect, build_s = eval_build(
+            version, quantize, EVAL_OTHER_IMAGES)
+        capture_s = eval_capture(detect, cfg, EVAL_OTHER_IMAGES)
+        want = (eval_forward(version) if quantize else nms_launches(1))
+        eval_per_forward(detect, ds, EVAL_OTHER_IMAGES, want,
+                         f"9b {version}")
+        ev = VOCEvaluator(ds, cfg.num_classes, cfg.input_size,
+                          batch_size=EVAL_OTHER_IMAGES)
+        mean_ap, wall = timed(lambda: ev.evaluate(detect))
+        runs.append(K.launch_counts_by_entry())
+        per_replay = check_replays(detect.captured, f"9b {version}")
+        if per_replay != want:
+            raise AssertionError(f"9b {version}: a replay runs {per_replay},"
+                                 f" want {want}")
+        emit("eval_family", version=version,
+             engine="int8" if quantize else "fp32",
+             images=EVAL_OTHER_IMAGES, batch=EVAL_OTHER_IMAGES,
+             build_s=build_s, capture_s=capture_s,
+             class_aps=[float(a) for a in ev.class_aps],
+             **eval_pass_fields(ev, wall, EVAL_OTHER_IMAGES,
+                                EVAL_OTHER_IMAGES),
+             launches_per_forward=want, launches_per_replay=per_replay,
+             card=card)
+        del model, detect, ev
+        torch.cuda.empty_cache()
+    return runs
+
+
+def write_eval_trees(root, n, cv2):
+    """The CLI's first ``n`` synthetic images (raw BGR, 416²) as jpgs under
+    ``root``: a VOC-format mask tree (``Mask``, split ``test``) and a
+    COCO2017-layout tree (``coco``, ``val2017``), their boxes the
+    annotations (label l as the mask class l, COCO category l + 1)."""
+    import json
+
+    from yolo_tpu_torch.data import SyntheticDetection
+    from yolo_tpu_torch.data.voc import VOC_CLASSES_MASK
+
+    ds = SyntheticDetection(size=(SIZE, SIZE), num_classes=2, length=n,
+                            seed=1)
+    voc = os.path.join(root, "Mask")
+    for sub in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        os.makedirs(os.path.join(voc, sub))
+    os.makedirs(os.path.join(root, "coco", "annotations"))
+    os.makedirs(os.path.join(root, "coco", "val2017"))
+    images, anns = [], []
+    for i in range(n):
+        img, target, h, w = ds.pull_item(i)
+        cv2.imwrite(os.path.join(voc, "JPEGImages", f"{i:06d}.jpg"), img)
+        cv2.imwrite(os.path.join(root, "coco", "val2017", f"{i + 1:012d}.jpg"),
+                    img)
+        objects = ""
+        for x1, y1, x2, y2, label in target:
+            px = [int(x1 * w) + 1, int(y1 * h) + 1, int(x2 * w),
+                  int(y2 * h)]
+            objects += (f"<object><name>{VOC_CLASSES_MASK[int(label)]}"
+                        f"</name><difficult>0</difficult><bndbox>"
+                        + "".join(f"<{k}>{v}</{k}>" for k, v in zip(
+                            ("xmin", "ymin", "xmax", "ymax"), px))
+                        + "</bndbox></object>")
+            bw, bh = (x2 - x1) * w, (y2 - y1) * h
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(label) + 1,
+                         "bbox": [float(x1 * w), float(y1 * h), float(bw),
+                                  float(bh)],
+                         "area": float(bw * bh), "iscrowd": 0})
+        with open(os.path.join(voc, "Annotations", f"{i:06d}.xml"),
+                  "w") as f:
+            f.write(f"<annotation>{objects}</annotation>")
+        images.append({"id": i + 1, "width": w, "height": h})
+    with open(os.path.join(voc, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("".join(f"{i:06d}\n" for i in range(n)))
+    with open(os.path.join(root, "coco", "annotations",
+                           "instances_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "face"},
+                                  {"id": 2, "name": "face_mask"}]}, f)
+
+
+def phase_eval_clis(card):
+    """9c: ``cli.eval.evaluate`` with ``-q`` on the CLI's default synthetic
+    evaluation set (32 images, batch 32, on the card) returns and prints
+    ``Mean AP``; ``cli.kmeans.main`` runs on the same set. Where cv2
+    imports: ``cli.test`` and ``cli.demo`` draw and write jpgs, and 16
+    synthetic images written as jpgs score through ``cli.eval -d mask
+    --dataset_root`` (a VOC-format tree) and ``COCOEvaluator`` (a COCO
+    tree). -> the runs' launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from yolo_tpu_torch.cli import eval as cli_eval
+    from yolo_tpu_torch.cli import kmeans
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    argv = ["-d", "synthetic", "-q"]
+    out = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        mean_ap, seconds = timed(lambda: cli_eval.evaluate(
+            cli_eval.parse_args(argv)))
+    runs = [K.launch_counts_by_entry()]
+    printed = out.getvalue().splitlines()
+    if f"Mean AP: {mean_ap:.4f}" not in printed:
+        raise AssertionError(f"9c: cli.eval printed {printed[-3:]}, "
+                             f"returned {mean_ap}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        anchors, avg_iou = kmeans.main(kmeans.parse_args(["-d",
+                                                          "synthetic"]))
+    if anchors.shape != (5, 2) or not 0 < avg_iou <= 1:
+        raise AssertionError(f"9c: cli.kmeans gave {anchors}, {avg_iou}")
+    emit("eval_cli", argv=argv, mean_ap=mean_ap, printed=printed[-1],
+         seconds=seconds, launches_by_entry=runs[0], card=card)
+    emit("kmeans_cli", argv=["-d", "synthetic"], avg_iou=avg_iou,
+         anchors=anchors.tolist(), printed=out.getvalue().splitlines())
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        emit("test_demo_cli", ran=False,
+             reason=f"cv2 does not import on this machine ({e}); "
+                    f"tests/test_torch_eval_cli.py runs both on the CPU")
+        return runs
+    from yolo_tpu_torch.cli import demo
+    from yolo_tpu_torch.cli import test as cli_test
+    from yolo_tpu_torch.cli.common import build_cfg
+    from yolo_tpu_torch.data import BaseTransform
+    from yolo_tpu_torch.data.coco import COCODataset
+    from yolo_tpu_torch.eval.coco_eval import COCOEvaluator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            K.reset_launch_counts()
+            cli_test.test(cli_test.parse_args(
+                ["-d", "synthetic", "-q", "--num_images", "2", "--output",
+                 f"{tmp}/test"]))
+            runs.append(K.launch_counts_by_entry())
+            os.makedirs(f"{tmp}/imgs")
+            frames = synthetic_frames(2)
+            for i, frame in enumerate(frames):
+                cv2.imwrite(f"{tmp}/imgs/{i}.jpg", frame)
+            K.reset_launch_counts()
+            demo.detect(demo.parse_args(["--path_to_img", f"{tmp}/imgs",
+                                         "--path_to_save", f"{tmp}/demo"]))
+            runs.append(K.launch_counts_by_entry())
+        written = (sorted(os.listdir(f"{tmp}/test")),
+                   sorted(os.listdir(f"{tmp}/demo")))
+        if written != (["0.jpg", "1.jpg"], ["0.jpg", "1.jpg"]):
+            raise AssertionError(f"9c: cli.test and cli.demo wrote "
+                                 f"{written}")
+        emit("test_demo_cli", ran=True, written=written, card=card)
+        # the VOC-format and COCO datasets on jpgs cv2 decodes here:
+        # cli.eval -d mask --dataset_root, and COCOEvaluator
+        write_eval_trees(tmp, EVAL_CPU_IMAGES, cv2)
+        argv = ["-d", "mask", "--dataset_root", tmp, "-q", "--batch_size",
+                str(EVAL_CPU_IMAGES)]
+        out = io.StringIO()
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            voc_map, voc_s = timed(lambda: cli_eval.evaluate(
+                cli_eval.parse_args(argv)))
+            args = cli_eval.parse_args(["-d", "coco", "-q"])
+            cfg = build_cfg(args)
+            coco = COCODataset(f"{tmp}/coco", "instances_val2017.json",
+                               "val2017", transform=BaseTransform(
+                                   cfg.input_size))
+            _, detect = cli_eval.build_detect(args, cfg, coco)
+            (ap50, ap), coco_s = timed(lambda: COCOEvaluator(
+                coco, batch_size=EVAL_CPU_IMAGES).evaluate(detect))
+        runs.append(K.launch_counts_by_entry())
+        if f"Mean AP: {voc_map:.4f}" not in out.getvalue().splitlines():
+            raise AssertionError("9c: cli.eval -d mask printed no Mean AP")
+        emit("eval_trees", images=EVAL_CPU_IMAGES, voc_argv=argv,
+             voc_mean_ap=voc_map, voc_seconds=voc_s, coco_ap50=float(ap50),
+             coco_ap50_95=float(ap), coco_seconds=coco_s, card=card)
+    return runs
+
+
+def phase_9(card):
+    """Phase 9 (9a, 9b, 9c) -> every run's launches."""
+    runs = phase_eval_slim(card)
+    torch.cuda.empty_cache()
+    runs += phase_eval_others(card)
+    runs += phase_eval_clis(card)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4516,6 +4917,10 @@ def main() -> int:
     launches_8, times_8 = phase_8(card, max_err)
     times.update(times_8)
     emit("phase_8", seconds=time.perf_counter() - t8)
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    launches_9 = phase_9(card)
+    emit("phase_9", seconds=time.perf_counter() - t9)
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
     for line in PARTS_LINES:
@@ -4699,7 +5104,8 @@ def main() -> int:
         ran = sum(per_run)
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
-                       for served in launches_6 + launches_7 + launches_8)
+                       for served in launches_6 + launches_7 + launches_8
+                       + launches_9)
         per_forward = max(per_run) // SERVE_ITERS
         # tiny_yolo_v3's and yolo_v2's launches per forward on each input
         # layout, and the times of their shapes (one NHWC forward; K2's on

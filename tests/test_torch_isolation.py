@@ -25,12 +25,19 @@ print(len(names))
 print(" ".join(names))
 """
 
-# the modules of the serving entry point's last slice: the checkpoint
-# reader and its codec, the CUDA-graph capture, the artifact format
+# the modules of the serving entry point's last slice (the checkpoint
+# reader and its codec, the CUDA-graph capture, the artifact format) and
+# of the evaluation path (datasets, COCO API, evaluators, their CLIs)
 NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.utils.msgpack_codec",
                "yolo_tpu_torch.utils.capture", "yolo_tpu_torch.utils.device",
-               "yolo_tpu_torch.serving.export")
+               "yolo_tpu_torch.serving.export",
+               "yolo_tpu_torch.data.synthetic", "yolo_tpu_torch.data.voc",
+               "yolo_tpu_torch.data.coco", "yolo_tpu_torch.data.coco_api",
+               "yolo_tpu_torch.eval", "yolo_tpu_torch.eval.voc_eval",
+               "yolo_tpu_torch.eval.coco_eval", "yolo_tpu_torch.cli.eval",
+               "yolo_tpu_torch.cli.test", "yolo_tpu_torch.cli.demo",
+               "yolo_tpu_torch.cli.kmeans")
 
 
 def test_package_imports_without_jax_or_yolo_tpu():
@@ -40,8 +47,9 @@ def test_package_imports_without_jax_or_yolo_tpu():
     count, names = out.stdout.strip().split("\n")
     # 35: the serving entry point's packages (cli, data, serving, utils)
     # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp);
-    # 40 with the checkpoint reader, its codec, capture, device and export
-    assert int(count) >= 40
+    # 40 with the checkpoint reader, its codec, capture, device and export;
+    # 54 with the evaluation path's eleven (43 before it)
+    assert int(count) >= 54
     assert set(NEW_MODULES) <= set(names.split())
 
 

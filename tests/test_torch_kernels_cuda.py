@@ -2451,3 +2451,37 @@ def test_cuda_float_detector_captured(cuda):
     bf = Detector(cfg, dtype=torch.bfloat16).load_params(params)
     assert bf.detect(x)[0].dtype == torch.float32
 
+
+@pytest.mark.cuda
+def test_cuda_eval_cli_int8_equals_the_cpu(cuda, monkeypatch, capsys):
+    """``cli.eval -q`` for slim at 32² on the card (its PTQ there, the
+    hand-written kernels, captured) scores what the CPU route scores: each
+    image's detections as many, boxes and scores within 1e-5 of the image
+    size (rtol 1e-5), the mAP and class APs within 1e-9."""
+    from yolo_tpu_torch.cli import eval as teval
+
+    made = []
+    base = teval.VOCEvaluator
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(teval, "VOCEvaluator", Recording)
+    argv = ["-d", "synthetic", "-q", "--input_size", "32", "32",
+            "--batch_size", "8"]
+    got = teval.evaluate(teval.parse_args(argv))
+    want = teval.evaluate(teval.parse_args(argv + ["--device", "cpu"]))
+    assert abs(got - want) <= 1e-9
+    card, cpu = made
+    np.testing.assert_allclose(card.class_aps, cpu.class_aps, rtol=0,
+                               atol=1e-9)
+    n = 0
+    for cls_a, cls_b in zip(card.raw[0], cpu.raw[0]):
+        for a, b in zip(cls_a, cls_b):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=32 * 1e-5)
+            n += len(a)
+    assert n > 0
+    assert capsys.readouterr().out.count("Mean AP") == 2

@@ -1,1 +1,2 @@
-"""Command-line entry points (``python -m yolo_tpu_torch.cli.serve``)."""
+"""Command-line entry points (``python -m yolo_tpu_torch.cli.serve``,
+``.eval``, ``.test``, ``.demo``, ``.kmeans``)."""

@@ -1,7 +1,7 @@
-"""Shared CLI plumbing (counterpart of ``add_common_args`` and
-``build_cfg`` in ``yolo_tpu/cli/common.py``, and of ``load_params`` in
-``yolo_tpu/cli/eval.py``, here until the port's eval CLI exists; the
-dataset builders wait for the port's data loaders)."""
+"""Shared CLI plumbing (counterpart of ``yolo_tpu/cli/common.py``:
+``add_common_args``, ``build_cfg`` and the evaluation half of
+``build_dataset``; and of ``load_params`` in ``yolo_tpu/cli/eval.py``,
+which every port CLI shares from here)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ def add_common_args(parser: argparse.ArgumentParser):
                              " yolo_v2, yolo_v3, yolo_v3_spp, tiny_yolo_v3")
     parser.add_argument("-d", "--dataset", default="mask",
                         help="voc, coco, mask or synthetic")
+    parser.add_argument("--dataset_root", default="data/VOCdevkit",
+                        help="dataset root directory")
     parser.add_argument("-hr", "--high_resolution", action="store_true",
                         default=False, help="use hi-res backbone")
     parser.add_argument("--input_size", type=int, nargs=2, default=None,
@@ -34,6 +36,42 @@ def build_cfg(args):
                       conf_thresh=args.conf_thresh,
                       nms_thresh=args.nms_thresh,
                       hr=args.high_resolution, **kwargs)
+
+
+def build_dataset(args, cfg, train: bool = True):
+    """The evaluation dataset of ``args.dataset`` at ``cfg.input_size``
+    through ``BaseTransform`` (the JAX CLI's dispatch): synthetic (32
+    images, seed 1, ``cfg.num_classes``), voc (VOC2007 test), mask (its
+    test split) or coco (val2017), the last three under
+    ``args.dataset_root``. ``train=True`` raises: the training transform
+    (``SSDAugmentation``) is not ported yet (ROADMAP.md Queue 1 item 7)."""
+    from yolo_tpu_torch.data.synthetic import SyntheticDetection
+    from yolo_tpu_torch.data.transforms import BaseTransform
+    from yolo_tpu_torch.data.voc import VOC_CLASSES, VOCDetection
+
+    if train:
+        raise NotImplementedError(
+            "training datasets need SSDAugmentation, which the port does "
+            "not have yet (ROADMAP.md Queue 1 item 7); pass train=False "
+            "for the evaluation transform")
+    size = cfg.input_size
+    transform = BaseTransform(size)
+    if args.dataset == "synthetic":
+        return SyntheticDetection(size=size, num_classes=cfg.num_classes,
+                                  transform=transform, length=32, seed=1)
+    if args.dataset == "voc":
+        return VOCDetection(args.dataset_root,
+                            image_sets=(("2007", "test"),),
+                            classes=VOC_CLASSES, transform=transform)
+    if args.dataset == "mask":
+        return VOCDetection.mask(args.dataset_root, "test",
+                                 transform=transform)
+    if args.dataset == "coco":
+        from yolo_tpu_torch.data.coco import COCODataset
+        return COCODataset(args.dataset_root,
+                           json_file="instances_val2017.json",
+                           name="val2017", transform=transform)
+    raise ValueError(f"unknown dataset {args.dataset!r}")
 
 
 def load_params(args, model):

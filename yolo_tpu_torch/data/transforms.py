@@ -24,8 +24,12 @@ from yolo_tpu_torch.config import BGR_MEAN, BGR_STD
 
 def _resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """Bilinear resize to (h, w): cv2 where present (the reference's
-    resize), else a numpy half-pixel-centers resize."""
+    resize), else a numpy half-pixel-centers resize. An image already of
+    that size comes back as it is: at scale 1 both resizes are the
+    identity (cv2 copies; the numpy weights are 1 and 0)."""
     h, w = size
+    if image.shape[:2] == (h, w):
+        return image
     if cv2 is not None:
         return cv2.resize(image, (w, h))
     return _numpy_bilinear_resize(image, h, w)
