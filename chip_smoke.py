@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive yolo_tpu_torch's serving and evaluation paths on one CUDA card and
-check them.
+"""Drive yolo_tpu_torch's serving and evaluation paths and one training
+batch on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -253,9 +253,9 @@ printing JSON lines; any failure raises and the script exits nonzero:
    yolo_v3_spp; tiny_yolo_v3 and yolo_v2 on s2d and NHWC and per-channel)
    through its detect fn captured in a CUDA graph (the makers' only
    form on the card) and eager (its ``captured.fn``): detections
-   ``torch.equal``; one replay of each graph under ``torch.profiler``
-   runs the hand-written kernels, by name and number, of an eager call,
-   whose wrapper launches the graph recorded at its capture (so the
+   ``torch.equal``; each graph's kernel nodes, as the CUDA driver lists
+   them, hold as many hand-written kernels as an eager call's wrappers
+   launched, launches the graph recorded at its capture (so the
    launches derived for replays are launches the card made; every graph
    of the CLI and artifact runs of 6d, 7c, 8c and 8d is held so too); no
    wrapper launch in the captured loop; one NMS launch a forward; no
@@ -301,6 +301,20 @@ printing JSON lines; any failure raises and the script exits nonzero:
    and in a COCO tree through ``eval.coco_eval.COCOEvaluator``. The
    weights are random: the mAPs show that the path runs and scores, not
    accuracy.
+10. one training batch (no kernel of the port: cuDNN's float32 convs,
+   TF32 off forward and backward): 10a ``SSDAugmentation`` on 64
+   synthetic-hard 416² images on the native and the numpy backend, float
+   and uint8 output (boxes and labels equal, pixels within the JAX
+   package's tolerances for the pair), ms per image; ``BatchLoader`` at
+   batch 32 in thread and in process mode, forked after the CUDA context
+   exists (equal batches), images/sec; 10b slim_yolo_v2 and 10c yolo_v3
+   at 416² on a loader batch (uint8, to the card): ``build_targets``,
+   the train forward, ``loss_fn``, ``backward()``, held to the CPU route
+   on 4 / 2 images (loss rtol 1e-4, BN running stats allclose, each
+   gradient leaf's relative L2 error within 2e-2 / 1e-1, ~4x what
+   float32 rounding alone gives, ``check_gradients``), then fwd +
+   bwd timed at batch 32 / 16 with a ``torch.profiler`` breakdown and,
+   as a yardstick, with cuDNN's TF32 in the conv backward.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -4067,58 +4081,101 @@ def our_kernels() -> set:
     return names
 
 
-def kernel_base(name: str) -> str:
-    """A CUDA kernel's function name from the profiler's demangled one
-    (``void conv3x3_wgmma<128, ...>(...)`` -> ``conv3x3_wgmma``)."""
-    import re
+def kernel_base(symbol: str) -> str:
+    """A CUDA kernel's function name from its mangled symbol
+    (``_ZN..._GLOBAL__N_...13conv3x3_wgmmaILi128E...`` -> ``conv3x3_wgmma``):
+    the last name of its nested name, before its template arguments."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    nested = symbol.startswith("_ZN")
+    i, name = 3 if nested else 2, symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+        if not nested:
+            break
+    return name
 
-    name = name.replace("(anonymous namespace)::", "")
-    if name.startswith("void "):
-        name = name[5:]
-    return re.split(r"[(<]", name, maxsplit=1)[0].split("::")[-1].strip()
 
+def graph_kernels(graph) -> dict:
+    """{kernel function name: nodes} of a captured ``torch.cuda.CUDAGraph``
+    (kept: ``keep_graph=True``), as the CUDA driver lists its kernel
+    nodes, child graphs' included: what every replay of it launches."""
+    import ctypes
 
-def device_kernels(fn) -> dict:
-    """{CUDA kernel name: runs} of one ``fn()`` call, as ``torch.profiler``
-    records them on the card (memcpys and memsets left out). ``fn`` runs
-    twice in the session, a marker kernel (``torch.cuda._sleep``'s) between
-    the two, and the second call's kernels are read: a session lost the
-    first kernels it should have recorded, of an eager call and of a
-    graph's replay alike."""
-    from torch.profiler import ProfilerActivity, profile
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                    ("kernelParams", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                    ("ctx", ctypes.c_void_p)]
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    ran = sorted((e.time_range.start, e.name) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    marks = [t for t, name in ran if "spin_kernel" in name]
-    if len(marks) != 1:
-        raise AssertionError(f"torch.profiler recorded {len(marks)} marker "
-                             f"kernels, want 1")
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what}: CUDA driver error {rc}")
+
     out: dict = {}
-    for t, name in ran:
-        if t > marks[0] and not name.startswith(("Memcpy", "Memset")):
+
+    def walk(h):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(vp(h), None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        nodes = (vp * n.value)()
+        check(cu.cuGraphGetNodes(vp(h), nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int()
+            check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH
+                child = vp()
+                check(cu.cuGraphChildGraphNodeGetGraph(
+                    vp(node), ctypes.byref(child)),
+                    "cuGraphChildGraphNodeGetGraph")
+                walk(child.value)
+            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            p = KernelNodeParams()
+            check(cu.cuGraphKernelNodeGetParams_v2(vp(node), ctypes.byref(p)),
+                  "cuGraphKernelNodeGetParams")
+            symbol = ctypes.c_char_p()
+            check(cu.cuFuncGetName(ctypes.byref(symbol), vp(p.func))
+                  if p.func else
+                  cu.cuKernelGetName(ctypes.byref(symbol), vp(p.kern)),
+                  "cuFuncGetName")
+            name = kernel_base(symbol.value.decode())
             out[name] = out.get(name, 0) + 1
+
+    walk(graph.raw_cuda_graph())
+    return out
+
+
+# check_replays' tally since the last phase line: graphs checked
+REPLAY_CHECKS = {"replay_graphs_checked": 0}
+
+
+def replay_tally() -> dict:
+    """``REPLAY_CHECKS`` for a phase's line, then zeroed."""
+    out = dict(REPLAY_CHECKS)
+    REPLAY_CHECKS.update(dict.fromkeys(REPLAY_CHECKS, 0))
     return out
 
 
 def check_replays(core, what) -> dict:
     """Holds what each graph of ``core`` (a ``utils.capture.CapturedFn``)
-    runs against what its launch counts say. Under ``torch.profiler``, one
-    replay of the graph and one eager call of ``core.fn`` on its input
-    must run the same hand-written kernels (``our_kernels``), by name and
-    number, as many as the eager call's wrappers launched, and those
-    wrapper launches must be the ones the graph recorded at its capture.
-    So the launches ``utils.capture.replayed_launches`` derives for the
-    replays are launches the card made. The check's own launches are taken
-    back out of the counts. -> {kernel name: {C entry: launches a replay
-    runs}}, summed over the graphs."""
+    runs against what its launch counts say. An eager call of ``core.fn``
+    on the graph's input must go through the wrapper launches the graph
+    recorded at its capture, and the graph's kernel nodes
+    (``graph_kernels``: what a replay launches) must hold as many of the
+    repo's hand-written kernels (``our_kernels``) as those wrappers
+    launched. So the launches ``utils.capture.replayed_launches`` derives
+    for the replays are launches of the card's. The check's own launches
+    are taken back out of the counts. -> {kernel name: {C entry: launches
+    a replay runs}}, summed over the graphs."""
     import yolo_tpu_torch.kernels as kernels
 
     ours = our_kernels()
@@ -4127,19 +4184,18 @@ def check_replays(core, what) -> dict:
     try:
         for key, g in core.graphs.items():
             kernels.reset_launch_counts()
-            ran_eager = device_kernels(lambda: core.fn(g.input))
-            called = {k: n // 2 for k, n in kernels.entry_counts().items()
-                      if n % 2 == 0}  # two calls
-            ran_replay = device_kernels(g.graph.replay)
-            mine_e, mine_r = ({n: c for n, c in ran.items()
-                               if kernel_base(n) in ours}
-                              for ran in (ran_eager, ran_replay))
-            if (mine_r != mine_e or called != g.launches
-                    or sum(mine_e.values()) != sum(called.values())):
+            core.fn(g.input)
+            torch.cuda.synchronize()
+            called = kernels.entry_counts()
+            nodes = {n: c for n, c in graph_kernels(g.graph).items()
+                     if n in ours}
+            if (called != g.launches
+                    or sum(nodes.values()) != sum(called.values())):
                 raise AssertionError(
-                    f"{what} {key[0]}: a replay ran {mine_r}, an eager call "
-                    f"{mine_e} through the wrappers' {called}; the capture "
-                    f"recorded {g.launches}")
+                    f"{what} {key[0]}: the graph holds {nodes}, an eager "
+                    f"call went through the wrappers' {called}; the "
+                    f"capture recorded {g.launches}")
+            REPLAY_CHECKS["replay_graphs_checked"] += 1
             for (wrapper, entry), n in called.items():
                 by = per_replay.setdefault(wrapper, {})
                 by[entry] = by.get(entry, 0) + n
@@ -4852,6 +4908,408 @@ def phase_9(card):
     return runs
 
 
+TRAIN_IMAGES, TRAIN_LOADER_BATCH = 64, 32
+# (version, check batch against the CPU, timed batch)
+TRAIN_MODELS = (("slim_yolo_v2", 4, 32), ("yolo_v3", 2, 16))
+# each gradient leaf, card against CPU on the same branches: max abs
+# error <= GRAD_BOUND x the leaf's largest |g|
+GRAD_BOUND = 1e-3
+# a branch the CPU would take otherwise (blocks.branch_context's flips)
+# lies within FLIP_MARGIN x the layer's largest |x| of the leaky's zero or
+# the pool window's maximum: float32 forwards on two devices part by a
+# few ulps a layer (~1e-6 of the scale after 75 layers); a wrong branch
+# (a sign error, a wrong argmax) by a share of the scale
+FLIP_MARGIN = 1e-4
+
+
+def train_raw(n):
+    """``n`` synthetic-hard 416² samples, untransformed: (u8 BGR image,
+    normalized boxes, labels)."""
+    from yolo_tpu_torch.data.synthetic import SyntheticDetection
+
+    ds = SyntheticDetection(size=(SIZE, SIZE), length=n, hard=True, seed=0)
+    out = []
+    for i in range(n):
+        img, target, _, _ = ds.pull_item(i)
+        out.append((img, target[:, :4], target[:, 4]))
+    return out
+
+
+def train_dataset(backend="auto"):
+    """The synthetic-hard set at 416² through ``SSDAugmentation`` with
+    uint8 output (normalized on the card), as ``cli.common`` builds a
+    training set with ``u8``."""
+    from yolo_tpu_torch.data import SSDAugmentation, SyntheticDetection
+
+    return SyntheticDetection(
+        size=(SIZE, SIZE), length=TRAIN_IMAGES, hard=True, seed=0,
+        transform=SSDAugmentation((SIZE, SIZE), seed=0, normalize=False,
+                                  backend=backend))
+
+
+def phase_train_host(card):
+    """10a: ``SSDAugmentation`` on the native and the numpy backend (float
+    and uint8 output) over 64 synthetic-hard 416² images, the same boxes
+    and labels, pixels within the JAX package's tolerances for the pair
+    (5e-3 float, one uint8 level), ms per image each; then ``BatchLoader``
+    at batch 32 in thread and process mode (forked after the CUDA context
+    exists), equal batches for the same (seed, epoch), images/sec each."""
+    from yolo_tpu_torch.data import BatchLoader, SSDAugmentation
+
+    torch.zeros(1, device="cuda")  # the CUDA context exists before a fork
+    start = time.perf_counter()
+    raw = train_raw(TRAIN_IMAGES)
+    fields = {}
+    for normalize in (True, False):
+        outs = {}
+        for backend in ("native", "numpy"):
+            aug = SSDAugmentation((SIZE, SIZE), seed=0, normalize=normalize,
+                                  backend=backend)
+            if aug._native_ok() != (backend == "native"):
+                raise AssertionError(f"SSDAugmentation(backend={backend!r}) "
+                                     f"did not run on {backend}")
+            t0 = time.perf_counter()
+            outs[backend] = [aug(*item) for item in raw]
+            fields[f"{backend}_{'f32' if normalize else 'u8'}"
+                   "_ms_per_image"] = (
+                1e3 * (time.perf_counter() - t0) / TRAIN_IMAGES)
+        err = 0.0
+        for (i1, b1, l1), (i2, b2, l2) in zip(outs["native"], outs["numpy"]):
+            if not (np.array_equal(b1, b2) and np.array_equal(l1, l2)):
+                raise AssertionError("native and numpy augmentation drew "
+                                     "different boxes or labels")
+            if i1.dtype != i2.dtype or i1.shape != (SIZE, SIZE, 3):
+                raise AssertionError(f"augmented images {i1.dtype} "
+                                     f"{i1.shape} / {i2.dtype}")
+            err = max(err, float(np.abs(i1.astype(np.float32)
+                                        - i2.astype(np.float32)).max()))
+        if err > (5e-3 if normalize else 1.0):
+            raise AssertionError(f"native augmentation {err} off numpy's")
+        fields[f"native_vs_numpy_{'f32' if normalize else 'u8'}"
+               "_max_abs_diff"] = err
+
+    batches = {}
+    for workers, backend in (("thread", "auto"), ("process", "auto"),
+                             ("process", "numpy")):
+        loader = BatchLoader(train_dataset(backend), TRAIN_LOADER_BATCH,
+                             num_workers=os.cpu_count() or 8, seed=0,
+                             workers=workers)
+        t0 = time.perf_counter()
+        got = list(loader)
+        fields[f"loader_{workers}_{backend}_images_per_s"] = (
+            len(got) * TRAIN_LOADER_BATCH / (time.perf_counter() - t0))
+        batches[workers, backend] = got
+    for a, b in zip(batches["thread", "auto"], batches["process", "auto"]):
+        if not (np.array_equal(a[0], b[0]) and all(
+                np.array_equal(x, y) for x, y in zip(a[1], b[1]))):
+            raise AssertionError("thread and process loaders gave "
+                                 "different batches for one (seed, epoch)")
+    images = batches["thread", "auto"][0][0]
+    if images.dtype != np.uint8 or images.shape != (
+            TRAIN_LOADER_BATCH, SIZE, SIZE, 3):
+        raise AssertionError(f"loader batch {images.dtype} {images.shape}")
+    emit("10a_train_host", seconds=time.perf_counter() - start,
+         backend="native", images=TRAIN_IMAGES,
+         loader_batch=TRAIN_LOADER_BATCH, loader_workers=os.cpu_count(),
+         loader_modes_equal=True, cpu_threads=torch.get_num_threads(),
+         card=card, **fields)
+    return batches["thread", "auto"]
+
+
+def train_model(version, device):
+    """``version``'s float model with BN on ``device``, seeded weights
+    (torch's conv bounds from ``Generator(0)``; BN from a second
+    generator, away from the identity), pred for the mask config."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.ops import blocks
+    from yolo_tpu_torch.quant.dispatch import init_float_model
+
+    cfg = get_config(version, "mask", input_size=(SIZE, SIZE))
+    model = init_float_model(version, cfg, device,
+                             generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, blocks.Conv) and m.bn is not None:
+                for t, lo, hi in ((m.bn.weight, 0.5, 1.5),
+                                  (m.bn.bias, -0.2, 0.2),
+                                  (m.bn.running_mean, -0.1, 0.1),
+                                  (m.bn.running_var, 0.5, 1.5)):
+                    t.copy_(torch.empty(t.shape).uniform_(lo, hi,
+                                                          generator=g))
+    return cfg, model
+
+
+def train_step(model, cfg, images, gt, branches):
+    """One training batch on the model's device (``images`` uint8, or
+    normalized in the model's type), its forward inside
+    ``branches`` (a ``blocks.branch_context``): loss_fn + backward ->
+    ({component: value}, grads tree, params tree incl. BN stats)."""
+    from yolo_tpu_torch.quant.convert import module_to_params
+    from yolo_tpu_torch.train.trainer import TrainConfig, loss_fn
+
+    dev = next(model.parameters()).device
+    model.zero_grad(set_to_none=True)
+    with branches:
+        total, parts = loss_fn(model, cfg, TrainConfig(),
+                               torch.as_tensor(images).to(dev), gt)
+    total.backward()
+    values = {k: v.item() for k, v in parts.items()}
+    values["total"] = total.item()
+    return (values, module_to_params(model, grads=True),
+            module_to_params(model))
+
+
+def tree_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tree_leaves(tree[k], f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}.{i}")
+    else:
+        yield path, tree
+
+
+class conv_swap:
+    """``with conv_swap(fn): ...`` runs the port's float convs through
+    ``fn`` (``blocks.conv2d``'s signature) instead, then restores them."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from yolo_tpu_torch.ops import blocks
+
+        self.plain = blocks.conv2d
+        blocks.conv2d = self.fn
+        return self
+
+    def __exit__(self, *exc):
+        from yolo_tpu_torch.ops import blocks
+
+        blocks.conv2d = self.plain
+        return False
+
+
+def tf32_backward():
+    """The float convs with the forward under ``fp32_precision`` and the
+    backward on cuDNN's default TF32 (as the port ran them before it kept
+    the backward in float32): the step's time beside float32's, and the
+    control that the gradient check must fail."""
+    from yolo_tpu_torch.ops import blocks
+
+    def conv2d(x, w, b=None, stride=1, padding=0):
+        with blocks.fp32_precision():
+            out = torch.nn.functional.conv2d(x, w, None, stride=stride,
+                                             padding=padding)
+        return out if b is None else out + b.reshape(1, -1, 1, 1)
+
+    return conv_swap(conv2d)
+
+
+def gradient_errors(cpu, card):
+    """[(max abs error / the leaf's largest |g|, path)] over the leaves
+    with a nonzero CPU gradient, card against CPU; raises where a card
+    leaf is not finite or every leaf is zero."""
+    out = []
+    for (path, want), (_, got) in zip(tree_leaves(cpu[1]),
+                                      tree_leaves(card[1])):
+        if not np.isfinite(got).all():
+            raise AssertionError(f"gradient {path} not finite")
+        scale = float(np.abs(want).max())
+        if scale:
+            out.append((float(np.abs(got - want).max()) / scale, path))
+    if not out:
+        raise AssertionError("every gradient is zero")
+    return out
+
+
+def check_flips(version, flips) -> dict:
+    """The branches the CPU run would have taken otherwise
+    (``blocks.branch_context(...).flips``): each within FLIP_MARGIN of
+    the layer's scale, a tie broken by rounding. -> counts and the
+    largest margin over the scale."""
+    out = {"leaky_flips": 0, "pool_flips": 0, "flip_margin_worst": 0.0}
+    for i, (kind, n, margin, scale) in enumerate(flips):
+        if margin > FLIP_MARGIN * scale:
+            raise AssertionError(
+                f"{version} {kind} {i}: the card branched {n} elements off "
+                f"the CPU by {margin} at a scale of {scale}")
+        out[f"{kind}_flips"] += n
+        if n:
+            out["flip_margin_worst"] = max(out["flip_margin_worst"],
+                                           margin / scale)
+    return out
+
+
+CONV_WORDS = ("conv", "xmma", "implicit", "wgrad", "dgrad", "fprop",
+              "cudnn", "gemm", "winograd", "fft")
+
+
+def step_breakdown(fn, n: int = 3) -> dict:
+    """Device time of one ``fn()`` (a training step ending in a
+    synchronize) by kernel class, from ``torch.profiler`` over ``n``
+    calls after one warm-up: cuDNN's convs (fprop, dgrad, wgrad, by
+    name), reductions (BN statistics, the loss's sums), everything else
+    (elementwise: BN, leaky, pools, casts); the busy share of the host
+    window, and the five kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / n
+    classes = {"conv_ms": 0.0, "reduce_ms": 0.0, "other_ms": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        key = ("conv_ms" if any(w in low for w in CONV_WORDS) else
+               "reduce_ms" if "reduce" in low or "welford" in low else
+               "other_ms")
+        classes[key] += ms
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_ms_per_step=device_ms, **classes,
+                busy_share=device_ms / (wall_ms / n) if wall_ms else 0.0,
+                distinct_kernels=len(by_name),
+                top_kernels=[[name[:90], ms] for name, ms in top])
+
+
+def phase_train_model(card, version, check_b, time_b, batch):
+    """10b / 10c: ``version`` at 416² on one loader batch (uint8, to the
+    card): ``build_targets``, the train forward under ``fp32_precision``,
+    ``loss_fn``, ``backward()``; held to the CPU route in float64 on the
+    same ``check_b`` images (the card's normalized floats) and weights
+    (float32 sums over 416² images round off by ~1e-3 of a leaf's
+    largest value on the CPU: conv1's weight gradient sums 692k
+    products), the CPU's forward taking the card's branches (``blocks.branch_context``: each leaky's sign, each pool's
+    argmax), and every branch it would take otherwise within FLIP_MARGIN
+    (``check_flips``): the loss components within rtol 1e-4, each
+    gradient leaf's max abs error within GRAD_BOUND of its largest |g|,
+    the new BN running stats within rtol 1e-4 / atol 1e-5, all finite,
+    the gradients not all zero. A control: the card's step with a TF32
+    backward on the same branches must fail that gradient bound. Then
+    forward + backward timed at ``time_b`` (median of 10 after 2
+    warm-ups, CUDA events), float32 and the TF32 backward, with the
+    card's peak memory and a ``torch.profiler`` breakdown."""
+    from yolo_tpu_torch.detector import normalize_u8
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.ops import blocks
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, loss_fn
+
+    images, targets = batch
+    t0 = time.perf_counter()
+    cfg, card_model = train_model(version, "cuda")
+    gt = build_targets(cfg, targets[:check_b])
+    K.reset_launch_counts()
+    card_branches = blocks.branch_context()
+    card_run = train_step(card_model, cfg, images[:check_b], gt,
+                          card_branches)
+    launches = sum(K.launch_counts().values())
+    t1 = time.perf_counter()
+    # the reference: the CPU in float64 on the card's normalized input
+    x64 = normalize_u8(torch.as_tensor(images[:check_b]).cuda()).cpu()
+    cpu_branches = blocks.branch_context(card_branches.choices)
+    cpu = train_step(train_model(version, "cpu")[1].double(), cfg,
+                     x64.double(), gt, cpu_branches)
+    t2 = time.perf_counter()
+    flips = check_flips(version, cpu_branches.flips)
+    for k, want in cpu[0].items():
+        got = card_run[0][k]
+        if not (math.isfinite(got) and abs(got - want) <= 1e-4 * abs(want)):
+            raise AssertionError(f"{version} {k}: card {got}, cpu {want}")
+    errs = gradient_errors(cpu, card_run)
+    worst, path = max(errs)
+    if worst > GRAD_BOUND:
+        raise AssertionError(
+            f"{version} gradient {path}: card-cpu max abs error {worst} of "
+            f"the leaf's largest value > {GRAD_BOUND}")
+    stats_err = 0.0
+    for (path, want), (_, got) in zip(tree_leaves(cpu[2]),
+                                      tree_leaves(card_run[2])):
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"{version} {path} after the step: card "
+                                 f"and cpu differ")
+        stats_err = max(stats_err, float(np.abs(got - want).max()))
+    with tf32_backward():
+        control = train_step(train_model(version, "cuda")[1], cfg,
+                             images[:check_b], gt,
+                             blocks.branch_context(card_branches.choices))
+    tf32_errs = gradient_errors(cpu, control)
+    tf32_worst = max(tf32_errs)[0]
+    if tf32_worst <= GRAD_BOUND:
+        raise AssertionError(
+            f"{version}: a TF32 backward passes the gradient check "
+            f"(worst {tf32_worst} <= {GRAD_BOUND})")
+    del control, card_branches, cpu_branches
+
+    t3 = time.perf_counter()
+    x = torch.as_tensor(images[:time_b]).cuda()
+    gt_t = build_targets(cfg, targets[:time_b])
+
+    def step():
+        card_model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(card_model, cfg, TrainConfig(), x, gt_t)
+        total.backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step, 10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with tf32_backward():
+        tf32_ms = time_ms(step, 10)
+
+    def synced_step():
+        step()
+        torch.cuda.synchronize()
+
+    emit(f"10{'b' if version.startswith('slim') else 'c'}_train_{version}",
+         check_batch=check_b, loss=card_run[0], loss_cpu=cpu[0],
+         gradient_leaves=len(list(tree_leaves(cpu[1]))),
+         nonzero_leaves=len(errs), grad_bound=GRAD_BOUND,
+         grad_worst=worst, grad_worst_leaf=path,
+         grad_median=statistics.median(e for e, _ in errs),
+         tf32_backward_grad_worst=tf32_worst,
+         tf32_backward_leaves_over_bound=sum(e > GRAD_BOUND
+                                             for e, _ in tf32_errs),
+         flip_margin_bound=FLIP_MARGIN, **flips,
+         bn_stats_max_abs_diff=stats_err,
+         kernel_launches=launches, timed_batch=time_b,
+         fwd_bwd_ms=ms, images_per_s=1e3 * time_b / ms, peak_mem_gb=peak_gb,
+         tf32_backward_ms=tf32_ms,
+         breakdown=step_breakdown(synced_step), input=[SIZE, SIZE],
+         seconds={"card_step": t1 - t0, "cpu_step": t2 - t1,
+                  "checks_and_control": t3 - t2,
+                  "timing": time.perf_counter() - t3},
+         card=card)
+
+
+def phase_10(card):
+    """Phase 10: one training batch (10a host data, 10b slim_yolo_v2, 10c
+    yolo_v3), with cuDNN's algorithm search off: earlier phases turn it
+    on to time their yardsticks, and here it searched every conv's
+    forward and backward for each new batch shape (phase 10 93.0 s with
+    it, 37.2 s without, on the H100 machine)."""
+    cudnn = torch.backends.cudnn
+    search, cudnn.benchmark = cudnn.benchmark, False
+    try:
+        batches = phase_train_host(card)
+        for (version, check_b, time_b), batch in zip(TRAIN_MODELS, batches):
+            phase_train_model(card, version, check_b, time_b, batch)
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.benchmark = search
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4907,20 +5365,24 @@ def main() -> int:
     launches_6.append(phase_spp(card))
     torch.cuda.empty_cache()
     launches_6 += phase_serve_cli(card)
-    emit("phase_6", seconds=time.perf_counter() - t6)
+    emit("phase_6", seconds=time.perf_counter() - t6, **replay_tally())
     torch.cuda.empty_cache()
     t7 = time.perf_counter()
     launches_7, times_7 = phase_7(card, max_err)
-    emit("phase_7", seconds=time.perf_counter() - t7)
+    emit("phase_7", seconds=time.perf_counter() - t7, **replay_tally())
     torch.cuda.empty_cache()
     t8 = time.perf_counter()
     launches_8, times_8 = phase_8(card, max_err)
     times.update(times_8)
-    emit("phase_8", seconds=time.perf_counter() - t8)
+    emit("phase_8", seconds=time.perf_counter() - t8, **replay_tally())
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
     launches_9 = phase_9(card)
-    emit("phase_9", seconds=time.perf_counter() - t9)
+    emit("phase_9", seconds=time.perf_counter() - t9, **replay_tally())
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    phase_10(card)
+    emit("phase_10", seconds=time.perf_counter() - t10)
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
     for line in PARTS_LINES:
@@ -5091,7 +5553,7 @@ def main() -> int:
     from yolo_tpu_torch.utils.capture import replayed_launches
 
     # what the CUDA graphs' replays ran, derived from the launches each
-    # recorded at its capture and held to a profiled replay of each graph
+    # recorded at its capture and held to each graph's kernel nodes
     # (check_replays); ``launches`` counts only the wrappers' own
     replayed = replayed_launches()
     kernels = []

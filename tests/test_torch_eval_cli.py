@@ -4,8 +4,8 @@ fused, so no BN fold is involved) scores the JAX CLI's mAP and class APs
 on the same synthetic images, INT8 (``-q``) and float; ``cli.eval -q``
 for tiny_yolo_v3 and yolo_v2; ``cli.test`` and ``cli.demo`` write their
 jpgs (``vis`` draws the JAX CLI's pixels); ``cli.kmeans`` finds the JAX
-CLI's anchors; ``build_dataset(train=True)`` and the default ``--device
-cuda`` raise here.
+CLI's anchors; ``build_dataset`` equal to the JAX CLI's for evaluation
+and training; the default ``--device cuda`` raises here.
 
 Tolerances: INT8 mAP and class APs within 1e-9 (the heads are
 bit-exact, so the detections' order and matches are the JAX package's);
@@ -124,8 +124,15 @@ def test_build_dataset_matches_jax_and_refuses_training(tmp_path):
     for i in (0, 31):
         for a, b in zip(ours.pull_item(i), theirs.pull_item(i)):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="SSDAugmentation"):
-        common.build_dataset(args, cfg)
+    # the training dataset (SSDAugmentation, seed 0) equals the JAX
+    # CLI's item for item
+    ours = common.build_dataset(args, cfg)
+    theirs = jcommon.build_dataset(jeval.parse_args(
+        ["-d", "synthetic", "--input_size", "32", "32"]), cfg)
+    assert (len(ours), ours.seed) == (len(theirs), theirs.seed) == (128, 0)
+    for i in range(len(ours)):
+        for a, b in zip(ours.pull_item(i), theirs.pull_item(i)):
+            np.testing.assert_array_equal(a, b)
     args.dataset = "nope"
     with pytest.raises(ValueError, match="unknown dataset"):
         common.build_dataset(args, cfg, train=False)

@@ -26,8 +26,9 @@ print(" ".join(names))
 """
 
 # the modules of the serving entry point's last slice (the checkpoint
-# reader and its codec, the CUDA-graph capture, the artifact format) and
-# of the evaluation path (datasets, COCO API, evaluators, their CLIs)
+# reader and its codec, the CUDA-graph capture, the artifact format), of
+# the evaluation path (datasets, COCO API, evaluators, their CLIs) and of
+# one training batch (the loader, targets, loss, the trainer's loss_fn)
 NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.utils.msgpack_codec",
                "yolo_tpu_torch.utils.capture", "yolo_tpu_torch.utils.device",
@@ -37,7 +38,10 @@ NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.eval", "yolo_tpu_torch.eval.voc_eval",
                "yolo_tpu_torch.eval.coco_eval", "yolo_tpu_torch.cli.eval",
                "yolo_tpu_torch.cli.test", "yolo_tpu_torch.cli.demo",
-               "yolo_tpu_torch.cli.kmeans")
+               "yolo_tpu_torch.cli.kmeans",
+               "yolo_tpu_torch.data.loader", "yolo_tpu_torch.train",
+               "yolo_tpu_torch.train.targets", "yolo_tpu_torch.train.loss",
+               "yolo_tpu_torch.train.trainer")
 
 
 def test_package_imports_without_jax_or_yolo_tpu():
@@ -48,8 +52,9 @@ def test_package_imports_without_jax_or_yolo_tpu():
     # 35: the serving entry point's packages (cli, data, serving, utils)
     # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp);
     # 40 with the checkpoint reader, its codec, capture, device and export;
-    # 54 with the evaluation path's eleven (43 before it)
-    assert int(count) >= 54
+    # 54 with the evaluation path's eleven (43 before it); 59 with the
+    # training batch's five
+    assert int(count) >= 59
     assert set(NEW_MODULES) <= set(names.split())
 
 

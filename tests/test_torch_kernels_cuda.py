@@ -2485,3 +2485,82 @@ def test_cuda_eval_cli_int8_equals_the_cpu(cuda, monkeypatch, capsys):
             n += len(a)
     assert n > 0
     assert capsys.readouterr().out.count("Mean AP") == 2
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k], f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}.{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.cuda
+def test_cuda_training_batch_equals_the_cpu(cuda):
+    """One training batch of slim_yolo_v2 at 416² on the card (four
+    synthetic-hard images through ``SSDAugmentation`` in uint8 and
+    ``BatchLoader``, ``build_targets``, ``loss_fn``, ``backward()``)
+    equals the CPU route in float64 on the same images (the card's
+    normalized floats) and seeded weights (float32 sums over a 416²
+    batch round off by ~1e-3 of a leaf's largest value on the CPU), the
+    CPU's forward taking the card's branches (``blocks.branch_context``:
+    each leaky's sign, each pool's argmax; float32 rounding breaks
+    near-ties and exact ties apart on two devices, and a branch taken
+    otherwise moves the gradients by far more than rounding). Every
+    branch the CPU would take otherwise lies within 1e-4 of the layer's
+    largest |x|; the loss components within rtol 1e-4; every gradient
+    leaf finite, not all zero, its max abs error within 1e-3 of its
+    largest |g|; the new BN running stats within rtol 1e-4, atol 1e-5."""
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.data import (BatchLoader, SSDAugmentation,
+                                     SyntheticDetection)
+    from yolo_tpu_torch.detector import normalize_u8
+    from yolo_tpu_torch.models.slim_yolo_v2 import SlimYOLOv2
+    from yolo_tpu_torch.ops import blocks
+    from yolo_tpu_torch.quant.convert import module_to_params
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, loss_fn
+
+    size = (416, 416)
+    cfg = get_config("slim_yolo_v2", "mask", input_size=size)
+    ds = SyntheticDetection(size=size, length=4, hard=True, transform=(
+        SSDAugmentation(size, seed=0, normalize=False)))
+    images, targets = next(iter(BatchLoader(ds, 4, num_workers=2,
+                                            workers="thread")))
+    gt = build_targets(cfg, targets)
+    x = torch.as_tensor(images).to(cuda)
+    runs, choices = [], None
+    for dev, dtype, inputs in ((cuda, torch.float32, x),
+                               ("cpu", torch.float64,
+                                normalize_u8(x).cpu().double())):
+        model = SlimYOLOv2(35, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        with blocks.branch_context(choices) as branches:
+            total, parts = loss_fn(model.to(dtype), cfg, TrainConfig(),
+                                   inputs, gt)
+        total.backward()
+        choices = branches.choices
+        runs.append(({k: v.item() for k, v in parts.items()},
+                     list(_leaves(module_to_params(model, grads=True))),
+                     list(_leaves(module_to_params(model)))))
+    for kind, n, margin, scale in branches.flips:
+        assert margin <= 1e-4 * scale, (kind, n, margin, scale)
+    (loss, grads, stats), (loss_cpu, grads_cpu, stats_cpu) = runs
+    for k, want in loss_cpu.items():
+        assert np.isfinite(loss[k])
+        np.testing.assert_allclose(loss[k], want, rtol=1e-4)
+    nonzero = 0
+    for (path, want), (_, got) in zip(grads_cpu, grads):
+        assert np.isfinite(got).all(), path
+        scale = np.abs(want).max()
+        if scale > 0:
+            nonzero += 1
+            err = np.abs(got - want).max()
+            assert err <= 1e-3 * scale, (path, err / scale)
+    assert nonzero == 9 * 3 + 2  # 9 convs' w, gamma, beta; pred's w, b
+    for (path, want), (_, got) in zip(stats_cpu, stats):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                   err_msg=path)

@@ -1,7 +1,7 @@
 """Shared CLI plumbing (counterpart of ``yolo_tpu/cli/common.py``:
-``add_common_args``, ``build_cfg`` and the evaluation half of
-``build_dataset``; and of ``load_params`` in ``yolo_tpu/cli/eval.py``,
-which every port CLI shares from here)."""
+``add_common_args``, ``build_cfg`` and ``build_dataset``; and of
+``load_params`` in ``yolo_tpu/cli/eval.py``, which every port CLI shares
+from here)."""
 
 from __future__ import annotations
 
@@ -38,39 +38,44 @@ def build_cfg(args):
                       hr=args.high_resolution, **kwargs)
 
 
-def build_dataset(args, cfg, train: bool = True):
-    """The evaluation dataset of ``args.dataset`` at ``cfg.input_size``
-    through ``BaseTransform`` (the JAX CLI's dispatch): synthetic (32
-    images, seed 1, ``cfg.num_classes``), voc (VOC2007 test), mask (its
-    test split) or coco (val2017), the last three under
-    ``args.dataset_root``. ``train=True`` raises: the training transform
-    (``SSDAugmentation``) is not ported yet (ROADMAP.md Queue 1 item 7)."""
+def build_dataset(args, cfg, train: bool = True, seed: int = 0,
+                  u8: bool = False):
+    """The dataset of ``args.dataset`` at ``cfg.input_size`` (the JAX
+    CLI's dispatch, reference train.py:108-157). Training
+    (``SSDAugmentation`` seeded with ``seed``; ``u8`` keeps its images
+    raw uint8, normalized on the card by ``detector.normalize_u8``):
+    synthetic (128 images, seed 0), voc (VOC2007 and VOC2012 trainval),
+    mask (its train split) or coco (train2017). Evaluation
+    (``BaseTransform``): synthetic (32 images, seed 1), voc (VOC2007
+    test), mask (its test split) or coco (val2017). Every set but
+    synthetic lies under ``args.dataset_root``."""
     from yolo_tpu_torch.data.synthetic import SyntheticDetection
-    from yolo_tpu_torch.data.transforms import BaseTransform
+    from yolo_tpu_torch.data.transforms import BaseTransform, SSDAugmentation
     from yolo_tpu_torch.data.voc import VOC_CLASSES, VOCDetection
 
-    if train:
-        raise NotImplementedError(
-            "training datasets need SSDAugmentation, which the port does "
-            "not have yet (ROADMAP.md Queue 1 item 7); pass train=False "
-            "for the evaluation transform")
     size = cfg.input_size
-    transform = BaseTransform(size)
+    transform = (SSDAugmentation(size, seed=seed, normalize=not u8)
+                 if train else BaseTransform(size))
     if args.dataset == "synthetic":
         return SyntheticDetection(size=size, num_classes=cfg.num_classes,
-                                  transform=transform, length=32, seed=1)
+                                  transform=transform,
+                                  length=128 if train else 32,
+                                  seed=0 if train else 1)
     if args.dataset == "voc":
-        return VOCDetection(args.dataset_root,
-                            image_sets=(("2007", "test"),),
+        sets = ((("2007", "trainval"), ("2012", "trainval")) if train
+                else (("2007", "test"),))
+        return VOCDetection(args.dataset_root, image_sets=sets,
                             classes=VOC_CLASSES, transform=transform)
     if args.dataset == "mask":
-        return VOCDetection.mask(args.dataset_root, "test",
+        return VOCDetection.mask(args.dataset_root,
+                                 "train" if train else "test",
                                  transform=transform)
     if args.dataset == "coco":
         from yolo_tpu_torch.data.coco import COCODataset
+        split = "train2017" if train else "val2017"
         return COCODataset(args.dataset_root,
-                           json_file="instances_val2017.json",
-                           name="val2017", transform=transform)
+                           json_file=f"instances_{split}.json",
+                           name=split, transform=transform)
     raise ValueError(f"unknown dataset {args.dataset!r}")
 
 

@@ -1,8 +1,9 @@
 """The float detector (counterpart of ``yolo_tpu/detector.py``):
 ``normalize_u8``, the tail of ``predict`` that turns per-scale head
-outputs into boxes and class probabilities, and ``Detector`` /
-``build_detector``, which wire a version's float model and a config into
-detect and predict entry points.
+outputs into boxes and class probabilities, ``train_outputs`` (the
+training forward), and ``Detector`` / ``build_detector``, which wire a
+version's float model and a config into detect and predict entry
+points.
 
 The pieces compose per call: images -> model -> split -> decode ->
 softmax * sigmoid -> greedy NMS, all on the model's device; on CUDA the
@@ -85,6 +86,24 @@ def predict(outs: Sequence[torch.Tensor], cfg: DetectorConfig):
     boxes = torch.clamp(boxes, 0.0, 1.0)
     probs = torch.softmax(cls, dim=-1) * torch.sigmoid(conf)
     return boxes, probs
+
+
+def train_outputs(model, x: torch.Tensor, cfg: DetectorConfig):
+    """The training forward: ``model`` on NHWC ``x`` inside
+    ``blocks.train_context`` (its BN running stats move in place) ->
+    (conf [B, N, 1], cls [B, N, C], txtytwth [B, N, 4], boxes_norm
+    [B, N, 4]), N in the JAX package's order (each scale's NHWC grid
+    flattened, scales in STRIDES order). ``boxes_norm`` is the decoded
+    box over the input size, detached: the IoU objectness target's input
+    (reference models/slim_yolo_v2.py:601-612)."""
+    with blocks.train_context():
+        outs = model(x)
+    conf, cls, txts = head_outputs(outs, cfg)
+    h, w = cfg.input_size
+    scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=x.device)
+    boxes_norm = (decode_all_boxes(txts, cfg) / scale).detach()
+    txt_flat = torch.cat([t.reshape(t.shape[0], -1, 4) for t in txts], dim=1)
+    return conf, cls, txt_flat, boxes_norm
 
 
 class Detector:

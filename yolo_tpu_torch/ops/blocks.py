@@ -11,8 +11,11 @@ package's does, in the same call order: after each conv block's
 activation, with a ``pre`` hook on the pre-activation value; on each
 residual sum; and before (``pre``) and after each prediction head.
 
-Not ported here: train-mode BN and the s2d pooled-conv form
-(``conv_block_pool_s2d``, ``fast_pool_context``).
+BN runs from the running stats unless a ``train_context`` is active
+(the JAX package's ``train=True``): then from the batch's statistics,
+with the running stats updated in place. A ``branch_context`` records a
+forward's leaky signs and pool argmaxes, or imposes recorded ones. Not ported here: the s2d
+pooled-conv form (``conv_block_pool_s2d``, ``fast_pool_context``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ MODEL_LEAKY_SLOPE = 0.125
 BACKBONE_LEAKY_SLOPE = 0.1
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
 
 
 def flatten_grid(pred: torch.Tensor) -> torch.Tensor:
@@ -119,14 +123,44 @@ def fp32_precision():
 
 
 def leaky_relu(x: torch.Tensor, slope: float = MODEL_LEAKY_SLOPE):
+    if _BRANCHES is not None:
+        return torch.where(_BRANCHES.leaky(x), x, x * slope)
     return torch.where(x >= 0, x, x * slope)
+
+
+class _Conv2dFP32(torch.autograd.Function):
+    """F.conv2d whose backward (the input and weight gradients, cuDNN's
+    dgrad and wgrad on the card) also runs with TF32 off, as the JAX
+    package's 'highest' precision covers the backward too: autograd runs
+    a backward outside any context the forward was called in, and cuDNN
+    allows TF32 by default."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        with fp32_precision():
+            return F.conv2d(x, w, None, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with fp32_precision():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, w, grad,
+                                                ctx.stride, ctx.padding)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, w.shape, grad,
+                                                 ctx.stride, ctx.padding)
+        return gx, gw, None, None
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """Plain 2D conv, NCHW x OIHW -> NCHW, in true float32."""
-    with fp32_precision():
-        out = F.conv2d(x, w, None, stride=stride, padding=padding)
+    """Plain 2D conv, NCHW x OIHW -> NCHW, in true float32 (its backward
+    too)."""
+    out = _Conv2dFP32.apply(x, w, stride, padding)
     if b is not None:
         out = out + b.reshape(1, -1, 1, 1)
     return out
@@ -144,9 +178,34 @@ def batch_norm_inference(x: torch.Tensor, bn: nn.BatchNorm2d):
     return x * scale.reshape(1, -1, 1, 1) + offset.reshape(1, -1, 1, 1)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BN on NCHW over (N, H, W), in float32 (float64 input in
+    float64): normalize with the batch's biased variance (1/sqrt in IEEE
+    arithmetic), and move ``bn``'s running stats in place (no autograd)
+    as torch's BatchNorm2d does: an EMA with momentum 0.1 on the new
+    value, the variance unbiased by n / max(n - 1, 1). The JAX package's
+    algebra; torch's own train-mode BN refuses n = 1, where this divides
+    by 1."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    inv = torch.ones_like(var) / torch.sqrt(var + _BN_EPS)
+    y = ((xf - mean.reshape(1, -1, 1, 1)) * inv.reshape(1, -1, 1, 1)
+         * bn.weight.reshape(1, -1, 1, 1) + bn.bias.reshape(1, -1, 1, 1))
+    with torch.no_grad():
+        unbiased_var = var * (n / max(n - 1, 1))
+        bn.running_mean.copy_((1 - _BN_MOMENTUM) * bn.running_mean
+                              + _BN_MOMENTUM * mean)
+        bn.running_var.copy_((1 - _BN_MOMENTUM) * bn.running_var
+                             + _BN_MOMENTUM * unbiased_var)
+    return y.to(x.dtype)
+
+
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
              padding: int = 0) -> torch.Tensor:
     """Max pool, NCHW (floor mode, -inf padding)."""
+    if _BRANCHES is not None:
+        return _BRANCHES.pool(x, window, stride, padding)
     return F.max_pool2d(x, window, stride, padding)
 
 
@@ -210,6 +269,106 @@ class quantization_context:
         return False
 
 
+# Whether BN runs in train mode (see train_context), read at call time.
+_TRAIN = False
+
+
+class train_context:
+    """``with train_context(): model(x)`` — every BN of the forward runs in
+    train mode (``batch_norm_train``: batch statistics, the running stats
+    updated in place), as the JAX package's ``forward(..., train=True)``.
+    Outside it BN runs from the running stats whatever the modules'
+    ``training`` flags (an ``nn.Module`` starts in training mode, so
+    keying on the flag would move every serving and calibration
+    forward)."""
+
+    def __enter__(self):
+        global _TRAIN
+        self._prev = _TRAIN
+        _TRAIN = True
+        return self
+
+    def __exit__(self, *exc):
+        global _TRAIN
+        _TRAIN = self._prev
+        return False
+
+
+# The active branch_context, read at call time.
+_BRANCHES = None
+
+
+class branch_context:
+    """``with branch_context() as b: model(x)`` records the forward's
+    discrete choices in ``b.choices``, in call order: each ``leaky_relu``'s
+    sign mask and each ``max_pool``'s argmax. ``with
+    branch_context(choices) as b: ...`` makes the same forward, on any
+    device, take those choices in place of its own (the pool as a gather
+    at the given argmax), and lists in ``b.flips`` one ("leaky" or
+    "pool", elements where its own choice differs, the largest margin
+    over them, the layer's largest |x|) a choice: the margin is |x| at a
+    leaky, the window's own maximum less the element taken at a pool.
+
+    Two devices' float32 forwards round differently. Where a value lies
+    within that rounding of a leaky's zero, or of a pool window's
+    runner-up (flat image regions give exact ties), they branch apart,
+    and their gradients part by far more than rounding. A tight
+    comparison of one device's gradients with another's takes one
+    device's branches on both and holds the flips' margins to
+    rounding."""
+
+    def __init__(self, choices=None):
+        self.imposed = choices
+        self.choices, self.flips = [], []
+
+    def __enter__(self):
+        global _BRANCHES
+        self._prev, _BRANCHES = _BRANCHES, self
+        return self
+
+    def __exit__(self, *exc):
+        global _BRANCHES
+        _BRANCHES = self._prev
+        return False
+
+    def _take(self, kind, own, margin_of, v):
+        if self.imposed is None:
+            self.choices.append(own)
+            return own
+        taken = self.imposed[len(self.choices)].to(own.device)
+        if taken.shape != own.shape:
+            raise ValueError(f"choice {len(self.choices)}: imposed "
+                             f"{tuple(taken.shape)}, the forward's "
+                             f"{tuple(own.shape)}")
+        self.choices.append(taken)
+        differ = taken != own
+        n = int(differ.sum())
+        self.flips.append((kind, n, float(margin_of(taken)[differ].max())
+                           if n else 0.0, float(v.abs().max())))
+        return taken
+
+    def leaky(self, x):
+        """The sign mask a leaky_relu of ``x`` takes."""
+        v = x.detach()
+        return self._take("leaky", v >= 0, lambda taken: v.abs(), v)
+
+    def pool(self, x, window, stride, padding):
+        out, own = F.max_pool2d(x, window, stride, padding,
+                                return_indices=True)
+
+        def at(idx):  # x at each window's index idx (flat over H x W)
+            return x.flatten(2).gather(2, idx.flatten(2)).view_as(out)
+
+        v = x.detach()
+        idx = self._take("pool", own,
+                         lambda taken: out.detach() - at(taken).detach(), v)
+        if idx is own:
+            return out
+        # in out's memory layout (channels-last after a CPU conv), which
+        # the next conv's summation order follows
+        return torch.empty_like(out).copy_(at(idx))
+
+
 def _pre(y):
     if _QUANT_TAP is not None and hasattr(_QUANT_TAP, "pre"):
         _QUANT_TAP.pre(y)
@@ -235,8 +394,9 @@ class Conv(nn.Module):
     followed by an inference BN (``batch_norm=True``, its conv unbiased).
     Its parameters are those of ``nn.Conv2d`` (OIHW) and
     ``nn.BatchNorm2d``; BN runs from the running stats whatever the
-    module's training flag. Built on ``device`` (raises where it names
-    CUDA and there is none)."""
+    module's training flag, from the batch's inside a ``train_context``.
+    Built on ``device`` (raises where it names CUDA and there is
+    none)."""
 
     def __init__(self, ksize: int, c_in: int, c_out: int, stride: int = 1,
                  padding: int = 0, batch_norm: bool = False,
@@ -252,10 +412,15 @@ class Conv(nn.Module):
             else None
 
     def linear(self, x: torch.Tensor) -> torch.Tensor:
-        """The conv and, where there is one, the BN."""
+        """The conv and, where there is one, the BN (train mode inside a
+        ``train_context``)."""
         y = conv2d(x, self.conv.weight, self.conv.bias, self.stride,
                    self.padding)
-        return y if self.bn is None else batch_norm_inference(y, self.bn)
+        if self.bn is None:
+            return y
+        if _TRAIN:
+            return batch_norm_train(y, self.bn)
+        return batch_norm_inference(y, self.bn)
 
 
 class ConvBlock(Conv):

@@ -514,25 +514,36 @@ _BN_KEYS = (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
             ("var", "running_var"))
 
 
-def module_to_params(model: nn.Module):
+def module_to_params(model: nn.Module, grads: bool = False):
     """The model's parameters as the JAX package's tree: a ``blocks.Conv``
     is {'w': HWIO[, 'b'][, 'bn': {'gamma', 'beta', 'mean', 'var'}]}, a
     ModuleList a list, any other module a dict of its children; float32
-    numpy arrays."""
-    def arr(t):
-        return t.detach().to(torch.float32).cpu().numpy()
+    numpy arrays. With ``grads``: the same tree of the parameters'
+    ``.grad`` (zeros where there is none), and zeros for the BN running
+    stats, which no loss reads: ``jax.grad``'s tree of a loss over the
+    params."""
+    def arr(t):  # a copy: a CPU tensor's .numpy() shares its memory
+        return t.detach().to(torch.float32).cpu().numpy().copy()
+
+    def leaf(t):
+        if not grads:
+            return arr(t)
+        if not isinstance(t, nn.Parameter) or t.grad is None:
+            return np.zeros(tuple(t.shape), np.float32)
+        return arr(t.grad)
 
     if isinstance(model, Conv):
-        out = {"w": np.ascontiguousarray(arr(model.conv.weight)
+        out = {"w": np.ascontiguousarray(leaf(model.conv.weight)
                                          .transpose(2, 3, 1, 0))}
         if model.conv.bias is not None:
-            out["b"] = arr(model.conv.bias)
+            out["b"] = leaf(model.conv.bias)
         if model.bn is not None:
-            out["bn"] = {k: arr(getattr(model.bn, a)) for k, a in _BN_KEYS}
+            out["bn"] = {k: leaf(getattr(model.bn, a)) for k, a in _BN_KEYS}
         return out
     if isinstance(model, nn.ModuleList):
-        return [module_to_params(m) for m in model]
-    return {name: module_to_params(m) for name, m in model.named_children()}
+        return [module_to_params(m, grads) for m in model]
+    return {name: module_to_params(m, grads)
+            for name, m in model.named_children()}
 
 
 def load_params(model: nn.Module, params) -> nn.Module:

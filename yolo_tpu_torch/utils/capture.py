@@ -7,7 +7,8 @@ first call with a given (shape, dtype):
 1. runs ``fn`` twice eagerly on a side stream, so that everything built
    lazily (the kernel library, packs, shift tables, decode grids) exists;
 2. captures one ``torch.cuda.CUDAGraph`` of ``fn`` from a static input
-   buffer: the backbone's kernels, decode and NMS;
+   buffer: the backbone's kernels, decode and NMS; the captured graph is
+   kept beside its instantiation, so that its nodes can be listed;
 3. replays that graph on this and every later call: the input is copied
    into the static buffer, the outputs are cloned out of the graph's.
 
@@ -88,7 +89,8 @@ class CapturedFn:
                 self.fn(static)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = kernels.entry_counts()
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: ``graph.raw_cuda_graph()`` lists what a replay runs
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             # thread_local: a serving loop's prefetch thread may stage
             # the next batch meanwhile
@@ -97,6 +99,7 @@ class CapturedFn:
             after = kernels.entry_counts()
         finally:  # the capture ran nothing
             kernels.restore_entry_counts(before)
+        graph.instantiate()
         recorded = {k: n - before.get(k, 0) for k, n in after.items()
                     if n != before.get(k, 0)}
         return _Graph(graph, static, outputs, recorded)

@@ -1,7 +1,6 @@
 """ctypes bindings for the native C++ host preprocessing
-(``native/preprocess.cpp``; counterpart of ``yolo_tpu/utils/native.py``'s
-``load``, ``available`` and ``preprocess_batch``; the augmentation binding
-waits for training).
+(``native/preprocess.cpp``) and train-time augmentation
+(``native/augment.cpp``); counterpart of ``yolo_tpu/utils/native.py``.
 
 The library is built on first use by ``native/Makefile`` (g++; importing
 this module builds nothing), as ``native/libyolo_tpu_torch_native.so``:
@@ -17,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +31,7 @@ _LIB_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
 _ABI_VERSION = 4
 
 _lib = None
+_LOAD_LOCK = threading.Lock()
 
 
 def _build() -> bool:
@@ -55,10 +56,20 @@ def _open() -> Optional[ctypes.CDLL]:
 
 def load() -> Optional[ctypes.CDLL]:
     """The native library (built if needed, rebuilt once if older than
-    ``_ABI_VERSION``), or None."""
+    ``_ABI_VERSION``), or None. Thread-safe: the first calls from a
+    loader's worker threads wait for one build (concurrent builds would
+    share one temporary file, and a thread that saw none would fall back
+    to numpy pixels while the others ran native ones)."""
     global _lib
     if _lib is not None:
         return _lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            _lib = _load_locked()
+    return _lib
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
     if not os.path.exists(_LIB_PATH) and not _build():
         return None
     lib = _open()
@@ -83,8 +94,24 @@ def load() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p,                                  # out i8 (s2d)
         ctypes.c_float,                                   # act_scale
     ]
-    _lib = lib
-    return _lib
+    lib.yolo_tpu_augment_one.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # src, h, w
+        ctypes.c_int, ctypes.c_float,                     # bright
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,       # contrast
+        ctypes.c_int, ctypes.c_float,                     # sat
+        ctypes.c_int, ctypes.c_float,                     # hue
+        ctypes.c_int, ctypes.c_int,                       # eh, ew
+        ctypes.c_int, ctypes.c_int,                       # top, left
+        ctypes.c_int, ctypes.c_int,                       # cx0, cy0
+        ctypes.c_int, ctypes.c_int,                       # cx1, cy1
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,         # mirror, oh, ow
+        ctypes.POINTER(ctypes.c_float),                   # mean
+        ctypes.POINTER(ctypes.c_float),                   # std
+        ctypes.c_int, ctypes.c_int,                       # to_rgb, u8_out
+        ctypes.c_void_p, ctypes.c_void_p,                 # out f32 / u8
+    ]
+    lib.yolo_tpu_augment_one.restype = None
+    return lib
 
 
 def available() -> bool:
@@ -145,4 +172,44 @@ def preprocess_batch(frames: List[np.ndarray], size: Tuple[int, int],
     else:
         lib.yolo_tpu_preprocess_batch(*frame_args, None, out_p,
                                       float(int8_scale))
+    return out
+
+
+def augment_one(image_u8: np.ndarray, pp: dict, ep, rect, mirror: bool,
+                size, mean, std, rgb: bool = True,
+                u8_out: bool = False) -> np.ndarray:
+    """The SSD augmentation's pixel work in one native pass
+    (``native/augment.cpp``, ``yolo_tpu_augment_one``): photometric ->
+    expand -> crop -> mirror -> bilinear resize -> normalize (or round to
+    uint8), no intermediate canvas. ``pp`` / ``ep`` / ``rect`` come from
+    ``data.transforms``' ``draw_*`` helpers (every random draw stays in
+    numpy). Returns float32 normalized [oh, ow, 3], or uint8 with
+    ``u8_out``."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    image_u8 = np.ascontiguousarray(image_u8, dtype=np.uint8)
+    if image_u8.ndim != 3 or image_u8.shape[2] != 3:
+        raise ValueError(f"image must be [H, W, 3] BGR, got "
+                         f"{image_u8.shape}")
+    h, w = image_u8.shape[:2]
+    eh, ew, top, left = (h, w, 0, 0) if ep is None else ep
+    cx0, cy0, cx1, cy1 = (0, 0, ew, eh) if rect is None else \
+        (int(rect[0]), int(rect[1]), int(rect[2]), int(rect[3]))
+    oh, ow = size
+    mean_c = (ctypes.c_float * 3)(*np.asarray(mean, np.float32))
+    std_c = (ctypes.c_float * 3)(*np.asarray(std, np.float32))
+    contrast = pp.get("contrast")
+    out = np.empty((oh, ow, 3), np.uint8 if u8_out else np.float32)
+    out_p = out.ctypes.data_as(ctypes.c_void_p)
+    lib.yolo_tpu_augment_one(
+        image_u8.ctypes.data_as(ctypes.c_void_p), h, w,
+        int(pp["bright"] is not None), float(pp["bright"] or 0.0),
+        int(pp["contrast_first"]),
+        int(contrast is not None), float(contrast or 0.0),
+        int(pp["sat"] is not None), float(pp["sat"] or 0.0),
+        int(pp["hue"] is not None), float(pp["hue"] or 0.0),
+        eh, ew, top, left, cx0, cy0, cx1, cy1,
+        int(mirror), oh, ow, mean_c, std_c, int(rgb), int(u8_out),
+        None if u8_out else out_p, out_p if u8_out else None)
     return out
