@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive yolo_tpu_torch's serving and evaluation paths and one training
-batch on one CUDA card and check them.
+"""Drive yolo_tpu_torch's serving, evaluation and training paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -315,6 +315,27 @@ printing JSON lines; any failure raises and the script exits nonzero:
    float32 rounding alone gives, ``check_gradients``), then fwd +
    bwd timed at batch 32 / 16 with a ``torch.profiler`` breakdown and,
    as a yardstick, with cuDNN's TF32 in the conv backward.
+11. the trainer (``train.trainer.make_train_step``: SGD with coupled
+   weight decay over the whole tree, the BN running stats included; no
+   kernel of the port inside the step): 11a one step of slim_yolo_v2 at
+   416², batch 8, held to the same step in float64 on the CPU on the
+   card's branches (every parameter, running stat and momentum-trace
+   leaf within GRAD_BOUND of its largest value), and the step with bf16
+   compute against it (reported); 11b ms a step, images/sec and peak
+   memory at full width: slim at batch 32 in float32, bf16, remat and
+   fast_pool_cin=32, yolo_v3 at 16 in float32 and remat; 11c the JAX
+   package's mAP guard (``tests/test_map_guard.py``) on the port: slim
+   at 64² trained from its seeded init by ``train_device_resident`` (64
+   easy synthetic images, batch 16, 150 epochs) with torch's
+   deterministic algorithms, twice (the two states must be equal), fp32
+   and BN-folded mAP
+   on 32 images (seed 99), the port's PTQ uncapped and with head_clip 16,
+   each INT8 model scored through ``make_int8_detect_fn`` on the s2d
+   input (K2, K3, K1: launches checked, replays held to their graphs),
+   the guard's four assertions; 11d those INT8 models on the CPU route
+   (the plain versions) on the same images: detections and mAP equal;
+   11e ``cli.train`` on its default device: two multi-scale epochs with
+   the mAP after each, a checkpoint, a third epoch resumed from it.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -334,7 +355,7 @@ the shapes no wgmma route takes). The
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's, 7's, 8's and 9's runs, their wrappers' own launches (the eager calls,
+6's, 7's, 8's, 9's and 11c's runs, their wrappers' own launches (the eager calls,
 a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
 graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
 its serving shape (8a). The two-part form's entries time tiny's conv_set_1
@@ -5310,6 +5331,449 @@ def phase_10(card):
         cudnn.benchmark = search
 
 
+# 11a: slim at 416², the check batch; 11b: (version, batch, the forms
+# timed); 11c: the guard recipe (tests/test_map_guard.py)
+STEP_CHECK_B = 8
+STEP_TIMES = (("slim_yolo_v2", 32, ("float32", "bf16", "remat",
+                                    "fast_pool")),
+              ("yolo_v3", 16, ("float32", "remat")))
+STEP_FORMS = {"float32": {}, "bf16": {"compute_dtype": "bfloat16"},
+              "remat": {"remat": True}, "fast_pool": {"fast_pool_cin": 32}}
+GUARD_SIZE, GUARD_TRAIN, GUARD_BATCH, GUARD_EPOCHS = 64, 64, 16, 150
+GUARD_VAL, GUARD_VAL_SEED, GUARD_HEAD_CLIP = 32, 99, 16.0
+# the JAX package's guard (tests/test_map_guard.py:106-135): fp32 mAP
+# above, the BN fold within, capped INT8 above fp32 less, capped above
+# uncapped by
+GUARD_FP32_MIN, GUARD_FOLD_TOL, GUARD_INT8_DROP, GUARD_CAP_GAIN = (
+    0.30, 1e-9, 0.12, 0.05)
+CLI_BATCH = 16  # 11e
+
+
+def opt_leaves(model, state):
+    """{path: float64 numpy} of a model's tree after a step (parameters
+    and BN running stats) and of its optimizer's momentum trace."""
+    from yolo_tpu_torch.quant.convert import module_to_params
+
+    out = {f"params.{k}": np.asarray(v, np.float64)
+           for k, v in tree_leaves(module_to_params(model))}
+    trace = state.state_dict()["inner_state"]["1"]["0"]["trace"]
+    out.update((f"trace.{k}", np.asarray(v, np.float64))
+               for k, v in tree_leaves(trace))
+    return out
+
+
+def leaf_errors(got, want):
+    """[(max abs error / the leaf's largest |value|, path)] over the
+    leaves with a nonzero value; raises where one is not finite."""
+    out = []
+    for path, w in want.items():
+        g = got[path]
+        if not np.isfinite(g).all():
+            raise AssertionError(f"{path} not finite")
+        scale = float(np.abs(w).max())
+        if scale:
+            out.append((float(np.abs(g - w).max()) / scale, path))
+    return out
+
+
+def step_batch(n):
+    """``n`` synthetic-hard 416² training images (uint8, SSDAugmentation)
+    and their label lists."""
+    ds = train_dataset()
+    items = [ds.pull_item(i) for i in range(n)]
+    return (np.stack([img for img, _, _, _ in items]),
+            [np.asarray(t, np.float32).reshape(-1, 5) for _, t, _, _ in items])
+
+
+def phase_step_check(card, images, targets):
+    """11a: one ``make_train_step`` step of slim_yolo_v2 at 416², batch 8,
+    on the card, held to the same step in float64 on the CPU on the
+    card's normalized images and branches (``blocks.branch_context``):
+    every parameter, running stat and momentum-trace leaf within
+    GRAD_BOUND of its largest value; then the step with bf16 compute,
+    its leaves against the float32 step's (reported only)."""
+    from yolo_tpu_torch.detector import normalize_u8
+    from yolo_tpu_torch.ops import blocks
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    version, lr = "slim_yolo_v2", 1e-3
+    t0 = time.perf_counter()
+    x = torch.as_tensor(images[:STEP_CHECK_B]).cuda()
+    runs = {}
+    for form in ("float32", "bf16"):
+        cfg, model = train_model(version, "cuda")
+        gt = build_targets(cfg, targets[:STEP_CHECK_B])
+        opt, step = make_train_step(model, cfg,
+                                    TrainConfig(**STEP_FORMS[form]))
+        state = opt.init(model)
+        with blocks.branch_context() as b:
+            metrics = step(state, x, gt, lr)
+        runs[form] = (opt_leaves(model, state),
+                      {k: v.item() for k, v in metrics.items()}, b.choices)
+    t1 = time.perf_counter()
+    cfg, cpu_model = train_model(version, "cpu")
+    cpu_model.double()
+    opt, step = make_train_step(cpu_model, cfg, TrainConfig())
+    state = opt.init(cpu_model)
+    with blocks.branch_context(runs["float32"][2]) as b:
+        cpu_metrics = step(state, normalize_u8(x).cpu().double(), gt, lr)
+    flips = check_flips(version, b.flips)
+    cpu = opt_leaves(cpu_model, state)
+    t2 = time.perf_counter()
+    card_leaves, card_metrics, _ = runs["float32"]
+    for k, v in cpu_metrics.items():
+        got = card_metrics[k]
+        if not (math.isfinite(got) and abs(got - v.item()) <= 1e-4 * abs(
+                v.item())):
+            raise AssertionError(f"11a {k}: card {got}, cpu {v.item()}")
+    errs = leaf_errors(card_leaves, cpu)
+    worst, path = max(errs)
+    if worst > GRAD_BOUND:
+        raise AssertionError(f"11a {path}: card-cpu max abs error {worst} "
+                             f"of the leaf's largest value > {GRAD_BOUND}")
+
+    def kind(p):
+        return ("trace" if p.startswith("trace") else
+                "stats" if p.endswith((".mean", ".var")) else "weights")
+
+    by_kind = {k: max(e for e, p in errs if kind(p) == k)
+               for k in ("weights", "stats", "trace")}
+    bf16 = leaf_errors(runs["bf16"][0], card_leaves)
+    emit("11a_step_check", version=version, batch=STEP_CHECK_B,
+         input=[SIZE, SIZE], lr=lr, leaves=len(cpu),
+         bound=GRAD_BOUND, worst=worst, worst_leaf=path,
+         worst_by_kind=by_kind,
+         median=statistics.median(e for e, _ in errs),
+         loss=card_metrics, loss_cpu={k: v.item()
+                                      for k, v in cpu_metrics.items()},
+         **flips,
+         bf16_vs_float32=dict(
+             worst=max(bf16)[0], worst_leaf=max(bf16)[1],
+             median=statistics.median(e for e, _ in bf16),
+             worst_by_kind={k: max(e for e, p in bf16 if kind(p) == k)
+                            for k in ("weights", "stats", "trace")},
+             loss=runs["bf16"][1]),
+         seconds={"card": t1 - t0, "cpu": t2 - t1}, card=card)
+
+
+def phase_step_times(card, images, targets):
+    """11b: ``make_train_step`` steps at full width, 416²: slim_yolo_v2 at
+    batch 32 in float32, bf16, remat and fast_pool_cin=32, yolo_v3 at
+    batch 16 in float32 and remat: ms a step (median of 5 after 2
+    warm-ups, CUDA events), images/sec, the card's peak memory."""
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    out = {}
+    for version, batch, forms in STEP_TIMES:
+        cfg, model = train_model(version, "cuda")
+        x = torch.as_tensor(images[:batch]).cuda()
+        gt = torch.as_tensor(build_targets(cfg, targets[:batch])).cuda()
+        for form in forms:
+            opt, step = make_train_step(model, cfg,
+                                        TrainConfig(**STEP_FORMS[form]))
+            state = opt.init(model)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: step(state, x, gt, 1e-4), 5)
+            out[f"{version}.{form}"] = dict(
+                batch=batch, ms_per_step=ms, images_per_s=1e3 * batch / ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model
+        torch.cuda.empty_cache()
+    emit("11b_step_times", input=[SIZE, SIZE], steps=out, card=card)
+
+
+def guard_data():
+    """The JAX package's guard data at 64²: the training set (64 easy
+    synthetic images), the validation evaluator (32 images, seed 99) and
+    two calibration batches of 16."""
+    from yolo_tpu_torch.data import BaseTransform, BatchLoader
+    from yolo_tpu_torch.data.synthetic import SyntheticDetection
+    from yolo_tpu_torch.eval import VOCEvaluator
+
+    size = (GUARD_SIZE, GUARD_SIZE)
+    train = SyntheticDetection(size, num_classes=2, length=GUARD_TRAIN,
+                               transform=BaseTransform(size))
+    val = SyntheticDetection(size, num_classes=2, length=GUARD_VAL,
+                             transform=BaseTransform(size),
+                             seed=GUARD_VAL_SEED)
+    calib = SyntheticDetection(size, num_classes=2, length=2 * GUARD_BATCH,
+                               transform=BaseTransform(size))
+    calib_batches = [imgs for imgs, _ in BatchLoader(
+        calib, GUARD_BATCH, shuffle=False, num_workers=0)]
+    return train, VOCEvaluator(val, 2, size, batch_size=GUARD_VAL), \
+        calib_batches
+
+
+class deterministic_algorithms:
+    """torch's deterministic algorithms, cuDNN's included, inside the
+    block (the flags as they were after it). The guard's 150 epochs are
+    chaotic: one sum taken in another order moves its fp32 mAP by ~0.1.
+    On an H100 cuDNN's default weight-gradient algorithms sum in an order
+    that varies from run to run, so each run of one seed is another draw
+    (``PERF.md`` §6, the trainer's findings); the JAX guard takes one
+    draw, as XLA on the CPU is deterministic, and this takes one too."""
+
+    def __enter__(self):
+        self.was = (torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled(),
+                    torch.backends.cudnn.deterministic)
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        return self
+
+    def __exit__(self, *exc):
+        on, warn_only, cudnn = self.was
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+        torch.backends.cudnn.deterministic = cudnn
+
+
+def state_digest(model) -> str:
+    """sha256 of ``model``'s state dict (parameters and BN stats), in
+    key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key, value in sorted(model.state_dict().items()):
+        h.update(key.encode())
+        h.update(value.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def guard_train(device, seed=0, deterministic=True):
+    """The guard's slim_yolo_v2 (mask config, 64², the port's init from
+    ``seed``) trained by ``train_device_resident``, under
+    ``deterministic_algorithms`` unless ``deterministic`` is false: 150
+    epochs of 64 images at batch 16, lr 1e-3, warmup 2, cos. -> (cfg,
+    model, seconds, last metrics)."""
+    import contextlib
+
+    from yolo_tpu_torch.config import get_config
+    from yolo_tpu_torch.quant.dispatch import init_float_model
+    from yolo_tpu_torch.train.trainer import (TrainConfig,
+                                              train_device_resident)
+
+    cfg = get_config("slim_yolo_v2", "mask",
+                     input_size=(GUARD_SIZE, GUARD_SIZE), conf_thresh=0.01)
+    model = init_float_model("slim_yolo_v2", cfg, device,
+                             generator=torch.Generator().manual_seed(seed))
+    train, _, _ = guard_data()
+    tc = TrainConfig(base_lr=1e-3, wp_epoch=2, cos=True,
+                     max_epoch=GUARD_EPOCHS)
+    t0 = time.perf_counter()
+    with (deterministic_algorithms() if deterministic
+          else contextlib.nullcontext()):
+        model, last = train_device_resident(model, cfg, tc, train,
+                                            GUARD_BATCH, verbose=False)
+        if model.conv1.conv.weight.is_cuda:
+            torch.cuda.synchronize()
+    return cfg, model, time.perf_counter() - t0, last
+
+
+def guard_scores(cfg, model, device):
+    """The guard's float stages on ``model``: the fp32 mAP and the
+    BN-folded model's; and the port's PTQ of it, uncapped and with
+    head_clip 16 on two calibration batches. -> ({stage: mAP}, {stage:
+    INT8 model}, the evaluator)."""
+    from yolo_tpu_torch.detector import Detector
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+    from yolo_tpu_torch.quant.convert import module_to_params, slim_from_params
+    from yolo_tpu_torch.quant.int8_graph import quantize_pipeline
+
+    _, ev, calib = guard_data()
+    maps = {"fp32": ev.evaluate(Detector(cfg, model=model,
+                                         device=device).detect_fn())}
+    fused = slim_from_params(fold_batch_norm(module_to_params(model)),
+                             device=device)
+    maps["bn_fold"] = ev.evaluate(Detector(cfg, model=fused, batch_norm=False,
+                                           device=device).detect_fn())
+    int8 = {stage: quantize_pipeline(model, cfg, calib, head_clip=clip)
+            for stage, clip in (("int8_uncapped", None),
+                                ("int8_capped", GUARD_HEAD_CLIP))}
+    return maps, int8, ev
+
+
+def same_detections(ev_a, ev_b, where) -> int:
+    """Two evaluators' detections of one pass (as 9a holds them): as many
+    per class and image, boxes and scores within 1e-5 (the decode's float
+    math on two devices). -> how many."""
+    n = 0
+    for cls_a, cls_b in zip(ev_a.raw[0], ev_b.raw[0]):
+        for a, b in zip(cls_a, cls_b):
+            if a.shape != b.shape:
+                raise AssertionError(f"{where}: {a.shape} detections on the "
+                                     f"card, {b.shape} on the CPU")
+            np.testing.assert_allclose(a[:, 4], b[:, 4], atol=1e-5,
+                                       rtol=1e-5)
+            np.testing.assert_allclose(
+                a[:, :4] / np.float32(GUARD_SIZE),
+                b[:, :4] / np.float32(GUARD_SIZE), atol=1e-5, rtol=1e-5)
+            n += len(a)
+    return n
+
+
+def s2d_detect(m, cfg, device):
+    """``make_int8_detect_fn`` on the s2d input, from normalized float
+    NHWC images (quantized at the model's input scale and laid out on the
+    device)."""
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+
+    detect = make_int8_detect_fn(m, cfg, input_s2d=True, device=device)
+    sa_in = int(m.sa["in"])
+
+    def run(images):
+        x = torch.as_tensor(images).to(device)
+        return detect(fp.s2d_input(fp.quantize_input(x, sa_in)))
+
+    run.captured = detect.captured
+    return run
+
+
+def guard_asserts(maps, where):
+    """The JAX package's guard on ``maps``."""
+    fails = []
+    if not maps["fp32"] > GUARD_FP32_MIN:
+        fails.append(f"fp32 mAP {maps['fp32']} <= {GUARD_FP32_MIN}")
+    if not abs(maps["bn_fold"] - maps["fp32"]) < GUARD_FOLD_TOL:
+        fails.append(f"BN fold {maps['bn_fold']} vs fp32 {maps['fp32']}")
+    if not maps["int8_capped"] > maps["fp32"] - GUARD_INT8_DROP:
+        fails.append(f"capped INT8 {maps['int8_capped']} vs fp32 "
+                     f"{maps['fp32']}")
+    if not maps["int8_capped"] - maps["int8_uncapped"] > GUARD_CAP_GAIN:
+        fails.append(f"capped {maps['int8_capped']} - uncapped "
+                     f"{maps['int8_uncapped']} <= {GUARD_CAP_GAIN}")
+    if fails:
+        raise AssertionError(f"{where}: " + "; ".join(fails))
+
+
+def phase_guard(card):
+    """11c / 11d: the JAX package's map guard recipe on the card, trained
+    by the port twice (deterministically: both runs must land on the same
+    state); its INT8 models scored through the kernels, then on the
+    CPU route on the same images: detections and mAP equal. -> the runs'
+    wrapper launches."""
+    from yolo_tpu_torch.eval import VOCEvaluator
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    cfg, model, train_s, last = guard_train("cuda")
+    # the draw is the code's, not the run's: a second run lands on the
+    # same bits
+    digest = state_digest(model)
+    again = state_digest(guard_train("cuda")[1])
+    if again != digest:
+        raise AssertionError(f"11c: two deterministic runs of the recipe "
+                             f"differ: {digest[:16]} {again[:16]}")
+    t0 = time.perf_counter()
+    maps, int8, ev = guard_scores(cfg, model, "cuda")
+    runs, launches, replayed, cpu = [], {}, {}, {}
+    for stage, m in int8.items():
+        K.reset_launch_counts()
+        detect = s2d_detect(m, cfg, "cuda")
+        maps[stage] = ev.evaluate(detect)
+        torch.cuda.synchronize()
+        runs.append(K.launch_counts_by_entry())
+        launches[stage] = runs[-1]
+        replayed[stage] = check_replays(detect.captured, f"11c {stage}")
+        for kernel, entry in (("int8_conv3x3_pool_requant", POOL_S2D),
+                              ("int8_conv3x3_im2col", POOL3),
+                              ("int8_conv3x3_requant", WGMMA3)):
+            if not runs[-1].get(kernel, {}).get(entry):
+                raise AssertionError(f"11c {stage}: no launch of {kernel} "
+                                     f"on {entry}: {runs[-1]}")
+        # 11d: the same model and images on the CPU route
+        ev_cpu = VOCEvaluator(ev.dataset, 2, cfg.input_size,
+                              batch_size=GUARD_VAL)
+        map_cpu = ev_cpu.evaluate(s2d_detect(m, cfg, "cpu"))
+        n = same_detections(ev, ev_cpu, f"11d {stage}")
+        if abs(map_cpu - maps[stage]) > 1e-9 or n == 0:
+            raise AssertionError(f"11d {stage}: mAP {maps[stage]} on the "
+                                 f"card, {map_cpu} on the CPU ({n} "
+                                 f"detections)")
+        cpu[stage] = dict(detections=n, mean_ap_cpu=map_cpu)
+    guard_asserts(maps, "11c")
+    emit("11c_guard", version="slim_yolo_v2", input=[GUARD_SIZE, GUARD_SIZE],
+         train_images=GUARD_TRAIN, batch=GUARD_BATCH, epochs=GUARD_EPOCHS,
+         train_seconds=train_s, deterministic=True,
+         state_sha256=digest, steps_per_s=GUARD_EPOCHS * (GUARD_TRAIN // GUARD_BATCH) / train_s,
+         last_loss=last, val_images=GUARD_VAL, val_seed=GUARD_VAL_SEED,
+         maps=maps, head_clip=GUARD_HEAD_CLIP,
+         bounds=dict(fp32_min=GUARD_FP32_MIN, fold_tol=GUARD_FOLD_TOL,
+                     int8_drop=GUARD_INT8_DROP, cap_gain=GUARD_CAP_GAIN),
+         launches=launches, launches_per_replay=replayed,
+         score_seconds=time.perf_counter() - t0, card=card)
+    emit("11d_cpu_route", images=GUARD_VAL, stages=cpu, card=card)
+    return runs
+
+
+def phase_train_cli(card):
+    """11e: ``cli.train`` as a user runs it, on its default device (the
+    card): slim_yolo_v2 on the synthetic set (128 images, SSDAugmentation
+    with uint8 output, the loader's threads), batch 16, multi-scale, two
+    epochs with the mAP after each and a checkpoint at the last; then a
+    third epoch resumed from that checkpoint (parameters, BN stats,
+    momentum). -> seconds and figures of both runs."""
+    import tempfile
+
+    from yolo_tpu_torch.cli import train as cli
+    from yolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["-d", "synthetic", "-b", str(CLI_BATCH), "--num_workers",
+                  "4", "--save_folder", tmp, "--eval_epoch", "1"]
+        folder = os.path.join(tmp, "synthetic", "slim_yolo_v2")
+        t0 = time.perf_counter()
+        cli.train(cli.parse_args(common + ["-ms", "--max_epoch", "2"]))
+        t1 = time.perf_counter()
+        _, extra = load_checkpoint(os.path.join(folder,
+                                                "slim_yolo_v2_2.msgpack"))
+        cli.train(cli.parse_args(common + [
+            "--resume", os.path.join(folder, "slim_yolo_v2_2.msgpack"),
+            "--start_epoch", "2", "--max_epoch", "3"]))
+        t2 = time.perf_counter()
+        _, extra3 = load_checkpoint(os.path.join(folder,
+                                                 "slim_yolo_v2_3.msgpack"))
+        with open(os.path.join(folder, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    per_epoch = 128 // CLI_BATCH
+    counts = [int(np.asarray(e["opt_state"]["count"]))
+              for e in (extra, extra3)]
+    maps = [r["mAP"] for r in records if "mAP" in r]
+    if counts != [2 * per_epoch, 3 * per_epoch] or len(maps) != 3 or \
+            not all(math.isfinite(r.get("total_loss", 0.0))
+                    for r in records):
+        raise AssertionError(f"11e: steps {counts}, mAPs {maps}, "
+                             f"{len(records)} records")
+    emit("11e_train_cli", version="slim_yolo_v2", batch=CLI_BATCH,
+         multi_scale=True, epochs=[2, 1], steps=counts, maps=maps,
+         seconds={"two_epochs": t1 - t0, "resumed_epoch": t2 - t1},
+         card=card)
+
+
+def phase_11(card):
+    """Phase 11: the trainer (11a one step against the CPU, 11b step
+    times at full width, 11c a training run and its INT8 models through
+    the kernels, 11d those on the CPU route, 11e ``cli.train``), cuDNN's
+    algorithm search off as in phase 10. -> 11c's wrapper launches."""
+    cudnn = torch.backends.cudnn
+    search, cudnn.benchmark = cudnn.benchmark, False
+    try:
+        images, targets = step_batch(max(b for _, b, _ in STEP_TIMES))
+        phase_step_check(card, images, targets)
+        torch.cuda.empty_cache()
+        phase_step_times(card, images, targets)
+        torch.cuda.empty_cache()
+        runs = phase_guard(card)
+        torch.cuda.empty_cache()
+        phase_train_cli(card)
+        return runs
+    finally:
+        cudnn.benchmark = search
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5383,6 +5847,10 @@ def main() -> int:
     t10 = time.perf_counter()
     phase_10(card)
     emit("phase_10", seconds=time.perf_counter() - t10)
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    launches_11 = phase_11(card)
+    emit("phase_11", seconds=time.perf_counter() - t11, **replay_tally())
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
     for line in PARTS_LINES:
@@ -5567,7 +6035,7 @@ def main() -> int:
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
                        for served in launches_6 + launches_7 + launches_8
-                       + launches_9)
+                       + launches_9 + launches_11)
         per_forward = max(per_run) // SERVE_ITERS
         # tiny_yolo_v3's and yolo_v2's launches per forward on each input
         # layout, and the times of their shapes (one NHWC forward; K2's on

@@ -29,6 +29,7 @@ print(" ".join(names))
 # reader and its codec, the CUDA-graph capture, the artifact format), of
 # the evaluation path (datasets, COCO API, evaluators, their CLIs) and of
 # one training batch (the loader, targets, loss, the trainer's loss_fn)
+# and of the trainer proper (the training CLI, the metrics log)
 NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.utils.msgpack_codec",
                "yolo_tpu_torch.utils.capture", "yolo_tpu_torch.utils.device",
@@ -41,7 +42,8 @@ NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.cli.kmeans",
                "yolo_tpu_torch.data.loader", "yolo_tpu_torch.train",
                "yolo_tpu_torch.train.targets", "yolo_tpu_torch.train.loss",
-               "yolo_tpu_torch.train.trainer")
+               "yolo_tpu_torch.train.trainer", "yolo_tpu_torch.cli.train",
+               "yolo_tpu_torch.utils.profiling")
 
 
 def test_package_imports_without_jax_or_yolo_tpu():
@@ -53,8 +55,8 @@ def test_package_imports_without_jax_or_yolo_tpu():
     # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp);
     # 40 with the checkpoint reader, its codec, capture, device and export;
     # 54 with the evaluation path's eleven (43 before it); 59 with the
-    # training batch's five
-    assert int(count) >= 59
+    # training batch's five; 61 with the training CLI and the metrics log
+    assert int(count) >= 61
     assert set(NEW_MODULES) <= set(names.split())
 
 

@@ -422,6 +422,11 @@ def test_u8_input_equals_normalized_float_input():
 
 
 def test_train_config_matches_jax_and_unported_options_raise():
+    """``TrainConfig`` equals the JAX package's, and the options that
+    raised before the trainer was ported (bf16 compute, remat, the s2d
+    pooled form) now run: a finite loss with a gradient on every
+    parameter, the running stats moved once (the name is kept from
+    when they raised)."""
     import dataclasses
 
     ours = {f.name: f.default for f in dataclasses.fields(
@@ -430,18 +435,27 @@ def test_train_config_matches_jax_and_unported_options_raise():
         jtrainer.TrainConfig)}
     assert ours == theirs
     cfg = get_config("slim_yolo_v2", "mask", input_size=(32, 32))
-    model = C.slim_from_params(_jax_params("slim_yolo_v2", 32)[1],
-                               device="cpu")
+    params = _jax_params("slim_yolo_v2", 32)[1]
     images, gt = _batch(cfg, 32, 1, seed=9)
-    for kw in (dict(compute_dtype="bfloat16"), dict(remat=True),
-               dict(fast_pool_cin=32)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            ttrainer.loss_fn(model, cfg, ttrainer.TrainConfig(**kw),
-                             torch.tensor(images), gt)
-    total, _ = ttrainer.loss_fn(model, cfg,
-                                ttrainer.TrainConfig(obj_loss_f="bce"),
-                                torch.tensor(images), gt)
-    assert torch.isfinite(total)
+    stats = None
+    for kw in (dict(), dict(compute_dtype="bfloat16"), dict(remat=True),
+               dict(fast_pool_cin=32), dict(obj_loss_f="bce")):
+        model = C.slim_from_params(params, device="cpu")
+        total, _ = ttrainer.loss_fn(model, cfg, ttrainer.TrainConfig(**kw),
+                                    torch.tensor(images), gt)
+        assert torch.isfinite(total) and total.dtype == torch.float32, kw
+        total.backward()
+        for name, p in model.named_parameters():
+            assert p.grad is not None and p.grad.dtype == torch.float32, \
+                (kw, name)
+            assert torch.isfinite(p.grad).all(), (kw, name)
+        var = model.conv1.bn.running_var.detach().clone()
+        assert not torch.equal(var, torch.tensor(
+            params["conv1"]["bn"]["var"])), kw
+        if not kw or kw == dict(remat=True):
+            # the remat step's recompute moves no stat a second time
+            stats = var if stats is None else stats
+            assert torch.equal(var, stats), kw
 
 
 def _grads(model):

@@ -13,9 +13,11 @@ residual sum; and before (``pre``) and after each prediction head.
 
 BN runs from the running stats unless a ``train_context`` is active
 (the JAX package's ``train=True``): then from the batch's statistics,
-with the running stats updated in place. A ``branch_context`` records a
-forward's leaky signs and pool argmaxes, or imposes recorded ones. Not ported here: the s2d
-pooled-conv form (``conv_block_pool_s2d``, ``fast_pool_context``).
+with the running stats updated in place (not inside ``frozen_stats``: a
+recomputed forward leaves them alone). A ``branch_context`` records a
+forward's leaky signs and pool argmaxes, or imposes recorded ones.
+Inside a ``fast_pool_context`` the conv + pool pairs with few input
+channels run at pooled resolution (``conv_block_pool_s2d``).
 """
 
 from __future__ import annotations
@@ -185,19 +187,20 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     as torch's BatchNorm2d does: an EMA with momentum 0.1 on the new
     value, the variance unbiased by n / max(n - 1, 1). The JAX package's
     algebra; torch's own train-mode BN refuses n = 1, where this divides
-    by 1."""
+    by 1. Inside ``frozen_stats`` the running stats stay."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
     n = x.shape[0] * x.shape[2] * x.shape[3]
     inv = torch.ones_like(var) / torch.sqrt(var + _BN_EPS)
     y = ((xf - mean.reshape(1, -1, 1, 1)) * inv.reshape(1, -1, 1, 1)
          * bn.weight.reshape(1, -1, 1, 1) + bn.bias.reshape(1, -1, 1, 1))
-    with torch.no_grad():
-        unbiased_var = var * (n / max(n - 1, 1))
-        bn.running_mean.copy_((1 - _BN_MOMENTUM) * bn.running_mean
-                              + _BN_MOMENTUM * mean)
-        bn.running_var.copy_((1 - _BN_MOMENTUM) * bn.running_var
-                             + _BN_MOMENTUM * unbiased_var)
+    if not _STATS_FROZEN:
+        with torch.no_grad():
+            unbiased_var = var * (n / max(n - 1, 1))
+            bn.running_mean.copy_((1 - _BN_MOMENTUM) * bn.running_mean
+                                  + _BN_MOMENTUM * mean)
+            bn.running_var.copy_((1 - _BN_MOMENTUM) * bn.running_var
+                                 + _BN_MOMENTUM * unbiased_var)
     return y.to(x.dtype)
 
 
@@ -292,6 +295,26 @@ class train_context:
         global _TRAIN
         _TRAIN = self._prev
         return False
+
+
+# Whether train-mode BN leaves the running stats alone (see frozen_stats),
+# read at call time.
+_STATS_FROZEN = False
+
+
+@contextlib.contextmanager
+def frozen_stats():
+    """Train-mode BN inside the block normalizes with the batch's
+    statistics but moves no running stat: the recompute of a
+    rematerialized forward (``torch.utils.checkpoint``) runs the forward
+    a second time, and its EMA would land twice (``jax.checkpoint`` is
+    functional and cannot)."""
+    global _STATS_FROZEN
+    prev, _STATS_FROZEN = _STATS_FROZEN, True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN = prev
 
 
 # The active branch_context, read at call time.
@@ -455,9 +478,95 @@ class PredConv(Conv):
         return _tap(y)
 
 
+def s2d_pool_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW 3x3 weights [C_out, C, 3, 3] -> the 2x2 block conv's weights
+    over the space-to-depth input, [4 C_out, 4 C, 2, 2]: output channels
+    phase-major (pool phase (a, b) at (2a + b) C_out), input channels in
+    the s2d order (py, px, c); zeros where the 3x3 support does not
+    reach. Pads, reshapes and a concat, so gradients flow back to ``w``
+    (the JAX package's ``s2d_pool_weights`` in OIHW)."""
+    c_out, c_in = w.shape[0], w.shape[1]
+    phases = []
+    for a in range(2):          # pool phase row
+        for b in range(2):      # pool phase col
+            wp = F.pad(w, (b, 1 - b, a, 1 - a))  # [C_out, C, 4, 4]
+            # (kh, kw) = (2 bh + py, 2 bw + px) -> [C_out, py, px, C, bh, bw]
+            wp = wp.reshape(c_out, c_in, 2, 2, 2, 2).permute(0, 3, 5, 1, 2,
+                                                             4)
+            phases.append(wp.reshape(c_out, 4 * c_in, 2, 2))
+    return torch.cat(phases, dim=0)
+
+
+def conv_block_pool_s2d(block: ConvBlock, x: torch.Tensor) -> torch.Tensor:
+    """``block`` (3x3, stride 1, pad 1) + BN + leaky + a 2x2/2 max pool
+    on NCHW ``x`` (even H, W), computed at pooled resolution: the padded
+    input in space-to-depth, one 2x2 block conv with a contraction of 16
+    C_in and 4 C_out phase-packed outputs, BN per phase (in train mode
+    over all four phases: the plain path's statistics), the activation,
+    then the max over the four phase groups (``torch.amax``: a tie shares
+    the gradient, as the JAX package's ``jnp.max``). The same values as
+    ``block`` then ``max_pool`` up to the float summation order (the JAX
+    package's ``conv_block_pool_s2d``)."""
+    b, c, h, w = x.shape
+    c_out = block.conv.weight.shape[0]
+    ho, wo = h // 2, w // 2
+    hb, wb = (h + 6) // 2, (w + 6) // 2
+    x2 = F.pad(x, (3, 3, 3, 3)).reshape(b, c, hb, 2, wb, 2).permute(
+        0, 3, 5, 1, 2, 4).reshape(b, 4 * c, hb, wb)
+    y = conv2d(x2, s2d_pool_weights(block.conv.weight).to(x2.dtype))
+    # pooled (u, v) lies at block-conv output (u + 1, v + 1)
+    y = y[:, :, 1:1 + ho, 1:1 + wo]
+    if block.conv.bias is not None:
+        y = y + block.conv.bias.repeat(4).reshape(1, -1, 1, 1)
+    if block.bn is not None:
+        # per channel over the four phases: the plain path's statistics
+        y4 = y.reshape(b * 4, c_out, ho, wo)
+        y = (batch_norm_train(y4, block.bn) if _TRAIN else
+             batch_norm_inference(y4, block.bn)).reshape(b, 4 * c_out, ho,
+                                                          wo)
+    _pre(y)
+    y = _tap(leaky_relu(y, block.slope))
+    # the pool: the max over the phase groups (the activation and the
+    # taps are monotone and per channel, so they commute with it)
+    return torch.amax(y.reshape(b, 4, c_out, ho, wo), dim=1)
+
+
+# C_in threshold of the s2d pooled form (see fast_pool_context), read at
+# call time; 0: off.
+_FAST_POOL_CIN_MAX = 0
+
+
+class fast_pool_context:
+    """``with fast_pool_context(cin_max=32): model(x)`` — each conv + pool
+    pair (``conv_block_pool``) with C_in <= ``cin_max`` and an even input
+    runs in the pooled-resolution s2d form (``conv_block_pool_s2d``): the
+    same math in another summation order. Independent of
+    ``train_context``."""
+
+    def __init__(self, cin_max: int = 32):
+        self.cin_max = cin_max
+
+    def __enter__(self):
+        global _FAST_POOL_CIN_MAX
+        self._prev = _FAST_POOL_CIN_MAX
+        _FAST_POOL_CIN_MAX = self.cin_max
+        return self
+
+    def __exit__(self, *exc):
+        global _FAST_POOL_CIN_MAX
+        _FAST_POOL_CIN_MAX = self._prev
+        return False
+
+
 def conv_block_pool(block: ConvBlock, x: torch.Tensor) -> torch.Tensor:
-    """``block`` (3x3, stride 1, pad 1) then a 2x2/2 max pool (the plain
-    form of the JAX package's ``conv_block_pool``)."""
+    """``block`` (3x3, stride 1, pad 1) then a 2x2/2 max pool: the plain
+    trace, or inside a ``fast_pool_context`` that admits ``block``'s C_in
+    (and for an even input) ``conv_block_pool_s2d`` (the JAX package's
+    ``conv_block_pool``)."""
+    c_in = block.conv.weight.shape[1]
+    if (0 < c_in <= _FAST_POOL_CIN_MAX and x.shape[2] % 2 == 0
+            and x.shape[3] % 2 == 0):
+        return conv_block_pool_s2d(block, x)
     return max_pool(block(x), 2, 2)
 
 
