@@ -336,6 +336,28 @@ printing JSON lines; any failure raises and the script exits nonzero:
    (the plain versions) on the same images: detections and mAP equal;
    11e ``cli.train`` on its default device: two multi-scale epochs with
    the mAP after each, a checkpoint, a third epoch resumed from it.
+12. the rest of quantization (QAT, the clip search, the compression CLI;
+   its INT8 engines run K2, K3, K1 and NMS): 12a one QAT step
+   (``quant.qat.QATModule`` through ``make_train_step``) of BN-folded
+   slim at 416², batch 8, lr 1e-3, held to the same step in float64 on
+   the CPU on the card's branches (its leaky signs, pool argmaxes and
+   each STE tap's clip mask and levels: every leaf within GRAD_BOUND of
+   its largest value), the flips listed with their margins; the masters
+   bit-identical after a step at lr 0; 12b ms a QAT step at 416², batch
+   32, beside a plain float32 step of the same folded model; 12c 11c's
+   trained slim, folded: ``autoclip.select_quant_config(greedy_rounds=
+   1)`` on the guard's calibration batches through the kernels (a cap
+   must bind) and on the CPU route (the same choices, every score within
+   1e-3), then ``qat_finetune`` at the CLI's defaults on the guard's
+   training set at the chosen cap's states, served with those states
+   through ``build_int8_detector(states=...)`` on the s2d input: mAP
+   within 0.06 of its fake-quant sim (``quantize_detector(states=...)``)
+   and equal on the CPU route, launches checked, replays held to their
+   graphs, beside the PTQ engine at QAT's starting states; 12d ``cli.quantize`` on the card as a user runs it (bnfold
+   from 11c's checkpoint, ``ptq --head_clip auto``, ``qat``, ``export
+   --header --artifact --artifact_input s2d``, ``cli.serve --artifact``):
+   weight.h byte-equal to the export run with ``--device cpu``, the
+   artifact's detections equal to the live detect fn's.
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -355,7 +377,7 @@ the shapes no wgmma route takes). The
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's, 7's, 8's, 9's and 11c's runs, their wrappers' own launches (the eager calls,
+6's, 7's, 8's, 9's, 11c's and 12's runs, their wrappers' own launches (the eager calls,
 a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
 graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
 its serving shape (8a). The two-part form's entries time tiny's conv_set_1
@@ -5157,7 +5179,7 @@ def check_flips(version, flips) -> dict:
             raise AssertionError(
                 f"{version} {kind} {i}: the card branched {n} elements off "
                 f"the CPU by {margin} at a scale of {scale}")
-        out[f"{kind}_flips"] += n
+        out[f"{kind}_flips"] = out.get(f"{kind}_flips", 0) + n
         if n:
             out["flip_margin_worst"] = max(out["flip_margin_worst"],
                                            margin / scale)
@@ -5706,7 +5728,7 @@ def phase_guard(card):
          launches=launches, launches_per_replay=replayed,
          score_seconds=time.perf_counter() - t0, card=card)
     emit("11d_cpu_route", images=GUARD_VAL, stages=cpu, card=card)
-    return runs
+    return runs, (cfg, model, maps)
 
 
 def phase_train_cli(card):
@@ -5757,7 +5779,8 @@ def phase_11(card):
     """Phase 11: the trainer (11a one step against the CPU, 11b step
     times at full width, 11c a training run and its INT8 models through
     the kernels, 11d those on the CPU route, 11e ``cli.train``), cuDNN's
-    algorithm search off as in phase 10. -> 11c's wrapper launches."""
+    algorithm search off as in phase 10. -> (11c's wrapper launches, 11c's
+    (cfg, trained model, mAPs))."""
     cudnn = torch.backends.cudnn
     search, cudnn.benchmark = cudnn.benchmark, False
     try:
@@ -5766,15 +5789,392 @@ def phase_11(card):
         torch.cuda.empty_cache()
         phase_step_times(card, images, targets)
         torch.cuda.empty_cache()
-        runs = phase_guard(card)
+        runs, guard = phase_guard(card)
         torch.cuda.empty_cache()
         phase_train_cli(card)
+        return runs, guard
+    finally:
+        cudnn.benchmark = search
+
+
+# phase 12: the rest of quantization
+QAT_CHECK_B, QAT_TIME_B, QAT_LR = 8, 32, 1e-3  # 12a, 12b
+QAT_STEPS, QAT_FT_LR = 100, 1e-5  # 12c: cli.quantize qat's defaults
+# |engine mAP - its fake-quant sim's| (tests/test_map_guard.py:156)
+ENGINE_SIM_TOL = 0.06
+SCORE_TOL = 1e-3  # 12c: agreement scores, card against CPU
+# 12d: one calibration batch of 8 (the CLI stops once more than
+# --calib_images are seen)
+CLI_QUANT = ["-d", "synthetic", "--input_size", str(SIZE), str(SIZE),
+             "--calib_images", "7", "--batch_size", "8"]
+
+
+def folded_train_model(device):
+    """``train_model``'s slim with its BN folded (biased convs), on
+    ``device``."""
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+
+    cfg, model = train_model("slim_yolo_v2", device)
+    return cfg, fold_batch_norm(model)
+
+
+def qat_states(model, cfg, batches, head_clip=None):
+    """The call-ordered tracker states of the fake-quantized ``model``
+    calibrated on ``batches`` (normalized NHWC), as ``cli.quantize qat``
+    calibrates them."""
+    from yolo_tpu_torch.quant import generic
+
+    return generic.calibrate_generic(
+        generic.fake_quantize_all_convs(model), cfg, batches,
+        head_clip=head_clip)
+
+
+def phase_qat_step(card, images, targets):
+    """12a: one QAT step (``QATModule`` through ``make_train_step``) of
+    BN-folded slim_yolo_v2 at 416², batch 8, lr 1e-3 on the card, held to
+    the same step in float64 on the CPU on the card's branches (leaky
+    signs, pool argmaxes, each tap's clip mask and levels): every
+    parameter and momentum-trace leaf within GRAD_BOUND of its largest
+    value; then a step at lr 0: the masters bit-identical."""
+    import copy
+
+    from yolo_tpu_torch.detector import normalize_u8
+    from yolo_tpu_torch.ops import blocks
+    from yolo_tpu_torch.quant.convert import module_to_params
+    from yolo_tpu_torch.quant.qat import QATModule
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    x = torch.as_tensor(images[:QAT_CHECK_B]).cuda()
+    cfg, model = folded_train_model("cuda")
+    gt = build_targets(cfg, targets[:QAT_CHECK_B])
+    states = qat_states(model, cfg, [normalize_u8(x)])
+    cpu_model = copy.deepcopy(model).cpu().double()
+    qmod = QATModule(model, states)
+    opt, step = make_train_step(qmod, cfg, TrainConfig())
+    state = opt.init(qmod)
+    with blocks.branch_context() as b:
+        metrics = step(state, x, gt, QAT_LR)
+    card_leaves = opt_leaves(model, state)
+    card_metrics = {k: v.item() for k, v in metrics.items()}
+    t1 = time.perf_counter()
+    qcpu = QATModule(cpu_model, [{k: v.cpu() for k, v in st.items()}
+                                 for st in states])
+    opt, step_cpu = make_train_step(qcpu, cfg, TrainConfig())
+    state_cpu = opt.init(qcpu)
+    with blocks.branch_context([c.cpu() for c in b.choices]) as bc:
+        cpu_metrics = step_cpu(state_cpu, normalize_u8(x).cpu().double(),
+                               gt, QAT_LR)
+    flips = check_flips("12a", bc.flips)
+    margins = {}
+    for kind, n, margin, scale in bc.flips:
+        if n:
+            margins.setdefault(kind, []).append(
+                dict(elements=n, margin=margin, scale=scale))
+    cpu = opt_leaves(cpu_model, state_cpu)
+    t2 = time.perf_counter()
+    for k, v in cpu_metrics.items():
+        got = card_metrics[k]
+        if not (math.isfinite(got) and abs(got - v.item()) <= 1e-4 * abs(
+                v.item())):
+            raise AssertionError(f"12a {k}: card {got}, cpu {v.item()}")
+    errs = leaf_errors(card_leaves, cpu)
+    worst, path = max(errs)
+    if worst > GRAD_BOUND:
+        raise AssertionError(f"12a {path}: card-cpu max abs error {worst} "
+                             f"of the leaf's largest value > {GRAD_BOUND}")
+    # lr 0: the update lands on the float32 masters, unchanged
+    _, model0 = folded_train_model("cuda")
+    before = module_to_params(model0)
+    q0 = QATModule(model0, states)
+    opt, step0 = make_train_step(q0, cfg, TrainConfig())
+    state0 = opt.init(q0)
+    step0(state0, x, gt, 0.0)
+    after = module_to_params(model0)
+    same = all(np.array_equal(a, before_leaf) for (_, a), (_, before_leaf)
+               in zip(tree_leaves(after), tree_leaves(before)))
+    if not same or state0.paths[0] != ("conv1", "w"):
+        raise AssertionError(f"12a: masters moved at lr 0 ({same}) or the "
+                             f"optimizer's tree is not the base model's "
+                             f"({state0.paths[0]})")
+    kinds = {k: bc.kinds.count(k) for k in ("leaky", "pool", "clip",
+                                             "round")}
+    emit("12a_qat_step", version="slim_yolo_v2 (BN folded)",
+         batch=QAT_CHECK_B, input=[SIZE, SIZE], lr=QAT_LR,
+         taps=len(states), choices=kinds, leaves=len(cpu),
+         bound=GRAD_BOUND, worst=worst, worst_leaf=path,
+         median=statistics.median(e for e, _ in errs),
+         loss=card_metrics,
+         loss_cpu={k: v.item() for k, v in cpu_metrics.items()},
+         **flips, flip_margins=margins, masters_equal_at_lr0=True,
+         seconds={"card": t1 - t0, "cpu": t2 - t1}, card=card)
+
+
+def phase_qat_times(card, images, targets):
+    """12b: ms a step at 416², batch 32, of BN-folded slim: the QAT step
+    (STE weights and taps) beside a plain float32 step of the same
+    model; images/sec, peak GB."""
+    from yolo_tpu_torch.detector import normalize_u8
+    from yolo_tpu_torch.quant.qat import QATModule
+    from yolo_tpu_torch.train.targets import build_targets
+    from yolo_tpu_torch.train.trainer import TrainConfig, make_train_step
+
+    x = torch.as_tensor(images[:QAT_TIME_B]).cuda()
+    out = {}
+    for form in ("float32", "qat"):
+        cfg, model = folded_train_model("cuda")
+        gt = torch.as_tensor(build_targets(cfg, targets[:QAT_TIME_B])).cuda()
+        run = (QATModule(model, qat_states(model, cfg, [normalize_u8(x)]))
+               if form == "qat" else model)
+        opt, step = make_train_step(run, cfg, TrainConfig())
+        state = opt.init(run)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(state, x, gt, 1e-4), 5)
+        out[form] = dict(ms_per_step=ms, images_per_s=1e3 * QAT_TIME_B / ms,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, run, state
+    emit("12b_qat_times", version="slim_yolo_v2 (BN folded)",
+         batch=QAT_TIME_B, input=[SIZE, SIZE], steps=out,
+         qat_over_float32=out["qat"]["ms_per_step"]
+         / out["float32"]["ms_per_step"], card=card)
+
+
+def phase_qat_guard(card, guard):
+    """12c: 11c's trained slim (``guard``: cfg, model, mAPs), folded:
+    ``select_quant_config(greedy_rounds=1)`` on the guard's calibration
+    batches through the kernels (a cap of DEFAULT_CAPS must bind) and on
+    the CPU route (the same cap, percentile and flips, every score within
+    SCORE_TOL); ``qat_finetune`` at the CLI's defaults (100 steps, lr
+    1e-5) on the guard's training set at the chosen cap's states; the
+    result served with those states through ``build_int8_detector(
+    states=...)`` on the s2d input: mAP within ENGINE_SIM_TOL of its
+    fake-quant sim's, detections and mAP equal on the CPU route, K2, K3,
+    K1 and NMS launched, replays held to their graphs; beside it, the
+    PTQ engine at QAT's own starting states (the chosen cap, abs-max
+    trackers) and the search's PTQ engine, as found. -> the engines'
+    wrapper launches."""
+    import copy
+
+    from yolo_tpu_torch.detector import Detector
+    from yolo_tpu_torch.eval import VOCEvaluator
+    from yolo_tpu_torch.kernels import int8_conv as K
+    from yolo_tpu_torch.quant import qsim
+    from yolo_tpu_torch.quant.autoclip import (DEFAULT_CAPS,
+                                               select_quant_config)
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+    from yolo_tpu_torch.quant.dispatch import build_int8_detector
+    from yolo_tpu_torch.quant.generic import quantize_detector
+    from yolo_tpu_torch.quant.qat import qat_finetune
+    from yolo_tpu_torch.train.trainer import device_resident_batches
+
+    version = "slim_yolo_v2_q_bf"  # the folded form
+    cfg, trained, guard_maps = guard
+    t0 = time.perf_counter()
+    fused = fold_batch_norm(trained)
+    train, ev, calib = guard_data()
+    calib_dev = [torch.as_tensor(b).cuda() for b in calib]
+    with deterministic_algorithms():
+        best, info = select_quant_config(version, fused, cfg, calib_dev,
+                                         greedy_rounds=1, device="cuda")
+    t1 = time.perf_counter()
+    caps = info["cap_scores"]
+    binding = [c for c in DEFAULT_CAPS
+               if c is not None and caps[c] != caps[None]]
+    if not binding:
+        raise AssertionError(f"12c: no cap of {DEFAULT_CAPS} binds: {caps}")
+    best_cpu, info_cpu = select_quant_config(
+        version, copy.deepcopy(fused).cpu(), cfg, calib, greedy_rounds=1,
+        device="cpu")
+    t2 = time.perf_counter()
+    choice = (best["head_clip"], best["act_percentile"],
+              [(r, k) for r, k, _ in info["greedy_flips"]])
+    choice_cpu = (best_cpu["head_clip"], best_cpu["act_percentile"],
+                  [(r, k) for r, k, _ in info_cpu["greedy_flips"]])
+    score_err = max(
+        [abs(info[d][k] - info_cpu[d][k]) for d in ("cap_scores",
+                                                    "pct_scores")
+         for k in info[d]]
+        + [abs(a[2] - b[2]) for a, b in zip(info["greedy_flips"],
+                                            info_cpu["greedy_flips"])]
+        + [abs(best["score"] - best_cpu["score"])])
+    if choice != choice_cpu or score_err > SCORE_TOL:
+        raise AssertionError(f"12c: the search chose {choice} on the card, "
+                             f"{choice_cpu} on the CPU (scores {score_err} "
+                             f"apart)")
+
+    # QAT at the chosen cap's states, as cli.quantize qat runs it
+    cap = best["head_clip"]
+    model = copy.deepcopy(fused)
+    states = qat_states(model, cfg, calib_dev, head_clip=cap)
+    named = dict(zip(qsim.TRACKER_NAMES, states))
+    det = Detector(cfg, model=model, batch_norm=False, device="cuda")
+    with deterministic_algorithms():
+        _, last = qat_finetune(
+            det, states, device_resident_batches(cfg, train, GUARD_BATCH,
+                                                 "cuda"),
+            base_lr=QAT_FT_LR, steps=QAT_STEPS)
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    maps = {}
+    m, _ = build_int8_detector(version, model, cfg, calib_dev, states=named,
+                               device="cuda")
+    _, _, sim = quantize_detector(det, calib_dev, fold_bn=False,
+                                  states=states)
+    maps["qat_sim"] = ev.evaluate(sim)
+    K.reset_launch_counts()
+    detect = s2d_detect(m, cfg, "cuda")
+    maps["qat_int8"] = ev.evaluate(detect)
+    torch.cuda.synchronize()
+    launches = K.launch_counts_by_entry()
+    replayed = check_replays(detect.captured, "12c")
+    for kernel, entry in (("int8_conv3x3_pool_requant", POOL_S2D),
+                          ("int8_conv3x3_im2col", POOL3),
+                          ("int8_conv3x3_requant", WGMMA3),
+                          ("greedy_nms_keep", NMS_K)):
+        if not launches.get(kernel, {}).get(entry):
+            raise AssertionError(f"12c: no launch of {kernel} on {entry}: "
+                                 f"{launches}")
+    if abs(maps["qat_int8"] - maps["qat_sim"]) > ENGINE_SIM_TOL:
+        raise AssertionError(f"12c: the QAT engine's mAP {maps['qat_int8']}"
+                             f" is off its sim's {maps['qat_sim']} by more "
+                             f"than {ENGINE_SIM_TOL}")
+    ev_cpu = VOCEvaluator(ev.dataset, 2, cfg.input_size,
+                          batch_size=GUARD_VAL)
+    map_cpu = ev_cpu.evaluate(s2d_detect(m, cfg, "cpu"))
+    n = same_detections(ev, ev_cpu, "12c")
+    if abs(map_cpu - maps["qat_int8"]) > 1e-9 or n == 0:
+        raise AssertionError(f"12c: QAT engine mAP {maps['qat_int8']} on the "
+                             f"card, {map_cpu} on the CPU ({n} detections)")
+    # PTQ without QAT: at QAT's own starting states (its baseline), and
+    # the search's own configuration as found
+    runs = [launches]
+    for key, states_ptq in (("ptq_int8_qat_states", named),
+                            ("autoclip_int8", best["states"])):
+        m_ptq, _ = build_int8_detector(version, fused, cfg, calib_dev,
+                                       states=states_ptq, device="cuda")
+        K.reset_launch_counts()
+        maps[key] = ev.evaluate(s2d_detect(m_ptq, cfg, "cuda"))
+        torch.cuda.synchronize()
+        runs.append(K.launch_counts_by_entry())
+    emit("12c_autoclip_qat", version="slim_yolo_v2 (11c's run, folded)",
+         input=[GUARD_SIZE, GUARD_SIZE], calib_images=2 * GUARD_BATCH,
+         cap_scores={str(k): v for k, v in caps.items()},
+         pct_scores={str(k): v for k, v in info["pct_scores"].items()},
+         greedy_flips=info["greedy_flips"], binding_caps=binding,
+         head_clip=cap, act_percentile=best["act_percentile"],
+         score=best["score"], cpu_route_score_max_diff=score_err,
+         qat_steps=QAT_STEPS, qat_lr=QAT_FT_LR,
+         qat_last_loss={k: float(v) for k, v in last.items()},
+         maps=maps, map_cpu=map_cpu, detections=n,
+         ptq_capped_11c=guard_maps["int8_capped"],
+         fp32_11c=guard_maps["fp32"], sim_bound=ENGINE_SIM_TOL,
+         launches=launches, launches_per_replay=replayed,
+         seconds={"search_card": t1 - t0, "search_cpu": t2 - t1,
+                  "qat": t3 - t2, "score": time.perf_counter() - t3},
+         card=card)
+    return runs
+
+
+def phase_quantize_cli(card, guard):
+    """12d: ``cli.quantize`` on its default device (the card) as a user
+    runs it on the synthetic set at 416²: bnfold from 11c's checkpoint,
+    ``ptq --head_clip auto``, ``qat --steps 4 --no_eval``, ``export
+    --header --artifact --artifact_input s2d``, then ``cli.serve
+    --artifact`` on one batch (a smoke run: its rate is not kept); the
+    export again with ``--device cpu``:
+    weight.h byte-equal; the artifact's detections equal to the live
+    detect fn's."""
+    import tempfile
+
+    from yolo_tpu_torch.cli import quantize as cli
+    from yolo_tpu_torch.cli import serve
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant.convert import module_to_params
+    from yolo_tpu_torch.quant.int8_graph import make_int8_detect_fn
+    from yolo_tpu_torch.serving.export import load_artifact
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    _, trained, _ = guard
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = {k: os.path.join(tmp, f"{k}.msgpack")
+                for k in ("guard", "fused", "ptq", "qat")}
+        save_checkpoint(path["guard"], module_to_params(trained))
+
+        def run(stage, *argv):
+            t0 = time.perf_counter()
+            out = cli.main(cli.parse_args([stage, *argv, *CLI_QUANT]))
+            seconds[stage] = seconds.get(stage, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+
+        run("bnfold", "-r", path["guard"], "--out", path["fused"],
+            "--no_eval")
+        run("ptq", "-r", path["fused"], "--head_clip", "auto", "--out",
+            path["ptq"])
+        run("qat", "-r", path["fused"], "--steps", "4", "--no_eval",
+            "--out", path["qat"])
+        headers = {d: os.path.join(tmp, f"weight_{d}.h")
+                   for d in ("cuda", "cpu")}
+        blob = os.path.join(tmp, "slim_s2d.pt2")
+        m = run("export", "-r", path["qat"], "--header", headers["cuda"],
+                "--artifact", blob, "--artifact_input", "s2d", "--no_eval")
+        m_cpu = run("export", "-r", path["qat"], "--header", headers["cpu"],
+                    "--no_eval", "--device", "cpu")
+        with open(headers["cuda"], "rb") as f, open(headers["cpu"],
+                                                     "rb") as g:
+            h_card, h_cpu = f.read(), g.read()
+        if h_card != h_cpu:
+            raise AssertionError(f"12d: weight.h differs on the card and on "
+                                 f"the CPU (tables {m.sa} / {m_cpu.sa}, "
+                                 f"retune {m.retune} / {m_cpu.retune})")
+        t0 = time.perf_counter()
+        serve.main(["--artifact", blob, "--iters", "1", "-d", "synthetic"])
+        seconds["serve"] = time.perf_counter() - t0
+        detect, meta = load_artifact(blob, with_meta=True)
+        cfg = cli.build_cfg(cli.parse_args(["export", *CLI_QUANT]))
+        x = torch.as_tensor(np.random.default_rng(12).random(
+            (meta["batch"], SIZE, SIZE, 3), dtype=np.float32)).cuda()
+        x_q = fp.s2d_input(fp.quantize_input(x, int(meta["sa_in"])))
+        live = make_int8_detect_fn(m, cfg, input_s2d=True, device="cuda")
+        got, want = detect(x_q), live(x_q)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("12d: the artifact's detections differ "
+                                 "from the live detect fn's")
+        header_bytes = len(h_card)
+    emit("12d_quantize_cli", version="slim_yolo_v2", input=[SIZE, SIZE],
+         argv=CLI_QUANT, weight_h_bytes=header_bytes,
+         weight_h_equal_cpu=True, artifact_meta=meta,
+         artifact_equal_live=True,
+         detections=int(got[3].sum()), seconds=seconds, card=card)
+
+
+def phase_12(card, guard):
+    """Phase 12: the rest of quantization (12a one QAT step against the
+    CPU, 12b its time, 12c the clip search and QAT on 11c's trained slim
+    through the kernels, 12d ``cli.quantize``), cuDNN's algorithm search
+    off as in phase 11. -> 12c's wrapper launches."""
+    cudnn = torch.backends.cudnn
+    search, cudnn.benchmark = cudnn.benchmark, False
+    try:
+        images, targets = step_batch(QAT_TIME_B)
+        phase_qat_step(card, images, targets)
+        torch.cuda.empty_cache()
+        phase_qat_times(card, images, targets)
+        torch.cuda.empty_cache()
+        runs = phase_qat_guard(card, guard)
+        torch.cuda.empty_cache()
+        phase_quantize_cli(card, guard)
         return runs
     finally:
         cudnn.benchmark = search
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -5849,8 +6249,13 @@ def main() -> int:
     emit("phase_10", seconds=time.perf_counter() - t10)
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
-    launches_11 = phase_11(card)
+    launches_11, guard = phase_11(card)
     emit("phase_11", seconds=time.perf_counter() - t11, **replay_tally())
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    launches_12 = phase_12(card, guard)
+    emit("phase_12", seconds=time.perf_counter() - t12, **replay_tally())
+    del guard
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
     for line in PARTS_LINES:
@@ -6035,7 +6440,7 @@ def main() -> int:
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
                        for served in launches_6 + launches_7 + launches_8
-                       + launches_9 + launches_11)
+                       + launches_9 + launches_11 + launches_12)
         per_forward = max(per_run) // SERVE_ITERS
         # tiny_yolo_v3's and yolo_v2's launches per forward on each input
         # layout, and the times of their shapes (one NHWC forward; K2's on
@@ -6070,6 +6475,7 @@ def main() -> int:
             **({"paths": paths} if paths else {}),
             "entry": entry, "shapes": shapes.get(k, shapes["slim"]),
         })
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ print(" ".join(names))
 # reader and its codec, the CUDA-graph capture, the artifact format), of
 # the evaluation path (datasets, COCO API, evaluators, their CLIs) and of
 # one training batch (the loader, targets, loss, the trainer's loss_fn)
-# and of the trainer proper (the training CLI, the metrics log)
+# and of the trainer proper (the training CLI, the metrics log) and of
+# the rest of quantization (QAT, the clip search, analysis, its CLI)
 NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.utils.msgpack_codec",
                "yolo_tpu_torch.utils.capture", "yolo_tpu_torch.utils.device",
@@ -43,7 +44,10 @@ NEW_MODULES = ("yolo_tpu_torch.utils.checkpoint",
                "yolo_tpu_torch.data.loader", "yolo_tpu_torch.train",
                "yolo_tpu_torch.train.targets", "yolo_tpu_torch.train.loss",
                "yolo_tpu_torch.train.trainer", "yolo_tpu_torch.cli.train",
-               "yolo_tpu_torch.utils.profiling")
+               "yolo_tpu_torch.utils.profiling",
+               "yolo_tpu_torch.quant.qat", "yolo_tpu_torch.quant.autoclip",
+               "yolo_tpu_torch.quant.analysis",
+               "yolo_tpu_torch.cli.quantize")
 
 
 def test_package_imports_without_jax_or_yolo_tpu():
@@ -55,8 +59,9 @@ def test_package_imports_without_jax_or_yolo_tpu():
     # and modules (dispatch, transforms, native, pipeline, models.yolo_v3_spp);
     # 40 with the checkpoint reader, its codec, capture, device and export;
     # 54 with the evaluation path's eleven (43 before it); 59 with the
-    # training batch's five; 61 with the training CLI and the metrics log
-    assert int(count) >= 61
+    # training batch's five; 61 with the training CLI and the metrics log;
+    # 65 with QAT, autoclip, analysis and the compression CLI
+    assert int(count) >= 65
     assert set(NEW_MODULES) <= set(names.split())
 
 

@@ -376,10 +376,37 @@ def test_dispatch_refuses_what_it_lacks(version):
     assert torch.isfinite(scores).all()
 
 
-def test_dispatch_refuses_auto_head_clip():
-    cfg = t_get_config("slim_yolo_v2", "mask")
-    with pytest.raises(ValueError, match="autoclip"):
-        dispatch.build_int8_detector("slim_yolo_v2", None, cfg, [],
+def test_dispatch_refuses_auto_head_clip(monkeypatch):
+    """``head_clip="auto"`` was refused until ``quant.autoclip`` was
+    ported; now it takes ``autoclip.select_head_clip``'s cap (the search
+    itself: ``test_torch_autoclip.py``), and an unknown version is still
+    refused before any search."""
+    from yolo_tpu_torch.quant import autoclip
+
+    cfg = t_get_config("slim_yolo_v2_q_bf", "mask",
+                       input_size=(SIZE, SIZE))
+    calib = [np.random.default_rng(4).random((2, SIZE, SIZE, 3),
+                                             dtype=np.float32)]
+    calls = []
+
+    def pick(version, model, cfg, batches, device):
+        calls.append((version, len(batches), device.type))
+        return 0.002, {}  # binds: the seeded pred spans ~0.03
+
+    monkeypatch.setattr(autoclip, "select_head_clip", pick)
+    model = C.slim_from_params(C.slim_seeded_fused_params(0, 35),
+                               device="cpu")
+    m, _ = dispatch.build_int8_detector("slim_yolo_v2_q_bf", model, cfg,
+                                        calib, head_clip="auto",
+                                        device="cpu")
+    ref, _ = dispatch.build_int8_detector("slim_yolo_v2_q_bf", model, cfg,
+                                          calib, head_clip=0.002,
+                                          device="cpu")
+    assert calls == [("slim_yolo_v2_q_bf", 1, "cpu")]
+    assert m.sa == ref.sa and m.sa["pred"] != dispatch.build_int8_detector(
+        "slim_yolo_v2_q_bf", model, cfg, calib, device="cpu")[0].sa["pred"]
+    with pytest.raises(ValueError, match="no INT8 engine"):
+        dispatch.build_int8_detector("nope", None, cfg, [],
                                      head_clip="auto", device="cpu")
 
 

@@ -15,7 +15,8 @@ BN runs from the running stats unless a ``train_context`` is active
 (the JAX package's ``train=True``): then from the batch's statistics,
 with the running stats updated in place (not inside ``frozen_stats``: a
 recomputed forward leaves them alone). A ``branch_context`` records a
-forward's leaky signs and pool argmaxes, or imposes recorded ones.
+forward's leaky signs, pool argmaxes and STE fake-quant clip masks and
+levels, or imposes recorded ones.
 Inside a ``fast_pool_context`` the conv + pool pairs with few input
 channels run at pooled resolution (``conv_block_pool_s2d``).
 """
@@ -323,14 +324,20 @@ _BRANCHES = None
 
 class branch_context:
     """``with branch_context() as b: model(x)`` records the forward's
-    discrete choices in ``b.choices``, in call order: each ``leaky_relu``'s
-    sign mask and each ``max_pool``'s argmax. ``with
-    branch_context(choices) as b: ...`` makes the same forward, on any
-    device, take those choices in place of its own (the pool as a gather
-    at the given argmax), and lists in ``b.flips`` one ("leaky" or
-    "pool", elements where its own choice differs, the largest margin
-    over them, the layer's largest |x|) a choice: the margin is |x| at a
-    leaky, the window's own maximum less the element taken at a pool.
+    discrete choices in ``b.choices`` (their kinds in ``b.kinds``), in
+    call order: each ``leaky_relu``'s sign mask, each ``max_pool``'s
+    argmax, and at each STE fake-quant tap
+    (``quant.qat.tracker_quantize_ste``) its clip mask and its rounded
+    levels. ``with branch_context(choices) as b: ...`` makes the same
+    forward, on any device, take those choices in place of its own (the
+    pool as a gather at the given argmax, the tap's levels as given, its
+    gradient passing where the given mask says inside the rails), and
+    lists in ``b.flips`` one ("leaky", "pool", "clip" or "round",
+    elements where its own choice differs, the largest margin over them,
+    the layer's largest |x|) a choice: the margin is |x| at a leaky, the
+    window's own maximum less the element taken at a pool, the distance
+    to the nearer rail at a clip, and at a rounding the distance of the
+    clipped value to the tie between its own level and the one taken.
 
     Two devices' float32 forwards round differently. Where a value lies
     within that rounding of a leaky's zero, or of a pool window's
@@ -342,7 +349,7 @@ class branch_context:
 
     def __init__(self, choices=None):
         self.imposed = choices
-        self.choices, self.flips = [], []
+        self.choices, self.kinds, self.flips = [], [], []
 
     def __enter__(self):
         global _BRANCHES
@@ -355,6 +362,7 @@ class branch_context:
         return False
 
     def _take(self, kind, own, margin_of, v):
+        self.kinds.append(kind)
         if self.imposed is None:
             self.choices.append(own)
             return own
@@ -374,6 +382,26 @@ class branch_context:
         """The sign mask a leaky_relu of ``x`` takes."""
         v = x.detach()
         return self._take("leaky", v >= 0, lambda taken: v.abs(), v)
+
+    def quant(self, x, clipped, levels, lo, hi, scale):
+        """The clip mask and levels of an STE fake-quant of ``x``
+        (``clipped`` = ``x`` clamped to [``lo``, ``hi``], ``levels`` =
+        round(``scale`` * ``clipped``)) -> (the clipped value, its
+        gradient path cut where the mask taken says clipped and opened
+        where it says inside, and the levels taken)."""
+        v = x.detach()
+        own = (v >= lo) & (v <= hi)
+        inside = self._take(
+            "clip", own,
+            lambda taken: torch.minimum((v - lo).abs(), (v - hi).abs()), v)
+        if inside is not own:
+            clipped = torch.where(inside == own, clipped,
+                                  torch.where(inside, x, clipped.detach()))
+        c = clipped.detach()
+        taken = self._take(
+            "round", levels.detach(),
+            lambda t: ((scale * c - t).abs() - 0.5).abs() / scale, v)
+        return clipped, taken
 
     def pool(self, x, window, stride, padding):
         out, own = F.max_pool2d(x, window, stride, padding,

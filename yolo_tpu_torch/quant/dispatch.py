@@ -6,8 +6,8 @@ needs no per-model branching, and onto its float model
 
 Every family of the JAX package: slim_yolo_v2, slim_yolo_v2_q_bf (its BN
 already folded: ``fold_bn=False``), tiny_yolo_v3, yolo_v2, yolo_v3 and
-yolo_v3_spp. ``head_clip="auto"`` (``quant.autoclip``) is not ported yet
-and raises.
+yolo_v3_spp. ``head_clip="auto"`` picks the cap by ``quant.autoclip``'s
+search.
 """
 
 from __future__ import annotations
@@ -48,11 +48,13 @@ def has_batch_norm(version: str) -> bool:
 
 
 def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
-                     generator: torch.Generator = None):
+                     generator: torch.Generator = None,
+                     batch_norm: bool = None):
     """The float model of ``version`` on ``device`` (the JAX package's
     ``build_detector(version).init_params``): BN-form, or for
     slim_yolo_v2_q_bf with BN pre-folded (biased convs; ``has_batch_norm``),
-    randomly initialised from ``generator`` where one is given."""
+    or in the form ``batch_norm`` names where it is given; randomly
+    initialised from ``generator`` where one is given."""
     from yolo_tpu_torch.models.slim_yolo_v2 import SlimYOLOv2
     from yolo_tpu_torch.models.tiny_yolo_v3 import TinyYOLOv3
     from yolo_tpu_torch.models.yolo_v2 import YOLOv2
@@ -62,7 +64,9 @@ def init_float_model(version: str, cfg: DetectorConfig, device="cuda",
     cls = {"slim": SlimYOLOv2, "tiny": TinyYOLOv3, "v2": YOLOv2,
            "v3": YOLOv3, "v3_spp": YOLOv3SPP}[_family(version)]
     pred_out = cfg.anchors_per_scale * (1 + 4 + cfg.num_classes)
-    return cls(pred_out, batch_norm=has_batch_norm(version),
+    if batch_norm is None:
+        batch_norm = has_batch_norm(version)
+    return cls(pred_out, batch_norm=batch_norm,
                device=resolve_device(device), generator=generator)
 
 
@@ -84,20 +88,25 @@ def build_int8_detector(version: str, params_fp32, cfg: DetectorConfig,
     ``detect_fn(images) -> (boxes, scores, classes, valid)`` runs on
     ``device``.
 
-    ``head_clip``: a float cap or None ("auto" needs ``quant.autoclip``,
-    not ported yet: it raises). ``states``: pre-computed tracker states
-    (slim: a name dict, the others: a call-ordered list): skips
-    calibration.
+    ``head_clip``: a float cap, None, or "auto": sweep
+    ``autoclip.DEFAULT_CAPS`` on ``calib_batches`` and take the cap whose
+    engine's detections agree best with the float model's
+    (``autoclip.select_head_clip``; the reference's findbest search
+    spirit, retune_bias_quantize_findbest.py:115-148). ``states``:
+    pre-computed tracker states (slim: a name dict, the others: a
+    call-ordered list): skips calibration (the QAT path and autoclip's
+    per-tracker search both use it).
     ``act_percentile``: per-tracker outlier clip during calibration.
     ``maker_kwargs`` (``input_s2d=``, and for v3 ``s2d=``) pass through to
     the family's detect-fn maker."""
     family = _family(version)
-    if head_clip == "auto":
-        raise ValueError("head_clip='auto' is not ported yet: it needs "
-                         "quant.autoclip's search; pass a float cap or None")
     dev = resolve_device(device)
     model = params_fp32.to(dev)
     calib_batches = list(calib_batches)
+    if head_clip == "auto":
+        from yolo_tpu_torch.quant.autoclip import select_head_clip
+        head_clip, _ = select_head_clip(version, model, cfg, calib_batches,
+                                        device=dev)
     pipe_kw = dict(max_images=max_images, head_clip=head_clip,
                    states=states, act_percentile=act_percentile,
                    weight_bitwidth=weight_bitwidth,

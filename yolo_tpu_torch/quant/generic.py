@@ -4,8 +4,10 @@
 quantization context taps every conv block, residual sum and prediction
 head in call order (``ops/blocks``), so the same pow2 fake-quant
 semantics apply to any model built from ``blocks.Conv`` layers.
-
-``quantize_detector`` waits for the port's ``detector.Detector``.
+``QuantModule`` is the frozen fake-quant model as an ``nn.Module`` that
+``detector.Detector`` and the evaluators run; ``quantize_detector`` is the
+whole generic PTQ with its detect fn (counterpart of the JAX
+``quantize_detector``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Iterable, List
 
 import numpy as np
 import torch
+from torch import nn
 
 from yolo_tpu_torch.models.darknet import ResBlock
 from yolo_tpu_torch.ops import blocks
@@ -169,3 +172,56 @@ def calibrate_pipeline(model, cfg, calib_batches, max_images: int = 1000,
         pre = torch.stack(pre).cpu().tolist()
         agg = pre if agg is None else [max(a, b) for a, b in zip(agg, pre)]
     return fused, states, agg
+
+
+class QuantModule(nn.Module):
+    """The frozen fake-quant model, inference only: ``model_q`` (a
+    fake-quantized model) under ``quant_forward_generic`` with the
+    call-ordered tracker ``states`` (moved to its device), update off.
+    ``forward(x)`` -> the head list, as the float models'; inside a
+    ``blocks.train_context`` it raises (the JAX package's ``assert not
+    train``)."""
+
+    def __init__(self, model_q: nn.Module, states: List[dict]):
+        super().__init__()
+        self.model_q = model_q
+        self.STRIDES = model_q.STRIDES
+        dev = model_device(model_q)
+        self.states = [q.as_state(s, dev) for s in states]
+
+    def forward(self, x):
+        if blocks._TRAIN:
+            raise RuntimeError("the quantized simulation is inference-only")
+        return quant_forward_generic(self.model_q, x, None, self.states)[0]
+
+
+def quantize_detector(det, calib_batches, fold_bn: bool = True,
+                      max_images: int = 1000, bitwidth: int = 8,
+                      head_clip: float = None, states=None,
+                      weight_bitwidth: int = None, per_channel: bool = False):
+    """The whole generic PTQ of ``det.model`` (a ``detector.Detector``'s
+    float model): (fold BN ->) fake-quant weights -> calibrate, on its
+    device. ``states`` (a call-ordered tracker-state list, e.g. the one a
+    QAT fine-tune trained against) skips calibration and serves those
+    frozen scales: re-calibrating tuned weights could move a pow2
+    exponent off the trained grid. ``weight_bitwidth`` / ``per_channel``:
+    the weight grid (``fake_quantize_all_convs``), which must be the one
+    the integer engine serves.
+
+    Returns (model_q, states, detect_fn): ``detect_fn(images) -> (boxes,
+    scores, classes, valid)`` the fake-quant float detector on the
+    model's device (a ``Detector`` around ``QuantModule``: decode and
+    greedy NMS as ``detector.predict`` runs them, the NMS kernel and a
+    CUDA graph per input shape on the card)."""
+    from yolo_tpu_torch.detector import Detector
+    from yolo_tpu_torch.quant.bn_fold import fold_batch_norm
+
+    fused = fold_batch_norm(det.model) if fold_bn else det.model
+    model_q = fake_quantize_all_convs(fused, bitwidth, weight_bitwidth,
+                                      per_channel)
+    if states is None:
+        states = calibrate_generic(model_q, det.cfg, list(calib_batches),
+                                   max_images, bitwidth, head_clip=head_clip)
+    sim = Detector(det.cfg, model=QuantModule(model_q, states),
+                   batch_norm=False, device=model_device(model_q))
+    return model_q, states, sim.detect_fn()

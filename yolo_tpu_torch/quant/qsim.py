@@ -7,9 +7,9 @@ around every layer (input, after conv1..7, after pred: the C engine's 11
 accumulator's retune search. The forward, the fake-quant and the
 calibration are ``quant/generic.py``'s, whose taps fire on SlimYOLOv2 in
 the order of these names; tracker states are dicts of 0-d float32
-tensors on the model's device, keyed by them.
-
-``make_quant_module`` waits for the port's ``detector.Detector``.
+tensors on the model's device, keyed by them. ``make_quant_module``
+wraps the frozen model as an ``nn.Module`` that ``detector.Detector``
+and the evaluators run.
 """
 
 from __future__ import annotations
@@ -74,6 +74,15 @@ def quant_forward(model, x, cfg, tracker_states, *, update: bool = False,
         stat_q=act_percentile)
     return (outs, dict(zip(TRACKER_NAMES, new)),
             dict(zip(QUANT_LAYER_NAMES, pre)))
+
+
+def make_quant_module(params_q, tracker_states):
+    """The frozen quantized slim (``params_q`` a fake-quantized BN-fused
+    SlimYOLOv2, ``tracker_states`` its name dict) as an inference-only
+    ``nn.Module``: ``forward(x)`` is ``quant_forward`` with update off;
+    it raises inside a ``blocks.train_context``."""
+    return generic.QuantModule(
+        params_q, [tracker_states[n] for n in TRACKER_NAMES])
 
 
 # ---------------------------------------------------------------------------

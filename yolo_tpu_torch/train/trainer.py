@@ -84,9 +84,13 @@ def tree_leaves(model):
     (``quant.convert.module_to_params``'s): each conv's 'w' (the live OIHW
     weight), 'b', and 'bn' {'gamma', 'beta', 'mean', 'var'} (the running
     stats are buffers); a path is the tuple of its keys, a list index as
-    a string (flax's ``to_state_dict`` keys)."""
+    a string (flax's ``to_state_dict`` keys). A model that runs another
+    one's forward (``quant.qat.QATModule``) has that one's tree
+    (``tree_module()``), without a prefix of its own."""
     from yolo_tpu_torch.quant.convert import _BN_KEYS
 
+    if hasattr(model, "tree_module"):
+        model = model.tree_module()
     out = []
 
     def visit(m, path):
@@ -310,22 +314,17 @@ def make_train_step(model, cfg: DetectorConfig, tc: TrainConfig, mesh=None):
     return opt, step
 
 
-def train_device_resident(model, cfg: DetectorConfig, tc: TrainConfig,
-                          dataset, batch: int, seed: int = 0,
-                          verbose: bool = True):
-    """Train ``model`` (a float model with BN, or a ``detector.Detector``)
-    in place on a small ``dataset`` held whole on its device: every
-    sample transformed and its target rows built once, each step moving
-    only a [batch] index vector, the batches those of the JAX package's
-    ``train_device_resident`` (``numpy.default_rng(seed).permutation``
-    per epoch). Images keep the transform's type (float32, or uint8,
-    normalized in the step). The loss is read back every 10th epoch
-    (printed with ``verbose``). Returns (model, last step's metrics as
-    floats)."""
+def device_resident_batches(cfg: DetectorConfig, dataset, batch: int,
+                            device, seed: int = 0):
+    """``dataset`` held whole on ``device`` (every sample transformed and
+    its target rows built once), then its (images, targets) batches
+    without end: ``len(dataset) // batch`` (at least 1) an epoch, each
+    epoch a ``numpy.default_rng(seed).permutation`` and each step moving
+    only a [batch] index vector, as the JAX package's
+    ``train_device_resident`` draws them. Images keep the transform's
+    type (float32, or uint8, normalized in the step)."""
     from yolo_tpu_torch.train.targets import build_targets
 
-    model = getattr(model, "model", model)
-    dev = next(model.parameters()).device
     imgs, tgts = [], []
     for i in range(len(dataset)):
         img, target, _, _ = dataset.pull_item(i)
@@ -333,22 +332,39 @@ def train_device_resident(model, cfg: DetectorConfig, tc: TrainConfig,
         imgs.append(img if img.dtype == np.uint8 else
                     img.astype(np.float32))
         tgts.append(np.asarray(target).reshape(-1, 5))
-    X = torch.as_tensor(np.stack(imgs)).to(dev)
+    X = torch.as_tensor(np.stack(imgs)).to(device)
     G = torch.as_tensor(np.asarray(build_targets(cfg, tgts),
-                                   np.float32)).to(dev)
+                                   np.float32)).to(device)
+    n = int(X.shape[0])
+    rng = np.random.default_rng(seed)
+    while True:
+        order = rng.permutation(n)
+        for it in range(max(1, n // batch)):
+            idx = torch.as_tensor(order[it * batch:(it + 1) * batch]).to(
+                device)
+            yield X[idx], G[idx]
 
+
+def train_device_resident(model, cfg: DetectorConfig, tc: TrainConfig,
+                          dataset, batch: int, seed: int = 0,
+                          verbose: bool = True):
+    """Train ``model`` (a float model with BN, or a ``detector.Detector``)
+    in place on a small ``dataset`` held whole on its device, on
+    ``device_resident_batches``. The loss is read back every 10th epoch
+    (printed with ``verbose``). Returns (model, last step's metrics as
+    floats)."""
+    model = getattr(model, "model", model)
+    dev = next(model.parameters()).device
     opt, step = make_train_step(model, cfg, tc)
     opt_state = opt.init(model)
-    n = int(X.shape[0])
-    spe = max(1, n // batch)
-    rng = np.random.default_rng(seed)
+    spe = max(1, len(dataset) // batch)
+    batches = device_resident_batches(cfg, dataset, batch, dev, seed)
     t0 = time.time()
     metrics = {}
     for epoch in range(tc.max_epoch):
-        order = rng.permutation(n)
         for it in range(spe):
-            idx = torch.as_tensor(order[it * batch:(it + 1) * batch]).to(dev)
-            metrics = step(opt_state, X[idx], G[idx],
+            images, targets = next(batches)
+            metrics = step(opt_state, images, targets,
                            lr_at(tc, epoch, it, spe))
         if verbose and (epoch + 1) % 10 == 0:
             print(f"epoch {epoch + 1}: loss="
