@@ -166,11 +166,22 @@ printing JSON lines; any failure raises and the script exits nonzero:
    general shift forms (an accumulator shift >= 32, a negative output
    shift), per-column sw on one table or two (shifts of 31, 33, -1 and
    -40, or all in [0, 30]), slopes 0.1, 0.125 and none, from the parts'
-   packed weights, each one launch of the two-part C entry; then the two
-   served convs at their serving batch (256, 128), scalar and per
-   column; then tiny's conv_2 with its pool as one pooled call at slope
-   0.1 (the pooled form, scalar and per column) at 64², 100² and the
-   served 208², batch 256;
+   packed weights, each one launch of the two-part C entry (its slab
+   walk's where both parts' C_in >= 1,024 and each is a multiple of 128:
+   convsets_2.0, [128, 1,024] at 9²; [96, 1,024] keeps the tile walk);
+   then the two served convs at their serving batch (256, 128), scalar
+   and per column, convsets_2.0's layout a whole 13 x 13 tile over
+   128-channel slabs; then tiny's conv_2 with its pool as one pooled call
+   at slope 0.1 (the pooled form, scalar and per column) at 64², 100² and
+   the served 208², batch 256;
+2f. the wgmma conv3x3's slab walk (halo slabs of 128 channels, a whole
+   13 x 13 image per block: yolo_v2's convsets_1.0 and convsets_1.1)
+   against ``int8_conv_requant_plain`` (torch.equal) at ``SLAB_SHAPES``
+   (13² 1,024 -> 1,024 and -> 35, odd 9² and 7² planes whose weight
+   tiles split over 2 blocks, batch 1-3), both roundings, the shift cases
+   of 2e, slopes 0.1, 0.125 and none; then 1,024 -> 1,024 at the serving
+   batches 128 and 64, scalar and per column, slope 0.1; each shape's
+   layout (tile, halo slab, blocks per tile);
 3d. the per-channel v3 fixture on the card: the heads of its 2 images
    through the CUDA forward (packed weights and tables) bit-exact with
    the JAX package's, the detect fn's classes and valid exact, boxes and
@@ -227,17 +238,19 @@ printing JSON lines; any failure raises and the script exits nonzero:
    ``yolo_v2_int8_416_golden.npz``, weights rebuilt from their seeds):
    heads bit-exact on NHWC and s2d input, detections the fixture's,
    served on both inputs with per-forward launches checked (tiny: the
-   entry conv or K2 once, 7 one-part wgmma 3x3s, conv_set_1 on the
+   entry conv or K2 once, 6 one-part wgmma 3x3s and conv_set_2 (1024 ->
+   256 at 13²) on their slab walk, conv_set_1 on the
    two-part form, conv_2 with its pool on the pooled form, 3 wgmma 1x1s;
-   yolo_v2: 1, 13, convsets_2.0 on the two-part form, 8; none on the
+   yolo_v2: 1, 11, convsets_1.0 and convsets_1.1 on the slab walk,
+   convsets_2.0 on the two-part form's slab walk, 8; none on the
    mma.sync general conv), its weights packed when the detect fn took
    the model and never in the loop, images/sec, backbone and decode +
    NMS ms; every conv of one NHWC forward on its recorded input and the
    entry conv + pool on the s2d layout against its plain version and
    timed beside its plain version and cuDNN fp16 (``torch._int_mm`` for
-   a 1x1), with its bound, the two-part and pooled convs also with their
-   device time (``torch.profiler``); the port's PTQ of each from the
-   fixture's seed and images, every table and the weights' sha256 the
+   a 1x1), with its bound, the two-part, pooled and slab-walk convs also
+   with their device time (``torch.profiler``); the port's PTQ of each
+   from the fixture's seed and images, every table and the weights' sha256 the
    fixture's, served once; 7d both with per-channel weight scales on
    their per-channel 416² fixtures (``tiny_yolo_v3_int8_pc_416_golden.npz``,
    ``yolo_v2_int8_pc_416_golden.npz``, made by the JAX package, weights
@@ -442,11 +455,13 @@ and conv1's NHWC route each their own; ``launches`` also counts phase
 6's, 7's, 8's, 9's, 11c's and 12's runs, their wrappers' own launches (the eager calls,
 a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
 graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
-its serving shape (8a). The two-part form's entries time tiny's conv_set_1
-plus yolo_v2's convsets_2.0 (scalar: 7a, 7b; per column: 7d); each entry
-on tiny_yolo_v3's or yolo_v2's path has ``paths``: their launches per
-forward and the times of their shapes (``.pc``: 7d's per-channel
-models).
+its serving shape (8a). The two-part form's entries time tiny's
+conv_set_1, the slab walk's yolo_v2's convsets_1.x with tiny's
+conv_set_2 and (two-part) convsets_2.0 (scalar: 7a, 7b; per column: 7d;
+their ``entry``: the C entry's name + ``.slab``, the launches of those
+entries that took their slab walk); each entry on tiny_yolo_v3's or
+yolo_v2's path has ``paths``: their launches per forward and the times
+of their shapes (``.pc``: 7d's per-channel models).
 
 The second-to-last lines are the ``kernels`` JSON and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -500,6 +515,14 @@ RES_COLS = "yolo_int8_res_block_cols_wgmma"  # K4's per-column form
 # conv_set_1, yolo_v2's convsets_2.0), scalar and per column
 PARTS3 = "yolo_int8_conv3x3_parts_wgmma"
 PARTS_COLS3 = "yolo_int8_conv3x3_parts_cols_wgmma"
+# the launches of the conv's and of its two-part form's entries on their
+# slab walk (halo slabs of 128 channels: yolo_v2's convsets_1.0 and
+# convsets_1.1, and its convsets_2.0), scalar and per column, counted
+# under the entry's name + int8_conv.SLAB_WALK
+SLAB3 = WGMMA3 + ".slab"
+SLAB_COLS3 = COLS3 + ".slab"
+PARTS_SLAB3 = PARTS3 + ".slab"
+PARTS_SLAB_COLS3 = PARTS_COLS3 + ".slab"
 # The kernels line, one entry per kernel and route: name -> (wrapper, the
 # C entry it launches there, source, the TPU kernel (Pallas body) it
 # replaces; int8_conv_requant replaces XLA's integer conv in
@@ -587,6 +610,21 @@ LINES = {
     "int8_conv_requant.conv3x3_parts_cols_wgmma": (
         "int8_conv_requant", PARTS_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
         "yolo_tpu/quant/fixed_point.py:725"),
+    # yolo_v2's convsets_1.0 / convsets_1.1 and convsets_2.0 (phases 2f,
+    # 2e, 7): the slab walk of the conv and of its two-part form, scalar
+    # and (7d) per column
+    "int8_conv_requant.conv3x3_slab_wgmma": (
+        "int8_conv_requant", SLAB3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_slab_cols_wgmma": (
+        "int8_conv_requant", SLAB_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_parts_slab_wgmma": (
+        "int8_conv_requant", PARTS_SLAB3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
+    "int8_conv_requant.conv3x3_parts_slab_cols_wgmma": (
+        "int8_conv_requant", PARTS_SLAB_COLS3, CSRC + "int8_conv3x3_wgmma.cu",
+        "yolo_tpu/quant/fixed_point.py:725"),
     # every detect fn's greedy NMS (phase 8a; the JAX package runs it as a
     # lax.while_loop of Jacobi sweeps, no Pallas kernel)
     "greedy_nms_keep": (
@@ -635,12 +673,22 @@ CONV1X1_EDGE_SHAPES = [(1, 7, 9, (16,), 24), (2, 5, 5, (48,), 21),
 GEMM_SHAPES = [(4096, 4096, 4096), (692224, 288, 64), (1000, 200, 100),
                (333, 72, 98), (7, 9, 33), (300, 1000, 520)]
 # the two-part form at (B, H, parts' C_in, C_out) (phase 2e): conv_set_1's
-# [256, 128] -> 256 at 26², convsets_2.0's [256, 1024] -> 1024 at 13²,
-# C_out 35 and 64, odd images (13², 9²); then the two at the serving batch
+# [256, 128] -> 256 at 26², convsets_2.0's [256, 1024] -> 1024 at 13²
+# (the slab walk), C_out 35 and 64, odd images (13², 9²), the slab walk at
+# 9² over [128, 1024] and the tile walk over [96, 1024] (a part of no
+# whole slabs); then the two served ones at the serving batch
 PARTS_SHAPES = [(2, 26, (256, 128), 256), (2, 13, (256, 1024), 1024),
                 (2, 13, (64, 32), 35), (3, 26, (128, 64), 64),
-                (1, 9, (32, 96), 64)]
+                (1, 9, (32, 96), 64), (2, 9, (128, 1024), 64),
+                (2, 13, (96, 1024), 64)]
 PARTS_SERVED = [(256, 26, (256, 128), 256), (128, 13, (256, 1024), 1024)]
+# the conv's slab walk at (B, H, C_in, C_out) (phase 2f): convsets_1.x's
+# 1024 -> 1024 at 13², C_out 35 (the 64-column tile), odd 9² and 7² planes
+# whose weight tiles split over 2 blocks (384: unevenly), batch 1-3; then
+# convsets_1.x at the serving batches of phase 7b (128) and 7c (64)
+SLAB_SHAPES = [(2, 13, 1024, 1024), (3, 13, 1024, 35), (1, 9, 1024, 384),
+               (2, 7, 1024, 256)]
+SLAB_SERVED = [(128, 13, 1024, 1024), (64, 13, 1024, 1024)]
 # K4 shapes (B, H, C, C_mid) whose tiles leave edge tiles
 RES_EDGE_SHAPES = [(2, 100, 128, 64), (2, 50, 256, 128), (2, 27, 512, 256)]
 GEMM_PROBE = (8192, 8192, 8192)  # the TPU probe's headline shape
@@ -1952,6 +2000,11 @@ def phase_pc_kernels(max_err):
 PARTS_CASES = ("plain", "acc_shift>=32", "out_shift<0", "mixed", "short")
 PARTS_LINES = ("int8_conv_requant.conv3x3_parts_wgmma",
                "int8_conv_requant.conv3x3_parts_cols_wgmma")
+# the slab walk's lines: the conv's, then the two-part form's
+SLAB_LINES = ("int8_conv_requant.conv3x3_slab_wgmma",
+              "int8_conv_requant.conv3x3_slab_cols_wgmma")
+PARTS_SLAB_LINES = ("int8_conv_requant.conv3x3_parts_slab_wgmma",
+                    "int8_conv_requant.conv3x3_parts_slab_cols_wgmma")
 
 
 def parts_kw(gen, cins, c_out, case, unequal):
@@ -1964,10 +2017,11 @@ def parts_kw(gen, cins, c_out, case, unequal):
     return kw, (sa0, sa0 - 1 if unequal else sa0)
 
 
-def parts_case(x, cins, w, wp, bias, kw, max_err, what):
+def parts_case(x, cins, w, wp, bias, kw, max_err, what, slab=False):
     """One two-part conv from the packed weights, as the forward calls it,
-    == its plain version; -> (its kernels-line name, the share of its
-    outputs at the most common value)."""
+    == its plain version, on the tile walk or (``slab``) the slab walk;
+    -> (its kernels-line name, the share of its outputs at the most common
+    value)."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     parts = [(t.contiguous(), sa) for t, sa in
@@ -1978,7 +2032,7 @@ def parts_case(x, cins, w, wp, bias, kw, max_err, what):
                               padding=1, **kw)
     torch.cuda.synchronize()
     line = ran_line()
-    if line not in PARTS_LINES:
+    if line not in (PARTS_SLAB_LINES if slab else PARTS_LINES):
         raise AssertionError(f"the two-part conv at {what} launched {line}")
     want = K.int8_conv_requant_plain(parts, w, bias, sa_in=None, padding=1,
                                      **kw)
@@ -2011,6 +2065,20 @@ def phase_parts_kernels(max_err):
         served = (bsz, h, cins, c_out) in PARTS_SERVED
         x, w, bias = make_case(gen, bsz, h, sum(cins), c_out, s2d=False)
         wp = K.pack_conv3x3_parts_weights(w, cins)
+        layouts = {split: K.conv3x3_parts_wgmma_layout(h, h, *cins, c_out,
+                                                       split, bsz)
+                   for split in (False, True)}
+        # the slab walk where its layout says so (and so for both splits)
+        slab = {lay.halo_channels < sum(cins) for lay in layouts.values()}
+        if len(slab) != 1:
+            raise AssertionError(f"2e {list(cins)}: one split on slabs, "
+                                 f"the other not: {layouts}")
+        slab = slab.pop()
+        if (served and sum(cins) >= 1024
+                and [layouts[True][k] for k in (0, 1, 9)] != [h, h, 128]):
+            raise AssertionError(f"2e convsets_2.0 at batch {bsz}: layout "
+                                 f"{layouts[True]}, want a whole {h}x{h} "
+                                 f"tile over 128-channel slabs")
         lines, tops = set(), []
         # at the serving batch: the served conv's scales (tiny's one,
         # yolo_v2's two), scalar and per column, nearest
@@ -2025,16 +2093,16 @@ def phase_parts_kernels(max_err):
                       else 0.1 if c_out == 256 else True)
             line, top = parts_case(x, cins, w, wp, bias, kw, max_err,
                                    f"{bsz}x{h}² {list(cins)} -> {c_out} "
-                                   f"{rounding} {case} sas {list(sas)}")
+                                   f"{rounding} {case} sas {list(sas)}",
+                                   slab)
             lines.add(line)
             tops.append(top)
             n += 1
         emit("parts_kernels_vs_plain", shape=[bsz, h, h, list(cins), c_out],
              equal=True, cases=len(grid), lines=sorted(lines),
-             top_value_share_max=max(tops),
-             layouts={str(split): K.conv3x3_parts_wgmma_layout(
-                 h, h, *cins, c_out, split)._asdict()
-                 for split in (False, True)})
+             top_value_share_max=max(tops), slab_walk=slab,
+             layouts={str(split): lay._asdict()
+                      for split, lay in layouts.items()})
         del x, w, bias, wp
         torch.cuda.empty_cache()
     for bsz, h in ((2, 64), (2, 100), (BATCH_SERVE, 208)):
@@ -2060,6 +2128,65 @@ def phase_parts_kernels(max_err):
         del x, w, bias
         torch.cuda.empty_cache()
     emit("parts_kernels_vs_plain_done", cases=n)
+
+
+def phase_slab_kernels(max_err):
+    """The wgmma conv3x3's slab walk == ``int8_conv_requant_plain``
+    (phase 2f): at ``SLAB_SHAPES`` (13² 1024 -> 1024 and -> 35, odd 9²
+    and 7² planes, batch 1-3), both roundings, each shift case of
+    ``PARTS_CASES`` (scalar sw in the short and the general shift forms,
+    per-column sw with shifts outside [0, 31] and all inside), the slopes
+    0.1, 0.125 and none, from packed weights; then convsets_1.x at the
+    serving batches 128 and 64, scalar and per column, at slope 0.1. Each
+    layout (tile, halo slab, blocks per tile) is emitted."""
+    from yolo_tpu_torch.kernels import int8_conv as K
+
+    gen = torch.Generator().manual_seed(23)
+    n = 0
+    for bsz, h, c_in, c_out in SLAB_SHAPES + SLAB_SERVED:
+        served = (bsz, h, c_in, c_out) in SLAB_SERVED
+        x, w, bias = make_case(gen, bsz, h, c_in, c_out, s2d=False)
+        packed = K.pack_conv3x3_weights(w)
+        lay = K.conv3x3_wgmma_layout(h, h, c_in, c_out, bsz)
+        if lay.halo_channels != 128 or (h == 13 and lay[:2] != (13, 13)):
+            raise AssertionError(f"2f {bsz}x{h}² {c_in} -> {c_out}: layout "
+                                 f"{lay}, want the slab walk (13²: a whole "
+                                 f"image)")
+        grid = ([("nearest", case, 0.1) for case in ("plain", "short")]
+                if served else
+                [(r, case, (0.1, True, False)[i % 3])
+                 for r in ("nearest", "floor")
+                 for i, case in enumerate(PARTS_CASES)])
+        lines, tops = set(), []
+        for rounding, case, leaky in grid:
+            kw = (pc_shifts(gen, c_in, c_out, case) if case in ("mixed",
+                                                               "short")
+                  else shifts(c_in, case))
+            kw.update(leaky=leaky, rounding=rounding, padding=1)
+            K.reset_launch_counts()
+            got = K.int8_conv_requant(x, None, bias, packed=packed, **kw)
+            torch.cuda.synchronize()
+            line = ran_line()
+            if line not in SLAB_LINES:
+                raise AssertionError(f"2f {bsz}x{h}² {c_in} -> {c_out} "
+                                     f"launched {line}, not the slab walk")
+            want = K.int8_conv_requant_plain(x, w, bias, **kw)
+            check_equal(line, got, want, max_err,
+                        f"2f {bsz}x{h}² {c_in} -> {c_out} {rounding} {case} "
+                        f"leaky {leaky}")
+            tops.append(float(torch.unique(want, return_counts=True)[1].max()
+                              / want.numel()))
+            lines.add(line)
+            n += 1
+            del got, want
+        if max(tops) == 1.0:
+            raise AssertionError(f"2f {bsz}x{h}²: an output of one value")
+        emit("slab_kernels_vs_plain", shape=[bsz, h, h, c_in, c_out],
+             equal=True, cases=len(grid), lines=sorted(lines),
+             top_value_share_max=max(tops), layout=lay._asdict())
+        del x, w, bias, packed
+        torch.cuda.empty_cache()
+    emit("slab_kernels_vs_plain_done", cases=n)
 
 
 PC_FIXTURE = "slim_int8_pc_416_golden.npz"
@@ -3570,8 +3697,8 @@ FAMILY7 = {
         from_params="tiny_from_params", pipeline="quantize_pipeline_tiny",
         forward="int8_tiny_forward", maker="make_int8_tiny_detect_fn",
         heads=("pred_1", "pred_2"),
-        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 7, PARTS3: 1,
-                                        CONV1X1: 3},
+        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 6, SLAB3: 1,
+                                        PARTS3: 1, CONV1X1: 3},
                   "int8_conv3x3_im2col": {POOL3: 1}}),
     "yolo_v2": dict(
         fixture="yolo_v2_int8_416_golden.npz",
@@ -3581,12 +3708,13 @@ FAMILY7 = {
         from_params="yolo_v2_from_params",
         pipeline="quantize_pipeline_yolo_v2", forward="int8_yolo_v2_forward",
         maker="make_int8_yolo_v2_detect_fn", heads=("pred",),
-        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 13, PARTS3: 1,
-                                        CONV1X1: 8}}),
+        launches={"int8_conv_requant": {ENTRY3: 1, WGMMA3: 11, SLAB3: 2,
+                                        PARTS_SLAB3: 1, CONV1X1: 8}}),
 }
 # the per-column C entry of each scalar one on phase 7's paths (7d)
 COLS_OF = {ENTRY3: ENTRY_COLS3, WGMMA3: COLS3, PARTS3: PARTS_COLS3,
-           CONV1X1: CONV1X1_COLS, POOL3: POOL_COLS3}
+           CONV1X1: CONV1X1_COLS, POOL3: POOL_COLS3, SLAB3: SLAB_COLS3,
+           PARTS_SLAB3: PARTS_SLAB_COLS3}
 # cli.serve runs of phase 7c: (version, batch, the input mode --input auto
 # gives)
 CLI7 = (("tiny_yolo_v3", 64, "s2d"), ("yolo_v2", 64, "s2d"),
@@ -3629,9 +3757,11 @@ def reset_family7_packs():
 
 
 # the kernels-line names whose device time phase 7 reads with
-# torch.profiler: the convs this slice moved onto the wgmma conv3x3
-FAMILY7_DEVICE_LINES = PARTS_LINES + ("int8_conv3x3_im2col",
-                                      "int8_conv3x3_im2col.cols")
+# torch.profiler: the convs moved onto the wgmma conv3x3, and yolo_v2's
+# three deep convs on its slab walk
+FAMILY7_DEVICE_LINES = (PARTS_LINES + SLAB_LINES + PARTS_SLAB_LINES
+                        + ("int8_conv3x3_im2col",
+                           "int8_conv3x3_im2col.cols"))
 
 
 def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
@@ -3642,8 +3772,9 @@ def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
     layout (``xb2``; None: not run): kernel == plain version, then the
     kernel, the plain version and a library yardstick (cuDNN fp16 conv2d;
     torch._int_mm for a 1x1) timed, with the bound; the two-part and
-    pooled convs also their device time (torch.profiler). -> {kernels-line
-    name: per-forward sums (``add_time``)}, each conv's line emitted."""
+    pooled convs and those on the slab walk also their device time
+    (torch.profiler), the latter also their layout. -> {kernels-line name:
+    per-forward sums (``add_time``)}, each conv's line emitted."""
     from yolo_tpu_torch.kernels import int8_conv as K
 
     calls = []
@@ -3716,6 +3847,13 @@ def family7_conv_times(version, m, forward, xb, xb2, peak_ops, peak_bw,
         extra = {}
         if line in FAMILY7_DEVICE_LINES:  # their device time alone
             extra["device_ms"] = profiled(run, 5)[1]
+        if line in SLAB_LINES:
+            extra["layout"] = K.conv3x3_wgmma_layout(h, h, sum(cins), c_out,
+                                                     b)._asdict()
+        elif line in PARTS_SLAB_LINES:
+            extra["layout"] = K.conv3x3_parts_wgmma_layout(
+                h, h, *cins, c_out, len({sa for _, sa in x}) == 2,
+                b)._asdict()
         out_px = b * h * h // (4 if pooled else 1)
         record(line, name + (" + pool" if pooled else ""),
                [b, h, h, cins, c_out, k], ms, plain_ms, lib_ms,
@@ -7651,6 +7789,7 @@ def main() -> int:
     phase_v3_kernels(max_err)
     phase_pc_kernels(max_err)
     phase_parts_kernels(max_err)
+    phase_slab_kernels(max_err)
     m, cfg = phase_golden()
     m3, cfg3 = phase_v3_golden()
     mpc, cfgpc = phase_pc_golden()
@@ -7722,8 +7861,10 @@ def main() -> int:
     phase_15(card)
     emit("phase_15", seconds=time.perf_counter() - t15)
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
-    # convsets_2.0, scalar (7a, 7b) and per column (7d), a forward of each
-    for line in PARTS_LINES:
+    # convsets_2.0 (its slab walk's lines: convsets_2.0 alone), the slab
+    # walk's: convsets_1.0 and convsets_1.1, scalar (7a, 7b) and per column
+    # (7d), a forward of each
+    for line in PARTS_LINES + SLAB_LINES + PARTS_SLAB_LINES:
         times[line] = {}
         for tv in times_7.values():
             for field, v in tv.get(line, {}).items():
@@ -7797,14 +7938,27 @@ def main() -> int:
                                       f"1x1s, batch {V3_BATCH_SERVE}, "
                                       f"{SIZE}x{SIZE}; library_ms is "
                                       f"torch._int_mm",
-        **{line: f"per forward: tiny_yolo_v3's conv_set_1 (3x3 over [256, "
-                 f"128] at 26², batch {FAMILY7['tiny_yolo_v3']['batch']}) "
-                 f"plus yolo_v2's convsets_2.0 ([256, 1024] at 13², two "
-                 f"scales, batch {FAMILY7['yolo_v2']['batch']}), {what}, "
+        **{line: f"per tiny_yolo_v3 forward: its conv_set_1 (3x3 over "
+                 f"[256, 128] at 26², batch "
+                 f"{FAMILY7['tiny_yolo_v3']['batch']}; yolo_v2's "
+                 f"convsets_2.0 takes the slab walk's line), {what}, "
                  f"{SIZE}x{SIZE}, on real activations; library_ms is cuDNN "
                  f"fp16 conv2d over the concat"
            for line, what in zip(PARTS_LINES, (
                "scalar sw (7a, 7b)", "per-channel sw (7d)"))},
+        **{line: f"per forward{pc}: {what} on the slab walk, {SIZE}x{SIZE}, "
+                 f"on real activations; library_ms is cuDNN fp16 "
+                 f"conv2d{cat}"
+           for line, pc, what, cat in zip(
+               SLAB_LINES + PARTS_SLAB_LINES,
+               ("", " with per-channel sw (7d)") * 2,
+               (f"yolo_v2's convsets_1.0 and convsets_1.1 (1024 -> 1024 at "
+                f"13², batch {FAMILY7['yolo_v2']['batch']}) plus "
+                f"tiny_yolo_v3's conv_set_2 (1024 -> 256 at 13², batch "
+                f"{FAMILY7['tiny_yolo_v3']['batch']})",) * 2
+               + (f"yolo_v2's convsets_2.0 ([256, 1024] -> 1024 at 13², "
+                  f"two scales, batch {FAMILY7['yolo_v2']['batch']})",) * 2,
+               ("", "", " over the concat", " over the concat"))},
         "greedy_nms_keep": f"one launch per detect call: slim_yolo_v2's "
                            f"candidates on the s2d layout, batch "
                            f"{BATCH_SERVE}, K = 128 (pre_nms_top_k), "

@@ -2,13 +2,15 @@
 """Time versions of yolo_tpu_torch's CUDA kernel sources against each other
 in one process, on one CUDA card:
 
-    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc,pcv3,resc]
+    python3 scripts/torch_kernel_ab.py SPEC.json [--groups s1,res,s2,thin,one,pc,nhwc,pcv3,resc,v2deep]
 
 SPEC.json maps a version's name to ``[csrc dir, [[file, old, new], ...]]``:
 the kernel sources of that directory ("" for this checkout's own, or e.g.
 the ``yolo_tpu_torch/kernels/csrc`` of a parent commit unpacked with
 ``git archive``), each ``old`` text replaced by ``new`` in ``file`` (it
-must occur). Each version is compiled with nvcc for sm_90a (the kernel
+must occur). A version named ``ablate...`` leaves a part of the kernel's
+work out on purpose (to time the rest): its outputs are not checked.
+Each version is compiled with nvcc for sm_90a (the kernel
 sources with ``-Xptxas -v``, whose registers and spills are printed) and
 linked into a library of its own. Then the main-path shapes of each group
 are timed on every version in turn (ABBA order, twice):
@@ -50,7 +52,18 @@ are timed on every version in turn (ABBA order, twice):
   form and in its per-column form (``_pc``: a per-channel sw in both
   convs, of three values by column around the scalar sw, on tables made
   once, as ``pack_res_blocks`` makes them; the short shift form, as the
-  per-channel fixture's blocks take it).
+  per-channel fixture's blocks take it);
+- ``v2deep``: yolo_v2's three 13² convs with C_in >= 1,024 at batch 128
+  (phase 7b's) and 64 (``cli.serve``'s): convsets_1 (1024 -> 1024, two
+  per forward) and convsets_2 (convsets_2.0: [256, 1024] -> 1024, its
+  parts at two scales, a split), through the private launchers of the
+  wgmma conv3x3 and its two-part form, scalar and per column (``_pc``: a
+  per-channel sw of three values, tables made once): a tree whose C
+  entries take their slab walk there runs it, an older one its tile walk
+  (``scripts/torch_kernel_ab_v2deep.json`` times the parent's tile walk
+  beside the change's slab walk;
+  ``scripts/torch_kernel_ab_v2deep_ablate.json`` the change without its
+  halo copies, without its MMAs and with half its weight loads).
 
 Each time is the median over 5 CUDA-event pairs around 20 back-to-back
 launches, per launch: the card's time, with the wrappers' host work
@@ -66,7 +79,9 @@ version's times and their median, and the shape's launches per v3 or
 slim forward) and per group the sums of the medians and their sums per
 forward (each median times its launches per forward).
 The versions run through this checkout's wrappers, so they must share
-their C interface."""
+their C interface (but for the batch that the stride-1 conv's and the
+two-part form's ``_info`` entries take first since their slab walk: an
+older tree's entries are called without it)."""
 
 from __future__ import annotations
 
@@ -186,8 +201,16 @@ SHAPES = {
              ("conv1_mma_pc", 256, 416, 3, 16, "mma_pc"),
              ("k2_416", 256, 416, 3, 16, "k2")],
 }
+# yolo_v2's deep 13² convs (the ``v2deep`` group): (name, C_in, form)
+V2DEEP = [("convsets_1", 1024, "deep"), ("convsets_2", (256, 1024),
+                                          "deep_parts")]
+SHAPES["v2deep"] = [(f"{name}_b{b}{sfx}", b, 13, c_in, 1024, form + sfx)
+                    for b in (128, 64) for name, c_in, form in V2DEEP
+                    for sfx in ("", "_pc")]
 PER_FORWARD = {name + sfx: n for name, *_, n in ONE_BY_ONE
                for sfx in ("", "_mma")}
+PER_FORWARD.update({f"convsets_1_b{b}{sfx}": 2 for b in (128, 64)
+                    for sfx in ("", "_pc")})
 PER_FORWARD.update({f"{name}_{kind}": n
                     for name, *_, n in PC_LAYERS for kind in ("pc", "count")})
 PER_FORWARD.update({f"{name}{sfx}": n for name, *_, n in ONE_BY_ONE
@@ -225,7 +248,11 @@ ENTRY = {"conv": "yolo_int8_conv3x3_wgmma",
          "s2_pc": "yolo_int8_conv3x3_s2_cols_wgmma",
          "v3s1_pc": "yolo_int8_conv3x3_cols_wgmma",
          "one_pc": "yolo_int8_conv1x1_cols_wgmma",
-         "one_eq_pc": "yolo_int8_conv1x1_cols_wgmma"}
+         "one_eq_pc": "yolo_int8_conv1x1_cols_wgmma",
+         "deep": "yolo_int8_conv3x3_wgmma",
+         "deep_pc": "yolo_int8_conv3x3_cols_wgmma",
+         "deep_parts": "yolo_int8_conv3x3_parts_wgmma",
+         "deep_parts_pc": "yolo_int8_conv3x3_parts_cols_wgmma"}
 # the forms whose C entry took its shift table and counter with the
 # per-column forms: a version without those (an older tree) has the entry
 # but another interface, and skips them
@@ -233,17 +260,28 @@ NEEDS = dict.fromkeys(("k2_mma", "mma_pc", "mma_scalar"),
                       "yolo_int8_conv3x3_cols_wgmma")
 
 
-class Library:
-    """A version's library, its functions typed as this checkout's are."""
+# the layout entries that take the batch first (the slab walk's groups)
+BATCHED_INFO = ("yolo_int8_conv3x3_wgmma_info",
+                "yolo_int8_conv3x3_parts_wgmma_info")
 
-    def __init__(self, path: Path, ref: ctypes.CDLL):
+
+class Library:
+    """A version's library, its functions typed as this checkout's are;
+    ``batched``: its ``BATCHED_INFO`` entries take the batch (else they are
+    called without it, and report the tile walk's layout of before)."""
+
+    def __init__(self, path: Path, ref: ctypes.CDLL, batched: bool):
         self.lib, self.ref = ctypes.CDLL(str(path)), ref
+        self.batched = batched
 
     def has(self, name: str) -> bool:
         return hasattr(self.lib, name)
 
     def __getattr__(self, name):
         f, r = getattr(self.lib, name), getattr(self.ref, name)
+        if name in BATCHED_INFO and not self.batched:
+            f.argtypes, f.restype = r.argtypes[1:], r.restype
+            return lambda batch, *args: f(*args)
         f.argtypes, f.restype = r.argtypes, r.restype
         return f
 
@@ -286,7 +324,9 @@ def build_versions(spec: dict, root: Path) -> dict:
         subprocess.run([nvcc, "-shared", *build.NVCC_FLAGS,
                         *map(str, sorted(d.glob("*.o"))), "-o",
                         str(d / "lib.so")], check=True)
-        libs[name] = Library(d / "lib.so", ref)
+        libs[name] = Library(d / "lib.so", ref, (
+            "yolo_int8_conv3x3_wgmma_info(int B,"
+            in (d / "int8_conv3x3_wgmma.cu").read_text()))
     print(json.dumps({"built_s": round(time.perf_counter() - t0, 1)}),
           flush=True)
     return libs
@@ -368,6 +408,8 @@ def shape_fn(gen, b, h, c_in, c_out, form):
         return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
                              device="cuda").to(dtype)
 
+    if form.startswith("deep"):
+        return deep_fn(ri, b, h, c_in, c_out, form)
     if form.startswith("one"):
         # two parts at two scales: their partials take two shifts (_eq:
         # one scale, one accumulator)
@@ -448,6 +490,34 @@ def shape_fn(gen, b, h, c_in, c_out, form):
                                           leaky=True, **kw)
 
 
+def deep_fn(ri, b, h, c_in, c_out, form):
+    """A yolo_v2 deep conv's launch through the private launchers, a
+    per-channel sw (``_pc``) on tables made once; two parts
+    (``deep_parts``) at two scales, as convsets_2.0's are served; slope
+    0.1."""
+    cins = c_in if isinstance(c_in, tuple) else (c_in,)
+    xs = [ri((b, h, h, c), -128, 128, torch.int8) for c in cins]
+    w = ri((3, 3, sum(cins), c_out), -90, 120, torch.int8)
+    bias = ri((c_out,), -100, 100, torch.int32)
+    kw = dict(sw=12, sb=8, sa_out=4, retune=10, leaky=0.1,
+              rounding="nearest")
+    sas = [4, 2][:len(cins)]
+    tables = None
+    if form.endswith("_pc"):
+        kw["sw"] = pc_sw(11, c_out)
+        tables = K.conv_shift_tables(kw["sw"], sas, kw["retune"], "nearest",
+                                     c_out, w.device)
+    if len(cins) == 2:
+        packed = K.pack_conv3x3_parts_weights(w, cins)
+        parts = list(zip(xs, sas))
+        return lambda: K._launch_conv3x3_parts_wgmma(
+            parts, None, bias, packed, shifts=tables, **kw)
+    packed = K.pack_conv3x3_weights(w)
+    return lambda: K._launch_conv3x3_wgmma(
+        "int8_conv_requant", xs[0], None, bias, packed, sa_in=sas[0],
+        shifts=None if tables is None else tables[0], **kw)
+
+
 def pc_sw(base, c_out):
     """A per-channel sw of three values, base .. base + 2, by column."""
     return (base + torch.arange(c_out) % 3).numpy().astype("int32")
@@ -515,7 +585,8 @@ def pc_fn(x, w, bias, kw, form):
 
 def use(lib) -> None:
     build._lib = lib
-    for layout in (K.conv3x3_wgmma_layout, K.conv3x3_pool_wgmma_layout,
+    for layout in (K.conv3x3_wgmma_layout, K.conv3x3_parts_wgmma_layout,
+                   K.conv3x3_pool_wgmma_layout,
                    K.conv3x3_s2_wgmma_layout, K.res_block_layout,
                    K.entry_conv3x3_layout, K.pool_s2d_wgmma_layout,
                    K.pool_nhwc_wgmma_layout, K.conv1x1_wgmma_layout):
@@ -551,9 +622,10 @@ def main() -> int:
             for v in (names + names[::-1]) * 2:
                 use(libs[v])
                 out = fn()
-                ref = out if ref is None else ref
-                if not torch.equal(out, ref):
-                    raise AssertionError(f"{v} differs at {name}")
+                if not v.startswith("ablate"):
+                    ref = out if ref is None else ref
+                    if not torch.equal(out, ref):
+                        raise AssertionError(f"{v} differs at {name}")
                 times.setdefault(v, []).append(round(time_ms(fn), 4))
                 t, seen = kernel_ms(fn)
                 ktimes.setdefault(v, []).append(round(t, 4))

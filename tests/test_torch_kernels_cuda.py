@@ -574,7 +574,9 @@ def test_cuda_conv3x3_wgmma_rejects_misaligned_input(cuda):
 
 
 # (tile_h, tile_w, ring stages, blocks per SM, BN) the kernel takes at the
-# eight routed shapes, by (H, W, C_in, C_out)
+# nine routed shapes, by (H, W, C_in, C_out): yolo_v2's convsets_1.x
+# (13², 1024 -> 1024) on the slab walk, a whole image over 128-channel
+# slabs; the others on the tile walk, a halo of all C_in channels
 WGMMA_TILES = {
     (104, 104, 32, 64): (26, 26, 4, 2, 64),
     (52, 52, 64, 128): (26, 26, 4, 1, 128),
@@ -584,6 +586,7 @@ WGMMA_TILES = {
     (52, 52, 128, 256): (26, 26, 3, 1, 128),
     (26, 26, 256, 512): (26, 13, 3, 1, 128),
     (13, 13, 512, 1024): (13, 13, 3, 1, 128),
+    (13, 13, 1024, 1024): (13, 13, 4, 1, 128),
 }
 
 
@@ -598,6 +601,57 @@ def test_cuda_conv3x3_wgmma_layout_at_routed_shapes(cuda, shape):
     assert lay.smem_bytes <= 232448
     assert lay.tile_pixels == lay.tile_h * lay.tile_w
     assert lay.tile_pixels / lay.mma_rows >= 0.85
+    assert lay.halo_channels == (128 if shape[2] >= 1024 else shape[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,groups", [(128, 1), (64, 2), (1, 4)])
+def test_cuda_conv3x3_slab_layout_fills_the_sms(cuda, batch, groups):
+    """The slab walk splits an image's 8 weight tiles over blocks where
+    the batch leaves SMs idle (132 on an H100): batch 128 one block per
+    image, 64 two, 1 four; the tile walk's layouts keep one."""
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the groups pinned here are an H100 SXM's (132 SMs)")
+    lay = K.conv3x3_wgmma_layout(13, 13, 1024, 1024, batch)
+    assert (lay.tile_h, lay.tile_w, lay.halo_channels) == (13, 13, 128)
+    assert lay.groups == groups
+    assert K.conv3x3_wgmma_layout(13, 13, 512, 1024, batch).groups == 1
+
+
+# (B, H, C_in, C_out): the slab walk at convsets_1.x's 1024 -> 1024 and
+# at C_out 35 (the 64-column tile), odd 9² and 7² planes whose weight
+# tiles split over 2 blocks (384: unevenly), and the served batch 64
+SLAB_SHAPES = [(2, 13, 1024, 1024), (3, 13, 1024, 35), (1, 9, 1024, 384),
+               (2, 7, 1024, 256), (64, 13, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("sw_kind", ["scalar", "per_column"])
+@pytest.mark.parametrize("case", SLAB_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_conv3x3_slab_walk_equals_plain(cuda, rounding, sw_kind, case):
+    """The slab walk (the launches of ``yolo_int8_conv3x3_wgmma``, per
+    column ``..._cols_wgmma``, counted with ``SLAB_WALK``) == the plain
+    version."""
+    bsz, h, c_in, c_out = case
+    x, wq, b = (t.to(cuda) for t in _conv3x3_args((bsz, h, h, c_in, c_out),
+                                                  seed=c_out))
+    # accumulator shifts around 7 (C_in 1024 spreads the sums to ~2^17);
+    # per column 5 to 9
+    sw = (14 if sw_kind == "scalar" else
+          (14 + np.arange(c_out) % 5 - 2).astype(np.int32))
+    kw = dict(SHIFTS, sw=sw, leaky=0.1, rounding=rounding)
+    want = K.int8_conv_requant_plain(x, wq, b, padding=1, **kw)
+    packed = K.pack_conv3x3_weights(wq)
+    K.reset_launch_counts()
+    got = K.int8_conv_requant(x, None, b, packed=packed, padding=1, **kw)
+    torch.cuda.synchronize()
+    entry = (K.COLS_WGMMA_ENTRY if sw_kind == "per_column"
+             else K.WGMMA_ENTRY)
+    assert K.launch_counts_by_entry() == {
+        "int8_conv_requant": {entry + K.SLAB_WALK: 1}}
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -2072,9 +2126,11 @@ def test_cuda_tiny_v2_mma_sync_convs_equal_plain(cuda, rounding, scales,
                 K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
             return
         got = K.int8_conv_requant(dev_x, w.to(cuda), b.to(cuda), **kw)
+        # [256, 1024]: the two-part form's slab walk
         entry = ("int8_conv_requant",
                  "yolo_int8_conv_requant" if cins[0] % 32 else
-                 K.PARTS_COLS_WGMMA_ENTRY if cols else K.PARTS_WGMMA_ENTRY)
+                 (K.PARTS_COLS_WGMMA_ENTRY if cols else K.PARTS_WGMMA_ENTRY)
+                 + (K.SLAB_WALK if sum(cins) >= 1024 else ""))
     torch.cuda.synchronize()
     assert K.launch_counts_by_entry() == {entry[0]: {entry[1]: 1}}
     assert torch.equal(got.cpu(), want)
@@ -2083,17 +2139,25 @@ def test_cuda_tiny_v2_mma_sync_convs_equal_plain(cuda, rounding, scales,
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [False, True])
 def test_cuda_conv3x3_parts_layout(cuda, split):
-    """The two-part form's layout at the served shapes: conv_set_1 one
-    scale (the 128-column tile, 3 warpgroups), convsets_2.0 two scales
-    (the 64-column tile, 2 warpgroups: its second accumulator), one block
-    per SM, the halo of both parts."""
+    """The two-part form's layout at the served shapes: one scale on the
+    128-column tile, two scales (a split) on the 64-column one (its second
+    accumulator), one block per SM; conv_set_1 on the tile walk (a halo
+    of both parts, 3 warpgroups, or 2 at 64 columns), convsets_2.0 on the
+    slab walk (a whole 13 x 13 image over 128-channel slabs, 3 warpgroups
+    at either width: >= 85% of the M rows on pixels), and [96, 1024] (a
+    part of no whole slabs) on the tile walk of before."""
     tiny = K.conv3x3_parts_wgmma_layout(26, 26, 256, 128, 256, split)
     v2 = K.conv3x3_parts_wgmma_layout(13, 13, 256, 1024, 1024, split)
-    for lay, c in ((tiny, 384), (v2, 1280)):
+    odd = K.conv3x3_parts_wgmma_layout(13, 13, 96, 1024, 1024, split)
+    for lay, c in ((tiny, 384), (v2, 128), (odd, 1120)):
         assert lay.split == split and lay.halo_channels == c
         assert lay.blocks_per_sm == 1
         assert lay.bn == (64 if split else 128)
-        assert lay.consumer_warpgroups == (2 if split else 3)
+        # the slab walk's M step: three warpgroups at either width
+        assert lay.consumer_warpgroups == (2 if split and lay != v2 else 3)
+    assert (v2.tile_h, v2.tile_w) == (13, 13)
+    assert v2.tile_pixels / v2.mma_rows >= 0.85
+    assert (odd.tile_h, odd.tile_w) != (13, 13) and odd.groups == 1
     with pytest.raises(ValueError, match="two-part form takes no"):
         K.conv3x3_parts_wgmma_layout(13, 13, 48, 16, 64, split)
 
@@ -2122,13 +2186,15 @@ def test_cuda_pool_s2d_wgmma_takes_the_darknet_slope(cuda, rounding, c_out):
 
 # version -> (fixture, from seed, forward, maker, per-forward launches by
 # wrapper and C entry at a scalar sw on NHWC input, the per-channel
-# fixture)
+# fixture); the 3x3s of C_in >= 1024 on the slab walk (tiny's conv_set_2,
+# yolo_v2's convsets_1.x and convsets_2.0)
 TINY_V2 = {
     "tiny_yolo_v3": ("tiny_yolo_v3_int8_416_golden.npz", "int8_tiny_from_seed",
                      "int8_tiny_forward", "make_int8_tiny_detect_fn",
                      {"int8_conv_requant": {
                          "yolo_int8_entry_conv3x3_wgmma": 1,
-                         "yolo_int8_conv3x3_wgmma": 7,
+                         "yolo_int8_conv3x3_wgmma": 6,
+                         "yolo_int8_conv3x3_wgmma.slab": 1,
                          "yolo_int8_conv3x3_parts_wgmma": 1,
                          "yolo_int8_conv1x1_wgmma": 3},
                       "int8_conv3x3_im2col": {
@@ -2138,8 +2204,9 @@ TINY_V2 = {
                 "int8_yolo_v2_forward", "make_int8_yolo_v2_detect_fn",
                 {"int8_conv_requant": {
                     "yolo_int8_entry_conv3x3_wgmma": 1,
-                    "yolo_int8_conv3x3_wgmma": 13,
-                    "yolo_int8_conv3x3_parts_wgmma": 1,
+                    "yolo_int8_conv3x3_wgmma": 11,
+                    "yolo_int8_conv3x3_wgmma.slab": 2,
+                    "yolo_int8_conv3x3_parts_wgmma.slab": 1,
                     "yolo_int8_conv1x1_wgmma": 8}},
                 "yolo_v2_int8_pc_416_golden.npz"),
 }
@@ -2149,6 +2216,10 @@ PER_COLUMN = {"yolo_int8_entry_conv3x3_wgmma":
               "yolo_int8_conv3x3_wgmma": "yolo_int8_conv3x3_cols_wgmma",
               "yolo_int8_conv3x3_parts_wgmma":
               "yolo_int8_conv3x3_parts_cols_wgmma",
+              "yolo_int8_conv3x3_wgmma.slab":
+              "yolo_int8_conv3x3_cols_wgmma.slab",
+              "yolo_int8_conv3x3_parts_wgmma.slab":
+              "yolo_int8_conv3x3_parts_cols_wgmma.slab",
               "yolo_int8_conv1x1_wgmma": "yolo_int8_conv1x1_cols_wgmma",
               "yolo_int8_conv3x3_pool_wgmma":
               "yolo_int8_conv3x3_pool_cols_wgmma"}

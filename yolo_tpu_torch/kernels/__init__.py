@@ -95,13 +95,13 @@ def route(x: torch.Tensor) -> str:
 @torch.library.custom_op("yolo_tpu_torch::launch", mutates_args=("outs",))
 def _launch_op(name: str, fn: str, ins: List[Optional[torch.Tensor]],
                outs: List[torch.Tensor], slots: List[int], ints: List[int],
-               align: List[int], what: str) -> None:
+               align: List[int], what: str, tag: str = "") -> None:
     """Call the C entry ``fn`` with the addresses of its pointer
     arguments, in C order ``slots`` (``i >= 0``: ``ins[i]``, 0 where it is
     None; ``-1 - j``: ``outs[j]``, which the kernel writes), then ``ints``
     and the current stream; ``align[p]``: the bytes pointer ``p`` must be
     aligned to (line ``p`` of ``what`` names it in the error). Raises if
-    the launch failed, else counts it under ``name``."""
+    the launch failed, else counts it under ``name`` (and ``fn + tag``)."""
     ptrs = []
     for slot, a, label in zip(slots, align, what.split("\n")):
         t = ins[slot] if slot >= 0 else outs[-1 - slot]
@@ -122,6 +122,7 @@ def _launch_op(name: str, fn: str, ins: List[Optional[torch.Tensor]],
         msg = lib.yolo_int8_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
     _LAUNCHES[name] += 1
+    fn += tag
     _ENTRIES[(name, fn)] = _ENTRIES.get((name, fn), 0) + 1
     if not capturing:
         key = (name, fn, tuple(first.shape))
@@ -129,18 +130,21 @@ def _launch_op(name: str, fn: str, ins: List[Optional[torch.Tensor]],
 
 
 @_launch_op.register_fake
-def _(name, fn, ins, outs, slots, ints, align, what) -> None:
+def _(name, fn, ins, outs, slots, ints, align, what, tag="") -> None:
     return None
 
 
 def launch(name: str, fn: str, *args, writes: Sequence = (),
-           align: Sequence = ()) -> None:
+           align: Sequence = (), tag: str = "") -> None:
     """Launch the library's C entry ``fn`` on the current stream, counting
     it under ``name``: ``args`` in C order, each tensor (or None, a null
     pointer) a pointer argument, each int an int; ``writes``: the tensors
     among ``args`` the kernel writes (the ones the wrapper allocated);
     ``align``: (label, tensor, bytes) for each address to check. A None
-    in ``writes`` or as the tensor of an ``align`` entry is passed over."""
+    in ``writes`` or as the tensor of an ``align`` entry is passed over.
+    ``tag``: appended to ``fn`` where the launch is counted by C entry
+    (the walk an entry chose by the layout the wrapper read, e.g. the
+    wgmma conv3x3's ``.slab``)."""
     writes = [t for t in writes if t is not None]
     ins: list = []
     outs: list = []
@@ -163,4 +167,5 @@ def launch(name: str, fn: str, *args, writes: Sequence = (),
         labels.append(need[0][0] if need else f"pointer argument {i}")
     if len(outs) != len(writes):
         raise ValueError(f"{fn}: every written tensor must be an argument")
-    _launch_op(name, fn, ins, outs, slots, ints, aligns, "\n".join(labels))
+    _launch_op(name, fn, ins, outs, slots, ints, aligns, "\n".join(labels),
+               tag)

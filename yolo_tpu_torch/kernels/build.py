@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_res_block_cols_wgmma",
                  [vp] * 8 + [i] * 14 + [vp]),
                 ("yolo_int8_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
-                ("yolo_int8_conv3x3_wgmma_info", [i] * 4 + [vp]),
+                ("yolo_int8_conv3x3_wgmma_info", [i] * 5 + [vp]),
                 ("yolo_int8_conv3x3_pool_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_conv3x3_pool_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_conv3x3_s2_wgmma", [vp] * 4 + [i] * 9 + [vp]),
@@ -121,7 +121,7 @@ def load() -> ctypes.CDLL:
                 ("yolo_int8_conv3x3_parts_wgmma", [vp] * 5 + [i] * 11 + [vp]),
                 ("yolo_int8_conv3x3_parts_cols_wgmma",
                  [vp] * 7 + [i] * 11 + [vp]),
-                ("yolo_int8_conv3x3_parts_wgmma_info", [i] * 6 + [vp]),
+                ("yolo_int8_conv3x3_parts_wgmma_info", [i] * 7 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma", [vp] * 4 + [i] * 9 + [vp]),
                 ("yolo_int8_entry_conv3x3_wgmma_info", [i] * 4 + [vp]),
                 ("yolo_int8_entry_conv3x3_cols_wgmma",

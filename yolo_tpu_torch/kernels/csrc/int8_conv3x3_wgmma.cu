@@ -128,10 +128,37 @@
 // split 6). The form's blocks run one per SM (its halo fills one). On an
 // H100 conv_set_1 ran 5.5x faster than on the mma.sync conv and near
 // cuDNN's fp16 time; convsets_2.0's 52-pixel tiles, each streaming all
-// 11.8 MB of its weights, only 1.3x (PERF.md, section 6: halo slabs, as
-// the stride-2 form's, would let it take whole 13 x 13 images). Its
-// arguments sit in a derived struct that only its instantiations take:
-// the one-part instantiations are those of before.
+// 11.8 MB of its weights, only 1.3x (PERF.md, section 6), which the slab
+// walk below takes over. Its arguments sit in a derived struct that only
+// its instantiations take: the one-part instantiations are those of
+// before.
+//
+// The slab walk (SLAB) runs the stride-1 conv and its two-part form over
+// halo slabs of 128 channels, for the convs whose halo of all channels
+// leaves thin tiles (slab_walk: C_in >= 1,024, each part's a multiple of
+// 128: yolo_v2's convsets_1.0 and convsets_1.1, 1,024 -> 1,024, and
+// convsets_2.0, [256, 1,024] -> 1,024, and tiny_yolo_v3's conv_set_2,
+// 1,024 -> 256, at 13^2). A block takes a whole
+// 13 x 13 image (plan_tile_slabs) with three consumer warpgroups at every
+// tile width (the 64-column split's too, whose two warpgroups would take
+// two 128-row M steps, each streaming every weight and re-copying every
+// slab): 169 of the 192 rows of its M step on pixels, against 52 pixels
+// per 13 x 4 tile over a halo of all 1,024 channels, and each weight tile
+// streams once per image instead of four times. Each slab's nine taps run
+// before the next slab's, the weights' K walk following by TMA box
+// coordinates (kcol; no other packing); with two parts a slab lies in one
+// part, and a split shifts part 0's partial into the stash after its
+// last slab. The halo tile is two slab buffers: the consumers copy slab
+// s + 1 into one (cp.async, its landing counted on an mbarrier) while
+// slab s's MMAs read the other, which a second mbarrier hands back once
+// every consumer warp has read it, so no slab stops the block. Where the
+// batch leaves SMs idle (batch 64 at 13^2: 64 blocks on 132 SMs) each
+// image's weight tiles are split over 2 or 4 blocks. The walk is a
+// template form, one block per SM, that the stride-1 conv's and the
+// two-part form's C entries (scalar and per column) launch themselves
+// where slab_walk takes the conv (dispatch, dispatch_parts; their _info
+// entries report its layout at a batch of B): the other instantiations
+// are those of before (their SASS too).
 
 #include <type_traits>
 
@@ -139,10 +166,12 @@
 
 namespace {
 
-template <int BN>
+// WIDE: three consumer warpgroups (the 128-column tile's, and the slab
+// walk's at every width: a 192-row M step holds a whole 13 x 13 image)
+template <int BN, bool WIDE = BN == 128>
 struct ConvCfg {
   // consumer warpgroups, each owning 64 rows of an M step
-  static constexpr int NWG = BN == 128 ? 3 : 2;
+  static constexpr int NWG = WIDE ? 3 : 2;
   static constexpr int CONSUMERS = 128 * NWG;
   // + the producer: a whole warpgroup that hands its registers to the
   // consumers (setmaxnreg) in the wide form, one warp in the narrow forms
@@ -201,12 +230,13 @@ __device__ __forceinline__ int pool_stg_at(int row, int col) {
   return row * BN + ((((col >> 4) ^ row) & (BN / 16 - 1)) << 4) + (col & 15);
 }
 
-template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false>
-__global__ void __launch_bounds__(ConvCfg<BN>::THREADS,
-                                  PARTS ? 1 : ConvCfg<BN>::MIN_BLOCKS)
+template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false,
+          bool SLAB = false>
+__global__ void __launch_bounds__(ConvCfg<BN, BN == 128 || SLAB>::THREADS,
+                                  PARTS || SLAB ? 1 : ConvCfg<BN>::MIN_BLOCKS)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
               Conv3ArgsOf<PARTS> a) {
-  using Cfg = ConvCfg<BN>;
+  using Cfg = ConvCfg<BN, BN == 128 || SLAB>;
   constexpr int NWG = Cfg::NWG, CONSUMERS = Cfg::CONSUMERS;
   constexpr bool POOL = F == Form::pool, S2 = F == Form::s2;
   constexpr bool COUNT = C == Cols::count;
@@ -214,39 +244,65 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
   static_assert(!COUNT || !SHORT, "counting takes the general shifts");
   static_assert(!PARTS || (F == Form::conv && !COUNT),
                 "two parts: the stride-1 conv, scalar or per column");
+  static_assert(!SLAB || (F == Form::conv && !COUNT),
+                "the slab walk: the stride-1 conv, scalar or per column");
   // a second accumulator for part 0's shifted partial: the two-part
-  // 64-column form (the host runs a split there only)
+  // 64-column forms (the host runs a split there only)
   constexpr bool CAN_SPLIT = PARTS && BN == 64;
   extern __shared__ __align__(16) unsigned char dsmem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
   // the halo tile: (TH + 2) x (TW + 2) pixels; at stride 2, 2TH + 1 rows
   // of 2TW + 1, each row its even input columns and then its odd ones
+  // (SLAB: two of them, buffers 0 and 1, HB bytes apart)
   const int HW = S2 ? 2 * a.TW + 1 : a.TW + 2;
-  const int SL = S2 ? a.SL : a.CK, S = y1_stride(SL);
+  const int SL = S2 || SLAB ? a.SL : a.CK, S = y1_stride(SL);
   int8_t* xt = reinterpret_cast<int8_t*>(smem + a.stages * Cfg::SLOT);
-  int8_t* stg_all = xt + halo_bytes(a.TH, a.TW, SL, S2 ? 2 : 1);
+  const int HB = halo_bytes(a.TH, a.TW, SL, S2 ? 2 : 1);
+  int8_t* stg_all = xt + HB;
+  if constexpr (SLAB) stg_all += HB;
   uint64_t* bars = reinterpret_cast<uint64_t*>(stg_all + NWG * STG_BYTES);
   const Ring ring{bars, bars + a.stages, a.stages};
+  // SLAB: hfull[u] completes when a slab has landed in buffer u (every
+  // consumer thread's copies), hempty[u] when every consumer warp has read
+  // it
+  uint64_t* hfull = bars + 2 * a.stages;
+  uint64_t* hempty = hfull + 2;
   const int tid = threadIdx.x;
 
   // ---- this block's tile, on the output grid (pooled form: before the
-  // pool)
+  // pool); SLAB: and its group of weight tiles, groups = the grid's blocks
+  // per tile
   const int OH = S2 ? (a.H + 1) / 2 : a.H, OW = S2 ? (a.W + 1) / 2 : a.W;
   const int ntx = (OW + a.TW - 1) / a.TW, nty = (OH + a.TH - 1) / a.TH;
-  const int b = blockIdx.x / (ntx * nty);
-  const int t = blockIdx.x - b * ntx * nty;
+  // (unsigned, as blockIdx.x: a signed division here alone changed the
+  // SASS of every other instantiation)
+  unsigned bt = blockIdx.x;
+  int grp = 0, groups = 1;
+  if constexpr (SLAB) {
+    groups = gridDim.x / (a.B * ntx * nty);
+    grp = bt % groups;
+    bt /= groups;
+  }
+  const int b = bt / (ntx * nty);
+  const int t = bt - b * ntx * nty;
   const int ty0 = (t / ntx) * a.TH, tx0 = (t % ntx) * a.TW;
   const int th = min(a.TH, OH - ty0), tw = min(a.TW, OW - tx0);
 
   // ---- the producer's and the consumers' common walk over the ring: per
   // M step and weight tile, each halo slab's nine taps (one slab but at
-  // stride 2), K-steps of 2 x SW channels over (tap, channel of the slab)
+  // stride 2 and in the slab walk), K-steps of 2 x SW channels over (tap,
+  // channel of the slab)
   const int KS = 9 * SL, nk = (KS + 2 * SW - 1) / (2 * SW);
-  // (slabs only in the 128-column form: the 64-column one keeps under the
-  // registers of its two blocks per SM)
-  const int nslab = S2 && BN == 128 ? a.CK / SL : 1;
-  const int nn = (a.Cout + BN - 1) / BN;
+  // (stride-2 slabs only in the 128-column form: the 64-column one keeps
+  // under the registers of its two blocks per SM)
+  const int nslab = (S2 && BN == 128) || SLAB ? a.CK / SL : 1;
+  int nn = (a.Cout + BN - 1) / BN, n0 = 0;
+  if constexpr (SLAB) {  // this block's weight tiles n0 .. nn - 1
+    const int per = (nn + groups - 1) / groups;
+    n0 = grp * per;
+    nn = min(nn, n0 + per);
+  }
   // M steps of NWG x 64 rows over the nominal tile: its pixels, or in the
   // pooled form its pooled pixels, 16 (64 rows) per warpgroup
   const int PW = a.TW / 2, Q = a.TH / 2 * PW;  // the pooled tile
@@ -258,6 +314,11 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
       mbar_init(&ring.full[s], 1);
       mbar_init(&ring.empty[s], CONSUMERS / 32);
     }
+    if constexpr (SLAB)
+      for (int u = 0; u < 2; ++u) {
+        mbar_init(&hfull[u], CONSUMERS);
+        mbar_init(&hempty[u], CONSUMERS / 32);
+      }
     mbar_fence_init();
   }
   __syncthreads();
@@ -265,7 +326,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
   if (tid >= CONSUMERS) {
     if constexpr (NWG == 3)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if constexpr (PARTS) {
+    if constexpr (PARTS && !SLAB) {
       if (tid != CONSUMERS) return;
       tma_prefetch_map(&tm_w);
       // each part's own K steps: part 0's nine taps x Cin0 from packed
@@ -273,7 +334,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
       // is loaded, and not read)
       int i = 0;
       for (int c = 0; c < nc; ++c)
-        for (int n = 0; n < nn; ++n)
+        for (int n = n0; n < nn; ++n)
           for (int p = 0; p < 2; ++p) {
             const int base = p ? 9 * a.Cin0 : 0;
             const int kp = p ? KS - base : 9 * a.Cin0;  // the part's K
@@ -292,13 +353,20 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
       tma_prefetch_map(&tm_w);
       // the packed K column of channel v of a slab's (tap, channel)
       // walk: one box never straddles two taps where there are slabs
-      // (SL % SW == 0)
+      // (SL % SW == 0); two parts: slab s lies in one part, whose (dy, dx,
+      // c) block starts at packed column 9 Cin0 for part 1
       const auto kcol = [=](int v, int s) {
-        return S2 ? v / SL * a.CK + s * SL + v % SL : v;
+        if constexpr (PARTS) {
+          const bool p1 = s * SL >= a.Cin0;
+          const int c0 = p1 ? a.Cin0 : 0;  // the part's first channel
+          return 9 * c0 + v / SL * (p1 ? a.Cin - a.Cin0 : a.Cin0) +
+                 s * SL - c0 + v % SL;
+        }
+        return S2 || SLAB ? v / SL * a.CK + s * SL + v % SL : v;
       };
       int i = 0;
       for (int c = 0; c < nc; ++c)
-        for (int n = 0; n < nn; ++n)
+        for (int n = n0; n < nn; ++n)
           for (int k = 0, s = 0; k < nk; ++k, ++i) {
             const bool two = k * 2 * SW + SW < KS;
             ring.producer_acquire(i, (two ? 2 : 1) * BN * SW);
@@ -329,7 +397,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
   // uniform registers, and the tap walk below became a branch at every
   // 32-channel step (the stride-1 and pooled forms 3-7% slower on an H100,
   // PERF.md, section 6)
-  const auto copy_halo = [=](int s) {
+  const auto copy_halo = [=](int s, int8_t* dst) {
     const int chunks = SL / 16;  // 16-byte chunks per pixel
     const int HH = S2 ? 2 * a.TH + 1 : a.TH + 2;
     for (int e = tid; e < HH * HW * chunks; e += CONSUMERS) {
@@ -357,20 +425,32 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
       } else {
         src = in ? a.x + (img + (long long)gy * a.W + gx) * a.Cin + cq : a.x;
       }
-      cp_async16(xt + at * S + 16 * q, src, in ? 16 : 0);
+      cp_async16(dst + at * S + 16 * q, src, in ? 16 : 0);
     }
-    cp_async_wait_all();
   };
-  if (nslab == 1) {
-    copy_halo(0);
+  if (!SLAB && nslab == 1) {
+    copy_halo(0, xt);
+    cp_async_wait_all();
     named_sync(1, CONSUMERS);  // the tile complete
   }
   // slab s over the last one, once all consumers have read it
   const auto load_slab = [=](int s) {
     named_sync(1, CONSUMERS);
-    copy_halo(s);
+    copy_halo(s, xt);
+    cp_async_wait_all();
     named_sync(1, CONSUMERS);
   };
+  // SLAB: the block's J slabs in walk order (M step, weight tile, slab),
+  // the sj-th in buffer sj % 2: each is copied while the one before it is
+  // read, once the one before that (the buffer's last) has been read by
+  // every consumer warp
+  const int J = nc * (nn - n0) * nslab;
+  int sj = 0;
+  const auto fill = [=](int q) {
+    copy_halo(q % nslab, xt + (q & 1) * HB);
+    cp_async_arrive(&hfull[q & 1]);
+  };
+  if constexpr (SLAB) fill(0);
 
   // ---- 2. the 3x3 over the tile, 3. requant
   int8_t* stg = stg_all + wg * STG_BYTES;
@@ -441,7 +521,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
                        : -1;
       }
     }
-    for (int n = 0; n < nn; ++n) {
+    for (int n = n0; n < nn; ++n) {
       int acc[BN / 2];
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) acc[e] = 0;
@@ -455,7 +535,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
       // where split part 0's partial at the retune scale
       int kp = KS, nkp = nk, wl = SL, part = 0;
       int stash[CAN_SPLIT ? BN / 2 : 1];
-      if constexpr (PARTS) {
+      if constexpr (PARTS && !SLAB) {
         kp = 9 * a.Cin0;
         nkp = (kp + 2 * SW - 1) / (2 * SW);
         wl = a.Cin0;
@@ -464,8 +544,12 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) stash[e] = 0;
       }
-      if (nslab > 1) load_slab(0);
-      for (int k = 0, s = 0; k < (PARTS ? nkp : nk); ++k, ++i) {
+      if (!SLAB && nslab > 1) load_slab(0);
+      for (int k = 0, s = 0; k < (PARTS && !SLAB ? nkp : nk); ++k, ++i) {
+        if (SLAB && k == 0) {  // slab sj landed: its taps from its buffer
+          mbar_wait(&hfull[sj & 1], (sj >> 1) & 1);
+          tap_off = (sj & 1) * HB;
+        }
         ring.consumer_wait(i);
         if (active) {
           const unsigned char* st = smem + ring.stage(i) * Cfg::SLOT;
@@ -504,15 +588,33 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
           wgmma_wait<0>();
         }
         ring.consumer_release(i);
+        if constexpr (SLAB) {
+          // slab sj + 1 into the other buffer, once every warp has read
+          // slab sj - 1 there
+          if (k == 0 && sj + 1 < J) {
+            if (sj > 0) mbar_wait(&hempty[(sj + 1) & 1], ((sj - 1) >> 1) & 1);
+            fill(sj + 1);
+          }
+          if (k == nk - 1) {  // this warp's reads of slab sj are done
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&hempty[sj & 1]);
+            ++sj;
+          }
+        }
         if constexpr (PARTS) {
-          if (part == 0 && k == nkp - 1) {  // part 0 done: part 1 next
-            part = 1;
-            kp = KS - kp;
-            nkp = (kp + 2 * SW - 1) / (2 * SW);
-            wl = a.Cin - a.Cin0;
-            tap_off = a.Cin0;
-            ch = dx = 0;
-            k = -1;
+          // part 0 done: part 1 next (SLAB: its last slab done, part 1's
+          // slabs next, each of one part)
+          if (SLAB ? k == nk - 1 && (s + 1) * SL == a.Cin0
+                   : part == 0 && k == nkp - 1) {
+            if constexpr (!SLAB) {
+              part = 1;
+              kp = KS - kp;
+              nkp = (kp + 2 * SW - 1) / (2 * SW);
+              wl = a.Cin - a.Cin0;
+              tap_off = a.Cin0;
+              ch = dx = 0;
+              k = -1;
+            }
             if constexpr (CAN_SPLIT) {
               // its partial to the retune scale, part 1's afresh; columns
               // 8 jj + 2 tig (+1) of the tile: accumulators 4 jj + 2 h (+1)
@@ -538,7 +640,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
           }
         }
         if (nslab > 1 && k == nk - 1 && ++s < nslab) {  // the next slab
-          load_slab(s);
+          if constexpr (!SLAB) load_slab(s);
           tap_off = ch = dx = 0;
           k = -1;
         }
@@ -714,6 +816,16 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_w,
   }
 }
 
+// The stride-1 conv's slab walk takes the convs whose halo of all
+// channels leaves thin tiles, C_in (both parts') >= 1,024 in whole slabs,
+// each part's too (yolo_v2's convsets_1.x and convsets_2.0, tiny's
+// conv_set_2, at 13^2: 13 x 4 tiles, 27% and 41% of their M rows on
+// pixels, each tile streaming all the weights; a part of 96 channels
+// keeps the tile walk).
+bool slab_walk(int CK, int Cin0) {
+  return CK >= 1024 && CK % SLAB_C == 0 && Cin0 % SLAB_C == 0;
+}
+
 // The form's layout for an H x W image whose taps hold CK channels: the
 // output tile and ring of plan_tile (even, and small enough for the form's
 // blocks per SM, in the pooled form) or, at stride 2, of plan_tile_s2,
@@ -731,36 +843,51 @@ TilePlan plan(int H, int W, int CK, int Cout) {
                    sm_share(PARTS ? 1 : Cfg::MIN_BLOCKS), F == Form::pool);
 }
 
-constexpr int INFO_LEN = 10;
+constexpr int INFO_LEN = 11;
 
-// Launches the form, or with `info` reports its layout there instead.
-template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false>
+// Launches the form, or with `info` reports its layout there instead; the
+// slab walk (SLAB) on plan_tile_slabs' layout for a batch of B on the
+// current device's SMs.
+template <int BN, bool SHORT, Form F, Cols C, bool PARTS = false,
+          bool SLAB = false>
 int launch_form(Conv3ArgsOf<PARTS> a, const void* wp, int* info,
                 cudaStream_t st) {
-  using Cfg = ConvCfg<BN>;
-  const TilePlan p = plan<BN, F, PARTS>(a.H, a.W, a.CK, a.Cout);
+  using Cfg = ConvCfg<BN, BN == 128 || SLAB>;
+  TilePlan p;
+  cudaError_t err = cudaSuccess;
+  if constexpr (SLAB) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    p = plan_tile_slabs(a.B, a.H, a.W, a.CK, Cfg::SLOT, Cfg::NWG,
+                        (a.Cout + BN - 1) / BN, sms);
+  } else {
+    p = plan<BN, F, PARTS>(a.H, a.W, a.CK, a.Cout);
+  }
   if (p.smem == 0) return (int)cudaErrorInvalidValue;
   a.TH = p.th;
   a.TW = p.tw;
   a.stages = p.stages;
   a.SL = p.slab;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma<BN, SHORT, F, C, PARTS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  err = cudaFuncSetAttribute(conv3x3_wgmma<BN, SHORT, F, C, PARTS, SLAB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv3x3_wgmma<BN, SHORT, F, C, PARTS>, Cfg::THREADS,
+        &blocks, conv3x3_wgmma<BN, SHORT, F, C, PARTS, SLAB>, Cfg::THREADS,
         p.smem);
     if (err != cudaSuccess) return (int)err;
     const int pixels = a.TH * a.TW;
     // 64 rows per step: 64 pixels, or the 4 pixels of 16 pooled ones
     const int steps =
         F == Form::pool ? (pixels / 4 + 15) / 16 : (pixels + 63) / 64;
-    const int vals[INFO_LEN] = {a.TH,     a.TW,     p.smem, blocks,
-                                BN,       Cfg::NWG, a.stages, pixels,
-                                64 * steps, a.SL};
+    const int vals[INFO_LEN] = {a.TH,       a.TW,     p.smem,   blocks,
+                                BN,         Cfg::NWG, a.stages, pixels,
+                                64 * steps, a.SL,     p.groups};
     for (int k = 0; k < INFO_LEN; ++k) info[k] = vals[k];
     return 0;
   }
@@ -775,16 +902,24 @@ int launch_form(Conv3ArgsOf<PARTS> a, const void* wp, int* info,
   const int OW = F == Form::s2 ? (a.W + 1) / 2 : a.W;
   const long long ntiles =
       (long long)((OH + a.TH - 1) / a.TH) * ((OW + a.TW - 1) / a.TW);
-  conv3x3_wgmma<BN, SHORT, F, C, PARTS>
-      <<<(unsigned)(a.B * ntiles), Cfg::THREADS, p.smem, st>>>(tm_w, a);
+  const unsigned blocks = (unsigned)(a.B * ntiles * p.groups);
+  conv3x3_wgmma<BN, SHORT, F, C, PARTS, SLAB>
+      <<<blocks, Cfg::THREADS, p.smem, st>>>(tm_w, a);
   return (int)cudaGetLastError();
 }
 
 // the 128-column form where Cout fills it, else the 64-column one, or in
-// the pooled form the 32-column one where Cout <= 32
+// the pooled form the 32-column one where Cout <= 32; the stride-1 conv
+// (scalar or per column) on its slab walk where slab_walk takes it
 template <bool SHORT, Form F, Cols C = Cols::scalar>
 int dispatch(const Conv3Args& a, const void* wp, int* info,
              cudaStream_t st) {
+  if constexpr (F == Form::conv && C != Cols::count)
+    if (slab_walk(a.CK, a.CK)) {
+      if (a.Cout % 128 == 0)
+        return launch_form<128, SHORT, F, C, false, true>(a, wp, info, st);
+      return launch_form<64, SHORT, F, C, false, true>(a, wp, info, st);
+    }
   if (a.Cout % 128 == 0)
     return launch_form<128, SHORT, F, C>(a, wp, info, st);
   if constexpr (F == Form::pool)
@@ -855,19 +990,29 @@ int run_cols(const void* x, const void* wp, const void* bias_rt,
   return dispatch<false, F, C>(a, wp, nullptr, st);
 }
 
+// the layout of a batch of B (the slab walk's groups depend on it)
 template <Form F>
-int layout(int H, int W, int Cin, int Cout, int* out) {
-  if (bad_shape(H, W, Cin, Cout, F)) return (int)cudaErrorInvalidValue;
-  return dispatch<true, F>(base_args(H, W, Cin, Cout), nullptr, out,
-                           nullptr);
+int layout(int B, int H, int W, int Cin, int Cout, int* out) {
+  if (bad_shape(H, W, Cin, Cout, F) || B < 1)
+    return (int)cudaErrorInvalidValue;
+  Conv3Args a = base_args(H, W, Cin, Cout);
+  a.B = B;
+  return dispatch<true, F>(a, nullptr, out, nullptr);
 }
 
 // The two-part form: the 128-column tile where Cout fills it and the
 // parts take one shift, else the 64-column one (a split's second
-// accumulator fits there only).
+// accumulator fits there only); on its slab walk where slab_walk takes
+// the conv.
 template <bool SHORT, Cols C>
 int dispatch_parts(const Conv3PartsArgs& a, const void* wp, int* info,
                    cudaStream_t st) {
+  if (slab_walk(a.CK, a.Cin0)) {
+    if (a.Cout % 128 == 0 && !a.split)
+      return launch_form<128, SHORT, Form::conv, C, true, true>(a, wp, info,
+                                                                st);
+    return launch_form<64, SHORT, Form::conv, C, true, true>(a, wp, info, st);
+  }
   if (a.Cout % 128 == 0 && !a.split)
     return launch_form<128, SHORT, Form::conv, C, true>(a, wp, info, st);
   return launch_form<64, SHORT, Form::conv, C, true>(a, wp, info, st);
@@ -905,9 +1050,9 @@ extern "C" {
 // aligned; B * H * W < 2^31. acc_shift brings the accumulator to the
 // retune scale, out_shift the activation to the output scale; slope_num:
 // the LeakyReLU slope * 65536 (8192: 0.125; 65536: none). The kernel picks
-// its output tile (plan; reported by yolo_int8_conv3x3_wgmma_info) and
-// fails where no tile fits. Returns the first CUDA error of setting up or
-// launching.
+// its walk and output tile (plan, or plan_tile_slabs where slab_walk takes
+// the conv; reported by yolo_int8_conv3x3_wgmma_info) and fails where no
+// tile fits. Returns the first CUDA error of setting up or launching.
 int yolo_int8_conv3x3_wgmma(const void* x, const void* wp,
                             const void* bias_rt, void* out, int B, int H,
                             int W, int Cin, int Cout, int acc_shift,
@@ -1067,15 +1212,18 @@ int yolo_int8_conv3x3_parts_cols_wgmma(
   return dispatch_parts<false, Cols::column>(a, wp, nullptr, st);
 }
 
-// The two-part form's layout (both shift forms') for an H x W x (Cin0 +
-// Cin1) -> Cout conv whose parts take two shifts (split != 0) or one:
-// info[0..9] as yolo_int8_conv3x3_wgmma_info's (the halo tile's channels
-// both parts'), info[10] = split. Returns 0, or an error code where the
-// shape is not taken or no tile fits in shared memory.
-int yolo_int8_conv3x3_parts_wgmma_info(int H, int W, int Cin0, int Cin1,
-                                       int Cout, int split, int* info_out) {
-  if (bad_parts(H, W, Cin0, Cin1, Cout)) return (int)cudaErrorInvalidValue;
-  const Conv3PartsArgs a = parts_args(nullptr, nullptr, nullptr, nullptr, 1,
+// The two-part form's layout (both shift forms') for a batch of B H x W x
+// (Cin0 + Cin1) -> Cout convs whose parts take two shifts (split != 0) or
+// one: info[0..10] as yolo_int8_conv3x3_wgmma_info's (the halo tile's
+// channels both parts', or a slab), info[11] = split. Returns 0, or an
+// error code where the shape is not taken or no tile fits in shared
+// memory.
+int yolo_int8_conv3x3_parts_wgmma_info(int B, int H, int W, int Cin0,
+                                       int Cin1, int Cout, int split,
+                                       int* info_out) {
+  if (bad_parts(H, W, Cin0, Cin1, Cout) || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const Conv3PartsArgs a = parts_args(nullptr, nullptr, nullptr, nullptr, B,
                                       H, W, Cin0, Cin1, Cout, split != 0);
   const int rc = dispatch_parts<true, Cols::scalar>(a, nullptr, info_out,
                                                     nullptr);
@@ -1083,29 +1231,30 @@ int yolo_int8_conv3x3_parts_wgmma_info(int H, int W, int Cin0, int Cin1,
   return rc;
 }
 
-// The kernel's layout for an H x W x Cin -> Cout conv: info[0..9] = tile
-// height, tile width, dynamic shared memory bytes, resident blocks per SM,
-// columns per weight tile (BN), consumer warpgroups, ring stages, pixels
-// of a full tile, rows of the 64-row wgmma steps that a full tile runs,
-// channels of the halo tile (Cin rounded up to 32, or a stride-2 slab).
-// Returns 0, or an error code where the shape is not taken or no tile
-// fits in shared memory.
-int yolo_int8_conv3x3_wgmma_info(int H, int W, int Cin, int Cout,
+// The kernel's layout for a batch of B H x W x Cin -> Cout convs:
+// info[0..10] = tile height, tile width, dynamic shared memory bytes,
+// resident blocks per SM, columns per weight tile (BN), consumer
+// warpgroups, ring stages, pixels of a full tile, rows of the 64-row
+// wgmma steps that a full tile runs, channels of the halo tile (Cin
+// rounded up to 32, or a slab), blocks per tile (the slab walk's groups
+// of weight tiles, by B; else 1). Returns 0, or an error code where the
+// shape is not taken or no tile fits in shared memory.
+int yolo_int8_conv3x3_wgmma_info(int B, int H, int W, int Cin, int Cout,
                                  int* info_out) {
-  return layout<Form::conv>(H, W, Cin, Cout, info_out);
+  return layout<Form::conv>(B, H, W, Cin, Cout, info_out);
 }
 
 // The same for the pooled form (a full tile's pixels are 4 per pooled
 // pixel; its 64-row steps hold 16 pooled pixels each).
 int yolo_int8_conv3x3_pool_wgmma_info(int H, int W, int Cin, int Cout,
                                       int* info_out) {
-  return layout<Form::pool>(H, W, Cin, Cout, info_out);
+  return layout<Form::pool>(1, H, W, Cin, Cout, info_out);
 }
 
 // The same for the stride-2 form, whose tile is in output pixels.
 int yolo_int8_conv3x3_s2_wgmma_info(int H, int W, int Cin, int Cout,
                                     int* info_out) {
-  return layout<Form::s2>(H, W, Cin, Cout, info_out);
+  return layout<Form::s2>(1, H, W, Cin, Cout, info_out);
 }
 
 }  // extern "C"

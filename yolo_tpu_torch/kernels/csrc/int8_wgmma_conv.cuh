@@ -177,6 +177,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// one arrival on `bar` once every cp.async copy this thread has issued
+// has landed (.noinc: the arrival is one of the phase's expected count)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -196,6 +204,7 @@ inline int block_smem(int tile_bytes, int slot, int nwg, int stages) {
 struct TilePlan {
   int th, tw, stages, smem;  // smem 0: no tile fits
   int slab;  // channels of the halo tile: all C, or a slab of them
+  int groups = 1;  // blocks per tile, each a share of the weight tiles
 };
 
 // A block's output tile and ring for an H x W image whose halo tile holds
@@ -282,6 +291,45 @@ inline TilePlan plan_tile_s2(int Ho, int Wo, int C, int slot, int nwg,
     ++best.stages;
   best.smem = block_smem(halo, slot, nwg, best.stages);
   return best;
+}
+
+// channels of a stride-1 halo slab (plan_tile_slabs)
+constexpr int SLAB_C = 128;
+
+// The stride-1 3x3's slab walk, for a B x H x W image of C channels with
+// `nn` weight tiles across C_out, one block per SM: the halo tile holds a
+// slab of SLAB_C channels in two buffers (one copied while the other is
+// read), so the tile is plan_tile's halving over two slab halos, a whole
+// 13 x 13 image at 13^2 (a halo of all 1,024 channels left 13 x 4), with
+// the deepest ring that fits beside them and their two pairs of
+// mbarriers (at most MAX_STAGES - 2 stages). Where the B x tiles blocks
+// leave SMs of the `sms` idle, each tile's weight tiles are split over
+// `groups` blocks (1, 2 or 4, at most nn): the fewest waves of blocks per
+// unit of work, ceil(B tiles groups / sms) / groups, the fewer groups on
+// a tie (batch 64 at 13^2: 2, batch 128: 1).
+inline TilePlan plan_tile_slabs(int B, int H, int W, int C, int slot,
+                                int nwg, int nn, int sms) {
+  const auto smem = [&](int th, int tw, int stages) {
+    return block_smem(2 * halo_bytes(th, tw, SLAB_C), slot, nwg, stages);
+  };
+  TilePlan p{std::min(26, H), std::min(26, W), 3, 0, SLAB_C};
+  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.tw > 1) p.tw = (p.tw + 1) / 2;
+  while (smem(p.th, p.tw, 3) > MAX_SMEM && p.th > 1) p.th = (p.th + 1) / 2;
+  if (smem(p.th, p.tw, 3) > MAX_SMEM || C % SLAB_C) return p;
+  while (p.stages < MAX_STAGES - 2 &&
+         smem(p.th, p.tw, p.stages + 1) <= MAX_SMEM)
+    ++p.stages;
+  p.smem = smem(p.th, p.tw, p.stages);
+  const long long blocks = (long long)B * ((H + p.th - 1) / p.th) *
+                           ((W + p.tw - 1) / p.tw);
+  // waves per unit of work, compared as ceil(blocks g / sms) * 4 / g
+  const auto cost = [&](int g) {
+    return (blocks * g + sms - 1) / sms * (4 / g);
+  };
+  for (const int g : {2, 4})  // (no group without a weight tile)
+    if ((g - 1) * ((nn + g - 1) / g) < nn && cost(g) < cost(p.groups))
+      p.groups = g;
+  return p;
 }
 
 }  // namespace

@@ -18,7 +18,10 @@ Every stride-1 3x3 conv of one input part with C_in % 32 == 0
 yolo_v3 head's nine 3x3s) launches the wgmma conv of
 ``csrc/int8_conv3x3_wgmma.cu``, every such conv over two parts of C_in %
 32 == 0 (tiny_yolo_v3's conv_set_1, yolo_v2's convsets_2.0) its two-part
-form (weights from ``pack_conv3x3_parts_weights``), every such conv at
+form (weights from ``pack_conv3x3_parts_weights``; both forms over
+halo slabs of 128 channels, their slab walk, where C_in >= 1,024 in whole
+slabs: yolo_v2's convsets_1.x and convsets_2.0, tiny's conv_set_2),
+every such conv at
 stride 2 (``conv3x3_s2_wgmma_route``: darknet53's five downsampling
 convs) that kernel's stride-2 form, and every K3 conv with its pool and
 C_in % 32 == 0 or C_in == 16 (``conv3x3_pool_wgmma_route``: slim's
@@ -842,6 +845,12 @@ _COUNT_ENTRY_OF = {"conv": COUNT_WGMMA_ENTRY, "pool": POOL_COUNT_WGMMA_ENTRY}
 # its two-part form's (a 3x3 over a two-part concat), scalar and per column
 PARTS_WGMMA_ENTRY = "yolo_int8_conv3x3_parts_wgmma"
 PARTS_COLS_WGMMA_ENTRY = "yolo_int8_conv3x3_parts_cols_wgmma"
+# the tag of a launch of those entries (scalar and per column) that took
+# their slab walk (halo slabs of 128 channels, where C_in >= 1,024 in whole
+# slabs: yolo_v2's convsets_1.x and convsets_2.0, tiny's conv_set_2): they
+# choose it themselves, as the layout the wrapper reads reports it, and
+# the launch is counted under the entry's name + this
+SLAB_WALK = ".slab"
 # the mma.sync conv3x3's C entry (K1 at C_in % 32 != 0, K3 at C_in = 3:
 # slim's conv1 on NHWC input)
 MMA_SYNC_ENTRY = "yolo_int8_conv3x3_requant"
@@ -1005,20 +1014,24 @@ def reset_conv3x3_pack_count() -> None:
 
 # the wgmma conv3x3 kernel's launch layout, as
 # yolo_int8_conv3x3_wgmma_info reports it (halo_channels: C_in rounded up
-# to 32, or the slab of them a stride-2 halo tile holds at a time)
+# to 32, or the slab of them a stride-2 or slab-walk halo tile holds at a
+# time; groups: blocks per tile, each with a share of the weight tiles)
 Conv3x3Layout = collections.namedtuple("Conv3x3Layout", (
     "tile_h", "tile_w", "smem_bytes", "blocks_per_sm", "bn",
     "consumer_warpgroups", "ring_stages", "tile_pixels", "mma_rows",
-    "halo_channels"))
+    "halo_channels", "groups"))
 
 
-def _layout(form, h, w, c_in, c_out) -> Conv3x3Layout:
+def _layout(form, h, w, c_in, c_out, batch=1) -> Conv3x3Layout:
     from yolo_tpu_torch.kernels import build
 
     lib = build.load()
     entry = _ENTRY_OF[form] + "_info"
     info = (ctypes.c_int * len(Conv3x3Layout._fields))()
-    rc = getattr(lib, entry)(h, w, c_in, c_out, info)
+    # (the stride-1 conv's layout is a batch's: its slab walk's groups)
+    dims = (batch, h, w, c_in, c_out) if form == "conv" else (h, w, c_in,
+                                                              c_out)
+    rc = getattr(lib, entry)(*dims, info)
     if rc == _CUDA_ERROR_INVALID_VALUE:
         need = ("H and W even and C_in % 32 == 0 or C_in == 16"
                 if form == "pool" else "C_in % 32 == 0")
@@ -1034,15 +1047,19 @@ def _layout(form, h, w, c_in, c_out) -> Conv3x3Layout:
 
 
 @functools.lru_cache(maxsize=None)
-def conv3x3_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
-    """The wgmma conv3x3 kernel's launch layout for an H x W x C_in ->
-    C_out conv, as its CUDA source picks it (``plan`` in
+def conv3x3_wgmma_layout(h, w, c_in, c_out, batch=1) -> Conv3x3Layout:
+    """The wgmma conv3x3 kernel's launch layout for a ``batch`` x H x W x
+    C_in -> C_out conv, as its CUDA source picks it (``plan`` in
     ``csrc/int8_conv3x3_wgmma.cu``): tile, shared memory, blocks per SM,
-    weight-tile columns, consumer warpgroups, ring stages, and a full
-    tile's pixels beside the rows its 64-row wgmma steps run. Needs the
-    built kernels. Raises ValueError where the kernel takes no such conv
-    (C_in % 32 != 0, or no tile fits in shared memory)."""
-    return _layout("conv", h, w, c_in, c_out)
+    weight-tile columns, consumer warpgroups, ring stages, a full tile's
+    pixels beside the rows its 64-row wgmma steps run, the halo tile's
+    channels and blocks per tile: where its slab walk takes the conv
+    (C_in >= 1,024, C_in % 128 == 0; not its counting form)
+    ``halo_channels`` a slab of 128 and ``groups`` by ``batch``, else all
+    C_in and 1. Needs the built kernels. Raises ValueError where the
+    kernel takes no such conv (C_in % 32 != 0, or no tile fits in shared
+    memory)."""
+    return _layout("conv", h, w, c_in, c_out, batch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1065,8 +1082,7 @@ def conv3x3_s2_wgmma_layout(h, w, c_in, c_out) -> Conv3x3Layout:
     return _layout("s2", h, w, c_in, c_out)
 
 
-_LAYOUT_OF = {"conv": conv3x3_wgmma_layout,
-              "pool": conv3x3_pool_wgmma_layout,
+_LAYOUT_OF = {"pool": conv3x3_pool_wgmma_layout,
               "s2": conv3x3_s2_wgmma_layout}
 
 
@@ -1080,7 +1096,10 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     per-channel ``sw`` (its per-column instantiations), the conv and
     pooled forms an ``overflow`` counter (their counting ones), both on a
     per-column shift table (``shifts``, made for this call where None).
-    Raises on anything the form does not take and on a failed launch."""
+    The conv's entries take their slab walk where ``conv3x3_wgmma_layout``
+    reports one, except when counting (the launch counted with
+    ``SLAB_WALK``). Raises on anything the form does not take and on a
+    failed launch."""
     _check_rounding(rounding)
     num = _slope_num(leaky)
     _check_scalar_shifts(sb=sb, sa_in=sa_in, sa_out=sa_out, retune=retune)
@@ -1117,7 +1136,10 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
     out = torch.empty((bsz, ho, wo, c_out), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    _LAYOUT_OF[form](h, w, c_in, c_out)  # raises where no tile fits
+    # raises where no tile fits
+    lay = (conv3x3_wgmma_layout(h, w, c_in, c_out, bsz) if form == "conv"
+           else _LAYOUT_OF[form](h, w, c_in, c_out))
+    slab = form == "conv" and overflow is None and lay.halo_channels < c_in
     # the kernel reads bias (and shift) pairs of whole 32-, 64- or
     # 128-column tiles
     bias_rt = torch.zeros(-(-c_out // 128) * 128, dtype=torch.int32,
@@ -1128,21 +1150,22 @@ def _launch_conv3x3_wgmma(name, x, w_q, b_q, packed, *, sw, sb, sa_in,
                _COUNT_ENTRY_OF.get(form)), x, packed, bias_rt, out,
         (bsz, h, w, c_in, c_out), sw=sw, sa_in=sa_in, sa_out=sa_out,
         retune=retune, rounding=rounding, num=num, shifts=shifts,
-        overflow=overflow)
+        overflow=overflow, tag=SLAB_WALK if slab else "")
     return out
 
 
 def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
                        sa_in, sa_out, retune, rounding, num, shifts,
-                       overflow) -> None:
+                       overflow, tag="") -> None:
     """Launch one of a kernel's three C entries, ``entries`` = (scalar,
     per-column, counting; None where it has no such form), all with the
     conv3x3 kernels' interface, on
     ``dims`` = (B, H, W, C_in, C_out), counting the launch under
     ``name``: the scalar one for a scalar ``sw`` without a counter, the
     counting one with ``overflow``, else the per-column one, those two on a
-    shift table (``shifts``, made for this call where None). Every
-    address is 16-byte aligned, the table's 8-byte, the counter's 4."""
+    shift table (``shifts``, made for this call where None); ``tag``: as
+    ``launch``'s. Every address is 16-byte aligned, the table's 8-byte,
+    the counter's 4."""
     dev, c_out = x.device, dims[-1]
     nearest = int(rounding == "nearest")
     scalar, cols, count = entries
@@ -1151,7 +1174,7 @@ def _launch_shift_form(name, entries, x, packed, bias_rt, out, dims, *, sw,
         launch(name, entry, x, packed, bias_rt, *args, writes=(out, overflow),
                align=[("x", x, 16), ("packed weights", packed, 16),
                       (OUT, out, 16), (TABLE, table, 8),
-                      (COUNTER, overflow, 4)])
+                      (COUNTER, overflow, 4)], tag=tag)
 
     table = None
     if overflow is None and not np.ndim(sw):
@@ -1176,20 +1199,23 @@ Conv3x3PartsLayout = collections.namedtuple(
 
 
 @functools.lru_cache(maxsize=None)
-def conv3x3_parts_wgmma_layout(h, w, cin0, cin1, c_out,
-                               split) -> Conv3x3PartsLayout:
+def conv3x3_parts_wgmma_layout(h, w, cin0, cin1, c_out, split,
+                               batch=1) -> Conv3x3PartsLayout:
     """The launch layout of the wgmma conv3x3 kernel's two-part form (both
-    shift forms') for an H x W x (C_in0 + C_in1) -> C_out conv whose parts
-    take two accumulator shifts (``split``) or one, as its CUDA source
-    picks it (``plan`` in ``csrc/int8_conv3x3_wgmma.cu``). Needs the built
+    shift forms') for a ``batch`` x H x W x (C_in0 + C_in1) -> C_out conv
+    whose parts take two accumulator shifts (``split``) or one, as its
+    CUDA source picks it (``plan`` in ``csrc/int8_conv3x3_wgmma.cu``):
+    where its slab walk takes the conv (C_in0 + C_in1 >= 1,024, each
+    part's C_in % 128 == 0) ``halo_channels`` a slab of 128 and ``groups``
+    by ``batch``, else both parts' channels and 1. Needs the built
     kernels. Raises ValueError where the form takes no such conv (a part's
     C_in % 32 != 0, or no tile fits in shared memory)."""
     from yolo_tpu_torch.kernels import build
 
     lib = build.load()
     info = (ctypes.c_int * len(Conv3x3PartsLayout._fields))()
-    rc = lib.yolo_int8_conv3x3_parts_wgmma_info(h, w, cin0, cin1, c_out,
-                                                int(split), info)
+    rc = lib.yolo_int8_conv3x3_parts_wgmma_info(batch, h, w, cin0, cin1,
+                                                c_out, int(split), info)
     if rc == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"the conv3x3 wgmma kernel's two-part form takes no "
                          f"{h}x{w} conv of C_in {cin0} + {cin1} -> C_out "
@@ -1212,8 +1238,10 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     each is shifted on its own (split). A per-channel ``sw`` runs its
     per-column form on the tables of ``conv_shift_tables`` (``shifts``,
     made for this call where None): one where the parts' scales agree, one
-    per part where they differ. Raises on anything the form does not take
-    and on a failed launch."""
+    per part where they differ. The form's entries take their slab walk
+    where ``conv3x3_parts_wgmma_layout`` reports one (the launch counted
+    with ``SLAB_WALK``). Raises on anything the form does not take and on
+    a failed launch."""
     num, cins = _check_parts(parts, sb=sb, sa_out=sa_out, retune=retune,
                              leaky=leaky, rounding=rounding)
     x0 = parts[0][0]
@@ -1244,7 +1272,9 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     # input scales do (int_conv_requant's groups)
     split = sas[0] != sas[1]
     # raises where no tile fits
-    conv3x3_parts_wgmma_layout(h, w, cins[0], cins[1], c_out, split)
+    lay = conv3x3_parts_wgmma_layout(h, w, cins[0], cins[1], c_out, split,
+                                     bsz)
+    tag = SLAB_WALK if lay.halo_channels < sum(cins) else ""
     # the kernel reads bias (and shift) pairs of whole 64- or 128-column
     # tiles
     bias_rt = torch.zeros(-(-c_out // TABLE_ALIGN) * TABLE_ALIGN,
@@ -1258,7 +1288,7 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
     if not cols:
         launch("int8_conv_requant", PARTS_WGMMA_ENTRY, *ptrs, out, *dims,
                sw + sas[0] - retune, sw + sas[1] - retune, *tail,
-               writes=(out,), align=align)
+               writes=(out,), align=align, tag=tag)
         return out
     groups = list(dict.fromkeys(sas))
     if shifts is None:
@@ -1272,7 +1302,8 @@ def _launch_conv3x3_parts_wgmma(parts, w_q, b_q, packed, *, sw, sb, sa_out,
                                               c_out)) for sa in groups)
     launch("int8_conv_requant", PARTS_COLS_WGMMA_ENTRY, *ptrs, tables[0],
            tables[-1], out, *dims, int(split), int(short), *tail,
-           writes=(out,), align=[*align, *((TABLE, t, 8) for t in tables)])
+           writes=(out,), align=[*align, *((TABLE, t, 8) for t in tables)],
+           tag=tag)
     return out
 
 
