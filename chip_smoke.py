@@ -433,6 +433,21 @@ printing JSON lines; any failure raises and the script exits nonzero:
    place onto zeros on each rank's card and on this one process to
    numpy, every leaf equal; the save's and loads' seconds and the
    directory's MB. No kernel of the port runs here.
+16. the accuracy check: the ``main`` of ``scripts/quant_parity_torch.py``
+   (slim_yolo_v2), ``scripts/quant_parity_v3_torch.py`` (tiny_yolo_v3)
+   and ``scripts/quant_bitwidth_torch.py`` (w8 and w4, per tensor and per
+   channel, on slim's checkpoint) as a user runs them on the card, at a
+   reduced recipe (P16_*: 128², hard, 64 training images, 20 epochs, 128
+   val images, 20 QAT steps, 50 bootstrap replicates): every stage of the
+   JAX scripts, in their order, its mAP and seconds; each integer stage's
+   launches, zeroed just before its evaluation and read just after (slim:
+   K3's NHWC form at conv1, its pooled wgmma form, K1 on the wgmma conv3x3
+   and, with per-channel sw, their per-column forms; tiny: its entry, 3x3,
+   slab-walk, two-part, pooled and 1x1 routes); ``int8_integer``'s model
+   of each script on the CPU route, its detections and mAP those of the
+   card, and its integer heads on the pass's first batch equal on both
+   routes (at this recipe a draw of cuDNN's training may leave slim with
+   no box above the threshold).
 
 K4 (``csrc/int8_res_block.cu``), K5 (``csrc/int8_gemm.cu``) and the
 3x3 conv (``csrc/int8_conv3x3_wgmma.cu``: all of K1 on the serving path
@@ -452,7 +467,7 @@ the shapes no wgmma route takes). The
 five times; the per-column forms (of slim's and v3's per-channel serving)
 and the counting forms (whose launches come from the diagnostics run)
 and conv1's NHWC route each their own; ``launches`` also counts phase
-6's, 7's, 8's, 9's, 11c's and 12's runs, their wrappers' own launches (the eager calls,
+6's, 7's, 8's, 9's, 11c's, 12's and 16's runs, their wrappers' own launches (the eager calls,
 a captured fn's warm-up calls); ``replayed_launches`` is what the CUDA
 graphs' replays ran, derived from each graph's capture and checked. The NMS kernel's entry times slim's candidates at
 its serving shape (8a). The two-part form's entries time tiny's
@@ -5819,10 +5834,10 @@ def guard_scores(cfg, model, device):
     return maps, int8, ev
 
 
-def same_detections(ev_a, ev_b, where) -> int:
+def same_detections(ev_a, ev_b, where, size=GUARD_SIZE) -> int:
     """Two evaluators' detections of one pass (as 9a holds them): as many
-    per class and image, boxes and scores within 1e-5 (the decode's float
-    math on two devices). -> how many."""
+    per class and image, boxes (over the ``size``-pixel input) and scores
+    within 1e-5 (the decode's float math on two devices). -> how many."""
     n = 0
     for cls_a, cls_b in zip(ev_a.raw[0], ev_b.raw[0]):
         for a, b in zip(cls_a, cls_b):
@@ -5832,8 +5847,8 @@ def same_detections(ev_a, ev_b, where) -> int:
             np.testing.assert_allclose(a[:, 4], b[:, 4], atol=1e-5,
                                        rtol=1e-5)
             np.testing.assert_allclose(
-                a[:, :4] / np.float32(GUARD_SIZE),
-                b[:, :4] / np.float32(GUARD_SIZE), atol=1e-5, rtol=1e-5)
+                a[:, :4] / np.float32(size),
+                b[:, :4] / np.float32(size), atol=1e-5, rtol=1e-5)
             n += len(a)
     return n
 
@@ -7763,6 +7778,241 @@ def phase_15(card):
          card=card)
 
 
+# ---------------------------------------------------------------------------
+# The accuracy check (phase 16): the three accuracy scripts' main on the
+# card at a reduced recipe
+# ---------------------------------------------------------------------------
+
+P16_SIZE, P16_TRAIN, P16_EPOCHS, P16_VAL = 128, 64, 20, 128
+P16_QAT_STEPS, P16_N_BOOT, P16_BITS = 20, 50, (8, 4)
+# the launches every integer stage of slim must show, by (wrapper, C
+# entry): NHWC float input, as the JAX script serves it (conv1 on K3's
+# NHWC form), and with per-channel sw their per-column forms
+P16_SLIM = (("int8_conv3x3_im2col", POOL_NHWC),
+            ("int8_conv3x3_im2col", POOL3),
+            ("int8_conv3x3_requant", WGMMA3))
+P16_SLIM_PC = (("int8_conv3x3_im2col", POOL_NHWC_COLS),
+               ("int8_conv3x3_im2col", POOL_COLS3),
+               ("int8_conv3x3_requant", COLS3))
+
+
+def p16_scripts():
+    """The three accuracy scripts as modules (``scripts/`` on the path,
+    as running one puts it there)."""
+    import importlib
+
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return tuple(importlib.import_module(n) for n in (
+        "quant_parity_torch", "quant_parity_v3_torch",
+        "quant_bitwidth_torch"))
+
+
+def p16_recorder(base):
+    """A ``VOCEvaluator`` class that zeroes the launch counts just before
+    each pass and reads them just after, keeping each pass's counts, raw
+    detections and seconds in ``p16_recorder.passes``."""
+    from yolo_tpu_torch.kernels import (launch_counts_by_entry,
+                                        reset_launch_counts)
+
+    passes = []
+
+    class Recording(base):
+        def evaluate(self, detect_batch):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            mean_ap = super().evaluate(detect_batch)
+            torch.cuda.synchronize()
+            passes.append(dict(launches=launch_counts_by_entry(),
+                               raw=self.raw, dataset=self.dataset,
+                               seconds=time.perf_counter() - t0))
+            return mean_ap
+
+    Recording.passes = passes
+    return Recording
+
+
+def p16_stage_launches(names, passes, want_of, where) -> dict:
+    """{stage: its pass's launches}; each integer stage (``int8_*`` but
+    the fake-quant sim) must show every (wrapper, entry) of
+    ``want_of(stage)``, and the float stages none of the INT8 kernels."""
+    if len(names) != len(passes):
+        raise AssertionError(f"{where}: {len(names)} stages, "
+                             f"{len(passes)} evaluator passes")
+    out = {}
+    for name, ps in zip(names, passes):
+        got = ps["launches"]
+        if name.startswith("int8_") and "fakequant" not in name:
+            missing = [(w, e) for w, e in want_of(name)
+                       if not got.get(w, {}).get(e)]
+            if missing:
+                raise AssertionError(f"{where} {name}: no launch of "
+                                     f"{missing}: {got}")
+        elif set(got) - {"greedy_nms_keep"}:
+            raise AssertionError(f"{where} {name}: a float stage launched "
+                                 f"{got}")
+        out[name] = got
+    return out
+
+
+def p16_heads(key, m):
+    """float NHWC images -> [(card head, CPU head)]: ``m``'s integer
+    forward (packed on the card as its maker packs it) on both routes."""
+    from yolo_tpu_torch.quant import fixed_point as fp
+    from yolo_tpu_torch.quant.int8_models import int8_tiny_forward
+
+    m_card, m_cpu = m.to("cuda"), m.to("cpu")
+    if key == "tiny":
+        m_card.pack()
+        forward = int8_tiny_forward
+    else:
+        m_card.pack_conv3x3()
+        forward = (lambda mm, x_q: [fp.int8_forward(mm, x_q)])
+
+    def heads(images):
+        x = torch.as_tensor(images)
+        card, cpu = (forward(mm, fp.quantize_input(
+            x.to(dev), mm.sa["in"]).contiguous())
+            for mm, dev in ((m_card, "cuda"), (m_cpu, "cpu")))
+        return list(zip(card, cpu))
+
+    return heads
+
+
+def p16_cpu_route(detect_cpu, heads, ps, where) -> dict:
+    """``int8_integer``'s model on the CPU route over its pass's images:
+    detections and mAP those of the card (11d's comparison), and the
+    integer heads of the pass's first batch equal on both routes. A model
+    this briefly trained may keep no box above the confidence threshold
+    on some draws of cuDNN's training, so the heads are what make the
+    comparison hold whatever the draw."""
+    import types
+
+    from yolo_tpu_torch.eval.voc_eval import VOCEvaluator, map_from_raw
+
+    batches = []
+
+    def detect_keeping(images):
+        batches.append(images)
+        return detect_cpu(images)
+
+    ev_cpu = VOCEvaluator(ps["dataset"], 2, (P16_SIZE, P16_SIZE),
+                          batch_size=64)
+    map_cpu = ev_cpu.evaluate(detect_keeping)
+    n = same_detections(types.SimpleNamespace(raw=ps["raw"]), ev_cpu, where,
+                        P16_SIZE)
+    map_card = map_from_raw(*ps["raw"])
+    if abs(map_cpu - map_card) > 1e-9:
+        raise AssertionError(f"{where}: mAP {map_card} on the card, "
+                             f"{map_cpu} on the CPU ({n} detections)")
+    values = 0
+    for i, (card, cpu) in enumerate(heads(batches[0])):
+        if not torch.equal(card.cpu(), cpu):
+            bad = int((card.cpu() != cpu).sum())
+            raise AssertionError(f"{where}: head {i} of the first batch "
+                                 f"differs in {bad} of {cpu.numel()} "
+                                 f"values between the card and the CPU")
+        values += cpu.numel()
+    return dict(detections=n, mean_ap_cpu=map_cpu, mean_ap_card=map_card,
+                head_values_equal=values)
+
+
+def phase_16(card):
+    """16: the three accuracy scripts' ``main`` on the card at P16's
+    recipe (their files under a temporary directory), each integer
+    stage's launches checked, ``int8_integer`` of slim and of tiny held to
+    the CPU route. -> the integer stages' wrapper launches."""
+    import tempfile
+
+    from yolo_tpu_torch.quant.int8_models import make_int8_tiny_detect_fn
+
+    qp, qv3, qbw = p16_scripts()
+    recipe = dict(size=P16_SIZE, hard=True, train_images=P16_TRAIN,
+                  epochs=P16_EPOCHS, val_images=P16_VAL,
+                  qat_steps=P16_QAT_STEPS, n_boot=P16_N_BOOT)
+    models, runs, out = {}, [], {}
+    was = tempfile.tempdir
+    real_slim, real_v3 = qp.make_int8_detect_fn, qv3.build_integer
+    evaluators = (qp.VOCEvaluator, qv3.VOCEvaluator, qbw.VOCEvaluator)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tempfile.tempdir = tmp
+
+            def slim_maker(m, cfg, **kw):
+                models.setdefault("slim", (m, cfg))
+                return real_slim(m, cfg, **kw)
+
+            def v3_build(version, model, cfg, *a, **kw):
+                m, detect = real_v3(version, model, cfg, *a, **kw)
+                models.setdefault("tiny", (m, cfg))
+                return m, detect
+
+            qp.make_int8_detect_fn, qv3.build_integer = slim_maker, v3_build
+            ckpt = os.path.join(tmp, "slim.msgpack")
+            for key, run in (
+                    ("slim", lambda: qp.main(ckpt=ckpt, **recipe)),
+                    ("tiny", lambda: qv3.main("tiny_yolo_v3", **recipe)),
+                    ("bitwidth", lambda: qbw.main([
+                        "--size", str(P16_SIZE), "--hard", "--per_channel",
+                        "--val", str(P16_VAL), "--train_images",
+                        str(P16_TRAIN), "--n_boot", str(P16_N_BOOT),
+                        "--ckpt", ckpt, "--bits",
+                        *map(str, P16_BITS)]))):
+                rec = p16_recorder(evaluators[0])
+                for mod in (qp, qv3, qbw):
+                    mod.VOCEvaluator = rec
+                t0 = time.perf_counter()
+                maps = run()
+                torch.cuda.synchronize()
+                out[key] = dict(maps=maps,
+                                seconds=time.perf_counter() - t0,
+                                pass_seconds=[round(p["seconds"], 3)
+                                              for p in rec.passes])
+                names = list(maps)
+                if key == "slim":
+                    want = (lambda n: P16_SLIM_PC if n == "int8_perchan"
+                            else P16_SLIM)
+                elif key == "tiny":
+                    per = family7_launches("tiny_yolo_v3", False)
+                    want = (lambda n: [(w, e) for w, by in per.items()
+                                       for e in by])
+                else:  # every width is an integer engine
+                    names = [f"int8_{n}" for n in names]
+                    want = (lambda n: P16_SLIM_PC if n.endswith("/pc")
+                            else P16_SLIM)
+                launches = p16_stage_launches(names, rec.passes, want,
+                                              f"16 {key}")
+                runs += [v for n, v in launches.items()
+                         if n.startswith("int8_")
+                         and "fakequant" not in n]
+                out[key]["launches"] = launches
+                if key in models:
+                    m, cfg = models[key]
+                    detect_cpu = (make_int8_tiny_detect_fn if key == "tiny"
+                                  else real_slim)(m, cfg, device="cpu")
+                    ps = rec.passes[names.index("int8_integer")]
+                    out[key]["cpu_route"] = p16_cpu_route(
+                        detect_cpu, p16_heads(key, m), ps,
+                        f"16 {key} int8_integer")
+                expected = (None if key == "bitwidth" else (
+                    "fp32", "int8_fakequant", "int8_integer",
+                    "int8_headclip"))
+                if expected and [n for n in names
+                                 if n in expected] != list(expected):
+                    raise AssertionError(f"16 {key}: stages {names}")
+    finally:
+        tempfile.tempdir = was
+        qp.make_int8_detect_fn, qv3.build_integer = real_slim, real_v3
+        for mod, ev in zip((qp, qv3, qbw), evaluators):
+            mod.VOCEvaluator = ev
+    emit("16_accuracy", recipe=dict(recipe, bits=list(P16_BITS)),
+         slim=out["slim"], tiny=out["tiny"], bitwidth=out["bitwidth"],
+         card=card)
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7860,6 +8110,10 @@ def main() -> int:
     t15 = time.perf_counter()
     phase_15(card)
     emit("phase_15", seconds=time.perf_counter() - t15)
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    launches_16 = phase_16(card)
+    emit("phase_16", seconds=time.perf_counter() - t16, **replay_tally())
     # the two-part form's lines: tiny's conv_set_1 plus yolo_v2's
     # convsets_2.0 (its slab walk's lines: convsets_2.0 alone), the slab
     # walk's: convsets_1.0 and convsets_1.1, scalar (7a, 7b) and per column
@@ -8059,7 +8313,8 @@ def main() -> int:
         if k not in DIAGNOSTICS_LINES:
             ran += sum(served.get(wrapper, {}).get(entry, 0)
                        for served in launches_6 + launches_7 + launches_8
-                       + launches_9 + launches_11 + launches_12)
+                       + launches_9 + launches_11 + launches_12
+                       + launches_16)
         per_forward = max(per_run) // SERVE_ITERS
         # tiny_yolo_v3's and yolo_v2's launches per forward on each input
         # layout, and the times of their shapes (one NHWC forward; K2's on

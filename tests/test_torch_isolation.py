@@ -73,6 +73,32 @@ def test_package_imports_without_jax_or_yolo_tpu():
     assert set(NEW_MODULES) <= set(names.split())
 
 
+SCRIPT_PROBE = r"""
+import importlib, sys
+for blocked in ("jax", "flax", "msgpack", "orbax"):
+    sys.modules[blocked] = None    # any import of it now raises
+sys.path.insert(0, "scripts")
+importlib.import_module(sys.argv[1])
+bad = [m for m in sys.modules if m == "yolo_tpu" or m.startswith("yolo_tpu.")
+       or m == "jax" and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("script", ["quant_parity_torch",
+                                    "quant_parity_v3_torch",
+                                    "quant_bitwidth_torch"])
+def test_accuracy_script_imports_without_jax_or_yolo_tpu(script):
+    """The port's accuracy scripts (scripts/*_torch.py) load neither jax
+    nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", SCRIPT_PROBE, script],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "jax" not in src.replace("JAX package", "")
